@@ -10,20 +10,37 @@ failure:
 2. build: every hand-written kernel from ``tensorflowonspark_tpu_torch/
    csrc/`` with ``nvcc`` (one process per source, started together);
 3. kernels against their plain PyTorch versions on the card, at the
-   shapes the serving path gives them, with times (CUDA events), the
-   least time the card could take (``bound``) and one PyTorch library
-   call computing the same function as a yardstick;
-4. the main path at full width: the flagship ``TransformerConfig()``
-   (vocab 32000, 12 layers, 12 heads, d_model 768, d_ff 3072, bf16) with
-   random weights from a seed, served by ``ServingEngine(num_slots=8,
-   horizon=4)``: 16 requests of 17-600 prompt tokens, 32 new tokens
-   each. The kernels' launch counts are zeroed just before and read just
-   after, and must show both kernels on the path; then (4b) one decode
-   dispatch and one 512-token prefill chunk under ``torch.profiler``:
-   device-busy time against the host's wall clock, and the top kernels;
-5. parity: the same model in f32 (TF32 off) — every engine output must
-   equal the single-request ``greedy_generate_kv`` decode, or differ
-   only at a genuine near-tie (top-2 logit gap under 1e-4).
+   shapes the serving and training paths give them, with times (CUDA
+   events), the least time the card could take (``bound``) and one
+   PyTorch library call computing the same function as a yardstick: the
+   LayerNorm and flash-attention forwards, then their backwards (each run
+   twice and required to give the same bits);
+4. the serving main path at full width: the flagship
+   ``TransformerConfig()`` (vocab 32000, 12 layers, 12 heads, d_model
+   768, d_ff 3072, bf16) with random weights from a seed, served by
+   ``ServingEngine(num_slots=8, horizon=4)``: 16 requests of 17-600
+   prompt tokens, 32 new tokens each. The kernels' launch counts are
+   zeroed just before and read just after, and must show both forward
+   kernels on the path; then (4b) one decode dispatch and one 512-token
+   prefill chunk under ``torch.profiler``: device-busy time against the
+   host's wall clock, and the top kernels;
+5. serving parity: the same model in f32 (TF32 off) — every engine
+   output must equal the single-request ``greedy_generate_kv`` decode, or
+   differ only at a genuine near-tie (top-2 logit gap under 1e-4);
+6. the training main path at full width: the same model and weights
+   (f32 master weights, bf16 compute, remat), ``make_optimizer(3e-4,
+   clip_norm=1.0)``, one fixed 16 x 1024 token batch: 2 warm-up steps, 4
+   ``make_train_step`` steps, then one ``make_train_loop(unroll=4)`` slab.
+   Losses must be finite and fall, and each path must launch exactly 24
+   flash forwards, 12 flash backwards, 49 LayerNorm forwards and 25
+   LayerNorm backwards per optimizer step; prints tokens/s, ms per step,
+   peak memory and one step under ``torch.profiler``; (6b) the grouped-KV
+   configuration (``num_kv_heads=4``) takes 2 steps at 8 x 1024 and must
+   launch the grouped flash backward 12 times per step;
+7. training parity: one f32 step (TF32 off) of a 2-layer full-width model
+   on 2 x 256 tokens, on the card with the kernels and on the CPU with
+   the plain versions: the loss to 1e-4 relative, every gradient within
+   1e-3 of its largest magnitude.
 
 The last two lines of output are JSON: ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. A copy of the measurements goes to
@@ -45,6 +62,7 @@ PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor cores
               "float32": 67e12}    # CUDA cores, no TF32
 ELEMENTWISE_FLOPS = 67e12          # f32 arithmetic outside the tensor cores
 LN_FLOPS_PER_ELEM = 8              # sum, centre, square, sum, scale x2, ...
+LN_BWD_FLOPS_PER_ELEM = 20         # statistics, xhat, dy, two sums, dx, dw
 SEED = 0
 
 
@@ -87,12 +105,13 @@ def check_layer_norm(ops, torch, F):
   rows_out, worst = [], 0.0
   g = torch.Generator(device="cuda").manual_seed(SEED)
   # (rows, H, dtype, tol): rows 8 = one decode step of 8 slots, 512 = the
-  # largest prefill chunk; H 770 takes the kernel's unvectorised path.
+  # largest prefill chunk, 16384 = the training batch; H 770 takes the
+  # kernel's unvectorised path.
   # Tolerances: f32 sums in another order (1e-5); bf16 outputs may round
   # one ulp apart (2e-2 at |y| <= 4).
   cases = [(8, 768, torch.bfloat16, 2e-2), (512, 768, torch.bfloat16, 2e-2),
            (8, 768, torch.float32, 1e-5), (512, 768, torch.float32, 1e-5),
-           (33, 770, torch.bfloat16, 2e-2)]
+           (33, 770, torch.bfloat16, 2e-2), (16384, 768, torch.bfloat16, 2e-2)]
   for rows, h, dtype, tol in cases:
     x = (torch.randn(rows, h, device="cuda", generator=g) * 2 + 0.5).to(dtype)
     w = torch.rand(h, device="cuda", generator=g) + 0.5
@@ -153,7 +172,8 @@ def check_flash(ops, torch, F):
            ("q_offset", 1, 256, 512, 12, 12, 64, 256, 0, None, bf),
            ("kv_ahead", 1, 128, 128, 12, 12, 64, 0, 64, None, bf),
            ("d128", 1, 256, 256, 6, 6, 128, 0, 0, None, bf),
-           ("s512_f32", 1, 512, 512, 12, 12, 64, 0, 0, None, f32)]
+           ("s512_f32", 1, 512, 512, 12, 12, 64, 0, 0, None, f32),
+           ("train", 16, 1024, 1024, 12, 12, 64, 0, 0, None, bf)]
   for name, b, sq, sk, h, hk, d, qb, kb, win, dtype in cases:
     q = torch.randn(b, sq, h, d, device="cuda", generator=g).to(dtype)
     k = torch.randn(b, sk, hk, d, device="cuda", generator=g).to(dtype)
@@ -190,14 +210,15 @@ def check_flash(ops, torch, F):
       kt, vt = (t.repeat_interleave(h // hk, dim=2).transpose(1, 2)
                 for t in (k, v))
       lib = time_ms(lambda: F.scaled_dot_product_attention(
-          qt, kt, vt, is_causal=True))
+          qt, kt, vt, is_causal=True), runs=7 if b > 1 else 25)
     row = {"case": name, "B": b, "Sq": sq, "Sk": sk, "H": h, "Hk": hk, "D": d,
            "q_base": qb, "kv_base": kb, "window": win, "dtype": dt,
            "max_abs_err": max(err, lerr),
            "ms": time_ms(lambda: ops.flash_attention_fwd(q, k, v, qb, kb,
                                                          True, win)),
            "plain_ms": time_ms(lambda: ops.flash_attention_reference(
-               q, k, v, qb, kb, True, win)),
+               q, k, v, qb, kb, True, win), runs=5 if b > 1 else 25,
+                               inner=2 if b > 1 else 10),
            "library_ms": lib, "bound_ms": max(bound_b, bound_o),
            "bound_by": "bytes" if bound_b >= bound_o else "operations"}
     rows_out.append(row)
@@ -206,6 +227,145 @@ def check_flash(ops, torch, F):
             name, sq, sk, h, hk, d, max(err, lerr), row["ms"],
             row["plain_ms"], "-" if lib is None else "%.4f" % lib,
             row["bound_ms"]))
+  return rows_out, worst
+
+
+def _rel_check(what, got, want, tol):
+  """Max |got - want| (f32), raising when it exceeds ``tol`` times the
+  largest |want|: gradients sum many terms, so the tolerance scales with
+  the tensor's own size."""
+  err = (got.float() - want.float()).abs().max().item()
+  scale = max(want.float().abs().max().item(), 1e-30)
+  if err > tol * scale:
+    raise AssertionError("%s: max abs err %.3g over %g x max |ref| %.3g"
+                         % (what, err, tol, scale))
+  return err
+
+
+def check_layer_norm_bwd(ops, torch, F):
+  rows_out, worst = [], 0.0
+  g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+  # (rows, H, dtype, tol): 16384 rows = the training batch B16 x S1024;
+  # H 770 takes the unvectorised path. dx: bf16 output rounding (one ulp,
+  # 2^-8 relative) or f32 sums in another order; dw: f32 sums over the
+  # rows in another order in both dtypes.
+  cases = [(16384, 768, torch.bfloat16, 1e-2),
+           (16384, 768, torch.float32, 1e-5), (33, 770, torch.bfloat16, 1e-2)]
+  for rows, h, dtype, tol in cases:
+    x = (torch.randn(rows, h, device="cuda", generator=g) * 2 + 0.5).to(dtype)
+    w = torch.rand(h, device="cuda", generator=g) + 0.5
+    gy = torch.randn(rows, h, device="cuda", generator=g).to(dtype)
+    dx, dw = ops.layer_norm_bwd(x, w, gy)
+    rdx, rdw = ops.layer_norm_bwd_reference(x, w, gy)
+    torch.cuda.synchronize()
+    err = max(_rel_check("layer_norm_bwd dx %s rows=%d" % (dtype, rows), dx,
+                         rdx, tol),
+              _rel_check("layer_norm_bwd dw %s rows=%d" % (dtype, rows), dw,
+                         rdw, 1e-5))
+    dx2, dw2 = ops.layer_norm_bwd(x, w, gy)
+    if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+      raise AssertionError("layer_norm_bwd rows=%d: two runs differ" % rows)
+    worst = max(worst, err)
+    isz = x.element_size()
+    nbytes = 3 * x.numel() * isz + 2 * h * 4        # x, g, dx; w, dw
+    bound_b = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_o = LN_BWD_FLOPS_PER_ELEM * x.numel() / ELEMENTWISE_FLOPS * 1e3
+    xl = x.detach().clone().requires_grad_()
+    wl = w.to(dtype).requires_grad_()
+    yl = F.layer_norm(xl, (h,), wl, None, 1e-6)
+    row = {"rows": rows, "H": h, "dtype": str(dtype).split(".")[-1],
+           "max_abs_err": err,
+           "ms": time_ms(lambda: ops.layer_norm_bwd(x, w, gy)),
+           "plain_ms": time_ms(lambda: ops.layer_norm_bwd_reference(x, w, gy),
+                               runs=10),
+           "library_ms": time_ms(lambda: torch.autograd.grad(
+               yl, (xl, wl), gy, retain_graph=True)),
+           "bound_ms": max(bound_b, bound_o),
+           "bound_by": "bytes" if bound_b >= bound_o else "operations"}
+    rows_out.append(row)
+    log("  layer_norm_bwd %-8s rows=%-5d H=%d err=%.3g ms=%.5f plain=%.5f "
+        "lib=%.5f bound=%.5f deterministic" % (
+            row["dtype"], rows, h, err, row["ms"], row["plain_ms"],
+            row["library_ms"], row["bound_ms"]))
+  return rows_out, worst
+
+
+def check_flash_bwd(ops, torch, F):
+  rows_out, worst = [], 0.0
+  g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+  bf, f32 = torch.bfloat16, torch.float32
+  # (name, B, Sq, Sk, H, Hk, D, q_base, kv_base, window, lse cotangent,
+  # dtype): the training shape (B16 S1024, 12 heads), the GQA training
+  # shape (B8, Hk 4), a window, an offset block with an lse cotangent,
+  # rows that see no key, head_dim 128, and f32
+  cases = [("train", 16, 1024, 1024, 12, 12, 64, 0, 0, None, False, bf),
+           ("gqa_hk4", 8, 1024, 1024, 12, 4, 64, 0, 0, None, False, bf),
+           ("window128", 4, 1024, 1024, 12, 12, 64, 0, 0, 128, False, bf),
+           ("offset_lse", 2, 512, 1024, 12, 4, 64, 512, 0, None, True, bf),
+           ("kv_ahead", 2, 256, 256, 12, 12, 64, 0, 64, None, True, bf),
+           ("d128", 2, 512, 512, 6, 6, 128, 0, 0, None, False, bf),
+           ("train_f32", 4, 1024, 1024, 12, 12, 64, 0, 0, None, False, f32)]
+  for name, b, sq, sk, h, hk, d, qb, kb, win, with_lse, dtype in cases:
+    mk = lambda *shape: torch.randn(*shape, device="cuda",  # noqa: E731
+                                    generator=g).to(dtype)
+    q, k, v = mk(b, sq, h, d), mk(b, sk, hk, d), mk(b, sk, hk, d)
+    go = mk(b, sq, h, d)
+    out, lse = ops.flash_attention_fwd(q, k, v, qb, kb, True, win)
+    gl = None
+    if with_lse:
+      gl = torch.randn(b, h, sq, device="cuda", generator=g)
+      gl = torch.where(lse <= -1e29, 0.0, gl)
+    got = ops.flash_attention_bwd(q, k, v, out, lse, go, gl, qb, kb, True, win)
+    want = ops.flash_attention_bwd_reference(q, k, v, out, lse, go, gl, qb, kb,
+                                             True, win)
+    torch.cuda.synchronize()
+    # bf16: outputs round to bf16 (2^-8 relative); f32: sums over up to
+    # 1024 rows or keys in another order
+    tol = 1e-2 if dtype == bf else 1e-4
+    err = max(_rel_check("flash_bwd %s d%s" % (name, t), a, r, tol)
+              for t, a, r in zip("qkv", got, want))
+    again = ops.flash_attention_bwd(q, k, v, out, lse, go, gl, qb, kb, True,
+                                    win)
+    if not all(torch.equal(a, r) for a, r in zip(got, again)):
+      raise AssertionError("flash_bwd %s: two runs differ" % name)
+    if name == "kv_ahead" and not (got[0][:, :kb - qb] == 0).all():
+      raise AssertionError("flash_bwd kv_ahead: rows with no visible key "
+                           "must get dq 0")
+    worst = max(worst, err)
+    dt = "bfloat16" if dtype == bf else "float32"
+    pairs = b * h * _visible_pairs(sq, sk, qb, kb, win)
+    isz = q.element_size()
+    nbytes = (3 * q.numel() + 2 * k.numel()) * isz \
+        + (2 if with_lse else 1) * lse.numel() * 4 \
+        + (q.numel() + 2 * k.numel()) * isz     # dq, dk, dv
+    bound_b = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_o = 10.0 * pairs * d / PEAK_FLOPS[dt] * 1e3
+    lib = None
+    if qb == 0 and kb == 0 and win is None and sq == sk:
+      # the yardstick: SDPA's backward alone, K/V expanded to the heads
+      qt = q.transpose(1, 2).detach().requires_grad_()
+      kt, vt = (t.repeat_interleave(h // hk, dim=2).transpose(1, 2)
+                .detach().requires_grad_() for t in (k, v))
+      ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+      gt = go.transpose(1, 2)
+      lib = time_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), gt,
+                                                retain_graph=True),
+                    runs=7, inner=3)
+    row = {"case": name, "B": b, "Sq": sq, "Sk": sk, "H": h, "Hk": hk, "D": d,
+           "q_base": qb, "kv_base": kb, "window": win, "lse_cotangent":
+           with_lse, "dtype": dt, "max_abs_err": err,
+           "ms": time_ms(lambda: ops.flash_attention_bwd(
+               q, k, v, out, lse, go, gl, qb, kb, True, win), runs=7, inner=3),
+           "plain_ms": time_ms(lambda: ops.flash_attention_bwd_reference(
+               q, k, v, out, lse, go, gl, qb, kb, True, win), runs=3, inner=2),
+           "library_ms": lib, "bound_ms": max(bound_b, bound_o),
+           "bound_by": "bytes" if bound_b >= bound_o else "operations"}
+    rows_out.append(row)
+    log("  flash_bwd %-10s B=%-2d Sq=%-4d Sk=%-4d H=%-2d Hk=%-2d D=%-3d "
+        "err=%.3g ms=%.4f plain=%.4f lib=%s bound=%.5f deterministic" % (
+            name, b, sq, sk, h, hk, d, err, row["ms"], row["plain_ms"],
+            "-" if lib is None else "%.4f" % lib, row["bound_ms"]))
+    del q, k, v, go, out, lse, got, want, again
   return rows_out, worst
 
 
@@ -381,6 +541,186 @@ def serve_parity_f32(torch, tfm, ServingEngine, params, cfg, device=None):
   return {"requests": len(prompts), "identical": exact, "near_ties": ties}
 
 
+# -- phases 6, 6b and 7: the training path -----------------------------------
+
+TRAIN_B, TRAIN_S = 16, 1024        # bench.py's batch x sequence
+GQA_B = 8
+WANT_PER_STEP = {"flash_attention_fwd": 24, "flash_attention_bwd": 12,
+                 "layer_norm": 49, "layer_norm_bwd": 25,
+                 "flash_attention_bwd_gqa": 0}
+
+
+def _synthetic_batch(batch, seq, vocab):
+  """train_gpt.py's synthetic stream: one fixed batch, repeated."""
+  import numpy as np
+  return np.random.RandomState(SEED).randint(0, vocab, (batch, seq)).astype(
+      "int32")
+
+
+def _lm_loss(tfm):
+  return lambda model, tokens: tfm.causal_lm_loss(model(tokens), tokens)
+
+
+def _per_step_launches(launches, steps, want, what):
+  per = {}
+  for name, n in want.items():
+    if launches[name] != n * steps:
+      raise AssertionError("%s: %s launched %d times in %d steps, the path "
+                           "needs %d per step" % (what, name, launches[name],
+                                                  steps, n))
+    per[name] = launches[name] / steps
+  return per
+
+
+def profile_train_step(torch, step, state, batch):
+  """One optimizer step under torch.profiler: device-busy ms against the
+  host's wall clock, and the top kernels."""
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    t0 = time.monotonic()
+    state, loss = step(state, batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - t0) * 1e3
+  rows = _kernel_rows(torch, prof)
+  busy = sum(r[1] for r in rows)
+  res = {"wall_ms": wall_ms, "device_busy_ms": busy,
+         "kernel_launches": sum(r[2] for r in rows),
+         "top": [{"kernel": k[:90], "ms": ms, "count": n}
+                 for k, ms, n in rows[:12]]}
+  log("  profiled step: wall %.2f ms, device busy %.2f ms (idle %.0f%%), %d "
+      "kernel launches" % (wall_ms, busy, 100.0 * (1 - busy / wall_ms),
+                           res["kernel_launches"]))
+  for r in res["top"]:
+    log("    %8.3f ms x%-5d %s" % (r["ms"], r["count"], r["kernel"]))
+  return state, float(loss), res
+
+
+def train_main_path(torch, ops, tfm, optim, sharding, Slab, params, cfg):
+  import numpy as np
+  state = tfm.create_state(cfg, params, tx=optim.make_optimizer(
+      learning_rate=3e-4, clip_norm=1.0))
+  batch = _synthetic_batch(TRAIN_B, TRAIN_S, cfg.vocab_size)
+  loss_fn = _lm_loss(tfm)
+  step = sharding.make_train_step(loss_fn)
+  loop = sharding.make_train_loop(loss_fn, unroll=4)
+  losses = []
+  for _ in range(2):                               # warm-up
+    state, loss = step(state, batch)
+    losses.append(float(loss))
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  ops.reset_launches()
+  t0 = time.monotonic()
+  step_losses = []
+  for _ in range(4):
+    state, loss = step(state, batch)
+    step_losses.append(loss)
+  torch.cuda.synchronize()
+  wall_step = time.monotonic() - t0
+  per_step = _per_step_launches(dict(ops.LAUNCHES), 4, WANT_PER_STEP,
+                                "per-step path")
+  losses += [float(x) for x in step_losses]
+  ops.reset_launches()
+  t0 = time.monotonic()
+  state, loop_losses = loop(state, Slab(np.stack([batch] * 4)))
+  torch.cuda.synchronize()
+  wall_loop = time.monotonic() - t0
+  per_loop = _per_step_launches(dict(ops.LAUNCHES), 4, WANT_PER_STEP,
+                                "fused loop")
+  losses += loop_losses.tolist()
+  peak = torch.cuda.max_memory_allocated() / 2 ** 30
+  if not all(math.isfinite(x) for x in losses):
+    raise AssertionError("non-finite training loss: %s" % losses)
+  if not losses[-1] < losses[0]:
+    raise AssertionError("training loss did not fall: %s" % losses)
+  state, prof_loss, prof = profile_train_step(torch, step, state, batch)
+  tokens = TRAIN_B * TRAIN_S * 4
+  res = {"batch": TRAIN_B, "seq": TRAIN_S, "losses": losses + [prof_loss],
+         "per_step": {"wall_s": wall_step, "ms_per_step": wall_step / 4 * 1e3,
+                      "tokens_per_s": tokens / wall_step,
+                      "launches_per_step": per_step},
+         "fused_loop": {"wall_s": wall_loop, "ms_per_step": wall_loop / 4 * 1e3,
+                        "tokens_per_s": tokens / wall_loop,
+                        "launches_per_step": per_loop},
+         "peak_mem_gib": peak, "profile": prof}
+  log("  losses %s" % " ".join("%.4f" % x for x in res["losses"]))
+  log("  per-step: %.1f ms/step, %.0f tokens/s; fused loop (unroll 4): %.1f "
+      "ms/step, %.0f tokens/s; peak memory %.2f GiB" % (
+          res["per_step"]["ms_per_step"], res["per_step"]["tokens_per_s"],
+          res["fused_loop"]["ms_per_step"], res["fused_loop"]["tokens_per_s"],
+          peak))
+  log("  launches per step (both paths): %s" % per_step)
+  return res, per_step
+
+
+def train_gqa(torch, ops, tfm, optim, sharding, init_params):
+  cfg = tfm.TransformerConfig(num_kv_heads=4)
+  state = tfm.create_state(cfg, init_params(cfg, seed=SEED),
+                           tx=optim.make_optimizer(learning_rate=3e-4,
+                                                   clip_norm=1.0))
+  batch = _synthetic_batch(GQA_B, TRAIN_S, cfg.vocab_size)
+  step = sharding.make_train_step(_lm_loss(tfm))
+  torch.cuda.synchronize()
+  ops.reset_launches()
+  t0 = time.monotonic()
+  losses = []
+  for _ in range(2):
+    state, loss = step(state, batch)
+    losses.append(loss)
+  torch.cuda.synchronize()
+  wall = time.monotonic() - t0
+  want = dict(WANT_PER_STEP, flash_attention_bwd=0, flash_attention_bwd_gqa=12)
+  per = _per_step_launches(dict(ops.LAUNCHES), 2, want, "GQA training")
+  losses = [float(x) for x in losses]
+  if not all(math.isfinite(x) for x in losses):
+    raise AssertionError("non-finite GQA training loss: %s" % losses)
+  log("  GQA (Hk 4) B%d: losses %s, %.1f ms/step (first step included), "
+      "launches per step %s" % (GQA_B, losses, wall / 2 * 1e3, per))
+  return {"batch": GQA_B, "losses": losses, "ms_per_step": wall / 2 * 1e3,
+          "launches_per_step": per}
+
+
+def train_parity_f32(torch, tfm, init_params):
+  """One step's loss and gradients of a 2-layer full-width f32 model on
+  a 2 x 256 batch: the card with the kernels against the CPU with the
+  plain versions, from the same weights (TF32 off)."""
+  cfg = tfm.TransformerConfig(dtype=torch.float32, num_layers=2)
+  params = init_params(cfg, seed=SEED)
+  tokens = torch.from_numpy(_synthetic_batch(2, 256, cfg.vocab_size))
+  out = {}
+  for where in ("cuda", "cpu"):
+    model = tfm.Transformer(cfg, params, device=None if where == "cuda"
+                            else "cpu", trainable=True)
+    loss = tfm.causal_lm_loss(model(tokens), tokens.to(model.device))
+    names, weights = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, weights)
+    out[where] = (float(loss.detach()), {n: g.detach().cpu()
+                                for n, g in zip(names, grads)})
+  (lc, gc), (lh, gh) = out["cuda"], out["cpu"]
+  rel = abs(lc - lh) / abs(lh)
+  if rel > 1e-4:
+    raise AssertionError("f32 training loss: card %.7f vs CPU %.7f (rel "
+                         "%.3g > 1e-4)" % (lc, lh, rel))
+  worst, worst_name = 0.0, None
+  for name, want in gh.items():
+    err = (gc[name] - want).abs().max().item()
+    ratio = err / max(want.abs().max().item(), 1e-30)
+    if ratio > 1e-3:
+      raise AssertionError("f32 gradient %s: card vs CPU max abs err %.3g is "
+                           "%.3g of its max |value| (> 1e-3)"
+                           % (name, err, ratio))
+    if ratio >= worst:
+      worst, worst_name = ratio, name
+  log("  f32 training parity: loss card %.7f CPU %.7f (rel %.2g); worst "
+      "gradient %s at %.3g of its max |value|, over %d tensors"
+      % (lc, lh, rel, worst_name, worst, len(gh)))
+  return {"loss_card": lc, "loss_cpu": lh, "loss_rel_diff": rel,
+          "worst_grad": worst_name, "worst_grad_rel": worst,
+          "tensors": len(gh)}
+
+
 def main():
   try:
     import torch
@@ -394,9 +734,11 @@ def main():
     return 2
   sys.path.insert(0, HERE)
   try:
-    from tensorflowonspark_tpu_torch import ops
+    from tensorflowonspark_tpu_torch import ops, optim
+    from tensorflowonspark_tpu_torch.data.readers import Slab
     from tensorflowonspark_tpu_torch.models import transformer as tfm
     from tensorflowonspark_tpu_torch.ops import _build
+    from tensorflowonspark_tpu_torch.parallel import sharding
     from tensorflowonspark_tpu_torch.serving import ServingEngine, slots
     from tensorflowonspark_tpu_torch.utils.params import init_params
   except ImportError as e:
@@ -427,6 +769,9 @@ def main():
   log("[3] kernels against their plain versions")
   ln_rows, ln_err = check_layer_norm(ops, torch, F)
   fa_rows, fa_err = check_flash(ops, torch, F)
+  lnb_rows, lnb_err = check_layer_norm_bwd(ops, torch, F)
+  fab_rows, fab_err = check_flash_bwd(ops, torch, F)
+  torch.cuda.empty_cache()
 
   log("[4] main path: full-width ServingEngine, bf16")
   t0 = time.monotonic()
@@ -444,31 +789,70 @@ def main():
   log("[5] parity: full width, f32, engine vs greedy_generate_kv")
   parity = serve_parity_f32(torch, tfm, ServingEngine, params,
                             tfm.TransformerConfig(dtype=torch.float32))
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.cuda.empty_cache()
 
-  ln_main = next(r for r in ln_rows if r["rows"] == 512
-                 and r["dtype"] == "bfloat16")
-  fa_main = next(r for r in fa_rows if r["case"] == "s512")
+  log("[6] main path: full-width training, bf16, B%d x S%d"
+      % (TRAIN_B, TRAIN_S))
+  train_res, _ = train_main_path(torch, ops, tfm, optim, sharding, Slab,
+                                 params, cfg)
+  train_launches = {n: int(v * 4) for n, v in
+                    train_res["per_step"]["launches_per_step"].items()}
+  torch.cuda.empty_cache()
+
+  log("[6b] grouped-KV training: num_kv_heads 4, full width and depth")
+  gqa_res = train_gqa(torch, ops, tfm, optim, sharding, init_params)
+  torch.cuda.empty_cache()
+
+  log("[7] parity: f32 training step, card kernels vs CPU plain versions")
+  train_parity = train_parity_f32(torch, tfm, init_params)
+
+  def pick(table, **kw):
+    return next(r for r in table if all(r[k] == v for k, v in kw.items()))
+
+  def entry(name, source, replaces, launches, by_path, err, row):
+    return {"name": name, "route": "cuda",
+            "source": "tensorflowonspark_tpu_torch/csrc/" + source,
+            "replaces": "tensorflowonspark_tpu/ops/" + replaces,
+            "launches": launches, "launches_by_path": by_path,
+            "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]}
+
+  serve_l = main_res["launches"]
   kernels = [
-      {"name": "flash_attention_fwd", "route": "cuda",
-       "source": "tensorflowonspark_tpu_torch/csrc/flash_attention.cu",
-       "replaces": "tensorflowonspark_tpu/ops/flash_attention.py:124",
-       "launches": main_res["launches"]["flash_attention_fwd"],
-       "max_abs_err": fa_err, "ms": fa_main["ms"],
-       "plain_ms": fa_main["plain_ms"], "bound_ms": fa_main["bound_ms"],
-       "bound_by": fa_main["bound_by"], "library_ms": fa_main["library_ms"]},
-      {"name": "layer_norm", "route": "cuda",
-       "source": "tensorflowonspark_tpu_torch/csrc/layer_norm.cu",
-       "replaces": "tensorflowonspark_tpu/ops/layer_norm.py:33",
-       "launches": main_res["launches"]["layer_norm"],
-       "max_abs_err": ln_err, "ms": ln_main["ms"],
-       "plain_ms": ln_main["plain_ms"], "bound_ms": ln_main["bound_ms"],
-       "bound_by": ln_main["bound_by"], "library_ms": ln_main["library_ms"]},
+      entry("flash_attention_fwd", "flash_attention.cu",
+            "flash_attention.py:124", serve_l["flash_attention_fwd"],
+            {"serve": serve_l["flash_attention_fwd"],
+             "train_4_steps": train_launches["flash_attention_fwd"]},
+            fa_err, pick(fa_rows, case="s512")),
+      entry("layer_norm", "layer_norm.cu", "layer_norm.py:33",
+            serve_l["layer_norm"],
+            {"serve": serve_l["layer_norm"],
+             "train_4_steps": train_launches["layer_norm"]},
+            ln_err, pick(ln_rows, rows=512, dtype="bfloat16")),
+      entry("flash_attention_bwd", "flash_attention_bwd.cu",
+            "flash_attention.py:232", train_launches["flash_attention_bwd"],
+            {"train_4_steps": train_launches["flash_attention_bwd"]},
+            fab_err, pick(fab_rows, case="train")),
+      entry("flash_attention_bwd_gqa", "flash_attention_bwd.cu",
+            "flash_attention.py:332",
+            int(gqa_res["launches_per_step"]["flash_attention_bwd_gqa"] * 2),
+            {"train_gqa_2_steps": int(
+                gqa_res["launches_per_step"]["flash_attention_bwd_gqa"] * 2)},
+            fab_err, pick(fab_rows, case="gqa_hk4")),
+      entry("layer_norm_bwd", "layer_norm.cu", "layer_norm.py:40",
+            train_launches["layer_norm_bwd"],
+            {"train_4_steps": train_launches["layer_norm_bwd"]},
+            lnb_err, pick(lnb_rows, rows=16384, dtype="bfloat16")),
   ]
   record = {"card": card, "torch": torch.__version__,
             "cuda": torch.version.cuda, "build_s": build_s,
             "layer_norm": ln_rows, "flash_attention": fa_rows,
+            "layer_norm_bwd": lnb_rows, "flash_attention_bwd": fab_rows,
             "main_path": main_res, "profile": prof_res,
-            "parity_f32": parity,
+            "parity_f32": parity, "train": train_res, "train_gqa": gqa_res,
+            "train_parity_f32": train_parity,
             "total_s": time.monotonic() - t_start}
   out_dir = os.path.join(HERE, "chiprun_out")
   os.makedirs(out_dir, exist_ok=True)

@@ -1,35 +1,47 @@
 """Decoder-only Transformer on PyTorch: the port of the flagship model.
 
 Counterpart of ``tensorflowonspark_tpu/models/transformer.py`` for the
-serving path: the config (same fields, same validation), rotary
-positions, the tied embedding, pre-LN blocks, the non-decode forward and
-the KV-cache decode (``Attention._decode_attend``) with a scalar cursor
-(rows in lockstep) or a vector of per-row cursors (the serving slab).
+serving and training paths: the config (same fields, same validation),
+rotary positions, the tied embedding, pre-LN blocks, the non-decode
+forward (with ``remat`` and ``return_hidden``), the KV-cache decode
+(``Attention._decode_attend``) with a scalar cursor (rows in lockstep) or
+a vector of per-row cursors (the serving slab), the losses
+(:func:`causal_lm_loss`, :func:`causal_lm_loss_blocked`) and
+:func:`create_state`.
 
 What differs from the flax model, by design of the port:
 
-* weights are ``nn.Parameter``s of one ``Transformer`` module, stored in
-  ``cfg.dtype`` (the flax model keeps f32 params and casts them to
-  ``cfg.dtype`` at every use, which gives the same values); LayerNorm
-  scales stay f32 because the kernel takes them so. They carry no
-  gradient: this slice is inference only.
+* weights are ``nn.Parameter``s of one ``Transformer`` module. Their
+  storage is chosen at construction: ``trainable=False`` (serving, the
+  default) stores them in ``cfg.dtype`` without gradients, which gives
+  the values the flax model computes with, since flax casts its f32
+  params to ``cfg.dtype`` at every use; ``trainable=True`` (training)
+  keeps f32 master weights that require gradients and casts them to
+  ``cfg.dtype`` at every use exactly as flax does (the embedding table at
+  lookup and at the tied projection, each dense kernel as
+  ``DenseGeneral(dtype=cfg.dtype)`` does). LayerNorm scales are f32 in
+  both, because the kernel takes them so.
+* ``cfg.remat`` wraps each block of a differentiated forward in
+  ``torch.utils.checkpoint`` (non-reentrant), as ``nn.remat(Block)`` does.
 * the decode cache is a :class:`KVCache` updated IN PLACE (the flax cache
   is a returned pytree); one cursor serves every layer.
 * the hot ops go through ``tensorflowonspark_tpu_torch.ops``: on the card
-  the hand-written LayerNorm and flash-attention kernels, on the CPU
-  their plain versions. There is no ``jit``; PyTorch runs eagerly.
+  the hand-written LayerNorm and flash-attention kernels (forward and
+  backward), on the CPU their plain versions. There is no ``jit``;
+  PyTorch runs eagerly.
 
 Options outside this slice raise ``NotImplementedError`` naming the
 ROADMAP item that brings them.
 """
 
 from dataclasses import dataclass
-from typing import List, Mapping, Optional, Union
+from typing import Any, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tensorflowonspark_tpu_torch import ops
 from tensorflowonspark_tpu_torch.utils.device import resolve_device
@@ -209,14 +221,21 @@ def _flash_eligible(cfg: TransformerConfig, seq_len: int) -> bool:
   return divisible
 
 
-def _param(shape, dtype, device) -> nn.Parameter:
+def _param(shape, cfg: TransformerConfig, device, trainable: bool,
+           dtype: Optional[torch.dtype] = None) -> nn.Parameter:
+  """A weight in ``dtype`` if given, else f32 master (``trainable``) or
+  ``cfg.dtype`` (serving)."""
+  if dtype is None:
+    dtype = torch.float32 if trainable else cfg.dtype
   return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
-                      requires_grad=False)
+                      requires_grad=trainable)
 
 
-def _dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-  """flax DenseGeneral over the last axis: x [..., D] @ w [D, *feats]."""
-  out = x.to(w.dtype) @ w.reshape(w.shape[0], -1)
+def _dense(x: torch.Tensor, w: torch.Tensor,
+           dtype: torch.dtype) -> torch.Tensor:
+  """flax ``DenseGeneral(dtype=dtype)`` over the last axis: x [..., D] @
+  w [D, *feats], both cast to ``dtype``."""
+  out = x.to(dtype) @ w.to(dtype).reshape(w.shape[0], -1)
   return out.reshape(x.shape[:-1] + w.shape[1:])
 
 
@@ -224,55 +243,60 @@ class LayerNorm(nn.Module):
   """Bias-free LayerNorm, eps 1e-6, f32 scale; output in the input dtype
   (``ops.layer_norm``: the kernel on the card)."""
 
-  def __init__(self, cfg: TransformerConfig, device):
+  def __init__(self, cfg: TransformerConfig, device, trainable: bool):
     super().__init__()
-    self.scale = _param((cfg.d_model,), torch.float32, device)
+    self.scale = _param((cfg.d_model,), cfg, device, trainable,
+                        torch.float32)
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     return ops.layer_norm(x, self.scale)
 
 
 class TiedEmbed(nn.Module):
-  """Tied input/output embedding (``embed.embedding`` [V, D])."""
+  """Tied input/output embedding (``embed.embedding`` [V, D]), used in
+  ``cfg.dtype``."""
 
-  def __init__(self, cfg: TransformerConfig, device):
+  def __init__(self, cfg: TransformerConfig, device, trainable: bool):
     super().__init__()
-    self.embedding = _param((cfg.vocab_size, cfg.d_model), cfg.dtype, device)
+    self.dtype = cfg.dtype
+    self.embedding = _param((cfg.vocab_size, cfg.d_model), cfg, device,
+                            trainable)
 
   def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, self.embedding)
+    return F.embedding(tokens, self.embedding.to(self.dtype))
 
   def attend(self, x: torch.Tensor) -> torch.Tensor:
-    return x.to(self.embedding.dtype) @ self.embedding.t()
+    return x.to(self.dtype) @ self.embedding.to(self.dtype).t()
 
 
 class Attention(nn.Module):
 
-  def __init__(self, cfg: TransformerConfig, device):
+  def __init__(self, cfg: TransformerConfig, device, trainable: bool):
     super().__init__()
     self.cfg = cfg
     h, hk, d, dm = cfg.num_heads, cfg.kv_heads, cfg.head_dim, cfg.d_model
     if cfg.fuse_qkv:
-      self.qkv = _param((dm, h + 2 * hk, d), cfg.dtype, device)
+      self.qkv = _param((dm, h + 2 * hk, d), cfg, device, trainable)
     else:
-      self.q = _param((dm, h, d), cfg.dtype, device)
-      self.k = _param((dm, hk, d), cfg.dtype, device)
-      self.v = _param((dm, hk, d), cfg.dtype, device)
-    self.out = _param((h, d, dm), cfg.dtype, device)
+      self.q = _param((dm, h, d), cfg, device, trainable)
+      self.k = _param((dm, hk, d), cfg, device, trainable)
+      self.v = _param((dm, hk, d), cfg, device, trainable)
+    self.out = _param((h, d, dm), cfg, device, trainable)
 
   def _project(self, x):
     cfg = self.cfg
     if cfg.fuse_qkv:
       h, hk = cfg.num_heads, cfg.kv_heads
-      qkv = _dense(x, self.qkv)
+      qkv = _dense(x, self.qkv, cfg.dtype)
       return qkv[..., :h, :], qkv[..., h:h + hk, :], qkv[..., h + hk:, :]
-    return _dense(x, self.q), _dense(x, self.k), _dense(x, self.v)
+    return (_dense(x, self.q, cfg.dtype), _dense(x, self.k, cfg.dtype),
+            _dense(x, self.v, cfg.dtype))
 
   def _out_proj(self, o: torch.Tensor) -> torch.Tensor:
     b, s = o.shape[:2]
-    w = self.out
-    return (o.to(w.dtype).reshape(b, s, -1)
-            @ w.reshape(-1, w.shape[-1]))
+    dt = self.cfg.dtype
+    w = self.out.to(dt)
+    return o.to(dt).reshape(b, s, -1) @ w.reshape(-1, w.shape[-1])
 
   def forward(self, x, rope, cache: Optional[KVCache] = None,
               layer: int = 0):
@@ -359,25 +383,26 @@ class Attention(nn.Module):
 
 class MLPBlock(nn.Module):
 
-  def __init__(self, cfg: TransformerConfig, device):
+  def __init__(self, cfg: TransformerConfig, device, trainable: bool):
     super().__init__()
-    self.up = _param((cfg.d_model, cfg.d_ff), cfg.dtype, device)
-    self.down = _param((cfg.d_ff, cfg.d_model), cfg.dtype, device)
+    self.dtype = cfg.dtype
+    self.up = _param((cfg.d_model, cfg.d_ff), cfg, device, trainable)
+    self.down = _param((cfg.d_ff, cfg.d_model), cfg, device, trainable)
 
   def forward(self, x):
-    h = F.gelu(_dense(x, self.up), approximate="tanh")
-    return _dense(h, self.down)
+    h = F.gelu(_dense(x, self.up, self.dtype), approximate="tanh")
+    return _dense(h, self.down, self.dtype)
 
 
 class Block(nn.Module):
   """Pre-LN block: x + attn(ln1(x)), then + mlp(ln2(x))."""
 
-  def __init__(self, cfg: TransformerConfig, device):
+  def __init__(self, cfg: TransformerConfig, device, trainable: bool):
     super().__init__()
-    self.ln1 = LayerNorm(cfg, device)
-    self.attn = Attention(cfg, device)
-    self.ln2 = LayerNorm(cfg, device)
-    self.mlp = MLPBlock(cfg, device)
+    self.ln1 = LayerNorm(cfg, device, trainable)
+    self.attn = Attention(cfg, device, trainable)
+    self.ln2 = LayerNorm(cfg, device, trainable)
+    self.mlp = MLPBlock(cfg, device, trainable)
 
   def forward(self, x, rope, cache=None, layer=0):
     x = x + self.attn(self.ln1(x), rope, cache, layer)
@@ -391,18 +416,22 @@ class Transformer(nn.Module):
   :func:`~tensorflowonspark_tpu_torch.utils.params.init_params` or
   :func:`~tensorflowonspark_tpu_torch.utils.params.params_from_flax`.
   ``device``: ``None`` is the card (raises when there is none); the tests
-  pass ``"cpu"``.
+  pass ``"cpu"``. ``trainable``: keep f32 master weights that require
+  gradients (training) instead of ``cfg.dtype`` weights (serving); see
+  the module docstring.
   """
 
   def __init__(self, cfg: TransformerConfig,
-               params: Mapping[str, np.ndarray], device=None):
+               params: Mapping[str, np.ndarray], device=None,
+               trainable: bool = False):
     super().__init__()
     self.cfg = cfg
     self.device = resolve_device(device)
-    self.embed = TiedEmbed(cfg, self.device)
+    self.trainable = trainable
+    self.embed = TiedEmbed(cfg, self.device, trainable)
     self.layers = nn.ModuleList(
-        [Block(cfg, self.device) for _ in range(cfg.num_layers)])
-    self.ln_f = LayerNorm(cfg, self.device)
+        [Block(cfg, self.device, trainable) for _ in range(cfg.num_layers)])
+    self.ln_f = LayerNorm(cfg, self.device, trainable)
     self.load_params(params)
 
   @torch.no_grad()
@@ -432,11 +461,33 @@ class Transformer(nn.Module):
     return KVCache([mk() for _ in range(cfg.num_layers)],
                    [mk() for _ in range(cfg.num_layers)], 0)
 
+  def numpy_params(self) -> dict:
+    """The weights as the flat f32 numpy dict ``load_params`` takes (see
+    :func:`~tensorflowonspark_tpu_torch.utils.params.params_to_flax` for
+    the flax tree)."""
+    return {name: p.detach().float().cpu().numpy()
+            for name, p in self.named_parameters()}
+
   def forward(self, tokens: torch.Tensor,
-              cache: Optional[KVCache] = None) -> torch.Tensor:
+              cache: Optional[KVCache] = None,
+              return_hidden: bool = False,
+              exit_layer: Optional[int] = None) -> torch.Tensor:
     """Logits for ``tokens``. With ``cache``, the decode path: tokens sit
     at the cache cursor, their keys/values are written into the cache and
-    the cursor advances by ``tokens.shape[1]``."""
+    the cursor advances by ``tokens.shape[1]``. ``return_hidden`` returns
+    the final-norm output in ``cfg.dtype`` instead of the logits (for
+    :func:`causal_lm_loss_blocked`). A differentiated forward without a
+    cache recomputes each block in the backward when ``cfg.remat``."""
+    cfg = self.cfg
+    if exit_layer is not None:
+      raise NotImplementedError(
+          "exit_layer (the shallow-exit draft of self-speculative decoding) "
+          "is not ported to PyTorch yet (ROADMAP Queue 1 item 9)")
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    if remat and cfg.remat_policy == "dots":
+      raise NotImplementedError(
+          "remat_policy='dots' is not ported to PyTorch yet (ROADMAP Queue "
+          "1 item 12); use remat_policy='none'")
     tokens = tokens.to(self.device)
     b, s = tokens.shape
     ar = torch.arange(s, device=self.device)
@@ -449,10 +500,15 @@ class Transformer(nn.Module):
     rope = _rope_tables(positions, self.cfg.head_dim)
     x = self.embed(tokens)
     for i, block in enumerate(self.layers):
-      x = block(x, rope, cache, i)
+      if remat:
+        x = checkpoint(block, x, rope, use_reentrant=False)
+      else:
+        x = block(x, rope, cache, i)
     if cache is not None:
       cache.index = cache.index + s
     x = self.ln_f(x)
+    if return_hidden:
+      return x.to(cfg.dtype)
     return self.embed.attend(x).float()
 
 
@@ -508,5 +564,93 @@ def greedy_generate_kv(model: Transformer, prompt, num_steps: int,
     return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
 
 
+def causal_lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
+                   z_loss: float = 0.0) -> torch.Tensor:
+  """Next-token cross-entropy (shifted); ignores the final position.
+
+  ``z_loss`` > 0 adds ``z_loss * mean(logsumexp^2)`` (the PaLM/T5X
+  stabiliser), as the JAX package's ``causal_lm_loss`` does.
+  """
+  targets = tokens[:, 1:].long()
+  logits = logits[:, :-1].float()
+  ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                       targets.reshape(-1))
+  if z_loss:
+    lse = torch.logsumexp(logits, dim=-1)
+    ce = ce + z_loss * (lse ** 2).mean()
+  return ce
+
+
+def tied_embedding_table(model: Transformer) -> torch.Tensor:
+  """The tied input/output embedding [vocab, d_model] of ``model``."""
+  return model.embed.embedding
+
+
+def _chunk_terms(x: torch.Tensor, table: torch.Tensor, targets: torch.Tensor):
+  """(sum of lse - label logit, sum of lse^2) over one chunk; its logits
+  are computed in f32, as the reference's ``preferred_element_type``
+  keeps them."""
+  logits = x.float() @ table.float().t()                  # [B, C, V]
+  lse = torch.logsumexp(logits, dim=-1)
+  ll = logits.gather(-1, targets[..., None])[..., 0]
+  return (lse - ll).sum(), (lse ** 2).sum()
+
+
+def causal_lm_loss_blocked(hidden: torch.Tensor, table: torch.Tensor,
+                           tokens: torch.Tensor, chunk: int = 256,
+                           z_loss: float = 0.0) -> torch.Tensor:
+  """Next-token cross-entropy fused with the tied output projection.
+
+  The ``[batch, seq, vocab]`` logits are never held: sequence chunks of
+  ``chunk`` positions are projected against ``table`` (cast to the
+  hidden dtype), reduced to (logsumexp, label logit) and dropped; each
+  chunk runs under ``torch.utils.checkpoint``, so the backward recomputes
+  its logits as ``jax.checkpoint`` makes the reference do. ``hidden``:
+  ``model(tokens, return_hidden=True)``; ``table``:
+  :func:`tied_embedding_table`. Matches :func:`causal_lm_loss` on the
+  same inputs, ``z_loss`` included, to float tolerance.
+  """
+  targets = tokens[:, 1:].long()
+  x = hidden[:, :-1]
+  b, s, _ = x.shape
+  tbl = table.to(x.dtype)
+  total = z_total = None
+  for start in range(0, s, chunk):
+    t, z = checkpoint(_chunk_terms, x[:, start:start + chunk], tbl,
+                      targets[:, start:start + chunk], use_reentrant=False)
+    total = t if total is None else total + t
+    z_total = z if z_total is None else z_total + z
+  loss = total / (b * s)
+  if z_loss:
+    loss = loss + z_loss * z_total / (b * s)
+  return loss
+
+
+def create_state(cfg: TransformerConfig, params: Union[int, Mapping[str, Any]],
+                 tx=None, device=None, learning_rate: float = 3e-4):
+  """A single-card :class:`~tensorflowonspark_tpu_torch.train_state.TrainState`:
+  a ``trainable`` :class:`Transformer` (f32 master weights) and the
+  optimizer state of ``tx``.
+
+  ``params``: a seed (weights from
+  :func:`~tensorflowonspark_tpu_torch.utils.params.init_params`) or a
+  flat weight dict. ``tx``: an :mod:`~tensorflowonspark_tpu_torch.optim`
+  transformation; by default the reference's ``optax.adamw(learning_rate,
+  weight_decay=0.01)`` — b2 0.999 and no decay mask, which is not
+  ``make_optimizer``'s recipe. ``device``: ``None`` is the card.
+  """
+  from tensorflowonspark_tpu_torch import optim
+  from tensorflowonspark_tpu_torch.train_state import TrainState
+  from tensorflowonspark_tpu_torch.utils.params import init_params
+  if isinstance(params, (int, np.integer)):
+    params = init_params(cfg, seed=int(params))
+  model = Transformer(cfg, params, device=device, trainable=True)
+  if tx is None:
+    tx = optim.adamw(learning_rate, weight_decay=0.01)
+  return TrainState.create(model, tx)
+
+
 __all__ = ["TransformerConfig", "KVCache", "Transformer", "TiedEmbed",
-           "Attention", "MLPBlock", "Block", "LayerNorm", "greedy_generate_kv"]
+           "Attention", "MLPBlock", "Block", "LayerNorm", "greedy_generate_kv",
+           "causal_lm_loss", "causal_lm_loss_blocked", "tied_embedding_table",
+           "create_state"]

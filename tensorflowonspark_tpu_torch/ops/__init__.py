@@ -12,7 +12,9 @@ the tensor's device decides, and nothing else:
 
 Each kernel keeps a plain-integer launch count in :data:`LAUNCHES`, bumped
 by its wrapper where it launches the kernel and nowhere else, so a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels. The backward kernels
+count apart from the forward ones; the flash backward counts under
+``flash_attention_bwd`` (Hk == H) or ``flash_attention_bwd_gqa``.
 """
 
 from typing import Dict
@@ -20,7 +22,10 @@ from typing import Dict
 import torch
 
 #: kernel name -> launches since the last :func:`reset_launches`
-LAUNCHES: Dict[str, int] = {"layer_norm": 0, "flash_attention_fwd": 0}
+LAUNCHES: Dict[str, int] = {"layer_norm": 0, "layer_norm_bwd": 0,
+                             "flash_attention_fwd": 0,
+                             "flash_attention_bwd": 0,
+                             "flash_attention_bwd_gqa": 0}
 
 
 def on_card(*tensors: torch.Tensor) -> bool:
@@ -48,20 +53,15 @@ def reset_launches() -> None:
     LAUNCHES[name] = 0
 
 
-def no_grad_kernel(name: str, roadmap: str, *tensors: torch.Tensor) -> None:
-  """Raise when a forward-only kernel is asked for a gradient: its
-  backward kernel is not ported yet (``roadmap`` names the item)."""
-  if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-    raise NotImplementedError(
-        "%s has no backward kernel in the PyTorch port yet (%s); call it "
-        "under torch.no_grad() or torch.inference_mode()" % (name, roadmap))
-
-
 from tensorflowonspark_tpu_torch.ops.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_fwd, flash_attention_reference)
+    flash_attention, flash_attention_bwd, flash_attention_bwd_reference,
+    flash_attention_fwd, flash_attention_reference)
 from tensorflowonspark_tpu_torch.ops.layer_norm import (  # noqa: E402
-    layer_norm, layer_norm_reference)
+    layer_norm, layer_norm_bwd, layer_norm_bwd_reference,
+    layer_norm_reference)
 
 __all__ = ["LAUNCHES", "on_card", "count_launch", "reset_launches",
-           "no_grad_kernel", "flash_attention", "flash_attention_fwd",
-           "flash_attention_reference", "layer_norm", "layer_norm_reference"]
+           "flash_attention", "flash_attention_fwd", "flash_attention_bwd",
+           "flash_attention_reference", "flash_attention_bwd_reference",
+           "layer_norm", "layer_norm_bwd", "layer_norm_reference",
+           "layer_norm_bwd_reference"]

@@ -2,7 +2,8 @@
 made from a seed.
 
 Both functions return the same flat ``{name: float32 ndarray}`` dict,
-keyed by the port's parameter names (``Transformer.named_parameters``):
+keyed by the port's parameter names (``Transformer.named_parameters``);
+:func:`params_to_flax` carries such a dict back to a flax tree:
 
 =============================  ======================  ==================
 port name                      flax path               shape
@@ -21,8 +22,8 @@ port name                      flax path               shape
 
 (``qkv`` replaces ``q``/``k``/``v`` when ``cfg.fuse_qkv``.) The flax tree
 arrives as nested dicts of numpy arrays — a caller holding JAX params
-passes ``jax.tree.map(np.asarray, params)`` — so this module never sees a
-JAX type.
+passes ``jax.tree.map(np.asarray, params)`` — and leaves as one, so this
+module never sees a JAX type.
 """
 
 from typing import Dict, Mapping, Tuple
@@ -112,3 +113,28 @@ def params_from_flax(tree: Mapping, cfg) -> Dict[str, np.ndarray]:
                        % ("/".join(path), arr.shape, shape))
     out[name] = arr
   return out
+
+
+def params_to_flax(params: Mapping[str, np.ndarray], cfg) -> Dict:
+  """The inverse of :func:`params_from_flax`: a flat weight dict (e.g.
+  ``Transformer.numpy_params()``) as a flax Transformer param tree of
+  nested dicts of f32 numpy arrays. Raises on a missing or unexpected
+  name, or a shape that disagrees with ``cfg``."""
+  specs = param_specs(cfg)
+  extra = sorted(set(params) - set(specs))
+  if extra:
+    raise KeyError("weights the cfg does not have: %s" % extra[:4])
+  tree: Dict = {}
+  for name, (shape, _, _) in specs.items():
+    if name not in params:
+      raise KeyError("missing weight %s" % name)
+    arr = np.asarray(params[name], np.float32)
+    if arr.shape != shape:
+      raise ValueError("%s has shape %s, cfg expects %s"
+                       % (name, arr.shape, shape))
+    path = _flax_path(name)
+    node = tree
+    for key in path[:-1]:
+      node = node.setdefault(key, {})
+    node[path[-1]] = arr
+  return tree

@@ -1,4 +1,4 @@
-"""The PyTorch port imports nothing of JAX, flax or the JAX package."""
+"""The PyTorch port imports nothing of JAX, flax, optax or the JAX package."""
 
 import ast
 import os
@@ -52,8 +52,18 @@ def test_running_the_port_loads_no_jax_module():
                           max_new_tokens=4, timeout=60)
       eng.stop()
       assert [len(o) for o in outs] == [9, 21], outs
+      # one CPU train step through the training path
+      from tensorflowonspark_tpu_torch import optim
+      from tensorflowonspark_tpu_torch.parallel.sharding import (
+          make_train_step)
+      state = tfm.create_state(cfg, 0, tx=optim.make_optimizer(clip_norm=1.0),
+                               device="cpu")
+      step = make_train_step(
+          lambda m, t: tfm.causal_lm_loss(m(t), t, z_loss=1e-4))
+      state, loss = step(state, np.arange(16).reshape(2, 8) % 32)
+      assert state.step == 1 and bool(torch.isfinite(loss)), loss
       loaded = sorted(m for m in sys.modules
-                      if m.split(".")[0] in ("jax", "jaxlib", "flax")
+                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
                       or m.startswith("tensorflowonspark_tpu."))
       print("LOADED", loaded)
       assert loaded == [], loaded

@@ -85,3 +85,76 @@ def test_engine_on_card_equals_greedy_decode(card):
   for p, out in zip(prompts, outs):
     ref = tfm.greedy_generate_kv(eng.model, p[None], 8).cpu().numpy()[0]
     np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,h,dtype,tol", [
+    (512, 768, torch.float32, 1e-4), (512, 768, torch.bfloat16, 3e-2),
+    (33, 770, torch.bfloat16, 3e-2), (4100, 1024, torch.float32, 1e-4)])
+def test_layer_norm_bwd_kernel_matches_plain_on_card(card, rows, h, dtype,
+                                                     tol):
+  g = torch.Generator(device=card).manual_seed(1)
+  x = (torch.randn(rows, h, device=card, generator=g) * 2 + 0.5).to(dtype)
+  w = torch.rand(h, device=card, generator=g) + 0.5
+  gy = torch.randn(rows, h, device=card, generator=g).to(dtype)
+  ops.reset_launches()
+  dx, dw = ops.layer_norm_bwd(x, w, gy)
+  assert ops.LAUNCHES["layer_norm_bwd"] == 1
+  rdx, rdw = ops.layer_norm_bwd_reference(x, w, gy)
+  torch.testing.assert_close(dx.float(), rdx.float(), atol=tol, rtol=tol)
+  # dw sums ``rows`` terms in another order
+  torch.testing.assert_close(dw, rdw, atol=1e-3 * rows ** 0.5, rtol=1e-4)
+  # no atomics: a second run gives the same bits
+  dx2, dw2 = ops.layer_norm_bwd(x, w, gy)
+  assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
+def _flash_grads(q, k, v, q_base, kv_base, causal, window, go, gl):
+  q, k, v = (t.detach().clone().requires_grad_() for t in (q, k, v))
+  out, lse = ops.flash_attention_fwd(q, k, v, q_base, kv_base, causal, window)
+  loss = (out.float() * go).sum() + (torch.where(lse <= -1e29, 0.0, lse)
+                                     * gl).sum()
+  loss.backward()
+  return q.grad, k.grad, v.grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_matches_plain_on_card(card, case, dtype):
+  h, hk, q_base, kv_base, causal, window = FLASH_CASES[case]
+  g = torch.Generator(device=card).manual_seed(2)
+  mk = lambda *s: torch.randn(*s, device=card, generator=g)  # noqa: E731
+  q, k, v = mk(2, 200, h, 64), mk(2, 200, hk, 64), mk(2, 200, hk, 64)
+  go, gl = mk(2, 200, h, 64), mk(2, h, 200)
+  q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+  ops.reset_launches()
+  got = _flash_grads(q, k, v, q_base, kv_base, causal, window, go, gl)
+  name = "flash_attention_bwd" if h == hk else "flash_attention_bwd_gqa"
+  assert ops.LAUNCHES[name] == 1
+  out, lse = ops.flash_attention_reference(q, k, v, q_base, kv_base, causal,
+                                           window)
+  gl_eff = torch.where(lse <= -1e29, 0.0, gl)
+  want = ops.flash_attention_bwd_reference(q, k, v, out, lse,
+                                           go.to(dtype), gl_eff, q_base,
+                                           kv_base, causal, window)
+  tol = 2e-4 if dtype == torch.float32 else 3e-2
+  for a, b in zip(got, want):
+    torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+  again = _flash_grads(q, k, v, q_base, kv_base, causal, window, go, gl)
+  assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernel_head_dim_128_on_card(card):
+  g = torch.Generator(device=card).manual_seed(3)
+  q = torch.randn(1, 130, 4, 128, device=card, generator=g)
+  k = torch.randn(1, 130, 2, 128, device=card, generator=g)
+  v = torch.randn(1, 130, 2, 128, device=card, generator=g)
+  go = torch.randn(1, 130, 4, 128, device=card, generator=g)
+  gl = torch.zeros(1, 4, 130, device=card)
+  got = _flash_grads(q, k, v, 0, 0, True, None, go, gl)
+  out, lse = ops.flash_attention_reference(q, k, v)
+  want = ops.flash_attention_bwd_reference(q, k, v, out, lse, go)
+  for a, b in zip(got, want):
+    torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)

@@ -12,7 +12,10 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+import jax
+
 from tensorflowonspark_tpu.models import transformer as jax_tfm
+from tensorflowonspark_tpu.ops import flash_attention as jax_flash
 from tensorflowonspark_tpu.ops import flash_attention_block as jax_flash_block
 from tensorflowonspark_tpu.ops import layer_norm as jax_layer_norm
 from tensorflowonspark_tpu_torch import ops
@@ -91,20 +94,37 @@ def test_rotary_matches_jax():
 
 def test_cpu_calls_run_plain_versions_and_count_nothing():
   ops.reset_launches()
-  x = torch.randn(8, 64)
-  ops.layer_norm(x, torch.ones(64))
-  q = torch.randn(1, 16, 2, 64)
-  ops.flash_attention(q, q, q)
-  ops.flash_attention_fwd(q, q[:, :, :1], q[:, :, :1], 3, 0)
-  assert ops.LAUNCHES == {"layer_norm": 0, "flash_attention_fwd": 0}
+  x = torch.randn(8, 64, requires_grad=True)
+  ops.layer_norm(x, torch.ones(64)).sum().backward()
+  q = torch.randn(1, 16, 2, 64, requires_grad=True)
+  ops.flash_attention(q, q, q).sum().backward()
+  out, lse = ops.flash_attention_fwd(q, q[:, :, :1], q[:, :, :1], 3, 0)
+  (out.sum() + lse.sum()).backward()
+  assert ops.LAUNCHES == {"layer_norm": 0, "layer_norm_bwd": 0,
+                          "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                          "flash_attention_bwd_gqa": 0}
 
 
-def test_wrappers_refuse_gradients_and_bad_inputs():
-  x = torch.randn(4, 32, requires_grad=True)
-  with pytest.raises(NotImplementedError, match="backward kernel"):
-    ops.layer_norm(x, torch.ones(32))
+def test_wrappers_refuse_gradients_and_bad_inputs(monkeypatch):
+  q = torch.randn(1, 8, 4, 16, requires_grad=True)
+  # the split backward plan (Queue 2 rows 5-7) is refused by name, and
+  # only where a gradient is asked for
+  with pytest.raises(NotImplementedError, match="rows 5-7"):
+    ops.flash_attention(q, q, q, bwd="split")
+  monkeypatch.setenv("TFOS_TPU_FLASH_BWD", "split")
+  with pytest.raises(NotImplementedError, match="split"):
+    ops.flash_attention(q, q, q)
   with torch.no_grad():
-    ops.layer_norm(x, torch.ones(32))
+    ops.flash_attention(q, q, q)
+  with pytest.raises(ValueError, match="bwd"):
+    ops.flash_attention(q, q, q, bwd="fast")
+  monkeypatch.setenv("TFOS_TPU_FLASH_BWD", "bogus")
+  with pytest.raises(ValueError, match="TFOS_TPU_FLASH_BWD"):
+    ops.flash_attention(q, q, q)
+  monkeypatch.delenv("TFOS_TPU_FLASH_BWD")
+  with pytest.raises(ValueError, match="g shaped like x"):
+    ops.layer_norm_bwd(torch.randn(4, 32), torch.ones(32),
+                       torch.randn(4, 16))
   q = torch.randn(1, 8, 4, 16)
   with pytest.raises(ValueError, match="must divide"):
     ops.flash_attention(q, q[:, :, :3], q[:, :, :3])
@@ -112,3 +132,88 @@ def test_wrappers_refuse_gradients_and_bad_inputs():
     ops.flash_attention(q, q, q, causal=False, window=4)
   with pytest.raises(ValueError, match="weight"):
     ops.layer_norm(torch.randn(4, 32), torch.ones(16))
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 3e-2)])
+def test_layer_norm_bwd_matches_jax_vjp(dtype, tol):
+  x, w = _ln_inputs(3)
+  g = np.random.default_rng(4).standard_normal(x.shape).astype(np.float32)
+  jdt = getattr(jnp, dtype)
+  _, vjp = jax.vjp(lambda a, b: jax_layer_norm(a, b, interpret=True),
+                   jnp.asarray(x, jdt), jnp.asarray(w))
+  jdx, jdw = vjp(jnp.asarray(g, jdt))
+  tdt = getattr(torch, dtype)
+  tx = torch.from_numpy(x).to(tdt).requires_grad_()
+  tw = torch.from_numpy(w).requires_grad_()
+  ops.layer_norm(tx, tw).backward(torch.from_numpy(g).to(tdt))
+  assert tx.grad.dtype == tdt and tw.grad.dtype == torch.float32
+  np.testing.assert_allclose(tx.grad.float().numpy(),
+                             np.asarray(jdx, np.float32), atol=tol, rtol=tol)
+  np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jdw), atol=tol,
+                             rtol=tol)
+  # the plain backward called directly gives the autograd result
+  dx, dw = ops.layer_norm_bwd(tx.detach(), tw.detach(),
+                              torch.from_numpy(g).to(tdt))
+  assert torch.equal(dx, tx.grad) and torch.equal(dw, tw.grad)
+
+
+# (H, Hk, q_base, kv_base, window, lse cotangent)
+FLASH_BWD_CASES = {
+    "mha": (4, 4, 0, 0, None, False),
+    "gqa_g2": (4, 2, 0, 0, None, False),
+    "gqa_g4": (4, 1, 0, 0, None, False),
+    "window_24": (4, 2, 0, 0, 24, False),
+    "bases_lse_cotangent": (4, 2, 40, 8, None, True),
+    "empty_rows": (4, 2, 0, 32, None, True),
+}
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("case", sorted(FLASH_BWD_CASES))
+def test_flash_bwd_matches_jax_grad(case, dtype, tol):
+  h, hk, q_base, kv_base, window, with_lse = FLASH_BWD_CASES[case]
+  rng = np.random.default_rng(5)
+  b, s, d = 2, 64, 16
+  q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+  k = rng.standard_normal((b, s, hk, d)).astype(np.float32)
+  v = rng.standard_normal((b, s, hk, d)).astype(np.float32)
+  go = rng.standard_normal((b, s, h, d)).astype(np.float32)
+  gl = rng.standard_normal((b, h, s)).astype(np.float32) * with_lse
+  blocks = dict(interpret=True, blk_q=16, blk_k=16, blk_bwd_q=16,
+                blk_bwd_k=32, bwd="fused", window=window)
+
+  def jloss(q, k, v):
+    if with_lse:
+      o, l = jax_flash_block(q, k, v, q_base, kv_base, **blocks)
+      l = jnp.where(l <= -1e29, 0.0, l)
+      return jnp.sum(o.astype(jnp.float32) * go) + jnp.sum(l * gl)
+    o = jax_flash(q, k, v, **blocks)
+    return jnp.sum(o.astype(jnp.float32) * go)
+
+  jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+  want = jax.grad(jloss, argnums=(0, 1, 2))(
+      *(jnp.asarray(a, jdt) for a in (q, k, v)))
+  tq, tk, tv = (torch.from_numpy(a).to(tdt).requires_grad_()
+                for a in (q, k, v))
+  if with_lse:
+    o, l = ops.flash_attention_fwd(tq, tk, tv, q_base, kv_base,
+                                   window=window)
+    l = torch.where(l <= -1e29, 0.0, l)
+    loss = (o.float() * torch.from_numpy(go)).sum() + \
+        (l * torch.from_numpy(gl)).sum()
+  else:
+    o = ops.flash_attention(tq, tk, tv, window=window)
+    loss = (o.float() * torch.from_numpy(go)).sum()
+  loss.backward()
+  for name, t, j in zip("qkv", (tq, tk, tv), want):
+    assert t.grad.dtype == tdt
+    np.testing.assert_allclose(t.grad.float().numpy(),
+                               np.asarray(j, np.float32), atol=tol, rtol=tol,
+                               err_msg="d" + name)
+  if case == "empty_rows":
+    # queries before the first key get no gradient in either package
+    dead = slice(0, kv_base - q_base)
+    assert (tq.grad[:, dead] == 0).all()
+    assert (np.asarray(want[0])[:, dead] == 0).all()

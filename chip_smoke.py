@@ -14,7 +14,10 @@ failure:
    events), the least time the card could take (``bound``) and one
    PyTorch library call computing the same function as a yardstick: the
    LayerNorm and flash-attention forwards, then their backwards (each run
-   twice and required to give the same bits);
+   twice and required to give the same bits), then the fused LN->matmul
+   and GELU->matmul products (their yardstick is the unfused pair of
+   library calls; their device time from ``torch.profiler`` is taken at
+   the end of 6c, so that no profiler session precedes the serving run);
 4. the serving main path at full width: the flagship
    ``TransformerConfig()`` (vocab 32000, 12 layers, 12 heads, d_model
    768, d_ff 3072, bf16) with random weights from a seed, served by
@@ -23,7 +26,7 @@ failure:
    zeroed just before and read just after, and must show both forward
    kernels on the path; then (4b) one decode dispatch and one 512-token
    prefill chunk under ``torch.profiler``: device-busy time against the
-   host's wall clock, and the top kernels;
+   host's wall clock, the top kernels and every port kernel's device time;
 5. serving parity: the same model in f32 (TF32 off) — every engine
    output must equal the single-request ``greedy_generate_kv`` decode, or
    differ only at a genuine near-tie (top-2 logit gap under 1e-4);
@@ -33,14 +36,20 @@ failure:
    ``make_train_step`` steps, then one ``make_train_loop(unroll=4)`` slab.
    Losses must be finite and fall, and each path must launch exactly 24
    flash forwards, 12 flash backwards, 49 LayerNorm forwards and 25
-   LayerNorm backwards per optimizer step; prints tokens/s, ms per step,
-   peak memory and one step under ``torch.profiler``; (6b) the grouped-KV
-   configuration (``num_kv_heads=4``) takes 2 steps at 8 x 1024 and must
-   launch the grouped flash backward 12 times per step;
+   LayerNorm backwards per optimizer step (and no fused product); prints
+   tokens/s, ms per step, peak memory and one step under
+   ``torch.profiler``; (6b) the grouped-KV configuration
+   (``num_kv_heads=4``) takes a warm-up and 2 timed steps at 8 x 1024 and
+   must launch the grouped flash backward 12 times per step; (6c) the
+   all-fused flagship (``fuse_qkv`` + ``ln_matmul_impl="fused"`` +
+   ``act_matmul_impl="fused"``, ``bench.py``'s ``b16_s1024_allfused``)
+   runs like 6 with exactly 48 LN->matmul, 24 GELU->matmul, 24 flash
+   forwards, 12 flash backwards and one LayerNorm forward and backward
+   per step, beside 6's numbers; then its grouped-KV variant like 6b;
 7. training parity: one f32 step (TF32 off) of a 2-layer full-width model
-   on 2 x 256 tokens, on the card with the kernels and on the CPU with
-   the plain versions: the loss to 1e-4 relative, every gradient within
-   1e-3 of its largest magnitude.
+   on 2 x 256 tokens, unfused and all-fused, on the card with the kernels
+   and on the CPU with the plain versions: the loss to 1e-4 relative,
+   every gradient within 1e-3 of its largest magnitude.
 
 The last two lines of output are JSON: ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. A copy of the measurements goes to
@@ -369,6 +378,112 @@ def check_flash_bwd(ops, torch, F):
   return rows_out, worst
 
 
+def device_ms(torch, fn, calls=5):
+  """Device time per call of ``fn`` (every kernel it launches), from
+  torch.profiler over ``calls`` calls after a warm-up."""
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    for _ in range(calls):
+      fn()
+    torch.cuda.synchronize()
+  return sum(r[1] for r in _kernel_rows(torch, prof)) / calls
+
+
+# (op, case, rows, K, N, dtype): the training shapes (B16 x S1024 rows:
+# fused QKV 768 -> 2304, its grouped width 1280, MLP up 768 -> 3072, down
+# 3072 -> 768), f32 at the parity phase's rows, and ragged rows into N 1280
+# plus ragged rows/K/N against the 128 x 128 x 32 tiles
+FUSED_CASES = (("ln_matmul", "qkv", 16384, 768, 2304, "bfloat16"),
+               ("ln_matmul", "qkv_gqa", 16384, 768, 1280, "bfloat16"),
+               ("ln_matmul", "up", 16384, 768, 3072, "bfloat16"),
+               ("ln_matmul", "qkv_f32", 512, 768, 2304, "float32"),
+               ("ln_matmul", "ragged33", 33, 768, 1280, "bfloat16"),
+               ("ln_matmul", "ragged_kn", 100, 776, 200, "bfloat16"),
+               ("gelu_matmul", "down", 16384, 3072, 768, "bfloat16"),
+               ("gelu_matmul", "down_f32", 512, 3072, 768, "float32"),
+               ("gelu_matmul", "ragged33", 33, 768, 1280, "bfloat16"),
+               ("gelu_matmul", "ragged_kn", 100, 776, 200, "bfloat16"))
+
+
+def _fused_calls(ops, torch, F, index):
+  """(kernel, plain version, yardstick) closures over case ``index``'s
+  inputs, made from a seed of their own."""
+  op, _, rows, k, n, dt = FUSED_CASES[index]
+  dtype = getattr(torch, dt)
+  g = torch.Generator(device="cuda").manual_seed(SEED + 8 + index)
+  x = (torch.randn(rows, k, device="cuda", generator=g) * 2 + 0.5).to(dtype)
+  W = (torch.randn(k, n, device="cuda", generator=g) / k ** 0.5).to(dtype)
+  if op == "ln_matmul":
+    w = torch.rand(k, device="cuda", generator=g) + 0.5
+    wl = w.to(dtype)
+    return (lambda: ops.ln_matmul(x, w, W),
+            lambda: ops.ln_matmul_reference(x, w, W),
+            lambda: F.layer_norm(x, (k,), wl, None, 1e-6) @ W)
+  return (lambda: ops.gelu_matmul(x, W),
+          lambda: ops.gelu_matmul_reference(x, W),
+          lambda: F.gelu(x, approximate="tanh") @ W)
+
+
+def check_fused_matmul(ops, torch, F):
+  """ln_matmul and gelu_matmul against their plain versions. The
+  yardstick is the unfused pair of PyTorch calls (``F.layer_norm`` or
+  ``F.gelu``, then ``torch.matmul``): no single library call computes the
+  fused function. Device times come later (:func:`fused_device_ms`)."""
+  rows_out, worst = [], 0.0
+  for i, (op, case, rows, k, n, dt) in enumerate(FUSED_CASES):
+    fn, plain, lib = _fused_calls(ops, torch, F, i)
+    got, want = fn(), plain()
+    torch.cuda.synchronize()
+    # bf16: outputs may round one ulp apart (f32 sums in another order);
+    # f32: summation order only. Both relative to the output's scale.
+    tol = 2e-2 if dt == "bfloat16" else 1e-5
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    if err > tol * scale:
+      raise AssertionError("%s %s: max abs err %.3g over %g x max |ref| %.3g"
+                           % (op, case, err, tol, scale))
+    worst = max(worst, err)
+    isz = got.element_size()
+    nbytes = (rows * k + k * n + rows * n) * isz + (k * 4 if op == "ln_matmul"
+                                                    else 0)
+    bound_b = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_o = 2.0 * rows * k * n / PEAK_FLOPS[dt] * 1e3
+    row = {"op": op, "case": case, "rows": rows, "K": k, "N": n, "dtype": dt,
+           "max_abs_err": err, "max_abs_ref": scale, "ms": time_ms(fn),
+           "plain_ms": time_ms(plain, runs=7 if rows > 1000 else 25),
+           "library_ms": time_ms(lib),
+           "library": ("F.layer_norm + torch.matmul" if op == "ln_matmul"
+                       else "F.gelu + torch.matmul") + " (two calls)",
+           "bound_ms": max(bound_b, bound_o),
+           "bound_by": "bytes" if bound_b >= bound_o else "operations"}
+    rows_out.append(row)
+    log("  %-11s %-9s %-8s rows=%-5d K=%-4d N=%-4d err=%.3g ms=%.4f "
+        "plain=%.4f lib(2 calls)=%.4f bound=%.5f"
+        % (op, case, dt, rows, k, n, err, row["ms"], row["plain_ms"],
+           row["library_ms"], row["bound_ms"]))
+    del fn, plain, lib, got, want
+  return rows_out, worst
+
+
+def fused_device_ms(ops, torch, F, rows_out):
+  """Each fused case's device time under torch.profiler, into its row of
+  :func:`check_fused_matmul`. Run after the serving phases: the
+  profiler's first session is left where the serving path had it, after
+  the timed serving run."""
+  for i, row in enumerate(rows_out):
+    fn = _fused_calls(ops, torch, F, i)[0]
+    row["device_ms"] = device_ms(torch, fn)
+    row["tflops"] = 2.0 * row["rows"] * row["K"] * row["N"] / \
+        row["device_ms"] / 1e9
+    log("  %-11s %-9s %-8s device=%.4f ms (%.1f TFLOP/s)"
+        % (row["op"], row["case"], row["dtype"], row["device_ms"],
+           row["tflops"]))
+    del fn
+
+
 # -- phases 4 and 5: the serving path ----------------------------------------
 
 MAIN_LENGTHS = (600, 517, 512, 470, 300, 260, 200, 150, 128, 97, 64, 45, 33,
@@ -463,6 +578,42 @@ def _kernel_rows(torch, prof):
   return sorted(rows, key=lambda r: -r[1])
 
 
+# (substring of a device symbol, the port kernel whose wrapper launches it);
+# the fused products share one template, told apart by its prologue
+_PORT_SYMBOLS = (("ln_matmul_stats_kernel", "ln_matmul"),
+                 ("flash_fwd_kernel", "flash_attention_fwd"),
+                 ("flash_bwd", "flash_attention_bwd"),
+                 ("layer_norm_fwd_kernel", "layer_norm"),
+                 ("layer_norm_bwd_kernel", "layer_norm_bwd"),
+                 ("layer_norm_dw_kernel", "layer_norm_bwd"))
+
+
+def _port_kernel(symbol):
+  if "prologue_gemm" in symbol:
+    gelu = "kGelu" in symbol or "Prologue)1" in symbol
+    return "gelu_matmul" if gelu else "ln_matmul"
+  return next((name for part, name in _PORT_SYMBOLS if part in symbol), None)
+
+
+def port_kernel_ms(rows):
+  """Device ms and kernel launches per port kernel, summed over every
+  symbol the profiler saw (not only the top rows)."""
+  out = {}
+  for key, ms, count in rows:
+    name = _port_kernel(key)
+    if name is not None:
+      slot = out.setdefault(name, {"device_ms": 0.0, "kernels": 0})
+      slot["device_ms"] += ms
+      slot["kernels"] += count
+  return out
+
+
+def _log_port_kernels(per):
+  for name, v in sorted(per.items()):
+    log("    port %-20s %9.3f ms device, %d kernel launches"
+        % (name, v["device_ms"], v["kernels"]))
+
+
 def profile_serving(torch, slots, model):
   """Where one decode dispatch (8 live slots, horizon 4) and one
   512-token prefill chunk spend their time: device-busy ms from
@@ -498,13 +649,15 @@ def profile_serving(torch, slots, model):
     out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy,
                  "kernel_launches": sum(r[2] for r in rows),
                  "top": [{"kernel": k[:90], "ms": ms, "count": n}
-                         for k, ms, n in rows[:8]]}
+                         for k, ms, n in rows[:8]],
+                 "port_kernels": port_kernel_ms(rows)}
     log("  %s: wall %.2f ms, device busy %.2f ms (idle %.0f%%), %d kernel "
         "launches" % (name, wall_ms, busy,
                       100.0 * (1 - busy / wall_ms) if wall_ms else 0.0,
                       out[name]["kernel_launches"]))
     for r in out[name]["top"]:
       log("    %8.3f ms x%-5d %s" % (r["ms"], r["count"], r["kernel"]))
+    _log_port_kernels(out[name]["port_kernels"])
   return out
 
 
@@ -541,13 +694,20 @@ def serve_parity_f32(torch, tfm, ServingEngine, params, cfg, device=None):
   return {"requests": len(prompts), "identical": exact, "near_ties": ties}
 
 
-# -- phases 6, 6b and 7: the training path -----------------------------------
+# -- phases 6, 6b, 6c and 7: the training path --------------------------------
 
 TRAIN_B, TRAIN_S = 16, 1024        # bench.py's batch x sequence
 GQA_B = 8
 WANT_PER_STEP = {"flash_attention_fwd": 24, "flash_attention_bwd": 12,
                  "layer_norm": 49, "layer_norm_bwd": 25,
-                 "flash_attention_bwd_gqa": 0}
+                 "flash_attention_bwd_gqa": 0, "ln_matmul": 0,
+                 "gelu_matmul": 0}
+# bench.py's b16_s1024_allfused / train_gpt.py --fused: ln1 + QKV and ln2 +
+# up as LN->matmul, GELU + down as GELU->matmul; only ln_f stays a LayerNorm
+ALL_FUSED = dict(fuse_qkv=True, ln_matmul_impl="fused",
+                 act_matmul_impl="fused")
+WANT_FUSED_PER_STEP = dict(WANT_PER_STEP, layer_norm=1, layer_norm_bwd=1,
+                           ln_matmul=48, gelu_matmul=24)
 
 
 def _synthetic_batch(batch, seq, vocab):
@@ -574,7 +734,7 @@ def _per_step_launches(launches, steps, want, what):
 
 def profile_train_step(torch, step, state, batch):
   """One optimizer step under torch.profiler: device-busy ms against the
-  host's wall clock, and the top kernels."""
+  host's wall clock, the top kernels and every port kernel's device ms."""
   from torch.profiler import ProfilerActivity, profile
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CPU,
@@ -588,16 +748,22 @@ def profile_train_step(torch, step, state, batch):
   res = {"wall_ms": wall_ms, "device_busy_ms": busy,
          "kernel_launches": sum(r[2] for r in rows),
          "top": [{"kernel": k[:90], "ms": ms, "count": n}
-                 for k, ms, n in rows[:12]]}
+                 for k, ms, n in rows[:12]],
+         "port_kernels": port_kernel_ms(rows)}
   log("  profiled step: wall %.2f ms, device busy %.2f ms (idle %.0f%%), %d "
       "kernel launches" % (wall_ms, busy, 100.0 * (1 - busy / wall_ms),
                            res["kernel_launches"]))
   for r in res["top"]:
     log("    %8.3f ms x%-5d %s" % (r["ms"], r["count"], r["kernel"]))
+  _log_port_kernels(res["port_kernels"])
   return state, float(loss), res
 
 
-def train_main_path(torch, ops, tfm, optim, sharding, Slab, params, cfg):
+def train_main_path(torch, ops, tfm, optim, sharding, Slab, params, cfg,
+                    want):
+  """Warm-up, 4 ``make_train_step`` steps, one ``make_train_loop(unroll=
+  4)`` slab and one profiled step of ``cfg`` at B16 x S1024, with exact
+  launch counts per step (``want``) on both paths."""
   import numpy as np
   state = tfm.create_state(cfg, params, tx=optim.make_optimizer(
       learning_rate=3e-4, clip_norm=1.0))
@@ -619,16 +785,14 @@ def train_main_path(torch, ops, tfm, optim, sharding, Slab, params, cfg):
     step_losses.append(loss)
   torch.cuda.synchronize()
   wall_step = time.monotonic() - t0
-  per_step = _per_step_launches(dict(ops.LAUNCHES), 4, WANT_PER_STEP,
-                                "per-step path")
+  per_step = _per_step_launches(dict(ops.LAUNCHES), 4, want, "per-step path")
   losses += [float(x) for x in step_losses]
   ops.reset_launches()
   t0 = time.monotonic()
   state, loop_losses = loop(state, Slab(np.stack([batch] * 4)))
   torch.cuda.synchronize()
   wall_loop = time.monotonic() - t0
-  per_loop = _per_step_launches(dict(ops.LAUNCHES), 4, WANT_PER_STEP,
-                                "fused loop")
+  per_loop = _per_step_launches(dict(ops.LAUNCHES), 4, want, "fused loop")
   losses += loop_losses.tolist()
   peak = torch.cuda.max_memory_allocated() / 2 ** 30
   if not all(math.isfinite(x) for x in losses):
@@ -652,16 +816,20 @@ def train_main_path(torch, ops, tfm, optim, sharding, Slab, params, cfg):
           res["fused_loop"]["ms_per_step"], res["fused_loop"]["tokens_per_s"],
           peak))
   log("  launches per step (both paths): %s" % per_step)
-  return res, per_step
+  return res
 
 
-def train_gqa(torch, ops, tfm, optim, sharding, init_params):
-  cfg = tfm.TransformerConfig(num_kv_heads=4)
+def train_gqa(torch, ops, tfm, optim, sharding, init_params, want, **kw):
+  """The grouped-KV configuration (``num_kv_heads=4``, plus ``kw``) at
+  B8 x S1024: one warm-up step, then 2 timed steps with exact launch
+  counts."""
+  cfg = tfm.TransformerConfig(num_kv_heads=4, **kw)
   state = tfm.create_state(cfg, init_params(cfg, seed=SEED),
                            tx=optim.make_optimizer(learning_rate=3e-4,
                                                    clip_norm=1.0))
   batch = _synthetic_batch(GQA_B, TRAIN_S, cfg.vocab_size)
   step = sharding.make_train_step(_lm_loss(tfm))
+  state, first = step(state, batch)                # warm-up
   torch.cuda.synchronize()
   ops.reset_launches()
   t0 = time.monotonic()
@@ -671,22 +839,24 @@ def train_gqa(torch, ops, tfm, optim, sharding, init_params):
     losses.append(loss)
   torch.cuda.synchronize()
   wall = time.monotonic() - t0
-  want = dict(WANT_PER_STEP, flash_attention_bwd=0, flash_attention_bwd_gqa=12)
+  want = dict(want, flash_attention_bwd=0, flash_attention_bwd_gqa=12)
   per = _per_step_launches(dict(ops.LAUNCHES), 2, want, "GQA training")
-  losses = [float(x) for x in losses]
+  losses = [float(first)] + [float(x) for x in losses]
   if not all(math.isfinite(x) for x in losses):
     raise AssertionError("non-finite GQA training loss: %s" % losses)
-  log("  GQA (Hk 4) B%d: losses %s, %.1f ms/step (first step included), "
+  log("  GQA (Hk 4) B%d: losses %s, %.1f ms/step (after a warm-up step), "
       "launches per step %s" % (GQA_B, losses, wall / 2 * 1e3, per))
   return {"batch": GQA_B, "losses": losses, "ms_per_step": wall / 2 * 1e3,
+          "tokens_per_s": GQA_B * TRAIN_S * 2 / wall,
           "launches_per_step": per}
 
 
-def train_parity_f32(torch, tfm, init_params):
-  """One step's loss and gradients of a 2-layer full-width f32 model on
-  a 2 x 256 batch: the card with the kernels against the CPU with the
-  plain versions, from the same weights (TF32 off)."""
-  cfg = tfm.TransformerConfig(dtype=torch.float32, num_layers=2)
+def train_parity_f32(torch, tfm, init_params, **kw):
+  """One step's loss and gradients of a 2-layer full-width f32 model
+  (``TransformerConfig(**kw)``) on a 2 x 256 batch: the card with the
+  kernels against the CPU with the plain versions, from the same weights
+  (TF32 off)."""
+  cfg = tfm.TransformerConfig(dtype=torch.float32, num_layers=2, **kw)
   params = init_params(cfg, seed=SEED)
   tokens = torch.from_numpy(_synthetic_batch(2, 256, cfg.vocab_size))
   out = {}
@@ -771,6 +941,7 @@ def main():
   fa_rows, fa_err = check_flash(ops, torch, F)
   lnb_rows, lnb_err = check_layer_norm_bwd(ops, torch, F)
   fab_rows, fab_err = check_flash_bwd(ops, torch, F)
+  fm_rows, fm_err = check_fused_matmul(ops, torch, F)
   torch.cuda.empty_cache()
 
   log("[4] main path: full-width ServingEngine, bf16")
@@ -794,65 +965,112 @@ def main():
 
   log("[6] main path: full-width training, bf16, B%d x S%d"
       % (TRAIN_B, TRAIN_S))
-  train_res, _ = train_main_path(torch, ops, tfm, optim, sharding, Slab,
-                                 params, cfg)
-  train_launches = {n: int(v * 4) for n, v in
-                    train_res["per_step"]["launches_per_step"].items()}
+  train_res = train_main_path(torch, ops, tfm, optim, sharding, Slab, params,
+                              cfg, WANT_PER_STEP)
   torch.cuda.empty_cache()
 
   log("[6b] grouped-KV training: num_kv_heads 4, full width and depth")
-  gqa_res = train_gqa(torch, ops, tfm, optim, sharding, init_params)
+  gqa_res = train_gqa(torch, ops, tfm, optim, sharding, init_params,
+                      WANT_PER_STEP)
+  torch.cuda.empty_cache()
+
+  log("[6c] all-fused training (fuse_qkv + ln_matmul + gelu_matmul), bf16, "
+      "B%d x S%d" % (TRAIN_B, TRAIN_S))
+  fcfg = tfm.TransformerConfig(**ALL_FUSED)
+  fused_res = train_main_path(torch, ops, tfm, optim, sharding, Slab,
+                              init_params(fcfg, seed=SEED), fcfg,
+                              WANT_FUSED_PER_STEP)
+  for path in ("per_step", "fused_loop"):
+    log("  %-10s unfused [6] %.1f ms/step %.0f tokens/s | all-fused %.1f "
+        "ms/step %.0f tokens/s" % (
+            path, train_res[path]["ms_per_step"],
+            train_res[path]["tokens_per_s"], fused_res[path]["ms_per_step"],
+            fused_res[path]["tokens_per_s"]))
+  log("  peak memory: unfused %.2f GiB, all-fused %.2f GiB"
+      % (train_res["peak_mem_gib"], fused_res["peak_mem_gib"]))
+  torch.cuda.empty_cache()
+  fgqa_res = train_gqa(torch, ops, tfm, optim, sharding, init_params,
+                       WANT_FUSED_PER_STEP, **ALL_FUSED)
+  torch.cuda.empty_cache()
+  log("  device time of phase 3's fused products (torch.profiler)")
+  fused_device_ms(ops, torch, F, fm_rows)
   torch.cuda.empty_cache()
 
   log("[7] parity: f32 training step, card kernels vs CPU plain versions")
   train_parity = train_parity_f32(torch, tfm, init_params)
+  fused_parity = train_parity_f32(torch, tfm, init_params, **ALL_FUSED)
 
   def pick(table, **kw):
     return next(r for r in table if all(r[k] == v for k, v in kw.items()))
 
-  def entry(name, source, replaces, launches, by_path, err, row):
-    return {"name": name, "route": "cuda",
-            "source": "tensorflowonspark_tpu_torch/csrc/" + source,
-            "replaces": "tensorflowonspark_tpu/ops/" + replaces,
-            "launches": launches, "launches_by_path": by_path,
-            "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"]}
+  def launches(res, steps, name):
+    return int(res["launches_per_step"][name] * steps)
+
+  def entry(name, source, replaces, by_path, err, row, **extra):
+    return dict({"name": name, "route": "cuda",
+                 "source": "tensorflowonspark_tpu_torch/csrc/" + source,
+                 "replaces": "tensorflowonspark_tpu/ops/" + replaces,
+                 "launches": max(by_path.values()),
+                 "launches_by_path": by_path,
+                 "max_abs_err": err, "ms": row["ms"],
+                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                 "bound_by": row["bound_by"],
+                 "library_ms": row["library_ms"]}, **extra)
 
   serve_l = main_res["launches"]
+  step_l = {n: int(v * 4) for n, v in
+            train_res["per_step"]["launches_per_step"].items()}
+  fused_l = {n: int(v * 4) for n, v in
+             fused_res["per_step"]["launches_per_step"].items()}
   kernels = [
       entry("flash_attention_fwd", "flash_attention.cu",
-            "flash_attention.py:124", serve_l["flash_attention_fwd"],
+            "flash_attention.py:124",
             {"serve": serve_l["flash_attention_fwd"],
-             "train_4_steps": train_launches["flash_attention_fwd"]},
+             "train_4_steps": step_l["flash_attention_fwd"],
+             "train_fused_4_steps": fused_l["flash_attention_fwd"]},
             fa_err, pick(fa_rows, case="s512")),
       entry("layer_norm", "layer_norm.cu", "layer_norm.py:33",
-            serve_l["layer_norm"],
             {"serve": serve_l["layer_norm"],
-             "train_4_steps": train_launches["layer_norm"]},
+             "train_4_steps": step_l["layer_norm"],
+             "train_fused_4_steps": fused_l["layer_norm"]},
             ln_err, pick(ln_rows, rows=512, dtype="bfloat16")),
       entry("flash_attention_bwd", "flash_attention_bwd.cu",
-            "flash_attention.py:232", train_launches["flash_attention_bwd"],
-            {"train_4_steps": train_launches["flash_attention_bwd"]},
+            "flash_attention.py:232",
+            {"train_4_steps": step_l["flash_attention_bwd"],
+             "train_fused_4_steps": fused_l["flash_attention_bwd"]},
             fab_err, pick(fab_rows, case="train")),
       entry("flash_attention_bwd_gqa", "flash_attention_bwd.cu",
             "flash_attention.py:332",
-            int(gqa_res["launches_per_step"]["flash_attention_bwd_gqa"] * 2),
-            {"train_gqa_2_steps": int(
-                gqa_res["launches_per_step"]["flash_attention_bwd_gqa"] * 2)},
+            {"train_gqa_2_steps": launches(gqa_res, 2,
+                                           "flash_attention_bwd_gqa"),
+             "train_fused_gqa_2_steps": launches(fgqa_res, 2,
+                                                 "flash_attention_bwd_gqa")},
             fab_err, pick(fab_rows, case="gqa_hk4")),
       entry("layer_norm_bwd", "layer_norm.cu", "layer_norm.py:40",
-            train_launches["layer_norm_bwd"],
-            {"train_4_steps": train_launches["layer_norm_bwd"]},
+            {"train_4_steps": step_l["layer_norm_bwd"],
+             "train_fused_4_steps": fused_l["layer_norm_bwd"]},
             lnb_err, pick(lnb_rows, rows=16384, dtype="bfloat16")),
+      entry("ln_matmul", "ln_matmul.cu", "ln_matmul.py:31",
+            {"train_fused_4_steps": fused_l["ln_matmul"],
+             "train_fused_gqa_2_steps": launches(fgqa_res, 2, "ln_matmul")},
+            fm_err, pick(fm_rows, op="ln_matmul", case="qkv"),
+            library="F.layer_norm + torch.matmul (two calls)"),
+      entry("gelu_matmul", "act_matmul.cu", "act_matmul.py:55",
+            {"train_fused_4_steps": fused_l["gelu_matmul"],
+             "train_fused_gqa_2_steps": launches(fgqa_res, 2, "gelu_matmul")},
+            fm_err, pick(fm_rows, op="gelu_matmul", case="down"),
+            library="F.gelu + torch.matmul (two calls)"),
   ]
   record = {"card": card, "torch": torch.__version__,
             "cuda": torch.version.cuda, "build_s": build_s,
             "layer_norm": ln_rows, "flash_attention": fa_rows,
             "layer_norm_bwd": lnb_rows, "flash_attention_bwd": fab_rows,
+            "fused_matmul": fm_rows,
             "main_path": main_res, "profile": prof_res,
             "parity_f32": parity, "train": train_res, "train_gqa": gqa_res,
+            "train_fused": fused_res, "train_fused_gqa": fgqa_res,
             "train_parity_f32": train_parity,
+            "train_fused_parity_f32": fused_parity,
             "total_s": time.monotonic() - t_start}
   out_dir = os.path.join(HERE, "chiprun_out")
   os.makedirs(out_dir, exist_ok=True)

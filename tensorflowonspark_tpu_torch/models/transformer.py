@@ -27,8 +27,9 @@ What differs from the flax model, by design of the port:
   is a returned pytree); one cursor serves every layer.
 * the hot ops go through ``tensorflowonspark_tpu_torch.ops``: on the card
   the hand-written LayerNorm and flash-attention kernels (forward and
-  backward), on the CPU their plain versions. There is no ``jit``;
-  PyTorch runs eagerly.
+  backward) and, with ``ln_matmul_impl`` / ``act_matmul_impl`` "fused",
+  the LN->matmul and GELU->matmul kernels; on the CPU their plain
+  versions. There is no ``jit``; PyTorch runs eagerly.
 
 Options outside this slice raise ``NotImplementedError`` naming the
 ROADMAP item that brings them.
@@ -142,10 +143,6 @@ class TransformerConfig:
          "Queue 1 item 10, multi-GPU parallelism"),
         (self.use_ring_attention, "use_ring_attention",
          "Queue 1 item 10, multi-GPU parallelism"),
-        (self.ln_matmul_impl == "fused", "ln_matmul_impl='fused'",
-         "Queue 2 row 9, the ln_matmul kernel"),
-        (self.act_matmul_impl == "fused", "act_matmul_impl='fused'",
-         "Queue 2 row 10, the gelu_matmul kernel"),
         (self.attention_impl == "dense", "attention_impl='dense'",
          "Queue 1 item 11, the kernels' opt-outs"),
         (self.layer_norm_impl == "flax", "layer_norm_impl='flax'",
@@ -283,12 +280,19 @@ class Attention(nn.Module):
       self.v = _param((dm, hk, d), cfg, device, trainable)
     self.out = _param((h, d, dm), cfg, device, trainable)
 
-  def _project(self, x):
+  def _project(self, x, ln_scale=None):
     cfg = self.cfg
     if cfg.fuse_qkv:
       h, hk = cfg.num_heads, cfg.kv_heads
-      qkv = _dense(x, self.qkv, cfg.dtype)
+      if ln_scale is not None:
+        w = self.qkv.to(cfg.dtype).reshape(cfg.d_model, -1)
+        qkv = ops.ln_matmul(x, ln_scale, w).reshape(
+            x.shape[:-1] + (h + 2 * hk, cfg.head_dim))
+      else:
+        qkv = _dense(x, self.qkv, cfg.dtype)
       return qkv[..., :h, :], qkv[..., h:h + hk, :], qkv[..., h + hk:, :]
+    if ln_scale is not None:
+      raise ValueError("ln-fused attention requires fuse_qkv")
     return (_dense(x, self.q, cfg.dtype), _dense(x, self.k, cfg.dtype),
             _dense(x, self.v, cfg.dtype))
 
@@ -299,10 +303,13 @@ class Attention(nn.Module):
     return o.to(dt).reshape(b, s, -1) @ w.reshape(-1, w.shape[-1])
 
   def forward(self, x, rope, cache: Optional[KVCache] = None,
-              layer: int = 0):
+              layer: int = 0, ln_scale: Optional[torch.Tensor] = None):
     """``x`` arrives normalized; ``rope`` holds the (cos, sin) tables of
-    its positions. With ``cache`` this is the decode path."""
-    q, k, v = self._project(x)
+    its positions. With ``cache`` this is the decode path. With
+    ``ln_scale`` (requires ``fuse_qkv``), ``x`` is the RAW residual
+    stream and ln1 + the QKV projection run as one kernel
+    (``ops.ln_matmul``)."""
+    q, k, v = self._project(x, ln_scale)
     q = _apply_rotary(q, rope)
     k = _apply_rotary(k, rope)
     if cache is not None:
@@ -389,24 +396,51 @@ class MLPBlock(nn.Module):
     self.up = _param((cfg.d_model, cfg.d_ff), cfg, device, trainable)
     self.down = _param((cfg.d_ff, cfg.d_model), cfg, device, trainable)
 
-  def forward(self, x):
-    h = F.gelu(_dense(x, self.up, self.dtype), approximate="tanh")
-    return _dense(h, self.down, self.dtype)
+  def forward(self, x, ln_scale: Optional[torch.Tensor] = None,
+              act_fused: bool = False):
+    """With ``ln_scale`` (the preceding LayerNorm's weight), ``x`` is the
+    RAW residual stream and the norm + up-projection run as one kernel
+    (``ops.ln_matmul``); without it ``x`` arrives normalized. With
+    ``act_fused``, GELU + the down-projection run as one kernel over the
+    pre-activation (``ops.gelu_matmul``)."""
+    if ln_scale is not None:
+      h = ops.ln_matmul(x, ln_scale, self.up.to(self.dtype))
+    else:
+      h = _dense(x, self.up, self.dtype)
+    if act_fused:
+      return ops.gelu_matmul(h, self.down.to(self.dtype))
+    return _dense(F.gelu(h, approximate="tanh"), self.down, self.dtype)
 
 
 class Block(nn.Module):
-  """Pre-LN block: x + attn(ln1(x)), then + mlp(ln2(x))."""
+  """Pre-LN block: x + attn(ln1(x)), then + mlp(ln2(x)).
+
+  Off the decode path (no cache), ``ln_matmul_impl="fused"`` runs ln2 +
+  the up-projection as one kernel, and ln1 + the QKV projection too when
+  ``fuse_qkv``; ``act_matmul_impl="fused"`` runs GELU + the
+  down-projection as one. The LayerNorm modules keep their ``scale``
+  either way (the parameter names do not change); only their forward is
+  skipped. The decode path never fuses, as in the reference."""
 
   def __init__(self, cfg: TransformerConfig, device, trainable: bool):
     super().__init__()
+    self.cfg = cfg
     self.ln1 = LayerNorm(cfg, device, trainable)
     self.attn = Attention(cfg, device, trainable)
     self.ln2 = LayerNorm(cfg, device, trainable)
     self.mlp = MLPBlock(cfg, device, trainable)
 
   def forward(self, x, rope, cache=None, layer=0):
-    x = x + self.attn(self.ln1(x), rope, cache, layer)
-    return x + self.mlp(self.ln2(x))
+    cfg = self.cfg
+    fuse_ln = cfg.ln_matmul_impl == "fused" and cache is None
+    if fuse_ln and cfg.fuse_qkv:
+      x = x + self.attn(x, rope, ln_scale=self.ln1.scale)
+    else:
+      x = x + self.attn(self.ln1(x), rope, cache, layer)
+    act_fused = cfg.act_matmul_impl == "fused" and cache is None
+    if fuse_ln:
+      return x + self.mlp(x, ln_scale=self.ln2.scale, act_fused=act_fused)
+    return x + self.mlp(self.ln2(x), act_fused=act_fused)
 
 
 class Transformer(nn.Module):

@@ -14,7 +14,10 @@ Each kernel keeps a plain-integer launch count in :data:`LAUNCHES`, bumped
 by its wrapper where it launches the kernel and nowhere else, so a run can
 show that its main path went through the kernels. The backward kernels
 count apart from the forward ones; the flash backward counts under
-``flash_attention_bwd`` (Hk == H) or ``flash_attention_bwd_gqa``.
+``flash_attention_bwd`` (Hk == H) or ``flash_attention_bwd_gqa``. The
+fused products ``ln_matmul`` and ``gelu_matmul`` count their forward
+kernels; their backwards are plain PyTorch, as the reference's are plain
+XLA.
 """
 
 from typing import Dict
@@ -25,7 +28,8 @@ import torch
 LAUNCHES: Dict[str, int] = {"layer_norm": 0, "layer_norm_bwd": 0,
                              "flash_attention_fwd": 0,
                              "flash_attention_bwd": 0,
-                             "flash_attention_bwd_gqa": 0}
+                             "flash_attention_bwd_gqa": 0,
+                             "ln_matmul": 0, "gelu_matmul": 0}
 
 
 def on_card(*tensors: torch.Tensor) -> bool:
@@ -59,9 +63,15 @@ from tensorflowonspark_tpu_torch.ops.flash_attention import (  # noqa: E402
 from tensorflowonspark_tpu_torch.ops.layer_norm import (  # noqa: E402
     layer_norm, layer_norm_bwd, layer_norm_bwd_reference,
     layer_norm_reference)
+from tensorflowonspark_tpu_torch.ops.ln_matmul import (  # noqa: E402
+    ln_matmul, ln_matmul_bwd, ln_matmul_reference)
+from tensorflowonspark_tpu_torch.ops.act_matmul import (  # noqa: E402
+    gelu_matmul, gelu_matmul_bwd, gelu_matmul_reference)
 
 __all__ = ["LAUNCHES", "on_card", "count_launch", "reset_launches",
            "flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_reference", "flash_attention_bwd_reference",
            "layer_norm", "layer_norm_bwd", "layer_norm_reference",
-           "layer_norm_bwd_reference"]
+           "layer_norm_bwd_reference", "ln_matmul", "ln_matmul_bwd",
+           "ln_matmul_reference", "gelu_matmul", "gelu_matmul_bwd",
+           "gelu_matmul_reference"]

@@ -5,9 +5,10 @@ is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library with
 a plain C interface, loaded with :mod:`ctypes`. Libraries land in
 ``build/torch_kernels/`` at the root of the checkout, named
 ``lib<kernel>.<digest>.so`` where the digest hashes the kernel's source,
-the shared header and the compiler flags — an edited source builds anew,
-an unchanged one loads what is there. Nothing here runs at import: the
-first wrapper call on a CUDA tensor builds (or loads) its kernel.
+every shared header (``csrc/*.cuh``) and the compiler flags — an edited
+source or header builds anew, an unchanged one loads what is there.
+Nothing here runs at import: the first wrapper call on a CUDA tensor
+builds (or loads) its kernel.
 
 There is no fallback. A missing ``nvcc``, a failed compile or a failed
 load raises, and the wrapper that asked raises with it.
@@ -27,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("flash_attention", "flash_attention_bwd", "layer_norm")
+KERNELS = ("flash_attention", "flash_attention_bwd", "layer_norm",
+           "ln_matmul", "act_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 #: the C interface's dtype codes (csrc/common.cuh)
@@ -60,7 +62,8 @@ def _source(name: str) -> Path:
 def library_path(name: str) -> Path:
   """Where ``name``'s library lives for the current sources and flags."""
   h = hashlib.sha256()
-  for part in (_source(name), CSRC / "common.cuh"):
+  for part in (_source(name), *sorted(CSRC.glob("*.cuh"))):
+    h.update(part.name.encode())
     h.update(part.read_bytes())
   h.update(" ".join(NVCC_FLAGS).encode())
   return BUILD_DIR / ("lib%s.%s.so" % (name, h.hexdigest()[:16]))

@@ -62,6 +62,13 @@ def test_running_the_port_loads_no_jax_module():
           lambda m, t: tfm.causal_lm_loss(m(t), t, z_loss=1e-4))
       state, loss = step(state, np.arange(16).reshape(2, 8) % 32)
       assert state.step == 1 and bool(torch.isfinite(loss)), loss
+      # and one through the fused LN->matmul / GELU->matmul ops
+      import dataclasses
+      fused = dataclasses.replace(cfg, fuse_qkv=True, ln_matmul_impl="fused",
+                                  act_matmul_impl="fused")
+      state = tfm.create_state(fused, 0, device="cpu")
+      state, loss = step(state, np.arange(16).reshape(2, 8) % 32)
+      assert bool(torch.isfinite(loss)), loss
       loaded = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
                       or m.startswith("tensorflowonspark_tpu."))

@@ -158,3 +158,71 @@ def test_flash_bwd_kernel_head_dim_128_on_card(card):
   want = ops.flash_attention_bwd_reference(q, k, v, out, lse, go)
   for a, b in zip(got, want):
     torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+
+
+# (rows, K, N, dtype, tol): the fused-QKV width 2304, ragged rows into the
+# grouped width 1280, ragged rows/K/N against the 128 x 128 x 32 tiles
+FUSED_CASES = [(512, 768, 2304, torch.bfloat16, 2e-2),
+               (33, 768, 1280, torch.bfloat16, 2e-2),
+               (100, 776, 200, torch.bfloat16, 2e-2),
+               (512, 768, 2304, torch.float32, 1e-5),
+               (33, 776, 200, torch.float32, 1e-5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,k,n,dtype,tol", FUSED_CASES)
+@pytest.mark.parametrize("op", ["ln_matmul", "gelu_matmul"])
+def test_fused_matmul_kernels_match_plain_on_card(card, op, rows, k, n, dtype,
+                                                  tol):
+  # bf16: outputs may round one ulp apart (the f32 sums run in another
+  # order); f32: summation order only, relative to the output's scale
+  g = torch.Generator(device=card).manual_seed(4)
+  x = (torch.randn(rows, k, device=card, generator=g) * 2 + 0.5).to(dtype)
+  W = (torch.randn(k, n, device=card, generator=g) / k ** 0.5).to(dtype)
+  ops.reset_launches()
+  if op == "ln_matmul":
+    w = torch.rand(k, device=card, generator=g) + 0.5
+    got, want = ops.ln_matmul(x, w, W), ops.ln_matmul_reference(x, w, W)
+  else:
+    got, want = ops.gelu_matmul(x, W), ops.gelu_matmul_reference(x, W)
+  assert ops.LAUNCHES[op] == 1 and got.dtype == dtype
+  scale = want.float().abs().max().item()
+  torch.testing.assert_close(got.float(), want.float(), atol=tol * scale,
+                             rtol=tol)
+
+
+@pytest.mark.cuda
+def test_fused_kernels_refuse_what_they_do_not_take(card):
+  x = torch.randn(4, 20, device=card)
+  with pytest.raises(ValueError, match="multiples of 8"):
+    ops.gelu_matmul(x, torch.randn(20, 16, device=card))
+  with pytest.raises(TypeError, match="both bf16 or both f32"):
+    ops.gelu_matmul(x[:, :16], torch.randn(16, 8, device=card).bfloat16())
+  with pytest.raises(TypeError, match="w_ln must be f32"):
+    ops.ln_matmul(x[:, :16], torch.ones(16, device=card).double(),
+                  torch.randn(16, 8, device=card))
+
+
+@pytest.mark.cuda
+def test_all_fused_gradients_on_card_equal_cpu(card):
+  torch.backends.cuda.matmul.allow_tf32 = False
+  cfg = tfm.TransformerConfig(vocab_size=256, num_layers=2, num_heads=2,
+                              d_model=128, d_ff=256, max_seq_len=256,
+                              dtype=torch.float32, fuse_qkv=True,
+                              ln_matmul_impl="fused", act_matmul_impl="fused")
+  params = init_params(cfg, seed=0)
+  tokens = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 64)))
+  out = {}
+  ops.reset_launches()
+  for where in ("cuda", "cpu"):
+    model = tfm.Transformer(cfg, params, device=where, trainable=True)
+    loss = tfm.causal_lm_loss(model(tokens), tokens.to(model.device))
+    names, weights = zip(*model.named_parameters())
+    out[where] = (loss.item(), [g.cpu() for g in
+                                torch.autograd.grad(loss, weights)])
+  # forward + remat recompute: two per fused product per layer
+  assert ops.LAUNCHES["ln_matmul"] == 8 and ops.LAUNCHES["gelu_matmul"] == 4
+  assert ops.LAUNCHES["layer_norm"] == 1
+  assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+  for name, a, b in zip(names, out["cuda"][1], out["cpu"][1]):
+    assert (a - b).abs().max() <= 1e-3 * b.abs().max(), name

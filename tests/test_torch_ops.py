@@ -100,9 +100,13 @@ def test_cpu_calls_run_plain_versions_and_count_nothing():
   ops.flash_attention(q, q, q).sum().backward()
   out, lse = ops.flash_attention_fwd(q, q[:, :, :1], q[:, :, :1], 3, 0)
   (out.sum() + lse.sum()).backward()
+  w = torch.randn(64, 32, requires_grad=True)
+  h = ops.ln_matmul(x, torch.ones(64, requires_grad=True), w)
+  ops.gelu_matmul(h, torch.randn(32, 16)).sum().backward()
   assert ops.LAUNCHES == {"layer_norm": 0, "layer_norm_bwd": 0,
                           "flash_attention_fwd": 0, "flash_attention_bwd": 0,
-                          "flash_attention_bwd_gqa": 0}
+                          "flash_attention_bwd_gqa": 0, "ln_matmul": 0,
+                          "gelu_matmul": 0}
 
 
 def test_wrappers_refuse_gradients_and_bad_inputs(monkeypatch):

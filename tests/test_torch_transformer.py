@@ -128,8 +128,6 @@ def test_config_validation_matches_jax(case):
     dict(kv_page_size=4, kv_num_pages=8, kv_pages_per_slot=2),
     dict(moe_experts=2),
     dict(use_ring_attention=True),
-    dict(ln_matmul_impl="fused"),
-    dict(act_matmul_impl="fused"),
     dict(attention_impl="dense"),
     dict(layer_norm_impl="flax"),
 ], ids=lambda kw: next(iter(kw)))

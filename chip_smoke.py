@@ -46,19 +46,40 @@ failure:
    runs like 6 with exactly 48 LN->matmul, 24 GELU->matmul, 24 flash
    forwards, 12 flash backwards and one LayerNorm forward and backward
    per step, beside 6's numbers; then its grouped-KV variant like 6b;
+   [6b] also profiles one grouped step (the grouped flash backward's
+   device time in a step);
+   (6d) long-context grouped-KV training through the port's
+   ``examples/train_gpt.py``: a handful of seeded TFRecord files of token
+   rows are written with the port's writer under ``build/``, then the
+   flagship with ``num_kv_heads=4`` at B1 x S16384 reads them through the
+   FILES-mode pipeline and ``device_prefetch`` — a warm-up and 2 timed
+   steps with exactly 24 flash forwards, 12 split dQ and 12 grouped split
+   dK/dV backwards (the reference's plan rule sends this length to the
+   split plan), no fused flash backward, 49 LayerNorm forwards and 25
+   backwards per step, then one profiled step; (6e) the flagship MHA at
+   B16 x S1024 like 6 under ``TFOS_TPU_FLASH_BWD=split`` (12 dQ + 12 dK/dV
+   per step, no fused backward), beside 6's fused plan;
 7. training parity: one f32 step (TF32 off) of a 2-layer full-width model
-   on 2 x 256 tokens, unfused and all-fused, on the card with the kernels
-   and on the CPU with the plain versions: the loss to 1e-4 relative,
-   every gradient within 1e-3 of its largest magnitude.
+   on 2 x 256 tokens, unfused and all-fused, and under the split plan MHA
+   and grouped-KV, on the card with the kernels and on the CPU with the
+   plain versions: the loss to 1e-4 relative, every gradient within 1e-3
+   of its largest magnitude.
+
+Phase 3 also holds the split backward's dQ and dK/dV kernels against
+their plain versions (each twice, bitwise) at 6's cases, a long grouped
+window and the long-context shape B1 x S16384, where they are also held
+against the fused kernel and timed beside it.
 
 The last two lines of output are JSON: ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. A copy of the measurements goes to
 ``chiprun_out/chip_smoke.json``.
 """
 
+import contextlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -378,6 +399,129 @@ def check_flash_bwd(ops, torch, F):
   return rows_out, worst
 
 
+def check_flash_bwd_split(ops, torch, F):
+  """The split backward's dQ and dK/dV kernels against their plain
+  versions, twice each (bitwise), and against the fused kernel, with
+  times. Returns one row per (case, kernel)."""
+  fa = sys.modules["tensorflowonspark_tpu_torch.ops.flash_attention"]
+  rows_out, worst = [], {"dq": 0.0, "dkv": 0.0}
+  g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+  bf, f32 = torch.bfloat16, torch.float32
+  # check_flash_bwd's cases, a long grouped window (the reference's own
+  # gate case, tools/mosaic_gate.py:159) and the long-context training
+  # shape, where the reference's plan rule takes the split plan
+  cases = [("train", 16, 1024, 1024, 12, 12, 64, 0, 0, None, False, bf),
+           ("gqa_hk4", 8, 1024, 1024, 12, 4, 64, 0, 0, None, False, bf),
+           ("window128", 4, 1024, 1024, 12, 12, 64, 0, 0, 128, False, bf),
+           ("offset_lse", 2, 512, 1024, 12, 4, 64, 512, 0, None, True, bf),
+           ("kv_ahead", 2, 256, 256, 12, 12, 64, 0, 64, None, True, bf),
+           ("d128", 2, 512, 512, 6, 6, 128, 0, 0, None, False, bf),
+           ("train_f32", 4, 1024, 1024, 12, 12, 64, 0, 0, None, False, f32),
+           ("gqa_long_window", 1, 4096, 4096, 12, 4, 64, 0, 0, 1024, False,
+            bf),
+           ("long", LONG_B, LONG_S, LONG_S, 12, 4, 64, 0, 0, None, False, bf)]
+  for name, b, sq, sk, h, hk, d, qb, kb, win, with_lse, dtype in cases:
+    long = name == "long"
+    mk = lambda *shape: torch.randn(*shape, device="cuda",  # noqa: E731
+                                    generator=g).to(dtype)
+    q, k, v = mk(b, sq, h, d), mk(b, sk, hk, d), mk(b, sk, hk, d)
+    go = mk(b, sq, h, d)
+    out, lse = ops.flash_attention_fwd(q, k, v, qb, kb, True, win)
+    gl = None
+    if with_lse:
+      gl = torch.randn(b, h, sq, device="cuda", generator=g)
+      gl = torch.where(lse <= -1e29, 0.0, gl)
+    args = (q, k, v, out, lse, go, gl, qb, kb, True, win)
+    got = ops.flash_attention_bwd(*args, bwd="split")
+    again = ops.flash_attention_bwd(*args, bwd="split")
+    fused = fa._fused_bwd(*args)
+    delta = fa._bwd_delta(out, go, gl)
+    plain_dq = ops.flash_attention_bwd_dq_reference(q, k, v, go, lse, delta,
+                                                    qb, kb, True, win)
+    plain_dkv = ops.flash_attention_bwd_dkv_reference(q, k, v, go, lse,
+                                                      delta, qb, kb, True, win)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, r) for a, r in zip(got, again)):
+      raise AssertionError("flash_bwd_split %s: two runs differ" % name)
+    # bf16: outputs round to bf16 (2^-8 relative); f32: sums over up to
+    # 16384 rows or keys in another order
+    tol = 1e-2 if dtype == bf else 1e-4
+    err = {"dq": _rel_check("flash_bwd_split %s dq" % name, got[0],
+                            plain_dq, tol),
+           "dkv": max(_rel_check("flash_bwd_split %s d%s" % (name, t), a, r,
+                                 tol)
+                      for t, a, r in zip("kv", got[1:], plain_dkv))}
+    fused_err = max(_rel_check("flash_bwd_split %s d%s vs fused" % (name, t),
+                               a, r, tol)
+                    for t, a, r in zip("qkv", got, fused))
+    if name == "kv_ahead" and not (got[0][:, :kb - qb] == 0).all():
+      raise AssertionError("flash_bwd_split kv_ahead: rows with no visible "
+                           "key must get dq 0")
+    for kern in err:
+      worst[kern] = max(worst[kern], err[kern])
+    dt = "bfloat16" if dtype == bf else "float32"
+    pairs = b * h * _visible_pairs(sq, sk, qb, kb, win)
+    isz = q.element_size()
+    # each kernel reads q, dO, k, v once and lse, Delta (f32) once
+    read = (2 * q.numel() + 2 * k.numel()) * isz + 2 * lse.numel() * 4
+    written = {"dq": q.numel() * isz, "dkv": 2 * k.numel() * isz}
+    flops = {"dq": 6.0 * pairs * d, "dkv": 8.0 * pairs * d}
+    runs, inner, plain_runs = (3, 1, 1) if long else (7, 3, 3)
+    lib = None
+    if qb == 0 and kb == 0 and win is None and sq == sk:
+      # SDPA's backward computes (dQ, dK, dV) together, K/V expanded
+      qt = q.transpose(1, 2).detach().requires_grad_()
+      kt, vt = (t.repeat_interleave(h // hk, dim=2).transpose(1, 2)
+                .detach().requires_grad_() for t in (k, v))
+      ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+      gt = go.transpose(1, 2)
+      lib = time_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), gt,
+                                                retain_graph=True),
+                    runs=runs, inner=inner)
+      del qt, kt, vt, ot, gt
+    ms = {"dq": time_ms(lambda: ops.flash_attention_bwd_dq(
+              q, k, v, go, lse, delta, qb, kb, True, win), runs=runs,
+                        inner=inner),
+          "dkv": time_ms(lambda: ops.flash_attention_bwd_dkv(
+              q, k, v, go, lse, delta, qb, kb, True, win), runs=runs,
+                         inner=inner)}
+    plain_ms = {"dq": time_ms(lambda: ops.flash_attention_bwd_dq_reference(
+                    q, k, v, go, lse, delta, qb, kb, True, win),
+                              runs=plain_runs, inner=1),
+                "dkv": time_ms(lambda: ops.flash_attention_bwd_dkv_reference(
+                    q, k, v, go, lse, delta, qb, kb, True, win),
+                               runs=plain_runs, inner=1)}
+    # the fused kernel on the same inputs (one CTA per query head: ~0.5 s
+    # a call at the long shape, so few repeats there)
+    fused_ms = time_ms(lambda: fa._fused_bwd(*args), runs=2 if long else runs,
+                       inner=1 if long else inner)
+    for kern in ("dq", "dkv"):
+      bound_b = (read + written[kern]) / HBM_BYTES_PER_S * 1e3
+      bound_o = flops[kern] / PEAK_FLOPS[dt] * 1e3
+      rows_out.append({
+          "case": name, "kernel": kern, "B": b, "Sq": sq, "Sk": sk, "H": h,
+          "Hk": hk, "D": d, "q_base": qb, "kv_base": kb, "window": win,
+          "lse_cotangent": with_lse, "dtype": dt, "max_abs_err": err[kern],
+          "vs_fused_max_rel_err": fused_err, "ms": ms[kern],
+          "plain_ms": plain_ms[kern], "bound_ms": max(bound_b, bound_o),
+          "bound_by": "bytes" if bound_b >= bound_o else "operations",
+          "library_ms": None, "library_whole_bwd_ms": lib,
+          "library": "none computes %s alone; SDPA's backward computes "
+                     "(dQ, dK, dV) together (library_whole_bwd_ms, beside "
+                     "split_pair_ms)" % ("dQ" if kern == "dq" else "dK/dV"),
+          "split_pair_ms": ms["dq"] + ms["dkv"], "fused_ms": fused_ms})
+    log("  flash_bwd_split %-15s B=%-2d Sq=%-5d H=%-2d Hk=%-2d D=%-3d err "
+        "dq %.3g dkv %.3g (vs fused %.3g) ms dq %.4f dkv %.4f = %.4f, fused "
+        "%.4f, plain %.3f+%.3f, SDPA bwd %s, bound %.5f+%.5f deterministic"
+        % (name, b, sq, h, hk, d, err["dq"], err["dkv"], fused_err, ms["dq"],
+           ms["dkv"], ms["dq"] + ms["dkv"], fused_ms, plain_ms["dq"],
+           plain_ms["dkv"], "-" if lib is None else "%.4f" % lib,
+           rows_out[-2]["bound_ms"], rows_out[-1]["bound_ms"]))
+    del q, k, v, go, out, lse, got, again, fused, delta, plain_dq, plain_dkv
+    torch.cuda.empty_cache()
+  return rows_out, worst
+
+
 def device_ms(torch, fn, calls=5):
   """Device time per call of ``fn`` (every kernel it launches), from
   torch.profiler over ``calls`` calls after a warm-up."""
@@ -579,9 +723,15 @@ def _kernel_rows(torch, prof):
 
 
 # (substring of a device symbol, the port kernel whose wrapper launches it);
-# the fused products share one template, told apart by its prologue
+# the fused products share one template, told apart by its prologue. The
+# Delta pre-pass (both backward plans) counts apart; the fused backward's
+# kernels count as flash_attention_bwd in MHA and grouped steps alike
 _PORT_SYMBOLS = (("ln_matmul_stats_kernel", "ln_matmul"),
                  ("flash_fwd_kernel", "flash_attention_fwd"),
+                 ("flash_bwd_dq_kernel", "flash_attention_bwd_dq"),
+                 ("flash_bwd_dkv_kernel", "flash_attention_bwd_dkv"),
+                 ("flash_bwd_dkv_gqa_kernel", "flash_attention_bwd_dkv_gqa"),
+                 ("flash_bwd_delta_kernel", "flash_attention_bwd_delta"),
                  ("flash_bwd", "flash_attention_bwd"),
                  ("layer_norm_fwd_kernel", "layer_norm"),
                  ("layer_norm_bwd_kernel", "layer_norm_bwd"),
@@ -700,8 +850,23 @@ TRAIN_B, TRAIN_S = 16, 1024        # bench.py's batch x sequence
 GQA_B = 8
 WANT_PER_STEP = {"flash_attention_fwd": 24, "flash_attention_bwd": 12,
                  "layer_norm": 49, "layer_norm_bwd": 25,
-                 "flash_attention_bwd_gqa": 0, "ln_matmul": 0,
+                 "flash_attention_bwd_gqa": 0, "flash_attention_bwd_dq": 0,
+                 "flash_attention_bwd_dkv": 0,
+                 "flash_attention_bwd_dkv_gqa": 0, "ln_matmul": 0,
                  "gelu_matmul": 0}
+# TFOS_TPU_FLASH_BWD=split: the dQ and dK/dV kernels replace the fused one
+WANT_SPLIT_PER_STEP = dict(WANT_PER_STEP, flash_attention_bwd=0,
+                           flash_attention_bwd_dq=12,
+                           flash_attention_bwd_dkv=12)
+# the long-context grouped-KV slice (train_gpt.py --kv_heads 4 --seq_len
+# 16384 --batch 1): the reference's plan rule takes the split plan there
+LONG_B, LONG_S = 1, 16384
+LONG_ARGS = ["--layers", "12", "--d_model", "768", "--heads", "12",
+             "--kv_heads", "4", "--seq_len", str(LONG_S), "--vocab", "32000",
+             "--batch", str(LONG_B)]
+WANT_LONG_PER_STEP = dict(WANT_PER_STEP, flash_attention_bwd=0,
+                          flash_attention_bwd_dq=12,
+                          flash_attention_bwd_dkv_gqa=12)
 # bench.py's b16_s1024_allfused / train_gpt.py --fused: ln1 + QKV and ln2 +
 # up as LN->matmul, GELU + down as GELU->matmul; only ln_f stays a LayerNorm
 ALL_FUSED = dict(fuse_qkv=True, ln_matmul_impl="fused",
@@ -822,7 +987,8 @@ def train_main_path(torch, ops, tfm, optim, sharding, Slab, params, cfg,
 def train_gqa(torch, ops, tfm, optim, sharding, init_params, want, **kw):
   """The grouped-KV configuration (``num_kv_heads=4``, plus ``kw``) at
   B8 x S1024: one warm-up step, then 2 timed steps with exact launch
-  counts."""
+  counts, then one profiled step (the grouped fused backward's device
+  time: its kernels are the only flash backward there)."""
   cfg = tfm.TransformerConfig(num_kv_heads=4, **kw)
   state = tfm.create_state(cfg, init_params(cfg, seed=SEED),
                            tx=optim.make_optimizer(learning_rate=3e-4,
@@ -846,9 +1012,101 @@ def train_gqa(torch, ops, tfm, optim, sharding, init_params, want, **kw):
     raise AssertionError("non-finite GQA training loss: %s" % losses)
   log("  GQA (Hk 4) B%d: losses %s, %.1f ms/step (after a warm-up step), "
       "launches per step %s" % (GQA_B, losses, wall / 2 * 1e3, per))
-  return {"batch": GQA_B, "losses": losses, "ms_per_step": wall / 2 * 1e3,
+  state, prof_loss, prof = profile_train_step(torch, step, state, batch)
+  kernels = prof["port_kernels"]
+  if "flash_attention_bwd" in kernels:
+    kernels["flash_attention_bwd_gqa"] = kernels.pop("flash_attention_bwd")
+  return {"batch": GQA_B, "losses": losses + [prof_loss],
+          "ms_per_step": wall / 2 * 1e3,
           "tokens_per_s": GQA_B * TRAIN_S * 2 / wall,
-          "launches_per_step": per}
+          "launches_per_step": per, "profile": prof}
+
+
+@contextlib.contextmanager
+def flash_bwd_env(mode):
+  """``TFOS_TPU_FLASH_BWD`` set to ``mode`` inside the block, as the
+  reference's executors read it (``scripts/submit_train.sh``)."""
+  before = os.environ.get("TFOS_TPU_FLASH_BWD")
+  os.environ["TFOS_TPU_FLASH_BWD"] = mode
+  try:
+    yield
+  finally:
+    if before is None:
+      os.environ.pop("TFOS_TPU_FLASH_BWD", None)
+    else:
+      os.environ["TFOS_TPU_FLASH_BWD"] = before
+
+
+def write_token_files(directory, vocab, seq, files=4, rows=4):
+  """``files`` TFRecord files of ``rows`` seeded token rows each (schema
+  ``struct<tokens:array<long>>``, lengths ``seq`` down to ``seq - 60``,
+  so the collate pads some), written with the port's writer into a fresh
+  ``directory``. Returns the glob pattern."""
+  import numpy as np
+  from tensorflowonspark_tpu_torch.data import example_codec, tfrecord
+  shutil.rmtree(directory, ignore_errors=True)
+  os.makedirs(directory)
+  rng = np.random.default_rng(SEED + 9)
+  for f in range(files):
+    with tfrecord.TFRecordWriter(
+        os.path.join(directory, "part-%05d.tfrecord" % f)) as w:
+      for _ in range(rows):
+        n = seq - int(rng.integers(0, 61))
+        w.write(example_codec.encode_example(
+            {"tokens": rng.integers(0, vocab, n).tolist()}))
+  return os.path.join(directory, "part-*.tfrecord")
+
+
+def train_long_gqa(torch, ops, sharding, readers, train_gpt):
+  """Long-context grouped-KV training through the port's train_gpt: its
+  config, state, loss and TFRecord batch stream, one batch staged ahead by
+  ``device_prefetch``; a warm-up step, 2 timed steps with exact launch
+  counts, then one profiled step."""
+  t0 = time.monotonic()
+  pattern = write_token_files(os.path.join(HERE, "build", "chip_smoke_tokens"),
+                              32000, LONG_S)
+  write_s = time.monotonic() - t0
+  args = train_gpt.parse_args(LONG_ARGS + ["--data", pattern, "--steps", "4"])
+  cfg = train_gpt.make_config(args)
+  state = train_gpt.make_state(args, cfg)
+  step = sharding.make_train_step(train_gpt.make_loss_fn(args))
+  t0 = time.monotonic()
+  batches = readers.device_prefetch(train_gpt.batch_stream(args), size=2)
+  state, first = step(state, next(batches))          # warm-up
+  torch.cuda.synchronize()
+  warm_s = time.monotonic() - t0
+  torch.cuda.reset_peak_memory_stats()
+  ops.reset_launches()
+  t0 = time.monotonic()
+  losses = []
+  for _ in range(2):
+    state, loss = step(state, next(batches))
+    losses.append(loss)
+  torch.cuda.synchronize()
+  wall = time.monotonic() - t0
+  per = _per_step_launches(dict(ops.LAUNCHES), 2, WANT_LONG_PER_STEP,
+                           "long-context GQA training")
+  peak = torch.cuda.max_memory_allocated() / 2 ** 30
+  state, prof_loss, prof = profile_train_step(torch, step, state,
+                                              next(batches))
+  losses = [float(first)] + [float(x) for x in losses] + [prof_loss]
+  if not all(math.isfinite(x) for x in losses):
+    raise AssertionError("non-finite long-context training loss: %s"
+                         % losses)
+  tokens = LONG_B * LONG_S * 2
+  res = {"batch": LONG_B, "seq": LONG_S, "num_kv_heads": cfg.num_kv_heads,
+         "data": pattern, "write_s": write_s,
+         "first_step_s_with_data": warm_s, "losses": losses,
+         "ms_per_step": wall / 2 * 1e3, "tokens_per_s": tokens / wall,
+         "launches_per_step": per, "peak_mem_gib": peak, "profile": prof}
+  log("  TFRecords written in %.1f s; warm-up step (reader start included) "
+      "%.1f s; losses %s" % (write_s, warm_s,
+                             " ".join("%.4f" % x for x in losses)))
+  log("  B%d x S%d Hk %d: %.1f ms/step, %.0f tokens/s, peak memory %.2f GiB, "
+      "launches per step %s" % (LONG_B, LONG_S, cfg.num_kv_heads,
+                                res["ms_per_step"], res["tokens_per_s"],
+                                peak, per))
+  return res
 
 
 def train_parity_f32(torch, tfm, init_params, **kw):
@@ -905,7 +1163,9 @@ def main():
   sys.path.insert(0, HERE)
   try:
     from tensorflowonspark_tpu_torch import ops, optim
+    from tensorflowonspark_tpu_torch.data import readers
     from tensorflowonspark_tpu_torch.data.readers import Slab
+    from tensorflowonspark_tpu_torch.examples import train_gpt
     from tensorflowonspark_tpu_torch.models import transformer as tfm
     from tensorflowonspark_tpu_torch.ops import _build
     from tensorflowonspark_tpu_torch.parallel import sharding
@@ -941,6 +1201,7 @@ def main():
   fa_rows, fa_err = check_flash(ops, torch, F)
   lnb_rows, lnb_err = check_layer_norm_bwd(ops, torch, F)
   fab_rows, fab_err = check_flash_bwd(ops, torch, F)
+  split_rows, split_err = check_flash_bwd_split(ops, torch, F)
   fm_rows, fm_err = check_fused_matmul(ops, torch, F)
   torch.cuda.empty_cache()
 
@@ -996,9 +1257,29 @@ def main():
   fused_device_ms(ops, torch, F, fm_rows)
   torch.cuda.empty_cache()
 
+  log("[6d] long-context grouped-KV training from TFRecords: train_gpt "
+      "--kv_heads 4 --seq_len %d --batch %d, bf16" % (LONG_S, LONG_B))
+  long_res = train_long_gqa(torch, ops, sharding, readers, train_gpt)
+  torch.cuda.empty_cache()
+
+  log("[6e] the flagship MHA under TFOS_TPU_FLASH_BWD=split, B%d x S%d"
+      % (TRAIN_B, TRAIN_S))
+  with flash_bwd_env("split"):
+    split_res = train_main_path(torch, ops, tfm, optim, sharding, Slab,
+                                params, cfg, WANT_SPLIT_PER_STEP)
+  for path in ("per_step", "fused_loop"):
+    log("  %-10s fused plan [6] %.1f ms/step | split plan %.1f ms/step"
+        % (path, train_res[path]["ms_per_step"],
+           split_res[path]["ms_per_step"]))
+  torch.cuda.empty_cache()
+
   log("[7] parity: f32 training step, card kernels vs CPU plain versions")
   train_parity = train_parity_f32(torch, tfm, init_params)
   fused_parity = train_parity_f32(torch, tfm, init_params, **ALL_FUSED)
+  with flash_bwd_env("split"):
+    split_parity = train_parity_f32(torch, tfm, init_params)
+    split_gqa_parity = train_parity_f32(torch, tfm, init_params,
+                                        num_kv_heads=4)
 
   def pick(table, **kw):
     return next(r for r in table if all(r[k] == v for k, v in kw.items()))
@@ -1022,6 +1303,8 @@ def main():
             train_res["per_step"]["launches_per_step"].items()}
   fused_l = {n: int(v * 4) for n, v in
              fused_res["per_step"]["launches_per_step"].items()}
+  split_l = {n: int(v * 4) for n, v in
+             split_res["per_step"]["launches_per_step"].items()}
   kernels = [
       entry("flash_attention_fwd", "flash_attention.cu",
             "flash_attention.py:124",
@@ -1061,16 +1344,40 @@ def main():
             fm_err, pick(fm_rows, op="gelu_matmul", case="down"),
             library="F.gelu + torch.matmul (two calls)"),
   ]
+  # the split kernels: no single PyTorch call computes dQ or dK/dV alone;
+  # SDPA's whole backward stands beside the pair's time
+  for kern, name, replaces, by_path, case in (
+      ("dq", "flash_attention_bwd_dq", "flash_attention.py:166",
+       {"train_long_gqa_2_steps": launches(long_res, 2,
+                                           "flash_attention_bwd_dq"),
+        "train_split_4_steps": split_l["flash_attention_bwd_dq"]}, "long"),
+      ("dkv", "flash_attention_bwd_dkv", "flash_attention.py:197",
+       {"train_split_4_steps": split_l["flash_attention_bwd_dkv"]}, "train"),
+      ("dkv", "flash_attention_bwd_dkv_gqa", "flash_attention.py:281",
+       {"train_long_gqa_2_steps": launches(long_res, 2,
+                                           "flash_attention_bwd_dkv_gqa")},
+       "long")):
+    row = pick(split_rows, case=case, kernel=kern)
+    kernels.append(entry(
+        name, "flash_attention_bwd_split.cu", replaces, by_path,
+        split_err[kern], row, library=row["library"],
+        library_whole_bwd_ms=row["library_whole_bwd_ms"],
+        split_pair_ms=row["split_pair_ms"], fused_ms=row["fused_ms"],
+        shape="B%d S%d H%d Hk%d D%d" % (row["B"], row["Sq"], row["H"],
+                                        row["Hk"], row["D"])))
   record = {"card": card, "torch": torch.__version__,
             "cuda": torch.version.cuda, "build_s": build_s,
             "layer_norm": ln_rows, "flash_attention": fa_rows,
             "layer_norm_bwd": lnb_rows, "flash_attention_bwd": fab_rows,
-            "fused_matmul": fm_rows,
+            "flash_attention_bwd_split": split_rows, "fused_matmul": fm_rows,
             "main_path": main_res, "profile": prof_res,
             "parity_f32": parity, "train": train_res, "train_gqa": gqa_res,
             "train_fused": fused_res, "train_fused_gqa": fgqa_res,
+            "train_long_gqa": long_res, "train_split": split_res,
             "train_parity_f32": train_parity,
             "train_fused_parity_f32": fused_parity,
+            "train_split_parity_f32": split_parity,
+            "train_split_gqa_parity_f32": split_gqa_parity,
             "total_s": time.monotonic() - t_start}
   out_dir = os.path.join(HERE, "chiprun_out")
   os.makedirs(out_dir, exist_ok=True)

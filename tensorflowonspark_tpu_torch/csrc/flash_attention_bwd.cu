@@ -39,22 +39,25 @@
 // instead of atomics. The gradients are bitwise reproducible. Walking the group
 // inside one CTA instead would give B * Hk CTAs, too few to fill the card's 132
 // SMs at the grouped training shape (32 at B 8, Hk 4); this gives B * H (192 at
-// the MHA training shape, 2 CTAs per SM at D 64). The TPU needs _gqa_fused_fits
-// (:399-401) because its grouped plan keeps whole [S, D] dK/dV blocks in VMEM
-// and switches to the split plan past a budget; this kernel keeps one 64-key
-// tile of dK/dV in registers, so the fused plan runs at every length where the
-// TPU would switch to split.
+// the MHA training shape, 2 CTAs per SM at D 64). This kernel keeps one 64-key
+// tile of dK/dV in registers and could run at any length, but at a long
+// sequence and a small batch B * H CTAs leave most of the card idle (12 at
+// B 1, H 12), which is where the reference's rule moves to the split plan.
 //
 // Per (q tile, k tile) pair, with Q (pre-scaled), dO, K, V staged in shared
 // memory as f32 (rows padded by one float, so lanes reading different rows hit
 // different banks): S and dP (64 x 64, 4 x 4 per thread), then P and dS to
 // shared memory, then dV/dK (+= P^T dO, dS^T Q) and the dQ tile (dS K).
-// A pre-pass kernel in this source computes Delta, one warp per row; the
-// grouped partial sum is the third kernel.
+// A pre-pass kernel (flash_bwd_delta.cuh, shared with the split plan)
+// computes Delta, one warp per row; the grouped partial sum is the third
+// kernel. The JAX package switches grouped K/V to its split plan past
+// _gqa_fused_fits; the port's wrapper applies the same rule
+// (ops/flash_attention.py bwd_plan), so both packages run the same plan.
 
 #include <stdint.h>
 
 #include "common.cuh"
+#include "flash_bwd_delta.cuh"
 
 namespace {
 
@@ -67,25 +70,6 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (4 * kBlk * (D + 1)   // Q, dO, K, V
                           + 2 * kBlk * kLP     // P, dS
                           + 2 * kBlk);         // lse, Delta of the q tile
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
-                           const float* __restrict__ g_lse, float* __restrict__ delta,
-                           long rows, int sq, int h, int d) {
-  const int lane = threadIdx.x & 31;
-  const long row = static_cast<long>(blockIdx.x) * (kThreads / 32) + (threadIdx.x >> 5);
-  if (row >= rows) return;  // row = (b * sq + s) * h + head
-  float acc = 0.f;
-  for (int c = lane; c < d; c += 32)
-    acc += tos::to_float(dout[row * d + c]) * tos::to_float(out[row * d + c]);
-  acc = tos::warp_sum(acc);
-  const long b = row / (static_cast<long>(sq) * h);
-  const int s = static_cast<int>((row / h) % sq);
-  const int head = static_cast<int>(row % h);
-  const long idx = (b * h + head) * sq + s;  // [b, h, sq]
-  if (lane == 0) delta[idx] = g_lse ? acc - g_lse[idx] : acc;
 }
 
 template <int D, typename T>
@@ -350,13 +334,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
     if (e != cudaSuccess) return e;
     configured |= bit;
   }
-  const long rows = static_cast<long>(b) * sq * h;
-  const int warps = kThreads / 32;
-  flash_bwd_delta_kernel<T><<<static_cast<unsigned>((rows + warps - 1) / warps), kThreads, 0,
-                              stream>>>(static_cast<const T*>(out),
-                                        static_cast<const T*>(dout), g_lse, delta, rows, sq,
-                                        h, D);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = tos::launch_flash_bwd_delta<T>(out, dout, g_lse, delta, b, sq, h, D, stream);
   if (e != cudaSuccess) return e;
   flash_bwd_kernel<D, T><<<b * h, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),

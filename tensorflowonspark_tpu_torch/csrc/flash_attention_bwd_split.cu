@@ -1,0 +1,511 @@
+// Flash-attention backward for Hopper, the split plan: dQ in one kernel, dK/dV
+// in another, with unexpanded grouped K/V and absolute position bases.
+//
+// Replaces: tensorflowonspark_tpu/ops/flash_attention.py
+//   _attn_bwd_dq_kernel (:166-194, launched by _bwd_impl at :667)
+//     -> flash_bwd_dq_kernel;
+//   _attn_bwd_dkv_kernel (:197-229, MHA, launched at :723)
+//     -> flash_bwd_dkv_kernel;
+//   _attn_bwd_dkv_gqa_kernel (:281-329, grouped KV, launched at :689)
+//     -> flash_bwd_dkv_gqa_kernel.
+// Same function, term for term (_pair_p_ds :109-118):
+//   s = (q * scale) . k in f32, masked like the forward (keep = kv_base + j <=
+//   q_base + i, and > q_base + i - window);
+//   P is recomputed from the forward's lse: p = exp(s - lse), forced to 0 where
+//   the entry is masked or the row saw no key (lse = -1e30);
+//   dS = P * (dO . V^T - Delta), Delta from the pre-pass (flash_bwd_delta.cuh,
+//   the lse cotangent folded in);
+//   dQ = scale * sum_k dS K over the visible k tiles (_causal_k_hi /
+//   _window_k_lo), cast once from f32 to q's dtype;
+//   dV = sum_q P^T dO, dK = sum_q dS^T (q * scale) over the visible q tiles
+//   (_causal_q_lo / _window_q_hi); grouped KV sums the g query heads of each KV
+//   head in f32, in head order, and casts once to k's dtype (:715-721).
+// Tile bounds use floor division (tos::floor_div): C's / truncates, and with a
+// negative numerator (keys ahead of every query) it would visit one more tile.
+//
+// Bound on the H100: per visible (q, k) pair the dQ kernel does 3 products of
+// 2 * D flops (S, dP, dS K) and the dK/dV kernel 4 (S, dP, P^T dO, dS^T Q): 7
+// products where the fused plan does 5, since S and dP are computed by both. At
+// the long-context shape (B 1, S 16384, H 12, Hk 4, D 64, causal) that is
+// about 1.4 TFLOP against ~0.1 GB of inputs and outputs: compute-bound on the
+// tensor cores (~1.4 ms there). This first version runs the products on the
+// CUDA cores in f32, like the fused kernel (no wgmma, no TMA): bound by f32 FMA
+// issue and shared-memory operand loads.
+//
+// Design. The TPU runs each grid in order on one core; here every (query head
+// or KV head, 64-row tile) is its own CTA, which is what fills the card at long
+// sequence and small batch: (B * H) x S/64 CTAs for dQ and (B * Hk) x S/64 for
+// dK/dV (3072 and 1024 at the shape above, where the fused plan has 12). The
+// sequential TPU grid axis becomes a loop inside the CTA:
+//   dQ: the CTA stages its q tile (pre-scaled), its dO tile, lse and Delta once,
+//   then walks the visible k tiles of its query head's KV head (qh / g, the
+//   reference's _kv_row_map), staging K/V as f32 in shared memory, and keeps
+//   its dQ tile in f32 registers (4 rows x D/16 dims per thread);
+//   dK/dV: the CTA stages its K/V tile once and, for each of the g query heads
+//   of its KV head in order (the Pallas grid's innermost group axis), walks the
+//   visible q tiles, keeping dK/dV in f32 registers across the whole group.
+// Each output element is written by one thread after one fixed-order sum: no
+// atomics, bitwise reproducible. Under the causal mask the q tiles with the
+// most visible keys are launched first (and the k tiles with the most visible
+// queries), so the long CTAs do not trail the launch. Shared-memory tiles are
+// padded by one float per row, so lanes reading different rows hit different
+// banks.
+
+#include <stdint.h>
+
+#include "common.cuh"
+#include "flash_bwd_delta.cuh"
+
+namespace {
+
+constexpr int kBlk = 64;            // q rows and keys per tile
+constexpr int kThreads = 256;       // 16 x 16 threads
+constexpr int kLP = kBlk + 1;       // padded stride of the P / dS tiles
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(float) * (4 * kBlk * (D + 1)   // Q, dO, K, V
+                          + kBlk * kLP         // dS
+                          + 2 * kBlk);         // lse, Delta of the q tile
+}
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  return sizeof(float) * (4 * kBlk * (D + 1)   // Q, dO, K, V
+                          + 2 * kBlk * kLP     // P, dS
+                          + 2 * kBlk);         // lse, Delta of the q tile
+}
+
+// S = Q K^T and dP = dO V^T for one (q tile, k tile) pair, then P and dS:
+// thread (ty, tx) owns rows ty + 16 i and keys tx + 16 j. Writes dS (and P when
+// ps is not null) into shared memory; the caller syncs before reading them.
+template <int D>
+__device__ __forceinline__ void pair_p_ds(const float* qs, const float* dos, const float* ks,
+                                          const float* vs, const float* lse_s,
+                                          const float* delta_s, float* ps, float* dss, int q0,
+                                          int k0, int sq, int sk, int q_base, int kv_base,
+                                          int causal, int window) {
+  constexpr int LD = D + 1;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  float sc[4][4], dp[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < D; ++c) {
+    float qv[4], ov[4], kv[4], vv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      qv[i] = qs[(ty + 16 * i) * LD + c];
+      ov[i] = dos[(ty + 16 * i) * LD + c];
+      kv[i] = ks[(tx + 16 * i) * LD + c];
+      vv[i] = vs[(tx + 16 * i) * LD + c];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+        dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    const int qi = q0 + r;
+    const float l = lse_s[r];
+    const float dl = delta_s[r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx + 16 * j;
+      const int kj = k0 + c;
+      bool keep = qi < sq && kj < sk;
+      if (causal) {
+        const int qpos = q_base + qi, kpos = kv_base + kj;
+        keep = keep && kpos <= qpos;
+        if (window > 0) keep = keep && kpos > qpos - window;
+      }
+      const float p = (keep && l > tos::kNegInf) ? expf(sc[i][j] - l) : 0.f;
+      if (ps != nullptr) ps[r * kLP + c] = p;
+      dss[r * kLP + c] = p * (dp[i][j] - dl);
+    }
+  }
+}
+
+// Stages rows [r0, r0 + 64) of one head of x ([.., S, heads, D] with `row`
+// elements between positions; rows past `s` read 0) into a padded f32 tile,
+// times `mul`.
+template <int D, typename T>
+__device__ __forceinline__ void stage_tile(float* dst, const T* src, long row, int r0, int s,
+                                           float mul) {
+  constexpr int LD = D + 1;
+  for (int idx = threadIdx.x; idx < kBlk * D; idx += kThreads) {
+    const int r = idx / D, c = idx % D;
+    const int pos = r0 + r;
+    dst[r * LD + c] = pos < s ? tos::to_float(src[pos * row + c]) * mul : 0.f;
+  }
+}
+
+// dQ of one (batch, query head, 64-row q tile): grid (B * H, Sq / 64), the q
+// tile with the most visible keys first.
+template <int D, typename T>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        T* __restrict__ dq, int sq, int sk, int h, int hk, int q_base,
+                        int kv_base, int causal, int window, float scale) {
+  constexpr int LD = D + 1;
+  constexpr int kDC = D / 16;  // dims per thread in the D-wide product
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* dos = qs + kBlk * LD;
+  float* ks = dos + kBlk * LD;
+  float* vs = ks + kBlk * LD;
+  float* dss = vs + kBlk * LD;
+  float* lse_s = dss + kBlk * kLP;
+  float* delta_s = lse_s + kBlk;
+
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4, tx = tid & 15;
+  const int b = blockIdx.x / h;
+  const int qh = blockIdx.x % h;
+  const int kvh = qh / (h / hk);
+  const int n_qt = (sq + kBlk - 1) / kBlk;
+  const int n_kt = (sk + kBlk - 1) / kBlk;
+  const int qt = causal ? n_qt - 1 - static_cast<int>(blockIdx.y) : static_cast<int>(blockIdx.y);
+  const int q0 = qt * kBlk;
+  const int q_rows = min(kBlk, sq - q0);
+  const long q_row = static_cast<long>(h) * D;   // stride between positions
+  const long kv_row = static_cast<long>(hk) * D;
+  const long head_off = static_cast<long>(b) * sq * q_row + static_cast<long>(qh) * D;
+  const long kv_off = static_cast<long>(b) * sk * kv_row + static_cast<long>(kvh) * D;
+  const float* lse_h = lse + (static_cast<long>(b) * h + qh) * sq;
+  const float* delta_h = delta + (static_cast<long>(b) * h + qh) * sq;
+
+  stage_tile<D>(qs, q + head_off, q_row, q0, sq, scale);
+  stage_tile<D>(dos, dout + head_off, q_row, q0, sq, 1.f);
+  if (tid < kBlk) {
+    lse_s[tid] = tid < q_rows ? lse_h[q0 + tid] : tos::kNegInf;
+    delta_s[tid] = tid < q_rows ? delta_h[q0 + tid] : 0.f;
+  }
+
+  // visible k tiles: _window_k_lo .. _causal_k_hi, from the tile's first and
+  // last row
+  int lo = 0, hi = n_kt;
+  if (causal)
+    hi = tos::clamp_int(tos::floor_div(q_base + q0 + q_rows - 1 - kv_base, kBlk) + 1, 0, n_kt);
+  if (causal && window > 0)
+    lo = tos::clamp_int(tos::floor_div(q_base + q0 - (window - 1) - kv_base, kBlk), 0, n_kt);
+
+  float acc[4][kDC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kDC; ++j) acc[i][j] = 0.f;
+
+  for (int kt = lo; kt < hi; ++kt) {
+    const int k0 = kt * kBlk;
+    __syncthreads();  // the previous tile's K and dS are no longer read
+    stage_tile<D>(ks, k + kv_off, kv_row, k0, sk, 1.f);
+    stage_tile<D>(vs, v + kv_off, kv_row, k0, sk, 1.f);
+    __syncthreads();
+    pair_p_ds<D>(qs, dos, ks, vs, lse_s, delta_s, nullptr, dss, q0, k0, sq, sk, q_base,
+                 kv_base, causal, window);
+    __syncthreads();
+    // dQ tile += dS K: rows ty + 16 i, dims tx + 16 j
+#pragma unroll 4
+    for (int c = 0; c < kBlk; ++c) {
+      float sv[4], kv[kDC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sv[i] = dss[(ty + 16 * i) * kLP + c];
+#pragma unroll
+      for (int j = 0; j < kDC; ++j) kv[j] = ks[c * LD + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kDC; ++j) acc[i][j] = fmaf(sv[i], kv[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    if (r >= q_rows) continue;
+    T* dst = dq + head_off + (q0 + r) * q_row;
+#pragma unroll
+    for (int j = 0; j < kDC; ++j) dst[tx + 16 * j] = tos::from_float<T>(acc[i][j] * scale);
+  }
+}
+
+// dK / dV of one (batch, KV head, 64-key tile), summed over the g = H / Hk
+// query heads of the KV head in head order: grid (B * Hk, Sk / 64), the k tile
+// with the most visible queries first. g == 1 is the MHA kernel.
+template <int D, typename T>
+__device__ __forceinline__ void dkv_tile(const T* __restrict__ q, const T* __restrict__ k,
+                                         const T* __restrict__ v, const T* __restrict__ dout,
+                                         const float* __restrict__ lse,
+                                         const float* __restrict__ delta, T* __restrict__ dk,
+                                         T* __restrict__ dv, int sq, int sk, int h, int hk,
+                                         int q_base, int kv_base, int causal, int window,
+                                         float scale, float* smem) {
+  constexpr int LD = D + 1;
+  constexpr int kDC = D / 16;
+  float* qs = smem;
+  float* dos = qs + kBlk * LD;
+  float* ks = dos + kBlk * LD;
+  float* vs = ks + kBlk * LD;
+  float* ps = vs + kBlk * LD;
+  float* dss = ps + kBlk * kLP;
+  float* lse_s = dss + kBlk * kLP;
+  float* delta_s = lse_s + kBlk;
+
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4, tx = tid & 15;
+  const int b = blockIdx.x / hk;
+  const int kvh = blockIdx.x % hk;
+  const int grp = h / hk;
+  const int n_qt = (sq + kBlk - 1) / kBlk;
+  const int k0 = static_cast<int>(blockIdx.y) * kBlk;
+  const int k_rows = min(kBlk, sk - k0);
+  const long q_row = static_cast<long>(h) * D;
+  const long kv_row = static_cast<long>(hk) * D;
+  const long kv_off = static_cast<long>(b) * sk * kv_row + static_cast<long>(kvh) * D;
+
+  stage_tile<D>(ks, k + kv_off, kv_row, k0, sk, 1.f);
+  stage_tile<D>(vs, v + kv_off, kv_row, k0, sk, 1.f);
+
+  // visible q tiles: _causal_q_lo .. _window_q_hi, from the tile's first and
+  // last key
+  int lo = 0, hi = n_qt;
+  if (causal) lo = max(0, tos::floor_div(kv_base + k0 - q_base, kBlk));
+  if (causal && window > 0)
+    hi = tos::clamp_int(
+        tos::floor_div(kv_base + k0 + k_rows - 1 + (window - 1) - q_base, kBlk) + 1, 0, n_qt);
+
+  float dk_acc[4][kDC], dv_acc[4][kDC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kDC; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+
+  for (int gh = 0; gh < grp; ++gh) {
+    const int qh = kvh * grp + gh;
+    const long head_off = static_cast<long>(b) * sq * q_row + static_cast<long>(qh) * D;
+    const float* lse_h = lse + (static_cast<long>(b) * h + qh) * sq;
+    const float* delta_h = delta + (static_cast<long>(b) * h + qh) * sq;
+    for (int qt = lo; qt < hi; ++qt) {
+      const int q0 = qt * kBlk;
+      __syncthreads();  // the previous pair's tiles are no longer read
+      stage_tile<D>(qs, q + head_off, q_row, q0, sq, scale);
+      stage_tile<D>(dos, dout + head_off, q_row, q0, sq, 1.f);
+      if (tid < kBlk) {
+        const int s = q0 + tid;
+        lse_s[tid] = s < sq ? lse_h[s] : tos::kNegInf;
+        delta_s[tid] = s < sq ? delta_h[s] : 0.f;
+      }
+      __syncthreads();
+      pair_p_ds<D>(qs, dos, ks, vs, lse_s, delta_s, ps, dss, q0, k0, sq, sk, q_base, kv_base,
+                   causal, window);
+      __syncthreads();
+      // dV += P^T dO, dK += dS^T Q: keys ty + 16 i, dims tx + 16 j
+#pragma unroll 4
+      for (int r = 0; r < kBlk; ++r) {
+        float pv[4], sv[4], ov[kDC], qv[kDC];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pv[i] = ps[r * kLP + ty + 16 * i];
+          sv[i] = dss[r * kLP + ty + 16 * i];
+        }
+#pragma unroll
+        for (int j = 0; j < kDC; ++j) {
+          ov[j] = dos[r * LD + tx + 16 * j];
+          qv[j] = qs[r * LD + tx + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < kDC; ++j) {
+            dv_acc[i][j] = fmaf(pv[i], ov[j], dv_acc[i][j]);
+            dk_acc[i][j] = fmaf(sv[i], qv[j], dk_acc[i][j]);
+          }
+      }
+    }
+  }
+
+  // q was pre-scaled, so dK absorbs the scale; one rounding to k's dtype
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    if (r >= k_rows) continue;
+    const long off = kv_off + (k0 + r) * kv_row;
+#pragma unroll
+    for (int j = 0; j < kDC; ++j) {
+      dk[off + tx + 16 * j] = tos::from_float<T>(dk_acc[i][j]);
+      dv[off + tx + 16 * j] = tos::from_float<T>(dv_acc[i][j]);
+    }
+  }
+}
+
+// Two entry kernels over one body, so a profile tells the MHA plan
+// (_attn_bwd_dkv_kernel) from the grouped one (_attn_bwd_dkv_gqa_kernel).
+template <int D, typename T>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
+    flash_bwd_dkv_kernel(const T* q, const T* k, const T* v, const T* dout, const float* lse,
+                         const float* delta, T* dk, T* dv, int sq, int sk, int h, int hk,
+                         int q_base, int kv_base, int causal, int window, float scale) {
+  extern __shared__ float smem[];
+  dkv_tile<D, T>(q, k, v, dout, lse, delta, dk, dv, sq, sk, h, hk, q_base, kv_base, causal,
+                 window, scale, smem);
+}
+
+template <int D, typename T>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
+    flash_bwd_dkv_gqa_kernel(const T* q, const T* k, const T* v, const T* dout,
+                             const float* lse, const float* delta, T* dk, T* dv, int sq,
+                             int sk, int h, int hk, int q_base, int kv_base, int causal,
+                             int window, float scale) {
+  extern __shared__ float smem[];
+  dkv_tile<D, T>(q, k, v, dout, lse, delta, dk, dv, sq, sk, h, hk, q_base, kv_base, causal,
+                 window, scale, smem);
+}
+
+// Sets a kernel's dynamic shared-memory limit once per device.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes, int device, unsigned long long* configured) {
+  const unsigned long long bit = 1ull << (device & 63);
+  if (*configured & bit) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (e == cudaSuccess) *configured |= bit;
+  return e;
+}
+
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  int b, sq, sk, h, hk, q_base, kv_base, causal, window;
+  float scale;
+  int device;
+  cudaStream_t stream;
+};
+
+template <int D, typename T>
+cudaError_t launch_dq(const Args& a, void* dq) {
+  static unsigned long long configured = 0;
+  constexpr size_t smem = dq_smem_bytes<D>();
+  cudaError_t e = allow_smem(flash_bwd_dq_kernel<D, T>, smem, a.device, &configured);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(a.b * a.h, (a.sq + kBlk - 1) / kBlk);
+  flash_bwd_dq_kernel<D, T><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dq), a.sq, a.sk, a.h,
+      a.hk, a.q_base, a.kv_base, a.causal, a.window, a.scale);
+  return cudaGetLastError();
+}
+
+template <int D, typename T>
+cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
+  static unsigned long long configured_mha = 0, configured_gqa = 0;
+  constexpr size_t smem = dkv_smem_bytes<D>();
+  const bool grouped = a.h != a.hk;
+  auto kernel = grouped ? &flash_bwd_dkv_gqa_kernel<D, T> : &flash_bwd_dkv_kernel<D, T>;
+  cudaError_t e =
+      allow_smem(kernel, smem, a.device, grouped ? &configured_gqa : &configured_mha);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(a.b * a.hk, (a.sk + kBlk - 1) / kBlk);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      a.sq, a.sk, a.h, a.hk, a.q_base, a.kv_base, a.causal, a.window, a.scale);
+  return cudaGetLastError();
+}
+
+// Runs `launch<D, T>` for the (dtype, head_dim) the kernels are built for.
+template <template <int, typename> class L, typename... X>
+cudaError_t dispatch(int dtype, int d, X... x) {
+  if (dtype == tos::kBFloat16 && d == 64) return L<64, __nv_bfloat16>::run(x...);
+  if (dtype == tos::kBFloat16 && d == 128) return L<128, __nv_bfloat16>::run(x...);
+  if (dtype == tos::kFloat32 && d == 64) return L<64, float>::run(x...);
+  if (dtype == tos::kFloat32 && d == 128) return L<128, float>::run(x...);
+  return cudaErrorInvalidValue;
+}
+
+template <int D, typename T>
+struct DqLauncher {
+  static cudaError_t run(const Args& a, void* dq) { return launch_dq<D, T>(a, dq); }
+};
+
+template <int D, typename T>
+struct DkvLauncher {
+  static cudaError_t run(const Args& a, void* dk, void* dv) {
+    return launch_dkv<D, T>(a, dk, dv);
+  }
+};
+
+// Validates the shared arguments and selects the device; returns 0 to go on,
+// -1 when there is nothing to do, else a CUDA error code.
+int prepare(const Args& a) {
+  cudaGetLastError();  // start from a clean error state
+  if (a.b <= 0 || a.sq <= 0 || a.sk <= 0 || a.h <= 0) return -1;
+  if (a.hk <= 0 || a.h % a.hk != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaSetDevice(a.device));
+}
+
+}  // namespace
+
+// out, dout: [b, sq, h, d] contiguous in `dtype`; g_lse: [b, h, sq] f32 or null;
+// delta: [b, h, sq] f32 output. Launches the Delta pre-pass on `stream`.
+extern "C" int tos_flash_attention_bwd_delta(const void* out, const void* dout,
+                                             const void* g_lse, void* delta, int b, int sq,
+                                             int h, int d, int dtype, int device,
+                                             void* stream) {
+  cudaGetLastError();
+  if (b <= 0 || sq <= 0 || h <= 0 || d <= 0) return 0;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* gl = static_cast<const float*>(g_lse);
+  float* dl = static_cast<float*>(delta);
+  if (dtype == tos::kBFloat16)
+    return static_cast<int>(
+        tos::launch_flash_bwd_delta<__nv_bfloat16>(out, dout, gl, dl, b, sq, h, d, s));
+  if (dtype == tos::kFloat32)
+    return static_cast<int>(tos::launch_flash_bwd_delta<float>(out, dout, gl, dl, b, sq, h, d, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// q, dout, dq: [b, sq, h, d] and k, v: [b, sk, hk, d], contiguous in `dtype` on
+// CUDA device `device`; lse, delta: [b, h, sq] f32 (the forward's lse, the
+// pre-pass's Delta). window <= 0 means no window. Launches the dQ kernel on
+// `stream`; returns cudaGetLastError().
+extern "C" int tos_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
+                                          const void* dout, const void* lse,
+                                          const void* delta, void* dq, int b, int sq, int sk,
+                                          int h, int hk, int d, int q_base, int kv_base,
+                                          int causal, int window, float scale, int dtype,
+                                          int device, void* stream) {
+  const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
+               b, sq, sk, h, hk, q_base, kv_base, causal, window, scale, device,
+               static_cast<cudaStream_t>(stream)};
+  const int rc = prepare(a);
+  if (rc != 0) return rc < 0 ? 0 : rc;
+  return static_cast<int>(dispatch<DqLauncher>(dtype, d, a, dq));
+}
+
+// As tos_flash_attention_bwd_dq, with dk, dv: [b, sk, hk, d] outputs in
+// `dtype`. Launches the MHA dK/dV kernel when h == hk, else the grouped one.
+extern "C" int tos_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
+                                           const void* dout, const void* lse,
+                                           const void* delta, void* dk, void* dv, int b,
+                                           int sq, int sk, int h, int hk, int d, int q_base,
+                                           int kv_base, int causal, int window, float scale,
+                                           int dtype, int device, void* stream) {
+  const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
+               b, sq, sk, h, hk, q_base, kv_base, causal, window, scale, device,
+               static_cast<cudaStream_t>(stream)};
+  const int rc = prepare(a);
+  if (rc != 0) return rc < 0 ? 0 : rc;
+  return static_cast<int>(dispatch<DkvLauncher>(dtype, d, a, dk, dv));
+}

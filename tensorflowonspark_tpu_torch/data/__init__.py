@@ -1,1 +1,1 @@
-"""Batches for the train loop: the slab of K stacked batches."""
+"""The data feed: TFRecord files, tf.Example rows, batches and slabs."""

@@ -13,8 +13,11 @@ the tensor's device decides, and nothing else:
 Each kernel keeps a plain-integer launch count in :data:`LAUNCHES`, bumped
 by its wrapper where it launches the kernel and nowhere else, so a run can
 show that its main path went through the kernels. The backward kernels
-count apart from the forward ones; the flash backward counts under
-``flash_attention_bwd`` (Hk == H) or ``flash_attention_bwd_gqa``. The
+count apart from the forward ones. The fused flash backward counts under
+``flash_attention_bwd`` (Hk == H) or ``flash_attention_bwd_gqa``; the
+split plan counts its dQ kernel under ``flash_attention_bwd_dq`` and its
+dK/dV kernel under ``flash_attention_bwd_dkv`` (Hk == H) or
+``flash_attention_bwd_dkv_gqa``. The
 fused products ``ln_matmul`` and ``gelu_matmul`` count their forward
 kernels; their backwards are plain PyTorch, as the reference's are plain
 XLA.
@@ -29,6 +32,9 @@ LAUNCHES: Dict[str, int] = {"layer_norm": 0, "layer_norm_bwd": 0,
                              "flash_attention_fwd": 0,
                              "flash_attention_bwd": 0,
                              "flash_attention_bwd_gqa": 0,
+                             "flash_attention_bwd_dq": 0,
+                             "flash_attention_bwd_dkv": 0,
+                             "flash_attention_bwd_dkv_gqa": 0,
                              "ln_matmul": 0, "gelu_matmul": 0}
 
 
@@ -58,7 +64,9 @@ def reset_launches() -> None:
 
 
 from tensorflowonspark_tpu_torch.ops.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_bwd, flash_attention_bwd_reference,
+    flash_attention, flash_attention_bwd, flash_attention_bwd_dkv,
+    flash_attention_bwd_dkv_reference, flash_attention_bwd_dq,
+    flash_attention_bwd_dq_reference, flash_attention_bwd_reference,
     flash_attention_fwd, flash_attention_reference)
 from tensorflowonspark_tpu_torch.ops.layer_norm import (  # noqa: E402
     layer_norm, layer_norm_bwd, layer_norm_bwd_reference,
@@ -71,6 +79,9 @@ from tensorflowonspark_tpu_torch.ops.act_matmul import (  # noqa: E402
 __all__ = ["LAUNCHES", "on_card", "count_launch", "reset_launches",
            "flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_reference", "flash_attention_bwd_reference",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+           "flash_attention_bwd_dq_reference",
+           "flash_attention_bwd_dkv_reference",
            "layer_norm", "layer_norm_bwd", "layer_norm_reference",
            "layer_norm_bwd_reference", "ln_matmul", "ln_matmul_bwd",
            "ln_matmul_reference", "gelu_matmul", "gelu_matmul_bwd",

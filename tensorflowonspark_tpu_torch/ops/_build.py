@@ -28,8 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("flash_attention", "flash_attention_bwd", "layer_norm",
-           "ln_matmul", "act_matmul")
+KERNELS = ("flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_split", "layer_norm", "ln_matmul", "act_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 #: the C interface's dtype codes (csrc/common.cuh)

@@ -1,25 +1,33 @@
 """Flash attention: the port of the Pallas flash-attention kernels,
-forward and fused backward.
+forward and both backward plans.
 
 Counterpart of ``tensorflowonspark_tpu/ops/flash_attention.py``: the
-forward ``_fwd_impl`` (kernel ``_attn_fwd_kernel``) and the single-pass
-backward ``_bwd_impl`` (kernels ``_attn_bwd_fused_kernel`` and, for
-grouped K/V, ``_attn_bwd_fused_gqa_kernel``), with the public
-``flash_attention`` / ``flash_attention_block`` made differentiable by
-autograd Functions whose backward is the kernel. On CUDA
-tensors the wrappers launch the hand-written kernels in
-``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``; on CPU
-tensors they run :func:`flash_attention_reference` and
-:func:`flash_attention_bwd_reference`.
+forward ``_fwd_impl`` (kernel ``_attn_fwd_kernel``) and the backward
+``_bwd_impl`` in its two plans, with the public ``flash_attention`` /
+``flash_attention_block`` made differentiable by an autograd Function
+whose backward is the kernels:
+
+* ``"fused"``: one single-pass kernel (``_attn_bwd_fused_kernel``, and
+  ``_attn_bwd_fused_gqa_kernel`` for grouped K/V), ``csrc/
+  flash_attention_bwd.cu``;
+* ``"split"``: a dQ kernel (``_attn_bwd_dq_kernel``) and a dK/dV kernel
+  (``_attn_bwd_dkv_kernel``, ``_attn_bwd_dkv_gqa_kernel``), ``csrc/
+  flash_attention_bwd_split.cu``.
+
+The plan is the caller's ``bwd`` or ``TFOS_TPU_FLASH_BWD`` (default
+``"fused"``), and grouped K/V whose fused plan would not fit the
+reference's VMEM budget takes the split plan, as the reference decides
+(:func:`bwd_plan`). On CUDA tensors the wrappers launch the hand-written
+kernels; on CPU tensors they run the plain versions beside them
+(``*_reference``).
 
 Layout ``[batch, seq, heads, head_dim]``. K/V may carry ``heads / g``
 heads (grouped-query attention, consumed unexpanded: query head ``i``
 reads KV head ``i // g``). ``q_base``/``kv_base`` are the absolute
 positions of the first query and key, as in ``flash_attention_block``.
-
-The backward plan is ``"fused"`` (the only one ported); ``"split"`` (the
-reference's separate dQ and dK/dV kernels) raises ``NotImplementedError``
-when a gradient is asked for.
+The kernels' tiles are their own (64 query rows by 64 keys): the
+reference's ``DEFAULT_BWD_BLOCKS`` (256, 512) are a VMEM tuning for the
+TPU and have no counterpart here.
 """
 
 import ctypes
@@ -35,8 +43,37 @@ from tensorflowonspark_tpu_torch.ops import _build
 NEG_INF = -1e30
 #: head dims the kernels are instantiated for
 HEAD_DIMS = (64, 128)
-#: backward plans of the reference (only "fused" is ported)
+#: backward plans of the reference
 BWD_MODES = ("fused", "split")
+#: the plain backward's query rows per chunk hold at most this many f32
+#: scores (256 MB), so it also runs at long sequence lengths
+_PLAIN_CHUNK_ELEMS = 1 << 26
+
+# The reference's plan rule, kept verbatim so that both packages choose the
+# same backward plan (tensorflowonspark_tpu/ops/flash_attention.py:393-401,
+# applied at :588-590). VMEM budget for the grouped fused backward's
+# resident blocks (dK+dV full f32 + dQ f32 + q/do); past this the split plan
+# wins anyway because the residents crowd out double-buffering for the
+# streamed blocks
+GQA_FUSED_VMEM_BUDGET = 10 * 1024 * 1024
+
+
+def _gqa_fused_fits(s_q: int, s_kv: int, d: int, itemsize: int) -> bool:
+  resident = (2 * s_kv + s_q) * d * 4 + 2 * s_q * d * itemsize
+  return resident <= GQA_FUSED_VMEM_BUDGET
+
+
+def bwd_plan(bwd: str, grp: int, s_q: int, s_kv: int, d: int,
+             itemsize: int) -> str:
+  """The backward plan that runs for the requested ``bwd``: grouped K/V
+  (``grp`` > 1) asked to run fused switches to ``"split"`` where
+  :func:`_gqa_fused_fits` says no, exactly where the reference's
+  ``_bwd_impl`` switches (whether ``bwd`` was asked for or came from the
+  default)."""
+  if bwd == "fused" and grp > 1 and not _gqa_fused_fits(s_q, s_kv, d,
+                                                        itemsize):
+    return "split"
+  return bwd
 
 
 def _check_window(window, causal):
@@ -112,17 +149,13 @@ def _group_sum(x: torch.Tensor, hk: int) -> torch.Tensor:
   return x.reshape(b, s, hk, h // hk, d).sum(dim=3)
 
 
-def flash_attention_bwd_reference(q, k, v, out, lse, g, g_lse=None,
-                                  q_base: int = 0, kv_base: int = 0,
-                                  causal: bool = True,
-                                  window: Optional[int] = None
-                                  ) -> Tuple[torch.Tensor, torch.Tensor,
-                                             torch.Tensor]:
-  """The plain backward: dense f32 scores and the fused kernel's math
-  (``_pair_p_ds``): P recomputed from ``lse`` with masked entries and
-  empty rows forced to 0, ``dS = P * (dO V^T - Delta)`` with ``Delta =
-  sum_d dO * O - g_lse``. Returns ``(dq, dk, dv)`` in q's / k's / v's
-  dtypes; grouped dK/dV are summed over each KV head's query heads."""
+def _plain_bwd(q, k, v, g, lse, delta, q_base, kv_base, causal, window,
+               want_dq: bool, want_dkv: bool):
+  """The backward's dense math (``_pair_p_ds``) in f32 over chunks of
+  query rows: P recomputed from ``lse`` with masked entries and empty rows
+  forced to 0, ``dS = P * (dO V^T - Delta)``. Returns ``(dq, dk, dv)`` in
+  f32 (``None`` for what was not asked); dK/dV summed over each KV head's
+  query heads."""
   window = _check_window(window, causal)
   _check_shapes(q, k, v)
   b, sq, h, d = q.shape
@@ -133,23 +166,84 @@ def flash_attention_bwd_reference(q, k, v, out, lse, g, g_lse=None,
   kf = k.float().repeat_interleave(grp, dim=2)
   vf = v.float().repeat_interleave(grp, dim=2)
   gf = g.float()
-  s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
-  if causal:
-    keep = _keep_mask(sq, sk, int(q_base), int(kv_base), window, q.device)
-    s = torch.where(keep, s, torch.full_like(s, NEG_INF))
-  lse = lse.float()[..., None]                                 # [B, H, Sq, 1]
-  lse_safe = torch.where(lse <= NEG_INF, torch.zeros_like(lse), lse)
-  p = torch.exp(s - lse_safe)
-  p = torch.where((s <= NEG_INF) | (lse <= NEG_INF), torch.zeros_like(p), p)
-  delta = (gf * out.float()).sum(dim=-1).transpose(1, 2)       # [B, H, Sq]
-  if g_lse is not None:
-    delta = delta - g_lse.float()
-  dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
-  ds = p * (dp - delta[..., None])
-  dv = _group_sum(torch.einsum("bhqk,bqhd->bkhd", p, gf), hk)
-  dk = _group_sum(torch.einsum("bhqk,bqhd->bkhd", ds, qf), hk)
-  dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+  lse, delta = lse.float(), delta.float()
+  dq = torch.empty(q.shape, dtype=torch.float32, device=q.device) \
+      if want_dq else None
+  dk = dv = None
+  rows = max(1, _PLAIN_CHUNK_ELEMS // max(1, b * h * sk))
+  for r0 in range(0, sq, rows):
+    r1 = min(sq, r0 + rows)
+    qc, gc = qf[:, r0:r1], gf[:, r0:r1]
+    s = torch.einsum("bqhd,bkhd->bhqk", qc, kf)
+    if causal:
+      keep = _keep_mask(r1 - r0, sk, int(q_base) + r0, int(kv_base), window,
+                        q.device)
+      s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    lc = lse[:, :, r0:r1, None]                               # [B, H, r, 1]
+    lse_safe = torch.where(lc <= NEG_INF, torch.zeros_like(lc), lc)
+    p = torch.exp(s - lse_safe)
+    p = torch.where((s <= NEG_INF) | (lc <= NEG_INF), torch.zeros_like(p), p)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gc, vf)
+    ds = p * (dp - delta[:, :, r0:r1, None])
+    if want_dq:
+      dq[:, r0:r1] = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    if want_dkv:
+      dv_c = torch.einsum("bhqk,bqhd->bkhd", p, gc)
+      dk_c = torch.einsum("bhqk,bqhd->bkhd", ds, qc)
+      dv = dv_c if dv is None else dv + dv_c
+      dk = dk_c if dk is None else dk + dk_c
+  if want_dkv:
+    if dk is None:                                            # no query rows
+      dk = torch.zeros((b, sk, h, d), dtype=torch.float32, device=q.device)
+      dv = torch.zeros_like(dk)
+    dk, dv = _group_sum(dk, hk), _group_sum(dv, hk)
+  return dq, dk, dv
+
+
+def _plain_delta(out, g, g_lse=None) -> torch.Tensor:
+  """``Delta = sum_d dO * O - g_lse``, f32 ``[B, H, Sq]``."""
+  delta = (g.float() * out.float()).sum(dim=-1).transpose(1, 2)
+  return delta if g_lse is None else delta - g_lse.float()
+
+
+def flash_attention_bwd_reference(q, k, v, out, lse, g, g_lse=None,
+                                  q_base: int = 0, kv_base: int = 0,
+                                  causal: bool = True,
+                                  window: Optional[int] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+  """The plain backward of either plan: ``Delta = sum_d dO * O - g_lse``,
+  then the dense math of :func:`_plain_bwd`. Returns ``(dq, dk, dv)`` in
+  q's / k's / v's dtypes; grouped dK/dV are summed over each KV head's
+  query heads."""
+  dq, dk, dv = _plain_bwd(q, k, v, g, lse, _plain_delta(out, g, g_lse),
+                          q_base, kv_base, causal, window, True, True)
   return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
+                                     q_base: int = 0, kv_base: int = 0,
+                                     causal: bool = True,
+                                     window: Optional[int] = None
+                                     ) -> torch.Tensor:
+  """The plain version of the dQ kernel: ``dq = scale * sum_k dS K`` from
+  the forward's ``lse`` and the pre-pass's ``delta`` (both f32 ``[B, H,
+  Sq]``), in q's dtype."""
+  return _plain_bwd(q, k, v, g, lse, delta, q_base, kv_base, causal, window,
+                    True, False)[0].to(q.dtype)
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, g, lse, delta,
+                                      q_base: int = 0, kv_base: int = 0,
+                                      causal: bool = True,
+                                      window: Optional[int] = None
+                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """The plain version of the dK/dV kernels: ``dv = sum_q P^T dO``, ``dk
+  = sum_q dS^T (q * scale)``, grouped K/V summed over the query group in
+  f32 and cast once to k's / v's dtype."""
+  _, dk, dv = _plain_bwd(q, k, v, g, lse, delta, q_base, kv_base, causal,
+                         window, False, True)
+  return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def default_bwd_mode() -> str:
@@ -190,6 +284,11 @@ _FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _BWD_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_DELTA_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_DQ_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_DKV_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def _forward(q, k, v, q_base, kv_base, causal, window):
@@ -217,38 +316,131 @@ def _forward(q, k, v, q_base, kv_base, causal, window):
   return out, lse
 
 
-def flash_attention_bwd(q, k, v, out, lse, g, g_lse=None, q_base: int = 0,
-                        kv_base: int = 0, causal: bool = True,
-                        window: Optional[int] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-  """``(dq, dk, dv)`` for the forward's ``(out, lse)`` and their
-  cotangents ``g`` (and ``g_lse``, or None), exactly as the JAX package's
-  fused ``_bwd_impl``. CUDA tensors run the kernel (a Delta pre-pass and
-  the backward, on the current stream; bitwise reproducible); CPU tensors
-  run :func:`flash_attention_bwd_reference`."""
-  window = _check_window(window, causal)
+def _check_bwd_shapes(q, k, v, g, lse, *rows):
+  """Shapes of the backward's inputs: ``g`` like q, ``lse`` and every
+  per-row tensor in ``rows`` ``[B, H, Sq]``."""
   _check_shapes(q, k, v)
-  if out.shape != q.shape or g.shape != q.shape:
-    raise ValueError("out and g must be shaped like q %s, got %s and %s"
-                     % (tuple(q.shape), tuple(out.shape), tuple(g.shape)))
+  if g.shape != q.shape:
+    raise ValueError("g must be shaped like q %s, got %s"
+                     % (tuple(q.shape), tuple(g.shape)))
+  b, sq, h, _ = q.shape
+  if any(t.shape != (b, h, sq) for t in (lse,) + rows):
+    raise ValueError("lse, g_lse and delta must be [%d, %d, %d]" % (b, h, sq))
+
+
+def _check_bwd_kernel(what, q, k, v, g, *rows):
+  """What the backward kernels take: head_dim 64 or 128, q/k/v/g all bf16
+  or all f32, per-row tensors f32."""
+  d = q.shape[-1]
+  if d not in HEAD_DIMS:
+    raise ValueError("%s takes head_dim in %s, got %d" % (what, HEAD_DIMS, d))
+  _check_kernel_dtypes(what, q, k, v, g)
+  if any(t.dtype != torch.float32 for t in rows):
+    raise TypeError("%s takes lse, g_lse and delta in f32" % what)
+
+
+def _split_args(q, k, q_base, kv_base, causal, window):
+  """The arguments the split kernels share, after the tensors' pointers."""
+  b, sq, h, d = q.shape
+  return (b, sq, k.shape[1], h, k.shape[2], d, int(q_base), int(kv_base),
+          int(bool(causal)), window or 0, 1.0 / math.sqrt(d),
+          _build.DTYPE_CODES[q.dtype], q.device.index, _build.stream_handle(q))
+
+
+def _bwd_delta(out, g, g_lse):
+  """The Delta pre-pass of the split plan: the kernel shared with the
+  fused plan on the card (``csrc/flash_bwd_delta.cuh``), the plain sum on
+  the CPU. Not a TPU kernel (the reference sums in XLA): counts nothing."""
+  extra = () if g_lse is None else (g_lse,)
+  if not ops.on_card(out, g, *extra):
+    return _plain_delta(out, g, g_lse)
+  _check_kernel_dtypes("flash_attention Delta pre-pass", out, g)
+  if g_lse is not None and g_lse.dtype != torch.float32:
+    raise TypeError("flash_attention Delta pre-pass takes g_lse in f32")
+  out, g = out.contiguous(), g.contiguous()
+  extra = tuple(t.contiguous() for t in extra)
+  b, sq, h, d = out.shape
+  delta = torch.empty((b, h, sq), dtype=torch.float32, device=out.device)
+  lib = _lib("flash_attention_bwd_split", "tos_flash_attention_bwd_delta",
+             _DELTA_ARGS)
+  rc = lib.tos_flash_attention_bwd_delta(
+      _build.ptr(out), _build.ptr(g),
+      _build.ptr(extra[0]) if extra else None, _build.ptr(delta), b, sq, h, d,
+      _build.DTYPE_CODES[out.dtype], out.device.index,
+      _build.stream_handle(out))
+  _build.check(lib, rc, "flash_attention backward Delta pre-pass")
+  return delta
+
+
+def flash_attention_bwd_dq(q, k, v, g, lse, delta, q_base: int = 0,
+                           kv_base: int = 0, causal: bool = True,
+                           window: Optional[int] = None) -> torch.Tensor:
+  """dQ of the split plan (the JAX package's ``_attn_bwd_dq_kernel``) from
+  the forward's ``lse`` and the pre-pass's ``delta`` (f32 ``[B, H, Sq]``):
+  in q's dtype. CUDA tensors launch the kernel on the current stream
+  (bitwise reproducible); CPU tensors run
+  :func:`flash_attention_bwd_dq_reference`."""
+  window = _check_window(window, causal)
+  _check_bwd_shapes(q, k, v, g, lse, delta)
+  if not ops.on_card(q, k, v, g, lse, delta):
+    return flash_attention_bwd_dq_reference(q, k, v, g, lse, delta, q_base,
+                                            kv_base, causal, window)
+  _check_bwd_kernel("flash_attention dQ kernel", q, k, v, g, lse, delta)
+  q, k, v, g, lse, delta = (t.contiguous() for t in (q, k, v, g, lse, delta))
+  dq = torch.empty_like(q)
+  if dq.numel() == 0 or k.shape[1] == 0:
+    return dq.zero_()
+  lib = _lib("flash_attention_bwd_split", "tos_flash_attention_bwd_dq",
+             _DQ_ARGS)
+  rc = lib.tos_flash_attention_bwd_dq(
+      *(_build.ptr(t) for t in (q, k, v, g, lse, delta, dq)),
+      *_split_args(q, k, q_base, kv_base, causal, window))
+  _build.check(lib, rc, "flash_attention dQ kernel")
+  ops.count_launch("flash_attention_bwd_dq")
+  return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, g, lse, delta, q_base: int = 0,
+                            kv_base: int = 0, causal: bool = True,
+                            window: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """``(dk, dv)`` of the split plan (the JAX package's
+  ``_attn_bwd_dkv_kernel``, or ``_attn_bwd_dkv_gqa_kernel`` for grouped
+  K/V: the query group summed in f32), in k's / v's dtype. CUDA tensors
+  launch the kernel (counted as ``flash_attention_bwd_dkv`` or
+  ``flash_attention_bwd_dkv_gqa``); CPU tensors run
+  :func:`flash_attention_bwd_dkv_reference`."""
+  window = _check_window(window, causal)
+  _check_bwd_shapes(q, k, v, g, lse, delta)
+  if not ops.on_card(q, k, v, g, lse, delta):
+    return flash_attention_bwd_dkv_reference(q, k, v, g, lse, delta, q_base,
+                                             kv_base, causal, window)
+  _check_bwd_kernel("flash_attention dK/dV kernel", q, k, v, g, lse, delta)
+  q, k, v, g, lse, delta = (t.contiguous() for t in (q, k, v, g, lse, delta))
+  dk, dv = torch.empty_like(k), torch.empty_like(v)
+  if dk.numel() == 0 or q.shape[1] == 0:
+    return dk.zero_(), dv.zero_()
+  lib = _lib("flash_attention_bwd_split", "tos_flash_attention_bwd_dkv",
+             _DKV_ARGS)
+  rc = lib.tos_flash_attention_bwd_dkv(
+      *(_build.ptr(t) for t in (q, k, v, g, lse, delta, dk, dv)),
+      *_split_args(q, k, q_base, kv_base, causal, window))
+  _build.check(lib, rc, "flash_attention dK/dV kernel")
+  ops.count_launch("flash_attention_bwd_dkv" if q.shape[2] == k.shape[2]
+                   else "flash_attention_bwd_dkv_gqa")
+  return dk, dv
+
+
+def _fused_bwd(q, k, v, out, lse, g, g_lse, q_base, kv_base, causal, window):
+  """The fused plan's kernel (a Delta pre-pass and the single-pass
+  backward, plus the group sum for grouped K/V)."""
+  _check_bwd_kernel("flash_attention backward kernel", q, k, v, g, lse,
+                    *(() if g_lse is None else (g_lse,)))
+  _check_kernel_dtypes("flash_attention backward kernel", q, out)
   b, sq, h, d = q.shape
   sk, hk = k.shape[1], k.shape[2]
-  if lse.shape != (b, h, sq) or (g_lse is not None
-                                 and g_lse.shape != (b, h, sq)):
-    raise ValueError("lse and g_lse must be [%d, %d, %d]" % (b, h, sq))
-  extra = () if g_lse is None else (g_lse,)
-  if not ops.on_card(q, k, v, out, lse, g, *extra):
-    return flash_attention_bwd_reference(q, k, v, out, lse, g, g_lse, q_base,
-                                         kv_base, causal, window)
-  if d not in HEAD_DIMS:
-    raise ValueError("flash_attention backward kernel takes head_dim in %s, "
-                     "got %d" % (HEAD_DIMS, d))
-  _check_kernel_dtypes("flash_attention backward kernel", q, k, v, out, g)
-  if lse.dtype != torch.float32 or any(t.dtype != torch.float32
-                                       for t in extra):
-    raise TypeError("lse and g_lse must be f32")
   q, k, v, out, lse, g = (t.contiguous() for t in (q, k, v, out, lse, g))
-  extra = tuple(t.contiguous() for t in extra)
+  g_lse = None if g_lse is None else g_lse.contiguous()
   dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
   if dq.numel() == 0 or sk == 0:
     return dq.zero_(), dk.zero_(), dv.zero_()
@@ -262,7 +454,7 @@ def flash_attention_bwd(q, k, v, out, lse, g, g_lse=None, q_base: int = 0,
   rc = lib.tos_flash_attention_bwd(
       _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
       _build.ptr(g), _build.ptr(lse),
-      _build.ptr(extra[0]) if extra else None, _build.ptr(delta),
+      None if g_lse is None else _build.ptr(g_lse), _build.ptr(delta),
       _build.ptr(dq_acc), _build.ptr(dq), _build.ptr(dk), _build.ptr(dv),
       None if part is None else _build.ptr(part), b, sq, sk, h, hk, d,
       int(q_base), int(kv_base), int(bool(causal)), window or 0,
@@ -274,16 +466,50 @@ def flash_attention_bwd(q, k, v, out, lse, g, g_lse=None, q_base: int = 0,
   return dq, dk, dv
 
 
+def flash_attention_bwd(q, k, v, out, lse, g, g_lse=None, q_base: int = 0,
+                        kv_base: int = 0, causal: bool = True,
+                        window: Optional[int] = None,
+                        bwd: Optional[str] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+  """``(dq, dk, dv)`` for the forward's ``(out, lse)`` and their
+  cotangents ``g`` (and ``g_lse``, or None), exactly as the JAX package's
+  ``_bwd_impl``, in the plan :func:`bwd_plan` picks for ``bwd`` (None:
+  ``TFOS_TPU_FLASH_BWD``). CUDA tensors run the plan's kernels on the
+  current stream (bitwise reproducible); CPU tensors run their plain
+  versions."""
+  window = _check_window(window, causal)
+  extra = () if g_lse is None else (g_lse,)
+  _check_bwd_shapes(q, k, v, g, lse, *extra)
+  if out.shape != q.shape:
+    raise ValueError("out must be shaped like q %s, got %s"
+                     % (tuple(q.shape), tuple(out.shape)))
+  b, sq, h, d = q.shape
+  plan = bwd_plan(_resolve_bwd(bwd), h // k.shape[2], sq, k.shape[1], d,
+                  q.element_size())
+  if plan == "split":
+    delta = _bwd_delta(out, g, g_lse)
+    dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, q_base, kv_base,
+                                causal, window)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta, q_base, kv_base,
+                                     causal, window)
+    return dq, dk, dv
+  if not ops.on_card(q, k, v, out, lse, g, *extra):
+    return flash_attention_bwd_reference(q, k, v, out, lse, g, g_lse, q_base,
+                                         kv_base, causal, window)
+  return _fused_bwd(q, k, v, out, lse, g, g_lse, q_base, kv_base, causal,
+                    window)
+
+
 class _FlashFn(torch.autograd.Function):
-  """(out, lse) with the fused backward kernel as its VJP; an lse
-  cotangent folds into Delta (``flash_attention_block``'s custom VJP),
+  """(out, lse) with the backward kernels of plan ``bwd`` as its VJP; an
+  lse cotangent folds into Delta (``flash_attention_block``'s custom VJP),
   an absent one (``flash_attention``) is None."""
 
   @staticmethod
-  def forward(ctx, q, k, v, q_base, kv_base, causal, window):
+  def forward(ctx, q, k, v, q_base, kv_base, causal, window, bwd):
     out, lse = _forward(q, k, v, q_base, kv_base, causal, window)
     ctx.save_for_backward(q, k, v, out, lse)
-    ctx.args = (q_base, kv_base, causal, window)
+    ctx.args = (q_base, kv_base, causal, window, bwd)
     ctx.set_materialize_grads(False)
     return out, lse
 
@@ -293,7 +519,7 @@ class _FlashFn(torch.autograd.Function):
     if g is None:
       g = torch.zeros_like(out)
     dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, g_lse, *ctx.args)
-    return dq, dk, dv, None, None, None, None
+    return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_fwd(q, k, v, q_base: int = 0, kv_base: int = 0,
@@ -306,19 +532,15 @@ def flash_attention_fwd(q, k, v, q_base: int = 0, kv_base: int = 0,
   ``[B, Sq, H, D]`` in q's dtype, lse f32 ``[B, H, Sq]``. CUDA tensors run
   the kernel on the current stream (bf16 or f32, head_dim 64 or 128); CPU
   tensors run the plain version. Differentiable in q, k, v through both
-  outputs (``bwd``: the backward plan, see :func:`default_bwd_mode`).
+  outputs (``bwd``: the backward plan, see :func:`default_bwd_mode` and
+  :func:`bwd_plan`).
   """
   window = _check_window(window, causal)
   _check_shapes(q, k, v)
   bwd = _resolve_bwd(bwd)
   if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-    if bwd == "split":
-      raise NotImplementedError(
-          "the split flash-attention backward (separate dQ and dK/dV "
-          "kernels) is not ported to PyTorch yet (ROADMAP Queue 2 rows "
-          "5-7); use bwd='fused'")
     return _FlashFn.apply(q, k, v, int(q_base), int(kv_base), bool(causal),
-                          window)
+                          window, bwd)
   return _forward(q, k, v, q_base, kv_base, causal, window)
 
 

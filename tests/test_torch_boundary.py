@@ -27,6 +27,12 @@ def test_port_sources_import_no_jax():
   files = [os.path.join(d, f) for d, _, fs in os.walk(PORT)
            for f in fs if f.endswith(".py")]
   assert len(files) >= 10
+  scanned = {os.path.relpath(p, PORT) for p in files}
+  # the data feed and the entry points are scanned with the rest
+  for name in ("fs", "tfrecord", "example_codec", "schema", "dfutil",
+               "readers"):
+    assert os.path.join("data", name + ".py") in scanned, name
+  assert os.path.join("examples", "train_gpt.py") in scanned
   bad = sorted((os.path.relpath(p, ROOT), root) for p in files
                for root in _imported_roots(p) if root in FORBIDDEN)
   assert bad == []
@@ -80,3 +86,32 @@ def test_running_the_port_loads_no_jax_module():
                         capture_output=True, text=True, timeout=120)
   assert proc.returncode == 0, proc.stdout + proc.stderr
   assert "LOADED []" in proc.stdout
+
+
+def test_train_gpt_from_tfrecords_loads_no_jax_module(tmp_path):
+  code = textwrap.dedent("""
+      import sys
+      from tensorflowonspark_tpu_torch.data import example_codec, tfrecord
+      from tensorflowonspark_tpu_torch.examples import train_gpt
+      with tfrecord.TFRecordWriter(sys.argv[1]) as w:
+        for i in range(4):
+          w.write(example_codec.encode_example(
+              {"tokens": [(7 * i + j) % 32 for j in range(20)]}))
+      losses = train_gpt.run(train_gpt.parse_args(
+          ["--device", "cpu", "--data", sys.argv[1], "--layers", "1",
+           "--d_model", "16", "--heads", "2", "--kv_heads", "1",
+           "--seq_len", "16", "--vocab", "32", "--batch", "2",
+           "--steps", "1"]))
+      assert len(losses) == 1, losses
+      loaded = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
+                      or m.startswith("tensorflowonspark_tpu."))
+      print("LOADED", loaded)
+      assert loaded == [], loaded
+  """)
+  env = dict(os.environ, PYTHONPATH=ROOT, TFOS_TPU_FLASH_BWD="split")
+  proc = subprocess.run([sys.executable, "-c", code,
+                         str(tmp_path / "tokens.tfrecord")], cwd=ROOT,
+                        env=env, capture_output=True, text=True, timeout=120)
+  assert proc.returncode == 0, proc.stdout + proc.stderr
+  assert "LOADED []" in proc.stdout and "step 0 loss" in proc.stdout

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from tensorflowonspark_tpu_torch import ops
+from tensorflowonspark_tpu_torch.data import readers
 from tensorflowonspark_tpu_torch.models import transformer as tfm
 from tensorflowonspark_tpu_torch.serving import ServingEngine
 from tensorflowonspark_tpu_torch.utils.params import init_params
@@ -226,3 +227,72 @@ def test_all_fused_gradients_on_card_equal_cpu(card):
   assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
   for name, a, b in zip(names, out["cuda"][1], out["cpu"][1]):
     assert (a - b).abs().max() <= 1e-3 * b.abs().max(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_bwd_kernels_match_plain_and_fused_on_card(card, case, dtype):
+  h, hk, q_base, kv_base, causal, window = FLASH_CASES[case]
+  g = torch.Generator(device=card).manual_seed(5)
+  mk = lambda *s: torch.randn(*s, device=card, generator=g)  # noqa: E731
+  q, k, v = mk(2, 200, h, 64), mk(2, 200, hk, 64), mk(2, 200, hk, 64)
+  go, gl = mk(2, 200, h, 64).to(dtype), mk(2, h, 200)
+  q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+  out, lse = ops.flash_attention_fwd(q, k, v, q_base, kv_base, causal, window)
+  gl = torch.where(lse <= -1e29, 0.0, gl)
+  args = (q, k, v, out, lse, go, gl, q_base, kv_base, causal, window)
+  ops.reset_launches()
+  got = ops.flash_attention_bwd(*args, bwd="split")
+  dkv = "flash_attention_bwd_dkv" if h == hk else "flash_attention_bwd_dkv_gqa"
+  assert {n: c for n, c in ops.LAUNCHES.items() if c} == {
+      "flash_attention_bwd_dq": 1, dkv: 1}
+  want = ops.flash_attention_bwd_reference(*args)
+  fused = ops.flash_attention_bwd(*args, bwd="fused")
+  tol = 2e-4 if dtype == torch.float32 else 3e-2
+  for a, b, c in zip(got, want, fused):
+    assert a.dtype == dtype
+    torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(a.float(), c.float(), atol=tol, rtol=tol)
+  # no atomics: a second run gives the same bits
+  again = ops.flash_attention_bwd(*args, bwd="split")
+  assert all(torch.equal(a, b) for a, b in zip(got, again))
+  if case == "kv_ahead":
+    assert (got[0][:, :kv_base - q_base] == 0).all()
+
+
+@pytest.mark.cuda
+def test_split_bwd_kernels_head_dim_128_and_autograd_on_card(card):
+  g = torch.Generator(device=card).manual_seed(6)
+  q = torch.randn(1, 130, 4, 128, device=card, generator=g)
+  k = torch.randn(1, 130, 2, 128, device=card, generator=g)
+  v = torch.randn(1, 130, 2, 128, device=card, generator=g)
+  go = torch.randn(1, 130, 4, 128, device=card, generator=g)
+  qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+  (ops.flash_attention(qs, ks, vs, bwd="split") * go).sum().backward()
+  out, lse = ops.flash_attention_reference(q, k, v)
+  want = ops.flash_attention_bwd_reference(q, k, v, out, lse, go)
+  for a, b in zip((qs.grad, ks.grad, vs.grad), want):
+    torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+def test_device_prefetch_on_card_waits_for_its_copies(card):
+  side = torch.cuda.Stream(card)
+  with torch.cuda.stream(side):
+    # a long kernel ahead of the copies on the side stream: a batch used
+    # before its copy's event would read memory not yet written
+    torch.cuda._sleep(200_000_000)
+  rng = np.random.default_rng(0)
+  batches = [rng.integers(0, 1000, (64, 1024)).astype(np.int32)
+             for _ in range(4)]
+  for b in batches:
+    b.setflags(write=False)
+  got = []
+  for t in readers.device_prefetch(iter(batches), size=2, stream=side):
+    assert t.is_cuda and t.dtype == torch.int32
+    got.append((t.long().sum(), t.clone()))     # queued on the consumer stream
+  torch.cuda.synchronize()
+  for (total, t), b in zip(got, batches):
+    assert int(total) == int(b.astype(np.int64).sum())
+    assert np.array_equal(t.cpu().numpy(), b)

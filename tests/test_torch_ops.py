@@ -103,21 +103,28 @@ def test_cpu_calls_run_plain_versions_and_count_nothing():
   w = torch.randn(64, 32, requires_grad=True)
   h = ops.ln_matmul(x, torch.ones(64, requires_grad=True), w)
   ops.gelu_matmul(h, torch.randn(32, 16)).sum().backward()
+  ops.flash_attention(q, q[:, :, :1], q[:, :, :1],
+                      bwd="split").sum().backward()
   assert ops.LAUNCHES == {"layer_norm": 0, "layer_norm_bwd": 0,
                           "flash_attention_fwd": 0, "flash_attention_bwd": 0,
-                          "flash_attention_bwd_gqa": 0, "ln_matmul": 0,
+                          "flash_attention_bwd_gqa": 0,
+                          "flash_attention_bwd_dq": 0,
+                          "flash_attention_bwd_dkv": 0,
+                          "flash_attention_bwd_dkv_gqa": 0, "ln_matmul": 0,
                           "gelu_matmul": 0}
 
 
 def test_wrappers_refuse_gradients_and_bad_inputs(monkeypatch):
   q = torch.randn(1, 8, 4, 16, requires_grad=True)
-  # the split backward plan (Queue 2 rows 5-7) is refused by name, and
-  # only where a gradient is asked for
-  with pytest.raises(NotImplementedError, match="rows 5-7"):
-    ops.flash_attention(q, q, q, bwd="split")
+  # the split backward plan, asked for or from the environment, gives the
+  # fused plan's gradient
+  want = torch.autograd.grad(ops.flash_attention(q, q, q).sum(), q)[0]
+  got = torch.autograd.grad(ops.flash_attention(q, q, q, bwd="split").sum(),
+                            q)[0]
+  torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
   monkeypatch.setenv("TFOS_TPU_FLASH_BWD", "split")
-  with pytest.raises(NotImplementedError, match="split"):
-    ops.flash_attention(q, q, q)
+  got = torch.autograd.grad(ops.flash_attention(q, q, q).sum(), q)[0]
+  torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
   with torch.no_grad():
     ops.flash_attention(q, q, q)
   with pytest.raises(ValueError, match="bwd"):

@@ -9,6 +9,10 @@ failure:
 1. the card: its name and power limit as ``nvidia-smi`` reports them;
 2. build: every hand-written kernel from ``tensorflowonspark_tpu_torch/
    csrc/`` with ``nvcc`` (one process per source, started together);
+   the ptxas spill bytes of each tensor-core instantiation (the bf16
+   flash forward and split dK/dV, which must not spill) and their
+   ``HGMMA`` / ``HMMA`` / ``FFMA`` counts from ``cuobjdump -sass`` (the
+   forward must show HGMMA, the dK/dV body HGMMA or HMMA);
 3. kernels against their plain PyTorch versions on the card, at the
    shapes the serving and training paths give them, with times (CUDA
    events), the least time the card could take (``bound``) and one
@@ -65,14 +69,25 @@ failure:
    plain versions: the loss to 1e-4 relative, every gradient within 1e-3
    of its largest magnitude.
 
-Phase 3 also holds the split backward's dQ and dK/dV kernels against
+Phase 3 also holds the flash forward at the long-context shape B1 x
+S16384 (Hk 4) against its plain version on three 512-row chunks (the
+last included), and the split backward's dQ and dK/dV kernels against
 their plain versions (each twice, bitwise) at 6's cases, a long grouped
-window and the long-context shape B1 x S16384, where they are also held
-against the fused kernel and timed beside it.
+window and the long-context shape, where they are also held against the
+fused kernel and timed beside it; it ends with one line per redesigned
+tensor-core kernel: ms, the factor over SDPA (forward) or SDPA's whole
+backward (dK/dV), and the share of the bound.
 
 The last two lines of output are JSON: ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. A copy of the measurements goes to
 ``chiprun_out/chip_smoke.json``.
+
+``python3 chip_smoke.py --serving-only N`` runs phases 1, 2 and 4 alone:
+the serving main path N times in one process, then the host time of one
+flash-forward wrapper call at the prefill chunks' shapes and the wall time
+of a 512-token prefill chunk; it prints them as one JSON line. A copy of
+this script run from another checkout's root measures that checkout's
+package the same way, so two trees can alternate in one chip call.
 """
 
 import contextlib
@@ -126,6 +141,106 @@ def time_ms(fn, runs=25, inner=10):
     end.synchronize()
     times.append(start.elapsed_time(end) / inner)
   return statistics.median(times)
+
+
+# -- phase 2: what the tensor-core kernels compiled to -----------------------
+
+# (library, substring of the mangled name, what it is): the bf16 kernels
+# that run their products on the tensor cores, each at head_dim 64 and 128
+TENSOR_CORE_KERNELS = (
+    ("flash_attention", "flash_fwd_kernel_wgmma", "flash forward bf16"),
+    ("flash_attention_bwd_split", "flash_bwd_dkv_kernel_wgmma",
+     "split dK/dV bf16"),
+    ("flash_attention_bwd_split", "flash_bwd_dkv_gqa_kernel_wgmma",
+     "split grouped dK/dV bf16"))
+SASS_OPS = ("HGMMA", "HMMA", "FFMA")
+
+
+def _cuobjdump():
+  found = shutil.which("cuobjdump")
+  if found:
+    return found
+  nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+  return os.path.join(os.path.dirname(nvcc), "cuobjdump")
+
+
+def _head_dim(mangled):
+  return 128 if "ILi128E" in mangled else 64
+
+
+def sass_counts(_build):
+  """HGMMA / HMMA / FFMA instructions in each tensor-core kernel's SASS
+  (``cuobjdump -sass`` of the built library), one line per
+  instantiation. Fails if the bf16 forward has no HGMMA or the dK/dV body
+  neither HGMMA nor HMMA: their products must run on the tensor cores."""
+  out = {}
+  for lib in sorted({k[0] for k in TENSOR_CORE_KERNELS}):
+    text = subprocess.run(
+        [_cuobjdump(), "-sass", str(_build.library_path(lib))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    func = None
+    for line in text.splitlines():
+      if "Function :" in line:
+        func = line.split("Function :", 1)[1].strip()
+        continue
+      if func is None or "*/" not in line:
+        continue
+      ins = line.split("*/", 1)[1].strip()
+      if ins.startswith("@"):
+        ins = ins.split(None, 1)[1] if " " in ins else ""
+      op = ins.split(" ", 1)[0].split(".", 1)[0]
+      if op in SASS_OPS:
+        slot = out.setdefault((lib, func), dict.fromkeys(SASS_OPS, 0))
+        slot[op] += 1
+  rows = []
+  for lib, part, what in TENSOR_CORE_KERNELS:
+    funcs = sorted(f for (l, f) in out if l == lib and part in f
+                   and (part != "flash_bwd_dkv_kernel_wgmma"
+                        or "gqa" not in f))
+    if not funcs:
+      raise AssertionError("no %s kernel (%s) in the SASS of %s"
+                           % (what, part, lib))
+    for f in funcs:
+      c = out[(lib, f)]
+      rows.append({"kernel": "%s<%d>" % (part, _head_dim(f)), "what": what,
+                   **c})
+      log("  sass %-36s HGMMA %4d  HMMA %4d  FFMA %5d"
+          % (rows[-1]["kernel"], c["HGMMA"], c["HMMA"], c["FFMA"]))
+      if part.startswith("flash_fwd") and c["HGMMA"] == 0:
+        raise AssertionError("%s: no HGMMA in %s" % (what, f))
+      if c["HGMMA"] + c["HMMA"] == 0:
+        raise AssertionError("%s: neither HGMMA nor HMMA in %s" % (what, f))
+  return rows
+
+
+def tensor_core_spills(build_log):
+  """Spill bytes of each tensor-core kernel from the ptxas report; fails
+  on any spill."""
+  spills = {}
+  for lib, part, what in TENSOR_CORE_KERNELS:
+    if lib not in build_log:
+      log("  %s: loaded from an earlier build, no ptxas report" % lib)
+      continue
+    func = None
+    for line in build_log[lib].splitlines():
+      if "Function properties for" in line:
+        func = line.split("Function properties for", 1)[1].strip()
+      elif "spill stores" in line and func and part in func and (
+          part != "flash_bwd_dkv_kernel_wgmma" or "gqa" not in func):
+        words = line.replace(",", " ").split()
+        stores = int(words[words.index("spill") - 2])
+        loads = int(words[words.index("loads") - 3])
+        key = "%s<%d>" % (part, _head_dim(func))
+        spills[key] = stores + loads
+  log("  spill bytes of the tensor-core kernels: %s" % spills)
+  want = 2 * sum(lib in build_log for lib, _, _ in TENSOR_CORE_KERNELS)
+  if len(spills) < want:
+    raise AssertionError("ptxas reported %d of the %d tensor-core kernels"
+                         % (len(spills), want))
+  bad = {k: v for k, v in spills.items() if v}
+  if bad:
+    raise AssertionError("tensor-core kernels spill registers: %s" % bad)
+  return spills
 
 
 # -- phase 3: kernels against their plain versions ---------------------------
@@ -257,7 +372,85 @@ def check_flash(ops, torch, F):
             name, sq, sk, h, hk, d, max(err, lerr), row["ms"],
             row["plain_ms"], "-" if lib is None else "%.4f" % lib,
             row["bound_ms"]))
+  row = check_flash_long(ops, torch, F, g)
+  rows_out.append(row)
+  worst = max(worst, row["max_abs_err"])
   return rows_out, worst
+
+
+# query-row chunks of the long case held against the plain version: the
+# first, one in the middle and the last (the plain version is dense, a
+# [B, H, Sq, Sk] f32 tensor: ~13 GB for the whole long case)
+LONG_CHUNK = 512
+# the long case's out error over the largest |out| of its chunk
+LONG_OUT_REL = 1e-2
+
+
+def check_flash_long(ops, torch, F, g):
+  """The forward at the long-context training shape (B1 S16384 H12 Hk4
+  D64 bf16): the kernel's rows [i0, i0 + 512) against the plain version of
+  those rows (its own ``q_base``) for three chunks, the last included;
+  times beside SDPA on K/V expanded to the query heads."""
+  b, s, h, hk, d = LONG_B, LONG_S, 12, 4, 64
+  bf = torch.bfloat16
+  q = torch.randn(b, s, h, d, device="cuda", generator=g).to(bf)
+  k = torch.randn(b, s, hk, d, device="cuda", generator=g).to(bf)
+  v = torch.randn(b, s, hk, d, device="cuda", generator=g).to(bf)
+  out, lse = ops.flash_attention_fwd(q, k, v, 0, 0, True, None)
+  err, rel = 0.0, []
+  chunks = (0, s // 2, s - LONG_CHUNK)
+  for i0 in chunks:
+    i1 = i0 + LONG_CHUNK
+    ro, rl = ops.flash_attention_reference(q[:, i0:i1], k, v, q_base=i0)
+    got, glse = out[:, i0:i1], lse[:, :, i0:i1]
+    torch.cuda.synchronize()
+    oerr = (got.float() - ro.float()).abs().max().item()
+    lerr = (glse - rl).abs().max().item()
+    # a row that sees n keys averages n random V rows: |out| ~ sqrt(e / n),
+    # ~0.013 in the last chunk, under the flat 2e-2; so out is also held to
+    # 1e-2 of the chunk's own largest |out| (bf16 rounds it to 2^-9)
+    scale = ro.float().abs().max().item()
+    rel.append(oerr / scale)
+    if not (torch.allclose(got.float(), ro.float(), atol=2e-2, rtol=2e-2)
+            and oerr <= LONG_OUT_REL * scale
+            and torch.allclose(glse, rl, atol=1e-4, rtol=1e-4)):
+      raise AssertionError(
+          "flash long rows [%d, %d): out err %.3g (tol 2e-2 and %g x max "
+          "|out| %.3g), lse err %.3g (tol 1e-4)"
+          % (i0, i1, oerr, LONG_OUT_REL, scale, lerr))
+    err = max(err, oerr, lerr)
+  pairs = b * h * _visible_pairs(s, s, 0, 0, None)
+  nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + lse.numel() * 4
+  bound_b = nbytes / HBM_BYTES_PER_S * 1e3
+  bound_o = 4.0 * pairs * d / PEAK_FLOPS["bfloat16"] * 1e3
+  qt = q.transpose(1, 2)
+  kt, vt = (t.repeat_interleave(h // hk, dim=2).transpose(1, 2)
+            for t in (k, v))
+  lib = time_ms(lambda: F.scaled_dot_product_attention(
+      qt, kt, vt, is_causal=True), runs=5, inner=3)
+  del qt, kt, vt
+  row = {"case": "long", "B": b, "Sq": s, "Sk": s, "H": h, "Hk": hk, "D": d,
+         "q_base": 0, "kv_base": 0, "window": None, "dtype": "bfloat16",
+         "max_abs_err": err, "checked_rows": [[i0, i0 + LONG_CHUNK]
+                                              for i0 in chunks],
+         "out_err_over_max_out": rel,
+         "ms": time_ms(lambda: ops.flash_attention_fwd(q, k, v, 0, 0, True,
+                                                       None), runs=5, inner=3),
+         # the plain version over one chunk of rows, times the chunks
+         "plain_ms": time_ms(lambda: ops.flash_attention_reference(
+             q[:, :LONG_CHUNK], k, v, q_base=0), runs=3, inner=1)
+         * (s // LONG_CHUNK),
+         "plain": "one %d-row chunk x %d" % (LONG_CHUNK, s // LONG_CHUNK),
+         "library_ms": lib, "bound_ms": max(bound_b, bound_o),
+         "bound_by": "bytes" if bound_b >= bound_o else "operations"}
+  log("  flash long      B=%d S=%d H=%d Hk=%d D=%d err=%.3g (rows %s; out "
+      "err / max |out| %s) ms=%.4f plain~%.2f lib=%.4f bound=%.5f" % (
+          b, s, h, hk, d, err, row["checked_rows"],
+          ", ".join("%.3g" % x for x in rel), row["ms"], row["plain_ms"],
+          lib, row["bound_ms"]))
+  del q, k, v, out, lse
+  torch.cuda.empty_cache()
+  return row
 
 
 def _rel_check(what, got, want, tol):
@@ -495,6 +688,11 @@ def check_flash_bwd_split(ops, torch, F):
     # a call at the long shape, so few repeats there)
     fused_ms = time_ms(lambda: fa._fused_bwd(*args), runs=2 if long else runs,
                        inner=1 if long else inner)
+    # the fused kernel's bound on the same inputs: 5 products per pair, q,
+    # dO, k, v, lse, Delta read and dq, dk, dv written once
+    fused_bound = max((read + written["dq"] + written["dkv"])
+                      / HBM_BYTES_PER_S,
+                      10.0 * pairs * d / PEAK_FLOPS[dt]) * 1e3
     for kern in ("dq", "dkv"):
       bound_b = (read + written[kern]) / HBM_BYTES_PER_S * 1e3
       bound_o = flops[kern] / PEAK_FLOPS[dt] * 1e3
@@ -509,7 +707,8 @@ def check_flash_bwd_split(ops, torch, F):
           "library": "none computes %s alone; SDPA's backward computes "
                      "(dQ, dK, dV) together (library_whole_bwd_ms, beside "
                      "split_pair_ms)" % ("dQ" if kern == "dq" else "dK/dV"),
-          "split_pair_ms": ms["dq"] + ms["dkv"], "fused_ms": fused_ms})
+          "split_pair_ms": ms["dq"] + ms["dkv"], "fused_ms": fused_ms,
+          "fused_bound_ms": fused_bound})
     log("  flash_bwd_split %-15s B=%-2d Sq=%-5d H=%-2d Hk=%-2d D=%-3d err "
         "dq %.3g dkv %.3g (vs fused %.3g) ms dq %.4f dkv %.4f = %.4f, fused "
         "%.4f, plain %.3f+%.3f, SDPA bwd %s, bound %.5f+%.5f deterministic"
@@ -522,18 +721,30 @@ def check_flash_bwd_split(ops, torch, F):
   return rows_out, worst
 
 
+def pick(table, **kw):
+  """The row of ``table`` whose fields equal ``kw``."""
+  return next(r for r in table if all(r[k] == v for k, v in kw.items()))
+
+
 def device_ms(torch, fn, calls=5):
   """Device time per call of ``fn`` (every kernel it launches), from
-  torch.profiler over ``calls`` calls after a warm-up."""
+  torch.profiler over ``calls`` calls after a warm-up. A session in which
+  the profiler records no kernel at all (it sometimes drops a short
+  session's device activity) is taken again, up to 3 times; None if none
+  recorded one."""
   from torch.profiler import ProfilerActivity, profile
   fn()
   torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    for _ in range(calls):
-      fn()
-    torch.cuda.synchronize()
-  return sum(r[1] for r in _kernel_rows(torch, prof)) / calls
+  for _ in range(3):
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      for _ in range(calls):
+        fn()
+      torch.cuda.synchronize()
+    total = sum(r[1] for r in _kernel_rows(torch, prof))
+    if total > 0:
+      return total / calls
+  return None
 
 
 # (op, case, rows, K, N, dtype): the training shapes (B16 x S1024 rows:
@@ -620,12 +831,18 @@ def fused_device_ms(ops, torch, F, rows_out):
   for i, row in enumerate(rows_out):
     fn = _fused_calls(ops, torch, F, i)[0]
     row["device_ms"] = device_ms(torch, fn)
+    del fn
+    if row["device_ms"] is None:
+      row["tflops"] = None
+      log("  %-11s %-9s %-8s device time not measured: the profiler "
+          "recorded no kernel in 3 sessions" % (row["op"], row["case"],
+                                                row["dtype"]))
+      continue
     row["tflops"] = 2.0 * row["rows"] * row["K"] * row["N"] / \
         row["device_ms"] / 1e9
     log("  %-11s %-9s %-8s device=%.4f ms (%.1f TFLOP/s)"
         % (row["op"], row["case"], row["dtype"], row["device_ms"],
            row["tflops"]))
-    del fn
 
 
 # -- phases 4 and 5: the serving path ----------------------------------------
@@ -1149,7 +1366,64 @@ def train_parity_f32(torch, tfm, init_params, **kw):
           "tensors": len(gh)}
 
 
-def main():
+def serving_only(torch, ops, tfm, ServingEngine, slots, init_params,
+                 repeats):
+  """The serving main path ``repeats`` times, then the host side of the
+  prefill: microseconds from entering to leaving one flash-forward wrapper
+  call (no synchronise inside; the median of 200) at the first chunk sizes
+  16 and 512, and the wall ms of a whole 512-token prefill chunk (median of
+  10, synchronised)."""
+  cfg = tfm.TransformerConfig()
+  params = init_params(cfg, seed=SEED)
+  runs = []
+  for _ in range(repeats):
+    res, model = serve_main_path(torch, ops, tfm, ServingEngine, slots,
+                                 params, cfg)
+    runs.append({k: res[k] for k in ("tokens_per_s", "ttft_ms_p50",
+                                     "ttft_ms_p99", "decode_ms_per_step")})
+  g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+  host_us = {}
+  for s in (16, 512):
+    q, k, v = (torch.randn(1, s, cfg.num_heads, cfg.head_dim, device="cuda",
+                           generator=g).to(torch.bfloat16) for _ in range(3))
+    for _ in range(10):
+      ops.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(200):
+      t0 = time.perf_counter()
+      ops.flash_attention_fwd(q, k, v)
+      times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    host_us["S%d" % s] = statistics.median(times)
+  dec = slots.SlotDecoder(model, 8)
+  prompt = _prompts((512,), cfg.vocab_size, SEED + 4)[0]
+  walls = []
+  with torch.inference_mode():
+    for _ in range(12):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      dec.prefill(prompt)
+      torch.cuda.synchronize()
+      walls.append((time.perf_counter() - t0) * 1e3)
+  out = {"runs": runs, "flash_fwd_host_us": host_us,
+         "prefill_512_wall_ms": statistics.median(walls[2:]),
+         "tokens_per_s": [r["tokens_per_s"] for r in runs]}
+  log("  tokens/s %s; flash fwd host us %s; 512-token prefill chunk wall "
+      "%.2f ms" % (", ".join("%.1f" % x for x in out["tokens_per_s"]),
+                   ", ".join("%s %.1f" % kv for kv in host_us.items()),
+                   out["prefill_512_wall_ms"]))
+  log(json.dumps({"serving_only": out}))
+  return 0
+
+
+def main(argv):
+  repeats = 0
+  if argv[:1] == ["--serving-only"] and len(argv) == 2:
+    repeats = int(argv[1])
+  elif argv:
+    log("usage: python3 chip_smoke.py [--serving-only N]")
+    return 2
   try:
     import torch
     import torch.nn.functional as F
@@ -1195,6 +1469,12 @@ def main():
     for line in text.splitlines():
       if "Used" in line or "spill" in line:
         log("  ptxas %s: %s" % (name, line.strip()))
+  if repeats:
+    log("[4] serving main path x%d, then the prefill's host time" % repeats)
+    return serving_only(torch, ops, tfm, ServingEngine, slots, init_params,
+                        repeats)
+  spills = tensor_core_spills(_build.BUILD_LOG)
+  sass = sass_counts(_build)
 
   log("[3] kernels against their plain versions")
   ln_rows, ln_err = check_layer_norm(ops, torch, F)
@@ -1204,6 +1484,18 @@ def main():
   split_rows, split_err = check_flash_bwd_split(ops, torch, F)
   fm_rows, fm_err = check_fused_matmul(ops, torch, F)
   torch.cuda.empty_cache()
+  for what, row, lib in (
+      ("flash fwd B16 S1024", pick(fa_rows, case="train"), "library_ms"),
+      ("flash fwd B1 S16384 Hk4", pick(fa_rows, case="long"), "library_ms"),
+      ("split dK/dV B16 S1024", pick(split_rows, case="train", kernel="dkv"),
+       "library_whole_bwd_ms"),
+      ("split dK/dV B1 S16384 Hk4", pick(split_rows, case="long",
+                                         kernel="dkv"),
+       "library_whole_bwd_ms")):
+    log("  %-26s %.4f ms = %.2f x SDPA%s (%.4f ms), %.1f%% of bound"
+        % (what, row["ms"], row["ms"] / row[lib],
+           " whole bwd" if "bwd" in lib else "", row[lib],
+           100.0 * row["bound_ms"] / row["ms"]))
 
   log("[4] main path: full-width ServingEngine, bf16")
   t0 = time.monotonic()
@@ -1281,9 +1573,6 @@ def main():
     split_gqa_parity = train_parity_f32(torch, tfm, init_params,
                                         num_kv_heads=4)
 
-  def pick(table, **kw):
-    return next(r for r in table if all(r[k] == v for k, v in kw.items()))
-
   def launches(res, steps, name):
     return int(res["launches_per_step"][name] * steps)
 
@@ -1305,13 +1594,20 @@ def main():
              fused_res["per_step"]["launches_per_step"].items()}
   split_l = {n: int(v * 4) for n, v in
              split_res["per_step"]["launches_per_step"].items()}
+  fa_train, fa_long = pick(fa_rows, case="train"), pick(fa_rows, case="long")
   kernels = [
       entry("flash_attention_fwd", "flash_attention.cu",
             "flash_attention.py:124",
             {"serve": serve_l["flash_attention_fwd"],
              "train_4_steps": step_l["flash_attention_fwd"],
-             "train_fused_4_steps": fused_l["flash_attention_fwd"]},
-            fa_err, pick(fa_rows, case="s512")),
+             "train_fused_4_steps": fused_l["flash_attention_fwd"],
+             "train_long_gqa_2_steps": launches(long_res, 2,
+                                                "flash_attention_fwd")},
+            fa_err, pick(fa_rows, case="s512"), design="wgmma+tma",
+            train={k: fa_train[k] for k in ("ms", "plain_ms", "library_ms",
+                                            "bound_ms")},
+            long={k: fa_long[k] for k in ("ms", "plain_ms", "library_ms",
+                                          "bound_ms")}),
       entry("layer_norm", "layer_norm.cu", "layer_norm.py:33",
             {"serve": serve_l["layer_norm"],
              "train_4_steps": step_l["layer_norm"],
@@ -1358,15 +1654,17 @@ def main():
                                            "flash_attention_bwd_dkv_gqa")},
        "long")):
     row = pick(split_rows, case=case, kernel=kern)
+    design = {"design": "wgmma+tma"} if kern == "dkv" else {}
     kernels.append(entry(
         name, "flash_attention_bwd_split.cu", replaces, by_path,
-        split_err[kern], row, library=row["library"],
+        split_err[kern], row, **design, library=row["library"],
         library_whole_bwd_ms=row["library_whole_bwd_ms"],
         split_pair_ms=row["split_pair_ms"], fused_ms=row["fused_ms"],
         shape="B%d S%d H%d Hk%d D%d" % (row["B"], row["Sq"], row["H"],
                                         row["Hk"], row["D"])))
   record = {"card": card, "torch": torch.__version__,
             "cuda": torch.version.cuda, "build_s": build_s,
+            "sass_counts": sass, "tensor_core_spill_bytes": spills,
             "layer_norm": ln_rows, "flash_attention": fa_rows,
             "layer_norm_bwd": lnb_rows, "flash_attention_bwd": fab_rows,
             "flash_attention_bwd_split": split_rows, "fused_matmul": fm_rows,
@@ -1393,4 +1691,4 @@ def main():
 
 
 if __name__ == "__main__":
-  sys.exit(main())
+  sys.exit(main(sys.argv[1:]))

@@ -5,9 +5,9 @@
 //   _attn_bwd_dq_kernel (:166-194, launched by _bwd_impl at :667)
 //     -> flash_bwd_dq_kernel;
 //   _attn_bwd_dkv_kernel (:197-229, MHA, launched at :723)
-//     -> flash_bwd_dkv_kernel;
+//     -> flash_bwd_dkv_kernel_wgmma (bf16), flash_bwd_dkv_kernel (f32);
 //   _attn_bwd_dkv_gqa_kernel (:281-329, grouped KV, launched at :689)
-//     -> flash_bwd_dkv_gqa_kernel.
+//     -> flash_bwd_dkv_gqa_kernel_wgmma (bf16), flash_bwd_dkv_gqa_kernel (f32).
 // Same function, term for term (_pair_p_ds :109-118):
 //   s = (q * scale) . k in f32, masked like the forward (keep = kv_base + j <=
 //   q_base + i, and > q_base + i - window);
@@ -28,15 +28,42 @@
 // products where the fused plan does 5, since S and dP are computed by both. At
 // the long-context shape (B 1, S 16384, H 12, Hk 4, D 64, causal) that is
 // about 1.4 TFLOP against ~0.1 GB of inputs and outputs: compute-bound on the
-// tensor cores (~1.4 ms there). This first version runs the products on the
-// CUDA cores in f32, like the fused kernel (no wgmma, no TMA): bound by f32 FMA
-// issue and shared-memory operand loads.
+// tensor cores (~1.4 ms there).
 //
-// Design. The TPU runs each grid in order on one core; here every (query head
-// or KV head, 64-row tile) is its own CTA, which is what fills the card at long
-// sequence and small batch: (B * H) x S/64 CTAs for dQ and (B * Hk) x S/64 for
-// dK/dV (3072 and 1024 at the shape above, where the fused plan has 12). The
-// sequential TPU grid axis becomes a loop inside the CTA:
+// dK/dV has two bodies, chosen by dtype in tos_flash_attention_bwd_dkv:
+//
+// bf16 -> flash_bwd_dkv_kernel_wgmma / flash_bwd_dkv_gqa_kernel_wgmma (tensor
+// cores, dkv_tile_wgmma). One CTA per (batch * KV head, 128-key tile): two
+// consumer warpgroups of 64 keys and one producer warp (at head_dim 128 one
+// warpgroup and 64 keys, see wg_consumers). The producer loads
+// the CTA's K and V tiles once by TMA and streams the (query head, q tile)
+// pairs through a 2-stage ring: Q and dO by TMA (hopper_mma.cuh, 128-byte
+// swizzle), lse (in log2 units, +inf for rows past Sq or rows that saw no key)
+// and Delta by its lanes. Per pair each consumer computes S^T = K Q^T and
+// dP^T = V dO^T with wgmma (A = K or V, B = Q or dO, all K-major in shared
+// memory), P^T and dS^T in the accumulators' registers with the masks and
+// guards of pair_p_ds (masked only on the causal diagonal and the window's
+// edge), rounds them to bf16 in registers and accumulates dV += P^T dO and
+// dK += dS^T Q with wgmma (A from registers, B = dO or Q MN-major: tnspB).
+// q tiles are 64 rows at D 64 and 32 at D 128, where dK and dV hold 128 f32
+// registers a thread. dK takes the scale once at the end (the reference
+// pre-scales q: equal up to f32 rounding); dK and dV stay in f32 registers
+// across the whole query group, walked in head order, and are stored once:
+// no atomics, bitwise reproducible.
+//
+// f32 -> flash_bwd_dkv_kernel / flash_bwd_dkv_gqa_kernel (CUDA cores,
+// dkv_tile): the first body, products as f32 FMAs over tiles staged as f32 in
+// shared memory. Tensor cores have no full-precision f32 product and the f32
+// parity paths hold the card to the CPU at 1e-4, so f32 keeps it. dQ
+// (flash_bwd_dq_kernel) runs on the CUDA cores in both dtypes until its own
+// tensor-core redesign.
+//
+// Design of the CUDA-core bodies. The TPU runs each grid in order on one
+// core; here every (query head or KV head, 64-row tile) is its own CTA, which
+// is what fills the card at long sequence and small batch: (B * H) x S/64 CTAs
+// for dQ and (B * Hk) x S/64 for dK/dV (3072 and 1024 at the shape above,
+// where the fused plan has 12). The sequential TPU grid axis becomes a loop
+// inside the CTA:
 //   dQ: the CTA stages its q tile (pre-scaled), its dO tile, lse and Delta once,
 //   then walks the visible k tiles of its query head's KV head (qh / g, the
 //   reference's _kv_row_map), staging K/V as f32 in shared memory, and keeps
@@ -53,8 +80,11 @@
 
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "flash_bwd_delta.cuh"
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -422,6 +452,298 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
   return cudaGetLastError();
 }
 
+// -- bf16 dK/dV: wgmma + TMA -------------------------------------------------
+
+namespace sm90 = tos::sm90;
+
+constexpr int kWgStages = 2;              // Q / dO ring depth
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Consumer warpgroups of 64 keys per CTA, and q rows per tile: at head_dim
+// 128, dK and dV take 128 f32 registers a thread, so the q tile is 32 rows and
+// the CTA one warpgroup and the producer warp (5 warps: up to 255 registers a
+// thread; 9 warps would leave 168, and the body would spill)
+template <int D>
+__host__ __device__ constexpr int wg_consumers() { return D == 64 ? 2 : 1; }
+template <int D>
+__host__ __device__ constexpr int wg_block_q() { return D == 64 ? 64 : 32; }
+template <int D>
+__host__ __device__ constexpr int wg_keys() { return 64 * wg_consumers<D>(); }
+// the consumer warpgroups and the producer warp
+template <int D>
+__host__ __device__ constexpr int wg_threads() { return 128 * wg_consumers<D>() + 32; }
+
+template <int D>
+struct WgDkvSmem {
+  static constexpr int kWgKeys = wg_keys<D>();
+  static constexpr int kBQ = wg_block_q<D>();
+  static constexpr int kKVBytes = kWgKeys * D * 2;   // the CTA's K (or V) tile
+  static constexpr int kQBytes = kBQ * D * 2;        // one Q (or dO) tile
+  static constexpr int kStageBytes = 2 * kQBytes;    // Q then dO
+  static constexpr size_t kBytes = 1024 + 2 * kKVBytes + kWgStages * kStageBytes;
+};
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (sm90::smem_u32(p) & 1023)) & 1023);
+}
+
+// dK / dV of one (batch, KV head, 128-key tile; 64 at head_dim 128), summed
+// over the g = H / Hk query heads of the KV head in head order (g == 1: MHA).
+template <int D>
+__device__ __forceinline__ void dkv_tile_wgmma(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
+                                               const CUtensorMap* tm_v, const CUtensorMap* tm_do,
+                                               const float* __restrict__ lse,
+                                               const float* __restrict__ delta,
+                                               __nv_bfloat16* __restrict__ dk,
+                                               __nv_bfloat16* __restrict__ dv, int sq, int sk,
+                                               int h, int hk, int q_base, int kv_base, int causal,
+                                               int window, float scale) {
+  using S = WgDkvSmem<D>;
+  constexpr int kBQ = S::kBQ;
+  constexpr int kWgKeys = S::kWgKeys;
+  constexpr int kProducer = 4 * wg_consumers<D>();  // the producer warp's index
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bar_kv, full[kWgStages], empty[kWgStages];
+  __shared__ float lse_s[kWgStages][kBQ], delta_s[kWgStages][kBQ];
+  uint8_t* k_tile = align_1024(smem_raw);
+  uint8_t* v_tile = k_tile + S::kKVBytes;
+  uint8_t* ring = v_tile + S::kKVBytes;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x / hk;
+  const int kvh = blockIdx.x % hk;
+  const int grp = h / hk;
+  const int n_qt = (sq + kBQ - 1) / kBQ;
+  const int k0 = static_cast<int>(blockIdx.y) * kWgKeys;  // under causal: most queries first
+  const int k_last = min(sk, k0 + kWgKeys) - 1;
+
+  // visible q tiles of the CTA: _causal_q_lo .. _window_q_hi from its first
+  // and last key
+  int lo = 0, hi = n_qt;
+  if (causal) lo = tos::clamp_int(tos::floor_div(kv_base + k0 - q_base, kBQ), 0, n_qt);
+  if (causal && window > 0)
+    hi = tos::clamp_int(tos::floor_div(kv_base + k_last + (window - 1) - q_base, kBQ) + 1, 0,
+                        n_qt);
+  const int steps = grp * max(0, hi - lo);   // (query head, q tile) pairs, head-major
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&bar_kv, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      sm90::mbar_init(&full[s], 32);    // every producer lane (lse, Delta) + the TMA bytes
+      sm90::mbar_init(&empty[s], kProducer);  // one arrival per consumer warp
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kProducer) {  // producer warp
+    if (lane == 0 && steps > 0) {  // no copy may be left in flight at exit
+      sm90::mbar_arrive_expect_tx(&bar_kv, 2 * S::kKVBytes);
+#pragma unroll
+      for (int j = 0; j < D / 64; ++j) {
+        sm90::tma_load_4d(k_tile + j * kWgKeys * sm90::kRowBytes, tm_k, &bar_kv, 64 * j, kvh, k0,
+                          b);
+        sm90::tma_load_4d(v_tile + j * kWgKeys * sm90::kRowBytes, tm_v, &bar_kv, 64 * j, kvh, k0,
+                          b);
+      }
+    }
+    for (int i = 0; i < steps; ++i) {
+      const int qh = kvh * grp + i / (hi - lo);
+      const int q0 = (lo + i % (hi - lo)) * kBQ;
+      const int s = i % kWgStages, use = i / kWgStages;
+      if (use > 0) sm90::mbar_wait(&empty[s], (use - 1) & 1);
+      if (lane == 0) {
+        uint8_t* q_tile = ring + s * S::kStageBytes;
+        uint8_t* do_tile = q_tile + S::kQBytes;
+        sm90::mbar_expect_tx(&full[s], S::kStageBytes);
+#pragma unroll
+        for (int j = 0; j < D / 64; ++j) {
+          sm90::tma_load_4d(q_tile + j * kBQ * sm90::kRowBytes, tm_q, &full[s], 64 * j, qh, q0, b);
+          sm90::tma_load_4d(do_tile + j * kBQ * sm90::kRowBytes, tm_do, &full[s], 64 * j, qh, q0,
+                            b);
+        }
+      }
+      // lse in log2 units; +inf past sq or for a row that saw no key, so
+      // that exp2(s * scale * log2e - lse) is 0 there
+      const long row = (static_cast<long>(b) * h + qh) * sq;
+      for (int c = lane; c < kBQ; c += 32) {
+        const int pos = q0 + c;
+        const float l = pos < sq ? lse[row + pos] : tos::kNegInf;
+        lse_s[s][c] = l > tos::kNegInf ? l * kLog2e : __int_as_float(0x7f800000);
+        delta_s[s][c] = pos < sq ? delta[row + pos] : 0.f;
+      }
+      sm90::mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  const int wg = warp >> 2;
+  const int wr = (warp & 3) * 16 + (lane >> 2);   // key row within the warpgroup
+  const int quad = lane & 3;
+  const int key0 = k0 + wg * 64 + wr;             // and key0 + 8
+  const int wg_first = k0 + wg * 64;
+  const int wg_last = min(sk, wg_first + 64) - 1;
+  const bool has_keys = wg_first < sk;
+  // the q tiles this warpgroup's keys are visible from
+  int wg_lo = lo, wg_hi = hi;
+  if (causal) wg_lo = max(lo, tos::floor_div(kv_base + wg_first - q_base, kBQ));
+  if (causal && window > 0)
+    wg_hi = min(hi, tos::floor_div(kv_base + wg_last + (window - 1) - q_base, kBQ) + 1);
+
+  const float sl2 = scale * kLog2e;
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int x = 0; x < D / 2; ++x) dk_acc[x] = dv_acc[x] = 0.f;
+  const uint32_t k_addr = sm90::smem_u32(k_tile) + wg * 64 * sm90::kRowBytes;
+  const uint32_t v_addr = sm90::smem_u32(v_tile) + wg * 64 * sm90::kRowBytes;
+
+  if (steps > 0) sm90::mbar_wait(&bar_kv, 0);
+  for (int i = 0; i < steps; ++i) {
+    const int qt = lo + i % (hi - lo);
+    const int q0 = qt * kBQ;
+    const int s = i % kWgStages;
+    sm90::mbar_wait(&full[s], (i / kWgStages) & 1);
+    if (has_keys && qt >= wg_lo && qt < wg_hi) {
+      const uint32_t q_addr = sm90::smem_u32(ring + s * S::kStageBytes);
+      const uint32_t do_addr = q_addr + S::kQBytes;
+      // S^T = K Q^T and dP^T = V dO^T: keys x q rows, K-major operands
+      float st[kBQ / 2], dpt[kBQ / 2];
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < D / 16; ++k) {
+        sm90::wgmma_ss<kBQ>(st, sm90::desc_k_major(k_addr, kWgKeys * sm90::kRowBytes, k),
+                               sm90::desc_k_major(q_addr, kBQ * sm90::kRowBytes, k), k > 0);
+        sm90::wgmma_ss<kBQ>(dpt, sm90::desc_k_major(v_addr, kWgKeys * sm90::kRowBytes, k),
+                               sm90::desc_k_major(do_addr, kBQ * sm90::kRowBytes, k), k > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(st);
+      sm90::fence_regs(dpt);
+
+      // P^T = exp(s * scale - lse), 0 where masked or where the row saw no
+      // key; dS^T = P^T (dP^T - Delta). Masks only on the causal diagonal
+      // and the window's edge: keys past sk are never stored, and rows past
+      // sq carry lse = +inf.
+      const bool need =
+          causal && (kv_base + wg_last > q_base + q0 ||
+                     (window > 0 && kv_base + wg_first <= q_base + q0 + kBQ - 1 - window));
+#pragma unroll
+      for (int j = 0; j < kBQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * quad + e;
+          const float lc = lse_s[s][c], dc = delta_s[s][c];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int x = 4 * j + 2 * r + e;
+            float p = sm90::exp2_approx(fmaf(st[x], sl2, -lc));
+            if (need) {
+              const int qpos = q_base + q0 + c, kpos = kv_base + key0 + 8 * r;
+              bool keep = kpos <= qpos;
+              if (window > 0) keep = keep && kpos > qpos - window;
+              p = keep ? p : 0.f;
+            }
+            st[x] = p;
+            dpt[x] = p * (dpt[x] - dc);
+          }
+        }
+      // dV += P^T dO and dK += dS^T Q: A from registers, B MN-major
+      uint32_t pf[kBQ / 16][4], dsf[kBQ / 16][4];
+#pragma unroll
+      for (int k = 0; k < kBQ / 16; ++k) {
+        sm90::a_frag_from_acc(st, k, pf[k]);
+        sm90::a_frag_from_acc(dpt, k, dsf[k]);
+      }
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kBQ / 16; ++k) {
+        sm90::wgmma_rs<D>(dv_acc, pf[k], sm90::desc_mn_major(do_addr, kBQ * sm90::kRowBytes, k),
+                             1);
+        sm90::wgmma_rs<D>(dk_acc, dsf[k], sm90::desc_mn_major(q_addr, kBQ * sm90::kRowBytes, k),
+                             1);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dv_acc);
+      sm90::fence_regs(dk_acc);
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[s]);  // this warp is done with the stage
+  }
+
+  // dK takes the scale once (q was not pre-scaled); one rounding to bf16
+  const long kv_row = static_cast<long>(hk) * D;
+  const long kv_off = static_cast<long>(b) * sk * kv_row + static_cast<long>(kvh) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= sk) continue;
+    const long off = kv_off + key * kv_row + 2 * quad;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) = __floats2bfloat162_rn(
+          dk_acc[4 * j + 2 * r] * scale, dk_acc[4 * j + 2 * r + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j) =
+          __floats2bfloat162_rn(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// Two entry kernels over one body, so a profile tells the MHA plan
+// (_attn_bwd_dkv_kernel) from the grouped one (_attn_bwd_dkv_gqa_kernel).
+template <int D>
+__global__ void __launch_bounds__(wg_threads<D>(), 1)
+    flash_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_do, const float* lse,
+                               const float* delta, __nv_bfloat16* dk, __nv_bfloat16* dv, int sq,
+                               int sk, int h, int hk, int q_base, int kv_base, int causal,
+                               int window, float scale) {
+  dkv_tile_wgmma<D>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, sq, sk, h, hk, q_base,
+                    kv_base, causal, window, scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(wg_threads<D>(), 1)
+    flash_bwd_dkv_gqa_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                                   const __grid_constant__ CUtensorMap tm_k,
+                                   const __grid_constant__ CUtensorMap tm_v,
+                                   const __grid_constant__ CUtensorMap tm_do, const float* lse,
+                                   const float* delta, __nv_bfloat16* dk, __nv_bfloat16* dv,
+                                   int sq, int sk, int h, int hk, int q_base, int kv_base,
+                                   int causal, int window, float scale) {
+  dkv_tile_wgmma<D>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, sq, sk, h, hk, q_base,
+                    kv_base, causal, window, scale);
+}
+
+template <int D>
+cudaError_t launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
+  static unsigned long long configured_mha = 0, configured_gqa = 0;
+  constexpr size_t smem = WgDkvSmem<D>::kBytes;
+  const bool grouped = a.h != a.hk;
+  auto kernel = grouped ? &flash_bwd_dkv_gqa_kernel_wgmma<D> : &flash_bwd_dkv_kernel_wgmma<D>;
+  cudaError_t e =
+      allow_smem(kernel, smem, a.device, grouped ? &configured_gqa : &configured_mha);
+  if (e != cudaSuccess) return e;
+  CUtensorMap mq, mk, mv, mdo;
+  constexpr int kBQ = wg_block_q<D>();
+  e = sm90::encode_bshd_map(&mq, a.q, a.b, a.sq, a.h, D, kBQ);
+  if (e == cudaSuccess) e = sm90::encode_bshd_map(&mdo, a.dout, a.b, a.sq, a.h, D, kBQ);
+  constexpr int kKeys = wg_keys<D>();
+  if (e == cudaSuccess) e = sm90::encode_bshd_map(&mk, a.k, a.b, a.sk, a.hk, D, kKeys);
+  if (e == cudaSuccess) e = sm90::encode_bshd_map(&mv, a.v, a.b, a.sk, a.hk, D, kKeys);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(a.b * a.hk, (a.sk + kKeys - 1) / kKeys);
+  kernel<<<grid, wg_threads<D>(), smem, a.stream>>>(
+      mq, mk, mv, mdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), a.sq, a.sk, a.h, a.hk, a.q_base, a.kv_base, a.causal,
+      a.window, a.scale);
+  return cudaGetLastError();
+}
+
 // Runs `launch<D, T>` for the (dtype, head_dim) the kernels are built for.
 template <template <int, typename> class L, typename... X>
 cudaError_t dispatch(int dtype, int d, X... x) {
@@ -437,10 +759,12 @@ struct DqLauncher {
   static cudaError_t run(const Args& a, void* dq) { return launch_dq<D, T>(a, dq); }
 };
 
+// bf16 runs on the tensor cores, f32 on the CUDA cores (see the note above)
 template <int D, typename T>
 struct DkvLauncher {
   static cudaError_t run(const Args& a, void* dk, void* dv) {
-    return launch_dkv<D, T>(a, dk, dv);
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) return launch_dkv_wgmma<D>(a, dk, dv);
+    else return launch_dkv<D, T>(a, dk, dv);
   }
 };
 

@@ -25,9 +25,14 @@ Layout ``[batch, seq, heads, head_dim]``. K/V may carry ``heads / g``
 heads (grouped-query attention, consumed unexpanded: query head ``i``
 reads KV head ``i // g``). ``q_base``/``kv_base`` are the absolute
 positions of the first query and key, as in ``flash_attention_block``.
-The kernels' tiles are their own (64 query rows by 64 keys): the
-reference's ``DEFAULT_BWD_BLOCKS`` (256, 512) are a VMEM tuning for the
-TPU and have no counterpart here.
+The kernels' tiles are their own (the bf16 forward 128 query rows by 64
+keys, the bf16 dK/dV 128 keys by 64 query rows, 64 by 32 at head_dim 128,
+the CUDA-core bodies 64 by 64): the reference's ``DEFAULT_BWD_BLOCKS``
+(256, 512) are a VMEM tuning for the TPU and have no counterpart here.
+The bf16 forward and dK/dV kernels run their products on the tensor
+cores (wgmma) from tiles copied by TMA, which needs 16-byte aligned
+bases (the wrappers copy a view that lacks one); f32 runs on the CUDA
+cores.
 """
 
 import ctypes
@@ -271,6 +276,14 @@ def _check_kernel_dtypes(what, *tensors):
                     % (what, ", ".join(str(t.dtype) for t in tensors)))
 
 
+def _tma_operand(t):
+  """``t`` contiguous, as the bf16 kernels read it by TMA: from a 16-byte
+  aligned base (contiguous rows of 64 or 128 bf16 already give strides that
+  are multiples of 16 bytes), so a bf16 view at another offset is copied."""
+  t = t.contiguous()
+  return t.clone() if t.dtype == torch.bfloat16 and t.data_ptr() % 16 else t
+
+
 def _lib(name: str, fn_name: str, argtypes) -> ctypes.CDLL:
   lib = _build.load(name)
   fn = getattr(lib, fn_name)
@@ -300,7 +313,7 @@ def _forward(q, k, v, q_base, kv_base, causal, window):
     raise ValueError("flash_attention kernel takes head_dim in %s, got %d"
                      % (HEAD_DIMS, d))
   _check_kernel_dtypes("flash_attention kernel", q, k, v)
-  q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+  q, k, v = (_tma_operand(t) for t in (q, k, v))
   out = torch.empty_like(q)
   lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
   if out.numel() == 0:
@@ -416,7 +429,8 @@ def flash_attention_bwd_dkv(q, k, v, g, lse, delta, q_base: int = 0,
     return flash_attention_bwd_dkv_reference(q, k, v, g, lse, delta, q_base,
                                              kv_base, causal, window)
   _check_bwd_kernel("flash_attention dK/dV kernel", q, k, v, g, lse, delta)
-  q, k, v, g, lse, delta = (t.contiguous() for t in (q, k, v, g, lse, delta))
+  q, k, v, g = (_tma_operand(t) for t in (q, k, v, g))
+  lse, delta = lse.contiguous(), delta.contiguous()
   dk, dv = torch.empty_like(k), torch.empty_like(v)
   if dk.numel() == 0 or q.shape[1] == 0:
     return dk.zero_(), dv.zero_()

@@ -115,3 +115,44 @@ def test_train_gpt_from_tfrecords_loads_no_jax_module(tmp_path):
                         env=env, capture_output=True, text=True, timeout=120)
   assert proc.returncode == 0, proc.stdout + proc.stderr
   assert "LOADED []" in proc.stdout and "step 0 loss" in proc.stdout
+
+
+# packages of finished attention kernels: a kernel of the port is written by
+# hand, never a library call
+KERNEL_PACKAGES = ("flash_attn", "flash_attn_interface", "xformers")
+
+
+def _library_kernel_uses(path):
+  """(line, what) for each call of ``scaled_dot_product_attention`` or
+  ``torch.compile`` and each import of a package of finished kernels."""
+  with open(path) as f:
+    tree = ast.parse(f.read(), path)
+  found = []
+  for node in ast.walk(tree):
+    if isinstance(node, ast.Attribute):
+      if node.attr == "scaled_dot_product_attention":
+        found.append((node.lineno, node.attr))
+      elif (node.attr == "compile" and isinstance(node.value, ast.Name)
+            and node.value.id == "torch"):
+        found.append((node.lineno, "torch.compile"))
+    elif (isinstance(node, ast.ImportFrom) and node.module
+          and node.module.startswith("torch")):
+      found += [(node.lineno, "import " + a.name) for a in node.names
+                if a.name in ("scaled_dot_product_attention", "compile")]
+  for root in _imported_roots(path):
+    if root in KERNEL_PACKAGES:
+      found.append((0, "import " + root))
+  return found
+
+
+def test_port_calls_no_library_attention_or_compiler():
+  files = [os.path.join(d, f) for d, _, fs in os.walk(PORT)
+           for f in fs if f.endswith(".py")]
+  bad = {os.path.relpath(p, ROOT): uses for p in files
+         for uses in [_library_kernel_uses(p)] if uses}
+  assert bad == {}
+  # the scan finds what it looks for: chip_smoke.py, which may, times
+  # SDPA as the yardstick beside the kernels
+  smoke = _library_kernel_uses(os.path.join(ROOT, "chip_smoke.py"))
+  assert any(what == "scaled_dot_product_attention" for _, what in smoke)
+  assert not any(what.startswith("import ") for _, what in smoke)

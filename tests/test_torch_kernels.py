@@ -6,6 +6,8 @@ fixture, never at import). JAX-free, so it runs on a machine that has
 only PyTorch: ``python -m pytest tests/test_torch_kernels.py -m cuda``.
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -296,3 +298,108 @@ def test_device_prefetch_on_card_waits_for_its_copies(card):
   for (total, t), b in zip(got, batches):
     assert int(total) == int(b.astype(np.int64).sum())
     assert np.array_equal(t.cpu().numpy(), b)
+
+
+# The bf16 kernels on the tensor cores (wgmma + TMA): (B, Sq, Sk, H, Hk, D,
+# q_base, kv_base, window, causal). Prefill chunks of 16 and 32 rows, a
+# ragged q tile (100 rows), keys not a multiple of the 64-key tile, keys
+# ahead of every query (empty rows), a window, an offset chunk, grouped K/V,
+# head_dim 128, and the unmasked branch (every key tile, keys past Sk only)
+WGMMA_FWD_CASES = {
+    "s16": (1, 16, 16, 12, 12, 64, 0, 0, None, True),
+    "s32": (1, 32, 32, 12, 12, 64, 0, 0, None, True),
+    "s100": (2, 100, 100, 4, 4, 64, 0, 0, None, True),
+    "sk_ragged": (2, 150, 150, 4, 2, 64, 0, 0, None, True),
+    "kv_ahead": (1, 128, 128, 12, 12, 64, 0, 64, None, True),
+    "window128": (1, 512, 512, 12, 12, 64, 0, 0, 128, True),
+    "q_offset": (1, 256, 512, 12, 12, 64, 256, 0, None, True),
+    "gqa_hk4": (1, 512, 512, 12, 4, 64, 0, 0, None, True),
+    "d128": (1, 256, 256, 6, 6, 128, 0, 0, None, True),
+    "d128_ragged_window": (2, 130, 130, 4, 2, 128, 0, 0, 40, True),
+    "non_causal": (2, 256, 256, 4, 4, 64, 0, 0, None, False),
+    "non_causal_ragged": (2, 100, 150, 4, 2, 64, 0, 0, None, False),
+    "d128_non_causal": (1, 256, 256, 6, 6, 128, 0, 0, None, False),
+    "d128_non_causal_ragged": (2, 130, 150, 4, 2, 128, 0, 0, None, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WGMMA_FWD_CASES))
+def test_flash_bf16_tensor_core_forward_matches_plain_on_card(card, case):
+  b, sq, sk, h, hk, d, q_base, kv_base, window, causal = WGMMA_FWD_CASES[case]
+  g = torch.Generator(device=card).manual_seed(7)
+  mk = lambda *s: torch.randn(*s, device=card,  # noqa: E731
+                              generator=g).to(torch.bfloat16)
+  q, k, v = mk(b, sq, h, d), mk(b, sk, hk, d), mk(b, sk, hk, d)
+  ops.reset_launches()
+  out, lse = ops.flash_attention_fwd(q, k, v, q_base, kv_base, causal,
+                                     window)
+  assert ops.LAUNCHES["flash_attention_fwd"] == 1
+  ro, rl = ops.flash_attention_reference(q, k, v, q_base, kv_base, causal,
+                                         window)
+  # out rounds to bf16 (P also rounds to bf16 before P V); lse is f32 from
+  # exact bf16 products
+  torch.testing.assert_close(out.float(), ro.float(), atol=2e-2, rtol=2e-2)
+  torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-4)
+  if case == "kv_ahead":
+    dead = kv_base - q_base
+    assert (lse[:, :, :dead] == -1e30).all() and (out[:, :dead] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mha_causal", "gqa_causal", "window_24",
+                                  "non_causal", "kv_ahead", "q_offset"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_dkv_bf16_tensor_core_kernel_matches_plain_and_fused_on_card(
+    card, case, d):
+  h, hk, q_base, kv_base, causal, window = FLASH_CASES[case]
+  fa = sys.modules["tensorflowonspark_tpu_torch.ops.flash_attention"]
+  g = torch.Generator(device=card).manual_seed(8)
+  mk = lambda *s: torch.randn(*s, device=card,  # noqa: E731
+                              generator=g).to(torch.bfloat16)
+  q, k, v, go = mk(2, 200, h, d), mk(2, 200, hk, d), mk(2, 200, hk, d), \
+      mk(2, 200, h, d)
+  out, lse = ops.flash_attention_fwd(q, k, v, q_base, kv_base, causal, window)
+  gl = torch.where(lse <= -1e29, 0.0,
+                   torch.randn(2, h, 200, device=card, generator=g))
+  delta = fa._bwd_delta(out, go, gl)
+  ops.reset_launches()
+  dk, dv = ops.flash_attention_bwd_dkv(q, k, v, go, lse, delta, q_base,
+                                       kv_base, causal, window)
+  name = "flash_attention_bwd_dkv" if h == hk else "flash_attention_bwd_dkv_gqa"
+  assert ops.LAUNCHES[name] == 1
+  again = ops.flash_attention_bwd_dkv(q, k, v, go, lse, delta, q_base,
+                                      kv_base, causal, window)
+  assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+  pk, pv = ops.flash_attention_bwd_dkv_reference(q, k, v, go, lse, delta,
+                                                 q_base, kv_base, causal,
+                                                 window)
+  _, fk, fv = fa._fused_bwd(q, k, v, out, lse, go, gl, q_base, kv_base,
+                            causal, window)
+  # bf16: outputs round to bf16, and P and dS round to bf16 before their
+  # products: 1e-2 of each gradient's largest magnitude
+  for got, want in ((dk, pk), (dv, pv), (dk, fk), (dv, fv)):
+    assert got.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs().max()
+    assert err <= 1e-2 * want.float().abs().max(), (case, d, float(err))
+
+
+@pytest.mark.cuda
+def test_tensor_core_kernels_take_unaligned_bases_on_card(card):
+  # a contiguous bf16 view 2 bytes off a 16-byte boundary is copied for TMA:
+  # the same bits as the aligned tensor
+  g = torch.Generator(device=card).manual_seed(9)
+  n = 2 * 64 * 4 * 64
+  buf = torch.randn(n + 1, device=card, generator=g).to(torch.bfloat16)
+  odd = buf[1:].view(2, 64, 4, 64)
+  assert odd.data_ptr() % 16
+  al = odd.clone()
+  q = torch.randn(2, 64, 4, 64, device=card, generator=g).to(torch.bfloat16)
+  for got, want in zip(ops.flash_attention_fwd(odd, q, q),
+                       ops.flash_attention_fwd(al, q, q)):
+    assert torch.equal(got, want)
+  _, lse = ops.flash_attention_fwd(q, al, q)
+  delta = torch.randn(2, 4, 64, device=card, generator=g)
+  for got, want in zip(ops.flash_attention_bwd_dkv(q, odd, q, q, lse, delta),
+                       ops.flash_attention_bwd_dkv(q, al, q, q, lse, delta)):
+    assert torch.equal(got, want)

@@ -6,6 +6,8 @@ to both. The hand-written kernels themselves run only on the card: see
 ``tests/test_torch_kernels.py``.
 """
 
+import sys
+
 import numpy as np
 import pytest
 
@@ -228,3 +230,24 @@ def test_flash_bwd_matches_jax_grad(case, dtype, tol):
     dead = slice(0, kv_base - q_base)
     assert (tq.grad[:, dead] == 0).all()
     assert (np.asarray(want[0])[:, dead] == 0).all()
+
+
+def test_tma_operands_copy_unaligned_bf16_bases():
+  # the bf16 kernels read tiles by TMA, which needs 16-byte aligned bases:
+  # the wrappers copy a bf16 view at another offset and pass the rest as it
+  # is; the f32 kernels do not use TMA
+  fa = sys.modules["tensorflowonspark_tpu_torch.ops.flash_attention"]
+  n = 2 * 64 * 4 * 64
+  buf = torch.arange(n + 8).to(torch.bfloat16)
+  assert buf.data_ptr() % 16 == 0
+  aligned = buf[8:].view(2, 64, 4, 64)
+  assert fa._tma_operand(aligned) is aligned
+  odd = buf[1:n + 1].view(2, 64, 4, 64)
+  got = fa._tma_operand(odd)
+  assert got.data_ptr() % 16 == 0 and got.is_contiguous()
+  assert torch.equal(got, odd)
+  f32 = torch.zeros(n + 1)[1:].view(2, 64, 4, 64)
+  assert fa._tma_operand(f32) is f32
+  strided = buf[:n].view(2, 4, 64, 64).transpose(1, 2)
+  got = fa._tma_operand(strided)
+  assert got.is_contiguous() and torch.equal(got, strided)

@@ -10,9 +10,10 @@ failure:
 2. build: every hand-written kernel from ``tensorflowonspark_tpu_torch/
    csrc/`` with ``nvcc`` (one process per source, started together);
    the ptxas spill bytes of each tensor-core instantiation (the bf16
-   flash forward and split dK/dV, which must not spill) and their
-   ``HGMMA`` / ``HMMA`` / ``FFMA`` counts from ``cuobjdump -sass`` (the
-   forward must show HGMMA, the dK/dV body HGMMA or HMMA);
+   flash forward, fused backward and split dK/dV, which must not spill)
+   and their ``HGMMA`` / ``HMMA`` / ``FFMA`` counts from ``cuobjdump
+   -sass`` (the forward and the fused backward must show HGMMA, the dK/dV
+   body HGMMA or HMMA);
 3. kernels against their plain PyTorch versions on the card, at the
    shapes the serving and training paths give them, with times (CUDA
    events), the least time the card could take (``bound``) and one
@@ -21,7 +22,12 @@ failure:
    twice and required to give the same bits), then the fused LN->matmul
    and GELU->matmul products (their yardstick is the unfused pair of
    library calls; their device time from ``torch.profiler`` is taken at
-   the end of 6c, so that no profiler session precedes the serving run);
+   the end of 6c, so that no profiler session precedes the serving run),
+   LayerNorm rows wider than 8192 and fused products whose K and N are
+   not multiples of 8; (3b) head dims other than 64 and 128: the
+   forward, the fused backward and the split backward at head_dim 32 and
+   96 (bf16 and f32; MHA, grouped, a window, a ragged offset block)
+   against their plain versions, timed beside SDPA;
 4. the serving main path at full width: the flagship
    ``TransformerConfig()`` (vocab 32000, 12 layers, 12 heads, d_model
    768, d_ff 3072, bf16) with random weights from a seed, served by
@@ -62,7 +68,15 @@ failure:
    split plan), no fused flash backward, 49 LayerNorm forwards and 25
    backwards per step, then one profiled step; (6e) the flagship MHA at
    B16 x S1024 like 6 under ``TFOS_TPU_FLASH_BWD=split`` (12 dQ + 12 dK/dV
-   per step, no fused backward), beside 6's fused plan;
+   per step, no fused backward), beside 6's fused plan; (6f) the port's
+   ``train_gpt`` at its default model flags (4 layers, d_model 256, 8
+   heads: head_dim 32, seq 512, vocab 1024, batch 8) through its ``run``
+   from seeded TFRecord files: finite losses and exactly 8 flash
+   forwards, 4 fused flash backwards, 17 LayerNorm forwards and 9
+   backwards per step; (6g) one request through ``ServingEngine`` at the
+   JAX package's ``serve_gpt.py`` config (2 layers, 4 heads, 2 KV heads,
+   d_model 128: head_dim 32), in bf16 with launch counts and in f32
+   equal to ``greedy_generate_kv``;
 7. training parity: one f32 step (TF32 off) of a 2-layer full-width model
    on 2 x 256 tokens, unfused and all-fused, and under the split plan MHA
    and grouped-KV, on the card with the kernels and on the CPU with the
@@ -76,7 +90,7 @@ their plain versions (each twice, bitwise) at 6's cases, a long grouped
 window and the long-context shape, where they are also held against the
 fused kernel and timed beside it; it ends with one line per redesigned
 tensor-core kernel: ms, the factor over SDPA (forward) or SDPA's whole
-backward (dK/dV), and the share of the bound.
+backward (the fused backward, dK/dV), and the share of the bound.
 
 The last two lines of output are JSON: ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. A copy of the measurements goes to
@@ -146,9 +160,11 @@ def time_ms(fn, runs=25, inner=10):
 # -- phase 2: what the tensor-core kernels compiled to -----------------------
 
 # (library, substring of the mangled name, what it is): the bf16 kernels
-# that run their products on the tensor cores, each at head_dim 64 and 128
+# that run their products on the tensor cores, each at a padded head width
+# of 64 and 128
 TENSOR_CORE_KERNELS = (
     ("flash_attention", "flash_fwd_kernel_wgmma", "flash forward bf16"),
+    ("flash_attention_bwd", "flash_bwd_kernel_wgmma", "fused backward bf16"),
     ("flash_attention_bwd_split", "flash_bwd_dkv_kernel_wgmma",
      "split dK/dV bf16"),
     ("flash_attention_bwd_split", "flash_bwd_dkv_gqa_kernel_wgmma",
@@ -171,8 +187,9 @@ def _head_dim(mangled):
 def sass_counts(_build):
   """HGMMA / HMMA / FFMA instructions in each tensor-core kernel's SASS
   (``cuobjdump -sass`` of the built library), one line per
-  instantiation. Fails if the bf16 forward has no HGMMA or the dK/dV body
-  neither HGMMA nor HMMA: their products must run on the tensor cores."""
+  instantiation. Fails if the bf16 forward or fused backward has no HGMMA
+  or the dK/dV body neither HGMMA nor HMMA: their products must run on
+  the tensor cores."""
   out = {}
   for lib in sorted({k[0] for k in TENSOR_CORE_KERNELS}):
     text = subprocess.run(
@@ -206,7 +223,8 @@ def sass_counts(_build):
                    **c})
       log("  sass %-36s HGMMA %4d  HMMA %4d  FFMA %5d"
           % (rows[-1]["kernel"], c["HGMMA"], c["HMMA"], c["FFMA"]))
-      if part.startswith("flash_fwd") and c["HGMMA"] == 0:
+      if part in ("flash_fwd_kernel_wgmma", "flash_bwd_kernel_wgmma") \
+          and c["HGMMA"] == 0:
         raise AssertionError("%s: no HGMMA in %s" % (what, f))
       if c["HGMMA"] + c["HMMA"] == 0:
         raise AssertionError("%s: neither HGMMA nor HMMA in %s" % (what, f))
@@ -251,12 +269,14 @@ def check_layer_norm(ops, torch, F):
   g = torch.Generator(device="cuda").manual_seed(SEED)
   # (rows, H, dtype, tol): rows 8 = one decode step of 8 slots, 512 = the
   # largest prefill chunk, 16384 = the training batch; H 770 takes the
-  # kernel's unvectorised path.
+  # kernel's unvectorised path, H 12288 and 9001 the block-per-row kernel
+  # (rows wider than 8192; 9001 also unvectorised).
   # Tolerances: f32 sums in another order (1e-5); bf16 outputs may round
   # one ulp apart (2e-2 at |y| <= 4).
   cases = [(8, 768, torch.bfloat16, 2e-2), (512, 768, torch.bfloat16, 2e-2),
            (8, 768, torch.float32, 1e-5), (512, 768, torch.float32, 1e-5),
-           (33, 770, torch.bfloat16, 2e-2), (16384, 768, torch.bfloat16, 2e-2)]
+           (33, 770, torch.bfloat16, 2e-2), (16384, 768, torch.bfloat16, 2e-2),
+           (256, 12288, torch.bfloat16, 2e-2), (64, 9001, torch.float32, 1e-5)]
   for rows, h, dtype, tol in cases:
     x = (torch.randn(rows, h, device="cuda", generator=g) * 2 + 0.5).to(dtype)
     w = torch.rand(h, device="cuda", generator=g) + 0.5
@@ -469,11 +489,13 @@ def check_layer_norm_bwd(ops, torch, F):
   rows_out, worst = [], 0.0
   g = torch.Generator(device="cuda").manual_seed(SEED + 5)
   # (rows, H, dtype, tol): 16384 rows = the training batch B16 x S1024;
-  # H 770 takes the unvectorised path. dx: bf16 output rounding (one ulp,
-  # 2^-8 relative) or f32 sums in another order; dw: f32 sums over the
-  # rows in another order in both dtypes.
+  # H 770 takes the unvectorised path, H 12288 and 9001 the block-per-row
+  # kernel. dx: bf16 output rounding (one ulp, 2^-8 relative) or f32 sums
+  # in another order; dw: f32 sums over the rows in another order in both
+  # dtypes.
   cases = [(16384, 768, torch.bfloat16, 1e-2),
-           (16384, 768, torch.float32, 1e-5), (33, 770, torch.bfloat16, 1e-2)]
+           (16384, 768, torch.float32, 1e-5), (33, 770, torch.bfloat16, 1e-2),
+           (256, 12288, torch.bfloat16, 1e-2), (64, 9001, torch.float32, 1e-5)]
   for rows, h, dtype, tol in cases:
     x = (torch.randn(rows, h, device="cuda", generator=g) * 2 + 0.5).to(dtype)
     w = torch.rand(h, device="cuda", generator=g) + 0.5
@@ -721,6 +743,115 @@ def check_flash_bwd_split(ops, torch, F):
   return rows_out, worst
 
 
+# (name, B, Sq, Sk, H, Hk, D, q_base, kv_base, window, dtype): head dims
+# the kernels pad inside (32 in a 64-wide tile, 96 in a 128-wide one):
+# train_gpt's defaults (d_model 256, 8 heads, seq 512, batch 8), a grouped
+# window, a wider model's 96, a ragged offset block (Sq != Sk), and f32
+HEAD_DIM_CASES = (
+    ("d32_train_gpt", 8, 512, 512, 8, 8, 32, 0, 0, None, "bfloat16"),
+    ("d32_gqa_window", 2, 1024, 1024, 8, 2, 32, 0, 0, 256, "bfloat16"),
+    ("d96", 4, 1024, 1024, 8, 8, 96, 0, 0, None, "bfloat16"),
+    ("d96_gqa_ragged", 2, 300, 700, 8, 4, 96, 400, 0, None, "bfloat16"),
+    ("d32_f32", 2, 256, 256, 4, 2, 32, 0, 0, None, "float32"),
+    ("d96_f32", 2, 256, 300, 4, 4, 96, 44, 0, 64, "float32"))
+
+
+def check_head_dims(ops, torch, F):
+  """The forward, the fused backward (twice, bitwise) and the split
+  backward at head_dim 32 and 96 against their plain versions (the
+  backward plans also against each other), timed beside SDPA's forward
+  and backward where SDPA computes the same function."""
+  rows_out, worst = [], {"fwd": 0.0, "bwd": 0.0, "split": 0.0}
+  g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+  for name, b, sq, sk, h, hk, d, qb, kb, win, dt in HEAD_DIM_CASES:
+    dtype = getattr(torch, dt)
+    mk = lambda *shape: torch.randn(*shape, device="cuda",  # noqa: E731
+                                    generator=g).to(dtype)
+    q, k, v, go = mk(b, sq, h, d), mk(b, sk, hk, d), mk(b, sk, hk, d), \
+        mk(b, sq, h, d)
+    out, lse = ops.flash_attention_fwd(q, k, v, qb, kb, True, win)
+    ro, rl = ops.flash_attention_reference(q, k, v, qb, kb, True, win)
+    args = (q, k, v, out, lse, go, None, qb, kb, True, win)
+    fused = ops.flash_attention_bwd(*args, bwd="fused")
+    again = ops.flash_attention_bwd(*args, bwd="fused")
+    split = ops.flash_attention_bwd(*args, bwd="split")
+    want = ops.flash_attention_bwd_reference(*args)
+    torch.cuda.synchronize()
+    bf = dt == "bfloat16"
+    otol, ltol = (2e-2, 1e-4) if bf else (2e-5, 2e-5)
+    ferr = (out.float() - ro.float()).abs().max().item()
+    lerr = (lse - rl).abs().max().item()
+    if not (torch.allclose(out.float(), ro.float(), atol=otol, rtol=otol)
+            and torch.allclose(lse, rl, atol=ltol, rtol=ltol)):
+      raise AssertionError("head_dim %s forward: out err %.3g (tol %g), lse "
+                           "err %.3g (tol %g)" % (name, ferr, otol, lerr,
+                                                  ltol))
+    if not all(torch.equal(x, y) for x, y in zip(fused, again)):
+      raise AssertionError("head_dim %s fused backward: two runs differ"
+                           % name)
+    # bf16: outputs round to bf16 (2^-8 relative); f32: sums in another order
+    tol = 1e-2 if bf else 1e-4
+    berr = max(_rel_check("head_dim %s fused d%s" % (name, t), x, r, tol)
+               for t, x, r in zip("qkv", fused, want))
+    serr = max(max(_rel_check("head_dim %s split d%s" % (name, t), x, r,
+                              tol),
+                   _rel_check("head_dim %s split d%s vs fused" % (name, t),
+                              x, f, tol))
+               for t, x, r, f in zip("qkv", split, want, fused))
+    worst["fwd"] = max(worst["fwd"], ferr, lerr)
+    worst["bwd"] = max(worst["bwd"], berr)
+    worst["split"] = max(worst["split"], serr)
+    pairs = b * h * _visible_pairs(sq, sk, qb, kb, win)
+    isz = q.element_size()
+    fwd_bytes = (2 * q.numel() + k.numel() + v.numel()) * isz + lse.numel() * 4
+    bwd_bytes = (5 * q.numel() + 4 * k.numel()) * isz + lse.numel() * 4
+    fwd_bound = max(fwd_bytes / HBM_BYTES_PER_S,
+                    4.0 * pairs * d / PEAK_FLOPS[dt]) * 1e3
+    bwd_bound = max(bwd_bytes / HBM_BYTES_PER_S,
+                    10.0 * pairs * d / PEAK_FLOPS[dt]) * 1e3
+    lib_fwd = lib_bwd = None
+    if qb == 0 and kb == 0 and win is None and sq == sk:
+      qt = q.transpose(1, 2).detach().requires_grad_()
+      kt, vt = (t.repeat_interleave(h // hk, dim=2).transpose(1, 2)
+                .detach().requires_grad_() for t in (k, v))
+      lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+          qt, kt, vt, is_causal=True), runs=7, inner=3)
+      ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+      gt = go.transpose(1, 2)
+      lib_bwd = time_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), gt,
+                                                    retain_graph=True),
+                        runs=7, inner=3)
+      del qt, kt, vt, ot, gt
+    row = {"case": name, "B": b, "Sq": sq, "Sk": sk, "H": h, "Hk": hk, "D": d,
+           "q_base": qb, "kv_base": kb, "window": win, "dtype": dt,
+           "fwd_max_abs_err": max(ferr, lerr), "bwd_max_abs_err": berr,
+           "split_max_abs_err": serr,
+           "fwd_ms": time_ms(lambda: ops.flash_attention_fwd(
+               q, k, v, qb, kb, True, win), runs=7, inner=3),
+           "fused_bwd_ms": time_ms(lambda: ops.flash_attention_bwd(
+               *args, bwd="fused"), runs=7, inner=3),
+           "split_bwd_ms": time_ms(lambda: ops.flash_attention_bwd(
+               *args, bwd="split"), runs=7, inner=3),
+           "plain_fwd_ms": time_ms(lambda: ops.flash_attention_reference(
+               q, k, v, qb, kb, True, win), runs=3, inner=1),
+           "plain_bwd_ms": time_ms(lambda: ops.flash_attention_bwd_reference(
+               *args), runs=3, inner=1),
+           "fwd_bound_ms": fwd_bound, "bwd_bound_ms": bwd_bound,
+           "library_fwd_ms": lib_fwd, "library_bwd_ms": lib_bwd}
+    rows_out.append(row)
+    log("  head_dim %-15s B=%d Sq=%-4d Sk=%-4d H=%d Hk=%d D=%-3d %s err fwd "
+        "%.3g fused %.3g split %.3g; ms fwd %.4f fused %.4f split %.4f "
+        "(SDPA fwd %s bwd %s; bound fwd %.5f bwd %.5f) deterministic"
+        % (name, b, sq, sk, h, hk, d, dt, max(ferr, lerr), berr, serr,
+           row["fwd_ms"], row["fused_bwd_ms"], row["split_bwd_ms"],
+           "-" if lib_fwd is None else "%.4f" % lib_fwd,
+           "-" if lib_bwd is None else "%.4f" % lib_bwd, fwd_bound,
+           bwd_bound))
+    del q, k, v, go, out, lse, ro, rl, fused, again, split, want
+  torch.cuda.empty_cache()
+  return rows_out, worst
+
+
 def pick(table, **kw):
   """The row of ``table`` whose fields equal ``kw``."""
   return next(r for r in table if all(r[k] == v for k, v in kw.items()))
@@ -750,7 +881,8 @@ def device_ms(torch, fn, calls=5):
 # (op, case, rows, K, N, dtype): the training shapes (B16 x S1024 rows:
 # fused QKV 768 -> 2304, its grouped width 1280, MLP up 768 -> 3072, down
 # 3072 -> 768), f32 at the parity phase's rows, and ragged rows into N 1280
-# plus ragged rows/K/N against the 128 x 128 x 32 tiles
+# plus ragged rows/K/N against the 128 x 128 x 32 tiles, and K and N that
+# are not multiples of 8 (rows off a 16-byte boundary: element loads)
 FUSED_CASES = (("ln_matmul", "qkv", 16384, 768, 2304, "bfloat16"),
                ("ln_matmul", "qkv_gqa", 16384, 768, 1280, "bfloat16"),
                ("ln_matmul", "up", 16384, 768, 3072, "bfloat16"),
@@ -760,7 +892,10 @@ FUSED_CASES = (("ln_matmul", "qkv", 16384, 768, 2304, "bfloat16"),
                ("gelu_matmul", "down", 16384, 3072, 768, "bfloat16"),
                ("gelu_matmul", "down_f32", 512, 3072, 768, "float32"),
                ("gelu_matmul", "ragged33", 33, 768, 1280, "bfloat16"),
-               ("gelu_matmul", "ragged_kn", 100, 776, 200, "bfloat16"))
+               ("gelu_matmul", "ragged_kn", 100, 776, 200, "bfloat16"),
+               ("ln_matmul", "k_n_odd", 100, 771, 203, "bfloat16"),
+               ("gelu_matmul", "k_n_odd", 100, 771, 203, "bfloat16"),
+               ("ln_matmul", "k_n_odd_f32", 33, 301, 131, "float32"))
 
 
 def _fused_calls(ops, torch, F, index):
@@ -1326,6 +1461,105 @@ def train_long_gqa(torch, ops, sharding, readers, train_gpt):
   return res
 
 
+# train_gpt.py's default model flags (4 layers, d_model 256, 8 heads:
+# head_dim 32, seq 512, vocab 1024, batch 8): 2 flash forwards per layer
+# (forward and remat recompute), one fused backward, 4 LayerNorm forwards
+# per layer (2 and their recompute) + ln_f, 2 backwards + ln_f's
+GPT_DEFAULT_STEPS = 5
+
+
+def _want_per_layer(layers):
+  return dict(WANT_PER_STEP, flash_attention_fwd=2 * layers,
+              flash_attention_bwd=layers, layer_norm=4 * layers + 1,
+              layer_norm_bwd=2 * layers + 1)
+
+
+def train_gpt_defaults(torch, ops, train_gpt):
+  """The port's train_gpt at its default model flags through its ``run``,
+  batches from seeded TFRecord files: finite losses, exact launch counts
+  per step (the fused backward at head_dim 32 among them)."""
+  args = train_gpt.parse_args(["--steps", str(GPT_DEFAULT_STEPS)])
+  pattern = write_token_files(
+      os.path.join(HERE, "build", "chip_smoke_gpt_tokens"), args.vocab,
+      args.seq_len)
+  args = train_gpt.parse_args(["--data", pattern, "--steps",
+                               str(GPT_DEFAULT_STEPS)])
+  cfg = train_gpt.make_config(args)
+  torch.cuda.synchronize()
+  ops.reset_launches()
+  t0 = time.monotonic()
+  losses = train_gpt.run(args)
+  torch.cuda.synchronize()
+  wall = time.monotonic() - t0
+  per = _per_step_launches(dict(ops.LAUNCHES), GPT_DEFAULT_STEPS,
+                           _want_per_layer(cfg.num_layers),
+                           "train_gpt default flags")
+  if len(losses) != GPT_DEFAULT_STEPS or not all(
+      math.isfinite(x) for x in losses):
+    raise AssertionError("train_gpt default flags: losses %s" % losses)
+  res = {"layers": cfg.num_layers, "d_model": cfg.d_model,
+         "heads": cfg.num_heads, "head_dim": cfg.head_dim,
+         "seq": args.seq_len, "batch": args.batch, "vocab": args.vocab,
+         "steps": GPT_DEFAULT_STEPS, "losses": losses,
+         "wall_s_with_first_step": wall, "launches_per_step": per}
+  log("  %d layers, d_model %d, %d heads (head_dim %d), B%d x S%d: losses %s"
+      "; %d steps in %.2f s (first step and reader start included); "
+      "launches per step %s" % (cfg.num_layers, cfg.d_model, cfg.num_heads,
+                                cfg.head_dim, args.batch, args.seq_len,
+                                " ".join("%.4f" % x for x in losses),
+                                GPT_DEFAULT_STEPS, wall, per))
+  return res
+
+
+# the JAX package's examples/transformer/serve_gpt.py config: head_dim 32,
+# 2 KV heads
+SERVE_GPT_CFG = dict(vocab_size=256, num_layers=2, num_heads=4,
+                     num_kv_heads=2, d_model=128, d_ff=256, max_seq_len=64)
+
+
+def serve_gpt_config(torch, ops, tfm, ServingEngine, init_params):
+  """One request through ServingEngine at serve_gpt's config: in bf16 with
+  the flash forward's launches counted, and in f32 (TF32 off) equal to the
+  single-request greedy_generate_kv decode."""
+  import numpy as np
+  prompt = np.random.default_rng(SEED + 13).integers(1, 256, size=20)
+  res = {}
+  for dt in ("bfloat16", "float32"):
+    cfg = tfm.TransformerConfig(dtype=getattr(torch, dt), remat=False,
+                                **SERVE_GPT_CFG)
+    eng = ServingEngine(init_params(cfg, seed=SEED), cfg, num_slots=2,
+                        horizon=4).start()
+    try:
+      ops.reset_launches()
+      out = eng.generate([prompt], max_new_tokens=16, timeout=600)[0]
+      torch.cuda.synchronize()
+      launches = dict(ops.LAUNCHES)
+    finally:
+      eng.stop()
+    if len(out) != len(prompt) + 16 or not (out[:len(prompt)] == prompt).all() \
+        or out.min() < 0 or out.max() >= cfg.vocab_size:
+      raise AssertionError("serve_gpt config %s: bad output %s" % (dt, out))
+    if launches["flash_attention_fwd"] != cfg.num_layers:
+      raise AssertionError("serve_gpt config %s: flash forward launched %d "
+                           "times, one prefill of %d layers needs %d"
+                           % (dt, launches["flash_attention_fwd"],
+                              cfg.num_layers, cfg.num_layers))
+    if dt == "float32":
+      ref = tfm.greedy_generate_kv(eng.model, prompt[None], 16)
+      ref = ref.cpu().numpy()[0]
+      if not (ref == out).all():
+        raise AssertionError("serve_gpt config f32: engine %s vs "
+                             "greedy_generate_kv %s" % (out, ref))
+    res[dt] = {"prompt_len": len(prompt), "tokens": out.tolist(),
+               "launches": {k: v for k, v in launches.items() if v}}
+    log("  serve_gpt config %s (head_dim %d, Hk %d): %d tokens out, "
+        "launches %s%s" % (dt, cfg.head_dim, cfg.num_kv_heads, len(out),
+                           res[dt]["launches"],
+                           ", equal to greedy_generate_kv" if dt == "float32"
+                           else ""))
+  return res
+
+
 def train_parity_f32(torch, tfm, init_params, **kw):
   """One step's loss and gradients of a 2-layer full-width f32 model
   (``TransformerConfig(**kw)``) on a 2 x 256 batch: the card with the
@@ -1467,7 +1701,8 @@ def main(argv):
       time.monotonic() - t0))
   for name, text in sorted(_build.BUILD_LOG.items()):
     for line in text.splitlines():
-      if "Used" in line or "spill" in line:
+      # register use, spills, and wgmma products ptxas had to serialize
+      if "Used" in line or "spill" in line or "Performance Loss" in line:
         log("  ptxas %s: %s" % (name, line.strip()))
   if repeats:
     log("[4] serving main path x%d, then the prefill's host time" % repeats)
@@ -1484,18 +1719,26 @@ def main(argv):
   split_rows, split_err = check_flash_bwd_split(ops, torch, F)
   fm_rows, fm_err = check_fused_matmul(ops, torch, F)
   torch.cuda.empty_cache()
-  for what, row, lib in (
-      ("flash fwd B16 S1024", pick(fa_rows, case="train"), "library_ms"),
-      ("flash fwd B1 S16384 Hk4", pick(fa_rows, case="long"), "library_ms"),
+  for what, row, lib, yard in (
+      ("flash fwd B16 S1024", pick(fa_rows, case="train"), "library_ms",
+       "SDPA"),
+      ("flash fwd B1 S16384 Hk4", pick(fa_rows, case="long"), "library_ms",
+       "SDPA"),
+      ("fused bwd B16 S1024", pick(fab_rows, case="train"), "library_ms",
+       "SDPA bwd"),
+      ("fused bwd B8 S1024 Hk4", pick(fab_rows, case="gqa_hk4"),
+       "library_ms", "SDPA bwd"),
       ("split dK/dV B16 S1024", pick(split_rows, case="train", kernel="dkv"),
-       "library_whole_bwd_ms"),
+       "library_whole_bwd_ms", "SDPA whole bwd"),
       ("split dK/dV B1 S16384 Hk4", pick(split_rows, case="long",
                                          kernel="dkv"),
-       "library_whole_bwd_ms")):
-    log("  %-26s %.4f ms = %.2f x SDPA%s (%.4f ms), %.1f%% of bound"
-        % (what, row["ms"], row["ms"] / row[lib],
-           " whole bwd" if "bwd" in lib else "", row[lib],
+       "library_whole_bwd_ms", "SDPA whole bwd")):
+    log("  %-26s %.4f ms = %.2f x %s (%.4f ms), %.1f%% of bound"
+        % (what, row["ms"], row["ms"] / row[lib], yard, row[lib],
            100.0 * row["bound_ms"] / row["ms"]))
+
+  log("[3b] head dims 32 and 96: forward, fused and split backward")
+  hd_rows, hd_err = check_head_dims(ops, torch, F)
 
   log("[4] main path: full-width ServingEngine, bf16")
   t0 = time.monotonic()
@@ -1565,6 +1808,17 @@ def main(argv):
            split_res[path]["ms_per_step"]))
   torch.cuda.empty_cache()
 
+  log("[6f] train_gpt at its default model flags (head_dim 32) from "
+      "TFRecords")
+  gpt_res = train_gpt_defaults(torch, ops, train_gpt)
+  torch.cuda.empty_cache()
+
+  log("[6g] one request at serve_gpt's config (head_dim 32, 2 KV heads)")
+  serve_gpt_res = serve_gpt_config(torch, ops, tfm, ServingEngine,
+                                   init_params)
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.cuda.empty_cache()
+
   log("[7] parity: f32 training step, card kernels vs CPU plain versions")
   train_parity = train_parity_f32(torch, tfm, init_params)
   fused_parity = train_parity_f32(torch, tfm, init_params, **ALL_FUSED)
@@ -1602,8 +1856,13 @@ def main(argv):
              "train_4_steps": step_l["flash_attention_fwd"],
              "train_fused_4_steps": fused_l["flash_attention_fwd"],
              "train_long_gqa_2_steps": launches(long_res, 2,
-                                                "flash_attention_fwd")},
-            fa_err, pick(fa_rows, case="s512"), design="wgmma+tma",
+                                                "flash_attention_fwd"),
+             "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
+                 gpt_res, GPT_DEFAULT_STEPS, "flash_attention_fwd"),
+             "serve_gpt_config_bf16": serve_gpt_res["bfloat16"]["launches"][
+                 "flash_attention_fwd"]},
+            max(fa_err, hd_err["fwd"]), pick(fa_rows, case="s512"),
+            design="wgmma+tma", head_dims="8..128 (d % 8 == 0)",
             train={k: fa_train[k] for k in ("ms", "plain_ms", "library_ms",
                                             "bound_ms")},
             long={k: fa_long[k] for k in ("ms", "plain_ms", "library_ms",
@@ -1611,23 +1870,31 @@ def main(argv):
       entry("layer_norm", "layer_norm.cu", "layer_norm.py:33",
             {"serve": serve_l["layer_norm"],
              "train_4_steps": step_l["layer_norm"],
-             "train_fused_4_steps": fused_l["layer_norm"]},
+             "train_fused_4_steps": fused_l["layer_norm"],
+             "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
+                 gpt_res, GPT_DEFAULT_STEPS, "layer_norm")},
             ln_err, pick(ln_rows, rows=512, dtype="bfloat16")),
       entry("flash_attention_bwd", "flash_attention_bwd.cu",
             "flash_attention.py:232",
             {"train_4_steps": step_l["flash_attention_bwd"],
-             "train_fused_4_steps": fused_l["flash_attention_bwd"]},
-            fab_err, pick(fab_rows, case="train")),
+             "train_fused_4_steps": fused_l["flash_attention_bwd"],
+             "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
+                 gpt_res, GPT_DEFAULT_STEPS, "flash_attention_bwd")},
+            max(fab_err, hd_err["bwd"]), pick(fab_rows, case="train"),
+            design="wgmma+tma", head_dims="8..128 (d % 8 == 0)"),
       entry("flash_attention_bwd_gqa", "flash_attention_bwd.cu",
             "flash_attention.py:332",
             {"train_gqa_2_steps": launches(gqa_res, 2,
                                            "flash_attention_bwd_gqa"),
              "train_fused_gqa_2_steps": launches(fgqa_res, 2,
                                                  "flash_attention_bwd_gqa")},
-            fab_err, pick(fab_rows, case="gqa_hk4")),
+            max(fab_err, hd_err["bwd"]), pick(fab_rows, case="gqa_hk4"),
+            design="wgmma+tma", head_dims="8..128 (d % 8 == 0)"),
       entry("layer_norm_bwd", "layer_norm.cu", "layer_norm.py:40",
             {"train_4_steps": step_l["layer_norm_bwd"],
-             "train_fused_4_steps": fused_l["layer_norm_bwd"]},
+             "train_fused_4_steps": fused_l["layer_norm_bwd"],
+             "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
+                 gpt_res, GPT_DEFAULT_STEPS, "layer_norm_bwd")},
             lnb_err, pick(lnb_rows, rows=16384, dtype="bfloat16")),
       entry("ln_matmul", "ln_matmul.cu", "ln_matmul.py:31",
             {"train_fused_4_steps": fused_l["ln_matmul"],
@@ -1657,7 +1924,8 @@ def main(argv):
     design = {"design": "wgmma+tma"} if kern == "dkv" else {}
     kernels.append(entry(
         name, "flash_attention_bwd_split.cu", replaces, by_path,
-        split_err[kern], row, **design, library=row["library"],
+        max(split_err[kern], hd_err["split"]), row, **design,
+        head_dims="8..128 (d % 8 == 0)", library=row["library"],
         library_whole_bwd_ms=row["library_whole_bwd_ms"],
         split_pair_ms=row["split_pair_ms"], fused_ms=row["fused_ms"],
         shape="B%d S%d H%d Hk%d D%d" % (row["B"], row["Sq"], row["H"],
@@ -1668,6 +1936,8 @@ def main(argv):
             "layer_norm": ln_rows, "flash_attention": fa_rows,
             "layer_norm_bwd": lnb_rows, "flash_attention_bwd": fab_rows,
             "flash_attention_bwd_split": split_rows, "fused_matmul": fm_rows,
+            "head_dims": hd_rows, "train_gpt_defaults": gpt_res,
+            "serve_gpt_config": serve_gpt_res,
             "main_path": main_res, "profile": prof_res,
             "parity_f32": parity, "train": train_res, "train_gqa": gqa_res,
             "train_fused": fused_res, "train_fused_gqa": fgqa_res,

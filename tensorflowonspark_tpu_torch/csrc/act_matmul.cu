@@ -25,8 +25,8 @@
 #include "prologue_gemm.cuh"
 
 // x: [rows, f] in `dtype` (bf16 or f32); w: [f, n] in `dtype`; out: [rows, n]
-// in `dtype`; all contiguous on CUDA device `device`. f and n multiples of 8,
-// pointers 16-byte aligned. Launches one kernel on `stream` and returns
+// in `dtype`; all contiguous on CUDA device `device`, pointers 16-byte
+// aligned; f and n any width. Launches one kernel on `stream` and returns
 // cudaGetLastError().
 extern "C" int tos_gelu_matmul(const void* x, const void* w, void* out, int rows, int f,
                                int n, int dtype, int device, void* stream) {

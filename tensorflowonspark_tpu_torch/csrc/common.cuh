@@ -52,6 +52,15 @@ __host__ __device__ __forceinline__ int clamp_int(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// The tile width the flash-attention kernels are built for: a head_dim d with
+// 8 <= d <= 128 and d % 8 == 0 runs padded to 64 columns (d <= 64) or to 128;
+// 0 for a head_dim they do not take. The columns past d are zeros in every
+// staged tile and are never stored, so the padding changes no result.
+__host__ __device__ __forceinline__ int padded_head_dim(int d) {
+  if (d < 8 || d > 128 || d % 8 != 0) return 0;
+  return d <= 64 ? 64 : 128;
+}
+
 }  // namespace tos
 
 extern "C" const char* tos_error_string(int code) {

@@ -3,7 +3,7 @@
 //
 // Replaces: tensorflowonspark_tpu/ops/flash_attention.py _attn_fwd_kernel (the
 // Pallas kernel launched by _fwd_impl). Same function, term for term:
-//   s = (q * scale) . k in f32, scale = 1/sqrt(D);
+//   s = (q * scale) . k in f32, scale = 1/sqrt(d);
 //   keep = kv_base + j <= q_base + i (causal), and kv_base + j > q_base + i - window;
 //   masked scores are -1e30 (not -inf); online softmax in f32 with the TPU
 //   kernel's guards (m_safe, corr, p = 0 for masked entries);
@@ -12,6 +12,12 @@
 //   query head qh reads KV head qh / (H / Hk) (the blocked GQA map, _kv_row_map);
 //   the k-tile loop is bounded like _causal_k_hi / _window_k_lo, so a causal
 //   prefill visits about half the tiles.
+//
+// Head dims: every d with 8 <= d <= 128 and d % 8 == 0. Each body is built
+// for a padded tile width DP (64 for d <= 64, else 128, padded_head_dim) and
+// takes the real d at run time: tiles are staged with zeros past column d
+// (TMA fills them in the tensor-core body), which add nothing to q . k or to
+// P V, and no column past d is stored. The scale stays 1/sqrt(d).
 //
 // Bound on the H100: 4 * pairs * D flops for the visible (q, k) pairs against
 // |q| + |k| + |v| + |o| bytes: compute-bound on the bf16 tensor cores at
@@ -68,11 +74,12 @@ constexpr size_t smem_bytes() {
                           + kWarps * kRowsPerWarp * kBlockK);  // P per warp
 }
 
+// D: the padded tile width; d: the head_dim (columns past it stage as 0)
 template <int D, typename T>
 __global__ void __launch_bounds__(32 * kWarps)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
-                     float* __restrict__ lse, int sq, int sk, int h, int hk,
+                     float* __restrict__ lse, int sq, int sk, int h, int hk, int d,
                      int q_base, int kv_base, int causal, int window, float scale) {
   constexpr int kCols = D / 32;  // output columns per lane
   extern __shared__ float smem[];
@@ -90,16 +97,16 @@ __global__ void __launch_bounds__(32 * kWarps)
   const int kvh = qh / (h / hk);
   const int q0 = blockIdx.x * kBlockQ;
 
-  const long q_row = static_cast<long>(h) * D;   // stride between positions
-  const long kv_row = static_cast<long>(hk) * D;
-  const T* qp = q + static_cast<long>(b) * sq * q_row + static_cast<long>(qh) * D;
-  const T* kp = k + static_cast<long>(b) * sk * kv_row + static_cast<long>(kvh) * D;
-  const T* vp = v + static_cast<long>(b) * sk * kv_row + static_cast<long>(kvh) * D;
+  const long q_row = static_cast<long>(h) * d;   // stride between positions
+  const long kv_row = static_cast<long>(hk) * d;
+  const T* qp = q + static_cast<long>(b) * sq * q_row + static_cast<long>(qh) * d;
+  const T* kp = k + static_cast<long>(b) * sk * kv_row + static_cast<long>(kvh) * d;
+  const T* vp = v + static_cast<long>(b) * sk * kv_row + static_cast<long>(kvh) * d;
 
   for (int idx = tid; idx < kBlockQ * D; idx += 32 * kWarps) {
     const int r = idx / D, c = idx % D;
     const int s = q0 + r;
-    qs[idx] = s < sq ? tos::to_float(qp[s * q_row + c]) * scale : 0.f;
+    qs[idx] = s < sq && c < d ? tos::to_float(qp[s * q_row + c]) * scale : 0.f;
   }
 
   const int n_kt = (sk + kBlockK - 1) / kBlockK;
@@ -129,7 +136,7 @@ __global__ void __launch_bounds__(32 * kWarps)
     for (int idx = tid; idx < kBlockK * D; idx += 32 * kWarps) {
       const int r = idx / D, c = idx % D;
       const int s = k0 + r;
-      const bool in = s < sk;
+      const bool in = s < sk && c < d;
       ks[r * (D + 1) + c] = in ? tos::to_float(kp[s * kv_row + c]) : 0.f;
       vs[idx] = in ? tos::to_float(vp[s * kv_row + c]) : 0.f;
     }
@@ -191,7 +198,7 @@ __global__ void __launch_bounds__(32 * kWarps)
     __syncwarp();
   }
 
-  T* op = out + static_cast<long>(b) * sq * q_row + static_cast<long>(qh) * D;
+  T* op = out + static_cast<long>(b) * sq * q_row + static_cast<long>(qh) * d;
   float* lp = lse + static_cast<long>(bh) * sq;
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
@@ -200,14 +207,15 @@ __global__ void __launch_bounds__(32 * kWarps)
     const float l_safe = l[r] == 0.f ? 1.f : l[r];
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
-      op[s * q_row + lane + 32 * c] = tos::from_float<T>(acc[r][c] / l_safe);
+      if (lane + 32 * c < d)
+        op[s * q_row + lane + 32 * c] = tos::from_float<T>(acc[r][c] / l_safe);
     if (lane == 0) lp[s] = l[r] == 0.f ? tos::kNegInf : m[r] + logf(l_safe);
   }
 }
 
 template <int D, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
-                   int b, int sq, int sk, int h, int hk, int q_base, int kv_base,
+                   int b, int sq, int sk, int h, int hk, int d, int q_base, int kv_base,
                    int causal, int window, float scale, int device, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   // the shared-memory attribute is set once per instantiation and device
@@ -223,7 +231,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
   const dim3 grid((sq + kBlockQ - 1) / kBlockQ, b * h);
   flash_fwd_kernel<D, T><<<grid, 32 * kWarps, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), lse, sq, sk, h, hk, q_base, kv_base, causal, window, scale);
+      static_cast<T*>(out), lse, sq, sk, h, hk, d, q_base, kv_base, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -268,16 +276,16 @@ __device__ __forceinline__ void issue_kv(uint8_t* kv_ring, uint64_t* full, const
   }
 }
 
-// Two CTAs an SM at head_dim 64 (106 registers a thread fit the 128 that
-// allows); one at 128
+// Two CTAs an SM at a padded width D of 64 (106 registers a thread fit the
+// 128 that allows); one at 128. d: the head_dim.
 template <int D>
 __global__ void __launch_bounds__(kWgThreads, D == 64 ? 2 : 1)
     flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
                            __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int sq,
-                           int sk, int h, int hk, int q_base, int kv_base, int causal, int window,
-                           float scale) {
+                           int sk, int h, int hk, int d, int q_base, int kv_base, int causal,
+                           int window, float scale) {
   using S = WgFwdSmem<D>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bar_q, full[kWgStages], empty[kWgStages];
@@ -445,7 +453,7 @@ __global__ void __launch_bounds__(kWgThreads, D == 64 ? 2 : 1)
   }
 
   // out = acc / l, lse = m * scale + log(l); the row sums over the quad
-  __nv_bfloat16* op = out + static_cast<long>(b) * sq * h * D + static_cast<long>(qh) * D;
+  __nv_bfloat16* op = out + static_cast<long>(b) * sq * h * d + static_cast<long>(qh) * d;
   float* lp = lse + static_cast<long>(bh) * sq;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -456,18 +464,19 @@ __global__ void __launch_bounds__(kWgThreads, D == 64 ? 2 : 1)
     if (row >= sq) continue;
     const float l_safe = lr == 0.f ? 1.f : lr;
     const float inv = 1.f / l_safe;
-    __nv_bfloat16* dst = op + static_cast<long>(row) * h * D + 2 * quad;
+    __nv_bfloat16* dst = op + static_cast<long>(row) * h * d + 2 * quad;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
-          __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      if (8 * j < d)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
     if (quad == 0) lp[row] = lr == 0.f ? tos::kNegInf : m[r] * scale + logf(l_safe);
   }
 }
 
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
-                         int b, int sq, int sk, int h, int hk, int q_base, int kv_base,
+                         int b, int sq, int sk, int h, int hk, int d, int q_base, int kv_base,
                          int causal, int window, float scale, int device, cudaStream_t stream) {
   constexpr size_t smem = WgFwdSmem<D>::kBytes;
   static unsigned long long configured = 0;
@@ -482,24 +491,24 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   // with no keys the kernel loads no K/V tile: map q in their place
   const bool keys = sk > 0;
   CUtensorMap mq, mk, mv;
-  cudaError_t e = sm90::encode_bshd_map(&mq, q, b, sq, h, D, kWgQ);
+  cudaError_t e = sm90::encode_bshd_map(&mq, q, b, sq, h, d, kWgQ);
   if (e == cudaSuccess)
-    e = sm90::encode_bshd_map(&mk, keys ? k : q, b, keys ? sk : sq, keys ? hk : h, D, kWgK);
+    e = sm90::encode_bshd_map(&mk, keys ? k : q, b, keys ? sk : sq, keys ? hk : h, d, kWgK);
   if (e == cudaSuccess)
-    e = sm90::encode_bshd_map(&mv, keys ? v : q, b, keys ? sk : sq, keys ? hk : h, D, kWgK);
+    e = sm90::encode_bshd_map(&mv, keys ? v : q, b, keys ? sk : sq, keys ? hk : h, d, kWgK);
   if (e != cudaSuccess) return e;
   const dim3 grid(b * h, (sq + kWgQ - 1) / kWgQ);
   flash_fwd_kernel_wgmma<D><<<grid, kWgThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, sq, sk, h, hk, q_base, kv_base, causal,
-      window, scale);
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, sq, sk, h, hk, d, q_base, kv_base,
+      causal, window, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, out: [b, sq, h, d]; k, v: [b, sk, hk, d], all contiguous in `dtype` on CUDA
-// device `device`; lse: [b, h, sq] f32. window <= 0 means no window. Returns
-// cudaGetLastError().
+// device `device`; lse: [b, h, sq] f32; d in 8..128, a multiple of 8. window
+// <= 0 means no window. Returns cudaGetLastError().
 extern "C" int tos_flash_attention_fwd(const void* q, const void* k, const void* v,
                                        void* out, void* lse, int b, int sq, int sk, int h,
                                        int hk, int d, int q_base, int kv_base, int causal,
@@ -515,17 +524,18 @@ extern "C" int tos_flash_attention_fwd(const void* q, const void* k, const void*
   float* l = static_cast<float*>(lse);
   cudaError_t e = cudaErrorInvalidValue;
   // bf16 runs on the tensor cores, f32 on the CUDA cores (see the note above)
-  if (dtype == tos::kBFloat16 && d == 64) {
-    e = launch_wgmma<64>(q, k, v, out, l, b, sq, sk, h, hk, q_base, kv_base, causal, window,
+  const int dp = tos::padded_head_dim(d);
+  if (dtype == tos::kBFloat16 && dp == 64) {
+    e = launch_wgmma<64>(q, k, v, out, l, b, sq, sk, h, hk, d, q_base, kv_base, causal, window,
                          scale, device, s);
-  } else if (dtype == tos::kBFloat16 && d == 128) {
-    e = launch_wgmma<128>(q, k, v, out, l, b, sq, sk, h, hk, q_base, kv_base, causal, window,
+  } else if (dtype == tos::kBFloat16 && dp == 128) {
+    e = launch_wgmma<128>(q, k, v, out, l, b, sq, sk, h, hk, d, q_base, kv_base, causal, window,
                           scale, device, s);
-  } else if (dtype == tos::kFloat32 && d == 64) {
-    e = launch<64, float>(q, k, v, out, l, b, sq, sk, h, hk, q_base, kv_base, causal, window,
+  } else if (dtype == tos::kFloat32 && dp == 64) {
+    e = launch<64, float>(q, k, v, out, l, b, sq, sk, h, hk, d, q_base, kv_base, causal, window,
                           scale, device, s);
-  } else if (dtype == tos::kFloat32 && d == 128) {
-    e = launch<128, float>(q, k, v, out, l, b, sq, sk, h, hk, q_base, kv_base, causal, window,
+  } else if (dtype == tos::kFloat32 && dp == 128) {
+    e = launch<128, float>(q, k, v, out, l, b, sq, sk, h, hk, d, q_base, kv_base, causal, window,
                            scale, device, s);
   }
   return static_cast<int>(e);

@@ -22,6 +22,10 @@
 //   head in f32, in head order, and casts once to k's dtype (:715-721).
 // Tile bounds use floor division (tos::floor_div): C's / truncates, and with a
 // negative numerator (keys ahead of every query) it would visit one more tile.
+// Head dims: every d with 8 <= d <= 128 and d % 8 == 0, in bodies built for a
+// padded tile width D (64 or 128, padded_head_dim) that stage zeros past
+// column d (TMA fills them in the tensor-core body) and store no column past
+// d; the scale stays 1/sqrt(d).
 //
 // Bound on the H100: per visible (q, k) pair the dQ kernel does 3 products of
 // 2 * D flops (S, dP, dS K) and the dK/dV kernel 4 (S, dP, P^T dO, dS^T Q): 7
@@ -33,9 +37,11 @@
 // dK/dV has two bodies, chosen by dtype in tos_flash_attention_bwd_dkv:
 //
 // bf16 -> flash_bwd_dkv_kernel_wgmma / flash_bwd_dkv_gqa_kernel_wgmma (tensor
-// cores, dkv_tile_wgmma). One CTA per (batch * KV head, 128-key tile): two
-// consumer warpgroups of 64 keys and one producer warp (at head_dim 128 one
-// warpgroup and 64 keys, see wg_consumers). The producer loads
+// cores, dkv_tile_wgmma; the fused plan's tensor-core body runs the same step
+// with dQ added, flash_bwd_wgmma.cuh). One CTA per (batch * KV head, 128-key
+// tile): two
+// consumer warpgroups of 64 keys and one producer warp (at a padded width of
+// 128 one warpgroup and 64 keys, see bwd_wg::consumers). The producer loads
 // the CTA's K and V tiles once by TMA and streams the (query head, q tile)
 // pairs through a 2-stage ring: Q and dO by TMA (hopper_mma.cuh, 128-byte
 // swizzle), lse (in log2 units, +inf for rows past Sq or rows that saw no key)
@@ -84,6 +90,7 @@
 
 #include "common.cuh"
 #include "flash_bwd_delta.cuh"
+#include "flash_bwd_wgmma.cuh"
 #include "hopper_mma.cuh"
 
 namespace {
@@ -163,17 +170,17 @@ __device__ __forceinline__ void pair_p_ds(const float* qs, const float* dos, con
   }
 }
 
-// Stages rows [r0, r0 + 64) of one head of x ([.., S, heads, D] with `row`
-// elements between positions; rows past `s` read 0) into a padded f32 tile,
-// times `mul`.
+// Stages rows [r0, r0 + 64) of one head of x ([.., S, heads, d] with `row`
+// elements between positions; rows past `s` and columns past d read 0) into a
+// padded f32 tile D columns wide, times `mul`.
 template <int D, typename T>
 __device__ __forceinline__ void stage_tile(float* dst, const T* src, long row, int r0, int s,
-                                           float mul) {
+                                           int d, float mul) {
   constexpr int LD = D + 1;
   for (int idx = threadIdx.x; idx < kBlk * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
     const int pos = r0 + r;
-    dst[r * LD + c] = pos < s ? tos::to_float(src[pos * row + c]) * mul : 0.f;
+    dst[r * LD + c] = pos < s && c < d ? tos::to_float(src[pos * row + c]) * mul : 0.f;
   }
 }
 
@@ -184,7 +191,7 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
-                        T* __restrict__ dq, int sq, int sk, int h, int hk, int q_base,
+                        T* __restrict__ dq, int sq, int sk, int h, int hk, int d, int q_base,
                         int kv_base, int causal, int window, float scale) {
   constexpr int LD = D + 1;
   constexpr int kDC = D / 16;  // dims per thread in the D-wide product
@@ -207,15 +214,15 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
   const int qt = causal ? n_qt - 1 - static_cast<int>(blockIdx.y) : static_cast<int>(blockIdx.y);
   const int q0 = qt * kBlk;
   const int q_rows = min(kBlk, sq - q0);
-  const long q_row = static_cast<long>(h) * D;   // stride between positions
-  const long kv_row = static_cast<long>(hk) * D;
-  const long head_off = static_cast<long>(b) * sq * q_row + static_cast<long>(qh) * D;
-  const long kv_off = static_cast<long>(b) * sk * kv_row + static_cast<long>(kvh) * D;
+  const long q_row = static_cast<long>(h) * d;   // stride between positions
+  const long kv_row = static_cast<long>(hk) * d;
+  const long head_off = static_cast<long>(b) * sq * q_row + static_cast<long>(qh) * d;
+  const long kv_off = static_cast<long>(b) * sk * kv_row + static_cast<long>(kvh) * d;
   const float* lse_h = lse + (static_cast<long>(b) * h + qh) * sq;
   const float* delta_h = delta + (static_cast<long>(b) * h + qh) * sq;
 
-  stage_tile<D>(qs, q + head_off, q_row, q0, sq, scale);
-  stage_tile<D>(dos, dout + head_off, q_row, q0, sq, 1.f);
+  stage_tile<D>(qs, q + head_off, q_row, q0, sq, d, scale);
+  stage_tile<D>(dos, dout + head_off, q_row, q0, sq, d, 1.f);
   if (tid < kBlk) {
     lse_s[tid] = tid < q_rows ? lse_h[q0 + tid] : tos::kNegInf;
     delta_s[tid] = tid < q_rows ? delta_h[q0 + tid] : 0.f;
@@ -238,8 +245,8 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
   for (int kt = lo; kt < hi; ++kt) {
     const int k0 = kt * kBlk;
     __syncthreads();  // the previous tile's K and dS are no longer read
-    stage_tile<D>(ks, k + kv_off, kv_row, k0, sk, 1.f);
-    stage_tile<D>(vs, v + kv_off, kv_row, k0, sk, 1.f);
+    stage_tile<D>(ks, k + kv_off, kv_row, k0, sk, d, 1.f);
+    stage_tile<D>(vs, v + kv_off, kv_row, k0, sk, d, 1.f);
     __syncthreads();
     pair_p_ds<D>(qs, dos, ks, vs, lse_s, delta_s, nullptr, dss, q0, k0, sq, sk, q_base,
                  kv_base, causal, window);
@@ -265,7 +272,8 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
     if (r >= q_rows) continue;
     T* dst = dq + head_off + (q0 + r) * q_row;
 #pragma unroll
-    for (int j = 0; j < kDC; ++j) dst[tx + 16 * j] = tos::from_float<T>(acc[i][j] * scale);
+    for (int j = 0; j < kDC; ++j)
+      if (tx + 16 * j < d) dst[tx + 16 * j] = tos::from_float<T>(acc[i][j] * scale);
   }
 }
 
@@ -278,7 +286,7 @@ __device__ __forceinline__ void dkv_tile(const T* __restrict__ q, const T* __res
                                          const float* __restrict__ lse,
                                          const float* __restrict__ delta, T* __restrict__ dk,
                                          T* __restrict__ dv, int sq, int sk, int h, int hk,
-                                         int q_base, int kv_base, int causal, int window,
+                                         int d, int q_base, int kv_base, int causal, int window,
                                          float scale, float* smem) {
   constexpr int LD = D + 1;
   constexpr int kDC = D / 16;
@@ -299,12 +307,12 @@ __device__ __forceinline__ void dkv_tile(const T* __restrict__ q, const T* __res
   const int n_qt = (sq + kBlk - 1) / kBlk;
   const int k0 = static_cast<int>(blockIdx.y) * kBlk;
   const int k_rows = min(kBlk, sk - k0);
-  const long q_row = static_cast<long>(h) * D;
-  const long kv_row = static_cast<long>(hk) * D;
-  const long kv_off = static_cast<long>(b) * sk * kv_row + static_cast<long>(kvh) * D;
+  const long q_row = static_cast<long>(h) * d;
+  const long kv_row = static_cast<long>(hk) * d;
+  const long kv_off = static_cast<long>(b) * sk * kv_row + static_cast<long>(kvh) * d;
 
-  stage_tile<D>(ks, k + kv_off, kv_row, k0, sk, 1.f);
-  stage_tile<D>(vs, v + kv_off, kv_row, k0, sk, 1.f);
+  stage_tile<D>(ks, k + kv_off, kv_row, k0, sk, d, 1.f);
+  stage_tile<D>(vs, v + kv_off, kv_row, k0, sk, d, 1.f);
 
   // visible q tiles: _causal_q_lo .. _window_q_hi, from the tile's first and
   // last key
@@ -322,14 +330,14 @@ __device__ __forceinline__ void dkv_tile(const T* __restrict__ q, const T* __res
 
   for (int gh = 0; gh < grp; ++gh) {
     const int qh = kvh * grp + gh;
-    const long head_off = static_cast<long>(b) * sq * q_row + static_cast<long>(qh) * D;
+    const long head_off = static_cast<long>(b) * sq * q_row + static_cast<long>(qh) * d;
     const float* lse_h = lse + (static_cast<long>(b) * h + qh) * sq;
     const float* delta_h = delta + (static_cast<long>(b) * h + qh) * sq;
     for (int qt = lo; qt < hi; ++qt) {
       const int q0 = qt * kBlk;
       __syncthreads();  // the previous pair's tiles are no longer read
-      stage_tile<D>(qs, q + head_off, q_row, q0, sq, scale);
-      stage_tile<D>(dos, dout + head_off, q_row, q0, sq, 1.f);
+      stage_tile<D>(qs, q + head_off, q_row, q0, sq, d, scale);
+      stage_tile<D>(dos, dout + head_off, q_row, q0, sq, d, 1.f);
       if (tid < kBlk) {
         const int s = q0 + tid;
         lse_s[tid] = s < sq ? lse_h[s] : tos::kNegInf;
@@ -372,6 +380,7 @@ __device__ __forceinline__ void dkv_tile(const T* __restrict__ q, const T* __res
     const long off = kv_off + (k0 + r) * kv_row;
 #pragma unroll
     for (int j = 0; j < kDC; ++j) {
+      if (tx + 16 * j >= d) continue;
       dk[off + tx + 16 * j] = tos::from_float<T>(dk_acc[i][j]);
       dv[off + tx + 16 * j] = tos::from_float<T>(dv_acc[i][j]);
     }
@@ -383,10 +392,10 @@ __device__ __forceinline__ void dkv_tile(const T* __restrict__ q, const T* __res
 template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
     flash_bwd_dkv_kernel(const T* q, const T* k, const T* v, const T* dout, const float* lse,
-                         const float* delta, T* dk, T* dv, int sq, int sk, int h, int hk,
+                         const float* delta, T* dk, T* dv, int sq, int sk, int h, int hk, int d,
                          int q_base, int kv_base, int causal, int window, float scale) {
   extern __shared__ float smem[];
-  dkv_tile<D, T>(q, k, v, dout, lse, delta, dk, dv, sq, sk, h, hk, q_base, kv_base, causal,
+  dkv_tile<D, T>(q, k, v, dout, lse, delta, dk, dv, sq, sk, h, hk, d, q_base, kv_base, causal,
                  window, scale, smem);
 }
 
@@ -394,10 +403,10 @@ template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
     flash_bwd_dkv_gqa_kernel(const T* q, const T* k, const T* v, const T* dout,
                              const float* lse, const float* delta, T* dk, T* dv, int sq,
-                             int sk, int h, int hk, int q_base, int kv_base, int causal,
+                             int sk, int h, int hk, int d, int q_base, int kv_base, int causal,
                              int window, float scale) {
   extern __shared__ float smem[];
-  dkv_tile<D, T>(q, k, v, dout, lse, delta, dk, dv, sq, sk, h, hk, q_base, kv_base, causal,
+  dkv_tile<D, T>(q, k, v, dout, lse, delta, dk, dv, sq, sk, h, hk, d, q_base, kv_base, causal,
                  window, scale, smem);
 }
 
@@ -415,7 +424,7 @@ cudaError_t allow_smem(K kernel, size_t bytes, int device, unsigned long long* c
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
-  int b, sq, sk, h, hk, q_base, kv_base, causal, window;
+  int b, sq, sk, h, hk, d, q_base, kv_base, causal, window;
   float scale;
   int device;
   cudaStream_t stream;
@@ -431,7 +440,7 @@ cudaError_t launch_dq(const Args& a, void* dq) {
   flash_bwd_dq_kernel<D, T><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dq), a.sq, a.sk, a.h,
-      a.hk, a.q_base, a.kv_base, a.causal, a.window, a.scale);
+      a.hk, a.d, a.q_base, a.kv_base, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
@@ -448,47 +457,28 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
   kernel<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      a.sq, a.sk, a.h, a.hk, a.q_base, a.kv_base, a.causal, a.window, a.scale);
+      a.sq, a.sk, a.h, a.hk, a.d, a.q_base, a.kv_base, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
 // -- bf16 dK/dV: wgmma + TMA -------------------------------------------------
 
 namespace sm90 = tos::sm90;
-
-constexpr int kWgStages = 2;              // Q / dO ring depth
-constexpr float kLog2e = 1.4426950408889634f;
-
-// Consumer warpgroups of 64 keys per CTA, and q rows per tile: at head_dim
-// 128, dK and dV take 128 f32 registers a thread, so the q tile is 32 rows and
-// the CTA one warpgroup and the producer warp (5 warps: up to 255 registers a
-// thread; 9 warps would leave 168, and the body would spill)
-template <int D>
-__host__ __device__ constexpr int wg_consumers() { return D == 64 ? 2 : 1; }
-template <int D>
-__host__ __device__ constexpr int wg_block_q() { return D == 64 ? 64 : 32; }
-template <int D>
-__host__ __device__ constexpr int wg_keys() { return 64 * wg_consumers<D>(); }
-// the consumer warpgroups and the producer warp
-template <int D>
-__host__ __device__ constexpr int wg_threads() { return 128 * wg_consumers<D>() + 32; }
+namespace wg = tos::bwd_wg;
 
 template <int D>
 struct WgDkvSmem {
-  static constexpr int kWgKeys = wg_keys<D>();
-  static constexpr int kBQ = wg_block_q<D>();
+  static constexpr int kWgKeys = wg::keys<D>();
+  static constexpr int kBQ = wg::block_q<D>();
   static constexpr int kKVBytes = kWgKeys * D * 2;   // the CTA's K (or V) tile
   static constexpr int kQBytes = kBQ * D * 2;        // one Q (or dO) tile
   static constexpr int kStageBytes = 2 * kQBytes;    // Q then dO
-  static constexpr size_t kBytes = 1024 + 2 * kKVBytes + kWgStages * kStageBytes;
+  static constexpr size_t kBytes = 1024 + 2 * kKVBytes + wg::kStages * kStageBytes;
 };
 
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
-  return p + ((1024 - (sm90::smem_u32(p) & 1023)) & 1023);
-}
-
-// dK / dV of one (batch, KV head, 128-key tile; 64 at head_dim 128), summed
-// over the g = H / Hk query heads of the KV head in head order (g == 1: MHA).
+// dK / dV of one (batch, KV head, 128-key tile; 64 at a padded width of
+// 128), summed over the g = H / Hk query heads of the KV head in head order
+// (g == 1: MHA). d: the head_dim.
 template <int D>
 __device__ __forceinline__ void dkv_tile_wgmma(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
                                                const CUtensorMap* tm_v, const CUtensorMap* tm_do,
@@ -496,16 +486,17 @@ __device__ __forceinline__ void dkv_tile_wgmma(const CUtensorMap* tm_q, const CU
                                                const float* __restrict__ delta,
                                                __nv_bfloat16* __restrict__ dk,
                                                __nv_bfloat16* __restrict__ dv, int sq, int sk,
-                                               int h, int hk, int q_base, int kv_base, int causal,
-                                               int window, float scale) {
+                                               int h, int hk, int d, int q_base, int kv_base,
+                                               int causal, int window, float scale) {
   using S = WgDkvSmem<D>;
   constexpr int kBQ = S::kBQ;
   constexpr int kWgKeys = S::kWgKeys;
-  constexpr int kProducer = 4 * wg_consumers<D>();  // the producer warp's index
+  constexpr int kStages = wg::kStages;
+  constexpr int kProducer = 4 * wg::consumers<D>();  // the producer warp's index
   extern __shared__ uint8_t smem_raw[];
-  __shared__ uint64_t bar_kv, full[kWgStages], empty[kWgStages];
-  __shared__ float lse_s[kWgStages][kBQ], delta_s[kWgStages][kBQ];
-  uint8_t* k_tile = align_1024(smem_raw);
+  __shared__ uint64_t bar_kv, full[kStages], empty[kStages];
+  __shared__ float lse_s[kStages][kBQ], delta_s[kStages][kBQ];
+  uint8_t* k_tile = wg::align_1024(smem_raw);
   uint8_t* v_tile = k_tile + S::kKVBytes;
   uint8_t* ring = v_tile + S::kKVBytes;
 
@@ -529,7 +520,7 @@ __device__ __forceinline__ void dkv_tile_wgmma(const CUtensorMap* tm_q, const CU
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(&bar_kv, 1);
-    for (int s = 0; s < kWgStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       sm90::mbar_init(&full[s], 32);    // every producer lane (lse, Delta) + the TMA bytes
       sm90::mbar_init(&empty[s], kProducer);  // one arrival per consumer warp
     }
@@ -551,7 +542,7 @@ __device__ __forceinline__ void dkv_tile_wgmma(const CUtensorMap* tm_q, const CU
     for (int i = 0; i < steps; ++i) {
       const int qh = kvh * grp + i / (hi - lo);
       const int q0 = (lo + i % (hi - lo)) * kBQ;
-      const int s = i % kWgStages, use = i / kWgStages;
+      const int s = i % kStages, use = i / kStages;
       if (use > 0) sm90::mbar_wait(&empty[s], (use - 1) & 1);
       if (lane == 0) {
         uint8_t* q_tile = ring + s * S::kStageBytes;
@@ -564,25 +555,17 @@ __device__ __forceinline__ void dkv_tile_wgmma(const CUtensorMap* tm_q, const CU
                             b);
         }
       }
-      // lse in log2 units; +inf past sq or for a row that saw no key, so
-      // that exp2(s * scale * log2e - lse) is 0 there
-      const long row = (static_cast<long>(b) * h + qh) * sq;
-      for (int c = lane; c < kBQ; c += 32) {
-        const int pos = q0 + c;
-        const float l = pos < sq ? lse[row + pos] : tos::kNegInf;
-        lse_s[s][c] = l > tos::kNegInf ? l * kLog2e : __int_as_float(0x7f800000);
-        delta_s[s][c] = pos < sq ? delta[row + pos] : 0.f;
-      }
+      wg::stage_rows<kBQ>(lse, delta, (static_cast<long>(b) * h + qh) * sq, q0, sq, lse_s[s],
+                          delta_s[s], lane);
       sm90::mbar_arrive(&full[s]);
     }
     return;
   }
 
-  const int wg = warp >> 2;
-  const int wr = (warp & 3) * 16 + (lane >> 2);   // key row within the warpgroup
+  const int wgi = warp >> 2;
   const int quad = lane & 3;
-  const int key0 = k0 + wg * 64 + wr;             // and key0 + 8
-  const int wg_first = k0 + wg * 64;
+  const int key0 = k0 + wgi * 64 + (warp & 3) * 16 + (lane >> 2);   // and key0 + 8
+  const int wg_first = k0 + wgi * 64;
   const int wg_last = min(sk, wg_first + 64) - 1;
   const bool has_keys = wg_first < sk;
   // the q tiles this warpgroup's keys are visible from
@@ -591,19 +574,19 @@ __device__ __forceinline__ void dkv_tile_wgmma(const CUtensorMap* tm_q, const CU
   if (causal && window > 0)
     wg_hi = min(hi, tos::floor_div(kv_base + wg_last + (window - 1) - q_base, kBQ) + 1);
 
-  const float sl2 = scale * kLog2e;
+  const float sl2 = scale * wg::kLog2e;
   float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
   for (int x = 0; x < D / 2; ++x) dk_acc[x] = dv_acc[x] = 0.f;
-  const uint32_t k_addr = sm90::smem_u32(k_tile) + wg * 64 * sm90::kRowBytes;
-  const uint32_t v_addr = sm90::smem_u32(v_tile) + wg * 64 * sm90::kRowBytes;
+  const uint32_t k_addr = sm90::smem_u32(k_tile) + wgi * 64 * sm90::kRowBytes;
+  const uint32_t v_addr = sm90::smem_u32(v_tile) + wgi * 64 * sm90::kRowBytes;
 
   if (steps > 0) sm90::mbar_wait(&bar_kv, 0);
   for (int i = 0; i < steps; ++i) {
     const int qt = lo + i % (hi - lo);
     const int q0 = qt * kBQ;
-    const int s = i % kWgStages;
-    sm90::mbar_wait(&full[s], (i / kWgStages) & 1);
+    const int s = i % kStages;
+    sm90::mbar_wait(&full[s], (i / kStages) & 1);
     if (has_keys && qt >= wg_lo && qt < wg_hi) {
       const uint32_t q_addr = sm90::smem_u32(ring + s * S::kStageBytes);
       const uint32_t do_addr = q_addr + S::kQBytes;
@@ -674,48 +657,37 @@ __device__ __forceinline__ void dkv_tile_wgmma(const CUtensorMap* tm_q, const CU
   }
 
   // dK takes the scale once (q was not pre-scaled); one rounding to bf16
-  const long kv_row = static_cast<long>(hk) * D;
-  const long kv_off = static_cast<long>(b) * sk * kv_row + static_cast<long>(kvh) * D;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = key0 + 8 * r;
-    if (key >= sk) continue;
-    const long off = kv_off + key * kv_row + 2 * quad;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) = __floats2bfloat162_rn(
-          dk_acc[4 * j + 2 * r] * scale, dk_acc[4 * j + 2 * r + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j) =
-          __floats2bfloat162_rn(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
-    }
-  }
+  const long kv_row = static_cast<long>(hk) * d;
+  wg::store_dkv<D>(dk_acc, dv_acc, dk, dv,
+                   (static_cast<long>(b) * sk + key0) * kv_row + static_cast<long>(kvh) * d,
+                   kv_row, key0, sk, d, scale);
 }
 
 // Two entry kernels over one body, so a profile tells the MHA plan
 // (_attn_bwd_dkv_kernel) from the grouped one (_attn_bwd_dkv_gqa_kernel).
 template <int D>
-__global__ void __launch_bounds__(wg_threads<D>(), 1)
+__global__ void __launch_bounds__(wg::threads<D>(), 1)
     flash_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                                const __grid_constant__ CUtensorMap tm_k,
                                const __grid_constant__ CUtensorMap tm_v,
                                const __grid_constant__ CUtensorMap tm_do, const float* lse,
                                const float* delta, __nv_bfloat16* dk, __nv_bfloat16* dv, int sq,
-                               int sk, int h, int hk, int q_base, int kv_base, int causal,
+                               int sk, int h, int hk, int d, int q_base, int kv_base, int causal,
                                int window, float scale) {
-  dkv_tile_wgmma<D>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, sq, sk, h, hk, q_base,
+  dkv_tile_wgmma<D>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, sq, sk, h, hk, d, q_base,
                     kv_base, causal, window, scale);
 }
 
 template <int D>
-__global__ void __launch_bounds__(wg_threads<D>(), 1)
+__global__ void __launch_bounds__(wg::threads<D>(), 1)
     flash_bwd_dkv_gqa_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                                    const __grid_constant__ CUtensorMap tm_k,
                                    const __grid_constant__ CUtensorMap tm_v,
                                    const __grid_constant__ CUtensorMap tm_do, const float* lse,
                                    const float* delta, __nv_bfloat16* dk, __nv_bfloat16* dv,
-                                   int sq, int sk, int h, int hk, int q_base, int kv_base,
+                                   int sq, int sk, int h, int hk, int d, int q_base, int kv_base,
                                    int causal, int window, float scale) {
-  dkv_tile_wgmma<D>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, sq, sk, h, hk, q_base,
+  dkv_tile_wgmma<D>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, sq, sk, h, hk, d, q_base,
                     kv_base, causal, window, scale);
 }
 
@@ -729,28 +701,29 @@ cudaError_t launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
       allow_smem(kernel, smem, a.device, grouped ? &configured_gqa : &configured_mha);
   if (e != cudaSuccess) return e;
   CUtensorMap mq, mk, mv, mdo;
-  constexpr int kBQ = wg_block_q<D>();
-  e = sm90::encode_bshd_map(&mq, a.q, a.b, a.sq, a.h, D, kBQ);
-  if (e == cudaSuccess) e = sm90::encode_bshd_map(&mdo, a.dout, a.b, a.sq, a.h, D, kBQ);
-  constexpr int kKeys = wg_keys<D>();
-  if (e == cudaSuccess) e = sm90::encode_bshd_map(&mk, a.k, a.b, a.sk, a.hk, D, kKeys);
-  if (e == cudaSuccess) e = sm90::encode_bshd_map(&mv, a.v, a.b, a.sk, a.hk, D, kKeys);
+  constexpr int kBQ = wg::block_q<D>();
+  e = sm90::encode_bshd_map(&mq, a.q, a.b, a.sq, a.h, a.d, kBQ);
+  if (e == cudaSuccess) e = sm90::encode_bshd_map(&mdo, a.dout, a.b, a.sq, a.h, a.d, kBQ);
+  constexpr int kKeys = wg::keys<D>();
+  if (e == cudaSuccess) e = sm90::encode_bshd_map(&mk, a.k, a.b, a.sk, a.hk, a.d, kKeys);
+  if (e == cudaSuccess) e = sm90::encode_bshd_map(&mv, a.v, a.b, a.sk, a.hk, a.d, kKeys);
   if (e != cudaSuccess) return e;
   const dim3 grid(a.b * a.hk, (a.sk + kKeys - 1) / kKeys);
-  kernel<<<grid, wg_threads<D>(), smem, a.stream>>>(
+  kernel<<<grid, wg::threads<D>(), smem, a.stream>>>(
       mq, mk, mv, mdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), a.sq, a.sk, a.h, a.hk, a.q_base, a.kv_base, a.causal,
-      a.window, a.scale);
+      static_cast<__nv_bfloat16*>(dv), a.sq, a.sk, a.h, a.hk, a.d, a.q_base, a.kv_base,
+      a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
-// Runs `launch<D, T>` for the (dtype, head_dim) the kernels are built for.
+// Runs `launch<D, T>` for the dtype and the padded width of the head_dim.
 template <template <int, typename> class L, typename... X>
 cudaError_t dispatch(int dtype, int d, X... x) {
-  if (dtype == tos::kBFloat16 && d == 64) return L<64, __nv_bfloat16>::run(x...);
-  if (dtype == tos::kBFloat16 && d == 128) return L<128, __nv_bfloat16>::run(x...);
-  if (dtype == tos::kFloat32 && d == 64) return L<64, float>::run(x...);
-  if (dtype == tos::kFloat32 && d == 128) return L<128, float>::run(x...);
+  const int dp = tos::padded_head_dim(d);
+  if (dtype == tos::kBFloat16 && dp == 64) return L<64, __nv_bfloat16>::run(x...);
+  if (dtype == tos::kBFloat16 && dp == 128) return L<128, __nv_bfloat16>::run(x...);
+  if (dtype == tos::kFloat32 && dp == 64) return L<64, float>::run(x...);
+  if (dtype == tos::kFloat32 && dp == 128) return L<128, float>::run(x...);
   return cudaErrorInvalidValue;
 }
 
@@ -811,7 +784,7 @@ extern "C" int tos_flash_attention_bwd_dq(const void* q, const void* k, const vo
                                           int causal, int window, float scale, int dtype,
                                           int device, void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
-               b, sq, sk, h, hk, q_base, kv_base, causal, window, scale, device,
+               b, sq, sk, h, hk, d, q_base, kv_base, causal, window, scale, device,
                static_cast<cudaStream_t>(stream)};
   const int rc = prepare(a);
   if (rc != 0) return rc < 0 ? 0 : rc;
@@ -827,7 +800,7 @@ extern "C" int tos_flash_attention_bwd_dkv(const void* q, const void* k, const v
                                            int kv_base, int causal, int window, float scale,
                                            int dtype, int device, void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
-               b, sq, sk, h, hk, q_base, kv_base, causal, window, scale, device,
+               b, sq, sk, h, hk, d, q_base, kv_base, causal, window, scale, device,
                static_cast<cudaStream_t>(stream)};
   const int rc = prepare(a);
   if (rc != 0) return rc < 0 ? 0 : rc;

@@ -5,15 +5,20 @@
 // Shared-memory tiles are what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B:
 // rows of 64 bf16 (128 bytes), 8-row atoms of 1024 bytes in which the 16-byte
 // chunk c of row r sits at chunk c ^ (r % 8). A tile wider than 64 columns
-// (head_dim 128) is two such boxes, one per 64 columns, one after the other.
+// (a padded head_dim of 128) is two such boxes, one per 64 columns, one after
+// the other. A head_dim d under the padded width (d = 32 in a 64-wide tile,
+// 96 in a 128-wide one) is read with the tensor's real inner dimension d: TMA
+// fills the columns past d with zeros, which add nothing to any product.
 // Every box starts on a 1024-byte boundary, so descriptors carry no base
 // offset. The same tile serves as a wgmma operand in two roles:
 //   K-major (the reduction runs along the 64 contiguous columns): advance 16
 //   columns by adding 32 bytes to the start address inside a box, and move to
 //   the next box past column 64; 8-row groups are 1024 bytes apart (SBO);
-//   MN-major (the reduction runs along the rows; tnspB = 1, legal for 16-bit
-//   types): advance 16 rows by 2048 bytes; 8-row groups 1024 bytes apart
-//   (SBO) and 64-column boxes `box_bytes` apart (LBO).
+//   MN-major (the reduction runs along the rows; tnspA / tnspB = 1, legal for
+//   16-bit types): advance 16 rows by 2048 bytes; 8-row groups 1024 bytes
+//   apart (SBO) and 64-column boxes `box_bytes` apart (LBO). A product N = 32
+//   wide reads columns 32..63 of a box from the start address plus 64 bytes,
+//   as a K-major step reads columns 16 k.. from plus 32 k bytes.
 //
 // Fragments (PTX ISA, "Register Fragments and Shared Memory Matrix Layouts"
 // for wgmma .m64nNk16): thread t of a warpgroup, warp w = t / 32, g = (t %
@@ -29,7 +34,10 @@
 // Ordering rules the kernels keep: wgmma_fence() before a wgmma that reads
 // registers written by ordinary instructions (A fragments, a rescaled
 // accumulator); wgmma_wait<0>() before reading or rescaling an accumulator and
-// before reusing the shared tiles a wgmma read.
+// before reusing the shared tiles a wgmma read; fence_proxy_async() after
+// ordinary stores to a shared tile that a wgmma then reads (the tensor cores
+// read shared memory through the async proxy), before the barrier that
+// publishes it.
 #pragma once
 
 #include <cuda.h>
@@ -135,6 +143,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// ordinary shared-memory stores made visible to the async proxy (wgmma, TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Shared-memory matrix descriptor, 128-byte swizzle (layout type 1 in bits
 // 62-63), start address and byte offsets in 16-byte units.
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
@@ -149,8 +162,8 @@ __device__ __forceinline__ uint64_t desc_k_major(uint32_t tile, int box_bytes, i
   return make_desc(tile + (k >> 2) * box_bytes + (k & 3) * 32, 16, kAtomBytes);
 }
 
-// MN-major operand (the B of wgmma_rs, tnspB = 1): rows are the reduction; the k-th
-// 16-row slice, 64-column boxes `box_bytes` apart.
+// MN-major operand (the B of wgmma_rs, both operands of wgmma_ss_mn): rows are
+// the reduction; the k-th 16-row slice, 64-column boxes `box_bytes` apart.
 __device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int box_bytes, int k) {
   return make_desc(tile + k * 16 * kRowBytes, box_bytes, kAtomBytes);
 }
@@ -243,6 +256,43 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
+// D[64 x 32] (+)= A[64 x 16] * B[16 x 32]: A and B from shared memory, both
+// MN-major (tnspA = tnspB = 1): A stored as its transpose, rows = the
+// reduction
+__device__ __forceinline__ void wgmma_ss_mn_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64]: as wgmma_ss_mn_n32, 64 columns
+__device__ __forceinline__ void wgmma_ss_mn_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // D (+)= A * B for B N columns wide (N in 32, 64); A and B from shared
 // memory, both K-major.
 template <int N>
@@ -250,6 +300,15 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uin
                                          int accumulate) {
   if constexpr (N == 32) wgmma_ss_n32(d, desc_a, desc_b, accumulate);
   else wgmma_ss_n64(d, desc_a, desc_b, accumulate);
+}
+
+// D (+)= A * B for B N columns wide (N in 32, 64); A and B from shared
+// memory, both MN-major.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                            int accumulate) {
+  if constexpr (N == 32) wgmma_ss_mn_n32(d, desc_a, desc_b, accumulate);
+  else wgmma_ss_mn_n64(d, desc_a, desc_b, accumulate);
 }
 
 // D (+)= A * B for B N columns wide (N in 64, 128); A from registers, B
@@ -314,15 +373,18 @@ static inline EncodeTiledFn encode_tiled() {
 
 // A map over a contiguous bf16 tensor [b, s, heads, d] whose box is `rows`
 // positions x 64 columns of one head of one batch row (128-byte swizzle;
-// reads past s give zeros). Coordinates: (column, head, position, batch).
-// Needs a 16-byte aligned base and d a multiple of 64. Returns cudaSuccess or
+// reads past s, and past column d, give zeros). Coordinates: (column, head,
+// position, batch). Needs a 16-byte aligned base and d a multiple of 8 (TMA's
+// row stride is a multiple of 16 bytes); d may be under 64, the box's width.
+// Every box copies 64 x `rows` x 2 bytes, its zero-filled part included, and
+// counts them all on the mbarrier. Returns cudaSuccess or
 // cudaErrorInvalidValue.
 static inline cudaError_t encode_bshd_map(CUtensorMap* map, const void* base, int b, int s,
                                           int heads, int d, int rows) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  if ((reinterpret_cast<uintptr_t>(base) & 15) != 0 || d % 64 != 0 || rows < 1 || rows > 256 ||
-      b < 1 || s < 1 || heads < 1)
+  if ((reinterpret_cast<uintptr_t>(base) & 15) != 0 || d < 8 || d % 8 != 0 || rows < 1 ||
+      rows > 256 || b < 1 || s < 1 || heads < 1)
     return cudaErrorInvalidValue;
   const cuuint64_t esz = sizeof(__nv_bfloat16);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),

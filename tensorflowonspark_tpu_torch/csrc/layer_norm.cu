@@ -14,7 +14,10 @@
 // stores are 16-byte vectors when the row width and pointers allow it. The row
 // is walked three times (sum, centered squares, normalize); the second and
 // third walks hit L1, so device memory still sees one read and one write.
-// Rows are independent: no ordering between blocks is assumed.
+// Rows are independent: no ordering between blocks is assumed. Rows wider
+// than kWarpRowMax (8192) take a block per row instead (the *_wide kernels):
+// 256 threads walk the row, and each sum is a warp sum followed by the warps'
+// partial sums added in warp order, so every thread holds the same value.
 //
 // Backward. Replaces: tensorflowonspark_tpu/ops/layer_norm.py _ln_bwd_kernel
 // (launched by _ln_bwd_rule). Same arithmetic: the row statistics are
@@ -33,7 +36,11 @@
 // memory; each block then sums its four warp rows in order into one partial
 // row of a [grid, H] f32 scratch. Pass 2 sums the partials in block order, one
 // thread per column. The shared rows are laid out (pack, element, lane) so the
-// 32 lanes of a warp touch 32 consecutive floats: no bank conflicts.
+// 32 lanes of a warp touch 32 consecutive floats: no bank conflicts. Rows
+// wider than kWarpRowMax take a block per row (layer_norm_bwd_wide_kernel):
+// the same grid of partial rows, each block walking rows blockIdx.x, +grid,
+// ... and adding g * xhat straight into its partial row in device memory,
+// each column always by the same thread (no shared row, no atomics).
 
 #include <stdint.h>
 
@@ -42,6 +49,8 @@
 namespace {
 
 constexpr int kRowsPerBlock = 4;
+constexpr int kWarpRowMax = 8192;   // widest row of the warp-per-row kernels
+constexpr int kWideThreads = 256;   // block per row past it
 
 template <typename T, int VW>
 struct alignas(sizeof(T) * VW) Pack {
@@ -103,6 +112,72 @@ void launch(const void* x, const float* w, void* y, int rows, int h, float eps,
     layer_norm_fwd_kernel<T, 1><<<grid, block, 0, stream>>>(
         static_cast<const T*>(x), w, static_cast<T*>(y), rows, h, eps);
   }
+}
+
+// The sum of v over the block's threads, the same bits in every thread: warp
+// sums, then the warps' sums in warp order. `red` holds one float per warp.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = tos::warp_sum(v);
+  __syncthreads();  // the previous sum's reads of red are done
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWideThreads / 32; ++w) s += red[w];
+  return s;
+}
+
+// a block per row, rows blockIdx.x, + gridDim.x, ...
+template <typename T, int VW>
+__global__ void __launch_bounds__(kWideThreads)
+    layer_norm_fwd_wide_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                               T* __restrict__ y, int rows, int h, float eps) {
+  __shared__ float red[kWideThreads / 32];
+  using P = Pack<T, VW>;
+  for (long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const T* xr = x + row * h;
+    T* yr = y + row * h;
+    float sum = 0.f;
+    for (int i = threadIdx.x * VW; i < h; i += kWideThreads * VW) {
+      const P p = *reinterpret_cast<const P*>(xr + i);
+#pragma unroll
+      for (int j = 0; j < VW; ++j) sum += tos::to_float(p.v[j]);
+    }
+    const float mean = block_sum(sum, red) / h;
+    float sq = 0.f;
+    for (int i = threadIdx.x * VW; i < h; i += kWideThreads * VW) {
+      const P p = *reinterpret_cast<const P*>(xr + i);
+#pragma unroll
+      for (int j = 0; j < VW; ++j) {
+        const float d = tos::to_float(p.v[j]) - mean;
+        sq += d * d;
+      }
+    }
+    const float rstd = rsqrtf(block_sum(sq, red) / h + eps);
+    for (int i = threadIdx.x * VW; i < h; i += kWideThreads * VW) {
+      const P p = *reinterpret_cast<const P*>(xr + i);
+      P o;
+#pragma unroll
+      for (int j = 0; j < VW; ++j)
+        o.v[j] = tos::from_float<T>((tos::to_float(p.v[j]) - mean) * rstd * w[i + j]);
+      *reinterpret_cast<P*>(yr + i) = o;
+    }
+  }
+}
+
+template <typename T>
+void launch_wide(const void* x, const float* w, void* y, int rows, int h, float eps,
+                 cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  const unsigned grid = static_cast<unsigned>(rows < 65535 ? rows : 65535);
+  const bool vec = (h % kVec == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+                   (reinterpret_cast<uintptr_t>(y) % 16 == 0);
+  if (vec)
+    layer_norm_fwd_wide_kernel<T, kVec><<<grid, kWideThreads, 0, stream>>>(
+        static_cast<const T*>(x), w, static_cast<T*>(y), rows, h, eps);
+  else
+    layer_norm_fwd_wide_kernel<T, 1><<<grid, kWideThreads, 0, stream>>>(
+        static_cast<const T*>(x), w, static_cast<T*>(y), rows, h, eps);
 }
 
 // -- backward ------------------------------------------------------------------
@@ -206,11 +281,76 @@ __global__ void layer_norm_dw_kernel(const float* __restrict__ partial,
   dw[col] = s;
 }
 
+// a block per row (rows wider than kWarpRowMax): block blockIdx.x walks rows
+// blockIdx.x, + gridDim.x, ... and adds g * xhat into its own partial row,
+// each column always by the same thread
+template <typename T, int VW>
+__global__ void __launch_bounds__(kWideThreads)
+    layer_norm_bwd_wide_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                               const T* __restrict__ g, T* __restrict__ dx,
+                               float* __restrict__ partial, int rows, int h, float eps) {
+  __shared__ float red[kWideThreads / 32];
+  using P = Pack<T, VW>;
+  float* part = partial + static_cast<long>(blockIdx.x) * h;
+  for (int i = threadIdx.x * VW; i < h; i += kWideThreads * VW)
+#pragma unroll
+    for (int j = 0; j < VW; ++j) part[i + j] = 0.f;
+  for (long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const T* xr = x + row * h;
+    const T* gr = g + row * h;
+    T* dr = dx + row * h;
+    float sum = 0.f;
+    for (int i = threadIdx.x * VW; i < h; i += kWideThreads * VW) {
+      const P p = *reinterpret_cast<const P*>(xr + i);
+#pragma unroll
+      for (int j = 0; j < VW; ++j) sum += tos::to_float(p.v[j]);
+    }
+    const float mean = block_sum(sum, red) / h;
+    float sq = 0.f;
+    for (int i = threadIdx.x * VW; i < h; i += kWideThreads * VW) {
+      const P p = *reinterpret_cast<const P*>(xr + i);
+#pragma unroll
+      for (int j = 0; j < VW; ++j) {
+        const float d = tos::to_float(p.v[j]) - mean;
+        sq += d * d;
+      }
+    }
+    const float rstd = rsqrtf(block_sum(sq, red) / h + eps);
+    float s1 = 0.f, s2 = 0.f;  // sums of dy and dy * xhat
+    for (int i = threadIdx.x * VW; i < h; i += kWideThreads * VW) {
+      const P px = *reinterpret_cast<const P*>(xr + i);
+      const P pg = *reinterpret_cast<const P*>(gr + i);
+#pragma unroll
+      for (int j = 0; j < VW; ++j) {
+        const float xhat = (tos::to_float(px.v[j]) - mean) * rstd;
+        const float dy = tos::to_float(pg.v[j]) * w[i + j];
+        s1 += dy;
+        s2 += dy * xhat;
+      }
+    }
+    const float m1 = block_sum(s1, red) / h;
+    const float m2 = block_sum(s2, red) / h;
+    for (int i = threadIdx.x * VW; i < h; i += kWideThreads * VW) {
+      const P px = *reinterpret_cast<const P*>(xr + i);
+      const P pg = *reinterpret_cast<const P*>(gr + i);
+      P o;
+#pragma unroll
+      for (int j = 0; j < VW; ++j) {
+        const float xhat = (tos::to_float(px.v[j]) - mean) * rstd;
+        const float gv = tos::to_float(pg.v[j]);
+        o.v[j] = tos::from_float<T>(rstd * (gv * w[i + j] - m1 - xhat * m2));
+        part[i + j] += gv * xhat;
+      }
+      *reinterpret_cast<P*>(dr + i) = o;
+    }
+  }
+}
+
 template <typename T, int VW>
 cudaError_t launch_bwd_vw(const void* x, const float* w, const void* g, void* dx,
                           float* partial, float* dw, int rows, int h, float eps,
                           int n_partial, int device, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * kRowsPerBlock * acc_floats(h, VW);
+  const size_t smem = h > kWarpRowMax ? 0 : sizeof(float) * kRowsPerBlock * acc_floats(h, VW);
   if (smem > 48 * 1024) {
     // the opt-in is set once per instantiation and device
     static unsigned long long configured = 0;
@@ -218,14 +358,19 @@ cudaError_t launch_bwd_vw(const void* x, const float* w, const void* g, void* dx
     if (!(configured & bit)) {
       const cudaError_t e = cudaFuncSetAttribute(
           layer_norm_bwd_kernel<T, VW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(kRowsPerBlock * sizeof(float) * acc_floats(8192, VW)));
+          static_cast<int>(kRowsPerBlock * sizeof(float) * acc_floats(kWarpRowMax, VW)));
       if (e != cudaSuccess) return e;
       configured |= bit;
     }
   }
-  layer_norm_bwd_kernel<T, VW><<<n_partial, 32 * kRowsPerBlock, smem, stream>>>(
-      static_cast<const T*>(x), w, static_cast<const T*>(g), static_cast<T*>(dx), partial,
-      rows, h, eps);
+  if (h > kWarpRowMax)
+    layer_norm_bwd_wide_kernel<T, VW><<<n_partial, kWideThreads, 0, stream>>>(
+        static_cast<const T*>(x), w, static_cast<const T*>(g), static_cast<T*>(dx), partial,
+        rows, h, eps);
+  else
+    layer_norm_bwd_kernel<T, VW><<<n_partial, 32 * kRowsPerBlock, smem, stream>>>(
+        static_cast<const T*>(x), w, static_cast<const T*>(g), static_cast<T*>(dx), partial,
+        rows, h, eps);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   layer_norm_dw_kernel<<<(h + 127) / 128, 128, 0, stream>>>(partial, dw, n_partial, h);
@@ -266,7 +411,7 @@ extern "C" int tos_layer_norm_bwd(const void* x, const void* w, const void* g, v
   if (rows <= 0) return 0;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  if (h <= 0 || h > 8192) return static_cast<int>(cudaErrorInvalidValue);
+  if (h <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* wf = static_cast<const float*>(w);
   float* pf = static_cast<float*>(partial);
@@ -290,13 +435,16 @@ extern "C" int tos_layer_norm_fwd(const void* x, const void* w, void* y, int row
   // this library links its own CUDA runtime: select the tensors' device here
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  if (h <= 0 || h > 8192) return static_cast<int>(cudaErrorInvalidValue);
+  if (h <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* wf = static_cast<const float*>(w);
+  const bool wide = h > kWarpRowMax;
   if (dtype == tos::kFloat32) {
-    launch<float>(x, wf, y, rows, h, eps, s);
+    if (wide) launch_wide<float>(x, wf, y, rows, h, eps, s);
+    else launch<float>(x, wf, y, rows, h, eps, s);
   } else if (dtype == tos::kBFloat16) {
-    launch<__nv_bfloat16>(x, wf, y, rows, h, eps, s);
+    if (wide) launch_wide<__nv_bfloat16>(x, wf, y, rows, h, eps, s);
+    else launch<__nv_bfloat16>(x, wf, y, rows, h, eps, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

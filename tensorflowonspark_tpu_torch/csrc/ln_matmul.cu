@@ -28,7 +28,7 @@
 
 // x: [rows, h] in `dtype` (bf16 or f32); w_ln: [h] f32; stats: [rows, 2] f32
 // scratch; w: [h, n] in `dtype`; out: [rows, n] in `dtype`; all contiguous on
-// CUDA device `device`. h and n multiples of 8, pointers 16-byte aligned.
+// CUDA device `device`, pointers 16-byte aligned; h and n any width.
 // Launches the statistics kernel and the product on `stream` and returns
 // cudaGetLastError().
 extern "C" int tos_ln_matmul(const void* x, const void* w_ln, void* stats, const void* w,

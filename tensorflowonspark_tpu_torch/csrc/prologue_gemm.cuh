@@ -5,9 +5,13 @@
 // (f = tanh-GELU).
 //
 // Layouts: x [rows, k] row-major, w [k, n] row-major (n contiguous), out
-// [rows, n] row-major in x's dtype. k and n must be multiples of 8 and the
-// pointers 16-byte aligned (the wrappers see to it); rows, k and n need not
-// divide the tiles: ragged edges are masked.
+// [rows, n] row-major in x's dtype, the pointers 16-byte aligned (the wrappers
+// see to it); rows, k and n need not divide the tiles: ragged edges are
+// masked. When every row of x, w and out is a multiple of 16 bytes (k and n
+// multiples of 8 in bf16, of 4 in f32), the kernel reads and writes 16-byte
+// vectors (cp.async for the bf16 tiles); otherwise rows start off a 16-byte
+// boundary, and a second instantiation (kVec false) reads and writes them
+// element by element, bounds-checked. Every element past k or n reads as 0.
 //
 // Two paths:
 //
@@ -72,14 +76,13 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 
 // Row mean and rstd of every row of x [rows, h], one warp per row, with the
 // reference's two-pass formula: mean, then mean((x - mean)^2), then
-// rsqrt(var + eps); stats[row] = (mean, rstd). VW elements per 16-byte
-// load (h is a multiple of VW). The second pass re-reads the row from L1.
-template <typename T>
+// rsqrt(var + eps); stats[row] = (mean, rstd). VW elements per load (16
+// bytes when h allows it, else 1). The second pass re-reads the row from L1.
+template <typename T, int VW>
 __global__ void __launch_bounds__(kThreads)
     ln_matmul_stats_kernel(const T* __restrict__ x, float2* __restrict__ stats, int rows,
                            int h, float eps) {
-  constexpr int VW = 16 / sizeof(T);
-  struct alignas(16) V {
+  struct alignas(sizeof(T) * VW) V {
     T v[VW];
   };
   const int lane = threadIdx.x & 31;
@@ -148,7 +151,8 @@ constexpr int kRawA = kBM * kBK;                       // bf16, unpadded
 constexpr size_t kBf16Smem = sizeof(__nv_bfloat16) *
                              (kStages * (kRawA + kBElems) + kAElems);
 
-template <Prologue P>
+// kVec: k and n multiples of 8, every row of x and w on a 16-byte boundary
+template <Prologue P, bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
     prologue_gemm_bf16(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w_ln,
                        const float2* __restrict__ stats, const __nv_bfloat16* __restrict__ w,
@@ -167,9 +171,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   const long row0 = static_cast<long>(blockIdx.y) * kBM;
   const int nk = (k + kBK - 1) / kBK;
 
-  // one K tile into stage `stage`: each thread copies two 16-byte vectors of
-  // A (128 rows x 4) and two of B (32 rows x 16); out-of-range vectors are
-  // zero-filled
+  // one K tile into stage `stage`: each thread copies two 8-element vectors
+  // of A (128 rows x 4) and two of B (32 rows x 16); out-of-range elements
+  // are zero-filled
   auto issue = [&](int kt, int stage) {
     const int k0 = kt * kBK;
     __nv_bfloat16* a = raw_a + stage * kRawA;
@@ -178,12 +182,32 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int i = 0; i < 2; ++i) {
       const int idx = tid + i * kThreads;
       const int ar = idx >> 2, ac = (idx & 3) * 8;
-      const bool a_in = row0 + ar < rows && k0 + ac < k;
-      cp_async16(a + ar * kBK + ac, a_in ? x + (row0 + ar) * k + k0 + ac : x, a_in);
+      const bool a_row = row0 + ar < rows;
+      if constexpr (kVec) {
+        const bool a_in = a_row && k0 + ac < k;
+        cp_async16(a + ar * kBK + ac, a_in ? x + (row0 + ar) * k + k0 + ac : x, a_in);
+      } else {
+        Bf16x8 v;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          v.v[j] = a_row && k0 + ac + j < k ? x[(row0 + ar) * k + k0 + ac + j]
+                                            : __float2bfloat16(0.f);
+        *reinterpret_cast<Bf16x8*>(a + ar * kBK + ac) = v;
+      }
       const int br = idx >> 4, bc = (idx & 15) * 8;
-      const bool b_in = k0 + br < k && n0 + bc < n;
-      cp_async16(b + br * kBStride + bc,
-                 b_in ? w + static_cast<long>(k0 + br) * n + n0 + bc : w, b_in);
+      const bool b_row = k0 + br < k;
+      if constexpr (kVec) {
+        const bool b_in = b_row && n0 + bc < n;
+        cp_async16(b + br * kBStride + bc,
+                   b_in ? w + static_cast<long>(k0 + br) * n + n0 + bc : w, b_in);
+      } else {
+        Bf16x8 v;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          v.v[j] = b_row && n0 + bc + j < n ? w[static_cast<long>(k0 + br) * n + n0 + bc + j]
+                                            : __float2bfloat16(0.f);
+        *reinterpret_cast<Bf16x8*>(b + br * kBStride + bc) = v;
+      }
     }
   };
 
@@ -221,8 +245,10 @@ __global__ void __launch_bounds__(kThreads, 2)
           const Bf16x8 v = *reinterpret_cast<const Bf16x8*>(a + ar * kBK + ac);
 #pragma unroll
           for (int j = 0; j < 8; ++j)
-            o.v[j] = __float2bfloat16(
-                prologue<P>(__bfloat162float(v.v[j]), ar, k0 + ac + j, w_ln, s_mu, s_rstd));
+            o.v[j] = kVec || k0 + ac + j < k
+                         ? __float2bfloat16(prologue<P>(__bfloat162float(v.v[j]), ar,
+                                                        k0 + ac + j, w_ln, s_mu, s_rstd))
+                         : __float2bfloat16(0.f);
         }
         *reinterpret_cast<Bf16x8*>(s_a + ar * kAStride + ac) = o;
       }
@@ -265,17 +291,24 @@ __global__ void __launch_bounds__(kThreads, 2)
       const long row = row0 + wm * 64 + i * 16 + er;
       const int col = n0 + wn * 32 + j * 16 + ec;
       if (row < rows && col < n) {
-        Bf16x8 o;
+        if constexpr (kVec) {
+          Bf16x8 o;
 #pragma unroll
-        for (int e = 0; e < 8; ++e) o.v[e] = __float2bfloat16(st[er * 16 + ec + e]);
-        *reinterpret_cast<Bf16x8*>(out + row * n + col) = o;
+          for (int e = 0; e < 8; ++e) o.v[e] = __float2bfloat16(st[er * 16 + ec + e]);
+          *reinterpret_cast<Bf16x8*>(out + row * n + col) = o;
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            if (col + e < n) out[row * n + col + e] = __float2bfloat16(st[er * 16 + ec + e]);
+        }
       }
       __syncwarp();
     }
   }
 }
 
-template <Prologue P>
+// kVec: k and n multiples of 4, every row of x and w on a 16-byte boundary
+template <Prologue P, bool kVec>
 __global__ void __launch_bounds__(kThreads)
     prologue_gemm_f32(const float* __restrict__ x, const float* __restrict__ w_ln,
                       const float2* __restrict__ stats, const float* __restrict__ w,
@@ -297,17 +330,34 @@ __global__ void __launch_bounds__(kThreads)
   for (int k0 = 0; k0 < k; k0 += kFK) {
     float av[4] = {0.f, 0.f, 0.f, 0.f};
     if (row0 + ar < rows && k0 + ac < k) {
-      const float4 v = *reinterpret_cast<const float4*>(x + (row0 + ar) * k + k0 + ac);
-      av[0] = prologue<P>(v.x, ar, k0 + ac, w_ln, s_mu, s_rstd);
-      av[1] = prologue<P>(v.y, ar, k0 + ac + 1, w_ln, s_mu, s_rstd);
-      av[2] = prologue<P>(v.z, ar, k0 + ac + 2, w_ln, s_mu, s_rstd);
-      av[3] = prologue<P>(v.w, ar, k0 + ac + 3, w_ln, s_mu, s_rstd);
+      const float* xr = x + (row0 + ar) * k + k0 + ac;
+      if constexpr (kVec) {
+        const float4 v = *reinterpret_cast<const float4*>(xr);
+        av[0] = prologue<P>(v.x, ar, k0 + ac, w_ln, s_mu, s_rstd);
+        av[1] = prologue<P>(v.y, ar, k0 + ac + 1, w_ln, s_mu, s_rstd);
+        av[2] = prologue<P>(v.z, ar, k0 + ac + 2, w_ln, s_mu, s_rstd);
+        av[3] = prologue<P>(v.w, ar, k0 + ac + 3, w_ln, s_mu, s_rstd);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          av[j] = k0 + ac + j < k ? prologue<P>(xr[j], ar, k0 + ac + j, w_ln, s_mu, s_rstd)
+                                  : 0.f;
+      }
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) sA[ac + j][ar] = av[j];
     float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (k0 + br < k && n0 + bc < n)
-      bv = *reinterpret_cast<const float4*>(w + static_cast<long>(k0 + br) * n + n0 + bc);
+    if (k0 + br < k && n0 + bc < n) {
+      const float* wr = w + static_cast<long>(k0 + br) * n + n0 + bc;
+      if constexpr (kVec) {
+        bv = *reinterpret_cast<const float4*>(wr);
+      } else {
+        bv.x = wr[0];
+        bv.y = n0 + bc + 1 < n ? wr[1] : 0.f;
+        bv.z = n0 + bc + 2 < n ? wr[2] : 0.f;
+        bv.w = n0 + bc + 3 < n ? wr[3] : 0.f;
+      }
+    }
     *reinterpret_cast<float4*>(&sB[br][bc]) = bv;
     __syncthreads();
 #pragma unroll
@@ -336,6 +386,43 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The LayerNorm prologue's row statistics on `stream`
+template <typename T>
+void launch_stats(const void* x, float2* stats, int rows, int h, float eps,
+                  cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  const unsigned blocks = static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32));
+  if (h % kVec == 0)
+    ln_matmul_stats_kernel<T, kVec><<<blocks, kThreads, 0, stream>>>(static_cast<const T*>(x),
+                                                                     stats, rows, h, eps);
+  else
+    ln_matmul_stats_kernel<T, 1><<<blocks, kThreads, 0, stream>>>(static_cast<const T*>(x),
+                                                                  stats, rows, h, eps);
+}
+
+// The bf16 product on `stream`, with the shared-memory opt-in past 48 KB set
+// once per instantiation and device
+template <Prologue P, bool kVec>
+cudaError_t launch_bf16(const void* x, const float* w_ln, float2* stats, const void* w,
+                        void* out, int rows, int k, int n, dim3 grid, cudaStream_t stream) {
+  static unsigned long long configured = 0;
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = 1ull << (device & 63);
+  if (!(configured & bit)) {
+    e = cudaFuncSetAttribute(prologue_gemm_bf16<P, kVec>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kBf16Smem));
+    if (e != cudaSuccess) return e;
+    configured |= bit;
+  }
+  prologue_gemm_bf16<P, kVec><<<grid, kThreads, kBf16Smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), w_ln, stats, static_cast<const __nv_bfloat16*>(w),
+      static_cast<__nv_bfloat16*>(out), rows, k, n);
+  return cudaGetLastError();
+}
+
 // Launch f(x) @ w on `stream`; returns cudaGetLastError(). The LayerNorm
 // prologue first fills `stats` ([rows] float2 scratch) with each row's
 // (mean, rstd) in a kernel of its own, then reads them with w_ln; the GELU
@@ -343,45 +430,31 @@ __global__ void __launch_bounds__(kThreads)
 template <Prologue P>
 cudaError_t launch(const void* x, const float* w_ln, float2* stats, const void* w, void* out,
                    int rows, int k, int n, float eps, int dtype, cudaStream_t stream) {
-  if (k <= 0 || k % 8 != 0 || n % 8 != 0) return cudaErrorInvalidValue;
+  if (k <= 0) return cudaErrorInvalidValue;
   if (dtype != kBFloat16 && dtype != kFloat32) return cudaErrorInvalidValue;
   const bool bf16 = dtype == kBFloat16;
   const dim3 grid(bf16 ? (n + kBN - 1) / kBN : (n + kFN - 1) / kFN,
                   bf16 ? (rows + kBM - 1) / kBM : (rows + kFM - 1) / kFM);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   if constexpr (P == Prologue::kLayerNorm) {
-    const unsigned blocks = static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32));
-    if (bf16)
-      ln_matmul_stats_kernel<<<blocks, kThreads, 0, stream>>>(
-          static_cast<const __nv_bfloat16*>(x), stats, rows, k, eps);
-    else
-      ln_matmul_stats_kernel<<<blocks, kThreads, 0, stream>>>(static_cast<const float*>(x),
-                                                             stats, rows, k, eps);
+    if (bf16) launch_stats<__nv_bfloat16>(x, stats, rows, k, eps, stream);
+    else launch_stats<float>(x, stats, rows, k, eps, stream);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
   if (bf16) {
-    // the shared-memory opt-in past 48 KB, once per instantiation and device
-    static unsigned long long configured = 0;
-    int device = 0;
-    cudaError_t e = cudaGetDevice(&device);
-    if (e != cudaSuccess) return e;
-    const unsigned long long bit = 1ull << (device & 63);
-    if (!(configured & bit)) {
-      e = cudaFuncSetAttribute(prologue_gemm_bf16<P>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kBf16Smem));
-      if (e != cudaSuccess) return e;
-      configured |= bit;
-    }
-    prologue_gemm_bf16<P><<<grid, kThreads, kBf16Smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(x), w_ln, stats,
-        static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(out), rows, k, n);
-  } else {
-    prologue_gemm_f32<P><<<grid, kThreads, 0, stream>>>(
+    if (k % 8 == 0 && n % 8 == 0)
+      return launch_bf16<P, true>(x, w_ln, stats, w, out, rows, k, n, grid, stream);
+    return launch_bf16<P, false>(x, w_ln, stats, w, out, rows, k, n, grid, stream);
+  }
+  if (k % 4 == 0 && n % 4 == 0)
+    prologue_gemm_f32<P, true><<<grid, kThreads, 0, stream>>>(
         static_cast<const float*>(x), w_ln, stats, static_cast<const float*>(w),
         static_cast<float*>(out), rows, k, n);
-  }
+  else
+    prologue_gemm_f32<P, false><<<grid, kThreads, 0, stream>>>(
+        static_cast<const float*>(x), w_ln, stats, static_cast<const float*>(w),
+        static_cast<float*>(out), rows, k, n);
   return cudaGetLastError();
 }
 

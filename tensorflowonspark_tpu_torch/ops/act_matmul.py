@@ -126,7 +126,7 @@ def gelu_matmul(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
   """``gelu(x) @ W`` (tanh-GELU) with the activated tensor never in device
   memory. x: ``[..., F]`` pre-activation; W: ``[F, N]``. Returns ``[...,
   N]`` in x's dtype. CUDA tensors run the kernel (x and W both bf16 or
-  both f32, F and N multiples of 8; launched on the current stream, no
+  both f32, F and N of any width; launched on the current stream, no
   synchronisation); CPU tensors run :func:`gelu_matmul_reference`.
   Differentiable in both: the backward is :func:`gelu_matmul_bwd`."""
   _check_shapes(x, W)

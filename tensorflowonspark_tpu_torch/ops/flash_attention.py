@@ -26,13 +26,15 @@ heads (grouped-query attention, consumed unexpanded: query head ``i``
 reads KV head ``i // g``). ``q_base``/``kv_base`` are the absolute
 positions of the first query and key, as in ``flash_attention_block``.
 The kernels' tiles are their own (the bf16 forward 128 query rows by 64
-keys, the bf16 dK/dV 128 keys by 64 query rows, 64 by 32 at head_dim 128,
-the CUDA-core bodies 64 by 64): the reference's ``DEFAULT_BWD_BLOCKS``
-(256, 512) are a VMEM tuning for the TPU and have no counterpart here.
-The bf16 forward and dK/dV kernels run their products on the tensor
-cores (wgmma) from tiles copied by TMA, which needs 16-byte aligned
-bases (the wrappers copy a view that lacks one); f32 runs on the CUDA
-cores.
+keys, the bf16 dK/dV and fused backward 128 keys by 64 query rows, 64 by
+32 past head_dim 64, the CUDA-core bodies 64 by 64): the reference's
+``DEFAULT_BWD_BLOCKS`` (256, 512) are a VMEM tuning for the TPU and have
+no counterpart here. The kernels take every head_dim ``d`` with ``8 <= d
+<= 128`` and ``d % 8 == 0`` (:func:`check_head_dim`), in tiles padded to
+64 or 128 columns inside the kernel. The bf16 forward, dK/dV and fused
+backward run their products on the tensor cores (wgmma) from tiles copied
+by TMA, which needs 16-byte aligned bases (the wrappers copy a view that
+lacks one); f32 runs on the CUDA cores.
 """
 
 import ctypes
@@ -46,8 +48,9 @@ from tensorflowonspark_tpu_torch import ops
 from tensorflowonspark_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-#: head dims the kernels are instantiated for
-HEAD_DIMS = (64, 128)
+#: the widest head_dim the kernels take; past it a warpgroup's dK and dV
+#: alone would fill its registers (ROADMAP Queue 3)
+MAX_HEAD_DIM = 128
 #: backward plans of the reference
 BWD_MODES = ("fused", "split")
 #: the plain backward's query rows per chunk hold at most this many f32
@@ -268,6 +271,15 @@ def _resolve_bwd(bwd: Optional[str]) -> str:
   return bwd
 
 
+def check_head_dim(what: str, d: int) -> None:
+  """Raise unless the kernels take head_dim ``d``: ``8 <= d <= 128`` and
+  ``d % 8 == 0`` (a bf16 row a multiple of 16 bytes, as TMA needs). Each
+  kernel pads it to a 64- or 128-column tile of its own."""
+  if not (8 <= d <= MAX_HEAD_DIM and d % 8 == 0):
+    raise ValueError("%s takes head_dim d with 8 <= d <= %d and d %% 8 == 0,"
+                     " got %d" % (what, MAX_HEAD_DIM, d))
+
+
 def _check_kernel_dtypes(what, *tensors):
   dtype = tensors[0].dtype
   if dtype not in _build.DTYPE_CODES or any(t.dtype != dtype
@@ -278,8 +290,9 @@ def _check_kernel_dtypes(what, *tensors):
 
 def _tma_operand(t):
   """``t`` contiguous, as the bf16 kernels read it by TMA: from a 16-byte
-  aligned base (contiguous rows of 64 or 128 bf16 already give strides that
-  are multiples of 16 bytes), so a bf16 view at another offset is copied."""
+  aligned base (contiguous rows of a multiple of 8 bf16 already give strides
+  that are multiples of 16 bytes), so a bf16 view at another offset is
+  copied."""
   t = t.contiguous()
   return t.clone() if t.dtype == torch.bfloat16 and t.data_ptr() % 16 else t
 
@@ -309,9 +322,7 @@ def _forward(q, k, v, q_base, kv_base, causal, window):
     return flash_attention_reference(q, k, v, q_base, kv_base, causal, window)
   b, sq, h, d = q.shape
   sk, hk = k.shape[1], k.shape[2]
-  if d not in HEAD_DIMS:
-    raise ValueError("flash_attention kernel takes head_dim in %s, got %d"
-                     % (HEAD_DIMS, d))
+  check_head_dim("flash_attention kernel", d)
   _check_kernel_dtypes("flash_attention kernel", q, k, v)
   q, k, v = (_tma_operand(t) for t in (q, k, v))
   out = torch.empty_like(q)
@@ -342,11 +353,9 @@ def _check_bwd_shapes(q, k, v, g, lse, *rows):
 
 
 def _check_bwd_kernel(what, q, k, v, g, *rows):
-  """What the backward kernels take: head_dim 64 or 128, q/k/v/g all bf16
-  or all f32, per-row tensors f32."""
-  d = q.shape[-1]
-  if d not in HEAD_DIMS:
-    raise ValueError("%s takes head_dim in %s, got %d" % (what, HEAD_DIMS, d))
+  """What the backward kernels take: a head_dim :func:`check_head_dim`
+  accepts, q/k/v/g all bf16 or all f32, per-row tensors f32."""
+  check_head_dim(what, q.shape[-1])
   _check_kernel_dtypes(what, q, k, v, g)
   if any(t.dtype != torch.float32 for t in rows):
     raise TypeError("%s takes lse, g_lse and delta in f32" % what)
@@ -453,7 +462,8 @@ def _fused_bwd(q, k, v, out, lse, g, g_lse, q_base, kv_base, causal, window):
   _check_kernel_dtypes("flash_attention backward kernel", q, out)
   b, sq, h, d = q.shape
   sk, hk = k.shape[1], k.shape[2]
-  q, k, v, out, lse, g = (t.contiguous() for t in (q, k, v, out, lse, g))
+  q, k, v, g = (_tma_operand(t) for t in (q, k, v, g))
+  out, lse = out.contiguous(), lse.contiguous()
   g_lse = None if g_lse is None else g_lse.contiguous()
   dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
   if dq.numel() == 0 or sk == 0:
@@ -544,7 +554,8 @@ def flash_attention_fwd(q, k, v, q_base: int = 0, kv_base: int = 0,
   (at ``kv_base + arange(Sk)``) — the port of ``flash_attention_block``.
   Returns ``(out, lse)`` exactly as the JAX package's ``_fwd_impl``: out
   ``[B, Sq, H, D]`` in q's dtype, lse f32 ``[B, H, Sq]``. CUDA tensors run
-  the kernel on the current stream (bf16 or f32, head_dim 64 or 128); CPU
+  the kernel on the current stream (bf16 or f32, head_dim as
+  :func:`check_head_dim` takes it); CPU
   tensors run the plain version. Differentiable in q, k, v through both
   outputs (``bwd``: the backward plan, see :func:`default_bwd_mode` and
   :func:`bwd_plan`).

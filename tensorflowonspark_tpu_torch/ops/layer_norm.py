@@ -11,7 +11,8 @@ hand-written kernels in ``csrc/layer_norm.cu``; on CPU tensors they run
 kernel, the backward recomputes the row statistics from ``x`` (nothing
 but ``x`` and ``weight`` is saved).
 
-Layout: ``[..., hidden]``; the leading dims flatten to rows.
+Layout: ``[..., hidden]``; the leading dims flatten to rows, of any width
+(the kernels take a warp per row up to 8192 and a block per row past it).
 """
 
 import ctypes
@@ -21,9 +22,6 @@ import torch
 
 from tensorflowonspark_tpu_torch import ops
 from tensorflowonspark_tpu_torch.ops import _build
-
-#: widest row the one-warp-per-row kernels take
-MAX_HIDDEN = 8192
 
 
 def _stats(xf: torch.Tensor, eps: float):
@@ -81,10 +79,8 @@ def _check_kernel_inputs(x: torch.Tensor, weight: torch.Tensor) -> None:
     raise TypeError("layer_norm kernel takes bf16 or f32, got %s" % x.dtype)
   if weight.dtype != torch.float32:
     raise TypeError("layer_norm weight must be f32, got %s" % weight.dtype)
-  h = x.shape[-1]
-  if not 0 < h <= MAX_HIDDEN:
-    raise ValueError("layer_norm kernel takes 0 < H <= %d, got %d"
-                     % (MAX_HIDDEN, h))
+  if x.shape[-1] <= 0:
+    raise ValueError("layer_norm kernel takes H > 0, got %d" % x.shape[-1])
 
 
 def _forward(x: torch.Tensor, weight: torch.Tensor,

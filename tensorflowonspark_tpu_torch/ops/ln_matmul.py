@@ -30,9 +30,6 @@ from tensorflowonspark_tpu_torch import ops
 from tensorflowonspark_tpu_torch.ops import _build
 from tensorflowonspark_tpu_torch.ops.layer_norm import _stats
 
-#: the kernels load 8-element (16-byte) vectors along both H and N
-_VEC = 8
-
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   """``a @ b`` (2-D) with an f32 result, as JAX's ``dot_general(...,
@@ -95,16 +92,13 @@ def ln_matmul_bwd(x: torch.Tensor, w_ln: torch.Tensor, W: torch.Tensor,
 def check_kernel_inputs(name: str, x: torch.Tensor, W: torch.Tensor,
                         w_ln=None) -> None:
   """What the fused-product kernels take: x and W both bf16 or both f32,
-  w_ln f32, K (= H or F) and N multiples of 8."""
+  w_ln f32. K (= H or F) and N may be any width: rows whose bytes are not
+  a multiple of 16 are read element by element."""
   if x.dtype not in _build.DTYPE_CODES or W.dtype != x.dtype:
     raise TypeError("%s kernel takes x and W both bf16 or both f32, got %s "
                     "and %s" % (name, x.dtype, W.dtype))
   if w_ln is not None and w_ln.dtype != torch.float32:
     raise TypeError("%s w_ln must be f32, got %s" % (name, w_ln.dtype))
-  k, n = W.shape
-  if k % _VEC or n % _VEC:
-    raise ValueError("%s kernel takes K and N in multiples of %d, got W %s"
-                     % (name, _VEC, tuple(W.shape)))
 
 
 def aligned(t: torch.Tensor) -> torch.Tensor:
@@ -167,7 +161,7 @@ def ln_matmul(x: torch.Tensor, w_ln: torch.Tensor, W: torch.Tensor,
   """``layer_norm(x, w_ln) @ W`` with the normalized activation never in
   device memory. x: ``[..., H]``; w_ln: ``[H]`` f32; W: ``[H, N]``.
   Returns ``[..., N]`` in x's dtype. CUDA tensors run the kernel (x and W
-  both bf16 or both f32, H and N multiples of 8; launched on the current
+  both bf16 or both f32, H and N of any width; launched on the current
   stream, no synchronisation); CPU tensors run
   :func:`ln_matmul_reference`. Differentiable in all three: the backward
   is :func:`ln_matmul_bwd`."""

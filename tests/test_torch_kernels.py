@@ -164,12 +164,17 @@ def test_flash_bwd_kernel_head_dim_128_on_card(card):
 
 
 # (rows, K, N, dtype, tol): the fused-QKV width 2304, ragged rows into the
-# grouped width 1280, ragged rows/K/N against the 128 x 128 x 32 tiles
+# grouped width 1280, ragged rows/K/N against the 128 x 128 x 32 tiles, and
+# K and N that are not multiples of 8 (rows off a 16-byte boundary: element
+# loads and stores)
 FUSED_CASES = [(512, 768, 2304, torch.bfloat16, 2e-2),
                (33, 768, 1280, torch.bfloat16, 2e-2),
                (100, 776, 200, torch.bfloat16, 2e-2),
+               (100, 771, 203, torch.bfloat16, 2e-2),
+               (40, 64, 13, torch.bfloat16, 2e-2),
                (512, 768, 2304, torch.float32, 1e-5),
-               (33, 776, 200, torch.float32, 1e-5)]
+               (33, 776, 200, torch.float32, 1e-5),
+               (33, 301, 131, torch.float32, 1e-5)]
 
 
 @pytest.mark.cuda
@@ -196,14 +201,47 @@ def test_fused_matmul_kernels_match_plain_on_card(card, op, rows, k, n, dtype,
 
 @pytest.mark.cuda
 def test_fused_kernels_refuse_what_they_do_not_take(card):
+  # K and N of any width run (K 20, N 12: rows off a 16-byte boundary) and
+  # match the plain versions; mixed or unsupported dtypes are refused
   x = torch.randn(4, 20, device=card)
-  with pytest.raises(ValueError, match="multiples of 8"):
-    ops.gelu_matmul(x, torch.randn(20, 16, device=card))
+  W = torch.randn(20, 12, device=card)
+  w = torch.rand(20, device=card) + 0.5
+  torch.testing.assert_close(ops.gelu_matmul(x, W),
+                             ops.gelu_matmul_reference(x, W), atol=1e-5,
+                             rtol=1e-5)
+  torch.testing.assert_close(ops.ln_matmul(x, w, W),
+                             ops.ln_matmul_reference(x, w, W), atol=1e-5,
+                             rtol=1e-5)
   with pytest.raises(TypeError, match="both bf16 or both f32"):
     ops.gelu_matmul(x[:, :16], torch.randn(16, 8, device=card).bfloat16())
   with pytest.raises(TypeError, match="w_ln must be f32"):
     ops.ln_matmul(x[:, :16], torch.ones(16, device=card).double(),
                   torch.randn(16, 8, device=card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,dtype,tol", [(12288, torch.bfloat16, 2e-2),
+                                         (16384, torch.float32, 1e-4),
+                                         (8200, torch.bfloat16, 2e-2),
+                                         (9001, torch.float32, 1e-4)])
+def test_layer_norm_wide_rows_match_plain_on_card(card, h, dtype, tol):
+  # rows wider than 8192 take the block-per-row kernels, forward and
+  # backward (H 9001: no 16-byte vectors)
+  g = torch.Generator(device=card).manual_seed(10)
+  x = (torch.randn(40, h, device=card, generator=g) * 2 + 0.5).to(dtype)
+  w = torch.rand(h, device=card, generator=g) + 0.5
+  gy = torch.randn(40, h, device=card, generator=g).to(dtype)
+  ops.reset_launches()
+  y = ops.layer_norm(x, w)
+  dx, dw = ops.layer_norm_bwd(x, w, gy)
+  assert ops.LAUNCHES["layer_norm"] == 1 and ops.LAUNCHES["layer_norm_bwd"] == 1
+  torch.testing.assert_close(y.float(), ops.layer_norm_reference(x, w).float(),
+                             atol=tol, rtol=tol)
+  rdx, rdw = ops.layer_norm_bwd_reference(x, w, gy)
+  torch.testing.assert_close(dx.float(), rdx.float(), atol=tol, rtol=tol)
+  torch.testing.assert_close(dw, rdw, atol=1e-3 * 40 ** 0.5, rtol=1e-4)
+  dx2, dw2 = ops.layer_norm_bwd(x, w, gy)
+  assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
 
 
 @pytest.mark.cuda
@@ -403,3 +441,101 @@ def test_tensor_core_kernels_take_unaligned_bases_on_card(card):
   for got, want in zip(ops.flash_attention_bwd_dkv(q, odd, q, q, lse, delta),
                        ops.flash_attention_bwd_dkv(q, al, q, q, lse, delta)):
     assert torch.equal(got, want)
+
+
+# The bf16 fused backward on the tensor cores: (B, Sq, Sk, H, Hk, q_base,
+# kv_base, causal, window, lse cotangent). MHA and grouped, causal, windowed
+# and non-causal, ragged Sq != Sk (keys not a multiple of the key tile), bases
+# with keys ahead of every query, and g_lse present and absent.
+FUSED_BWD_CASES = {
+    "mha_causal": (2, 200, 200, 4, 4, 0, 0, True, None, False),
+    "gqa_causal_lse": (2, 200, 200, 4, 2, 0, 0, True, None, True),
+    "window_24": (2, 200, 200, 4, 2, 0, 0, True, 24, False),
+    "non_causal": (2, 130, 150, 4, 4, 0, 0, False, None, True),
+    "ragged_offset": (1, 100, 250, 6, 3, 150, 0, True, None, True),
+    "kv_ahead": (2, 160, 160, 4, 2, 0, 32, True, None, True),
+}
+
+
+def _bwd_inputs(card, case, d, seed):
+  b, sq, sk, h, hk, q_base, kv_base, causal, window, with_lse = \
+      FUSED_BWD_CASES[case]
+  g = torch.Generator(device=card).manual_seed(seed)
+  mk = lambda *s: torch.randn(*s, device=card,  # noqa: E731
+                              generator=g).to(torch.bfloat16)
+  q, k, v, go = mk(b, sq, h, d), mk(b, sk, hk, d), mk(b, sk, hk, d), \
+      mk(b, sq, h, d)
+  out, lse = ops.flash_attention_fwd(q, k, v, q_base, kv_base, causal, window)
+  gl = None
+  if with_lse:
+    gl = torch.where(lse <= -1e29, 0.0,
+                     torch.randn(b, h, sq, device=card, generator=g))
+  return (q, k, v, out, lse, go, gl, q_base, kv_base, causal, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FUSED_BWD_CASES))
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+def test_fused_bwd_bf16_tensor_core_kernel_matches_plain_and_split_on_card(
+    card, case, d):
+  args = _bwd_inputs(card, case, d, 11)
+  h, hk = args[0].shape[2], args[1].shape[2]
+  ops.reset_launches()
+  got = ops.flash_attention_bwd(*args, bwd="fused")
+  name = "flash_attention_bwd" if h == hk else "flash_attention_bwd_gqa"
+  assert {n: c for n, c in ops.LAUNCHES.items() if c} == {name: 1}
+  again = ops.flash_attention_bwd(*args, bwd="fused")
+  assert all(torch.equal(a, b) for a, b in zip(got, again))
+  want = ops.flash_attention_bwd_reference(*args)
+  split = ops.flash_attention_bwd(*args, bwd="split")
+  # bf16: outputs round to bf16, and P and dS round to bf16 before their
+  # products: 1e-2 of each gradient's largest magnitude
+  for t, a, w, s in zip("qkv", got, want, split):
+    assert a.dtype == torch.bfloat16 and a.shape == w.shape
+    for ref in (w, s):
+      err = (a.float() - ref.float()).abs().max()
+      assert err <= 1e-2 * ref.float().abs().max(), (case, d, t, float(err))
+  if case == "kv_ahead":
+    assert (got[0][:, :args[8] - args[7]] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 96])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["gqa_causal_lse", "window_24",
+                                  "non_causal", "ragged_offset"])
+def test_head_dims_forward_dq_dkv_match_plain_on_card(card, case, d, dtype):
+  # the forward, split dQ and split dK/dV (and the f32 fused body) at head
+  # dims padded inside the kernels: 32 in a 64-wide tile, 96 in a 128-wide
+  b, sq, sk, h, hk, q_base, kv_base, causal, window, _ = FUSED_BWD_CASES[case]
+  fa = sys.modules["tensorflowonspark_tpu_torch.ops.flash_attention"]
+  g = torch.Generator(device=card).manual_seed(12)
+  mk = lambda *s: torch.randn(*s, device=card,  # noqa: E731
+                              generator=g).to(dtype)
+  q, k, v, go = mk(b, sq, h, d), mk(b, sk, hk, d), mk(b, sk, hk, d), \
+      mk(b, sq, h, d)
+  out, lse = ops.flash_attention_fwd(q, k, v, q_base, kv_base, causal, window)
+  ro, rl = ops.flash_attention_reference(q, k, v, q_base, kv_base, causal,
+                                         window)
+  f32 = dtype == torch.float32
+  otol, ltol = (2e-5, 2e-5) if f32 else (2e-2, 1e-4)
+  torch.testing.assert_close(out.float(), ro.float(), atol=otol, rtol=otol)
+  torch.testing.assert_close(lse, rl, atol=ltol, rtol=ltol)
+  delta = fa._bwd_delta(out, go, None)
+  rel = 1e-4 if f32 else 1e-2
+  dq = ops.flash_attention_bwd_dq(q, k, v, go, lse, delta, q_base, kv_base,
+                                  causal, window)
+  dk, dv = ops.flash_attention_bwd_dkv(q, k, v, go, lse, delta, q_base,
+                                       kv_base, causal, window)
+  pq = ops.flash_attention_bwd_dq_reference(q, k, v, go, lse, delta, q_base,
+                                            kv_base, causal, window)
+  pk, pv = ops.flash_attention_bwd_dkv_reference(q, k, v, go, lse, delta,
+                                                 q_base, kv_base, causal,
+                                                 window)
+  fused = fa._fused_bwd(q, k, v, out, lse, go, None, q_base, kv_base, causal,
+                        window)
+  for a, w in ((dq, pq), (dk, pk), (dv, pv), (fused[0], pq), (fused[1], pk),
+               (fused[2], pv)):
+    assert a.dtype == dtype and a.shape == w.shape
+    err = (a.float() - w.float()).abs().max()
+    assert err <= rel * w.float().abs().max(), (case, d, float(err))

@@ -251,3 +251,25 @@ def test_tma_operands_copy_unaligned_bf16_bases():
   strided = buf[:n].view(2, 4, 64, 64).transpose(1, 2)
   got = fa._tma_operand(strided)
   assert got.is_contiguous() and torch.equal(got, strided)
+
+
+@pytest.mark.parametrize("h", [8193, 12288, 16384])
+def test_layer_norm_kernel_check_takes_rows_past_8192(h):
+  # rows wider than 8192 take the block-per-row kernels on the card
+  ln = sys.modules["tensorflowonspark_tpu_torch.ops.layer_norm"]
+  ln._check_kernel_inputs(torch.zeros(2, h), torch.ones(h))
+  with pytest.raises(TypeError, match="weight must be f32"):
+    ln._check_kernel_inputs(torch.zeros(2, h), torch.ones(h).double())
+
+
+@pytest.mark.parametrize("k,n", [(771, 203), (20, 12), (776, 200)])
+def test_fused_product_kernel_check_takes_any_k_and_n(k, n):
+  # K and N off a multiple of 8 are read element by element on the card
+  lm = sys.modules["tensorflowonspark_tpu_torch.ops.ln_matmul"]
+  for dtype in (torch.bfloat16, torch.float32):
+    x, W = torch.zeros(3, k, dtype=dtype), torch.zeros(k, n, dtype=dtype)
+    lm.check_kernel_inputs("ln_matmul", x, W, torch.ones(k))
+    lm.check_kernel_inputs("gelu_matmul", x, W)
+  with pytest.raises(TypeError, match="both bf16 or both f32"):
+    lm.check_kernel_inputs("gelu_matmul", torch.zeros(3, k),
+                           torch.zeros(k, n, dtype=torch.bfloat16))

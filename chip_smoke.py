@@ -10,10 +10,10 @@ failure:
 2. build: every hand-written kernel from ``tensorflowonspark_tpu_torch/
    csrc/`` with ``nvcc`` (one process per source, started together);
    the ptxas spill bytes of each tensor-core instantiation (the bf16
-   flash forward, fused backward and split dK/dV, which must not spill)
+   flash forward, fused backward, split dK/dV and split dQ at padded head
+   widths 64 and 128, and the GELU->matmul wgmma body; none may spill)
    and their ``HGMMA`` / ``HMMA`` / ``FFMA`` counts from ``cuobjdump
-   -sass`` (the forward and the fused backward must show HGMMA, the dK/dV
-   body HGMMA or HMMA);
+   -sass`` (each must show HGMMA);
 3. kernels against their plain PyTorch versions on the card, at the
    shapes the serving and training paths give them, with times (CUDA
    events), the least time the card could take (``bound``) and one
@@ -21,8 +21,11 @@ failure:
    LayerNorm and flash-attention forwards, then their backwards (each run
    twice and required to give the same bits), then the fused LN->matmul
    and GELU->matmul products (their yardstick is the unfused pair of
-   library calls; their device time from ``torch.profiler`` is taken at
-   the end of 6c, so that no profiler session precedes the serving run),
+   library calls; each case logs the body its dispatcher runs, bf16
+   GELU->matmul with K and N multiples of 8 on wgmma, and their device
+   time from ``torch.profiler`` is taken at the end of 6c, so that no
+   profiler session precedes the serving run, where the profiled kernel's
+   name must be that body's),
    LayerNorm rows wider than 8192 and fused products whose K and N are
    not multiples of 8; (3b) head dims other than 64 and 128: the
    forward, the fused backward and the split backward at head_dim 32 and
@@ -89,8 +92,10 @@ last included), and the split backward's dQ and dK/dV kernels against
 their plain versions (each twice, bitwise) at 6's cases, a long grouped
 window and the long-context shape, where they are also held against the
 fused kernel and timed beside it; it ends with one line per redesigned
-tensor-core kernel: ms, the factor over SDPA (forward) or SDPA's whole
-backward (the fused backward, dK/dV), and the share of the bound.
+tensor-core kernel: ms, the factor over SDPA (forward), SDPA's whole
+backward (the fused backward, dK/dV, dQ) or the ``F.gelu`` + matmul pair
+(GELU->matmul), and the share of the bound. [3b] also runs the split
+backward twice at each head dim and requires the same bits.
 
 The last two lines of output are JSON: ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. A copy of the measurements goes to
@@ -159,16 +164,22 @@ def time_ms(fn, runs=25, inner=10):
 
 # -- phase 2: what the tensor-core kernels compiled to -----------------------
 
-# (library, substring of the mangled name, what it is): the bf16 kernels
-# that run their products on the tensor cores, each at a padded head width
-# of 64 and 128
+# (library, substring of the mangled name, what it is, instantiations): the
+# bf16 kernels that run their products on the tensor cores, the flash
+# kernels at a padded head width of 64 and 128, the GEMM with its GELU
+# prologue
 TENSOR_CORE_KERNELS = (
-    ("flash_attention", "flash_fwd_kernel_wgmma", "flash forward bf16"),
-    ("flash_attention_bwd", "flash_bwd_kernel_wgmma", "fused backward bf16"),
+    ("flash_attention", "flash_fwd_kernel_wgmma", "flash forward bf16",
+     ("64", "128")),
+    ("flash_attention_bwd", "flash_bwd_kernel_wgmma", "fused backward bf16",
+     ("64", "128")),
     ("flash_attention_bwd_split", "flash_bwd_dkv_kernel_wgmma",
-     "split dK/dV bf16"),
+     "split dK/dV bf16", ("64", "128")),
     ("flash_attention_bwd_split", "flash_bwd_dkv_gqa_kernel_wgmma",
-     "split grouped dK/dV bf16"))
+     "split grouped dK/dV bf16", ("64", "128")),
+    ("flash_attention_bwd_split", "flash_bwd_dq_kernel_wgmma",
+     "split dQ bf16", ("64", "128")),
+    ("act_matmul", "prologue_gemm_wgmma", "GELU->matmul bf16", ("kGelu",)))
 SASS_OPS = ("HGMMA", "HMMA", "FFMA")
 
 
@@ -180,16 +191,26 @@ def _cuobjdump():
   return os.path.join(os.path.dirname(nvcc), "cuobjdump")
 
 
-def _head_dim(mangled):
-  return 128 if "ILi128E" in mangled else 64
+def _instance(mangled):
+  """The template argument a mangled tensor-core kernel was built for:
+  its padded head width, or its GEMM prologue."""
+  if "PrologueE" in mangled:
+    return "kGelu" if "PrologueE1" in mangled else "kLayerNorm"
+  return "128" if "ILi128E" in mangled else "64"
+
+
+def _is(part, mangled):
+  """``mangled`` is the kernel ``part`` names (the MHA dK/dV entry is a
+  prefix of the grouped one's)."""
+  return part in mangled and (part != "flash_bwd_dkv_kernel_wgmma"
+                              or "gqa" not in mangled)
 
 
 def sass_counts(_build):
   """HGMMA / HMMA / FFMA instructions in each tensor-core kernel's SASS
   (``cuobjdump -sass`` of the built library), one line per
-  instantiation. Fails if the bf16 forward or fused backward has no HGMMA
-  or the dK/dV body neither HGMMA nor HMMA: their products must run on
-  the tensor cores."""
+  instantiation. Fails if one has no HGMMA: their products must run on
+  wgmma."""
   out = {}
   for lib in sorted({k[0] for k in TENSOR_CORE_KERNELS}):
     text = subprocess.run(
@@ -210,24 +231,20 @@ def sass_counts(_build):
         slot = out.setdefault((lib, func), dict.fromkeys(SASS_OPS, 0))
         slot[op] += 1
   rows = []
-  for lib, part, what in TENSOR_CORE_KERNELS:
-    funcs = sorted(f for (l, f) in out if l == lib and part in f
-                   and (part != "flash_bwd_dkv_kernel_wgmma"
-                        or "gqa" not in f))
-    if not funcs:
-      raise AssertionError("no %s kernel (%s) in the SASS of %s"
-                           % (what, part, lib))
+  for lib, part, what, insts in TENSOR_CORE_KERNELS:
+    funcs = sorted(f for (l, f) in out if l == lib and _is(part, f))
+    if sorted(_instance(f) for f in funcs) != sorted(insts):
+      raise AssertionError("%s (%s) in the SASS of %s: %s, want %s"
+                           % (what, part, lib, [_instance(f) for f in funcs],
+                              list(insts)))
     for f in funcs:
       c = out[(lib, f)]
-      rows.append({"kernel": "%s<%d>" % (part, _head_dim(f)), "what": what,
+      rows.append({"kernel": "%s<%s>" % (part, _instance(f)), "what": what,
                    **c})
       log("  sass %-36s HGMMA %4d  HMMA %4d  FFMA %5d"
           % (rows[-1]["kernel"], c["HGMMA"], c["HMMA"], c["FFMA"]))
-      if part in ("flash_fwd_kernel_wgmma", "flash_bwd_kernel_wgmma") \
-          and c["HGMMA"] == 0:
+      if c["HGMMA"] == 0:
         raise AssertionError("%s: no HGMMA in %s" % (what, f))
-      if c["HGMMA"] + c["HMMA"] == 0:
-        raise AssertionError("%s: neither HGMMA nor HMMA in %s" % (what, f))
   return rows
 
 
@@ -235,7 +252,7 @@ def tensor_core_spills(build_log):
   """Spill bytes of each tensor-core kernel from the ptxas report; fails
   on any spill."""
   spills = {}
-  for lib, part, what in TENSOR_CORE_KERNELS:
+  for lib, part, what, _ in TENSOR_CORE_KERNELS:
     if lib not in build_log:
       log("  %s: loaded from an earlier build, no ptxas report" % lib)
       continue
@@ -243,15 +260,14 @@ def tensor_core_spills(build_log):
     for line in build_log[lib].splitlines():
       if "Function properties for" in line:
         func = line.split("Function properties for", 1)[1].strip()
-      elif "spill stores" in line and func and part in func and (
-          part != "flash_bwd_dkv_kernel_wgmma" or "gqa" not in func):
+      elif "spill stores" in line and func and _is(part, func):
         words = line.replace(",", " ").split()
         stores = int(words[words.index("spill") - 2])
         loads = int(words[words.index("loads") - 3])
-        key = "%s<%d>" % (part, _head_dim(func))
-        spills[key] = stores + loads
+        spills["%s<%s>" % (part, _instance(func))] = stores + loads
   log("  spill bytes of the tensor-core kernels: %s" % spills)
-  want = 2 * sum(lib in build_log for lib, _, _ in TENSOR_CORE_KERNELS)
+  want = sum(len(insts) for lib, _, _, insts in TENSOR_CORE_KERNELS
+             if lib in build_log)
   if len(spills) < want:
     raise AssertionError("ptxas reported %d of the %d tensor-core kernels"
                          % (len(spills), want))
@@ -775,6 +791,7 @@ def check_head_dims(ops, torch, F):
     fused = ops.flash_attention_bwd(*args, bwd="fused")
     again = ops.flash_attention_bwd(*args, bwd="fused")
     split = ops.flash_attention_bwd(*args, bwd="split")
+    split_again = ops.flash_attention_bwd(*args, bwd="split")
     want = ops.flash_attention_bwd_reference(*args)
     torch.cuda.synchronize()
     bf = dt == "bfloat16"
@@ -788,6 +805,9 @@ def check_head_dims(ops, torch, F):
                                                   ltol))
     if not all(torch.equal(x, y) for x, y in zip(fused, again)):
       raise AssertionError("head_dim %s fused backward: two runs differ"
+                           % name)
+    if not all(torch.equal(x, y) for x, y in zip(split, split_again)):
+      raise AssertionError("head_dim %s split backward: two runs differ"
                            % name)
     # bf16: outputs round to bf16 (2^-8 relative); f32: sums in another order
     tol = 1e-2 if bf else 1e-4
@@ -847,7 +867,7 @@ def check_head_dims(ops, torch, F):
            "-" if lib_fwd is None else "%.4f" % lib_fwd,
            "-" if lib_bwd is None else "%.4f" % lib_bwd, fwd_bound,
            bwd_bound))
-    del q, k, v, go, out, lse, ro, rl, fused, again, split, want
+    del q, k, v, go, out, lse, ro, rl, fused, again, split, split_again, want
   torch.cuda.empty_cache()
   return rows_out, worst
 
@@ -857,12 +877,13 @@ def pick(table, **kw):
   return next(r for r in table if all(r[k] == v for k, v in kw.items()))
 
 
-def device_ms(torch, fn, calls=5):
+def device_ms(torch, fn, calls=5, names=None):
   """Device time per call of ``fn`` (every kernel it launches), from
-  torch.profiler over ``calls`` calls after a warm-up. A session in which
-  the profiler records no kernel at all (it sometimes drops a short
-  session's device activity) is taken again, up to 3 times; None if none
-  recorded one."""
+  torch.profiler over ``calls`` calls after a warm-up; the kernels' names
+  go into the list ``names`` when one is given. A session in which the
+  profiler records no kernel at all (it sometimes drops a short session's
+  device activity) is taken again, up to 3 times; None if none recorded
+  one."""
   from torch.profiler import ProfilerActivity, profile
   fn()
   torch.cuda.synchronize()
@@ -872,8 +893,11 @@ def device_ms(torch, fn, calls=5):
       for _ in range(calls):
         fn()
       torch.cuda.synchronize()
-    total = sum(r[1] for r in _kernel_rows(torch, prof))
+    rows = _kernel_rows(torch, prof)
+    total = sum(r[1] for r in rows)
     if total > 0:
+      if names is not None:
+        names.extend(r[0] for r in rows)
       return total / calls
   return None
 
@@ -922,9 +946,13 @@ def check_fused_matmul(ops, torch, F):
   yardstick is the unfused pair of PyTorch calls (``F.layer_norm`` or
   ``F.gelu``, then ``torch.matmul``): no single library call computes the
   fused function. Device times come later (:func:`fused_device_ms`)."""
+  am = sys.modules["tensorflowonspark_tpu_torch.ops.act_matmul"]
   rows_out, worst = [], 0.0
   for i, (op, case, rows, k, n, dt) in enumerate(FUSED_CASES):
     fn, plain, lib = _fused_calls(ops, torch, F, i)
+    # the body the kernel's dispatcher runs (LN->matmul: WMMA in bf16)
+    body = (am.kernel_body(k, n, getattr(torch, dt)) if op == "gelu_matmul"
+            else "wmma" if dt == "bfloat16" else "f32")
     got, want = fn(), plain()
     torch.cuda.synchronize()
     # bf16: outputs may round one ulp apart (f32 sums in another order);
@@ -936,13 +964,16 @@ def check_fused_matmul(ops, torch, F):
       raise AssertionError("%s %s: max abs err %.3g over %g x max |ref| %.3g"
                            % (op, case, err, tol, scale))
     worst = max(worst, err)
+    # share of outputs whose bits differ from the plain version's
+    differ = (got != want).float().mean().item()
     isz = got.element_size()
     nbytes = (rows * k + k * n + rows * n) * isz + (k * 4 if op == "ln_matmul"
                                                     else 0)
     bound_b = nbytes / HBM_BYTES_PER_S * 1e3
     bound_o = 2.0 * rows * k * n / PEAK_FLOPS[dt] * 1e3
     row = {"op": op, "case": case, "rows": rows, "K": k, "N": n, "dtype": dt,
-           "max_abs_err": err, "max_abs_ref": scale, "ms": time_ms(fn),
+           "body": body, "max_abs_err": err, "max_abs_ref": scale,
+           "differ": differ, "ms": time_ms(fn),
            "plain_ms": time_ms(plain, runs=7 if rows > 1000 else 25),
            "library_ms": time_ms(lib),
            "library": ("F.layer_norm + torch.matmul" if op == "ln_matmul"
@@ -950,10 +981,10 @@ def check_fused_matmul(ops, torch, F):
            "bound_ms": max(bound_b, bound_o),
            "bound_by": "bytes" if bound_b >= bound_o else "operations"}
     rows_out.append(row)
-    log("  %-11s %-9s %-8s rows=%-5d K=%-4d N=%-4d err=%.3g ms=%.4f "
-        "plain=%.4f lib(2 calls)=%.4f bound=%.5f"
-        % (op, case, dt, rows, k, n, err, row["ms"], row["plain_ms"],
-           row["library_ms"], row["bound_ms"]))
+    log("  %-11s %-9s %-8s %-5s rows=%-5d K=%-4d N=%-4d err=%.3g "
+        "differ=%.2e ms=%.4f plain=%.4f lib(2 calls)=%.4f bound=%.5f"
+        % (op, case, dt, body, rows, k, n, err, differ, row["ms"],
+           row["plain_ms"], row["library_ms"], row["bound_ms"]))
     del fn, plain, lib, got, want
   return rows_out, worst
 
@@ -963,10 +994,20 @@ def fused_device_ms(ops, torch, F, rows_out):
   :func:`check_fused_matmul`. Run after the serving phases: the
   profiler's first session is left where the serving path had it, after
   the timed serving run."""
+  symbol = {"wgmma": "prologue_gemm_wgmma", "wmma": "prologue_gemm_bf16",
+            "f32": "prologue_gemm_f32"}
   for i, row in enumerate(rows_out):
     fn = _fused_calls(ops, torch, F, i)[0]
-    row["device_ms"] = device_ms(torch, fn)
+    names = []
+    row["device_ms"] = device_ms(torch, fn, names=names)
     del fn
+    # the profiler names the body that ran: it must be the one the
+    # dispatcher gives these widths
+    ran = sorted({n for n in names if "prologue_gemm" in n})
+    row["kernels_seen"] = ran
+    if ran and not any(symbol[row["body"]] in n for n in ran):
+      raise AssertionError("%s %s: expected the %s body, the profiler saw %s"
+                           % (row["op"], row["case"], row["body"], ran))
     if row["device_ms"] is None:
       row["tflops"] = None
       log("  %-11s %-9s %-8s device time not measured: the profiler "
@@ -975,9 +1016,10 @@ def fused_device_ms(ops, torch, F, rows_out):
       continue
     row["tflops"] = 2.0 * row["rows"] * row["K"] * row["N"] / \
         row["device_ms"] / 1e9
-    log("  %-11s %-9s %-8s device=%.4f ms (%.1f TFLOP/s)"
+    log("  %-11s %-9s %-8s device=%.4f ms (%.1f TFLOP/s), ran %s"
         % (row["op"], row["case"], row["dtype"], row["device_ms"],
-           row["tflops"]))
+           row["tflops"], ", ".join(n.split("<")[0].split("::")[-1]
+                                    for n in ran)))
 
 
 # -- phases 4 and 5: the serving path ----------------------------------------
@@ -1732,7 +1774,14 @@ def main(argv):
        "library_whole_bwd_ms", "SDPA whole bwd"),
       ("split dK/dV B1 S16384 Hk4", pick(split_rows, case="long",
                                          kernel="dkv"),
-       "library_whole_bwd_ms", "SDPA whole bwd")):
+       "library_whole_bwd_ms", "SDPA whole bwd"),
+      ("split dQ B16 S1024", pick(split_rows, case="train", kernel="dq"),
+       "library_whole_bwd_ms", "SDPA whole bwd"),
+      ("split dQ B1 S16384 Hk4", pick(split_rows, case="long", kernel="dq"),
+       "library_whole_bwd_ms", "SDPA whole bwd"),
+      ("GELU->matmul 16384x3072x768", pick(fm_rows, op="gelu_matmul",
+                                           case="down"),
+       "library_ms", "F.gelu + matmul")):
     log("  %-26s %.4f ms = %.2f x %s (%.4f ms), %.1f%% of bound"
         % (what, row["ms"], row["ms"] / row[lib], yard, row[lib],
            100.0 * row["bound_ms"] / row["ms"]))
@@ -1905,7 +1954,9 @@ def main(argv):
             {"train_fused_4_steps": fused_l["gelu_matmul"],
              "train_fused_gqa_2_steps": launches(fgqa_res, 2, "gelu_matmul")},
             fm_err, pick(fm_rows, op="gelu_matmul", case="down"),
-            library="F.gelu + torch.matmul (two calls)"),
+            library="F.gelu + torch.matmul (two calls)",
+            design="wgmma+tma (bf16, f and n multiples of 8; WMMA for "
+                   "other widths) + prologue_gemm_wgmma.cuh"),
   ]
   # the split kernels: no single PyTorch call computes dQ or dK/dV alone;
   # SDPA's whole backward stands beside the pair's time
@@ -1921,10 +1972,9 @@ def main(argv):
                                            "flash_attention_bwd_dkv_gqa")},
        "long")):
     row = pick(split_rows, case=case, kernel=kern)
-    design = {"design": "wgmma+tma"} if kern == "dkv" else {}
     kernels.append(entry(
         name, "flash_attention_bwd_split.cu", replaces, by_path,
-        max(split_err[kern], hd_err["split"]), row, **design,
+        max(split_err[kern], hd_err["split"]), row, design="wgmma+tma",
         head_dims="8..128 (d % 8 == 0)", library=row["library"],
         library_whole_bwd_ms=row["library_whole_bwd_ms"],
         split_pair_ms=row["split_pair_ms"], fused_ms=row["fused_ms"],

@@ -254,10 +254,6 @@ struct WgFwdSmem {
   static constexpr size_t kBytes = 1024 + kQBytes + kWgStages * kStageBytes;  // + alignment
 };
 
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
-  return p + ((1024 - (sm90::smem_u32(p) & 1023)) & 1023);
-}
-
 // Copies K/V tile `kt` into the ring stage of the `i`-th visible tile.
 template <int D>
 __device__ __forceinline__ void issue_kv(uint8_t* kv_ring, uint64_t* full, const CUtensorMap* tm_k,
@@ -289,7 +285,7 @@ __global__ void __launch_bounds__(kWgThreads, D == 64 ? 2 : 1)
   using S = WgFwdSmem<D>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bar_q, full[kWgStages], empty[kWgStages];
-  uint8_t* q_tile = align_1024(smem_raw);
+  uint8_t* q_tile = sm90::align_1024(smem_raw);
   uint8_t* kv_ring = q_tile + S::kQBytes;
 
   const int warp = threadIdx.x >> 5;

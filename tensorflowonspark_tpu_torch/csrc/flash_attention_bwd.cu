@@ -501,7 +501,7 @@ __global__ void __launch_bounds__(128 * wg::consumers<D>(), 1)
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t kv_full[2], full[kRing];
   __shared__ float lse_s[kRing][kBQ], delta_s[kRing][kBQ];
-  uint8_t* kv_buf = wg::align_1024(smem_raw);
+  uint8_t* kv_buf = sm90::align_1024(smem_raw);
   uint8_t* ring = kv_buf + 2 * S::kKVStage;
   uint8_t* ds_buf = ring + kRing * S::kStageBytes;
 

@@ -3,7 +3,7 @@
 //
 // Replaces: tensorflowonspark_tpu/ops/flash_attention.py
 //   _attn_bwd_dq_kernel (:166-194, launched by _bwd_impl at :667)
-//     -> flash_bwd_dq_kernel;
+//     -> flash_bwd_dq_kernel_wgmma (bf16), flash_bwd_dq_kernel (f32);
 //   _attn_bwd_dkv_kernel (:197-229, MHA, launched at :723)
 //     -> flash_bwd_dkv_kernel_wgmma (bf16), flash_bwd_dkv_kernel (f32);
 //   _attn_bwd_dkv_gqa_kernel (:281-329, grouped KV, launched at :689)
@@ -34,9 +34,32 @@
 // about 1.4 TFLOP against ~0.1 GB of inputs and outputs: compute-bound on the
 // tensor cores (~1.4 ms there).
 //
-// dK/dV has two bodies, chosen by dtype in tos_flash_attention_bwd_dkv:
+// Each kernel has two bodies, chosen by dtype (DqLauncher, DkvLauncher).
 //
-// bf16 -> flash_bwd_dkv_kernel_wgmma / flash_bwd_dkv_gqa_kernel_wgmma (tensor
+// bf16 dQ -> flash_bwd_dq_kernel_wgmma (tensor cores). Its CUDA-core body
+// (below) ran at 2-3% of the bound: K, V, Q and dO staged as f32 in shared
+// memory, three CTA-wide barriers and scalar FMAs for S, dP and dS K on every
+// key tile, and every K/V load stalling the CTA. This body is the forward's
+// loop (flash_attention.cu, flash_fwd_kernel_wgmma) with the lse already
+// known: one CTA per (batch * query head, 128-row q tile), two warpgroups of
+// 64 rows, two CTAs an SM at a padded width of 64 (96 KB of shared memory
+// each). Thread 0 loads Q and dO once by TMA and streams 64-key K/V tiles
+// through a 4-stage ring of full/empty mbarriers, so the next tiles' copies
+// overlap this tile's products. Per key tile each warpgroup issues S = Q K^T
+// and dP = dO V^T (wgmma, all operands K-major) and waits once; forms P =
+// exp2(s * scale * log2e - lse) and dS = P (dP - Delta) in the accumulators'
+// registers, lse (log2 units, +inf for dead rows and rows past Sq) and Delta
+// held per row in registers, masking only on the causal diagonal, the
+// window's edge and a ragged last key tile; rounds dS to bf16 in registers
+// and accumulates dQ += dS K (wgmma, A from registers, B = the same K tile
+// read MN-major: the forward's O += P V with K in V's place). A warpgroup
+// skips the tiles none of its rows can see. dQ takes the scale once at the
+// end and is stored once (no row past Sq, no column past d): no atomics,
+// bitwise reproducible. dS in bf16 before dS K is the one rounding the
+// reference (an f32 product) does not have; the fused and dK/dV bodies round
+// the same way.
+//
+// bf16 dK/dV -> flash_bwd_dkv_kernel_wgmma / flash_bwd_dkv_gqa_kernel_wgmma (tensor
 // cores, dkv_tile_wgmma; the fused plan's tensor-core body runs the same step
 // with dQ added, flash_bwd_wgmma.cuh). One CTA per (batch * KV head, 128-key
 // tile): two
@@ -57,12 +80,11 @@
 // across the whole query group, walked in head order, and are stored once:
 // no atomics, bitwise reproducible.
 //
-// f32 -> flash_bwd_dkv_kernel / flash_bwd_dkv_gqa_kernel (CUDA cores,
+// f32 dK/dV -> flash_bwd_dkv_kernel / flash_bwd_dkv_gqa_kernel (CUDA cores,
 // dkv_tile): the first body, products as f32 FMAs over tiles staged as f32 in
 // shared memory. Tensor cores have no full-precision f32 product and the f32
-// parity paths hold the card to the CPU at 1e-4, so f32 keeps it. dQ
-// (flash_bwd_dq_kernel) runs on the CUDA cores in both dtypes until its own
-// tensor-core redesign.
+// parity paths hold the card to the CPU at 1e-4, so f32 keeps it; so does
+// f32 dQ (flash_bwd_dq_kernel).
 //
 // Design of the CUDA-core bodies. The TPU runs each grid in order on one
 // core; here every (query head or KV head, 64-row tile) is its own CTA, which
@@ -496,7 +518,7 @@ __device__ __forceinline__ void dkv_tile_wgmma(const CUtensorMap* tm_q, const CU
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bar_kv, full[kStages], empty[kStages];
   __shared__ float lse_s[kStages][kBQ], delta_s[kStages][kBQ];
-  uint8_t* k_tile = wg::align_1024(smem_raw);
+  uint8_t* k_tile = sm90::align_1024(smem_raw);
   uint8_t* v_tile = k_tile + S::kKVBytes;
   uint8_t* ring = v_tile + S::kKVBytes;
 
@@ -691,6 +713,252 @@ __global__ void __launch_bounds__(wg::threads<D>(), 1)
                     kv_base, causal, window, scale);
 }
 
+// -- bf16 dQ: wgmma + TMA ----------------------------------------------------
+
+constexpr int kDqRows = 128;               // q rows per CTA: two warpgroups of 64
+constexpr int kDqKeys = 64;                // keys per K/V tile
+constexpr int kDqStages = 4;               // K/V ring depth
+constexpr int kDqThreads = 256;            // thread 0 also issues the copies
+
+template <int D>
+struct WgDqSmem {
+  static constexpr int kQBytes = kDqRows * D * 2;    // the Q (or dO) tile
+  static constexpr int kKVBytes = kDqKeys * D * 2;   // one K (or V) tile
+  static constexpr int kStageBytes = 2 * kKVBytes;   // K then V
+  static constexpr size_t kBytes = 1024 + 2 * kQBytes + kDqStages * kStageBytes;
+};
+
+// Copies K/V tile `kt` into the ring stage of the `i`-th visible tile.
+template <int D>
+__device__ __forceinline__ void issue_dq_kv(uint8_t* ring, uint64_t* full,
+                                            const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                            int i, int kt, int kvh, int b) {
+  using S = WgDqSmem<D>;
+  const int s = i % kDqStages;
+  uint8_t* k_tile = ring + s * S::kStageBytes;
+  uint8_t* v_tile = k_tile + S::kKVBytes;
+  sm90::mbar_arrive_expect_tx(&full[s], S::kStageBytes);
+#pragma unroll
+  for (int j = 0; j < D / 64; ++j) {
+    sm90::tma_load_4d(k_tile + j * kDqKeys * sm90::kRowBytes, tm_k, &full[s], 64 * j, kvh,
+                      kt * kDqKeys, b);
+    sm90::tma_load_4d(v_tile + j * kDqKeys * sm90::kRowBytes, tm_v, &full[s], 64 * j, kvh,
+                      kt * kDqKeys, b);
+  }
+}
+
+// dQ of one (batch, query head, 128-row q tile): the forward's loop
+// (flash_attention.cu, flash_fwd_kernel_wgmma) with the lse already known.
+// Two CTAs an SM at a padded width D of 64, one at 128. d: the head_dim.
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, D == 64 ? 2 : 1)
+    flash_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_do,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dq, int sq, int sk, int h, int hk,
+                              int d, int q_base, int kv_base, int causal, int window,
+                              float scale) {
+  using S = WgDqSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bar_q, full[kDqStages], empty[kDqStages];
+  uint8_t* q_tile = sm90::align_1024(smem_raw);
+  uint8_t* do_tile = q_tile + S::kQBytes;
+  uint8_t* ring = do_tile + S::kQBytes;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int bh = blockIdx.x;
+  const int b = bh / h;
+  const int qh = bh % h;
+  const int kvh = qh / (h / hk);
+  const int n_qt = (sq + kDqRows - 1) / kDqRows;
+  const int qt = causal ? n_qt - 1 - static_cast<int>(blockIdx.y) : static_cast<int>(blockIdx.y);
+  const int q0 = qt * kDqRows;
+  const int n_kt = (sk + kDqKeys - 1) / kDqKeys;
+
+  // visible k tiles of the CTA: _window_k_lo .. _causal_k_hi from its first
+  // and last real row
+  int lo = 0, hi = n_kt;
+  if (causal)
+    hi = tos::clamp_int(tos::floor_div(q_base + min(sq, q0 + kDqRows) - 1 - kv_base, kDqKeys) + 1,
+                        0, n_kt);
+  if (causal && window > 0)
+    lo = tos::clamp_int(tos::floor_div(q_base + q0 - (window - 1) - kv_base, kDqKeys), 0, n_kt);
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&bar_q, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kDqThreads / 32);  // one arrival per warp
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // thread 0 issues every copy: Q and dO here with the first kDqStages K/V
+  // tiles, each later tile once every warp is done with the stage it reuses
+  const int n_tiles = hi - lo;
+  if (threadIdx.x == 0 && n_tiles > 0) {
+    sm90::mbar_arrive_expect_tx(&bar_q, 2 * S::kQBytes);
+#pragma unroll
+    for (int j = 0; j < D / 64; ++j) {
+      sm90::tma_load_4d(q_tile + j * kDqRows * sm90::kRowBytes, &tm_q, &bar_q, 64 * j, qh, q0, b);
+      sm90::tma_load_4d(do_tile + j * kDqRows * sm90::kRowBytes, &tm_do, &bar_q, 64 * j, qh, q0,
+                        b);
+    }
+    for (int i = 0; i < min(n_tiles, kDqStages); ++i)
+      issue_dq_kv<D>(ring, full, &tm_k, &tm_v, i, lo + i, kvh, b);
+  }
+
+  // consumer warpgroup g: q rows q0 + 64 g .. + 63; this thread's two rows
+  const int wgi = warp >> 2;
+  const int quad = lane & 3;
+  const int row0 = q0 + wgi * 64 + (warp & 3) * 16 + (lane >> 2);   // and row0 + 8
+  const int wg_first = q0 + wgi * 64;
+  const int wg_last = min(sq, wg_first + 64) - 1;
+  // the tiles this warpgroup's rows can see (none when it has no real row)
+  int wg_lo = lo, wg_hi = wg_first < sq ? hi : lo;
+  if (causal && wg_first < sq)
+    wg_hi = min(hi, tos::clamp_int(tos::floor_div(q_base + wg_last - kv_base, kDqKeys) + 1, 0,
+                                   n_kt));
+  if (causal && window > 0)
+    wg_lo = max(lo, tos::clamp_int(
+                        tos::floor_div(q_base + wg_first - (window - 1) - kv_base, kDqKeys), 0,
+                        n_kt));
+
+  // this thread's rows' lse (log2 units, +inf for a row past sq or one that
+  // saw no key: its P is 0) and Delta, held in registers
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const long at = static_cast<long>(bh) * sq + row;
+    lse2[r] = wg::lse_log2(row < sq ? lse[at] : tos::kNegInf);
+    dlt[r] = row < sq ? delta[at] : 0.f;
+  }
+
+  const float sl2 = scale * wg::kLog2e;
+  float acc[D / 2];
+#pragma unroll
+  for (int x = 0; x < D / 2; ++x) acc[x] = 0.f;
+  const uint32_t q_addr = sm90::smem_u32(q_tile) + wgi * 64 * sm90::kRowBytes;
+  const uint32_t do_addr = sm90::smem_u32(do_tile) + wgi * 64 * sm90::kRowBytes;
+
+  if (lo < hi) sm90::mbar_wait(&bar_q, 0);
+  for (int kt = lo; kt < hi; ++kt) {
+    const int i = kt - lo, s = i % kDqStages;
+    sm90::mbar_wait(&full[s], (i / kDqStages) & 1);
+    if (kt >= wg_lo && kt < wg_hi) {
+      const uint32_t k_addr = sm90::smem_u32(ring + s * S::kStageBytes);
+      const uint32_t v_addr = k_addr + S::kKVBytes;
+      // S = Q K^T and dP = dO V^T: q rows x keys, K-major operands, one wait
+      float sc[kDqKeys / 2], dp[kDqKeys / 2];
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < D / 16; ++k) {
+        sm90::wgmma_ss<kDqKeys>(sc, sm90::desc_k_major(q_addr, kDqRows * sm90::kRowBytes, k),
+                                sm90::desc_k_major(k_addr, kDqKeys * sm90::kRowBytes, k), k > 0);
+        sm90::wgmma_ss<kDqKeys>(dp, sm90::desc_k_major(do_addr, kDqRows * sm90::kRowBytes, k),
+                                sm90::desc_k_major(v_addr, kDqKeys * sm90::kRowBytes, k), k > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      sm90::fence_regs(dp);
+
+      // P = exp(s * scale - lse), 0 where masked or where the row saw no
+      // key; dS = P (dP - Delta), into sc. Masks only where a key of the
+      // tile can be hidden from a row of the warpgroup: the causal diagonal,
+      // the window's edge, keys past sk (TMA reads them as zeros, and exp2
+      // of a zero score against a very negative lse need not be finite)
+      const int k0 = kt * kDqKeys;
+      const bool need = k0 + kDqKeys > sk ||
+                        (causal && kv_base + k0 + kDqKeys - 1 > q_base + wg_first) ||
+                        (causal && window > 0 && kv_base + k0 <= q_base + wg_last - window);
+#pragma unroll
+      for (int j = 0; j < kDqKeys / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * j + 2 * r + e;
+            float p = sm90::exp2_approx(fmaf(sc[x], sl2, -lse2[r]));
+            if (need) {
+              const int col = k0 + 8 * j + 2 * quad + e;
+              const int qpos = q_base + row0 + 8 * r, kpos = kv_base + col;
+              bool keep = col < sk;
+              if (causal) {
+                keep = keep && kpos <= qpos;
+                if (window > 0) keep = keep && kpos > qpos - window;
+              }
+              p = keep ? p : 0.f;
+            }
+            sc[x] = p * (dp[x] - dlt[r]);
+          }
+      // dQ += dS K: A = dS rounded to bf16 in registers, B = the same K tile
+      // read MN-major (the forward's O += P V with K in V's place)
+      uint32_t dsf[kDqKeys / 16][4];
+#pragma unroll
+      for (int k = 0; k < kDqKeys / 16; ++k) sm90::a_frag_from_acc(sc, k, dsf[k]);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kDqKeys / 16; ++k)
+        sm90::wgmma_rs<D>(acc, dsf[k], sm90::desc_mn_major(k_addr, kDqKeys * sm90::kRowBytes, k),
+                          1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[s]);  // this warp is done with the stage
+    // the previous tile's stage takes the tile kDqStages after it; waiting
+    // one tile back leaves the other warpgroup a tile of slack
+    const int prev = i - 1;
+    if (threadIdx.x == 0 && prev >= 0 && prev + kDqStages < n_tiles) {
+      sm90::mbar_wait(&empty[prev % kDqStages], (prev / kDqStages) & 1);
+      issue_dq_kv<D>(ring, full, &tm_k, &tm_v, prev + kDqStages, lo + prev + kDqStages, kvh, b);
+    }
+    __syncwarp();
+  }
+
+  // dQ = scale * sum dS K, one rounding to bf16; no row past sq, no column
+  // past d. A row (or warpgroup) that saw no key stores zeros.
+  const long q_row = static_cast<long>(h) * d;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= sq) continue;
+    __nv_bfloat16* dst = dq + (static_cast<long>(b) * sq + row) * q_row +
+                         static_cast<long>(qh) * d + 2 * quad;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      if (8 * j < d)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+  }
+}
+
+template <int D>
+cudaError_t launch_dq_wgmma(const Args& a, void* dq) {
+  static unsigned long long configured = 0;
+  constexpr size_t smem = WgDqSmem<D>::kBytes;
+  cudaError_t e = allow_smem(flash_bwd_dq_kernel_wgmma<D>, smem, a.device, &configured);
+  if (e != cudaSuccess) return e;
+  CUtensorMap mq, mk, mv, mdo;
+  e = sm90::encode_bshd_map(&mq, a.q, a.b, a.sq, a.h, a.d, kDqRows);
+  if (e == cudaSuccess) e = sm90::encode_bshd_map(&mdo, a.dout, a.b, a.sq, a.h, a.d, kDqRows);
+  if (e == cudaSuccess) e = sm90::encode_bshd_map(&mk, a.k, a.b, a.sk, a.hk, a.d, kDqKeys);
+  if (e == cudaSuccess) e = sm90::encode_bshd_map(&mv, a.v, a.b, a.sk, a.hk, a.d, kDqKeys);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(a.b * a.h, (a.sq + kDqRows - 1) / kDqRows);
+  flash_bwd_dq_kernel_wgmma<D><<<grid, kDqThreads, smem, a.stream>>>(
+      mq, mk, mv, mdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(dq), a.sq, a.sk, a.h, a.hk,
+      a.d, a.q_base, a.kv_base, a.causal, a.window, a.scale);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
   static unsigned long long configured_mha = 0, configured_gqa = 0;
@@ -727,12 +995,15 @@ cudaError_t dispatch(int dtype, int d, X... x) {
   return cudaErrorInvalidValue;
 }
 
+// bf16 runs on the tensor cores, f32 on the CUDA cores (see the note above)
 template <int D, typename T>
 struct DqLauncher {
-  static cudaError_t run(const Args& a, void* dq) { return launch_dq<D, T>(a, dq); }
+  static cudaError_t run(const Args& a, void* dq) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) return launch_dq_wgmma<D>(a, dq);
+    else return launch_dq<D, T>(a, dq);
+  }
 };
 
-// bf16 runs on the tensor cores, f32 on the CUDA cores (see the note above)
 template <int D, typename T>
 struct DkvLauncher {
   static cudaError_t run(const Args& a, void* dk, void* dv) {

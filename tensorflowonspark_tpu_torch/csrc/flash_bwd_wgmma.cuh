@@ -51,10 +51,6 @@ __host__ __device__ constexpr int keys() { return 64 * consumers<D>(); }
 template <int D>
 __host__ __device__ constexpr int threads() { return 128 * consumers<D>() + 32; }
 
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
-  return p + ((1024 - (sm90::smem_u32(p) & 1023)) & 1023);
-}
-
 // A row's lse as a step reads it: in log2 units, +inf for a row that saw no
 // key (lse -1e30; rows past sq read as such), so that exp2(s * scale * log2e
 // - lse) is 0 there

@@ -56,6 +56,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// the first 1024-byte boundary at or after p: where a 128-byte-swizzled TMA
+// tile may start
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
 // -- mbarriers ---------------------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -119,6 +125,31 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// Copies the box at coordinates (c0, c1) (innermost first) of a 2-D `map`
+// into shared memory at `dst`; completes its bytes on `bar`. One thread issues.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// -- shared memory to registers ----------------------------------------------
+
+// Four 8 x 8 bf16 matrices, lanes 8 i .. 8 i + 7 giving the addresses of
+// matrix i's rows (16 bytes each); r[i] of lane t holds row t / 4, columns
+// 2 (t % 4) and + 1 of matrix i. With matrix i = rows 8 (i % 2) .., columns
+// 8 (i / 2) .. of a warp's 16 x 16 slice, r is that slice's wgmma A fragment
+// (the layout below).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
 }
 
 // -- wgmma -------------------------------------------------------------------
@@ -394,6 +425,30 @@ static inline cudaError_t encode_bshd_map(CUtensorMap* map, const void* base, in
   const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A map over a row-major bf16 matrix [rows, cols] (cols contiguous) whose
+// box is `box_rows` rows x 64 columns (128-byte swizzle; reads past either
+// edge give zeros, and count on the mbarrier as the whole box does).
+// Coordinates: (column, row). Needs a 16-byte aligned base and cols a
+// multiple of 8 (TMA's row stride is a multiple of 16 bytes). Returns
+// cudaSuccess or cudaErrorInvalidValue.
+static inline cudaError_t encode_2d_map(CUtensorMap* map, const void* base, long rows, long cols,
+                                        int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  if ((reinterpret_cast<uintptr_t>(base) & 15) != 0 || cols < 8 || cols % 8 != 0 || rows < 1 ||
+      box_rows < 1 || box_rows > 256)
+    return cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -2,7 +2,11 @@
 // prologue f on its way from device memory into shared memory, so the
 // transformed [rows, k] activation never exists in device memory. Shared by
 // ln_matmul.cu (f = LayerNorm, with per-row statistics) and act_matmul.cu
-// (f = tanh-GELU).
+// (f = tanh-GELU). The bf16 GELU product with k and n multiples of 8 has
+// moved to the tensor-core body of prologue_gemm_wgmma.cuh (wgmma + TMA,
+// the prologue in registers); here it keeps only the widths TMA cannot
+// take. LN->matmul stays on the WMMA body below until its LayerNorm prologue
+// moves to the wgmma body too (ROADMAP Queue 2, the next redesign).
 //
 // Layouts: x [rows, k] row-major, w [k, n] row-major (n contiguous), out
 // [rows, n] row-major in x's dtype, the pointers 16-byte aligned (the wrappers
@@ -33,9 +37,10 @@
 //
 // What bounds it: at the training shapes (16384 rows, k 768 or 3072) the
 // product is the work: 2 * rows * k * n operations against ~2 bytes per x
-// element, far above the card's operations-per-byte balance. This first
-// version issues warp-level mma (WMMA) from shared memory fed by cp.async;
-// wgmma, TMA and warp-specialised producers are later work.
+// element, far above the card's operations-per-byte balance. This body
+// issues warp-level mma (WMMA) from shared memory fed by cp.async, at 12-14%
+// of that bound on the H100 (PERF.md); prologue_gemm_wgmma.cuh is its wgmma
+// successor.
 #pragma once
 
 #include <mma.h>
@@ -443,8 +448,11 @@ cudaError_t launch(const void* x, const float* w_ln, float2* stats, const void* 
     if (e != cudaSuccess) return e;
   }
   if (bf16) {
-    if (k % 8 == 0 && n % 8 == 0)
-      return launch_bf16<P, true>(x, w_ln, stats, w, out, rows, k, n, grid, stream);
+    // bf16 GELU with k and n multiples of 8 runs the wgmma body
+    // (prologue_gemm_wgmma.cuh), routed there by act_matmul.cu
+    if constexpr (P == Prologue::kLayerNorm)
+      if (k % 8 == 0 && n % 8 == 0)
+        return launch_bf16<P, true>(x, w_ln, stats, w, out, rows, k, n, grid, stream);
     return launch_bf16<P, false>(x, w_ln, stats, w, out, rows, k, n, grid, stream);
   }
   if (k % 4 == 0 && n % 4 == 0)

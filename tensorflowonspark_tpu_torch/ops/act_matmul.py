@@ -84,7 +84,24 @@ def _lib() -> ctypes.CDLL:
     lib.tos_gelu_matmul.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.tos_gelu_matmul.restype = ctypes.c_int
+    lib.tos_gelu_matmul_body.argtypes = [ctypes.c_int] * 3
+    lib.tos_gelu_matmul_body.restype = ctypes.c_int
   return lib
+
+
+#: the kernel's bodies, by the code its dispatcher gives them
+KERNEL_BODIES = {2: "wgmma", 1: "wmma", 0: "f32"}
+
+
+def kernel_body(f: int, n: int, dtype: torch.dtype) -> str:
+  """Which body the card's kernel runs for x ``[.., f]`` and W ``[f, n]``
+  in ``dtype``, as its dispatcher (``csrc/act_matmul.cu``) decides:
+  ``"wgmma"`` (bf16, f and n multiples of 8), ``"wmma"`` (other bf16
+  widths) or ``"f32"``. Builds the kernel's library on first use."""
+  code = _lib().tos_gelu_matmul_body(f, n, _build.DTYPE_CODES[dtype])
+  if code not in KERNEL_BODIES:
+    raise ValueError("gelu_matmul has no kernel body for %s" % dtype)
+  return KERNEL_BODIES[code]
 
 
 def _forward(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:

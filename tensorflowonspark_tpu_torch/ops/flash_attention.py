@@ -408,7 +408,8 @@ def flash_attention_bwd_dq(q, k, v, g, lse, delta, q_base: int = 0,
     return flash_attention_bwd_dq_reference(q, k, v, g, lse, delta, q_base,
                                             kv_base, causal, window)
   _check_bwd_kernel("flash_attention dQ kernel", q, k, v, g, lse, delta)
-  q, k, v, g, lse, delta = (t.contiguous() for t in (q, k, v, g, lse, delta))
+  q, k, v, g = (_tma_operand(t) for t in (q, k, v, g))
+  lse, delta = lse.contiguous(), delta.contiguous()
   dq = torch.empty_like(q)
   if dq.numel() == 0 or k.shape[1] == 0:
     return dq.zero_()

@@ -441,6 +441,15 @@ def test_tensor_core_kernels_take_unaligned_bases_on_card(card):
   for got, want in zip(ops.flash_attention_bwd_dkv(q, odd, q, q, lse, delta),
                        ops.flash_attention_bwd_dkv(q, al, q, q, lse, delta)):
     assert torch.equal(got, want)
+  assert torch.equal(ops.flash_attention_bwd_dq(odd, q, q, q, lse, delta),
+                     ops.flash_attention_bwd_dq(al, q, q, q, lse, delta))
+  assert torch.equal(ops.flash_attention_bwd_dq(q, q, odd, q, lse, delta),
+                     ops.flash_attention_bwd_dq(q, q, al, q, lse, delta))
+  # the GELU->matmul wgmma body reads x and W by TMA too
+  x_odd, x_al = odd.view(256, 128), al.view(256, 128)
+  W = (torch.randn(128, 64, device=card, generator=g) / 128 ** 0.5).to(
+      torch.bfloat16)
+  assert torch.equal(ops.gelu_matmul(x_odd, W), ops.gelu_matmul(x_al, W))
 
 
 # The bf16 fused backward on the tensor cores: (B, Sq, Sk, H, Hk, q_base,
@@ -457,9 +466,19 @@ FUSED_BWD_CASES = {
 }
 
 
-def _bwd_inputs(card, case, d, seed):
-  b, sq, sk, h, hk, q_base, kv_base, causal, window, with_lse = \
-      FUSED_BWD_CASES[case]
+# The bf16 split dQ on the tensor cores takes 128-row q tiles of two
+# warpgroups and streams 64-key K/V tiles through a 4-stage ring: the fused
+# cases, plus sequences long enough for the ring to wrap, with an offset
+# query block over more keys and a window.
+DQ_CASES = dict(
+    FUSED_BWD_CASES,
+    ring_offset_lse=(1, 700, 900, 4, 2, 200, 0, True, None, True),
+    ring_window=(1, 1000, 1000, 4, 4, 0, 0, True, 300, False),
+    ring_non_causal=(2, 300, 600, 4, 2, 0, 0, False, None, False))
+
+
+def _bwd_inputs(card, case, d, seed, cases=FUSED_BWD_CASES):
+  b, sq, sk, h, hk, q_base, kv_base, causal, window, with_lse = cases[case]
   g = torch.Generator(device=card).manual_seed(seed)
   mk = lambda *s: torch.randn(*s, device=card,  # noqa: E731
                               generator=g).to(torch.bfloat16)
@@ -539,3 +558,62 @@ def test_head_dims_forward_dq_dkv_match_plain_on_card(card, case, d, dtype):
     assert a.dtype == dtype and a.shape == w.shape
     err = (a.float() - w.float()).abs().max()
     assert err <= rel * w.float().abs().max(), (case, d, float(err))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(DQ_CASES))
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+def test_dq_bf16_tensor_core_kernel_matches_plain_on_card(card, case, d):
+  # flash_bwd_dq_kernel_wgmma: causal, windowed and non-causal, grouped K/V,
+  # ragged Sq != Sk, keys ahead of every query, an lse cotangent folded
+  # into Delta, at head dims padded to 64 and to 128
+  fa = sys.modules["tensorflowonspark_tpu_torch.ops.flash_attention"]
+  q, k, v, out, lse, go, gl, q_base, kv_base, causal, window = _bwd_inputs(
+      card, case, d, 13, DQ_CASES)
+  delta = fa._bwd_delta(out, go, gl)
+  args = (q, k, v, go, lse, delta, q_base, kv_base, causal, window)
+  ops.reset_launches()
+  dq = ops.flash_attention_bwd_dq(*args)
+  assert {n: c for n, c in ops.LAUNCHES.items() if c} == {
+      "flash_attention_bwd_dq": 1}
+  # one CTA owns each dQ tile: no atomics, the same bits every run
+  assert torch.equal(dq, ops.flash_attention_bwd_dq(*args))
+  want = ops.flash_attention_bwd_dq_reference(*args)
+  # dQ rounds to bf16, and dS rounds to bf16 before dS K: 1e-2 of the
+  # largest |dQ|, as the other bf16 gradients
+  assert dq.dtype == torch.bfloat16 and dq.shape == want.shape
+  err = (dq.float() - want.float()).abs().max()
+  assert err <= 1e-2 * want.float().abs().max(), (case, d, float(err))
+  if case == "kv_ahead":
+    assert (dq[:, :kv_base - q_base] == 0).all()
+
+
+# (rows, f, n, body): GELU->matmul in bf16 at the training shape (the MLP
+# down-projection), ragged row counts, n not a multiple of the 256-column
+# tile, f not a multiple of the 64-deep K step, train_gpt's widths; and
+# widths that are not multiples of 8, which keep the WMMA body
+GELU_BODY_CASES = [(16384, 3072, 768, "wgmma"), (1000, 3072, 768, "wgmma"),
+                   (33, 768, 1280, "wgmma"), (100, 776, 200, "wgmma"),
+                   (4096, 1024, 256, "wgmma"), (129, 264, 136, "wgmma"),
+                   (100, 771, 200, "wmma"), (100, 776, 203, "wmma")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,f,n,body", GELU_BODY_CASES)
+def test_gelu_matmul_bf16_bodies_match_plain_on_card(card, rows, f, n, body):
+  am = sys.modules["tensorflowonspark_tpu_torch.ops.act_matmul"]
+  assert am.kernel_body(f, n, torch.bfloat16) == body
+  g = torch.Generator(device=card).manual_seed(14)
+  x = (torch.randn(rows, f, device=card, generator=g) * 2 + 0.5).to(
+      torch.bfloat16)
+  W = (torch.randn(f, n, device=card, generator=g) / f ** 0.5).to(
+      torch.bfloat16)
+  ops.reset_launches()
+  got = ops.gelu_matmul(x, W)
+  assert ops.LAUNCHES["gelu_matmul"] == 1 and got.dtype == torch.bfloat16
+  want = ops.gelu_matmul_reference(x, W)
+  # outputs may round one ulp apart (the f32 sums run in another order):
+  # 2e-2 of the output's scale, as check_fused_matmul holds them
+  err = (got.float() - want.float()).abs().max()
+  assert err <= 2e-2 * want.float().abs().max(), (rows, f, n, float(err))
+  assert torch.equal(got, ops.gelu_matmul(x, W))

@@ -11,7 +11,8 @@ failure:
    csrc/`` with ``nvcc`` (one process per source, started together);
    the ptxas spill bytes of each tensor-core instantiation (the bf16
    flash forward, fused backward, split dK/dV and split dQ at padded head
-   widths 64 and 128, and the GELU->matmul wgmma body; none may spill)
+   widths 64 and 128, and the wgmma body of GELU->matmul and of
+   LN->matmul; none may spill)
    and their ``HGMMA`` / ``HMMA`` / ``FFMA`` counts from ``cuobjdump
    -sass`` (each must show HGMMA);
 3. kernels against their plain PyTorch versions on the card, at the
@@ -21,11 +22,13 @@ failure:
    LayerNorm and flash-attention forwards, then their backwards (each run
    twice and required to give the same bits), then the fused LN->matmul
    and GELU->matmul products (their yardstick is the unfused pair of
-   library calls; each case logs the body its dispatcher runs, bf16
-   GELU->matmul with K and N multiples of 8 on wgmma, and their device
-   time from ``torch.profiler`` is taken at the end of 6c, so that no
-   profiler session precedes the serving run, where the profiled kernel's
-   name must be that body's),
+   library calls; each case logs the body its dispatcher runs, bf16 with K
+   and N multiples of 8 on wgmma, is run twice and must give the same
+   bits; their device time from ``torch.profiler`` is taken at the end of
+   6c, so that no profiler session precedes the serving run, where the
+   profiled kernel's name must be that body's instantiated for the op's
+   prologue; the LayerNorm kernels' device times, the backward's pass 1
+   and pass 2 apart, and the yardstick's, are taken there too),
    LayerNorm rows wider than 8192 and fused products whose K and N are
    not multiples of 8; (3b) head dims other than 64 and 128: the
    forward, the fused backward and the split backward at head_dim 32 and
@@ -101,6 +104,11 @@ The last two lines of output are JSON: ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. A copy of the measurements goes to
 ``chiprun_out/chip_smoke.json``.
 
+``python3 chip_smoke.py --layer-norm-only`` runs phases 1, 2 and phase
+3's LayerNorm forward and backward checks with their device times, and
+prints them as one JSON line; like ``--serving-only``, a copy run from
+another checkout's root measures that checkout's kernels.
+
 ``python3 chip_smoke.py --serving-only N`` runs phases 1, 2 and 4 alone:
 the serving main path N times in one process, then the host time of one
 flash-forward wrapper call at the prefill chunks' shapes and the wall time
@@ -166,8 +174,8 @@ def time_ms(fn, runs=25, inner=10):
 
 # (library, substring of the mangled name, what it is, instantiations): the
 # bf16 kernels that run their products on the tensor cores, the flash
-# kernels at a padded head width of 64 and 128, the GEMM with its GELU
-# prologue
+# kernels at a padded head width of 64 and 128, the GEMM with its GELU and
+# its LayerNorm prologue
 TENSOR_CORE_KERNELS = (
     ("flash_attention", "flash_fwd_kernel_wgmma", "flash forward bf16",
      ("64", "128")),
@@ -179,7 +187,8 @@ TENSOR_CORE_KERNELS = (
      "split grouped dK/dV bf16", ("64", "128")),
     ("flash_attention_bwd_split", "flash_bwd_dq_kernel_wgmma",
      "split dQ bf16", ("64", "128")),
-    ("act_matmul", "prologue_gemm_wgmma", "GELU->matmul bf16", ("kGelu",)))
+    ("act_matmul", "prologue_gemm_wgmma", "GELU->matmul bf16", ("kGelu",)),
+    ("ln_matmul", "prologue_gemm_wgmma", "LN->matmul bf16", ("kLayerNorm",)))
 SASS_OPS = ("HGMMA", "HMMA", "FFMA")
 
 
@@ -191,12 +200,22 @@ def _cuobjdump():
   return os.path.join(os.path.dirname(nvcc), "cuobjdump")
 
 
+def _prologue(symbol):
+  """The prologue a fused-product kernel's symbol (mangled, or demangled
+  as the profiler names it) was instantiated for: "kGelu", "kLayerNorm",
+  or None for a symbol that names neither (``Prologue`` is an enum:
+  kLayerNorm is 0, kGelu 1)."""
+  for name, code in (("kLayerNorm", "0"), ("kGelu", "1")):
+    if name in symbol or "PrologueE" + code in symbol \
+        or "Prologue)" + code in symbol:
+      return name
+  return None
+
+
 def _instance(mangled):
   """The template argument a mangled tensor-core kernel was built for:
   its padded head width, or its GEMM prologue."""
-  if "PrologueE" in mangled:
-    return "kGelu" if "PrologueE1" in mangled else "kLayerNorm"
-  return "128" if "ILi128E" in mangled else "64"
+  return _prologue(mangled) or ("128" if "ILi128E" in mangled else "64")
 
 
 def _is(part, mangled):
@@ -280,48 +299,95 @@ def tensor_core_spills(build_log):
 # -- phase 3: kernels against their plain versions ---------------------------
 
 
+# (rows, H, dtype, tol): rows 8 = one decode step of 8 slots, 512 = the
+# largest prefill chunk, 16384 = the training batch; H 770 takes the
+# kernel's unvectorised path, H 12288 and 9001 the block-per-row kernel
+# (rows wider than 8192; 9001 also unvectorised).
+# Tolerances: f32 sums in another order (1e-5); bf16 outputs may round
+# one ulp apart (2e-2 at |y| <= 4).
+LN_CASES = ((8, 768, "bfloat16", 2e-2), (512, 768, "bfloat16", 2e-2),
+            (8, 768, "float32", 1e-5), (512, 768, "float32", 1e-5),
+            (33, 770, "bfloat16", 2e-2), (16384, 768, "bfloat16", 2e-2),
+            (256, 12288, "bfloat16", 2e-2), (64, 9001, "float32", 1e-5))
+# (rows, H, dtype, tol): 16384 rows = the training batch B16 x S1024, and
+# 16387 rows, not a multiple of the rows a block holds; H 770 takes the
+# unvectorised path, H 12288 and 9001 the block-per-row kernel. dx: bf16
+# output rounding (one ulp, 2^-8 relative) or f32 sums in another order;
+# dw: f32 sums over the rows in another order in both dtypes.
+LN_BWD_CASES = ((16384, 768, "bfloat16", 1e-2), (16384, 768, "float32", 1e-5),
+                (16387, 768, "bfloat16", 1e-2), (33, 770, "bfloat16", 1e-2),
+                (256, 12288, "bfloat16", 1e-2), (64, 9001, "float32", 1e-5))
+
+
+def _ln_inputs(torch, cases, index, backward, device="cuda"):
+  """x, w (and g for the backward) of ``cases[index]`` on ``device``, from
+  a seed of their own."""
+  rows, h, dt, _ = cases[index]
+  dtype = getattr(torch, dt)
+  g = torch.Generator(device=device).manual_seed(
+      SEED + (40 if backward else 20) + index)
+  x = (torch.randn(rows, h, device=device, generator=g) * 2 + 0.5).to(dtype)
+  w = torch.rand(h, device=device, generator=g) + 0.5
+  if not backward:
+    return x, w
+  return x, w, torch.randn(rows, h, device=device, generator=g).to(dtype)
+
+
+def _ln_calls(ops, torch, F, index):
+  """(kernel, plain version, yardstick) closures of LN_CASES[index]."""
+  x, w = _ln_inputs(torch, LN_CASES, index, False)
+  h, wl = x.shape[-1], w.to(x.dtype)
+  return (lambda: ops.layer_norm(x, w),
+          lambda: ops.layer_norm_reference(x, w),
+          lambda: F.layer_norm(x, (h,), wl, None, 1e-6))
+
+
+def _ln_bwd_calls(ops, torch, F, index):
+  """(kernel, plain version, yardstick) closures of LN_BWD_CASES[index]:
+  the yardstick is PyTorch's LayerNorm backward through autograd."""
+  x, w, gy = _ln_inputs(torch, LN_BWD_CASES, index, True)
+  xl = x.detach().clone().requires_grad_()
+  wl = w.to(x.dtype).requires_grad_()
+  yl = F.layer_norm(xl, (x.shape[-1],), wl, None, 1e-6)
+  return (lambda: ops.layer_norm_bwd(x, w, gy),
+          lambda: ops.layer_norm_bwd_reference(x, w, gy),
+          lambda: torch.autograd.grad(yl, (xl, wl), gy, retain_graph=True))
+
+
+def _bound(nbytes, flops):
+  """(bound ms, what bounds it) of a kernel moving ``nbytes`` and doing
+  ``flops`` f32 operations outside the tensor cores."""
+  bound_b = nbytes / HBM_BYTES_PER_S * 1e3
+  bound_o = flops / ELEMENTWISE_FLOPS * 1e3
+  return max(bound_b, bound_o), "bytes" if bound_b >= bound_o else "operations"
+
+
 def check_layer_norm(ops, torch, F):
+  """The LayerNorm forward against its plain version at LN_CASES, timed
+  by CUDA events beside ``F.layer_norm``; device times come later
+  (:func:`layer_norm_device_ms`)."""
   rows_out, worst = [], 0.0
-  g = torch.Generator(device="cuda").manual_seed(SEED)
-  # (rows, H, dtype, tol): rows 8 = one decode step of 8 slots, 512 = the
-  # largest prefill chunk, 16384 = the training batch; H 770 takes the
-  # kernel's unvectorised path, H 12288 and 9001 the block-per-row kernel
-  # (rows wider than 8192; 9001 also unvectorised).
-  # Tolerances: f32 sums in another order (1e-5); bf16 outputs may round
-  # one ulp apart (2e-2 at |y| <= 4).
-  cases = [(8, 768, torch.bfloat16, 2e-2), (512, 768, torch.bfloat16, 2e-2),
-           (8, 768, torch.float32, 1e-5), (512, 768, torch.float32, 1e-5),
-           (33, 770, torch.bfloat16, 2e-2), (16384, 768, torch.bfloat16, 2e-2),
-           (256, 12288, torch.bfloat16, 2e-2), (64, 9001, torch.float32, 1e-5)]
-  for rows, h, dtype, tol in cases:
-    x = (torch.randn(rows, h, device="cuda", generator=g) * 2 + 0.5).to(dtype)
-    w = torch.rand(h, device="cuda", generator=g) + 0.5
-    got = ops.layer_norm(x, w)
-    want = ops.layer_norm_reference(x, w)
+  for i, (rows, h, dt, tol) in enumerate(LN_CASES):
+    fn, plain, lib = _ln_calls(ops, torch, F, i)
+    got, want = fn(), plain()
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
       raise AssertionError("layer_norm %s rows=%d H=%d: max abs err %.3g "
-                           "over tol %g" % (dtype, rows, h, err, tol))
+                           "over tol %g" % (dt, rows, h, err, tol))
     worst = max(worst, err)
-    itemsize = x.element_size()
-    nbytes = 2 * x.numel() * itemsize + h * 4
-    bound_b = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_o = LN_FLOPS_PER_ELEM * x.numel() / ELEMENTWISE_FLOPS * 1e3
-    wl = w.to(dtype)
-    row = {"rows": rows, "H": h, "dtype": str(dtype).split(".")[-1],
-           "max_abs_err": err,
-           "ms": time_ms(lambda: ops.layer_norm(x, w)),
-           "plain_ms": time_ms(lambda: ops.layer_norm_reference(x, w)),
-           "library_ms": time_ms(
-               lambda: F.layer_norm(x, (h,), wl, None, 1e-6)),
-           "bound_ms": max(bound_b, bound_o),
-           "bound_by": "bytes" if bound_b >= bound_o else "operations"}
+    isz = got.element_size()
+    bound, by = _bound(2 * rows * h * isz + h * 4,
+                       LN_FLOPS_PER_ELEM * rows * h)
+    row = {"rows": rows, "H": h, "dtype": dt, "max_abs_err": err,
+           "ms": time_ms(fn), "plain_ms": time_ms(plain),
+           "library_ms": time_ms(lib), "bound_ms": bound, "bound_by": by}
     rows_out.append(row)
     log("  layer_norm %-8s rows=%-4d H=%d err=%.3g ms=%.5f plain=%.5f "
-        "lib=%.5f bound=%.5f" % (row["dtype"], rows, h, err, row["ms"],
+        "lib=%.5f bound=%.5f" % (dt, rows, h, err, row["ms"],
                                  row["plain_ms"], row["library_ms"],
                                  row["bound_ms"]))
+    del fn, plain, lib, got, want
   return rows_out, worst
 
 
@@ -502,53 +568,68 @@ def _rel_check(what, got, want, tol):
 
 
 def check_layer_norm_bwd(ops, torch, F):
+  """The LayerNorm backward against its plain version at LN_BWD_CASES,
+  twice and bitwise equal, timed by CUDA events beside PyTorch's LayerNorm
+  backward; device times come later (:func:`layer_norm_device_ms`)."""
   rows_out, worst = [], 0.0
-  g = torch.Generator(device="cuda").manual_seed(SEED + 5)
-  # (rows, H, dtype, tol): 16384 rows = the training batch B16 x S1024;
-  # H 770 takes the unvectorised path, H 12288 and 9001 the block-per-row
-  # kernel. dx: bf16 output rounding (one ulp, 2^-8 relative) or f32 sums
-  # in another order; dw: f32 sums over the rows in another order in both
-  # dtypes.
-  cases = [(16384, 768, torch.bfloat16, 1e-2),
-           (16384, 768, torch.float32, 1e-5), (33, 770, torch.bfloat16, 1e-2),
-           (256, 12288, torch.bfloat16, 1e-2), (64, 9001, torch.float32, 1e-5)]
-  for rows, h, dtype, tol in cases:
-    x = (torch.randn(rows, h, device="cuda", generator=g) * 2 + 0.5).to(dtype)
-    w = torch.rand(h, device="cuda", generator=g) + 0.5
-    gy = torch.randn(rows, h, device="cuda", generator=g).to(dtype)
-    dx, dw = ops.layer_norm_bwd(x, w, gy)
-    rdx, rdw = ops.layer_norm_bwd_reference(x, w, gy)
+  for i, (rows, h, dt, tol) in enumerate(LN_BWD_CASES):
+    fn, plain, lib = _ln_bwd_calls(ops, torch, F, i)
+    (dx, dw), (rdx, rdw) = fn(), plain()
     torch.cuda.synchronize()
-    err = max(_rel_check("layer_norm_bwd dx %s rows=%d" % (dtype, rows), dx,
-                         rdx, tol),
-              _rel_check("layer_norm_bwd dw %s rows=%d" % (dtype, rows), dw,
-                         rdw, 1e-5))
-    dx2, dw2 = ops.layer_norm_bwd(x, w, gy)
+    err = max(_rel_check("layer_norm_bwd dx %s rows=%d H=%d" % (dt, rows, h),
+                         dx, rdx, tol),
+              _rel_check("layer_norm_bwd dw %s rows=%d H=%d" % (dt, rows, h),
+                         dw, rdw, 1e-5))
+    dx2, dw2 = fn()
     if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
-      raise AssertionError("layer_norm_bwd rows=%d: two runs differ" % rows)
+      raise AssertionError("layer_norm_bwd rows=%d H=%d: two runs differ"
+                           % (rows, h))
     worst = max(worst, err)
-    isz = x.element_size()
-    nbytes = 3 * x.numel() * isz + 2 * h * 4        # x, g, dx; w, dw
-    bound_b = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_o = LN_BWD_FLOPS_PER_ELEM * x.numel() / ELEMENTWISE_FLOPS * 1e3
-    xl = x.detach().clone().requires_grad_()
-    wl = w.to(dtype).requires_grad_()
-    yl = F.layer_norm(xl, (h,), wl, None, 1e-6)
-    row = {"rows": rows, "H": h, "dtype": str(dtype).split(".")[-1],
-           "max_abs_err": err,
-           "ms": time_ms(lambda: ops.layer_norm_bwd(x, w, gy)),
-           "plain_ms": time_ms(lambda: ops.layer_norm_bwd_reference(x, w, gy),
-                               runs=10),
-           "library_ms": time_ms(lambda: torch.autograd.grad(
-               yl, (xl, wl), gy, retain_graph=True)),
-           "bound_ms": max(bound_b, bound_o),
-           "bound_by": "bytes" if bound_b >= bound_o else "operations"}
+    isz = dx.element_size()
+    bound, by = _bound(3 * rows * h * isz + 2 * h * 4,    # x, g, dx; w, dw
+                       LN_BWD_FLOPS_PER_ELEM * rows * h)
+    row = {"rows": rows, "H": h, "dtype": dt, "max_abs_err": err,
+           "ms": time_ms(fn), "plain_ms": time_ms(plain, runs=10),
+           "library_ms": time_ms(lib), "bound_ms": bound, "bound_by": by}
     rows_out.append(row)
     log("  layer_norm_bwd %-8s rows=%-5d H=%d err=%.3g ms=%.5f plain=%.5f "
         "lib=%.5f bound=%.5f deterministic" % (
-            row["dtype"], rows, h, err, row["ms"], row["plain_ms"],
-            row["library_ms"], row["bound_ms"]))
+            dt, rows, h, err, row["ms"], row["plain_ms"], row["library_ms"],
+            row["bound_ms"]))
+    del fn, plain, lib, dx, dw, rdx, rdw, dx2, dw2
   return rows_out, worst
+
+
+def layer_norm_device_ms(ops, torch, F, ln_rows, lnb_rows):
+  """The device time per call of each LayerNorm case, the port's kernels
+  (the backward split by kernel: pass 1 and pass 2) and the yardstick's,
+  from torch.profiler, into the rows of :func:`check_layer_norm` and
+  :func:`check_layer_norm_bwd`; and the host's share of the CUDA-event
+  time (``ms`` over ``device_ms``). Like :func:`fused_device_ms`, run
+  after the serving phases."""
+  for what, rows_out, calls in (("layer_norm", ln_rows, _ln_calls),
+                                ("layer_norm_bwd", lnb_rows, _ln_bwd_calls)):
+    for i, row in enumerate(rows_out):
+      fn, _, lib = calls(ops, torch, F, i)
+      per = {}
+      row["device_ms"] = device_ms(torch, fn, per_kernel=per)
+      row["device_ms_by_kernel"] = {k.split("(")[0][:80]: v
+                                    for k, v in per.items()}
+      row["library_device_ms"] = device_ms(torch, lib)
+      del fn, lib
+      if row["device_ms"] is None:
+        log("  %s %s rows=%d H=%d: device time not measured (the profiler "
+            "recorded no kernel in 3 sessions)" % (what, row["dtype"],
+                                                  row["rows"], row["H"]))
+        continue
+      log("  %s %-8s rows=%-5d H=%-5d device=%.5f ms (events %.5f, %.0f%% "
+          "of bound) lib device=%s | %s" % (
+              what, row["dtype"], row["rows"], row["H"], row["device_ms"],
+              row["ms"], 100.0 * row["bound_ms"] / row["device_ms"],
+              "%.5f" % row["library_device_ms"]
+              if row["library_device_ms"] is not None else "not measured",
+              ", ".join("%s %.5f" % kv for kv in
+                        row["device_ms_by_kernel"].items())))
 
 
 def check_flash_bwd(ops, torch, F):
@@ -877,13 +958,13 @@ def pick(table, **kw):
   return next(r for r in table if all(r[k] == v for k, v in kw.items()))
 
 
-def device_ms(torch, fn, calls=5, names=None):
+def device_ms(torch, fn, calls=5, per_kernel=None):
   """Device time per call of ``fn`` (every kernel it launches), from
-  torch.profiler over ``calls`` calls after a warm-up; the kernels' names
-  go into the list ``names`` when one is given. A session in which the
-  profiler records no kernel at all (it sometimes drops a short session's
-  device activity) is taken again, up to 3 times; None if none recorded
-  one."""
+  torch.profiler over ``calls`` calls after a warm-up; each kernel's name
+  and device ms per call go into the dict ``per_kernel`` when one is
+  given. A session in which the profiler records no kernel at all (it
+  sometimes drops a short session's device activity) is taken again, up
+  to 3 times; None if none recorded one."""
   from torch.profiler import ProfilerActivity, profile
   fn()
   torch.cuda.synchronize()
@@ -896,23 +977,31 @@ def device_ms(torch, fn, calls=5, names=None):
     rows = _kernel_rows(torch, prof)
     total = sum(r[1] for r in rows)
     if total > 0:
-      if names is not None:
-        names.extend(r[0] for r in rows)
+      if per_kernel is not None:
+        per_kernel.update((r[0], r[1] / calls) for r in rows)
       return total / calls
   return None
 
 
 # (op, case, rows, K, N, dtype): the training shapes (B16 x S1024 rows:
 # fused QKV 768 -> 2304, its grouped width 1280, MLP up 768 -> 3072, down
-# 3072 -> 768), f32 at the parity phase's rows, and ragged rows into N 1280
-# plus ragged rows/K/N against the 128 x 128 x 32 tiles, and K and N that
-# are not multiples of 8 (rows off a 16-byte boundary: element loads)
+# 3072 -> 768), train_gpt's (4096 rows, d_model 256: QKV 768, up 1024), f32
+# at the parity phase's rows, and ragged rows into N 1280 plus ragged
+# rows/K/N against the 128 x 256 x 64 tiles, rows whose mean is large
+# against their spread (x = 100 + N(0, 1): a prologue that drops the
+# centred subtraction loses their digits), K 64 (one K step: the time a
+# CTA spends outside its K loop, filling the ring and writing its tile),
+# and K and N that are not multiples of 8 (rows off a 16-byte boundary:
+# element loads)
 FUSED_CASES = (("ln_matmul", "qkv", 16384, 768, 2304, "bfloat16"),
                ("ln_matmul", "qkv_gqa", 16384, 768, 1280, "bfloat16"),
                ("ln_matmul", "up", 16384, 768, 3072, "bfloat16"),
+               ("ln_matmul", "gpt_up", 4096, 256, 1024, "bfloat16"),
                ("ln_matmul", "qkv_f32", 512, 768, 2304, "float32"),
                ("ln_matmul", "ragged33", 33, 768, 1280, "bfloat16"),
                ("ln_matmul", "ragged_kn", 100, 776, 200, "bfloat16"),
+               ("ln_matmul", "large_mean", 512, 768, 2304, "bfloat16"),
+               ("ln_matmul", "k64", 16384, 64, 2304, "bfloat16"),
                ("gelu_matmul", "down", 16384, 3072, 768, "bfloat16"),
                ("gelu_matmul", "down_f32", 512, 3072, 768, "float32"),
                ("gelu_matmul", "ragged33", 33, 768, 1280, "bfloat16"),
@@ -925,10 +1014,12 @@ FUSED_CASES = (("ln_matmul", "qkv", 16384, 768, 2304, "bfloat16"),
 def _fused_calls(ops, torch, F, index):
   """(kernel, plain version, yardstick) closures over case ``index``'s
   inputs, made from a seed of their own."""
-  op, _, rows, k, n, dt = FUSED_CASES[index]
+  op, case, rows, k, n, dt = FUSED_CASES[index]
   dtype = getattr(torch, dt)
   g = torch.Generator(device="cuda").manual_seed(SEED + 8 + index)
-  x = (torch.randn(rows, k, device="cuda", generator=g) * 2 + 0.5).to(dtype)
+  scale, shift = (1.0, 100.0) if case == "large_mean" else (2.0, 0.5)
+  x = (torch.randn(rows, k, device="cuda", generator=g) * scale
+       + shift).to(dtype)
   W = (torch.randn(k, n, device="cuda", generator=g) / k ** 0.5).to(dtype)
   if op == "ln_matmul":
     w = torch.rand(k, device="cuda", generator=g) + 0.5
@@ -941,18 +1032,23 @@ def _fused_calls(ops, torch, F, index):
           lambda: F.gelu(x, approximate="tanh") @ W)
 
 
+def _fused_module(op):
+  """The port's module of fused product ``op`` (the package re-exports the
+  function under the module's name)."""
+  return sys.modules["tensorflowonspark_tpu_torch.ops." + (
+      "ln_matmul" if op == "ln_matmul" else "act_matmul")]
+
+
 def check_fused_matmul(ops, torch, F):
   """ln_matmul and gelu_matmul against their plain versions. The
   yardstick is the unfused pair of PyTorch calls (``F.layer_norm`` or
   ``F.gelu``, then ``torch.matmul``): no single library call computes the
   fused function. Device times come later (:func:`fused_device_ms`)."""
-  am = sys.modules["tensorflowonspark_tpu_torch.ops.act_matmul"]
   rows_out, worst = [], 0.0
   for i, (op, case, rows, k, n, dt) in enumerate(FUSED_CASES):
     fn, plain, lib = _fused_calls(ops, torch, F, i)
-    # the body the kernel's dispatcher runs (LN->matmul: WMMA in bf16)
-    body = (am.kernel_body(k, n, getattr(torch, dt)) if op == "gelu_matmul"
-            else "wmma" if dt == "bfloat16" else "f32")
+    # the body the kernel's dispatcher runs
+    body = _fused_module(op).kernel_body(k, n, getattr(torch, dt))
     got, want = fn(), plain()
     torch.cuda.synchronize()
     # bf16: outputs may round one ulp apart (f32 sums in another order);
@@ -964,6 +1060,8 @@ def check_fused_matmul(ops, torch, F):
       raise AssertionError("%s %s: max abs err %.3g over %g x max |ref| %.3g"
                            % (op, case, err, tol, scale))
     worst = max(worst, err)
+    if not torch.equal(got, fn()):
+      raise AssertionError("%s %s: two runs differ" % (op, case))
     # share of outputs whose bits differ from the plain version's
     differ = (got != want).float().mean().item()
     isz = got.element_size()
@@ -989,25 +1087,36 @@ def check_fused_matmul(ops, torch, F):
   return rows_out, worst
 
 
+def _ran_instance(names, body, prologue):
+  """The fused-product kernels among the profiler's ``names``, and whether
+  one of them is ``body``'s kernel instantiated for ``prologue``."""
+  symbol = {"wgmma": "prologue_gemm_wgmma", "wmma": "prologue_gemm_bf16",
+            "f32": "prologue_gemm_f32"}[body]
+  ran = sorted({n for n in names if "prologue_gemm" in n})
+  return ran, any(symbol in n and _prologue(n) == prologue for n in ran)
+
+
 def fused_device_ms(ops, torch, F, rows_out):
   """Each fused case's device time under torch.profiler, into its row of
   :func:`check_fused_matmul`. Run after the serving phases: the
   profiler's first session is left where the serving path had it, after
   the timed serving run."""
-  symbol = {"wgmma": "prologue_gemm_wgmma", "wmma": "prologue_gemm_bf16",
-            "f32": "prologue_gemm_f32"}
   for i, row in enumerate(rows_out):
     fn = _fused_calls(ops, torch, F, i)[0]
-    names = []
-    row["device_ms"] = device_ms(torch, fn, names=names)
+    per = {}
+    row["device_ms"] = device_ms(torch, fn, per_kernel=per)
+    row["device_ms_by_kernel"] = {k.split("(")[0][:80]: v
+                                  for k, v in per.items()}
     del fn
     # the profiler names the body that ran: it must be the one the
-    # dispatcher gives these widths
-    ran = sorted({n for n in names if "prologue_gemm" in n})
+    # dispatcher gives these widths, instantiated for this op's prologue
+    want = "kLayerNorm" if row["op"] == "ln_matmul" else "kGelu"
+    ran, ok = _ran_instance(per, row["body"], want)
     row["kernels_seen"] = ran
-    if ran and not any(symbol[row["body"]] in n for n in ran):
-      raise AssertionError("%s %s: expected the %s body, the profiler saw %s"
-                           % (row["op"], row["case"], row["body"], ran))
+    if ran and not ok:
+      raise AssertionError("%s %s: expected the %s body for %s, the profiler "
+                           "saw %s" % (row["op"], row["case"], row["body"],
+                                       want, ran))
     if row["device_ms"] is None:
       row["tflops"] = None
       log("  %-11s %-9s %-8s device time not measured: the profiler "
@@ -1018,8 +1127,9 @@ def fused_device_ms(ops, torch, F, rows_out):
         row["device_ms"] / 1e9
     log("  %-11s %-9s %-8s device=%.4f ms (%.1f TFLOP/s), ran %s"
         % (row["op"], row["case"], row["dtype"], row["device_ms"],
-           row["tflops"], ", ".join(n.split("<")[0].split("::")[-1]
-                                    for n in ran)))
+           row["tflops"], ", ".join(
+               "%s<%s> %.4f" % (n.split("<")[0].split("::")[-1],
+                                _prologue(n), per[n]) for n in ran)))
 
 
 # -- phases 4 and 5: the serving path ----------------------------------------
@@ -1129,13 +1239,15 @@ _PORT_SYMBOLS = (("ln_matmul_stats_kernel", "ln_matmul"),
                  ("flash_bwd", "flash_attention_bwd"),
                  ("layer_norm_fwd_kernel", "layer_norm"),
                  ("layer_norm_bwd_kernel", "layer_norm_bwd"),
+                 ("layer_norm_bwd_wide_kernel", "layer_norm_bwd"),
                  ("layer_norm_dw_kernel", "layer_norm_bwd"))
 
 
 def _port_kernel(symbol):
+  """The port kernel whose wrapper launches device symbol ``symbol``, or
+  None for a symbol of no port kernel."""
   if "prologue_gemm" in symbol:
-    gelu = "kGelu" in symbol or "Prologue)1" in symbol
-    return "gelu_matmul" if gelu else "ln_matmul"
+    return "gelu_matmul" if _prologue(symbol) == "kGelu" else "ln_matmul"
   return next((name for part, name in _PORT_SYMBOLS if part in symbol), None)
 
 
@@ -1693,12 +1805,24 @@ def serving_only(torch, ops, tfm, ServingEngine, slots, init_params,
   return 0
 
 
+def layer_norm_only(torch, ops, F):
+  """Phase 3's LayerNorm forward and backward checks, then their device
+  times; prints them as one JSON line."""
+  ln_rows, _ = check_layer_norm(ops, torch, F)
+  lnb_rows, _ = check_layer_norm_bwd(ops, torch, F)
+  layer_norm_device_ms(ops, torch, F, ln_rows, lnb_rows)
+  log(json.dumps({"layer_norm_only": {"layer_norm": ln_rows,
+                                      "layer_norm_bwd": lnb_rows}}))
+  return 0
+
+
 def main(argv):
-  repeats = 0
+  repeats, ln_only = 0, argv == ["--layer-norm-only"]
   if argv[:1] == ["--serving-only"] and len(argv) == 2:
     repeats = int(argv[1])
-  elif argv:
-    log("usage: python3 chip_smoke.py [--serving-only N]")
+  elif argv and not ln_only:
+    log("usage: python3 chip_smoke.py [--serving-only N | "
+        "--layer-norm-only]")
     return 2
   try:
     import torch
@@ -1750,6 +1874,9 @@ def main(argv):
     log("[4] serving main path x%d, then the prefill's host time" % repeats)
     return serving_only(torch, ops, tfm, ServingEngine, slots, init_params,
                         repeats)
+  if ln_only:
+    log("[3] the LayerNorm kernels alone, with device times")
+    return layer_norm_only(torch, ops, F)
   spills = tensor_core_spills(_build.BUILD_LOG)
   sass = sass_counts(_build)
 
@@ -1781,7 +1908,14 @@ def main(argv):
        "library_whole_bwd_ms", "SDPA whole bwd"),
       ("GELU->matmul 16384x3072x768", pick(fm_rows, op="gelu_matmul",
                                            case="down"),
-       "library_ms", "F.gelu + matmul")):
+       "library_ms", "F.gelu + matmul"),
+      ("LN->matmul 16384x768x2304", pick(fm_rows, op="ln_matmul",
+                                         case="qkv"),
+       "library_ms", "F.layer_norm + matmul"),
+      ("LN->matmul 16384x768x3072", pick(fm_rows, op="ln_matmul", case="up"),
+       "library_ms", "F.layer_norm + matmul"),
+      ("LN bwd 16384x768", pick(lnb_rows, rows=16384, dtype="bfloat16"),
+       "library_ms", "LayerNorm bwd")):
     log("  %-26s %.4f ms = %.2f x %s (%.4f ms), %.1f%% of bound"
         % (what, row["ms"], row["ms"] / row[lib], yard, row[lib],
            100.0 * row["bound_ms"] / row["ms"]))
@@ -1837,8 +1971,10 @@ def main(argv):
   fgqa_res = train_gqa(torch, ops, tfm, optim, sharding, init_params,
                        WANT_FUSED_PER_STEP, **ALL_FUSED)
   torch.cuda.empty_cache()
-  log("  device time of phase 3's fused products (torch.profiler)")
+  log("  device time of phase 3's fused products and LayerNorm kernels "
+      "(torch.profiler)")
   fused_device_ms(ops, torch, F, fm_rows)
+  layer_norm_device_ms(ops, torch, F, ln_rows, lnb_rows)
   torch.cuda.empty_cache()
 
   log("[6d] long-context grouped-KV training from TFRecords: train_gpt "
@@ -1922,7 +2058,9 @@ def main(argv):
              "train_fused_4_steps": fused_l["layer_norm"],
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "layer_norm")},
-            ln_err, pick(ln_rows, rows=512, dtype="bfloat16")),
+            ln_err, pick(ln_rows, rows=512, dtype="bfloat16"),
+            train={k: pick(ln_rows, rows=16384)[k]
+                   for k in ("ms", "device_ms", "library_ms", "bound_ms")}),
       entry("flash_attention_bwd", "flash_attention_bwd.cu",
             "flash_attention.py:232",
             {"train_4_steps": step_l["flash_attention_bwd"],
@@ -1944,12 +2082,16 @@ def main(argv):
              "train_fused_4_steps": fused_l["layer_norm_bwd"],
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "layer_norm_bwd")},
-            lnb_err, pick(lnb_rows, rows=16384, dtype="bfloat16")),
+            lnb_err, pick(lnb_rows, rows=16384, dtype="bfloat16"),
+            design="row in registers, grid from the SM count"),
       entry("ln_matmul", "ln_matmul.cu", "ln_matmul.py:31",
             {"train_fused_4_steps": fused_l["ln_matmul"],
              "train_fused_gqa_2_steps": launches(fgqa_res, 2, "ln_matmul")},
             fm_err, pick(fm_rows, op="ln_matmul", case="qkv"),
-            library="F.layer_norm + torch.matmul (two calls)"),
+            library="F.layer_norm + torch.matmul (two calls)",
+            design="wgmma+tma (bf16, h and n multiples of 8; WMMA for "
+                   "other widths) + prologue_gemm_wgmma.cuh, LayerNorm in "
+                   "registers"),
       entry("gelu_matmul", "act_matmul.cu", "act_matmul.py:55",
             {"train_fused_4_steps": fused_l["gelu_matmul"],
              "train_fused_gqa_2_steps": launches(fgqa_res, 2, "gelu_matmul")},

@@ -22,7 +22,7 @@
 // per N tile. Every config in the repo takes this body (f 3072, 1024 or 256;
 // n 768 or 256).
 //
-// bf16 of other widths -> prologue_gemm_bf16<kGelu, false>
+// bf16 of other widths -> prologue_gemm_bf16<kGelu>
 // (prologue_gemm.cuh): WMMA on a 128 x 128 tile, each 32-wide slice of the
 // pre-activation through GELU on its way into shared memory, element loads
 // (rows off a 16-byte boundary).
@@ -37,17 +37,6 @@
 #include "prologue_gemm.cuh"
 #include "prologue_gemm_wgmma.cuh"
 
-namespace {
-
-// The body tos_gelu_matmul runs: 2 the wgmma body, 1 WMMA, 0 the f32 body,
-// -1 none (a dtype no body takes)
-int gelu_body(int f, int n, int dtype) {
-  if (dtype == tos::kBFloat16) return f > 0 && f % 8 == 0 && n % 8 == 0 ? 2 : 1;
-  return dtype == tos::kFloat32 ? 0 : -1;
-}
-
-}  // namespace
-
 // x: [rows, f] in `dtype` (bf16 or f32); w: [f, n] in `dtype`; out: [rows, n]
 // in `dtype`; all contiguous on CUDA device `device`, pointers 16-byte
 // aligned; f and n any width. Launches one kernel on `stream` and returns
@@ -61,11 +50,14 @@ extern "C" int tos_gelu_matmul(const void* x, const void* w, void* out, int rows
   if (set != cudaSuccess) return static_cast<int>(set);
   constexpr auto kGelu = tos::pgemm::Prologue::kGelu;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (gelu_body(f, n, dtype) == 2)
+  if (tos::pgemm_wg::body(f, n, dtype) == 2)
     return static_cast<int>(tos::pgemm_wg::launch<kGelu>(x, w, out, rows, f, n, s));
   return static_cast<int>(
       tos::pgemm::launch<kGelu>(x, nullptr, nullptr, w, out, rows, f, n, 0.f, dtype, s));
 }
 
-// Which body tos_gelu_matmul runs for these widths and dtype (gelu_body).
-extern "C" int tos_gelu_matmul_body(int f, int n, int dtype) { return gelu_body(f, n, dtype); }
+// Which body tos_gelu_matmul runs for these widths and dtype: 2 the wgmma
+// body, 1 WMMA, 0 the f32 body, -1 none (tos::pgemm_wg::body).
+extern "C" int tos_gelu_matmul_body(int f, int n, int dtype) {
+  return tos::pgemm_wg::body(f, n, dtype);
+}

@@ -455,5 +455,26 @@ static inline cudaError_t encode_2d_map(CUtensorMap* map, const void* base, long
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A map over a contiguous f32 vector [cols] seen as one row, whose box is
+// 64 columns (no swizzle; reads past cols give zeros, and count on the
+// mbarrier as the whole box does). Coordinates: (column, 0). Needs a
+// 16-byte aligned base and cols a multiple of 4. Returns cudaSuccess or
+// cudaErrorInvalidValue.
+static inline cudaError_t encode_f32_row_map(CUtensorMap* map, const float* base, long cols) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  if ((reinterpret_cast<uintptr_t>(base) & 15) != 0 || cols < 4 || cols % 4 != 0)
+    return cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), 1};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(float)};
+  const cuuint32_t box[2] = {64, 1};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 }  // namespace sm90
 }  // namespace tos

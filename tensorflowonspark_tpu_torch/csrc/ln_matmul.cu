@@ -13,18 +13,32 @@
 // product is 2 * rows * h * n operations against ~2 bytes per element moved,
 // above the card's balance of ~295 bf16 operations per byte.
 //
-// Design (prologue_gemm.cuh): two kernels. The first computes every row's
-// mean and rstd over the full h once (one warp per row), into an 8-byte-per-
-// row scratch. The TPU kernel re-derives its rows' statistics for every N
-// tile instead; here that would have each 128 x 128 CTA read its 128 rows
-// twice more, doubling the traffic between L2 and the SMs that bounds this
-// first GEMM. The second kernel, the product, gives each CTA a 128 x 128
-// output tile (64 x 64 in f32): it loads its rows' statistics, and its K
-// loop normalizes each 32-wide slice of x in f32 on the way from the
-// staged copy into the tile the tensor cores read, then multiplies it by
-// the matching slice of w. Rows, h and n may be ragged against the tiles.
+// Two kernels on the caller's stream. The first computes every row's mean
+// and rstd over the full h once (prologue_gemm.cuh ln_matmul_stats_kernel,
+// one warp per row), into an 8-byte-per-row scratch: 25 MB read at 16384 x
+// 768, a bound of ~0.0075 ms. The TPU kernel re-derives its rows'
+// statistics for every N tile instead; here a 128-row panel of x cannot stay
+// in shared memory beside the product's ring, so each CTA would read its
+// rows again. The second kernel, the product, reads each row's statistics
+// once and normalizes x on its way into the tensor cores. Three bodies,
+// chosen by dtype and width (tos::pgemm_wg::body):
+//
+// bf16, h and n multiples of 8 -> prologue_gemm_wgmma<kLayerNorm>
+// (prologue_gemm_wgmma.cuh): wgmma with TMA-fed tiles, a 128 x 256 output
+// tile per CTA, the LayerNorm applied in registers to the A fragments the
+// products read, each thread holding its two fragment rows' (mean, rstd)
+// and reading the step's w_ln from the stage TMA brought. Every config in
+// the repo takes this body (h 768 or 256; n 2304, 1280, 3072, 768 or 1024).
+//
+// bf16 of other widths -> prologue_gemm_bf16<kLayerNorm> (prologue_gemm.cuh):
+// WMMA on a 128 x 128 tile, each 32-wide slice normalized on its way into
+// shared memory, element loads.
+//
+// f32 -> prologue_gemm_f32<kLayerNorm> (prologue_gemm.cuh): CUDA cores in
+// full f32, so the f32 model agrees with its plain version to float rounding.
 
 #include "prologue_gemm.cuh"
+#include "prologue_gemm_wgmma.cuh"
 
 // x: [rows, h] in `dtype` (bf16 or f32); w_ln: [h] f32; stats: [rows, 2] f32
 // scratch; w: [h, n] in `dtype`; out: [rows, n] in `dtype`; all contiguous on
@@ -39,7 +53,22 @@ extern "C" int tos_ln_matmul(const void* x, const void* w_ln, void* stats, const
   // this library links its own CUDA runtime: select the tensors' device here
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  return static_cast<int>(tos::pgemm::launch<tos::pgemm::Prologue::kLayerNorm>(
-      x, static_cast<const float*>(w_ln), static_cast<float2*>(stats), w, out, rows, h, n,
-      eps, dtype, static_cast<cudaStream_t>(stream)));
+  constexpr auto kLn = tos::pgemm::Prologue::kLayerNorm;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* wf = static_cast<const float*>(w_ln);
+  float2* st = static_cast<float2*>(stats);
+  if (tos::pgemm_wg::body(h, n, dtype) == 2) {
+    tos::pgemm::launch_stats<__nv_bfloat16>(x, st, rows, h, eps, s);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(tos::pgemm_wg::launch<kLn>(x, w, out, rows, h, n, s, wf, st));
+  }
+  return static_cast<int>(
+      tos::pgemm::launch<kLn>(x, wf, st, w, out, rows, h, n, eps, dtype, s));
+}
+
+// Which body tos_ln_matmul runs for these widths and dtype: 2 the wgmma
+// body, 1 WMMA, 0 the f32 body, -1 none (tos::pgemm_wg::body).
+extern "C" int tos_ln_matmul_body(int h, int n, int dtype) {
+  return tos::pgemm_wg::body(h, n, dtype);
 }

@@ -2,45 +2,41 @@
 // prologue f on its way from device memory into shared memory, so the
 // transformed [rows, k] activation never exists in device memory. Shared by
 // ln_matmul.cu (f = LayerNorm, with per-row statistics) and act_matmul.cu
-// (f = tanh-GELU). The bf16 GELU product with k and n multiples of 8 has
-// moved to the tensor-core body of prologue_gemm_wgmma.cuh (wgmma + TMA,
-// the prologue in registers); here it keeps only the widths TMA cannot
-// take. LN->matmul stays on the WMMA body below until its LayerNorm prologue
-// moves to the wgmma body too (ROADMAP Queue 2, the next redesign).
+// (f = tanh-GELU). A bf16 product with k and n multiples of 8 runs the
+// tensor-core body of prologue_gemm_wgmma.cuh (wgmma + TMA, the prologue in
+// registers), for both prologues; the bf16 body here keeps only the widths
+// TMA cannot take, and the f32 body the f32 model. The LayerNorm row
+// statistics kernel below serves all three bodies.
 //
 // Layouts: x [rows, k] row-major, w [k, n] row-major (n contiguous), out
 // [rows, n] row-major in x's dtype, the pointers 16-byte aligned (the wrappers
 // see to it); rows, k and n need not divide the tiles: ragged edges are
-// masked. When every row of x, w and out is a multiple of 16 bytes (k and n
-// multiples of 8 in bf16, of 4 in f32), the kernel reads and writes 16-byte
-// vectors (cp.async for the bf16 tiles); otherwise rows start off a 16-byte
-// boundary, and a second instantiation (kVec false) reads and writes them
-// element by element, bounds-checked. Every element past k or n reads as 0.
+// masked. Every element past k or n reads as 0.
 //
 // Two paths:
 //
-// * bf16: tensor cores through WMMA (16x16x16 bf16 fragments, f32
-//   accumulators). A 256-thread CTA owns a 128 x 128 output tile; its eight
-//   warps (2 x 4) own 64 x 32 each. K advances 32 at a time. The raw x and
-//   w tiles stream into a ring of four shared-memory stages with cp.async
-//   (three tiles in flight while the tensor cores work, no registers spent
-//   on the copies). Each K step the CTA first runs the prologue over the
-//   raw x tile: shared memory -> f32 -> f -> bf16 (as the TPU kernel
+// * bf16, k or n not a multiple of 8 (rows start off a 16-byte boundary):
+//   tensor cores through WMMA (16x16x16 bf16 fragments, f32 accumulators).
+//   A 256-thread CTA owns a 128 x 128 output tile; its eight warps (2 x 4)
+//   own 64 x 32 each. K advances 32 at a time. The raw x and w tiles are
+//   read element by element, bounds-checked, into a ring of four
+//   shared-memory stages. Each K step the CTA first runs the prologue over
+//   the raw x tile: shared memory -> f32 -> f -> bf16 (as the TPU kernel
 //   rounds xn.astype(w.dtype)) -> the tile the tensor cores read. Rows of
 //   that tile and of w's are padded 8 elements against bank conflicts;
 //   matrix B is read row-major straight from w, with no transposed copy.
 //   The epilogue stages each 16 x 16 accumulator through shared memory and
-//   writes 16-byte bf16 vectors.
+//   writes bf16 elements.
 // * f32: CUDA cores in full f32 (no TF32), a 64 x 64 tile per 256-thread CTA,
-//   4 x 4 outputs per thread, K 16 at a time, A stored k-major. It exists so
-//   the f32 model agrees with its plain version to float rounding.
+//   4 x 4 outputs per thread, K 16 at a time, A stored k-major; 16-byte
+//   vectors when k and n are multiples of 4 (kVec), else element loads. It
+//   exists so the f32 model agrees with its plain version to float rounding.
 //
-// What bounds it: at the training shapes (16384 rows, k 768 or 3072) the
-// product is the work: 2 * rows * k * n operations against ~2 bytes per x
-// element, far above the card's operations-per-byte balance. This body
-// issues warp-level mma (WMMA) from shared memory fed by cp.async, at 12-14%
-// of that bound on the H100 (PERF.md); prologue_gemm_wgmma.cuh is its wgmma
-// successor.
+// What bounds it: 2 * rows * k * n operations against ~2 bytes per x
+// element, far above the card's operations-per-byte balance. The WMMA body
+// issues warp-level mma from shared memory, at 12-14% of that bound on the
+// H100 where it ran the aligned widths (PERF.md); prologue_gemm_wgmma.cuh is
+// its wgmma successor.
 #pragma once
 
 #include <mma.h>
@@ -137,27 +133,13 @@ __device__ __forceinline__ float prologue(float v, int r, int kk, const float* _
   }
 }
 
-// 16-byte global -> shared copy that bypasses registers (cp.async); with
-// `pred` false it writes 16 zero bytes and reads nothing
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int bytes = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // dynamic shared memory of the bf16 kernel: kStages raw A and B tiles, and
 // the transformed A tile the tensor cores read
 constexpr int kRawA = kBM * kBK;                       // bf16, unpadded
 constexpr size_t kBf16Smem = sizeof(__nv_bfloat16) *
                              (kStages * (kRawA + kBElems) + kAElems);
 
-// kVec: k and n multiples of 8, every row of x and w on a 16-byte boundary
-template <Prologue P, bool kVec>
+template <Prologue P>
 __global__ void __launch_bounds__(kThreads, 2)
     prologue_gemm_bf16(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w_ln,
                        const float2* __restrict__ stats, const __nv_bfloat16* __restrict__ w,
@@ -176,9 +158,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   const long row0 = static_cast<long>(blockIdx.y) * kBM;
   const int nk = (k + kBK - 1) / kBK;
 
-  // one K tile into stage `stage`: each thread copies two 8-element vectors
-  // of A (128 rows x 4) and two of B (32 rows x 16); out-of-range elements
-  // are zero-filled
+  // one K tile into stage `stage`: each thread reads two 8-element slices
+  // of A (128 rows x 4) and two of B (32 rows x 16), element by element;
+  // out-of-range elements are zero-filled
   auto issue = [&](int kt, int stage) {
     const int k0 = kt * kBK;
     __nv_bfloat16* a = raw_a + stage * kRawA;
@@ -188,41 +170,26 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int idx = tid + i * kThreads;
       const int ar = idx >> 2, ac = (idx & 3) * 8;
       const bool a_row = row0 + ar < rows;
-      if constexpr (kVec) {
-        const bool a_in = a_row && k0 + ac < k;
-        cp_async16(a + ar * kBK + ac, a_in ? x + (row0 + ar) * k + k0 + ac : x, a_in);
-      } else {
-        Bf16x8 v;
+      Bf16x8 v;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          v.v[j] = a_row && k0 + ac + j < k ? x[(row0 + ar) * k + k0 + ac + j]
-                                            : __float2bfloat16(0.f);
-        *reinterpret_cast<Bf16x8*>(a + ar * kBK + ac) = v;
-      }
+      for (int j = 0; j < 8; ++j)
+        v.v[j] = a_row && k0 + ac + j < k ? x[(row0 + ar) * k + k0 + ac + j]
+                                          : __float2bfloat16(0.f);
+      *reinterpret_cast<Bf16x8*>(a + ar * kBK + ac) = v;
       const int br = idx >> 4, bc = (idx & 15) * 8;
       const bool b_row = k0 + br < k;
-      if constexpr (kVec) {
-        const bool b_in = b_row && n0 + bc < n;
-        cp_async16(b + br * kBStride + bc,
-                   b_in ? w + static_cast<long>(k0 + br) * n + n0 + bc : w, b_in);
-      } else {
-        Bf16x8 v;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          v.v[j] = b_row && n0 + bc + j < n ? w[static_cast<long>(k0 + br) * n + n0 + bc + j]
-                                            : __float2bfloat16(0.f);
-        *reinterpret_cast<Bf16x8*>(b + br * kBStride + bc) = v;
-      }
+      for (int j = 0; j < 8; ++j)
+        v.v[j] = b_row && n0 + bc + j < n ? w[static_cast<long>(k0 + br) * n + n0 + bc + j]
+                                          : __float2bfloat16(0.f);
+      *reinterpret_cast<Bf16x8*>(b + br * kBStride + bc) = v;
     }
   };
 
-  // the first kStages - 1 tiles go out before the row statistics are
-  // read, so the copies overlap them
+  // the first kStages - 1 tiles go in before the row statistics are read
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
+  for (int s = 0; s < kStages - 1; ++s)
     if (s < nk) issue(s, s);
-    cp_async_commit();
-  }
   if constexpr (P == Prologue::kLayerNorm) load_stats(stats, row0, kBM, rows, s_mu, s_rstd);
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
@@ -233,9 +200,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   for (int kt = 0; kt < nk; ++kt) {
     const int stage = kt % kStages;
-    cp_async_wait<kStages - 2>();   // this thread's copies of tile kt landed
-    // every thread's copies landed; every warp finished tile kt - 1, so its
-    // stage and the transformed tile are free (and the statistics are in)
+    // every thread's stores of tile kt landed; every warp finished tile
+    // kt - 1, so its stage and the transformed tile are free (and the
+    // statistics are in)
     __syncthreads();
     {
       // raw A -> f32 -> prologue -> bf16 (xn.astype(w.dtype)) -> s_a
@@ -250,7 +217,7 @@ __global__ void __launch_bounds__(kThreads, 2)
           const Bf16x8 v = *reinterpret_cast<const Bf16x8*>(a + ar * kBK + ac);
 #pragma unroll
           for (int j = 0; j < 8; ++j)
-            o.v[j] = kVec || k0 + ac + j < k
+            o.v[j] = k0 + ac + j < k
                          ? __float2bfloat16(prologue<P>(__bfloat162float(v.v[j]), ar,
                                                         k0 + ac + j, w_ln, s_mu, s_rstd))
                          : __float2bfloat16(0.f);
@@ -258,10 +225,8 @@ __global__ void __launch_bounds__(kThreads, 2)
         *reinterpret_cast<Bf16x8*>(s_a + ar * kAStride + ac) = o;
       }
     }
-    // refill the stage tile kt - 1 used, kStages - 1 tiles ahead (always
-    // commit, so the group count stays one per tile)
+    // refill the stage tile kt - 1 used, kStages - 1 tiles ahead
     if (kt + kStages - 1 < nk) issue(kt + kStages - 1, (kt + kStages - 1) % kStages);
-    cp_async_commit();
     __syncthreads();   // s_a ready
     const __nv_bfloat16* b = s_b + stage * kBElems;
 #pragma unroll
@@ -280,7 +245,6 @@ __global__ void __launch_bounds__(kThreads, 2)
         for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
     }
   }
-  cp_async_wait<0>();
   __syncthreads();   // every warp is done reading s_a
 
   // epilogue: each warp stages one 16 x 16 f32 tile at a time in s_a (1 KB
@@ -296,16 +260,9 @@ __global__ void __launch_bounds__(kThreads, 2)
       const long row = row0 + wm * 64 + i * 16 + er;
       const int col = n0 + wn * 32 + j * 16 + ec;
       if (row < rows && col < n) {
-        if constexpr (kVec) {
-          Bf16x8 o;
 #pragma unroll
-          for (int e = 0; e < 8; ++e) o.v[e] = __float2bfloat16(st[er * 16 + ec + e]);
-          *reinterpret_cast<Bf16x8*>(out + row * n + col) = o;
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            if (col + e < n) out[row * n + col + e] = __float2bfloat16(st[er * 16 + ec + e]);
-        }
+        for (int e = 0; e < 8; ++e)
+          if (col + e < n) out[row * n + col + e] = __float2bfloat16(st[er * 16 + ec + e]);
       }
       __syncwarp();
     }
@@ -407,7 +364,7 @@ void launch_stats(const void* x, float2* stats, int rows, int h, float eps,
 
 // The bf16 product on `stream`, with the shared-memory opt-in past 48 KB set
 // once per instantiation and device
-template <Prologue P, bool kVec>
+template <Prologue P>
 cudaError_t launch_bf16(const void* x, const float* w_ln, float2* stats, const void* w,
                         void* out, int rows, int k, int n, dim3 grid, cudaStream_t stream) {
   static unsigned long long configured = 0;
@@ -416,13 +373,13 @@ cudaError_t launch_bf16(const void* x, const float* w_ln, float2* stats, const v
   if (e != cudaSuccess) return e;
   const unsigned long long bit = 1ull << (device & 63);
   if (!(configured & bit)) {
-    e = cudaFuncSetAttribute(prologue_gemm_bf16<P, kVec>,
+    e = cudaFuncSetAttribute(prologue_gemm_bf16<P>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(kBf16Smem));
     if (e != cudaSuccess) return e;
     configured |= bit;
   }
-  prologue_gemm_bf16<P, kVec><<<grid, kThreads, kBf16Smem, stream>>>(
+  prologue_gemm_bf16<P><<<grid, kThreads, kBf16Smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), w_ln, stats, static_cast<const __nv_bfloat16*>(w),
       static_cast<__nv_bfloat16*>(out), rows, k, n);
   return cudaGetLastError();
@@ -447,14 +404,9 @@ cudaError_t launch(const void* x, const float* w_ln, float2* stats, const void* 
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  if (bf16) {
-    // bf16 GELU with k and n multiples of 8 runs the wgmma body
-    // (prologue_gemm_wgmma.cuh), routed there by act_matmul.cu
-    if constexpr (P == Prologue::kLayerNorm)
-      if (k % 8 == 0 && n % 8 == 0)
-        return launch_bf16<P, true>(x, w_ln, stats, w, out, rows, k, n, grid, stream);
-    return launch_bf16<P, false>(x, w_ln, stats, w, out, rows, k, n, grid, stream);
-  }
+  // bf16 with k and n multiples of 8 runs the wgmma body
+  // (prologue_gemm_wgmma.cuh), routed there by act_matmul.cu and ln_matmul.cu
+  if (bf16) return launch_bf16<P>(x, w_ln, stats, w, out, rows, k, n, grid, stream);
   if (k % 4 == 0 && n % 4 == 0)
     prologue_gemm_f32<P, true><<<grid, kThreads, 0, stream>>>(
         static_cast<const float*>(x), w_ln, stats, static_cast<const float*>(w),

@@ -149,3 +149,10 @@ def stream_handle(t: torch.Tensor) -> ctypes.c_void_p:
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
   return ctypes.c_void_p(t.data_ptr())
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+  """``t`` contiguous and 16-byte aligned (the kernels' vector loads and
+  TMA copies)."""
+  t = t.contiguous()
+  return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from tensorflowonspark_tpu_torch import ops
 from tensorflowonspark_tpu_torch.ops import _build
-from tensorflowonspark_tpu_torch.ops.ln_matmul import (aligned,
+from tensorflowonspark_tpu_torch.ops.ln_matmul import (body_name,
                                                        check_kernel_inputs,
                                                        matmul_f32)
 
@@ -89,19 +89,13 @@ def _lib() -> ctypes.CDLL:
   return lib
 
 
-#: the kernel's bodies, by the code its dispatcher gives them
-KERNEL_BODIES = {2: "wgmma", 1: "wmma", 0: "f32"}
-
-
 def kernel_body(f: int, n: int, dtype: torch.dtype) -> str:
   """Which body the card's kernel runs for x ``[.., f]`` and W ``[f, n]``
   in ``dtype``, as its dispatcher (``csrc/act_matmul.cu``) decides:
   ``"wgmma"`` (bf16, f and n multiples of 8), ``"wmma"`` (other bf16
   widths) or ``"f32"``. Builds the kernel's library on first use."""
-  code = _lib().tos_gelu_matmul_body(f, n, _build.DTYPE_CODES[dtype])
-  if code not in KERNEL_BODIES:
-    raise ValueError("gelu_matmul has no kernel body for %s" % dtype)
-  return KERNEL_BODIES[code]
+  return body_name(_lib().tos_gelu_matmul_body(f, n, _build.DTYPE_CODES[dtype]),
+                   "gelu_matmul", dtype)
 
 
 def _forward(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
@@ -109,7 +103,7 @@ def _forward(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     return gelu_matmul_reference(x, W)
   f, n = _check_shapes(x, W)
   check_kernel_inputs("gelu_matmul", x, W)
-  x2, W = aligned(x.reshape(-1, f)), aligned(W)
+  x2, W = _build.aligned(x.reshape(-1, f)), _build.aligned(W)
   rows = x2.shape[0]
   out = torch.empty((rows, n), dtype=x.dtype, device=x.device)
   if rows and n:

@@ -12,7 +12,9 @@ kernel, the backward recomputes the row statistics from ``x`` (nothing
 but ``x`` and ``weight`` is saved).
 
 Layout: ``[..., hidden]``; the leading dims flatten to rows, of any width
-(the kernels take a warp per row up to 8192 and a block per row past it).
+(the forward takes a warp per row up to 8192 and a block per row past it;
+the backward holds each row in the registers of 1 to 8 warps, and takes a
+block per row where that cannot hold it).
 """
 
 import ctypes
@@ -65,11 +67,11 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p]
     lib.tos_layer_norm_fwd.restype = ctypes.c_int
-    lib.tos_layer_norm_bwd.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
+    lib.tos_layer_norm_bwd.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.tos_layer_norm_bwd.restype = ctypes.c_int
-    lib.tos_layer_norm_bwd_partials.argtypes = [ctypes.c_int]
+    lib.tos_layer_norm_bwd_partials.argtypes = [ctypes.c_int] * 4
     lib.tos_layer_norm_bwd_partials.restype = ctypes.c_int
   return lib
 
@@ -110,7 +112,8 @@ def layer_norm_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
   """``(dx, dw)`` of :func:`layer_norm` for the output cotangent ``g``:
   dx in x's dtype, dw ``[H]`` f32 summed over every row in a fixed order
   (bitwise reproducible). CUDA tensors run the kernel (two launches on the
-  current stream: per-block partials, then their sum); CPU tensors run
+  current stream: per-block partials, then their sum; the number of
+  partial rows follows the card's SM count); CPU tensors run
   :func:`layer_norm_bwd_reference`."""
   h = x.shape[-1]
   if g.shape != x.shape or weight.shape != (h,):
@@ -124,20 +127,24 @@ def layer_norm_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
   if g.dtype != x.dtype:
     raise TypeError("layer_norm_bwd takes g in x's dtype %s, got %s"
                     % (x.dtype, g.dtype))
-  x, weight, g = x.contiguous(), weight.contiguous(), g.contiguous()
+  x, g = _build.aligned(x), _build.aligned(g)
+  weight = weight.contiguous()
   dx = torch.empty_like(x)
-  dw = torch.zeros(h, dtype=torch.float32, device=x.device)
   rows = x.numel() // h
   if rows == 0:
-    return dx, dw
+    return dx, torch.zeros(h, dtype=torch.float32, device=x.device)
+  dw = torch.empty(h, dtype=torch.float32, device=x.device)
   lib = _lib()
-  partial = torch.empty((lib.tos_layer_norm_bwd_partials(rows), h),
-                        dtype=torch.float32, device=x.device)
+  code = _build.DTYPE_CODES[x.dtype]
+  n_partial = lib.tos_layer_norm_bwd_partials(rows, h, code, x.device.index)
+  if n_partial <= 0:
+    raise RuntimeError("layer_norm backward kernel: no plan for %d rows of "
+                       "H %d" % (rows, h))
+  partial = torch.empty((n_partial, h), dtype=torch.float32, device=x.device)
   rc = lib.tos_layer_norm_bwd(_build.ptr(x), _build.ptr(weight), _build.ptr(g),
-                              _build.ptr(dx), _build.ptr(partial),
-                              _build.ptr(dw), rows, h, float(eps),
-                              _build.DTYPE_CODES[x.dtype], x.device.index,
-                              _build.stream_handle(x))
+                              _build.ptr(dx), _build.ptr(partial), n_partial,
+                              _build.ptr(dw), rows, h, float(eps), code,
+                              x.device.index, _build.stream_handle(x))
   _build.check(lib, rc, "layer_norm backward kernel")
   ops.count_launch("layer_norm_bwd")
   return dx, dw

@@ -5,8 +5,10 @@ Counterpart of ``tensorflowonspark_tpu/ops/ln_matmul.py``: the forward
 ``_ln_matmul_fwd`` with its kernel ``_ln_matmul_kernel``, and the custom
 VJP ``_bwd_rule``. :func:`ln_matmul` computes ``LN(x) * w_ln @ W`` with
 the normalized activation never in device memory. On CUDA tensors the
-forward launches the hand-written kernel in ``csrc/ln_matmul.cu``; on CPU
-tensors it runs :func:`ln_matmul_reference`.
+forward launches the hand-written kernel in ``csrc/ln_matmul.cu`` (a row
+statistics pass, then the product with the LayerNorm applied on the way
+into the tensor cores; :func:`kernel_body` says which body a shape takes);
+on CPU tensors it runs :func:`ln_matmul_reference`.
 
 The backward (:func:`ln_matmul_bwd`) is plain PyTorch on both devices, as
 the reference's is plain XLA outside any Pallas kernel: it recomputes
@@ -92,19 +94,13 @@ def ln_matmul_bwd(x: torch.Tensor, w_ln: torch.Tensor, W: torch.Tensor,
 def check_kernel_inputs(name: str, x: torch.Tensor, W: torch.Tensor,
                         w_ln=None) -> None:
   """What the fused-product kernels take: x and W both bf16 or both f32,
-  w_ln f32. K (= H or F) and N may be any width: rows whose bytes are not
-  a multiple of 16 are read element by element."""
+  w_ln f32. K (= H or F) and N may be any width: bf16 widths that are not
+  multiples of 8 take the WMMA body, which reads element by element."""
   if x.dtype not in _build.DTYPE_CODES or W.dtype != x.dtype:
     raise TypeError("%s kernel takes x and W both bf16 or both f32, got %s "
                     "and %s" % (name, x.dtype, W.dtype))
   if w_ln is not None and w_ln.dtype != torch.float32:
     raise TypeError("%s w_ln must be f32, got %s" % (name, w_ln.dtype))
-
-
-def aligned(t: torch.Tensor) -> torch.Tensor:
-  """``t`` contiguous and 16-byte aligned (the kernels' vector loads)."""
-  t = t.contiguous()
-  return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _lib() -> ctypes.CDLL:
@@ -114,7 +110,30 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.tos_ln_matmul.restype = ctypes.c_int
+    lib.tos_ln_matmul_body.argtypes = [ctypes.c_int] * 3
+    lib.tos_ln_matmul_body.restype = ctypes.c_int
   return lib
+
+
+#: the fused products' bodies, by the code their dispatchers give them
+#: (``tos::pgemm_wg::body`` in ``csrc/prologue_gemm_wgmma.cuh``)
+KERNEL_BODIES = {2: "wgmma", 1: "wmma", 0: "f32"}
+
+
+def body_name(code: int, name: str, dtype: torch.dtype) -> str:
+  """The name of the body a fused product's dispatcher gave ``code``."""
+  if code not in KERNEL_BODIES:
+    raise ValueError("%s has no kernel body for %s" % (name, dtype))
+  return KERNEL_BODIES[code]
+
+
+def kernel_body(h: int, n: int, dtype: torch.dtype) -> str:
+  """Which body the card's kernel runs for x ``[.., h]`` and W ``[h, n]``
+  in ``dtype``, as its dispatcher (``csrc/ln_matmul.cu``) decides:
+  ``"wgmma"`` (bf16, h and n multiples of 8), ``"wmma"`` (other bf16
+  widths) or ``"f32"``. Builds the kernel's library on first use."""
+  return body_name(_lib().tos_ln_matmul_body(h, n, _build.DTYPE_CODES[dtype]),
+                   "ln_matmul", dtype)
 
 
 def _forward(x: torch.Tensor, w_ln: torch.Tensor, W: torch.Tensor,
@@ -123,7 +142,8 @@ def _forward(x: torch.Tensor, w_ln: torch.Tensor, W: torch.Tensor,
     return ln_matmul_reference(x, w_ln, W, eps)
   h, n = _check_shapes(x, w_ln, W)
   check_kernel_inputs("ln_matmul", x, W, w_ln)
-  x2, W, w_ln = aligned(x.reshape(-1, h)), aligned(W), w_ln.contiguous()
+  x2, W, w_ln = (_build.aligned(x.reshape(-1, h)), _build.aligned(W),
+                 _build.aligned(w_ln))
   rows = x2.shape[0]
   out = torch.empty((rows, n), dtype=x.dtype, device=x.device)
   if rows and n:

@@ -92,6 +92,41 @@ def test_ln_matmul_matches_jax_kernel(dtype, shape):
                                              tW.detach()), out.detach())
 
 
+# (rows, H, N, mean of x): the widths where the card's wgmma body meets its
+# tile edges (128 rows x 256 columns x 64-deep K steps): K 776 = 12 x 64 + 8
+# with N 200 under one column tile, K 256 (train_gpt's d_model) into the
+# grouped fused-QKV width N 1280 over 33 ragged rows, and rows whose mean is
+# large against their spread (x = 100 + N(0, 1)), where the normalisation
+# must subtract the mean before it scales
+EDGE_SHAPES = {"k776_n200": (100, 776, 200, 0.5),
+               "k256_n1280_rows33": (33, 256, 1280, 0.5),
+               "large_mean": (64, 768, 256, 100.0)}
+
+
+@pytest.mark.parametrize("shape", sorted(EDGE_SHAPES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ln_matmul_reference_matches_jax_at_tile_edges(dtype, shape):
+  rows, h, n, mean = EDGE_SHAPES[shape]
+  rng = np.random.default_rng(13)
+  spread = 1.0 if mean > 1 else 2.0
+  x = rng.standard_normal((rows, h)).astype(np.float32) * spread + mean
+  w = (rng.random(h) + 0.5).astype(np.float32)
+  W = (rng.standard_normal((h, n)) / np.sqrt(h)).astype(np.float32)
+  jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+  want = jax_ln_mm(jnp.asarray(x, jdt), jnp.asarray(w), jnp.asarray(W, jdt),
+                   interpret=True)
+  got = ops.ln_matmul_reference(torch.from_numpy(x).to(tdt),
+                                torch.from_numpy(w),
+                                torch.from_numpy(W).to(tdt))
+  assert got.dtype == tdt and got.shape == (rows, n)
+  # f32: the row statistics of the two packages sum in another order, and
+  # their rounding scales with the magnitude of x, so the f32 tolerance does
+  # too (bf16 rounding of the output is the larger term there)
+  tol = _tol(dtype)[0] * (max(1.0, mean) if dtype == "float32" else 1.0)
+  _compare(got, want, tol, "out")
+  assert np.isfinite(got.float().numpy()).all()
+
+
 @pytest.mark.parametrize("shape", sorted(SHAPES))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gelu_matmul_matches_jax_kernel(dtype, shape):

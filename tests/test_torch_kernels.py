@@ -90,10 +90,25 @@ def test_engine_on_card_equals_greedy_decode(card):
     np.testing.assert_array_equal(out, ref)
 
 
+# (rows, h, dtype, tol): one row, three rows (fewer than a block's teams),
+# the training batch 16384 and 16387 rows (not a multiple of the 8 rows a
+# block holds at h 768), f32 (two warps a row), h 770 (unvectorised, eight
+# warps a row), h 2000 (two warps, four packs a lane), h 8192 (eight warps a
+# row), f32 at h 1024, and h 12288 (the block-per-row kernel)
+LN_BWD_CASES = [(512, 768, torch.float32, 1e-4),
+                (512, 768, torch.bfloat16, 3e-2),
+                (1, 768, torch.bfloat16, 3e-2), (3, 768, torch.bfloat16, 3e-2),
+                (16384, 768, torch.bfloat16, 3e-2),
+                (16387, 768, torch.bfloat16, 3e-2),
+                (33, 770, torch.bfloat16, 3e-2),
+                (17, 2000, torch.bfloat16, 3e-2),
+                (40, 8192, torch.bfloat16, 3e-2),
+                (4100, 1024, torch.float32, 1e-4),
+                (64, 12288, torch.bfloat16, 3e-2)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,h,dtype,tol", [
-    (512, 768, torch.float32, 1e-4), (512, 768, torch.bfloat16, 3e-2),
-    (33, 770, torch.bfloat16, 3e-2), (4100, 1024, torch.float32, 1e-4)])
+@pytest.mark.parametrize("rows,h,dtype,tol", LN_BWD_CASES)
 def test_layer_norm_bwd_kernel_matches_plain_on_card(card, rows, h, dtype,
                                                      tol):
   g = torch.Generator(device=card).manual_seed(1)
@@ -617,3 +632,48 @@ def test_gelu_matmul_bf16_bodies_match_plain_on_card(card, rows, f, n, body):
   err = (got.float() - want.float()).abs().max()
   assert err <= 2e-2 * want.float().abs().max(), (rows, f, n, float(err))
   assert torch.equal(got, ops.gelu_matmul(x, W))
+
+
+# (rows, h, n, body): LN->matmul in bf16 at the training shapes (fused QKV,
+# its grouped width, the MLP up-projection), ragged row counts, n not a
+# multiple of the 256-column tile, h not a multiple of the 64-deep K step,
+# train_gpt's widths; and widths that are not multiples of 8, which keep the
+# WMMA body
+LN_BODY_CASES = [(16384, 768, 2304, "wgmma"), (16384, 768, 1280, "wgmma"),
+                 (16384, 768, 3072, "wgmma"), (33, 768, 1280, "wgmma"),
+                 (100, 776, 200, "wgmma"), (4096, 256, 1024, "wgmma"),
+                 (129, 264, 136, "wgmma"), (100, 771, 200, "wmma"),
+                 (100, 776, 203, "wmma")]
+
+
+def _ln_matmul_on_card(card, rows, h, n, mean, spread, seed):
+  g = torch.Generator(device=card).manual_seed(seed)
+  x = (torch.randn(rows, h, device=card, generator=g) * spread + mean).to(
+      torch.bfloat16)
+  w = torch.rand(h, device=card, generator=g) + 0.5
+  W = (torch.randn(h, n, device=card, generator=g) / h ** 0.5).to(
+      torch.bfloat16)
+  ops.reset_launches()
+  got = ops.ln_matmul(x, w, W)
+  assert ops.LAUNCHES["ln_matmul"] == 1 and got.dtype == torch.bfloat16
+  want = ops.ln_matmul_reference(x, w, W)
+  # outputs may round one ulp apart (the f32 sums run in another order):
+  # 2e-2 of the output's scale, as check_fused_matmul holds them
+  err = (got.float() - want.float()).abs().max()
+  assert err <= 2e-2 * want.float().abs().max(), (rows, h, n, float(err))
+  assert torch.equal(got, ops.ln_matmul(x, w, W))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,h,n,body", LN_BODY_CASES)
+def test_ln_matmul_bf16_bodies_match_plain_on_card(card, rows, h, n, body):
+  lm = sys.modules["tensorflowonspark_tpu_torch.ops.ln_matmul"]
+  assert lm.kernel_body(h, n, torch.bfloat16) == body
+  _ln_matmul_on_card(card, rows, h, n, 0.5, 2.0, 15)
+
+
+@pytest.mark.cuda
+def test_ln_matmul_keeps_rows_with_a_large_mean_on_card(card):
+  # x = 100 + N(0, 1): the normalisation must subtract the mean before it
+  # scales, as the reference does, or the rows lose their digits
+  _ln_matmul_on_card(card, 512, 768, 2304, 100.0, 1.0, 16)

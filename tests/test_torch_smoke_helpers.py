@@ -1,4 +1,5 @@
-"""``chip_smoke.py``'s bound arithmetic against the port's plain mask.
+"""``chip_smoke.py``'s helpers: its bound arithmetic against the port's
+plain mask, and the names it reads kernels by.
 
 Every share of bound the smoke run reports for a flash kernel divides by the
 visible (q, k) pairs ``chip_smoke._visible_pairs`` counts. Here that count
@@ -31,3 +32,104 @@ def test_visible_pairs_equal_the_plain_mask(sq, sk, q_base, kv_base, window):
   keep = fa._keep_mask(sq, sk, q_base, kv_base, window, "cpu")
   assert chip_smoke._visible_pairs(sq, sk, q_base, kv_base, window) == \
       int(keep.sum())
+
+
+# (symbol, prologue): mangled names as ptxas and cuobjdump print them, and
+# demangled ones as the profiler does, of both instantiations of the wgmma
+# body and of the WMMA and f32 bodies; and symbols of no fused product
+PROLOGUE_CASES = [
+    ("_ZN3tos8pgemm_wg19prologue_gemm_wgmmaILNS_5pgemm8PrologueE0EEEv14CUtensorMap_st",
+     "kLayerNorm"),
+    ("_ZN3tos8pgemm_wg19prologue_gemm_wgmmaILNS_5pgemm8PrologueE1EEEv14CUtensorMap_st",
+     "kGelu"),
+    ("void tos::pgemm_wg::prologue_gemm_wgmma<(tos::pgemm::Prologue)0>"
+     "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float2 const*, "
+     "__nv_bfloat16*, int, int, int)", "kLayerNorm"),
+    ("void tos::pgemm_wg::prologue_gemm_wgmma<(tos::pgemm::Prologue)1>"
+     "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float2 const*, "
+     "__nv_bfloat16*, int, int, int)", "kGelu"),
+    ("void tos::pgemm::prologue_gemm_bf16<(tos::pgemm::Prologue)0>(...)",
+     "kLayerNorm"),
+    ("void tos::pgemm::prologue_gemm_f32<(tos::pgemm::Prologue)1, true>(...)",
+     "kGelu"),
+    ("void tos::pgemm::ln_matmul_stats_kernel<__nv_bfloat16, 8>(...)", None),
+    ("_ZN3tos4fwd22flash_fwd_kernel_wgmmaILi64EEEvv", None),
+]
+
+
+@pytest.mark.parametrize("symbol,prologue", PROLOGUE_CASES)
+def test_prologue_names_the_instantiation(symbol, prologue):
+  assert chip_smoke._prologue(symbol) == prologue
+  if symbol.startswith("_Z") and prologue:
+    assert chip_smoke._instance(symbol) == prologue
+
+
+@pytest.mark.parametrize("mangled,width", [
+    ("_ZN3tos4fwd22flash_fwd_kernel_wgmmaILi64EEEvv", "64"),
+    ("_ZN3tos4fwd22flash_fwd_kernel_wgmmaILi128EEEvv", "128")])
+def test_instance_of_a_flash_kernel_is_its_width(mangled, width):
+  assert chip_smoke._instance(mangled) == width
+
+
+@pytest.mark.parametrize("symbol,kernel", [
+    (PROLOGUE_CASES[2][0], "ln_matmul"), (PROLOGUE_CASES[3][0], "gelu_matmul"),
+    (PROLOGUE_CASES[4][0], "ln_matmul"), (PROLOGUE_CASES[5][0], "gelu_matmul"),
+    (PROLOGUE_CASES[6][0], "ln_matmul"),
+    ("void (anonymous namespace)::layer_norm_bwd_kernel<__nv_bfloat16, 8, 3>"
+     "(...)", "layer_norm_bwd"),
+    ("void (anonymous namespace)::layer_norm_bwd_wide_kernel<float, 1>(...)",
+     "layer_norm_bwd"),
+    ("(anonymous namespace)::layer_norm_dw_kernel(float const*, float*, int, "
+     "int)", "layer_norm_bwd"),
+    ("void (anonymous namespace)::layer_norm_fwd_kernel<__nv_bfloat16, 8>"
+     "(...)", "layer_norm"),
+    ("ampere_bf16_s16816gemm_bf16_128x128_ldg8_f2f_stages_64x3_nn", None)])
+def test_port_kernel_of_a_device_symbol(symbol, kernel):
+  assert chip_smoke._port_kernel(symbol) == kernel
+
+
+@pytest.mark.parametrize("names,body,prologue,ok", [
+    ([PROLOGUE_CASES[2][0], "ln_matmul_stats_kernel"], "wgmma", "kLayerNorm",
+     True),
+    ([PROLOGUE_CASES[3][0]], "wgmma", "kLayerNorm", False),
+    ([PROLOGUE_CASES[4][0]], "wgmma", "kLayerNorm", False),
+    ([PROLOGUE_CASES[4][0]], "wmma", "kLayerNorm", True),
+    ([PROLOGUE_CASES[5][0]], "f32", "kGelu", True)])
+def test_ran_instance_wants_the_body_and_the_prologue(names, body, prologue,
+                                                      ok):
+  ran, seen = chip_smoke._ran_instance(names, body, prologue)
+  assert seen == ok
+  assert ran == sorted(n for n in names if "prologue_gemm" in n)
+
+
+@pytest.mark.parametrize("nbytes,flops,by", [
+    (75.5e6, 20 * 16384 * 768, "bytes"), (1e3, 1e12, "operations")])
+def test_bound_is_the_larger_of_bytes_and_operations(nbytes, flops, by):
+  ms, what = chip_smoke._bound(nbytes, flops)
+  assert what == by
+  assert ms == max(nbytes / chip_smoke.HBM_BYTES_PER_S,
+                   flops / chip_smoke.ELEMENTWISE_FLOPS) * 1e3
+
+
+@pytest.mark.parametrize("op", ["ln_matmul", "gelu_matmul"])
+def test_fused_module_has_the_body_rule(op):
+  mod = chip_smoke._fused_module(op)
+  assert mod.__name__.endswith("ln_matmul" if op == "ln_matmul"
+                               else "act_matmul")
+  assert callable(mod.kernel_body)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_ln_inputs_follow_their_case(backward):
+  import torch
+  cases = chip_smoke.LN_BWD_CASES if backward else chip_smoke.LN_CASES
+  for i, (rows, h, dt, _) in enumerate(cases[:3]):
+    got = chip_smoke._ln_inputs(torch, cases, i, backward, device="cpu")
+    assert len(got) == (3 if backward else 2)
+    x, w = got[0], got[1]
+    assert x.shape == (rows, h) and x.dtype == getattr(torch, dt)
+    assert w.shape == (h,) and w.dtype == torch.float32
+    if backward:
+      assert got[2].shape == x.shape and got[2].dtype == x.dtype
+    again = chip_smoke._ln_inputs(torch, cases, i, backward, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(got, again))

@@ -72,7 +72,19 @@ failure:
    steps with exactly 24 flash forwards, 12 split dQ and 12 grouped split
    dK/dV backwards (the reference's plan rule sends this length to the
    split plan), no fused flash backward, 49 LayerNorm forwards and 25
-   backwards per step, then one profiled step; (6e) the flagship MHA at
+   backwards per step, then one profiled step; (6h) the same
+   configuration through the port's cluster runtime:
+   ``cluster.run(LocalEngine(num_executors=1), main_fn, tf_args,
+   input_mode=InputMode.TENSORFLOW, chips_per_node=1, max_restarts=0)``
+   brings up one executor through the rendezvous, gives it one card
+   (``CUDA_VISIBLE_DEVICES`` from ``nvidia-smi``), and the executor
+   trains ``train_gpt`` 4 steps from 6d's files with exactly 6d's launch
+   counts per step, finite losses and no supervisor restart; then, on the
+   same engine, a main fn that raises must bring its traceback to
+   ``shutdown()``, and a bring-up asking for one card more than
+   ``nvidia-smi`` counts must fail before the fn runs, naming the count;
+   the engine-start, reservation and shutdown seconds and the ms/step
+   beside 6d's are logged; (6e) the flagship MHA at
    B16 x S1024 like 6 under ``TFOS_TPU_FLASH_BWD=split`` (12 dQ + 12 dK/dV
    per step, no fused backward), beside 6's fused plan; (6f) the port's
    ``train_gpt`` at its default model flags (4 layers, d_model 256, 8
@@ -108,6 +120,10 @@ The last two lines of output are JSON: ``{"kernels": [...]}`` and
 3's LayerNorm forward and backward checks with their device times, and
 prints them as one JSON line; like ``--serving-only``, a copy run from
 another checkout's root measures that checkout's kernels.
+
+``python3 chip_smoke.py --cluster-only`` runs phases 1 and 6h alone (6d's
+TFRecord files are written first; the executor builds each kernel at its
+first use) and prints its measurements as one JSON line.
 
 ``python3 chip_smoke.py --serving-only N`` runs phases 1, 2 and 4 alone:
 the serving main path N times in one process, then the host time of one
@@ -1615,6 +1631,191 @@ def train_long_gqa(torch, ops, sharding, readers, train_gpt):
   return res
 
 
+# -- phase 6h: [6d]'s training through the cluster runtime --------------------
+
+CLUSTER_STEPS = 4
+CLUSTER_MARK = "chip-smoke-deliberate-failure-6h"
+
+
+def cluster_train_main(args, ctx):
+  """[6h]'s main fn, run by ``cluster.run`` inside a LocalEngine executor:
+  checks that the node was given one card, the driver's, then trains the
+  port's ``train_gpt`` at ``LONG_ARGS`` for ``CLUSTER_STEPS`` steps from
+  the TFRecord files at ``args["data"]`` (an absolute glob) and writes
+  its losses, per-step launch counts, times, peak memory and card to the
+  JSON file ``args["out"]``. Torch and the port are imported here, after
+  the node exported ``CUDA_VISIBLE_DEVICES``."""
+  t_enter = time.monotonic()
+  import torch
+  from tensorflowonspark_tpu_torch import ops
+  from tensorflowonspark_tpu_torch.data import readers
+  from tensorflowonspark_tpu_torch.examples import train_gpt
+  from tensorflowonspark_tpu_torch.parallel import sharding
+  visible = os.environ.get("CUDA_VISIBLE_DEVICES", "")
+  if not visible or "," in visible:
+    raise AssertionError("the node should see one card, got "
+                         "CUDA_VISIBLE_DEVICES=%r" % visible)
+  card = torch.cuda.get_device_name()
+  if card != args["card"]:
+    raise AssertionError("the node runs on %r, the driver on %r"
+                         % (card, args["card"]))
+  t0 = time.monotonic()
+  import_s = t0 - t_enter       # torch and the port, CUDA's first call
+  ops.reset_launches()
+  targs = train_gpt.parse_args(LONG_ARGS + ["--data", args["data"],
+                                            "--steps", str(CLUSTER_STEPS)])
+  cfg = train_gpt.make_config(targs)
+  state = train_gpt.make_state(targs, cfg)
+  step = sharding.make_train_step(train_gpt.make_loss_fn(targs))
+  torch.cuda.synchronize()
+  state_s = time.monotonic() - t0
+  t0 = time.monotonic()
+  batches = readers.device_prefetch(train_gpt.batch_stream(targs), size=2)
+  losses, per_step = [], []
+
+  def one_step(state):
+    before = dict(ops.LAUNCHES)
+    state, loss = step(state, next(batches))
+    losses.append(loss)
+    per_step.append({k: ops.LAUNCHES[k] - before[k] for k in before})
+    return state
+
+  state = one_step(state)                     # reader start included
+  torch.cuda.synchronize()
+  first_s = time.monotonic() - t0
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.monotonic()
+  for _ in range(CLUSTER_STEPS - 1):
+    state = one_step(state)
+  torch.cuda.synchronize()
+  wall = time.monotonic() - t0
+  timed = CLUSTER_STEPS - 1
+  res = {"card": card, "cuda_visible_devices": visible,
+         "executor_id": ctx.executor_id, "job_name": ctx.job_name,
+         "losses": [float(x) for x in losses],
+         "launches_per_step": per_step,
+         "import_s": import_s, "state_s": state_s,
+         "first_step_s_with_data": first_s,
+         "ms_per_step": wall / timed * 1e3,
+         "tokens_per_s": LONG_B * LONG_S * timed / wall,
+         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+         "t_end_wall": time.time()}
+  with open(args["out"], "w") as f:
+    json.dump(res, f)
+
+
+def cluster_failing_main(args, ctx):
+  """A main fn that fails on purpose: its traceback must reach the
+  driver's ``shutdown()``."""
+  raise RuntimeError(CLUSTER_MARK)
+
+
+def cluster_long_gqa(torch, pattern, long_res=None):
+  """[6h]: ``cluster.run`` brings up one LocalEngine executor through the
+  rendezvous with one card, and the executor trains [6d]'s configuration
+  (``cluster_train_main``); then the failure paths on the same engine."""
+  from tensorflowonspark_tpu_torch import cluster
+  from tensorflowonspark_tpu_torch.engine import LocalEngine
+  from tensorflowonspark_tpu_torch.utils import gpu_info
+  card = torch.cuda.get_device_name(0)
+  out = os.path.join(HERE, "build", "chip_smoke_cluster.json")
+  refused_out = os.path.join(HERE, "build", "chip_smoke_cluster_refused.json")
+  for path in (out, refused_out):
+    if os.path.exists(path):
+      os.remove(path)
+  args = {"data": os.path.abspath(pattern), "out": out, "card": card}
+  t0 = time.monotonic()
+  engine = LocalEngine(num_executors=1)
+  engine_s = time.monotonic() - t0
+  try:
+    t0 = time.monotonic()
+    c = cluster.run(engine, cluster_train_main, args,
+                    input_mode=cluster.InputMode.TENSORFLOW,
+                    chips_per_node=1, max_restarts=0,
+                    reservation_timeout=300)
+    reserve_s = time.monotonic() - t0
+    t0, t0_wall = time.monotonic(), time.time()
+    c.shutdown(timeout=900)
+    shutdown_s = time.monotonic() - t0
+    end_wall = time.time()
+    if c.supervisor.restarts:
+      raise AssertionError("the supervisor relaunched a node: %s"
+                           % c.supervisor.restarts)
+    with open(out) as f:
+      res = json.load(f)
+    for i, got in enumerate(res["launches_per_step"]):
+      _per_step_launches(got, 1, WANT_LONG_PER_STEP,
+                         "cluster step %d" % i)
+    if len(res["losses"]) != CLUSTER_STEPS or not all(
+        math.isfinite(x) for x in res["losses"]):
+      raise AssertionError("cluster training losses: %s" % res["losses"])
+    res.update(engine_start_s=engine_s, reserve_s=reserve_s,
+               shutdown_call_s=shutdown_s,
+               # the shutdown call waits for the fn; its own cost is the
+               # tail after the fn's last write
+               shutdown_after_fn_s=end_wall - max(t0_wall,
+                                                  res["t_end_wall"]))
+    log("  engine start %.3f s, cluster.run (spawn, hub, register, await) "
+        "%.2f s, shutdown %.2f s after the fn returned (call %.1f s)"
+        % (engine_s, reserve_s, res["shutdown_after_fn_s"], shutdown_s))
+    log("  executor on %s (CUDA_VISIBLE_DEVICES=%s): imports %.1f s, "
+        "weights from a seed %.1f s, first step with the reader %.2f s "
+        "([6d]: %s s); losses %s" % (
+            res["card"], res["cuda_visible_devices"], res["import_s"],
+            res["state_s"], res["first_step_s_with_data"],
+            "%.2f" % long_res["first_step_s_with_data"] if long_res
+            else "not run",
+            " ".join("%.4f" % x for x in res["losses"])))
+    log("  B%d x S%d: %.1f ms/step, %.0f tokens/s, peak memory %.2f GiB; "
+        "[6d] in this call: %s ms/step; launches per step %s" % (
+            LONG_B, LONG_S, res["ms_per_step"], res["tokens_per_s"],
+            res["peak_mem_gib"],
+            "%.1f" % long_res["ms_per_step"] if long_res else "not run",
+            res["launches_per_step"][-1]))
+
+    c = cluster.run(engine, cluster_failing_main, None,
+                    input_mode=cluster.InputMode.TENSORFLOW,
+                    chips_per_node=1, max_restarts=0,
+                    reservation_timeout=300)
+    try:
+      c.shutdown(timeout=300)
+    except RuntimeError as e:
+      if CLUSTER_MARK not in str(e) or "Traceback" not in str(e):
+        raise AssertionError("shutdown raised without the executor's "
+                             "traceback: %s" % e)
+      log("  a failing main fn: shutdown() raised with the executor's "
+          "traceback (%d chars)" % len(str(e)))
+    else:
+      raise AssertionError("shutdown() of a failing main fn did not raise")
+    res["failure_traceback_at_driver"] = True
+
+    count = len(gpu_info.query_gpus())
+    t0 = time.monotonic()
+    try:
+      c = cluster.run(engine, cluster_train_main,
+                      dict(args, out=refused_out),
+                      input_mode=cluster.InputMode.TENSORFLOW,
+                      chips_per_node=count + 1, max_restarts=0,
+                      reservation_timeout=300)
+      c.shutdown(timeout=300)
+    except RuntimeError as e:
+      want = "nvidia-smi counts %d card(s)" % count
+      if want not in str(e):
+        raise AssertionError("over-asked bring-up failed without %r: %s"
+                             % (want, e))
+    else:
+      raise AssertionError("chips_per_node=%d on a host with %d card(s) "
+                           "was not refused" % (count + 1, count))
+    if os.path.exists(refused_out):
+      raise AssertionError("the user fn ran although bring-up was refused")
+    res["over_ask_refused_s"] = time.monotonic() - t0
+    log("  chips_per_node=%d with %d card(s): bring-up refused in %.2f s, "
+        "before the fn ran" % (count + 1, count, res["over_ask_refused_s"]))
+  finally:
+    engine.stop()
+  return res
+
+
 # train_gpt.py's default model flags (4 layers, d_model 256, 8 heads:
 # head_dim 32, seq 512, vocab 1024, batch 8): 2 flash forwards per layer
 # (forward and remat recompute), one fused backward, 4 LayerNorm forwards
@@ -1816,13 +2017,30 @@ def layer_norm_only(torch, ops, F):
   return 0
 
 
+def cluster_only(torch):
+  """``--cluster-only``: phase 6h alone, after 6d's TFRecord files."""
+  pattern = write_token_files(os.path.join(HERE, "build", "chip_smoke_tokens"),
+                              32000, LONG_S)
+  log("[6h] train_gpt through cluster.run(LocalEngine(1), ..., "
+      "InputMode.TENSORFLOW, chips_per_node=1)")
+  res = cluster_long_gqa(torch, pattern)
+  card = card_line()
+  log(card)
+  log(json.dumps({"cluster": res, "card": card}))
+  log(json.dumps({"ok": True, "device": {
+      "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+      "count": torch.cuda.device_count()}}))
+  return 0
+
+
 def main(argv):
   repeats, ln_only = 0, argv == ["--layer-norm-only"]
+  only_cluster = argv == ["--cluster-only"]
   if argv[:1] == ["--serving-only"] and len(argv) == 2:
     repeats = int(argv[1])
-  elif argv and not ln_only:
+  elif argv and not (ln_only or only_cluster):
     log("usage: python3 chip_smoke.py [--serving-only N | "
-        "--layer-norm-only]")
+        "--layer-norm-only | --cluster-only]")
     return 2
   try:
     import torch
@@ -1858,6 +2076,9 @@ def main(argv):
   log("  torch %s, CUDA %s, %s x%d" % (
       torch.__version__, torch.version.cuda, torch.cuda.get_device_name(0),
       torch.cuda.device_count()))
+
+  if only_cluster:
+    return cluster_only(torch)
 
   log("[2] build")
   t0 = time.monotonic()
@@ -1982,6 +2203,10 @@ def main(argv):
   long_res = train_long_gqa(torch, ops, sharding, readers, train_gpt)
   torch.cuda.empty_cache()
 
+  log("[6h] the same through cluster.run(LocalEngine(1), ..., "
+      "InputMode.TENSORFLOW, chips_per_node=1)")
+  cluster_res = cluster_long_gqa(torch, long_res["data"], long_res)
+
   log("[6e] the flagship MHA under TFOS_TPU_FLASH_BWD=split, B%d x S%d"
       % (TRAIN_B, TRAIN_S))
   with flash_bwd_env("split"):
@@ -2015,6 +2240,9 @@ def main(argv):
   def launches(res, steps, name):
     return int(res["launches_per_step"][name] * steps)
 
+  def cluster_launches(name):
+    return sum(step[name] for step in cluster_res["launches_per_step"])
+
   def entry(name, source, replaces, by_path, err, row, **extra):
     return dict({"name": name, "route": "cuda",
                  "source": "tensorflowonspark_tpu_torch/csrc/" + source,
@@ -2042,6 +2270,8 @@ def main(argv):
              "train_fused_4_steps": fused_l["flash_attention_fwd"],
              "train_long_gqa_2_steps": launches(long_res, 2,
                                                 "flash_attention_fwd"),
+             "cluster_train_gpt_long_4_steps": cluster_launches(
+                 "flash_attention_fwd"),
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "flash_attention_fwd"),
              "serve_gpt_config_bf16": serve_gpt_res["bfloat16"]["launches"][
@@ -2056,6 +2286,7 @@ def main(argv):
             {"serve": serve_l["layer_norm"],
              "train_4_steps": step_l["layer_norm"],
              "train_fused_4_steps": fused_l["layer_norm"],
+             "cluster_train_gpt_long_4_steps": cluster_launches("layer_norm"),
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "layer_norm")},
             ln_err, pick(ln_rows, rows=512, dtype="bfloat16"),
@@ -2080,6 +2311,8 @@ def main(argv):
       entry("layer_norm_bwd", "layer_norm.cu", "layer_norm.py:40",
             {"train_4_steps": step_l["layer_norm_bwd"],
              "train_fused_4_steps": fused_l["layer_norm_bwd"],
+             "cluster_train_gpt_long_4_steps": cluster_launches(
+                 "layer_norm_bwd"),
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "layer_norm_bwd")},
             lnb_err, pick(lnb_rows, rows=16384, dtype="bfloat16"),
@@ -2106,12 +2339,16 @@ def main(argv):
       ("dq", "flash_attention_bwd_dq", "flash_attention.py:166",
        {"train_long_gqa_2_steps": launches(long_res, 2,
                                            "flash_attention_bwd_dq"),
+        "cluster_train_gpt_long_4_steps": cluster_launches(
+            "flash_attention_bwd_dq"),
         "train_split_4_steps": split_l["flash_attention_bwd_dq"]}, "long"),
       ("dkv", "flash_attention_bwd_dkv", "flash_attention.py:197",
        {"train_split_4_steps": split_l["flash_attention_bwd_dkv"]}, "train"),
       ("dkv", "flash_attention_bwd_dkv_gqa", "flash_attention.py:281",
        {"train_long_gqa_2_steps": launches(long_res, 2,
-                                           "flash_attention_bwd_dkv_gqa")},
+                                           "flash_attention_bwd_dkv_gqa"),
+        "cluster_train_gpt_long_4_steps": cluster_launches(
+            "flash_attention_bwd_dkv_gqa")},
        "long")):
     row = pick(split_rows, case=case, kernel=kern)
     kernels.append(entry(
@@ -2133,7 +2370,8 @@ def main(argv):
             "main_path": main_res, "profile": prof_res,
             "parity_f32": parity, "train": train_res, "train_gqa": gqa_res,
             "train_fused": fused_res, "train_fused_gqa": fgqa_res,
-            "train_long_gqa": long_res, "train_split": split_res,
+            "train_long_gqa": long_res, "cluster_long_gqa": cluster_res,
+            "train_split": split_res,
             "train_parity_f32": train_parity,
             "train_fused_parity_f32": fused_parity,
             "train_split_parity_f32": split_parity,

@@ -7,8 +7,8 @@ kernel on a ported path becomes a kernel written by hand for Hopper
 plain PyTorch version beside it for the CPU.
 
 Serving, single-card training (unfused, all-fused, and long-context
-grouped-KV from TFRecord files) of the flagship Transformer are ported,
-in these modules:
+grouped-KV from TFRecord files) of the flagship Transformer, and the
+cluster runtime in InputMode.TENSORFLOW are ported, in these modules:
 
 * :mod:`.ops` — LayerNorm, flash attention (forward, and the fused and
   split backward plans), LN->matmul and GELU->matmul;
@@ -23,7 +23,11 @@ in these modules:
   pipeline, slabs and ``device_prefetch``;
 * :mod:`.examples.train_gpt` — the long-context training entry point;
 * :mod:`.utils.params` — weights from (and back to) a flax tree, or from
-  a seed.
+  a seed;
+* :mod:`.cluster`, :mod:`.node`, :mod:`.control`, :mod:`.engine`,
+  :mod:`.obs` and :mod:`.utils.gpu_info` — ``cluster.run`` brings up
+  ``LocalEngine`` executors through the rendezvous, gives each node its
+  CUDA cards and runs the user's ``main_fn(args, ctx)`` on it.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

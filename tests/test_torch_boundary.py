@@ -1,4 +1,6 @@
-"""The PyTorch port imports nothing of JAX, flax, optax or the JAX package."""
+"""The PyTorch port imports nothing of JAX, flax, optax or the JAX package,
+and its runtime nothing beyond the standard library, numpy and torch (no
+msgpack, no cloudpickle)."""
 
 import ast
 import os
@@ -9,7 +11,7 @@ import textwrap
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 PORT = os.path.join(ROOT, "tensorflowonspark_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
-             "tensorflowonspark_tpu")
+             "tensorflowonspark_tpu", "msgpack", "cloudpickle")
 
 
 def _imported_roots(path):
@@ -33,6 +35,14 @@ def test_port_sources_import_no_jax():
                "readers"):
     assert os.path.join("data", name + ".py") in scanned, name
   assert os.path.join("examples", "train_gpt.py") in scanned
+  # and so is the cluster runtime
+  for name in ("cluster.py", "node.py", "control/_msgpack.py",
+               "control/chunkcodec.py", "control/feedhub.py",
+               "control/marker.py", "control/rendezvous.py",
+               "engine/base.py", "engine/local.py", "obs/metrics.py",
+               "obs/quantiles.py", "obs/spans.py", "utils/gpu_info.py",
+               "utils/hostinfo.py", "utils/paths.py"):
+    assert os.path.join(*name.split("/")) in scanned, name
   bad = sorted((os.path.relpath(p, ROOT), root) for p in files
                for root in _imported_roots(p) if root in FORBIDDEN)
   assert bad == []
@@ -115,6 +125,60 @@ def test_train_gpt_from_tfrecords_loads_no_jax_module(tmp_path):
                         env=env, capture_output=True, text=True, timeout=120)
   assert proc.returncode == 0, proc.stdout + proc.stderr
   assert "LOADED []" in proc.stdout and "step 0 loss" in proc.stdout
+
+
+_CLUSTER_DRIVE = textwrap.dedent("""
+    import json
+    import sys
+
+    from tensorflowonspark_tpu_torch import cluster
+    from tensorflowonspark_tpu_torch.engine import LocalEngine
+
+    BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack", "cloudpickle")
+
+
+    def loaded():
+      return sorted(m for m in sys.modules
+                    if m.split(".")[0] in BANNED
+                    or m.startswith("tensorflowonspark_tpu."))
+
+
+    def main_fn(path, ctx):
+      import torch
+      assert float(torch.ones(3).sum()) == 3.0
+      with open(path, "w") as f:
+        json.dump(loaded(), f)
+
+
+    if __name__ == "__main__":
+      engine = LocalEngine(num_executors=1)
+      try:
+        c = cluster.run(engine, main_fn, sys.argv[1],
+                        input_mode=cluster.InputMode.TENSORFLOW,
+                        reservation_timeout=60)
+        c.shutdown(timeout=120)
+      finally:
+        engine.stop()
+      print("DRIVER", json.dumps(loaded()))
+      with open(sys.argv[1]) as f:
+        print("EXECUTOR", f.read())
+""")
+
+
+def test_cluster_run_loads_no_jax_msgpack_or_cloudpickle(tmp_path):
+  """cluster.run(LocalEngine(1), main_fn) on the CPU: neither the driver
+  nor the executor running the main fn loads jax, flax, the JAX package,
+  msgpack or cloudpickle."""
+  script = tmp_path / "drive.py"
+  script.write_text(_CLUSTER_DRIVE)
+  env = dict(os.environ, PYTHONPATH=ROOT)
+  proc = subprocess.run([sys.executable, str(script),
+                         str(tmp_path / "executor_modules.json")],
+                        cwd=str(tmp_path), env=env, capture_output=True,
+                        text=True, timeout=180)
+  assert proc.returncode == 0, proc.stdout + proc.stderr
+  assert "DRIVER []" in proc.stdout and "EXECUTOR []" in proc.stdout, \
+      proc.stdout
 
 
 # packages of finished attention kernels: a kernel of the port is written by

@@ -84,7 +84,28 @@ failure:
    ``shutdown()``, and a bring-up asking for one card more than
    ``nvidia-smi`` counts must fail before the fn runs, naming the count;
    the engine-start, reservation and shutdown seconds and the ms/step
-   beside 6d's are logged; (6e) the flagship MHA at
+   beside 6d's are logged; (6i) [6]'s training fed through the engine
+   feed plane: the driver first runs 4 ``make_train_step`` steps and 2
+   ``make_train_loop(unroll=4)`` slabs on 192 seeded int32 token rows
+   (B16 x S1024, from a plain iterator), then ``cluster.run(LocalEngine(
+   num_executors=1), main_fn, args, input_mode=InputMode.SPARK,
+   chips_per_node=1, max_restarts=0)`` (transport "auto": the shm ring)
+   and ``Cluster.train`` feed the same rows in 6 partitions of 32 to an
+   executor that runs the same steps from ``device_prefetch(feed_batches(
+   feed, 16))`` and ``slab_batches(feed, 16, unroll=4)``, and the driver
+   runs them directly once more: exactly [6]'s launch counts per step,
+   the 12 losses equal to both direct runs' to the bit, every chunk columnar, the input carried by the ring, no restart;
+   ms/step of both, one profiled step of each, the feed's fetch / decode
+   / assemble ms per batch and the cluster seconds are logged; then the
+   feed's own ceiling, 4096 rows (16 MiB) drained onto the card with no
+   step, on the shm ring and on the hub queue; then a consumer that fails
+   after its first batch must bring its traceback to ``train`` or
+   ``shutdown()``; (6j) ``Cluster.inference`` of 64 rows in 4 partitions
+   of 16: the executor runs the bf16 forward at full width per batch
+   (exactly 12 flash forwards and 25 LayerNorm forwards each) and returns
+   one (mean next-token loss, last-position argmax) per row, which must
+   equal the driver's forward on the same batches, in partition order;
+   (6e) the flagship MHA at
    B16 x S1024 like 6 under ``TFOS_TPU_FLASH_BWD=split`` (12 dQ + 12 dK/dV
    per step, no fused backward), beside 6's fused plan; (6f) the port's
    ``train_gpt`` at its default model flags (4 layers, d_model 256, 8
@@ -124,6 +145,10 @@ another checkout's root measures that checkout's kernels.
 ``python3 chip_smoke.py --cluster-only`` runs phases 1 and 6h alone (6d's
 TFRecord files are written first; the executor builds each kernel at its
 first use) and prints its measurements as one JSON line.
+
+``python3 chip_smoke.py --feed-only`` runs phases 1, 6i and 6j alone (the
+driver builds each kernel at its first use, the executors load them) and
+prints its measurements as one JSON line.
 
 ``python3 chip_smoke.py --serving-only N`` runs phases 1, 2 and 4 alone:
 the serving main path N times in one process, then the host time of one
@@ -1419,9 +1444,10 @@ def _per_step_launches(launches, steps, want, what):
   return per
 
 
-def profile_train_step(torch, step, state, batch):
-  """One optimizer step under torch.profiler: device-busy ms against the
-  host's wall clock, the top kernels and every port kernel's device ms."""
+def _profile_step(torch, step, state, batch):
+  """One optimizer step under torch.profiler, unlogged: (state, loss, its
+  wall and device-busy ms, the top kernels, every port kernel's device
+  ms)."""
   from torch.profiler import ProfilerActivity, profile
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CPU,
@@ -1437,6 +1463,14 @@ def profile_train_step(torch, step, state, batch):
          "top": [{"kernel": k[:90], "ms": ms, "count": n}
                  for k, ms, n in rows[:12]],
          "port_kernels": port_kernel_ms(rows)}
+  return state, loss, res
+
+
+def profile_train_step(torch, step, state, batch):
+  """One optimizer step under torch.profiler: device-busy ms against the
+  host's wall clock, the top kernels and every port kernel's device ms."""
+  state, loss, res = _profile_step(torch, step, state, batch)
+  wall_ms, busy = res["wall_ms"], res["device_busy_ms"]
   log("  profiled step: wall %.2f ms, device busy %.2f ms (idle %.0f%%), %d "
       "kernel launches" % (wall_ms, busy, 100.0 * (1 - busy / wall_ms),
                            res["kernel_launches"]))
@@ -1545,18 +1579,23 @@ def train_gqa(torch, ops, tfm, optim, sharding, init_params, want, **kw):
 
 
 @contextlib.contextmanager
-def flash_bwd_env(mode):
-  """``TFOS_TPU_FLASH_BWD`` set to ``mode`` inside the block, as the
-  reference's executors read it (``scripts/submit_train.sh``)."""
-  before = os.environ.get("TFOS_TPU_FLASH_BWD")
-  os.environ["TFOS_TPU_FLASH_BWD"] = mode
+def env_var(name, value):
+  """Environment variable ``name`` set to ``value`` inside the block."""
+  before = os.environ.get(name)
+  os.environ[name] = value
   try:
     yield
   finally:
     if before is None:
-      os.environ.pop("TFOS_TPU_FLASH_BWD", None)
+      os.environ.pop(name, None)
     else:
-      os.environ["TFOS_TPU_FLASH_BWD"] = before
+      os.environ[name] = before
+
+
+def flash_bwd_env(mode):
+  """``TFOS_TPU_FLASH_BWD`` set to ``mode`` inside the block, as the
+  reference's executors read it (``scripts/submit_train.sh``)."""
+  return env_var("TFOS_TPU_FLASH_BWD", mode)
 
 
 def write_token_files(directory, vocab, seq, files=4, rows=4):
@@ -1816,6 +1855,475 @@ def cluster_long_gqa(torch, pattern, long_res=None):
   return res
 
 
+# -- phases 6i and 6j: the flagship fed through the engine feed plane --------
+
+# 6 partitions of 32 rows: 4 steps of B16, then 2 slabs of 4 steps
+FEED_PER_STEP, FEED_UNROLL, FEED_SLABS = 4, 4, 2
+FEED_PARTS, FEED_PART_ROWS = 6, 2 * TRAIN_B
+FEED_CEILING_PARTS, FEED_CEILING_PART_ROWS = 16, 256    # 4096 rows, 16 MiB
+INFER_PARTS, INFER_PART_ROWS = 4, TRAIN_B
+WANT_INFER_PER_FORWARD = {"flash_attention_fwd": 12, "layer_norm": 25}
+FEED_MARK = "chip-smoke-deliberate-failure-6i"
+
+
+def feed_rows(n, seed):
+  """``n`` seeded int32 token rows of length TRAIN_S, one array per row (so
+  every feed chunk is columnar)."""
+  import numpy as np
+  rng = np.random.default_rng(seed)
+  return list(rng.integers(0, 32000, (n, TRAIN_S), dtype=np.int32))
+
+
+def _split(rows, size):
+  return [rows[i:i + size] for i in range(0, len(rows), size)]
+
+
+def _no_tf32(torch):
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+
+
+def feed_train_pieces(torch):
+  """[6]'s training pieces: the flagship at full width with weights from
+  SEED, ``make_optimizer(3e-4, clip_norm=1.0)``, the train step and the
+  unroll-4 loop. The driver's direct run and the executor build the same."""
+  from tensorflowonspark_tpu_torch import optim
+  from tensorflowonspark_tpu_torch.models import transformer as tfm
+  from tensorflowonspark_tpu_torch.parallel import sharding
+  from tensorflowonspark_tpu_torch.utils.params import init_params
+  cfg = tfm.TransformerConfig()
+  state = tfm.create_state(cfg, init_params(cfg, seed=SEED),
+                           tx=optim.make_optimizer(learning_rate=3e-4,
+                                                   clip_norm=1.0))
+  loss_fn = _lm_loss(tfm)
+  return (state, sharding.make_train_step(loss_fn),
+          sharding.make_train_loop(loss_fn, unroll=FEED_UNROLL))
+
+
+def feed_steps(torch, ops, pieces, batches, slabs):
+  """FEED_PER_STEP steps on ``batches`` (the first takes the kernels' and
+  the allocator's start, the next FEED_PER_STEP - 2 are timed, the last is
+  profiled), then FEED_SLABS slabs of ``slabs`` through the unroll loop,
+  timed. Launch counts per optimizer step on both paths; losses, ms/step
+  and the profile, unlogged."""
+  from torch.profiler import ProfilerActivity, profile
+  state, step, loop = pieces
+  losses, launches = [], []
+  # a process's first profiler session starts CUPTI inside its window (a
+  # fresh executor's profiled step ran 42% idle against [6]'s 13%): open
+  # and close one first, so the profiled step measures the step
+  t0 = time.monotonic()
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+    torch.cuda.synchronize()
+  profiler_start_s = time.monotonic() - t0
+  ops.reset_launches()
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.monotonic()
+  for i in range(FEED_PER_STEP):
+    before = dict(ops.LAUNCHES)
+    if i == FEED_PER_STEP - 1:
+      state, loss, prof = _profile_step(torch, step, state, next(batches))
+    else:
+      state, loss = step(state, next(batches))
+    losses.append(loss)
+    launches.append({k: ops.LAUNCHES[k] - before[k] for k in before})
+    if i == 0:
+      torch.cuda.synchronize()
+      first_s = time.monotonic() - t0
+      t0 = time.monotonic()
+    elif i == FEED_PER_STEP - 2:
+      torch.cuda.synchronize()
+      step_wall = time.monotonic() - t0
+  t0 = time.monotonic()
+  for _ in range(FEED_SLABS):
+    before = dict(ops.LAUNCHES)
+    state, got = loop(state, next(slabs))
+    losses += list(got)
+    launches.append({k: (ops.LAUNCHES[k] - before[k]) / FEED_UNROLL
+                     for k in before})
+  torch.cuda.synchronize()
+  slab_wall = time.monotonic() - t0
+  steps, slab_steps = FEED_PER_STEP - 2, FEED_SLABS * FEED_UNROLL
+  return {"losses": [float(x) for x in losses], "launches_per_step": launches,
+          "profiler_start_s": profiler_start_s, "first_step_s": first_s,
+          "ms_per_step": step_wall / steps * 1e3,
+          "tokens_per_s": TRAIN_B * TRAIN_S * steps / step_wall,
+          "slab_ms_per_step": slab_wall / slab_steps * 1e3,
+          "slab_tokens_per_s": TRAIN_B * TRAIN_S * slab_steps / slab_wall,
+          "rows_per_s": TRAIN_B * slab_steps / slab_wall,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "profile": prof}
+
+
+def _node_card(torch, args):
+  visible = os.environ.get("CUDA_VISIBLE_DEVICES", "")
+  if not visible or "," in visible:
+    raise AssertionError("the node should see one card, got "
+                         "CUDA_VISIBLE_DEVICES=%r" % visible)
+  card = torch.cuda.get_device_name()
+  if card != args["card"]:
+    raise AssertionError("the node runs on %r, the driver on %r"
+                         % (card, args["card"]))
+  return card
+
+
+def feed_train_main(args, ctx):
+  """[6i]'s main fn, run in a LocalEngine executor's background process
+  (InputMode.SPARK): [6]'s training on the rows the driver's
+  ``Cluster.train`` feeds, read through ``ctx.get_data_feed()`` —
+  FEED_PER_STEP steps from ``device_prefetch(feed_batches(...))``, then
+  FEED_SLABS slabs from ``slab_batches``, then the end of feed that
+  ``shutdown()`` sends. Writes its losses, launch counts, times, the
+  feed's stats and channels to the JSON file ``args["out"]``."""
+  import itertools
+  t_enter = time.monotonic()
+  import torch
+  from tensorflowonspark_tpu_torch import ops
+  from tensorflowonspark_tpu_torch.data import readers
+  _no_tf32(torch)
+  card = _node_card(torch, args)
+  t0 = time.monotonic()
+  import_s = t0 - t_enter
+  pieces = feed_train_pieces(torch)
+  torch.cuda.synchronize()
+  state_s = time.monotonic() - t0
+  feed = ctx.get_data_feed()
+  batches = readers.device_prefetch(itertools.islice(
+      readers.feed_batches(feed, TRAIN_B), FEED_PER_STEP), size=2)
+  slabs = readers.slab_batches(feed, TRAIN_B, unroll=FEED_UNROLL)
+  res = feed_steps(torch, ops, pieces, batches, slabs)
+  for _ in slabs:                      # the end of feed from shutdown()
+    raise AssertionError("the feed gave more than %d slabs" % FEED_SLABS)
+  res.update(card=card, import_s=import_s, state_s=state_s,
+             stats=dict(feed.stats), channels=feed.channel_chunks(),
+             ring_name=ctx.hub.get("ring_name"), batches=len(
+                 res["losses"]), t_end_wall=time.time())
+  with open(args["out"], "w") as f:
+    json.dump(res, f)
+
+
+def feed_ceiling_main(args, ctx):
+  """The feed's own ceiling: every row the driver feeds, through
+  ``device_prefetch(feed_batches(feed, TRAIN_B))`` onto the card, no
+  step. Rows/s from the first batch on the card to the last."""
+  import torch
+  from tensorflowonspark_tpu_torch.data import readers
+  _node_card(torch, args)
+  feed = ctx.get_data_feed()
+  rows = nbytes = 0
+  t_first = t_last = None
+  for batch in readers.device_prefetch(readers.feed_batches(feed, TRAIN_B),
+                                       size=2):
+    torch.cuda.synchronize()
+    t_last = time.monotonic()
+    if t_first is None:
+      t_first = t_last                 # the clock starts at the first batch
+    else:
+      rows += batch.shape[0]
+      nbytes += batch.numel() * batch.element_size()
+  span = t_last - t_first
+  with open(args["out"], "w") as f:
+    json.dump({"rows_after_first": rows, "seconds": span,
+               "rows_per_s": rows / span, "mb_per_s": nbytes / span / 1e6,
+               "stats": dict(feed.stats), "channels": feed.channel_chunks()},
+              f)
+
+
+def feed_failing_main(args, ctx):
+  """A consumer that fails after its first batch: its traceback must reach
+  the driver's ``train`` or ``shutdown()``."""
+  ctx.get_data_feed().next_batch_arrays(TRAIN_B)
+  raise RuntimeError(FEED_MARK)
+
+
+def infer_rows(torch, model, batch):
+  """[6j]'s per-row result of one bf16 forward: (mean next-token loss,
+  last-position argmax) for each row of ``batch``."""
+  import numpy as np
+  import torch.nn.functional as F
+  with torch.inference_mode():
+    tokens = torch.from_numpy(np.array(batch)).to(model.device)
+    logits = model(tokens)
+    b, s, v = logits.shape
+    ce = F.cross_entropy(logits[:, :-1].reshape(-1, v),
+                         tokens[:, 1:].reshape(-1).long(), reduction="none")
+    loss = ce.view(b, s - 1).mean(1)
+    top = logits[:, -1].argmax(-1)
+    return list(zip(loss.tolist(), top.tolist()))
+
+
+def feed_infer_main(args, ctx):
+  """[6j]'s main fn: the flagship's bf16 forward at full width on each
+  batch ``ctx.get_data_feed(train_mode=False)`` gives (a partition's rows),
+  one result per row back through ``batch_results``; writes the launch
+  counts per forward to ``args["out"]``."""
+  import torch
+  from tensorflowonspark_tpu_torch import ops
+  from tensorflowonspark_tpu_torch.models import transformer as tfm
+  from tensorflowonspark_tpu_torch.utils.params import init_params
+  _no_tf32(torch)
+  _node_card(torch, args)
+  cfg = tfm.TransformerConfig()
+  model = tfm.Transformer(cfg, init_params(cfg, seed=SEED))
+  feed = ctx.get_data_feed(train_mode=False)
+  launches = []
+  ops.reset_launches()
+  while not feed.should_stop():
+    batch = feed.next_batch_arrays(INFER_PART_ROWS)
+    if len(batch):
+      before = dict(ops.LAUNCHES)
+      results = infer_rows(torch, model, batch)
+      launches.append({k: ops.LAUNCHES[k] - before[k] for k in before})
+      feed.batch_results(results)
+  with open(args["out"], "w") as f:
+    json.dump({"launches_per_forward": launches,
+               "channels": feed.channel_chunks()}, f)
+
+
+def _fresh(path):
+  if os.path.exists(path):
+    os.remove(path)
+  return path
+
+
+def _cluster(cluster, engine, fn, args, **kw):
+  t0 = time.monotonic()
+  c = cluster.run(engine, fn, args, input_mode=cluster.InputMode.SPARK,
+                  chips_per_node=1, max_restarts=0, reservation_timeout=300,
+                  **kw)
+  return c, time.monotonic() - t0
+
+
+def _check_steps(res, what):
+  for i, got in enumerate(res["launches_per_step"]):
+    _per_step_launches(got, 1, WANT_PER_STEP, "%s step %d" % (what, i))
+  if len(res["losses"]) != FEED_PER_STEP + FEED_SLABS * FEED_UNROLL or \
+      not all(math.isfinite(x) for x in res["losses"]):
+    raise AssertionError("%s losses: %s" % (what, res["losses"]))
+
+
+def feed_direct(torch, ops, rows):
+  """[6i]'s direct run in the driver: [6]'s steps on ``rows`` from a plain
+  iterator, the per-step batches through ``device_prefetch``."""
+  import numpy as np
+  from tensorflowonspark_tpu_torch.data import readers
+  from tensorflowonspark_tpu_torch.data.readers import Slab
+  step_rows = FEED_PER_STEP * TRAIN_B
+  batches = readers.device_prefetch(
+      iter([np.stack(b) for b in _split(rows[:step_rows], TRAIN_B)]), size=2)
+  slabs = iter([Slab(np.stack(s).reshape(FEED_UNROLL, TRAIN_B, TRAIN_S))
+                for s in _split(rows[step_rows:], TRAIN_B * FEED_UNROLL)])
+  direct = feed_steps(torch, ops, feed_train_pieces(torch), batches, slabs)
+  _check_steps(direct, "direct run")
+  torch.cuda.empty_cache()
+  return direct
+
+
+def feed_ceiling(cluster, engine, args, transport, rows):
+  """The feed's ceiling on one transport: ``rows`` drained onto the card
+  by ``feed_ceiling_main``, with the driver's ``train`` seconds."""
+  out = _fresh(os.path.join(HERE, "build", "chip_smoke_feed_ceiling.json"))
+  c, _ = _cluster(cluster, engine, feed_ceiling_main, dict(args, out=out),
+                  feed_transport=transport)
+  t0 = time.monotonic()
+  c.train(_split(rows, FEED_CEILING_PART_ROWS), num_epochs=1)
+  train_s = time.monotonic() - t0
+  c.shutdown(timeout=600)
+  with open(out) as f:
+    got = json.load(f)
+  if got["rows_after_first"] != len(rows) - TRAIN_B:
+    raise AssertionError("%s ceiling: %d rows after the first batch"
+                         % (transport, got["rows_after_first"]))
+  got["train_call_s"] = train_s
+  return got
+
+
+def feed_train(torch, ops, cluster, engine, card, rows, direct,
+               train_res=None):
+  """[6i]: ``rows`` through ``cluster.run(..., InputMode.SPARK)`` and
+  ``Cluster.train`` between two direct runs (``direct`` before, one more
+  after: the host's pace drifts within a call); the feed's ceiling on the
+  shm ring (with and without the codec's wire encodings) and on the hub
+  queue; a consumer that fails."""
+  from tensorflowonspark_tpu_torch.engine import LocalEngine
+  out = _fresh(os.path.join(HERE, "build", "chip_smoke_feed.json"))
+  args = {"out": out, "card": card}
+  c, run_s = _cluster(cluster, engine, feed_train_main, args)
+  if c.cluster_meta["feed_transport"] != "shm":
+    raise AssertionError("feed_transport 'auto' resolved to %r on a "
+                         "LocalEngine" % c.cluster_meta["feed_transport"])
+  t0 = time.monotonic()
+  c.train(_split(rows, FEED_PART_ROWS), num_epochs=1)
+  train_s = time.monotonic() - t0
+  t0, t0_wall = time.monotonic(), time.time()
+  c.shutdown(timeout=900)
+  shutdown_s = time.monotonic() - t0
+  end_wall = time.time()
+  if c.supervisor.restarts:
+    raise AssertionError("the supervisor relaunched a node: %s"
+                         % c.supervisor.restarts)
+  with open(out) as f:
+    res = json.load(f)
+  _check_steps(res, "fed")
+  after = feed_direct(torch, ops, rows)
+  for run in (res, after):
+    if run["losses"] != direct["losses"]:
+      raise AssertionError("losses differ from the first direct run's:\n%s"
+                           "\n%s" % (run["losses"], direct["losses"]))
+  stats = res["stats"]
+  if stats["chunks"] != FEED_PARTS or \
+      stats["columnar_chunks"] != stats["chunks"]:
+    raise AssertionError("feed chunks: %s (want %d, all columnar)"
+                         % (stats, FEED_PARTS))
+  chan = res["channels"]
+  if not res["ring_name"] or chan is None or chan["queue"] or \
+      chan["ring"] < FEED_PARTS + 1:
+    raise AssertionError("the shm ring did not carry the input: ring %r, "
+                         "channels %s" % (res["ring_name"], chan))
+  batches = FEED_PER_STEP + FEED_SLABS
+  res.update(direct=direct, direct_after=after, cluster_run_s=run_s,
+             train_call_s=train_s,
+             shutdown_call_s=shutdown_s,
+             shutdown_after_fn_s=end_wall - max(t0_wall, res["t_end_wall"]),
+             per_batch_ms={k: stats[k] / batches * 1e3
+                           for k in ("fetch_s", "decode_s", "assemble_s")})
+  pe = res["profile"]
+  for what, run in (("before", direct), ("after", after)):
+    pd = run["profile"]
+    log("  direct run in the driver, %s the fed run: first step %.2f s, "
+        "%.1f ms/step (%.0f tokens/s), unroll-4 slabs %.1f ms/step; "
+        "profiled step wall %.2f ms, device busy %.2f ms (idle %.0f%%)" % (
+            what, run["first_step_s"], run["ms_per_step"],
+            run["tokens_per_s"], run["slab_ms_per_step"], pd["wall_ms"],
+            pd["device_busy_ms"],
+            100.0 * (1 - pd["device_busy_ms"] / pd["wall_ms"])))
+  log("  fed, in the executor on %s: imports %.1f s, weights %.1f s, a "
+      "first profiler session %.2f s, first step %.2f s; %.1f ms/step (%.0f "
+      "tokens/s), slabs %.1f ms/step (%.0f tokens/s, %.0f rows/s); profiled "
+      "step wall %.2f ms, device busy %.2f ms (idle %.0f%%); peak memory "
+      "%.2f GiB" % (
+          res["card"], res["import_s"], res["state_s"],
+          res["profiler_start_s"], res["first_step_s"],
+          res["ms_per_step"], res["tokens_per_s"], res["slab_ms_per_step"],
+          res["slab_tokens_per_s"], res["rows_per_s"], pe["wall_ms"],
+          pe["device_busy_ms"],
+          100.0 * (1 - pe["device_busy_ms"] / pe["wall_ms"]),
+          res["peak_mem_gib"]))
+  log("  %d losses equal to both direct runs' to the bit; launches per step "
+      "%s on both paths; %d chunks, all columnar, over ring %s (%s); feed "
+      "per batch: fetch %.3f ms (the fetch thread's reads, waits for the "
+      "feeder included), decode %.3f ms, assemble %.3f ms" % (
+          len(res["losses"]), res["launches_per_step"][0], stats["chunks"],
+          res["ring_name"], chan, res["per_batch_ms"]["fetch_s"],
+          res["per_batch_ms"]["decode_s"], res["per_batch_ms"]["assemble_s"]))
+  log("  cluster.run %.2f s, train %.2f s, shutdown %.2f s after the fn "
+      "returned (call %.1f s); [6] in this call: %s ms/step" % (
+          run_s, train_s, res["shutdown_after_fn_s"], shutdown_s,
+          "%.1f" % train_res["per_step"]["ms_per_step"] if train_res
+          else "not run"))
+
+  ceiling_rows = feed_rows(FEED_CEILING_PARTS * FEED_CEILING_PART_ROWS,
+                           SEED + 11)
+  res["ceiling"] = {t: feed_ceiling(cluster, engine, args, t, ceiling_rows)
+                    for t in ("shm", "queue")}
+  # the same on the ring with the codec's wire encodings off (the
+  # driver's partition encode and the executor's feeder both read the
+  # variable): how much of the ceiling is the zlib probe of token ids
+  with env_var("TOS_FEED_WIRE_ENCODINGS", "none"):
+    raw_engine = LocalEngine(num_executors=1)
+    try:
+      res["ceiling"]["shm_raw"] = feed_ceiling(cluster, raw_engine, args,
+                                               "shm", ceiling_rows)
+    finally:
+      raw_engine.stop()
+  for transport, got in res["ceiling"].items():
+    log("  feed ceiling, %s: %d rows (%.0f MiB) at %.0f rows/s, %.1f MB/s "
+        "(%.1fx the rows/s the fed slabs consume; the fetch thread waited "
+        "%.2f of %.2f s; driver's train call %.2f s)" % (
+            transport, len(ceiling_rows), len(ceiling_rows) * TRAIN_S * 4
+            / 2 ** 20, got["rows_per_s"], got["mb_per_s"],
+            got["rows_per_s"] / res["rows_per_s"], got["stats"]["fetch_s"],
+            got["seconds"], got["train_call_s"]))
+
+  c, _ = _cluster(cluster, engine, feed_failing_main, args)
+  errors = []
+  for call in (lambda: c.train(_split(rows, FEED_PART_ROWS)),
+               lambda: c.shutdown(timeout=300)):
+    try:
+      call()
+    except RuntimeError as e:
+      errors.append(str(e))
+  if not errors or not any(FEED_MARK in e and "Traceback" in e
+                           for e in errors):
+    raise AssertionError("a failing consumer's traceback did not reach the "
+                         "driver: %s" % errors)
+  res["failure_traceback_at_driver"] = len(errors)
+  log("  a consumer failing after its first batch: %d of train/shutdown "
+      "raised with its traceback" % len(errors))
+  return res
+
+
+def feed_inference(torch, ops, tfm, cluster, engine, card, params, cfg):
+  """[6j]: ``Cluster.inference`` over INFER_PARTS x INFER_PART_ROWS rows;
+  per-row results in partition order, equal to the same forward in the
+  driver on the same batches."""
+  rows = feed_rows(INFER_PARTS * INFER_PART_ROWS, SEED + 12)
+  parts = _split(rows, INFER_PART_ROWS)
+  out = _fresh(os.path.join(HERE, "build", "chip_smoke_feed_infer.json"))
+  c, run_s = _cluster(cluster, engine, feed_infer_main,
+                      {"out": out, "card": card})
+  t0 = time.monotonic()
+  got = c.inference(parts)
+  infer_s = time.monotonic() - t0
+  c.shutdown(timeout=600)
+  with open(out) as f:
+    res = json.load(f)
+  for i, per in enumerate(res["launches_per_forward"]):
+    _per_step_launches(per, 1, dict({k: 0 for k in per},
+                                    **WANT_INFER_PER_FORWARD),
+                       "fed forward %d" % i)
+  model = tfm.Transformer(cfg, params)
+  want = [r for p in parts for r in infer_rows(torch, model, p)]
+  del model
+  torch.cuda.empty_cache()
+  got = [tuple(r) for r in got]
+  if len(got) != len(rows) or got != want:
+    raise AssertionError("inference through the feed: %d results, first "
+                         "difference at %s" % (len(got), next(
+                             (i for i, (a, b) in enumerate(zip(got, want))
+                              if a != b), None)))
+  res.update(results=len(got), cluster_run_s=run_s, inference_call_s=infer_s,
+             rows_per_s=len(rows) / infer_s)
+  log("  %d results in partition order, equal to the driver's forward to the "
+      "bit; %d forwards of %s launches; inference call %.2f s (%.0f rows/s, "
+      "the executor's cold start included); cluster.run %.2f s" % (
+          len(got), len(res["launches_per_forward"]), WANT_INFER_PER_FORWARD,
+          infer_s, res["rows_per_s"], run_s))
+  return res
+
+
+def feed_phases(torch, ops, tfm, card, params, cfg, train_res=None):
+  """[6i] and [6j]: the direct run first, then one LocalEngine(1)."""
+  from tensorflowonspark_tpu_torch import cluster
+  from tensorflowonspark_tpu_torch.engine import LocalEngine
+  torch.cuda.empty_cache()
+  log("[6i] [6]'s training fed through cluster.run(LocalEngine(1), ..., "
+      "InputMode.SPARK) and Cluster.train, beside a direct run")
+  rows = feed_rows(FEED_PARTS * FEED_PART_ROWS, SEED + 10)
+  direct = feed_direct(torch, ops, rows)
+  engine = LocalEngine(num_executors=1)
+  try:
+    train = feed_train(torch, ops, cluster, engine, card, rows, direct,
+                       train_res)
+    log("[6j] inference through Cluster.inference, bf16, full width")
+    infer = feed_inference(torch, ops, tfm, cluster, engine, card, params,
+                           cfg)
+  finally:
+    engine.stop()
+  return {"train": train, "inference": infer}
+
+
 # train_gpt.py's default model flags (4 layers, d_model 256, 8 heads:
 # head_dim 32, seq 512, vocab 1024, batch 8): 2 flash forwards per layer
 # (forward and remat recompute), one fused backward, 4 LayerNorm forwards
@@ -2033,14 +2541,42 @@ def cluster_only(torch):
   return 0
 
 
+def feed_only(torch, ops, tfm, init_params, card):
+  """``--feed-only``: phases 6i and 6j alone."""
+  cfg = tfm.TransformerConfig()
+  res = feed_phases(torch, ops, tfm, torch.cuda.get_device_name(0),
+                    init_params(cfg, seed=SEED), cfg)
+  os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+  with open(os.path.join(HERE, "chiprun_out", "chip_smoke_feed.json"),
+            "w") as f:
+    json.dump({"feed": res, "card": card}, f, indent=1)
+  log(card)
+  log(json.dumps({"feed": {
+      "ms_per_step": res["train"]["ms_per_step"],
+      "direct_ms_per_step": [res["train"][k]["ms_per_step"]
+                             for k in ("direct", "direct_after")],
+      "slab_ms_per_step": res["train"]["slab_ms_per_step"],
+      "direct_slab_ms_per_step": [res["train"][k]["slab_ms_per_step"]
+                                  for k in ("direct", "direct_after")],
+      "ceiling_rows_per_s": {k: v["rows_per_s"] for k, v in
+                             res["train"]["ceiling"].items()},
+      "inference_rows_per_s": res["inference"]["rows_per_s"]},
+      "card": card}))
+  log(json.dumps({"ok": True, "device": {
+      "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+      "count": torch.cuda.device_count()}}))
+  return 0
+
+
 def main(argv):
   repeats, ln_only = 0, argv == ["--layer-norm-only"]
   only_cluster = argv == ["--cluster-only"]
+  only_feed = argv == ["--feed-only"]
   if argv[:1] == ["--serving-only"] and len(argv) == 2:
     repeats = int(argv[1])
-  elif argv and not (ln_only or only_cluster):
+  elif argv and not (ln_only or only_cluster or only_feed):
     log("usage: python3 chip_smoke.py [--serving-only N | "
-        "--layer-norm-only | --cluster-only]")
+        "--layer-norm-only | --cluster-only | --feed-only]")
     return 2
   try:
     import torch
@@ -2079,6 +2615,8 @@ def main(argv):
 
   if only_cluster:
     return cluster_only(torch)
+  if only_feed:
+    return feed_only(torch, ops, tfm, init_params, card)
 
   log("[2] build")
   t0 = time.monotonic()
@@ -2206,6 +2744,9 @@ def main(argv):
   log("[6h] the same through cluster.run(LocalEngine(1), ..., "
       "InputMode.TENSORFLOW, chips_per_node=1)")
   cluster_res = cluster_long_gqa(torch, long_res["data"], long_res)
+  feed_res = feed_phases(torch, ops, tfm, torch.cuda.get_device_name(0),
+                         params, cfg, train_res)
+  torch.cuda.empty_cache()
 
   log("[6e] the flagship MHA under TFOS_TPU_FLASH_BWD=split, B%d x S%d"
       % (TRAIN_B, TRAIN_S))
@@ -2243,6 +2784,14 @@ def main(argv):
   def cluster_launches(name):
     return sum(step[name] for step in cluster_res["launches_per_step"])
 
+  def feed_launches(name):
+    per = feed_res["train"]["launches_per_step"]
+    return int(sum(p[name] for p in per[:FEED_PER_STEP]) + FEED_UNROLL * sum(
+        p[name] for p in per[FEED_PER_STEP:]))
+
+  def infer_launches(name):
+    return sum(p[name] for p in feed_res["inference"]["launches_per_forward"])
+
   def entry(name, source, replaces, by_path, err, row, **extra):
     return dict({"name": name, "route": "cuda",
                  "source": "tensorflowonspark_tpu_torch/csrc/" + source,
@@ -2272,6 +2821,9 @@ def main(argv):
                                                 "flash_attention_fwd"),
              "cluster_train_gpt_long_4_steps": cluster_launches(
                  "flash_attention_fwd"),
+             "feed_train_12_steps": feed_launches("flash_attention_fwd"),
+             "feed_inference_4_forwards": infer_launches(
+                 "flash_attention_fwd"),
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "flash_attention_fwd"),
              "serve_gpt_config_bf16": serve_gpt_res["bfloat16"]["launches"][
@@ -2287,6 +2839,8 @@ def main(argv):
              "train_4_steps": step_l["layer_norm"],
              "train_fused_4_steps": fused_l["layer_norm"],
              "cluster_train_gpt_long_4_steps": cluster_launches("layer_norm"),
+             "feed_train_12_steps": feed_launches("layer_norm"),
+             "feed_inference_4_forwards": infer_launches("layer_norm"),
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "layer_norm")},
             ln_err, pick(ln_rows, rows=512, dtype="bfloat16"),
@@ -2296,6 +2850,7 @@ def main(argv):
             "flash_attention.py:232",
             {"train_4_steps": step_l["flash_attention_bwd"],
              "train_fused_4_steps": fused_l["flash_attention_bwd"],
+             "feed_train_12_steps": feed_launches("flash_attention_bwd"),
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "flash_attention_bwd")},
             max(fab_err, hd_err["bwd"]), pick(fab_rows, case="train"),
@@ -2313,6 +2868,7 @@ def main(argv):
              "train_fused_4_steps": fused_l["layer_norm_bwd"],
              "cluster_train_gpt_long_4_steps": cluster_launches(
                  "layer_norm_bwd"),
+             "feed_train_12_steps": feed_launches("layer_norm_bwd"),
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "layer_norm_bwd")},
             lnb_err, pick(lnb_rows, rows=16384, dtype="bfloat16"),
@@ -2371,6 +2927,7 @@ def main(argv):
             "parity_f32": parity, "train": train_res, "train_gqa": gqa_res,
             "train_fused": fused_res, "train_fused_gqa": fgqa_res,
             "train_long_gqa": long_res, "cluster_long_gqa": cluster_res,
+            "feed": feed_res,
             "train_split": split_res,
             "train_parity_f32": train_parity,
             "train_fused_parity_f32": fused_parity,

@@ -7,8 +7,9 @@ kernel on a ported path becomes a kernel written by hand for Hopper
 plain PyTorch version beside it for the CPU.
 
 Serving, single-card training (unfused, all-fused, and long-context
-grouped-KV from TFRecord files) of the flagship Transformer, and the
-cluster runtime in InputMode.TENSORFLOW are ported, in these modules:
+grouped-KV from TFRecord files) of the flagship Transformer, the cluster
+runtime in InputMode.TENSORFLOW and its engine feed plane
+(InputMode.SPARK) are ported, in these modules:
 
 * :mod:`.ops` — LayerNorm, flash attention (forward, and the fused and
   split backward plans), LN->matmul and GELU->matmul;
@@ -27,7 +28,10 @@ cluster runtime in InputMode.TENSORFLOW are ported, in these modules:
 * :mod:`.cluster`, :mod:`.node`, :mod:`.control`, :mod:`.engine`,
   :mod:`.obs` and :mod:`.utils.gpu_info` — ``cluster.run`` brings up
   ``LocalEngine`` executors through the rendezvous, gives each node its
-  CUDA cards and runs the user's ``main_fn(args, ctx)`` on it.
+  CUDA cards and runs the user's ``main_fn(args, ctx)`` on it;
+* :mod:`.datafeed` and :mod:`.control.shmring` — ``Cluster.train`` /
+  ``inference`` feed partitions to the nodes over a shared-memory ring or
+  the hub's queues, and ``ctx.get_data_feed()`` reads them as batches.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

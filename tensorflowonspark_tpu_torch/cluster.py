@@ -1,4 +1,4 @@
-"""L3' cluster lifecycle API, FILES input mode: reserve → launch → shutdown.
+"""L3' cluster lifecycle API: reserve → launch → (feed) → shutdown.
 
 The port's copy of ``tensorflowonspark_tpu/cluster.py`` (TensorFlowOnSpark's
 ``TFCluster.py``), generalized over the engine abstraction and targeted at
@@ -8,25 +8,31 @@ PyTorch on CUDA cards:
   (TFCluster.py:256-271), starts the rendezvous server (:283-285), launches
   the node bring-up job asynchronously (:318-336), awaits and validates
   reservations with duplicate detection (:357-372);
-- ``shutdown()`` reaps the chief's TensorBoard, remotely stops ps/evaluator
-  nodes through their driver-reachable hubs (:186-194), enforces a watchdog
+- ``train()`` / ``inference()`` implement the engine-pushes-rows input
+  mode (InputMode.SPARK), with epochs by replicating the dataset (parity
+  with epochs-via-RDD.union, :90-94); ``train_stream``, ``train_dstream``
+  and ``foreach_batch`` feed micro-batches until a stop request;
+- ``shutdown()`` pushes end-of-feed into the workers' input channels
+  through a shutdown job (InputMode.SPARK, :174-176) or reaps the chief's
+  TensorBoard (InputMode.TENSORFLOW), remotely stops ps/evaluator nodes
+  through their driver-reachable hubs (:186-194), enforces a watchdog
   timeout (default 3 days, :136-144) and raises if any node failed
   (:179-183).
 
 ::
 
     c = cluster.run(LocalEngine(num_executors=1), main_fn, tf_args,
-                    input_mode=InputMode.TENSORFLOW, chips_per_node=1)
+                    input_mode=InputMode.SPARK, chips_per_node=1)
+    c.train(partitions, num_epochs=1)   # main_fn reads ctx.get_data_feed()
     c.shutdown()
 
 Not ported yet, each refused by name before any executor is touched: the
-engine feed plane (``InputMode.ENGINE`` and ``train``, ``inference``,
-``train_stream``, ``train_dstream``, ``foreach_batch``: ROADMAP Queue 1
-item 14), the observability plane (``TOS_OBS=1``: item 7), elastic groups
-(``group_map``, ``elastic``: item 10) and feeder pushdown segments
+observability plane (``TOS_OBS=1``: ROADMAP Queue 1 item 7), elastic
+groups (``group_map``, ``elastic``: item 10) and feeder pushdown segments
 (``feed_segment``: item 11).
 """
 
+import collections.abc
 import contextlib
 import logging
 import os
@@ -45,13 +51,8 @@ from tensorflowonspark_tpu_torch.obs import spans as obs_spans
 
 logger = logging.getLogger(__name__)
 
-_FEED_PLANE = ("%s needs the engine feed plane (InputMode.ENGINE / SPARK), "
-               "which is not ported to PyTorch yet (ROADMAP Queue 1 item 14); "
-               "use InputMode.TENSORFLOW, where each node reads its own files")
-
-
 class ClusterSupervisor(object):
-  """Driver-side node babysitter: detect dead nodes, relaunch them.
+  """Driver-side node babysitter: detect dead nodes, relaunch, requeue.
 
   Two failure signals are watched:
 
@@ -68,10 +69,15 @@ class ClusterSupervisor(object):
 
   1. back off (exponential with full jitter, capped at ``backoff_cap``;
      the attempt budget is ``max_restarts`` per executor);
-  2. mark the dead node's hub ``dead`` so the relaunched node reclaims it;
+  2. mark the dead node's hub ``dead`` so the relaunched node reclaims it,
+     and (InputMode.SPARK) drain its undelivered feed rows
+     (``datafeed.drain_pending_rows``) so blocked feeders complete and no
+     delivered-but-unprocessed row is lost;
   3. relaunch the node task via ``Engine.relaunch_task``, handing the
      restart count to the new node (→ ``ctx.restart_count``);
-  4. await re-registration and patch ``cluster_info`` in place.
+  4. await re-registration, patch ``cluster_info`` in place (feed tasks
+     submitted afterwards see the new hub), and refeed the drained rows
+     through the engine feed path.
 
   Recoveries run serially on the supervisor thread. ``wait_idle()`` lets
   callers block until no recovery is active.
@@ -221,7 +227,7 @@ class ClusterSupervisor(object):
 
     old_meta = next((n for n in self.cluster_info
                      if n["executor_id"] == eid), None)
-    self._quarantine_dead_hub(old_meta)
+    pending = self._quarantine_dead_hub(old_meta)
 
     task_id = self._eid_task[eid]
     if not self.node_job._completed[task_id]:
@@ -233,8 +239,9 @@ class ClusterSupervisor(object):
         while not self.node_job._completed[task_id] \
             and time.monotonic() < deadline and not self._stop.is_set():
           time.sleep(0.05)
-    logger.warning("relaunching node on executor %d (attempt %d/%d)", eid,
-                   attempt + 1, self.max_restarts)
+    logger.warning("relaunching node on executor %d (attempt %d/%d, %d feed "
+                   "row(s) requeued)", eid, attempt + 1, self.max_restarts,
+                   sum(map(len, pending.values())))
     self.engine.relaunch_task(self.node_job, task_id,
                               payload={"executor_id": eid,
                                        "restart": attempt + 1})
@@ -251,25 +258,67 @@ class ClusterSupervisor(object):
       # liveness/ExecutorLost will re-fire and consume another attempt,
       # or the task error (a non-restartable bring-up failure) propagates
       logger.warning("executor %d did not re-register after relaunch", eid)
+    if pending:
+      # refeed regardless of the relaunch outcome: the rescued rows go to
+      # whichever LIVE worker picks up the feed task
+      self._refeed(pending)
 
-  def _quarantine_dead_hub(self, old_meta: Optional[dict]) -> None:
-    """Mark the dead node's hub unusable, so the relaunched node's reclaim
-    check (node.py) treats it as stale.
+  def _quarantine_dead_hub(self, old_meta: Optional[dict]) -> Dict[str, List]:
+    """Mark the dead node's hub unusable and rescue undelivered feed rows.
 
-    The JAX package also drains the hub's undelivered feed rows here
-    (``datafeed.drain_pending_rows``) and refeeds them. In FILES mode no
-    rows are fed through the hub — each node reads its own files — so
-    there is nothing to drain. Best-effort: an unreachable hub just died
-    with its node.
+    The hub manager is a separate process and routinely survives its
+    node's death; marking it ``dead`` makes the relaunched node's reclaim
+    check (node.py) treat it as stale, and the drain (InputMode.SPARK)
+    releases feeders blocked on ``queue.join``. Returns the rescued rows
+    by queue name. Best-effort: an unreachable hub just died with its
+    node. Rows already on a shared-memory ring are not rescued: the ring
+    is at-most-once (only the hub queues are drained).
     """
     if old_meta is None:
-      return
+      return {}
     try:
       hub = feedhub.connect(tuple(old_meta["hub_addr"]),
                             self.cluster_meta["authkey"])
       hub.set("state", "dead")
     except Exception:  # noqa: BLE001 - hub died with the node
-      return
+      return {}
+    pending: Dict[str, List] = {}
+    if self.cluster_meta.get("input_mode") == InputMode.ENGINE:
+      from tensorflowonspark_tpu_torch.datafeed import drain_pending_rows
+      # inference feeds need their EndPartition markers kept in stream
+      # order across the refeed, or per-partition result alignment is lost
+      # (Cluster.inference stamps feed_kind on the shared meta)
+      keep_markers = self.cluster_meta.get("feed_kind") == "inference"
+      # every DATA queue, not just the default: train/inference accept a
+      # custom qname
+      for qname in self.cluster_meta.get("queues", ("input",)):
+        if qname in ("error", "output", "control"):
+          continue
+        try:
+          rows = drain_pending_rows(hub, qname, keep_markers=keep_markers)
+        except Exception:  # noqa: BLE001 - manager vanished mid-drain
+          logger.warning("draining queue %r of executor %d's dead hub "
+                         "failed", qname, old_meta["executor_id"])
+          continue
+        if rows:
+          pending[qname] = rows
+    return pending
+
+  def _refeed(self, pending: Dict[str, List]) -> None:
+    """Requeue rescued feed rows through the engine feed path: one feed
+    task per drained queue, back into the SAME qname, landing on whichever
+    live worker picks the task up (at-least-once delivery for rows the
+    dead worker never processed)."""
+    for qname, rows in pending.items():
+      fn = node_mod.TrainFeeder(self.cluster_info, self.cluster_meta,
+                                qname=qname)
+      try:
+        self.engine.foreach_partition([rows], fn).wait(timeout=120)
+        logger.info("requeued %d feed row(s) into %r from the dead node",
+                    len(rows), qname)
+      except Exception as e:  # noqa: BLE001 - best-effort; loss is logged
+        logger.error("requeueing %d rescued feed row(s) into %r failed: %s",
+                     len(rows), qname, e)
 
   def _await_reregistration(self, eid: int, generation: int,
                             timeout: float = 120.0) -> bool:
@@ -302,12 +351,21 @@ class InputMode(object):
   executor slots.
 
   ``ENGINE`` (alias ``SPARK``): the engine pushes partitioned rows into each
-  node's feed hub — not ported yet (ROADMAP Queue 1 item 14).
+  node's feed hub (or its shared-memory ring), consumed by the user fn
+  through ``ctx.get_data_feed()``.
   """
   FILES = 0
   TENSORFLOW = 0
   ENGINE = 1
   SPARK = 1
+
+
+class _StreamFeedHandle(object):
+  """Progress of a hooked (D)Stream feed: micro-batches fed + stop flag."""
+
+  def __init__(self):
+    self.rounds = 0
+    self.stopped = False
 
 
 class Cluster(object):
@@ -337,26 +395,200 @@ class Cluster(object):
       return contextlib.nullcontext()
     return rec.span(name, **attrs)
 
-  # -- data plane: the engine feed plane is not ported yet -------------------
+  # -- data plane ------------------------------------------------------------
 
-  def train(self, *args, **kwargs):
-    raise NotImplementedError(_FEED_PLANE % "Cluster.train")
+  def _require_engine_mode(self, what: str) -> None:
+    if self.input_mode != InputMode.ENGINE:
+      raise RuntimeError("%s requires InputMode.ENGINE/SPARK (this cluster "
+                         "runs InputMode.TENSORFLOW: each node reads its own "
+                         "files)" % what)
 
-  def train_stream(self, *args, **kwargs):
-    raise NotImplementedError(_FEED_PLANE % "Cluster.train_stream")
+  def train(self, data_partitions: Sequence, num_epochs: int = 0,
+            feed_timeout: float = 600, qname: str = "input"):
+    """Feed partitioned data to the cluster (InputMode.SPARK only).
 
-  def train_dstream(self, *args, **kwargs):
-    raise NotImplementedError(_FEED_PLANE % "Cluster.train_dstream")
+    Epochs replicate the dataset ``num_epochs`` times (parity with
+    epochs-via-RDD.union, TFCluster.py:90-94). Returns None for bounded
+    data; a DStream argument (anything with ``foreachRDD``) returns the
+    stream feed handle of :meth:`train_dstream`.
+    """
+    if hasattr(data_partitions, "foreachRDD"):
+      # a Spark DStream handed straight to train(), as TensorFlowOnSpark
+      # accepted (TFCluster.py:83-85)
+      return self.train_dstream(data_partitions, feed_timeout=feed_timeout,
+                                qname=qname)
+    logger.info("feeding training data")
+    self._require_engine_mode("train()")
+    self.cluster_meta["feed_kind"] = "train"
+    epochs = max(1, num_epochs)
+    parts = self._wrap_lazy(data_partitions)
+    fn = node_mod.TrainFeeder(self.cluster_info, self.cluster_meta,
+                              feed_timeout=feed_timeout, qname=qname)
+    if isinstance(parts, collections.abc.Iterator):
+      # a one-shot partition stream cannot be replayed (replicating it
+      # would drain the generator on the driver, feeding epoch 1 and
+      # starving epochs 2..N): route it through the engine's lazy path,
+      # one window of partitions in flight on the driver
+      if epochs > 1:
+        raise ValueError(
+            "train(num_epochs=%d) got a one-shot partition iterator; "
+            "re-iterable input (a list, an RDD, or lazy handles) is "
+            "required to replay epochs" % epochs)
+      stream = self.engine.map_partitions_lazy(parts, fn,
+                                               timeout=feed_timeout)
+      if isinstance(stream, collections.abc.Iterator):
+        for _ in stream:
+          pass
+      else:
+        # an RDD-like lazy result: trigger the feed with a row-free action
+        stream.count()
+      return
+    parts = self._replicate(parts, epochs)
+    with self._span("cluster.train_feed", epochs=epochs):
+      self.engine.foreach_partition(parts, fn).wait()
 
-  def foreach_batch(self, *args, **kwargs):
-    raise NotImplementedError(_FEED_PLANE % "Cluster.foreach_batch")
+  def train_stream(self, batch_stream, feed_timeout: float = 600,
+                   qname: str = "input") -> int:
+    """Feed an unbounded stream of partitioned datasets (micro-batches).
 
-  def inference(self, *args, **kwargs):
-    raise NotImplementedError(_FEED_PLANE % "Cluster.inference")
+    The analog of TensorFlowOnSpark's Spark Streaming support
+    (DStream.foreachRDD feeding, TFCluster.py:83-85): each item of
+    ``batch_stream`` is a list of partitions fed as one round. A stop
+    request (:meth:`request_stop`, or a remote
+    ``rendezvous.Client(addr).request_stop()``) ends the loop after the
+    current round. Returns the number of rounds fed.
+    """
+    self._require_engine_mode("train_stream()")
+    rounds = 0
+    for partitions in batch_stream:
+      # feed first, check after: a batch already pulled from the source is
+      # never discarded (sources may commit offsets on yield)
+      self.train(partitions, num_epochs=1, feed_timeout=feed_timeout,
+                 qname=qname)
+      rounds += 1
+      if self.server.stopping():
+        logger.info("stop signal received; ending stream after %d rounds",
+                    rounds)
+        break
+    return rounds
+
+  def train_dstream(self, dstream, feed_timeout: float = 600,
+                    qname: str = "input"):
+    """Hook a Spark (D)Stream so every micro-batch RDD is fed as one round
+    (parity: TFCluster.train wiring ``dataRDD.foreachRDD(_train)``,
+    TFCluster.py:83-85).
+
+    Feeding happens on the stream's driver thread as batches arrive. After
+    a stop request (:meth:`request_stop` or the rendezvous STOP verb) later
+    micro-batches are skipped without being consumed. Returns a handle
+    whose ``rounds`` counts the micro-batches fed and whose ``stopped``
+    reports whether the stop signal has been observed.
+    """
+    self._require_engine_mode("train_dstream()")
+    self.cluster_meta["feed_kind"] = "train"
+    fn = node_mod.TrainFeeder(self.cluster_info, self.cluster_meta,
+                              feed_timeout=feed_timeout, qname=qname)
+    handle = _StreamFeedHandle()
+
+    def _feed(rdd):
+      if self.server.stopping():
+        if not handle.stopped:
+          logger.info("stop signal received; skipping further micro-batches "
+                      "after %d rounds", handle.rounds)
+        handle.stopped = True
+        return
+      self.engine.foreach_partition(rdd, fn).wait()
+      handle.rounds += 1
+
+    dstream.foreachRDD(_feed)
+    return handle
+
+  def foreach_batch(self, feed_timeout: float = 600, qname: str = "input"):
+    """A ``(batch_df, batch_id) -> None`` callback for Structured
+    Streaming: ``df.writeStream.foreachBatch(cluster.foreach_batch())``.
+    Each micro-batch is fed as one round; after a stop request batches are
+    skipped."""
+    self._require_engine_mode("foreach_batch()")
+    self.cluster_meta["feed_kind"] = "train"
+    fn = node_mod.TrainFeeder(self.cluster_info, self.cluster_meta,
+                              feed_timeout=feed_timeout, qname=qname)
+
+    def _feed(batch_df, batch_id):
+      if self.server.stopping():
+        return
+      self.engine.foreach_partition(batch_df, fn).wait()
+
+    return _feed
+
+  def request_stop(self) -> None:
+    """Signal streaming feeds to stop after the current round. Sets the
+    server's stop-REQUESTED flag only: the rendezvous keeps serving until
+    ``shutdown()`` stops it."""
+    self.server.stop_requested.set()
+
+  def inference(self, data_partitions: Sequence, feed_timeout: float = 600,
+                qname: str = "input", collect: bool = True):
+    """Feed data for inference (parity: TFCluster.inference,
+    TFCluster.py:96-115); the results come back in partition order.
+
+    With ``collect=True`` (default) results are gathered into a
+    driver-side list. With ``collect=False`` the return value is the
+    engine's lazy handle (LocalEngine: a generator holding at most one
+    window of partitions), so large outputs never materialize on the
+    driver.
+    """
+    logger.info("feeding inference data")
+    self._require_engine_mode("inference()")
+    # recovery drains must keep EndPartition markers for inference feeds
+    # (ClusterSupervisor._quarantine_dead_hub reads this off the shared meta)
+    self.cluster_meta["feed_kind"] = "inference"
+    fn = node_mod.InferenceFeeder(self.cluster_info, self.cluster_meta,
+                                  feed_timeout=feed_timeout, qname=qname)
+    data_partitions = self._wrap_lazy(data_partitions)
+    if collect:
+      with self._span("cluster.inference_feed"):
+        return self.engine.map_partitions(data_partitions, fn)
+    return self.engine.map_partitions_lazy(data_partitions, fn,
+                                           timeout=feed_timeout)
+
+  @staticmethod
+  def _wrap_lazy(parts):
+    """Bare-callable partitions (lazy handles) become single-item
+    partitions the feeders resolve executor-side
+    (``node._materialize_partition``). Engine-native handles and row
+    partitions pass through untouched."""
+    if hasattr(parts, "mapPartitions") or hasattr(parts, "rdd") \
+        or hasattr(parts, "foreachRDD"):
+      return parts
+    if isinstance(parts, collections.abc.Iterator):
+      # a one-shot stream of partitions stays a stream: the driver pulls
+      # one window at a time
+      return ([p] if callable(p) else p for p in parts)
+    # a re-iterable collection wraps eagerly (epochs re-iterate it)
+    return [[p] if callable(p) else p for p in parts]
+
+  @staticmethod
+  def _replicate(parts: Sequence, epochs: int):
+    """Repeat the dataset ``epochs`` times without touching its rows: an
+    engine-native handle (an RDD, or a DataFrame wrapping one) by
+    ``union`` (TFCluster.py:90-94), a driver-side partition list by
+    concatenation."""
+    if hasattr(parts, "rdd"):           # DataFrame → its RDD
+      parts = parts.rdd
+    if hasattr(parts, "mapPartitions"):  # RDD-like: epochs via union
+      out = parts
+      for _ in range(epochs - 1):
+        out = out.union(parts)
+      return out
+    out = []
+    for _ in range(epochs):
+      out.extend(parts)
+    return out
 
   @property
   def server_addr(self):
-    """Rendezvous address (HEALTH queries and stop requests go here)."""
+    """Rendezvous address: HEALTH queries, and the streaming stop signal
+    (``rendezvous.Client(addr).request_stop()``), go here."""
     return self.server.addr
 
   # -- lifecycle -------------------------------------------------------------
@@ -365,8 +597,9 @@ class Cluster(object):
     """Stop the cluster; raise if any node failed.
 
     ``timeout`` arms a SIGALRM watchdog (3-day default) guarding against
-    hung shutdowns (parity: TFCluster.py:117,136-144). ``grace_secs`` is
-    kept for signature parity; FILES mode has no feed to drain.
+    hung shutdowns (parity: TFCluster.py:117,136-144). ``grace_secs``: in
+    InputMode.SPARK, how long each shutdown task waits after its node
+    stopped.
     """
     in_main = threading.current_thread() is threading.main_thread()
     if timeout and in_main:
@@ -376,21 +609,33 @@ class Cluster(object):
       signal.alarm(int(timeout))
     try:
       with self._span("cluster.shutdown"):
-        self._shutdown_inner()
+        self._shutdown_inner(grace_secs)
     finally:
       if timeout and in_main:
         signal.alarm(0)
         signal.signal(signal.SIGALRM, old)
 
-  def _shutdown_inner(self) -> None:
+  def _shutdown_inner(self, grace_secs: float) -> None:
+    workers = [n for n in self.cluster_info
+               if n["job_name"] in node_mod.GROUP_ROLES]
     background = [n for n in self.cluster_info
                   if n["job_name"] in node_mod.BACKGROUND_ROLES]
 
-    if any(n.get("tb_url") for n in self.cluster_info):
-      # reap the TensorBoard the chief spawned. One PINNED task per executor
-      # slot (shared-queue tasks could all land on one free executor and
-      # miss the chief's), each best-effort so a dead node can't abort the
-      # rest of shutdown.
+    if self.input_mode == InputMode.ENGINE:
+      # push end-of-feed markers through a shutdown job on free (worker)
+      # executors (parity: TFCluster.py:174-176); it also reaps the
+      # chief's TensorBoard and raises a node's late error
+      fn = node_mod.ShutdownTask(
+          self.cluster_info, self.cluster_meta, grace_secs=grace_secs,
+          queues=[q for q in self.queues if q not in ("error", "output",
+                                                      "control")])
+      self.engine.foreach_partition([[n["executor_id"]] for n in workers],
+                                    fn).wait()
+    elif any(n.get("tb_url") for n in self.cluster_info):
+      # InputMode.TENSORFLOW has no shutdown job: reap the TensorBoard the
+      # chief spawned. One PINNED task per executor slot (shared-queue
+      # tasks could all land on one free executor and miss the chief's),
+      # each best-effort so a dead node can't abort the rest of shutdown.
       fn = node_mod.make_tb_kill_fn(self.cluster_info, self.cluster_meta)
       try:
         self.engine.run_on_executors(
@@ -452,10 +697,8 @@ class Cluster(object):
     return None
 
 
-def _refuse_unported(input_mode, group_map, elastic, feed_segment) -> None:
+def _refuse_unported(group_map, elastic, feed_segment) -> None:
   """Raise, naming the ROADMAP item, for what the port cannot run yet."""
-  if input_mode != InputMode.FILES:
-    raise NotImplementedError(_FEED_PLANE % "input_mode=InputMode.ENGINE")
   if obs_metrics.enabled():
     raise NotImplementedError(
         "TOS_OBS=1: the observability plane (the executor shippers, the "
@@ -479,7 +722,9 @@ def run(engine: Engine, main_fn, tf_args=None,
         reservation_timeout: float = 600,
         queues: Sequence[str] = ("input", "output", "error", "control"),
         eval_node: bool = False, release_port: bool = True,
-        chips_per_node: int = 0,
+        chips_per_node: int = 0, qmax: int = 1024,
+        feed_transport: str = "auto", feed_chunk_size: int = 256,
+        shm_capacity: int = 64 * 1024 * 1024,
         heartbeat_interval: Optional[float] = 5.0,
         supervise: bool = True, max_restarts: int = 2,
         restart_backoff: float = 0.5,
@@ -487,7 +732,8 @@ def run(engine: Engine, main_fn, tf_args=None,
         train_unroll: Optional[int] = None,
         group_map: Optional[Dict[int, int]] = None,
         elastic: bool = False,
-        feed_segment=None) -> Cluster:
+        feed_segment=None,
+        feed_target_bytes: Optional[int] = None) -> Cluster:
   """Start a cluster and run ``main_fn(tf_args, ctx)`` on every node.
 
   Signature parity with TensorFlowOnSpark's ``TFCluster.run``
@@ -497,6 +743,18 @@ def run(engine: Engine, main_fn, tf_args=None,
   with too few cards fails bring-up with the count in the message.
   ``driver_ps_nodes`` hosts the ps nodes on the driver machine (parity
   :229,298-316).
+
+  InputMode.SPARK: each node runs ``main_fn`` in a background process and
+  reads what :meth:`Cluster.train` / :meth:`Cluster.inference` feed
+  through ``ctx.get_data_feed()``. ``feed_transport``: ``"shm"`` carries a
+  node's input on a shared-memory ring (:mod:`.control.shmring`; feeder
+  and node on one host), ``"queue"`` on the hub's manager queues, and
+  ``"auto"`` picks ``"shm"`` on engines whose executors share the
+  driver's host (LocalEngine). A ring that cannot be built fails bring-up
+  with the compiler's message; there is no fallback to the queue. Rows
+  travel in chunks of ``feed_chunk_size`` (or sized to
+  ``feed_target_bytes`` a chunk), at most ``qmax`` rows waiting in a hub
+  queue, ``shm_capacity`` bytes in a ring (8 MiB at least).
 
   ``main_fn`` travels to the executors by the standard ``pickle``, so it
   must be a module-level function of an importable module or of the
@@ -512,10 +770,21 @@ def run(engine: Engine, main_fn, tf_args=None,
   cluster on the first death. ``train_unroll=K`` exports
   ``TOS_TRAIN_UNROLL=K`` into every node (``parallel.sharding``).
   """
-  _refuse_unported(input_mode, group_map, elastic, feed_segment)
+  _refuse_unported(group_map, elastic, feed_segment)
   num_executors = num_executors or engine.num_executors
   if train_unroll is not None and int(train_unroll) < 1:
     raise ValueError("train_unroll must be >= 1, got %r" % (train_unroll,))
+  if feed_target_bytes is not None and int(feed_target_bytes) < 0:
+    raise ValueError("feed_target_bytes must be >= 0, got %r"
+                     % (feed_target_bytes,))
+  if feed_transport == "auto":
+    # a shared-memory ring needs the feeder task and the node on one host,
+    # which only engines with colocated executors guarantee
+    feed_transport = "shm" if getattr(engine, "colocated_executors", False) \
+        else "queue"
+  if feed_transport not in ("shm", "queue"):
+    raise ValueError("feed_transport must be 'auto', 'shm' or 'queue', got "
+                     "%r" % (feed_transport,))
   if driver_ps_nodes and input_mode != InputMode.FILES:
     raise ValueError("driver_ps_nodes requires InputMode.FILES/TENSORFLOW "
                      "(parity with TensorFlowOnSpark)")
@@ -569,10 +838,22 @@ def run(engine: Engine, main_fn, tf_args=None,
       "log_dir": log_dir,
       "release_port": release_port,
       "chips_per_node": chips_per_node,
+      "qmax": qmax,
+      # "queue" (manager-proxy, works everywhere) or "shm" (shared-memory
+      # ring for the input stream, one per node); "auto" resolved above
+      "feed_transport": feed_transport,
+      # rows per feed chunk: one codec envelope / ring payload per chunk,
+      # the transport unit AND the columnar assembly granularity
+      "feed_chunk_size": feed_chunk_size,
+      "shm_capacity": max(shm_capacity, 8 * 1024 * 1024),
       "heartbeat_interval": heartbeat_interval,
       # fused train loop default: every node exports this as
       # TOS_TRAIN_UNROLL (node._apply_node_env)
       "train_unroll": int(train_unroll) if train_unroll else None,
+      # the feeders' adaptive per-envelope byte budget (None/0 = the fixed
+      # feed_chunk_size row count)
+      "feed_target_bytes": (int(feed_target_bytes)
+                            if feed_target_bytes else None),
   }
   # the main fn must pickle by name: refuse a lambda or closure before the
   # server starts or any executor is touched

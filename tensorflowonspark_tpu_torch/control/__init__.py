@@ -3,8 +3,8 @@
 Copies of the JAX package's ``control/{marker,rendezvous,feedhub,
 chunkcodec}.py`` on the same wire: length-prefixed msgpack frames, written
 by the port's own msgpack subset (:mod:`._msgpack`), so a client of either
-package talks to a server of the other. ``shmring`` (the shared-memory
-feed ring) comes with the feed plane, ROADMAP Queue 1 item 14.
+package talks to a server of the other; and ``shmring``, the shared-memory
+ring that carries a node's input in InputMode.SPARK.
 """
 
 from tensorflowonspark_tpu_torch.control.marker import (  # noqa: F401

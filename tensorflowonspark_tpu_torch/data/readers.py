@@ -10,8 +10,7 @@ double-buffered host-to-card copy (:func:`device_prefetch`); plus
 object with the ``DataFeed`` surface these use — ``should_stop()``,
 ``next_batch_arrays(batch_size, dtype=)`` and ``next_slab_arrays(
 batch_size, unroll, dtype=)`` (a :class:`Slab`, or the partial tail's
-rows). The port's own ``DataFeed`` (InputMode.SPARK) is not ported yet
-(ROADMAP Queue 1 item 14).
+rows): the port's ``DataFeed`` (InputMode.SPARK), or a stand-in.
 """
 
 import collections

@@ -1,8 +1,7 @@
-"""L2' per-executor node runtime, FILES input mode (InputMode.TENSORFLOW).
+"""L2' per-executor node runtime and the feeder tasks of the engine feed plane.
 
-The port's copy of ``tensorflowonspark_tpu/node.py`` (lines 1-733 and its
-TensorBoard reaper), itself the counterpart of TensorFlowOnSpark's
-``TFSparkNode.py``:
+The port's copy of ``tensorflowonspark_tpu/node.py``, itself the
+counterpart of TensorFlowOnSpark's ``TFSparkNode.py``:
 
 - device allocation exports ``CUDA_VISIBLE_DEVICES`` for the node's card
   share (:mod:`.utils.gpu_info`, counting cards with ``nvidia-smi``), as
@@ -12,33 +11,45 @@ TensorBoard reaper), itself the counterpart of TensorFlowOnSpark's
   (:meth:`NodeContext.initialize_distributed`), where the JAX package calls
   ``jax.distributed.initialize`` and TensorFlowOnSpark exported
   ``TF_CONFIG``;
-- roles: workers run the user main fn in the foreground; ps/evaluator run
-  it in a background process while the foreground blocks on a ``control``
-  queue until the driver sends ``None`` (``TFSparkNode.py:441-458``);
+- roles: workers run the user main fn in the foreground (InputMode.
+  TENSORFLOW) or in a spawned background process (InputMode.SPARK, so the
+  executor is free for feeder tasks, ``TFSparkNode.py:431-439``);
+  ps/evaluator run it in a background process while the foreground blocks
+  on a ``control`` queue until the driver sends ``None`` (``:441-458``);
+- with ``feed_transport="shm"`` the node creates a shared-memory ring
+  (:mod:`.control.shmring`) for its input stream and advertises its name
+  on the hub; a ring that cannot be built fails the bring-up (no fallback
+  to the queue);
+- the feeder tasks (:class:`TrainFeeder`, :class:`InferenceFeeder`,
+  :class:`ShutdownTask`) push partitions into a node's input channel as
+  codec-encoded chunks (:func:`put_rows_chunk`), collect inference
+  results and send the end of feed (``TFSparkNode.py:468-656``);
 - fault propagation: a dedicated ``error`` queue per executor, background
   exceptions captured as tracebacks (``TFSparkNode.py:423-429``);
 - retried bring-up tasks re-register idempotently, while a live hub from a
   concurrent duplicate forces an error (``TFSparkNode.py:259-265``).
 
-Task functions travel by the standard ``pickle``: the node task and the
-TensorBoard reaper are instances of module-level classes, and the user's
-``main_fn`` must be importable by name (a module-level function, or one in
-the driver's ``__main__`` script, which spawned executors re-import). The
-feed-plane half of the JAX module (``input_channel``, ``put_rows_chunk``,
-``DualInput``, ``make_train_fn``, ``make_inference_fn``,
-``make_shutdown_fn``) is ROADMAP Queue 1 item 14.
+Task functions travel by the standard ``pickle``: the node task, the
+feeder tasks and the TensorBoard reaper are instances of module-level
+classes, and the user's ``main_fn`` must be importable by name (a
+module-level function, or one in the driver's ``__main__`` script, which
+spawned executors re-import).
 """
 
+import itertools
 import logging
 import os
 import pickle
 import socket
 import subprocess
 import sys
+import time
 import traceback
 from typing import Dict, List, Optional
 
-from tensorflowonspark_tpu_torch.control import feedhub, rendezvous
+from tensorflowonspark_tpu_torch.control import chunkcodec, feedhub, rendezvous
+from tensorflowonspark_tpu_torch.control.marker import EndPartition
+from tensorflowonspark_tpu_torch.obs import metrics as obs_metrics
 from tensorflowonspark_tpu_torch.utils import gpu_info, hostinfo, paths
 
 logger = logging.getLogger(__name__)
@@ -56,9 +67,19 @@ ENV_NODE_PORT = "TOS_TPU_NODE_PORT"
 # at node bring-up) has no counterpart yet: the port runs eagerly. Compiled
 # dispatch, and a cache for it, is ROADMAP Queue 1 item 17.
 
-_FEED_PLANE = ("the engine feed plane (DataFeed, InputMode.ENGINE) is not "
-               "ported to PyTorch yet (ROADMAP Queue 1 item 14); in "
-               "InputMode.TENSORFLOW each node reads its own files")
+#: feeder byte budget per wire envelope: when set (> 0), feeders size
+#: chunks adaptively from observed encoded bytes/row instead of the fixed
+#: ``feed_chunk_size`` row count. ``cluster.run(feed_target_bytes=...)``
+#: takes precedence over the env. 0/unset = fixed row count. (env
+#: registry: TOS008)
+ENV_FEED_TARGET_BYTES = "TOS_FEED_TARGET_BYTES"
+
+#: adaptive-sizing row-count clamp, both directions: an envelope never
+#: carries fewer rows than the floor (per-envelope overhead would
+#: dominate) nor more than the cap (consumer-side latency and memory)
+_ADAPT_MIN_ROWS = 16
+_ADAPT_MAX_ROWS = 8192
+
 _CHECKPOINTS = ("checkpointing and model export under cluster.run are not "
                 "ported to PyTorch yet (ROADMAP Queue 1 item 6)")
 
@@ -141,7 +162,12 @@ class NodeContext(object):
   def get_data_feed(self, train_mode=True, qname_in="input",
                     qname_out="output", input_mapping=None,
                     liveness_timeout=600.0):
-    raise NotImplementedError("ctx.get_data_feed: " + _FEED_PLANE)
+    """The :class:`~tensorflowonspark_tpu_torch.datafeed.DataFeed` over
+    this node's hub (and its shm ring, when it has one): the rows the
+    driver's ``Cluster.train`` / ``inference`` feed (InputMode.SPARK)."""
+    from tensorflowonspark_tpu_torch.datafeed import DataFeed
+    return DataFeed(self.hub, train_mode, qname_in, qname_out, input_mapping,
+                    liveness_timeout=liveness_timeout)
 
   def release_port(self) -> None:
     """Release the reserved coordinator port prior to starting the process
@@ -294,7 +320,8 @@ def _spawn_tensorboard(log_dir: str) -> Optional[dict]:
 def _background_runner(fn_bytes: bytes, tf_args, ctx_kwargs: dict,
                        hub_addr, authkey: bytes, server_addr=None,
                        heartbeat_interval=None):
-  """Entry point of the background process running a ps/evaluator main fn.
+  """Entry point of the background process running the user main fn:
+  every role in InputMode.SPARK, ps/evaluator in InputMode.TENSORFLOW.
 
   Reconnects to this executor's feed hub by address (the hub lives in a
   separate manager process), captures any exception into the ``error``
@@ -387,6 +414,28 @@ def _check_main_fn(main_fn) -> bytes:
         % (main_fn, e)) from e
 
 
+def _create_ring(hub, meta: dict, executor_id: int, restart_count: int):
+  """Create this node's shared-memory input ring and advertise its name on
+  the hub (``ring_name``); control, error and output queues stay on the
+  hub. Raises (the build's message included) when the ring cannot be
+  made: the port does not fall back to the queue transport."""
+  from tensorflowonspark_tpu_torch.control import shmring
+  ring_name = "/tos_feed_%x_%d" % (meta["id"] & 0xFFFFFFFF, executor_id)
+  if restart_count:
+    # generation-suffix a relaunched node's ring: co-host feeder processes
+    # cache opened rings by name (shmring.open_cached), so reusing the dead
+    # predecessor's name would hand them a stale mapping of an unlinked
+    # segment. Reap the old generations' segments while here.
+    shmring.unlink_stale(ring_name)
+    for gen in range(1, restart_count):
+      shmring.unlink_stale("%s_r%d" % (ring_name, gen))
+    ring_name = "%s_r%d" % (ring_name, restart_count)
+  ring = shmring.ShmRing.create(ring_name,
+                                meta.get("shm_capacity", 64 * 1024 * 1024))
+  shmring.hold(executor_id, ring)
+  hub.set("ring_name", ring_name)
+
+
 class NodeTask(object):
   """The engine task that brings up one cluster node (parity:
   TFSparkNode.run → _mapfn, TFSparkNode.py:158-465; the JAX package's
@@ -426,8 +475,18 @@ class NodeTask(object):
 
     # 3. start the feed hub; remote mode for driver-reachable roles
     hub_mode = "remote" if job_name in BACKGROUND_ROLES else "local"
-    hub = feedhub.start(authkey, meta["queues"], mode=hub_mode)
+    hub = feedhub.start(authkey, meta["queues"], mode=hub_mode,
+                        qmax=meta.get("qmax", 1024))
     feedhub.hold(executor_id, hub)
+    # only an InputMode.SPARK node is fed: in InputMode.TENSORFLOW nothing
+    # would use the ring, and its /dev/shm segment (freed by the shutdown
+    # job of InputMode.SPARK) would outlive the cluster
+    if meta.get("feed_transport") == "shm" and meta["input_mode"] == 1:
+      try:
+        _create_ring(hub, meta, executor_id, restart_count)
+      except BaseException:
+        feedhub.release(executor_id)
+        raise
     hostinfo.write_executor_id(executor_id, working_dir)
     with open(os.path.join(working_dir, HUB_ADDR_FILE), "w") as f:
       f.write("%s:%d" % hub.addr)
@@ -519,7 +578,7 @@ class NodeTask(object):
     # (which inherits this env) resolve the same defaults
     _apply_node_env(meta)
 
-    if job_name in BACKGROUND_ROLES:
+    if job_name in BACKGROUND_ROLES or meta["input_mode"] == 1:
       return self._run_background(executor_id, job_name, task_index, hub,
                                   authkey, tmp_sock, ctx_kwargs, hb_interval)
     return self._run_foreground(executor_id, hub, tmp_sock, ctx_kwargs,
@@ -527,9 +586,10 @@ class NodeTask(object):
 
   def _run_background(self, executor_id, job_name, task_index, hub, authkey,
                       tmp_sock, ctx_kwargs, hb_interval):
-    """ps/evaluator: the fn runs in a background process while this task
-    parks on the control queue until the driver sends None (parity
-    :431-458)."""
+    """The fn runs in a spawned background process (parity :431-458).
+    InputMode.SPARK workers return at once, so feeder tasks can run on
+    this executor; ps/evaluator park on the control queue until the
+    driver sends None."""
     tmp_sock.close()
     import multiprocessing as mp
     meta = self.cluster_meta
@@ -540,6 +600,8 @@ class NodeTask(object):
         daemon=True, name="tos-node-%d" % executor_id)
     proc.start()
     hub.set("node_pid", proc.pid)
+    if job_name not in BACKGROUND_ROLES:
+      return [executor_id]
     control = hub.get_queue("control")
     while True:
       items = control.get_many(1, timeout=1.0)
@@ -634,6 +696,462 @@ def _get_hub(cluster_info: List[dict], executor_id: int, authkey: bytes):
   raise RuntimeError("no cluster node found for executor %d" % executor_id)
 
 
+# --- the engine feed plane: channels and feeder tasks (TFSparkNode.py:468-656)
+
+
+def _open_advertised_ring(hub, qname: str):
+  """The node's shm ring adapter, or None (not advertised, or not
+  reachable from this process: a feeder on another host).
+
+  One resolution for the producer and consumer paths, so their choice of
+  channel cannot drift."""
+  if qname != "input":
+    return None
+  ring_name = hub.get("ring_name")
+  if not ring_name:
+    return None
+  from tensorflowonspark_tpu_torch.control import shmring
+  try:
+    return shmring.RingQueueAdapter(shmring.open_cached(ring_name))
+  except OSError as e:
+    logger.warning("advertised shm ring %r unreachable from this process "
+                   "(%s); using the hub queue", ring_name, e)
+    return None
+
+
+def input_channel(hub, qname: str = "input"):
+  """PRODUCER-side input stream: the shared-memory ring when the node
+  advertises one (feed_transport='shm') and it is reachable from this
+  process, else the hub queue. Both expose the same put/get/join surface
+  (:class:`~.control.shmring.RingQueueAdapter`).
+
+  A feeder task on a DIFFERENT host cannot open the node's ring: it falls
+  back to the hub queue, and the node's consumer drains both
+  (:class:`DualInput`)."""
+  ring = _open_advertised_ring(hub, qname)
+  return ring if ring is not None else hub.get_queue(qname)
+
+
+def _slice_chunk(chunk, a: int, b: int):
+  """Row-range slice of a pending chunk (row list or ColumnChunk)."""
+  if isinstance(chunk, chunkcodec.ColumnChunk):
+    return chunkcodec.ColumnChunk([c[a:b] for c in chunk.cols],
+                                  chunk.scalar, chunk.tuples, b - a)
+  return chunk[a:b]
+
+
+def put_rows_chunk(channel, rows, timeout=None, stats=None) -> int:
+  """Ship one feed chunk as one or more chunk-boundary envelopes.
+
+  The chunk is encoded ONCE in the feeder process (columnar for
+  homogeneous rows, with per-column wire encodings, :mod:`.control.
+  chunkcodec`) and travels as one unit on either transport: a ring
+  payload, or a hub-queue ``ChunkEnvelope`` whose manager pickle is a
+  bytes copy instead of a per-row object walk. Chunk boundaries survive
+  to the consumer, which is what lets ``DataFeed`` assemble batches from
+  column views instead of row tuples.
+
+  Splitting works on the ENCODED payload size: oversized chunks halve at
+  the row level until every envelope fits ``chunkcodec.MAX_PAYLOAD``, in
+  row order. A single row whose payload still exceeds the bound raises
+  :class:`~.control.chunkcodec.OversizedRowError`.
+
+  ``rows`` may be a row list or a ``ColumnChunk``. Returns the encoded
+  bytes shipped; ``stats`` (optional dict) accumulates per-column encoding
+  counts for the chunks that shipped.
+  """
+  if not isinstance(rows, chunkcodec.ColumnChunk):
+    rows = list(rows)
+  enc_counts: Dict[str, int] = {}
+  total_bytes = 0
+  total_rows = 0
+  # LIFO work stack: push the back half first so rows ship in order
+  stack = [rows]
+  while stack:
+    chunk = stack.pop()
+    n = chunk.n if isinstance(chunk, chunkcodec.ColumnChunk) else len(chunk)
+    tally: Dict[str, int] = {}
+    payload = chunkcodec.encode(chunk, tally)
+    if len(payload) > chunkcodec.MAX_PAYLOAD:
+      if n <= 1:
+        raise chunkcodec.OversizedRowError(
+            "a single row encodes to %d bytes, above the transport bound "
+            "(chunkcodec.MAX_PAYLOAD = %d); it cannot be split further at "
+            "the row level" % (len(payload), chunkcodec.MAX_PAYLOAD))
+      half = n // 2
+      stack.append(_slice_chunk(chunk, half, n))
+      stack.append(_slice_chunk(chunk, 0, half))
+      continue
+    channel.put_chunk(n, payload, block=True, timeout=timeout)
+    total_bytes += len(payload)
+    total_rows += n
+    # merge the tally only for envelopes that shipped (an oversized encode
+    # attempt is encoded again after the split)
+    for name, cnt in tally.items():
+      enc_counts[name] = enc_counts.get(name, 0) + cnt
+  if stats is not None:
+    for name, cnt in enc_counts.items():
+      stats[name] = stats.get(name, 0) + cnt
+  reg = obs_metrics.active()
+  if reg is not None and total_rows:
+    reg.counter("feed.wire_bytes").inc(total_bytes)
+    reg.counter("feed.wire_rows").inc(total_rows)
+    for name, cnt in enc_counts.items():
+      reg.counter("feed.wire_enc." + name).inc(cnt)
+  return total_bytes
+
+
+class _ChunkSizer(object):
+  """Adaptive rows-per-envelope targeting ``target`` encoded bytes.
+
+  Tracks an EWMA of observed encoded bytes per row (compression folds into
+  the ratio: a 4x codec makes rows cheap on the wire, so the next envelope
+  carries more of them). The row target stays clamped to
+  ``[_ADAPT_MIN_ROWS, _ADAPT_MAX_ROWS]`` both ways."""
+
+  __slots__ = ("target", "rows", "_bpr")
+
+  def __init__(self, base_rows: int, target_bytes: int):
+    self.target = int(target_bytes)
+    self.rows = max(_ADAPT_MIN_ROWS, min(int(base_rows), _ADAPT_MAX_ROWS))
+    self._bpr = 0.0
+
+  def observe(self, n_rows: int, n_bytes: int) -> None:
+    if n_rows <= 0:
+      return
+    bpr = n_bytes / float(n_rows)
+    self._bpr = bpr if not self._bpr else 0.5 * self._bpr + 0.5 * bpr
+    if self._bpr > 0:
+      self.rows = max(_ADAPT_MIN_ROWS,
+                      min(int(self.target / self._bpr), _ADAPT_MAX_ROWS))
+
+
+def _feed_plan(cluster_meta: Dict, chunk_size: Optional[int]):
+  """One feeder task's shipping plan from the cluster meta:
+  ``(chunk_size, sizer)``. The sizer exists only when a byte budget is set
+  (``feed_target_bytes`` cluster param, else ``TOS_FEED_TARGET_BYTES``).
+  (The JAX package also compiles a ``feed_segment`` here, a pushdown of
+  the consumer's map/filter prefix into the feeder: ROADMAP Queue 1 item
+  11, refused by ``cluster.run``.)"""
+  chunk_size = chunk_size or cluster_meta.get("feed_chunk_size", 256)
+  # a new stream's columns owe nothing to the last one: drop any probe
+  # backoff left by a previous feeder task in this process, or a fresh
+  # compressible stream would ship its leading chunks raw
+  chunkcodec._probe_backoff.clear()
+  target = cluster_meta.get("feed_target_bytes")
+  if not target:
+    try:
+      target = int(os.environ.get(ENV_FEED_TARGET_BYTES, "0") or 0)
+    except ValueError:
+      target = 0
+  sizer = _ChunkSizer(chunk_size, target) if target and target > 0 else None
+  return chunk_size, sizer
+
+
+def _flush_chunk(queue, chunk, sizer, timeout, stats=None) -> int:
+  """Ship one accumulated chunk; returns the rows delivered."""
+  nbytes = put_rows_chunk(queue, chunk, timeout=timeout, stats=stats) \
+      if chunk else 0
+  if sizer is not None and chunk:
+    sizer.observe(len(chunk), nbytes)
+  return len(chunk)
+
+
+class DualInput(object):
+  """CONSUMER-side input draining the shm ring AND the hub queue.
+
+  Co-host feeders (and the end-of-feed markers of co-hosted shutdown
+  tasks) arrive on the ring; feeders on other hosts, and shutdown tasks
+  placed off-host, fall back to the hub queue. Per-partition row order is
+  preserved because any single feeder uses exactly one channel.
+  ``task_done`` routes to whichever channel produced the last unit, so
+  queue join backpressure still works for remote feeders.
+
+  An end-of-feed ``None`` arriving on the ring (a shutdown marker, or the
+  adapter's synthesized marker when the ring closes) is HELD BACK while
+  the hub queue still has rows: a marker must never overtake remote
+  feeders' in-flight data. ``delivered`` counts the units taken from each
+  channel.
+  """
+
+  def __init__(self, ring, queue):
+    self._ring = ring
+    self._queue = queue
+    self._last = None
+    self._stash = None    # ring tail (from the marker on) awaiting drain
+    self._stash_chunk = None  # held-back end-of-feed chunk (get_chunk path)
+    self.delivered = {"ring": 0, "queue": 0}
+
+  def _from(self, ch, got):
+    self._last = ch
+    self.delivered["ring" if ch is self._ring else "queue"] += 1
+    return got
+
+  def _deliver_ring(self, got, max_items: int):
+    # identity scan, not `None in got`: rows may be numpy arrays, whose
+    # __eq__ is elementwise and makes `in`/.index raise on truth-testing
+    idx = next((i for i, r in enumerate(got) if r is None), -1)
+    if idx >= 0 and not self._queue.empty():
+      self._stash = got[idx:]
+      prefix = got[:idx]
+      if prefix:
+        return self._from(self._ring, prefix)
+      queued = self._queue.get_many(max_items, block=False)
+      if queued:
+        return self._from(self._queue, queued)
+      # the queue drained between the check and the read: release now
+      out, self._stash = self._stash, None
+      return self._from(self._ring, out)
+    return self._from(self._ring, got)
+
+  def get_many(self, max_items: int, block: bool = True, timeout=None):
+    if self._stash is not None:
+      queued = self._queue.get_many(max_items, block=False)
+      if queued:
+        return self._from(self._queue, queued)
+      out, self._stash = self._stash, None
+      return self._from(self._ring, out)
+    # the blocking contract of the single-channel queues: timeout=None
+    # blocks until data arrives (alternating short polls of both channels)
+    deadline = None if timeout is None else time.monotonic() + timeout
+    while True:
+      got = self._ring.get_many(max_items, block=False)
+      if got:
+        return self._deliver_ring(got, max_items)
+      got = self._queue.get_many(max_items, block=False)
+      if got:
+        return self._from(self._queue, got)
+      if not block:
+        return []
+      remaining = None if deadline is None else deadline - time.monotonic()
+      if remaining is not None and remaining <= 0:
+        return []
+      wait = 0.25 if remaining is None else min(remaining, 0.25)
+      got = self._ring.get_many(max_items, block=True, timeout=wait)
+      if got:
+        return self._deliver_ring(got, max_items)
+
+  def _ring_chunk(self, got, max_rows: int):
+    """Deliver a ring chunk, holding back an end-of-feed marker while the
+    hub queue still has remote feeders' data (the ``get_chunk`` analog of
+    ``_deliver_ring``)."""
+    if got[0] == "marker" and got[1] is None and not self._queue.empty():
+      queued = self._queue.get_chunk(max_rows, block=False)
+      if queued:
+        self._stash_chunk = got
+        return self._from(self._queue, queued)
+      # the queue drained between the check and the read: release now
+    return self._from(self._ring, got)
+
+  def get_chunk(self, max_rows: int = 1024, block: bool = True,
+                timeout=None):
+    """Chunk-granular dequeue over both channels (``None`` on timeout):
+    one chunk-boundary unit per call, and an end-of-feed ``None`` from the
+    ring waits for the hub queue to drain."""
+    if self._stash_chunk is not None:
+      queued = self._queue.get_chunk(max_rows, block=False)
+      if queued:
+        return self._from(self._queue, queued)
+      out, self._stash_chunk = self._stash_chunk, None
+      return self._from(self._ring, out)
+    deadline = None if timeout is None else time.monotonic() + timeout
+    while True:
+      got = self._ring.get_chunk(max_rows, block=False)
+      if got:
+        return self._ring_chunk(got, max_rows)
+      got = self._queue.get_chunk(max_rows, block=False)
+      if got:
+        return self._from(self._queue, got)
+      if not block:
+        return None
+      remaining = None if deadline is None else deadline - time.monotonic()
+      if remaining is not None and remaining <= 0:
+        return None
+      wait = 0.25 if remaining is None else min(remaining, 0.25)
+      got = self._ring.get_chunk(max_rows, block=True, timeout=wait)
+      if got:
+        return self._ring_chunk(got, max_rows)
+
+  def task_done(self, n: int = 1) -> None:
+    if self._last is not None:
+      self._last.task_done(n)
+
+  def qsize(self) -> int:
+    return self._ring.qsize() + self._queue.qsize()
+
+  def empty(self) -> bool:
+    return self.qsize() == 0
+
+
+def consumer_channel(hub, qname: str = "input"):
+  """The node-side input stream: ring+queue (:class:`DualInput`) when a
+  ring is advertised and reachable, else the hub queue."""
+  ring = _open_advertised_ring(hub, qname)
+  if ring is not None:
+    return DualInput(ring, hub.get_queue(qname))
+  return hub.get_queue(qname)
+
+
+def _check_errors(hub, where: str) -> None:
+  """Poll the error queue; re-raise worker tracebacks on the feeder or
+  driver side (parity: TFSparkNode.py:508-515)."""
+  eq = hub.get_queue("error")
+  errs = eq.get_many(16, block=False)
+  if errs:
+    # put back so shutdown's check still sees it (parity :644-650)
+    eq.put_many(errs)
+    raise RuntimeError("worker error detected during %s:\n%s"
+                       % (where, "\n".join(str(e) for e in errs)))
+
+
+_NO_ITEM = object()
+
+
+def _materialize_partition(iterator):
+  """Resolve a lazy partition handle on the executor.
+
+  A partition of exactly ONE zero-arg callable is a handle: it is called
+  HERE, so rows are produced executor-side and never ship through the
+  driver. Anything else passes through untouched.
+  """
+  first = next(iterator, _NO_ITEM)
+  if first is _NO_ITEM:
+    return iter(())
+  if callable(first):
+    second = next(iterator, _NO_ITEM)
+    if second is _NO_ITEM:
+      return iter(first())
+    return itertools.chain([first, second], iterator)
+  return itertools.chain([first], iterator)
+
+
+# The JAX package's feeders also call ``chaos.stall_point("feeder")`` (the
+# fault sites of utils/chaos.py, ROADMAP Queue 1 item 8) and ship their wire
+# counters through a per-process obs shipper (``_ensure_feeder_shipper``,
+# the observability plane, item 7); cluster.run refuses TOS_OBS=1 until then.
+
+
+class TrainFeeder(object):
+  """Feeder task: push one data partition into the local node's input
+  channel (parity: TFSparkNode.train, TFSparkNode.py:468-535; the JAX
+  package's ``make_train_fn._train``).
+
+  Rows move as chunk-boundary envelopes (:func:`put_rows_chunk`), encoded
+  once (columnar for homogeneous rows) and shipped whole, with blocking
+  backpressure; the task then waits until the node consumed everything,
+  surfacing the node's errors. A node in the ``terminating`` state (the
+  user called ``DataFeed.terminate``) gets nothing: the partition is
+  drained and dropped so the engine job completes. ``chunk_size`` defaults
+  to the cluster's ``feed_chunk_size``; a ``feed_target_bytes`` budget
+  sizes chunks adaptively. Returns ``[rows fed]``.
+  """
+
+  def __init__(self, cluster_info, cluster_meta, feed_timeout=600,
+               qname="input", chunk_size=None):
+    self.cluster_info = cluster_info
+    self.cluster_meta = cluster_meta
+    self.feed_timeout = feed_timeout
+    self.qname = qname
+    self.chunk_size = chunk_size
+
+  def __call__(self, iterator):
+    executor_id = hostinfo.read_executor_id(os.getcwd())
+    hub = _get_hub(self.cluster_info, executor_id,
+                   bytes(self.cluster_meta["authkey"]))
+    state = hub.get("state")
+    queue = input_channel(hub, self.qname)
+    if state == "terminating":
+      # parity :492-496; the RAW iterator is drained, so a lazy handle is
+      # discarded uncalled
+      logger.info("node terminating; skipping partition feed")
+      for _ in iterator:
+        pass
+      return [0]
+    size, sizer = _feed_plan(self.cluster_meta, self.chunk_size)
+    rows = 0
+    flushes = 0
+    chunk = []
+    for item in _materialize_partition(iterator):
+      chunk.append(item)
+      if len(chunk) >= (sizer.rows if sizer is not None else size):
+        rows += _flush_chunk(queue, chunk, sizer, self.feed_timeout)
+        chunk = []
+        flushes += 1
+        # poll the error queue every 8th chunk, at the flush point only
+        if flushes % 8 == 0:
+          _check_errors(hub, "feeding")
+    rows += _flush_chunk(queue, chunk, sizer, self.feed_timeout)
+    # wait until the consumer processed everything, surfacing errors
+    # (parity :504-517)
+    deadline = time.monotonic() + self.feed_timeout
+    while not queue.join(timeout=1.0):
+      _check_errors(hub, "feeding")
+      if time.monotonic() > deadline:
+        raise TimeoutError(
+            "feed timeout (%ds) waiting for node to consume %d rows"
+            % (self.feed_timeout, rows))
+    _check_errors(hub, "feeding")
+    logger.info("fed %d rows to executor %d", rows, executor_id)
+    return [rows]
+
+
+class InferenceFeeder(object):
+  """Inference task: feed one partition, then collect exactly its results
+  from the node's output queue (parity: TFSparkNode.inference,
+  TFSparkNode.py:538-599; the JAX package's ``make_inference_fn``). An
+  ``EndPartition`` marker follows the rows, so the node's batches end at
+  the partition boundary."""
+
+  def __init__(self, cluster_info, cluster_meta, feed_timeout=600,
+               qname="input", chunk_size=None):
+    self.cluster_info = cluster_info
+    self.cluster_meta = cluster_meta
+    self.feed_timeout = feed_timeout
+    self.qname = qname
+    self.chunk_size = chunk_size
+
+  def __call__(self, iterator):
+    iterator = _materialize_partition(iterator)
+    executor_id = hostinfo.read_executor_id(os.getcwd())
+    hub = _get_hub(self.cluster_info, executor_id,
+                   bytes(self.cluster_meta["authkey"]))
+    queue = input_channel(hub, self.qname)
+    size, sizer = _feed_plan(self.cluster_meta, self.chunk_size)
+    count = 0
+    chunk = []
+    for item in iterator:
+      chunk.append(item)
+      if len(chunk) >= (sizer.rows if sizer is not None else size):
+        count += _flush_chunk(queue, chunk, sizer, self.feed_timeout)
+        chunk = []
+    count += _flush_chunk(queue, chunk, sizer, self.feed_timeout)
+    if count == 0:
+      return []  # an empty partition short-circuits (parity :569-570)
+    queue.put(EndPartition(), block=True, timeout=self.feed_timeout)
+
+    deadline = time.monotonic() + self.feed_timeout
+    while not queue.join(timeout=1.0):
+      _check_errors(hub, "inference feeding")
+      if time.monotonic() > deadline:
+        raise TimeoutError("feed timeout (%ds) during inference"
+                           % self.feed_timeout)
+
+    # collect exactly `count` results (parity :588-595)
+    out_q = hub.get_queue("output")
+    results = []
+    while len(results) < count:
+      got = out_q.get_many(count - len(results), timeout=self.feed_timeout)
+      if not got:
+        _check_errors(hub, "inference collection")
+        if time.monotonic() > deadline:
+          raise TimeoutError("timed out collecting inference results")
+        continue
+      results.extend(got)
+      out_q.task_done(len(got))
+    return results
+
+
+
 def _kill_tensorboard(hub) -> None:
   """SIGTERM this node's TensorBoard if it started one (parity :619-625)."""
   tb_pid = hub.get("tb_pid")
@@ -668,3 +1186,90 @@ class TensorBoardKill(object):
 def make_tb_kill_fn(cluster_info, cluster_meta) -> TensorBoardKill:
   return TensorBoardKill(cluster_info, bytes(cluster_meta["authkey"]))
 
+
+class ShutdownTask(object):
+  """Shutdown task: send end-of-feed, await the node's exit, surface late
+  errors (parity: TFSparkNode.shutdown, TFSparkNode.py:602-656; the JAX
+  package's ``make_shutdown_fn``).
+
+  The partition payload names the executor whose node this task stops.
+  Shutdown tasks ride the engine's SHARED queue, so a task can land on any
+  free executor; acting on the slot it occupies could give one node two
+  end-of-feed markers and another none. Host-local side effects
+  (TensorBoard SIGTERM, /dev/shm reap) run only when the target node
+  shares this task's host."""
+
+  def __init__(self, cluster_info, cluster_meta, grace_secs=0,
+               queues=("input",)):
+    self.cluster_info = cluster_info
+    self.authkey = bytes(cluster_meta["authkey"])
+    self.grace_secs = grace_secs
+    self.queues = tuple(queues)
+
+  def _host_of(self, eid):
+    for n in self.cluster_info:
+      if n["executor_id"] == eid:
+        return n["hub_addr"][0]
+    return None
+
+  def __call__(self, iterator):
+    target = None
+    for item in iterator:
+      target = item
+    here = hostinfo.read_executor_id(os.getcwd())
+    executor_id = here if target is None else int(target)
+    if executor_id == here:
+      # local: the cwd hub_addr file is authoritative (relaunched nodes
+      # rewrite it; cluster_info may still name the dead hub)
+      hub = _get_hub(self.cluster_info, executor_id, self.authkey)
+    else:
+      entry = next((n for n in self.cluster_info
+                    if n["executor_id"] == executor_id), None)
+      if entry is None:
+        raise RuntimeError("no cluster node found for executor %d"
+                           % executor_id)
+      hub = feedhub.connect(tuple(entry["hub_addr"]), self.authkey)
+    co_hosted = executor_id == here or \
+        self._host_of(executor_id) == self._host_of(here)
+
+    if co_hosted:
+      _kill_tensorboard(hub)  # a pid signal: valid on the node's host only
+
+    for qname in self.queues:
+      input_channel(hub, qname).put(None, block=True, timeout=60)
+
+    # wait for the node process to finish (state -> stopped)
+    deadline = time.monotonic() + max(self.grace_secs, 0) + 600
+    while hub.get("state") not in ("stopped",):
+      if time.monotonic() > deadline:
+        raise TimeoutError("node on executor %d did not stop" % executor_id)
+      time.sleep(0.5)
+    if self.grace_secs:
+      time.sleep(self.grace_secs)
+
+    # the input ring has served its purpose; unlink the shm segment so
+    # repeated runs don't accumulate /dev/shm usage
+    ring_name = hub.get("ring_name")
+    if ring_name:
+      from tensorflowonspark_tpu_torch.control import shmring
+      if executor_id == here:
+        shmring.release(executor_id)
+      elif co_hosted:
+        # the ring is held by the target's executor process, not this one;
+        # reap the segment by name (open mappings stay valid)
+        shmring.unlink_stale(ring_name)
+
+    # late-error propagation with peek-and-put-back (parity :644-650)
+    eq = hub.get_queue("error")
+    errs = eq.get_many(16, block=False)
+    if errs:
+      eq.put_many(errs)
+      raise RuntimeError("worker error:\n%s" % "\n".join(str(e) for e in errs))
+    # the background runner's fallback channel: a traceback it could not
+    # enqueue (error queue unreachable at crash time) lands in the kv store
+    last_error = hub.get("last_error")
+    if last_error:
+      raise RuntimeError("worker error (recovered from the hub kv store: "
+                         "the error queue was unreachable when the node "
+                         "crashed):\n%s" % last_error)
+    return [executor_id]

@@ -36,9 +36,10 @@ def test_port_sources_import_no_jax():
     assert os.path.join("data", name + ".py") in scanned, name
   assert os.path.join("examples", "train_gpt.py") in scanned
   # and so is the cluster runtime
-  for name in ("cluster.py", "node.py", "control/_msgpack.py",
+  for name in ("cluster.py", "node.py", "datafeed.py", "control/_msgpack.py",
                "control/chunkcodec.py", "control/feedhub.py",
                "control/marker.py", "control/rendezvous.py",
+               "control/shmring.py",
                "engine/base.py", "engine/local.py", "obs/metrics.py",
                "obs/quantiles.py", "obs/spans.py", "utils/gpu_info.py",
                "utils/hostinfo.py", "utils/paths.py"):
@@ -179,6 +180,60 @@ def test_cluster_run_loads_no_jax_msgpack_or_cloudpickle(tmp_path):
   assert proc.returncode == 0, proc.stdout + proc.stderr
   assert "DRIVER []" in proc.stdout and "EXECUTOR []" in proc.stdout, \
       proc.stdout
+
+
+_RING_DRIVE = textwrap.dedent("""
+    import sys
+
+    import numpy as np
+
+    from tensorflowonspark_tpu_torch import node
+    from tensorflowonspark_tpu_torch.control import feedhub, shmring
+    from tensorflowonspark_tpu_torch.datafeed import DataFeed
+
+
+    if __name__ == "__main__":
+      hub = feedhub.start(b"k", ["input", "output", "error"])
+      try:
+        name = "/tos_boundary_%d" % id(hub)
+        with shmring.ShmRing.create(name, capacity=1 << 20) as ring:
+          hub.set("ring_name", name)
+          channel = node.input_channel(hub)
+          node.put_rows_chunk(channel, [np.arange(4) + i for i in range(6)])
+          channel.put(None)
+          feed = DataFeed(hub)
+          assert feed.next_batch_arrays(8).shape == (6, 4)
+          assert feed.channel_chunks()["ring"] == 2
+      finally:
+        hub.shutdown()
+      with open("/proc/self/maps") as f:
+        libs = sorted({line.split()[-1] for line in f if "shmring" in line})
+      print("LIBS", libs)
+      banned = ("jax", "jaxlib", "flax", "msgpack", "cloudpickle", "torch")
+      print("LOADED", sorted(m for m in sys.modules
+                             if m.split(".")[0] in banned
+                             or m.startswith("tensorflowonspark_tpu.")))
+""")
+
+
+def test_shm_ring_loads_the_ports_own_library(tmp_path):
+  """A feed over the port's shm ring maps the ring library the port built
+  from its own ``native/shmring.cpp`` into ``build/shmring/``, never the
+  JAX package's ``tensorflowonspark_tpu/data/_shmring_native.so``; the
+  feed path loads no jax, msgpack, cloudpickle, or torch."""
+  script = tmp_path / "ring.py"
+  script.write_text(_RING_DRIVE)
+  env = dict(os.environ, PYTHONPATH=ROOT)
+  proc = subprocess.run([sys.executable, str(script)], cwd=str(tmp_path),
+                        env=env, capture_output=True, text=True, timeout=120)
+  assert proc.returncode == 0, proc.stdout + proc.stderr
+  libs = next(line for line in proc.stdout.splitlines()
+              if line.startswith("LIBS"))
+  build = os.path.join(os.path.realpath(ROOT), "build", "shmring",
+                       "libshmring.")
+  assert libs.count("libshmring.") == 1 and build in libs, libs
+  assert "tensorflowonspark_tpu/" not in libs, libs
+  assert "LOADED []" in proc.stdout, proc.stdout
 
 
 # packages of finished attention kernels: a kernel of the port is written by

@@ -10,6 +10,9 @@ package.
 - the contract subset of ``tests/test_cluster.py`` on the port: port
   reservation, ps/evaluator lifecycle, engine reuse, ``driver_ps_nodes``,
   the validation errors, TensorBoard spawn/kill;
+- the engine feed plane (InputMode.SPARK / ENGINE) through each entry
+  point: ``train`` (with epochs), ``train_stream``, ``train_dstream``,
+  ``foreach_batch`` and ``inference``, on the shm ring and the hub queue;
 - every path the port does not have yet is refused by name;
 - the seams: card allocation through a fake ``nvidia-smi``,
   ``initialize_distributed`` on gloo, the supervisor's recovery decision;
@@ -20,6 +23,7 @@ Main fns are module-level functions: the port sends them by pickle, by
 name, and the executors import this module to run them.
 """
 
+import functools
 import json
 import os
 import sys
@@ -98,9 +102,8 @@ def _all_reduce_gloo(args, ctx):
 
 
 def _refused_ctx_calls(args, ctx):
-  out = {}
-  for name, call in (("get_data_feed", lambda: ctx.get_data_feed()),
-                     ("checkpoint_manager",
+  out = {"get_data_feed": type(ctx.get_data_feed()).__name__}
+  for name, call in (("checkpoint_manager",
                       lambda: ctx.checkpoint_manager("ck")),
                      ("export_model", lambda: ctx.export_model({}, "ex"))):
     try:
@@ -110,6 +113,29 @@ def _refused_ctx_calls(args, ctx):
       out[name] = str(e)
   with open("refused.json", "w") as f:
     json.dump(out, f)
+
+
+def _sum_feed(tag, ctx):
+  """Sum what the feed gives this node; InputMode.SPARK."""
+  feed = ctx.get_data_feed()
+  total = rows = 0
+  while not feed.should_stop():
+    batch = feed.next_batch(8)
+    total += sum(int(x) for x in batch)
+    rows += len(batch)
+  with open("fed_%s.json" % tag, "w") as f:
+    json.dump({"total": total, "rows": rows,
+               "ring": ctx.hub.get("ring_name"),
+               "channels": feed.channel_chunks()}, f)
+
+
+def _double_feed(tag, ctx):
+  """Inference: one result, twice the row, per row."""
+  feed = ctx.get_data_feed(train_mode=False)
+  while not feed.should_stop():
+    batch = feed.next_batch(3)
+    if batch:
+      feed.batch_results([2 * x for x in batch])
 
 
 def _train_gpt_main(args, ctx):
@@ -369,16 +395,14 @@ def _local_closure():
 
 
 @pytest.mark.parametrize("kwargs,env,exc,match", [
-    (dict(input_mode=InputMode.ENGINE), {}, NotImplementedError, "item 14"),
-    (dict(input_mode=InputMode.SPARK), {}, NotImplementedError, "item 14"),
     (dict(), {"TOS_OBS": "1"}, NotImplementedError, "item 7"),
     (dict(group_map={0: 0, 1: 1}), {}, NotImplementedError, "item 10"),
     (dict(elastic=True), {}, NotImplementedError, "item 10"),
     (dict(feed_segment=object()), {}, NotImplementedError, "item 11"),
     (dict(main_fn=lambda args, ctx: None), {}, TypeError, "lambda"),
     (dict(main_fn=_local_closure()), {}, TypeError, "closure"),
-], ids=["engine_mode", "spark_mode", "tos_obs", "group_map", "elastic",
-        "feed_segment", "lambda", "closure"])
+], ids=["tos_obs", "group_map", "elastic", "feed_segment", "lambda",
+        "closure"])
 def test_unported_paths_are_refused_before_any_executor(kwargs, env, exc,
                                                         match, monkeypatch):
   for k, v in env.items():
@@ -388,13 +412,109 @@ def test_unported_paths_are_refused_before_any_executor(kwargs, env, exc,
     port_cluster.run(_UntouchedEngine(), main_fn, **kwargs)
 
 
+# -- the engine feed plane ------------------------------------------------------
+
+PARTS = [list(range(10 * p, 10 * p + 7)) for p in range(4)]
+
+
+def _fed(engine, tag, nodes=2):
+  """(sum, rows, records) that ``_sum_feed`` wrote on each node."""
+  recs = []
+  for s in range(nodes):
+    path = os.path.join(engine.executor_workdir(s), "fed_%s.json" % tag)
+    with open(path) as f:
+      recs.append(json.load(f))
+    os.remove(path)
+  return (sum(r["total"] for r in recs), sum(r["rows"] for r in recs), recs)
+
+
+@pytest.mark.parametrize("mode,transport", [
+    (InputMode.ENGINE, "queue"), (InputMode.SPARK, "auto")],
+    ids=["engine_mode", "spark_mode"])
+def test_engine_input_mode_feeds_every_node(mode, transport, engine):
+  """``cluster.run(input_mode=ENGINE/SPARK)``: both nodes run the fn in
+  the background, ``train`` feeds them and ``shutdown`` ends their feeds;
+  "auto" on a LocalEngine carries the input on each node's shm ring."""
+  tag = "mode_%s" % transport
+  c = port_cluster.run(engine, _sum_feed, tag, input_mode=mode,
+                       feed_transport=transport, reservation_timeout=60)
+  c.train(PARTS, num_epochs=1)
+  c.shutdown(timeout=120)
+  total, rows, recs = _fed(engine, tag)
+  assert (total, rows) == (sum(map(sum, PARTS)), 28)
+  if transport == "auto":
+    assert all(r["ring"] for r in recs)
+    assert sum(r["channels"]["ring"] for r in recs) >= 4 + 2
+    assert all(r["channels"]["queue"] == 0 for r in recs)
+  else:
+    assert all(r["ring"] is None and r["channels"] is None for r in recs)
+
+
+class _StandInDStream(object):
+  """A DStream's one method: ``foreachRDD(fn)`` calls ``fn`` per
+  micro-batch (here at once, for each of ``rdds``)."""
+
+  def __init__(self, rdds):
+    self.rdds = rdds
+
+  def foreachRDD(self, fn):
+    for rdd in self.rdds:
+      fn(rdd)
+
+
 @pytest.mark.parametrize("method", ["train", "inference", "train_stream",
                                     "train_dstream", "foreach_batch"])
-def test_feed_plane_methods_name_item_14(method):
+def test_feed_plane_entry_points(method, engine):
+  fn = _double_feed if method == "inference" else _sum_feed
+  c = port_cluster.run(engine, fn, method, input_mode=InputMode.SPARK,
+                       reservation_timeout=60)
+  epochs = 2 if method == "train" else 1
+  extra = (0, 0)          # (sum, rows) fed beyond the epochs of PARTS
+  try:
+    if method == "train":
+      c.train(PARTS, num_epochs=epochs)
+      # a one-shot stream of partitions, one a lazy handle the feeder
+      # calls on the executor; it cannot replay epochs
+      lazy = functools.partial(list, range(100, 107))
+      with pytest.raises(ValueError, match="one-shot"):
+        c.train(iter([lazy]), num_epochs=2)
+      c.train(iter([PARTS[0], lazy]))
+      extra = (sum(PARTS[0]) + sum(range(100, 107)), 14)
+    elif method == "inference":
+      want = [2 * x for p in PARTS for x in p]
+      assert c.inference(PARTS) == want
+      assert list(c.inference(iter(PARTS), collect=False)) == want
+    elif method == "train_stream":
+      def rounds():
+        yield PARTS[:2]
+        c.request_stop()
+        yield PARTS[2:]
+        yield [[1000]]                     # never pulled
+      assert c.train_stream(rounds()) == 2
+    elif method == "train_dstream":
+      handle = c.train_dstream(_StandInDStream([PARTS[:2], PARTS[2:]]))
+      assert (handle.rounds, handle.stopped) == (2, False)
+    else:
+      feed = c.foreach_batch()
+      feed(PARTS[:2], 0)
+      feed(PARTS[2:], 1)
+      c.request_stop()
+      feed([[1000]], 2)                    # skipped after the stop request
+  finally:
+    c.shutdown(timeout=120)
+  if method != "inference":
+    assert _fed(engine, method)[:2] == (
+        epochs * sum(map(sum, PARTS)) + extra[0], epochs * 28 + extra[1])
+
+
+def test_feed_plane_needs_engine_input_mode():
   c = port_cluster.Cluster(_UntouchedEngine(), [], {"queues": []}, None,
-                           InputMode.FILES, None, {"error": None})
-  with pytest.raises(NotImplementedError, match="item 14"):
-    getattr(c, method)([[1, 2]])
+                           InputMode.TENSORFLOW, None, {"error": None})
+  for call in (lambda: c.train([[1, 2]]), lambda: c.inference([[1, 2]]),
+               lambda: c.train_stream(iter([])), c.foreach_batch,
+               lambda: c.train_dstream(_StandInDStream([]))):
+    with pytest.raises(RuntimeError, match="InputMode.ENGINE/SPARK"):
+      call()
 
 
 def test_ctx_feed_checkpoint_and_export_name_their_items(engine):
@@ -402,7 +522,7 @@ def test_ctx_feed_checkpoint_and_export_name_their_items(engine):
                        reservation_timeout=60)
   c.shutdown(timeout=120)
   got = json.loads(_read(engine, 0, "refused.json"))
-  assert "item 14" in got["get_data_feed"]
+  assert got["get_data_feed"] == "DataFeed"
   assert "item 6" in got["checkpoint_manager"]
   assert "item 6" in got["export_model"]
 

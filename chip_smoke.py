@@ -84,7 +84,20 @@ failure:
    ``shutdown()``, and a bring-up asking for one card more than
    ``nvidia-smi`` counts must fail before the fn runs, naming the count;
    the engine-start, reservation and shutdown seconds and the ms/step
-   beside 6d's are logged; (6i) [6]'s training fed through the engine
+   beside 6d's are logged; (6k) 6d's configuration checkpointed and
+   resumed: the driver trains it 6 steps from 6d's files through
+   ``checkpointable_input`` and ``device_prefetch``, then
+   ``cluster.run(LocalEngine(1, env={"TOS_CHAOS_KILL": "train-step@0#3"}),
+   ..., InputMode.FILES, max_restarts=1)`` runs the same steps in an
+   executor that saves each step through ``ctx.checkpoint_manager`` (with
+   the input position of the batch the step consumed), is SIGKILLed by
+   the kill point after step 2 is durable, is relaunched by the
+   supervisor, resumes at step 3 and exports its weights with
+   ``ctx.export_model``: exactly one restart, the 6 losses equal to the
+   driver's to the bit, the export's ``params_fingerprint`` equal to the
+   driver's final weights', 6d's launch counts in every step; the bytes
+   of one checkpoint, the save, restore and kill-to-resume seconds and
+   the ms/step of each incarnation are logged; (6i) [6]'s training fed through the engine
    feed plane: the driver first runs 4 ``make_train_step`` steps and 2
    ``make_train_loop(unroll=4)`` slabs on 192 seeded int32 token rows
    (B16 x S1024, from a plain iterator), then ``cluster.run(LocalEngine(
@@ -146,6 +159,10 @@ another checkout's root measures that checkout's kernels.
 TFRecord files are written first; the executor builds each kernel at its
 first use) and prints its measurements as one JSON line.
 
+``python3 chip_smoke.py --ckpt-only`` runs phases 1 and 6k alone (6d's
+TFRecord files are written first) and prints its measurements as one JSON
+line.
+
 ``python3 chip_smoke.py --feed-only`` runs phases 1, 6i and 6j alone (the
 driver builds each kernel at its first use, the executors load them) and
 prints its measurements as one JSON line.
@@ -159,6 +176,7 @@ package the same way, so two trees can alternate in one chip call.
 """
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -1855,6 +1873,239 @@ def cluster_long_gqa(torch, pattern, long_res=None):
   return res
 
 
+# -- phase 6k: [6d] checkpointed, killed and resumed under cluster.run -------
+
+CKPT_STEPS = 6
+CKPT_KILL = "train-step@0#3"          # executor 0, after step 2 is durable
+CKPT_SCHEMA = "struct<tokens:array<long>>"
+
+
+def ckpt_train(pattern, mgr=None, ctx=None, out=None):
+  """[6d]'s configuration trained ``CKPT_STEPS`` steps from ``pattern``
+  through ``checkpointable_input`` and ``device_prefetch``. With ``mgr``
+  (in an executor): ``restore_or`` first, then after each step ``save``
+  with the input position of the batch the step consumed, ``wait`` and
+  the ``train-step`` kill point; each step's record goes to the JSON file
+  ``out`` before the kill point. Returns (state, record)."""
+  import collections
+  import torch
+  from tensorflowonspark_tpu_torch import ops
+  from tensorflowonspark_tpu_torch.data import indexed, readers
+  from tensorflowonspark_tpu_torch.data.schema import parse_schema
+  from tensorflowonspark_tpu_torch.examples import train_gpt
+  from tensorflowonspark_tpu_torch.parallel import sharding
+  from tensorflowonspark_tpu_torch.utils import chaos, checkpoint
+  ops.reset_launches()
+  t0 = t_start = time.monotonic()
+  targs = train_gpt.parse_args(LONG_ARGS + ["--data", pattern, "--steps",
+                                            str(CKPT_STEPS)])
+  state = train_gpt.make_state(targs, train_gpt.make_config(targs))
+  step = sharding.make_train_step(train_gpt.make_loss_fn(targs))
+  it = indexed.checkpointable_input(
+      pattern, batch_size=LONG_B, schema=parse_schema(CKPT_SCHEMA),
+      seed=SEED, collate=functools.partial(
+          train_gpt.pad_tokens, seq_len=targs.seq_len, vocab=targs.vocab))
+  torch.cuda.synchronize()
+  res = {"t_start": t_start, "state_s": time.monotonic() - t0,
+         "start_step": 0, "steps": [], "restore_s": None}
+  if mgr is not None:
+    t0 = time.monotonic()
+    state, res["start_step"] = mgr.restore_or(state, data_iterator=it)
+    torch.cuda.synchronize()
+    res["restore_s"] = time.monotonic() - t0
+  # device_prefetch reads ahead: the position saved with a step is the one
+  # after the batch that step consumed, not the reader's
+  positions = collections.deque()
+
+  def tracked():
+    for batch in it:
+      positions.append(it.get_state())
+      yield batch
+
+  batches = readers.device_prefetch(tracked(), size=2)
+  for s in range(res["start_step"], CKPT_STEPS):
+    before = dict(ops.LAUNCHES)
+    t0 = time.monotonic()
+    state, loss = step(state, next(batches))
+    rec = {"step": s, "loss": float(loss), "position": positions.popleft(),
+           "launches": {k: ops.LAUNCHES[k] - before[k] for k in before}}
+    rec["step_s"] = time.monotonic() - t0
+    rec["t_loss"] = time.monotonic()
+    res["steps"].append(rec)
+    if mgr is None:
+      continue
+    ctx.report_progress(s)
+    t0 = time.monotonic()
+    mgr.save(s, state, data_state=rec["position"])
+    mgr.wait()
+    rec["save_s"] = time.monotonic() - t0
+    rec["save"] = mgr.last_save
+    rec["t_saved"] = time.monotonic()
+    checkpoint.atomic_write_json(out, res)
+    chaos.kill_point("train-step", ctx.executor_id)
+  return state, res
+
+
+def ckpt_main(args, ctx):
+  """[6k]'s main fn, run by ``cluster.run`` inside a LocalEngine executor
+  armed with ``TOS_CHAOS_KILL``: checks it was given the driver's card,
+  trains through ``ckpt_train`` with ``ctx.checkpoint_manager``, and the
+  chief exports the final weights with ``ctx.export_model``."""
+  t_enter = time.monotonic()
+  import torch
+  from tensorflowonspark_tpu_torch.utils import checkpoint
+  visible = os.environ.get("CUDA_VISIBLE_DEVICES", "")
+  if not visible or "," in visible:
+    raise AssertionError("the node should see one card, got "
+                         "CUDA_VISIBLE_DEVICES=%r" % visible)
+  if torch.cuda.get_device_name() != args["card"]:
+    raise AssertionError("the node runs on %r, the driver on %r"
+                         % (torch.cuda.get_device_name(), args["card"]))
+  out = args["out"] % ctx.restart_count
+  mgr = ctx.checkpoint_manager(args["ckpt"], save_interval_steps=1,
+                               max_to_keep=2)
+  state, res = ckpt_train(args["data"], mgr, ctx, out)
+  res.update(t_enter=t_enter, restart_count=ctx.restart_count,
+             is_chief=ctx.is_chief)
+  if ctx.is_chief:
+    t0 = time.monotonic()
+    res["export_dir"] = ctx.export_model(state.params, args["export"])
+    res["export_s"] = time.monotonic() - t0
+  mgr.close()
+  checkpoint.atomic_write_json(out, res)
+
+
+def ckpt_resume(torch, pattern, long_res=None):
+  """[6k]: [6d]'s configuration trained ``CKPT_STEPS`` steps in the driver,
+  then under ``cluster.run`` in an executor SIGKILLed after step 2 is
+  durable, relaunched by the supervisor and resumed from its checkpoint;
+  the losses must equal the driver's to the bit, the export its weights'
+  fingerprint, and each step's launch counts [6d]'s."""
+  from tensorflowonspark_tpu_torch import cluster
+  from tensorflowonspark_tpu_torch.engine import LocalEngine
+  from tensorflowonspark_tpu_torch.utils import chaos, checkpoint, compat
+  card = torch.cuda.get_device_name(0)
+  build = os.path.join(HERE, "build")
+  ckpt_dir = os.path.join(build, "chip_smoke_ckpt")
+  export_dir = os.path.join(build, "chip_smoke_export")
+  out = os.path.join(build, "chip_smoke_ckpt_%d.json")
+  for path in (ckpt_dir, export_dir):
+    shutil.rmtree(path, ignore_errors=True)
+  for i in (0, 1):
+    if os.path.exists(out % i):
+      os.remove(out % i)
+  data = os.path.abspath(pattern)
+
+  state, direct = ckpt_train(data)
+  want_fp = checkpoint.params_fingerprint(state.params)
+  del state
+  torch.cuda.empty_cache()
+  direct_losses = [r["loss"] for r in direct["steps"]]
+  for r in direct["steps"]:
+    _per_step_launches(r["launches"], 1, WANT_LONG_PER_STEP,
+                       "[6k] direct step %d" % r["step"])
+  direct_ms = statistics.median(r["step_s"] for r in direct["steps"][1:]) * 1e3
+  log("  direct: %d steps in the driver, losses %s, %.1f ms/step (median "
+      "after the first, each step synchronised), weights %s" % (
+          CKPT_STEPS, " ".join("%.6f" % x for x in direct_losses), direct_ms,
+          want_fp))
+
+  args = {"data": data, "ckpt": ckpt_dir, "export": export_dir, "out": out,
+          "card": card}
+  engine = LocalEngine(num_executors=1, env={chaos.ENV_KILL: CKPT_KILL})
+  try:
+    t0 = time.monotonic()
+    c = cluster.run(engine, ckpt_main, args,
+                    input_mode=cluster.InputMode.FILES, chips_per_node=1,
+                    max_restarts=1, heartbeat_interval=2.0,
+                    restart_backoff=0.5, restart_backoff_cap=2.0,
+                    reservation_timeout=300)
+    c.shutdown(timeout=900)
+    cluster_s = time.monotonic() - t0
+    restarts, events = dict(c.supervisor.restarts), list(c.supervisor.events)
+  finally:
+    engine.stop()
+  if restarts != {0: 1}:
+    raise AssertionError("supervisor restarts %s, want {0: 1}; events %s"
+                         % (restarts, events))
+  inc = []
+  for i in (0, 1):
+    with open(out % i) as f:
+      inc.append(json.load(f))
+  first, second = inc
+  if [r["step"] for r in first["steps"]] != [0, 1, 2] or \
+      second["start_step"] != 3 or second["restart_count"] != 1:
+    raise AssertionError("killed after steps %s, resumed at step %s"
+                         % ([r["step"] for r in first["steps"]],
+                            second["start_step"]))
+  losses = [r["loss"] for r in first["steps"] + second["steps"]]
+  if losses != direct_losses:
+    raise AssertionError("resumed losses %s differ from the direct run's %s"
+                         % (losses, direct_losses))
+  for r in first["steps"] + second["steps"]:
+    _per_step_launches(r["launches"], 1, WANT_LONG_PER_STEP,
+                       "[6k] step %d" % r["step"])
+  got_fp = checkpoint.params_fingerprint(compat.import_model(export_dir))
+  if got_fp != want_fp:
+    raise AssertionError("exported weights %s, direct run's %s"
+                         % (got_fp, want_fp))
+  kinds = [e["kind"] for e in events]
+  ev = {e["kind"]: e["t"] for e in events}
+  t_kill = first["steps"][-1]["t_saved"]
+  saves = [r["save_s"] for r in first["steps"] + second["steps"]]
+  res = {"card": card, "losses": losses, "fingerprint": got_fp,
+         "restarts": restarts, "events": kinds,
+         "checkpoint_bytes": first["steps"][-1]["save"]["bytes"],
+         "save_wait_s": saves,
+         "save_split_s": {k: [r["save"][k] for r in first["steps"]
+                              + second["steps"]]
+                          for k in ("host_s", "write_s", "commit_s")},
+         "restore_s": second["restore_s"],
+         "kill_to_detected_s": ev["detected-dead"] - t_kill,
+         "detected_to_relaunched_s": ev["relaunched"] - ev["detected-dead"],
+         "relaunched_to_fn_s": second["t_enter"] - ev["relaunched"],
+         "imports_s": second["t_start"] - second["t_enter"],
+         "state_s": second["state_s"],
+         "first_step_s": second["steps"][0]["step_s"],
+         "kill_to_first_loss_s": second["steps"][0]["t_loss"] - t_kill,
+         "export_s": second["export_s"], "cluster_s": cluster_s,
+         "direct_ms_per_step": direct_ms,
+         "ms_per_step": [statistics.median(r["step_s"] for r in x["steps"][1:])
+                         * 1e3 for x in inc],
+         "step_ms": {"direct": [r["step_s"] * 1e3 for r in direct["steps"]],
+                     "incarnations": [[r["step_s"] * 1e3 for r in x["steps"]]
+                                      for x in inc]},
+         "launches_per_step": [r["launches"] for r in first["steps"]
+                               + second["steps"]]}
+  log("  killed after step 2, resumed at step 3 (restarts %s, events %s); "
+      "6 losses equal the direct run's to the bit; export %s" % (
+          restarts, kinds, got_fp))
+  log("  one checkpoint %d bytes; save + wait %s s (copy to the host %s, "
+      "write %s, commit %s); restore %.2f s" % (
+          res["checkpoint_bytes"], " ".join("%.2f" % s for s in saves),
+          *(" ".join("%.2f" % s for s in res["save_split_s"][k])
+            for k in ("host_s", "write_s", "commit_s")), res["restore_s"]))
+  log("  kill -> first resumed loss %.1f s: detection %.1f s, backoff and "
+      "relaunch %.1f s, spawn and bring-up to the fn %.1f s, imports %.1f s, "
+      "weights from the seed %.1f s, restore %.1f s, first step %.2f s" % (
+          res["kill_to_first_loss_s"], res["kill_to_detected_s"],
+          res["detected_to_relaunched_s"], res["relaunched_to_fn_s"],
+          res["imports_s"], res["state_s"], res["restore_s"],
+          res["first_step_s"]))
+  log("  ms/step (median after each incarnation's first, synchronised): "
+      "incarnations %s, direct %.1f, [6d] in this call %s; launches per step "
+      "%s" % (" ".join("%.1f" % x for x in res["ms_per_step"]), direct_ms,
+              "%.1f" % long_res["ms_per_step"] if long_res else "not run",
+              res["launches_per_step"][-1]))
+  log("  each step's ms: direct %s; incarnations %s" % (
+      " ".join("%.1f" % x for x in res["step_ms"]["direct"]),
+      " | ".join(" ".join("%.1f" % x for x in xs)
+                 for xs in res["step_ms"]["incarnations"])))
+  shutil.rmtree(ckpt_dir)
+  shutil.rmtree(export_dir)
+  return res
+
+
 # -- phases 6i and 6j: the flagship fed through the engine feed plane --------
 
 # 6 partitions of 32 rows: 4 steps of B16, then 2 slabs of 4 steps
@@ -2541,6 +2792,22 @@ def cluster_only(torch):
   return 0
 
 
+def ckpt_only(torch):
+  """``--ckpt-only``: phase 6k alone, after 6d's TFRecord files."""
+  pattern = write_token_files(os.path.join(HERE, "build", "chip_smoke_tokens"),
+                              32000, LONG_S)
+  log("[6k] train_gpt checkpointed under cluster.run(LocalEngine(1), ..., "
+      "InputMode.FILES), SIGKILLed after step 2, resumed")
+  res = ckpt_resume(torch, pattern)
+  card = card_line()
+  log(card)
+  log(json.dumps({"ckpt": res, "card": card}))
+  log(json.dumps({"ok": True, "device": {
+      "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+      "count": torch.cuda.device_count()}}))
+  return 0
+
+
 def feed_only(torch, ops, tfm, init_params, card):
   """``--feed-only``: phases 6i and 6j alone."""
   cfg = tfm.TransformerConfig()
@@ -2572,11 +2839,12 @@ def main(argv):
   repeats, ln_only = 0, argv == ["--layer-norm-only"]
   only_cluster = argv == ["--cluster-only"]
   only_feed = argv == ["--feed-only"]
+  only_ckpt = argv == ["--ckpt-only"]
   if argv[:1] == ["--serving-only"] and len(argv) == 2:
     repeats = int(argv[1])
-  elif argv and not (ln_only or only_cluster or only_feed):
+  elif argv and not (ln_only or only_cluster or only_feed or only_ckpt):
     log("usage: python3 chip_smoke.py [--serving-only N | "
-        "--layer-norm-only | --cluster-only | --feed-only]")
+        "--layer-norm-only | --cluster-only | --feed-only | --ckpt-only]")
     return 2
   try:
     import torch
@@ -2617,6 +2885,8 @@ def main(argv):
     return cluster_only(torch)
   if only_feed:
     return feed_only(torch, ops, tfm, init_params, card)
+  if only_ckpt:
+    return ckpt_only(torch)
 
   log("[2] build")
   t0 = time.monotonic()
@@ -2744,6 +3014,12 @@ def main(argv):
   log("[6h] the same through cluster.run(LocalEngine(1), ..., "
       "InputMode.TENSORFLOW, chips_per_node=1)")
   cluster_res = cluster_long_gqa(torch, long_res["data"], long_res)
+  torch.cuda.empty_cache()
+
+  log("[6k] the same checkpointed under cluster.run(LocalEngine(1), ..., "
+      "InputMode.FILES), SIGKILLed after step 2, resumed")
+  ckpt_res = ckpt_resume(torch, long_res["data"], long_res)
+  torch.cuda.empty_cache()
   feed_res = feed_phases(torch, ops, tfm, torch.cuda.get_device_name(0),
                          params, cfg, train_res)
   torch.cuda.empty_cache()
@@ -2784,6 +3060,9 @@ def main(argv):
   def cluster_launches(name):
     return sum(step[name] for step in cluster_res["launches_per_step"])
 
+  def ckpt_launches(name):
+    return sum(step[name] for step in ckpt_res["launches_per_step"])
+
   def feed_launches(name):
     per = feed_res["train"]["launches_per_step"]
     return int(sum(p[name] for p in per[:FEED_PER_STEP]) + FEED_UNROLL * sum(
@@ -2821,6 +3100,7 @@ def main(argv):
                                                 "flash_attention_fwd"),
              "cluster_train_gpt_long_4_steps": cluster_launches(
                  "flash_attention_fwd"),
+             "ckpt_resume_6_steps": ckpt_launches("flash_attention_fwd"),
              "feed_train_12_steps": feed_launches("flash_attention_fwd"),
              "feed_inference_4_forwards": infer_launches(
                  "flash_attention_fwd"),
@@ -2839,6 +3119,7 @@ def main(argv):
              "train_4_steps": step_l["layer_norm"],
              "train_fused_4_steps": fused_l["layer_norm"],
              "cluster_train_gpt_long_4_steps": cluster_launches("layer_norm"),
+             "ckpt_resume_6_steps": ckpt_launches("layer_norm"),
              "feed_train_12_steps": feed_launches("layer_norm"),
              "feed_inference_4_forwards": infer_launches("layer_norm"),
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
@@ -2868,6 +3149,7 @@ def main(argv):
              "train_fused_4_steps": fused_l["layer_norm_bwd"],
              "cluster_train_gpt_long_4_steps": cluster_launches(
                  "layer_norm_bwd"),
+             "ckpt_resume_6_steps": ckpt_launches("layer_norm_bwd"),
              "feed_train_12_steps": feed_launches("layer_norm_bwd"),
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "layer_norm_bwd")},
@@ -2897,6 +3179,7 @@ def main(argv):
                                            "flash_attention_bwd_dq"),
         "cluster_train_gpt_long_4_steps": cluster_launches(
             "flash_attention_bwd_dq"),
+        "ckpt_resume_6_steps": ckpt_launches("flash_attention_bwd_dq"),
         "train_split_4_steps": split_l["flash_attention_bwd_dq"]}, "long"),
       ("dkv", "flash_attention_bwd_dkv", "flash_attention.py:197",
        {"train_split_4_steps": split_l["flash_attention_bwd_dkv"]}, "train"),
@@ -2904,7 +3187,8 @@ def main(argv):
        {"train_long_gqa_2_steps": launches(long_res, 2,
                                            "flash_attention_bwd_dkv_gqa"),
         "cluster_train_gpt_long_4_steps": cluster_launches(
-            "flash_attention_bwd_dkv_gqa")},
+            "flash_attention_bwd_dkv_gqa"),
+        "ckpt_resume_6_steps": ckpt_launches("flash_attention_bwd_dkv_gqa")},
        "long")):
     row = pick(split_rows, case=case, kernel=kern)
     kernels.append(entry(
@@ -2927,6 +3211,7 @@ def main(argv):
             "parity_f32": parity, "train": train_res, "train_gqa": gqa_res,
             "train_fused": fused_res, "train_fused_gqa": fgqa_res,
             "train_long_gqa": long_res, "cluster_long_gqa": cluster_res,
+            "ckpt_resume": ckpt_res,
             "feed": feed_res,
             "train_split": split_res,
             "train_parity_f32": train_parity,

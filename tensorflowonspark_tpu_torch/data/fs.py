@@ -1,13 +1,15 @@
 """Local file IO for the data feed: one open/glob surface.
 
 Counterpart of the local-path part of ``tensorflowonspark_tpu/data/fs.py``
-(:func:`is_remote`, :func:`open_file`, :func:`glob_files`). The reference
+(:func:`is_remote`, :func:`open_file`, :func:`file_size`,
+:func:`glob_files`). The reference
 routes any ``scheme://`` URI through fsspec; the port keeps plain paths and
 ``file://`` URIs on builtin IO and refuses a remote scheme by name, since
 the machines it runs on carry no fsspec.
 """
 
 import glob as _glob
+import os
 import re
 
 _SCHEME_RE = re.compile(r"^[a-zA-Z][a-zA-Z0-9+.-]*://")
@@ -37,6 +39,12 @@ def open_file(path: str, mode: str = "rb"):
   """Open a local ``path`` (or ``file://`` URI) for streamed IO."""
   _refuse_remote(path)
   return open(strip_scheme(path), mode)
+
+
+def file_size(path: str) -> int:
+  """Size in bytes of a local ``path`` (or ``file://`` URI)."""
+  _refuse_remote(path)
+  return os.path.getsize(strip_scheme(path))
 
 
 def glob_files(pattern: str):

@@ -19,6 +19,7 @@ GPU parallelism is not ported yet (ROADMAP Queue 1 item 10).
 """
 
 import argparse
+import functools
 import itertools
 import sys
 import time
@@ -147,20 +148,26 @@ def batch_stream(args: argparse.Namespace) -> Iterator[np.ndarray]:
       readers.read_tfrecord_examples(files, schema=sch, repeat=True),
       buffer_size=max(64, 4 * args.batch))
 
-  def collate(batch):
-    arr = np.zeros((len(batch), args.seq_len), "int32")
-    for i, r in enumerate(batch):
-      t = np.asarray(r[0], "int64")[:args.seq_len]
-      arr[i, :len(t)] = t
-    hi = int(arr.max())
-    if hi >= args.vocab:
-      raise ValueError(
-          "--data contains token id %d >= --vocab %d; raise --vocab to the "
-          "tokenizer's size (the embedding lookup would fail otherwise)"
-          % (hi, args.vocab))
-    return arr
+  yield from readers.batched(
+      rows, args.batch, collate=functools.partial(
+          pad_tokens, seq_len=args.seq_len, vocab=args.vocab))
 
-  yield from readers.batched(rows, args.batch, collate=collate)
+
+def pad_tokens(rows, seq_len: int, vocab: int) -> np.ndarray:
+  """Rows of ``(tokens,)`` as one ``[len(rows), seq_len]`` int32 batch,
+  each padded with 0 or cut to ``seq_len``. Raises ``ValueError`` on a
+  token id outside the vocabulary."""
+  arr = np.zeros((len(rows), seq_len), "int32")
+  for i, r in enumerate(rows):
+    t = np.asarray(r[0], "int64")[:seq_len]
+    arr[i, :len(t)] = t
+  hi = int(arr.max())
+  if hi >= vocab:
+    raise ValueError(
+        "--data contains token id %d >= --vocab %d; raise --vocab to the "
+        "tokenizer's size (the embedding lookup would fail otherwise)"
+        % (hi, vocab))
+  return arr
 
 
 def run(args: argparse.Namespace) -> List[float]:

@@ -80,10 +80,6 @@ ENV_FEED_TARGET_BYTES = "TOS_FEED_TARGET_BYTES"
 _ADAPT_MIN_ROWS = 16
 _ADAPT_MAX_ROWS = 8192
 
-_CHECKPOINTS = ("checkpointing and model export under cluster.run are not "
-                "ported to PyTorch yet (ROADMAP Queue 1 item 6)")
-
-
 #: env values _apply_node_env exported in THIS (persistent) executor
 #: process — so a later cluster that sets nothing can retract exactly
 #: what a previous cluster exported, while a user's own env pin (a value
@@ -177,7 +173,11 @@ class NodeContext(object):
       self.tmp_socket = None
 
   def export_model(self, state, export_dir: str) -> str:
-    raise NotImplementedError("ctx.export_model: " + _CHECKPOINTS)
+    """Chief-only export of ``state`` to ``<export_dir>/model`` (parity:
+    TFNode.export_saved_model); other nodes write a throwaway dir.
+    Returns the directory written."""
+    from tensorflowonspark_tpu_torch.utils import compat
+    return compat.export_model(state, export_dir, self.is_chief)
 
   @property
   def is_chief(self) -> bool:
@@ -189,7 +189,13 @@ class NodeContext(object):
     return self.restart_count > 0
 
   def checkpoint_manager(self, directory: str, **kwargs):
-    raise NotImplementedError("ctx.checkpoint_manager: " + _CHECKPOINTS)
+    """A :class:`~tensorflowonspark_tpu_torch.utils.checkpoint.
+    CheckpointManager` for this node: the preemption-safe resume hook,
+    ``state, start_step = mgr.restore_or(state)`` continues a relaunched
+    node from its latest checkpoint (``start_step`` is 0 on a fresh
+    launch)."""
+    from tensorflowonspark_tpu_torch.utils.checkpoint import CheckpointManager
+    return CheckpointManager(directory, **kwargs)
 
   def report_progress(self, value) -> None:
     """Attach an application progress value (e.g. the training step) to
@@ -317,6 +323,20 @@ def _spawn_tensorboard(log_dir: str) -> Optional[dict]:
   return {"pid": proc.pid, "url": url}
 
 
+def _start_heartbeats(server_addr, executor_id: int, interval: float):
+  """Start this process's heartbeats, once torch is imported.
+
+  Importing torch loads its native library with the GIL held, for a few
+  hundred ms on a loaded host. A user fn's first ``import torch`` after the
+  first beat silences the beats for that long, and with 0.25 s beats (0.5
+  s of silence reads as death) the supervisor kills a healthy node.
+  Before the first beat the node is still under the startup grace.
+  """
+  import torch  # noqa: F401
+  return rendezvous.HeartbeatSender(tuple(server_addr), executor_id,
+                                    interval=interval).start()
+
+
 def _background_runner(fn_bytes: bytes, tf_args, ctx_kwargs: dict,
                        hub_addr, authkey: bytes, server_addr=None,
                        heartbeat_interval=None):
@@ -333,9 +353,8 @@ def _background_runner(fn_bytes: bytes, tf_args, ctx_kwargs: dict,
   hub = feedhub.connect(tuple(hub_addr), authkey)
   sender = None
   if server_addr and heartbeat_interval:
-    sender = rendezvous.HeartbeatSender(
-        tuple(server_addr), ctx_kwargs["executor_id"],
-        interval=heartbeat_interval).start()
+    sender = _start_heartbeats(server_addr, ctx_kwargs["executor_id"],
+                               heartbeat_interval)
   ctx = NodeContext(hub=hub, heartbeat=sender, **ctx_kwargs)
   try:
     pickle.loads(fn_bytes)(tf_args, ctx)
@@ -633,9 +652,8 @@ class NodeTask(object):
       tmp_sock = None
     sender = None
     if hb_interval:
-      sender = rendezvous.HeartbeatSender(
-          tuple(meta["server_addr"]), executor_id,
-          interval=hb_interval).start()
+      sender = _start_heartbeats(meta["server_addr"], executor_id,
+                                 hb_interval)
     # the executor-side obs shipper of the JAX package (TOS_OBS=1) is
     # ROADMAP Queue 1 item 7; cluster.run refuses TOS_OBS=1 until then
     ctx = NodeContext(hub=hub, tmp_socket=tmp_sock, heartbeat=sender,

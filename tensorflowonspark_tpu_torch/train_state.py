@@ -42,9 +42,13 @@ class TrainState:
     """The trainable weights by name (the model's own parameters)."""
     return self._params_of(self.model)
 
+  @torch.no_grad()
   def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> "TrainState":
     """One optimizer step from ``grads`` (consumed: the optimizer may
-    reuse their memory), in place."""
+    reuse their memory), in place and outside autograd: a gradient that
+    autograd handed out as a view cannot take an in-place update that
+    autograd would record (SGD's decoupled decay adds the weights into
+    it)."""
     params = self.params
     updates, self.opt_state = self.tx.update(grads, self.opt_state, params)
     optim.apply_updates(params, updates)

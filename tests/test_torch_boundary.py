@@ -42,7 +42,10 @@ def test_port_sources_import_no_jax():
                "control/shmring.py",
                "engine/base.py", "engine/local.py", "obs/metrics.py",
                "obs/quantiles.py", "obs/spans.py", "utils/gpu_info.py",
-               "utils/hostinfo.py", "utils/paths.py"):
+               "utils/hostinfo.py", "utils/paths.py",
+               # and checkpoint, export and resume
+               "utils/checkpoint.py", "utils/compat.py", "utils/chaos.py",
+               "data/indexed.py"):
     assert os.path.join(*name.split("/")) in scanned, name
   bad = sorted((os.path.relpath(p, ROOT), root) for p in files
                for root in _imported_roots(p) if root in FORBIDDEN)
@@ -146,7 +149,16 @@ _CLUSTER_DRIVE = textwrap.dedent("""
 
     def main_fn(path, ctx):
       import torch
+      from tensorflowonspark_tpu_torch.data import indexed
+      from tensorflowonspark_tpu_torch.utils import chaos
       assert float(torch.ones(3).sum()) == 3.0
+      # checkpoint, resume and export on the node
+      mgr = ctx.checkpoint_manager("ck", save_interval_steps=1)
+      assert mgr.save(0, {"w": torch.ones(2)})
+      assert mgr.restore_or({"w": torch.zeros(2)})[1] == 1
+      ctx.export_model({"w": torch.ones(2)}, "ex")
+      chaos.kill_point("train-step", ctx.executor_id)
+      assert indexed.permute_index(3, 10, 7) < 10
       with open(path, "w") as f:
         json.dump(loaded(), f)
 
@@ -168,8 +180,8 @@ _CLUSTER_DRIVE = textwrap.dedent("""
 
 def test_cluster_run_loads_no_jax_msgpack_or_cloudpickle(tmp_path):
   """cluster.run(LocalEngine(1), main_fn) on the CPU: neither the driver
-  nor the executor running the main fn loads jax, flax, the JAX package,
-  msgpack or cloudpickle."""
+  nor the executor running the main fn (which checkpoints, resumes and
+  exports) loads jax, flax, the JAX package, msgpack or cloudpickle."""
   script = tmp_path / "drive.py"
   script.write_text(_CLUSTER_DRIVE)
   env = dict(os.environ, PYTHONPATH=ROOT)

@@ -13,7 +13,8 @@ package.
 - the engine feed plane (InputMode.SPARK / ENGINE) through each entry
   point: ``train`` (with epochs), ``train_stream``, ``train_dstream``,
   ``foreach_batch`` and ``inference``, on the shm ring and the hub queue;
-- every path the port does not have yet is refused by name;
+- every path the port does not have yet is refused by name, and the
+  checkpoint and export seams of ``ctx`` work on a node;
 - the seams: card allocation through a fake ``nvidia-smi``,
   ``initialize_distributed`` on gloo, the supervisor's recovery decision;
 - the slice: ``train_gpt`` under ``cluster.run`` gives the losses of the
@@ -101,17 +102,21 @@ def _all_reduce_gloo(args, ctx):
     dist.destroy_process_group()
 
 
-def _refused_ctx_calls(args, ctx):
-  out = {"get_data_feed": type(ctx.get_data_feed()).__name__}
-  for name, call in (("checkpoint_manager",
-                      lambda: ctx.checkpoint_manager("ck")),
-                     ("export_model", lambda: ctx.export_model({}, "ex"))):
-    try:
-      call()
-      out[name] = "ran"
-    except NotImplementedError as e:
-      out[name] = str(e)
-  with open("refused.json", "w") as f:
+def _ctx_calls(args, ctx):
+  """The feed, checkpoint and export seams of ``ctx`` on a node."""
+  import torch
+  mgr = ctx.checkpoint_manager("ck", save_interval_steps=1)
+  saved = mgr.save(0, {"w": torch.arange(3.0)})
+  out = {"get_data_feed": type(ctx.get_data_feed()).__name__,
+         "checkpoint_manager": "%s.%s" % (type(mgr).__module__,
+                                          type(mgr).__name__),
+         "saved": saved, "steps": mgr.all_steps(),
+         "restored": mgr.restore_or({"w": torch.zeros(3)})[0]["w"].tolist(),
+         "is_chief": ctx.is_chief,
+         "export_dir": ctx.export_model({"w": torch.ones(2)},
+                                        os.path.abspath("ex")),
+         "exported": sorted(os.listdir(os.path.join("ex", "model")))}
+  with open("ctx_calls.json", "w") as f:
     json.dump(out, f)
 
 
@@ -518,13 +523,19 @@ def test_feed_plane_needs_engine_input_mode():
 
 
 def test_ctx_feed_checkpoint_and_export_name_their_items(engine):
-  c = port_cluster.run(engine, _refused_ctx_calls, num_executors=1,
+  c = port_cluster.run(engine, _ctx_calls, num_executors=1,
                        reservation_timeout=60)
   c.shutdown(timeout=120)
-  got = json.loads(_read(engine, 0, "refused.json"))
-  assert got["get_data_feed"] == "DataFeed"
-  assert "item 6" in got["checkpoint_manager"]
-  assert "item 6" in got["export_model"]
+  got = json.loads(_read(engine, 0, "ctx_calls.json"))
+  workdir = engine.executor_workdir(0)
+  assert got == {
+      "get_data_feed": "DataFeed",
+      "checkpoint_manager":
+          "tensorflowonspark_tpu_torch.utils.checkpoint.CheckpointManager",
+      "saved": True, "steps": [0], "restored": [0.0, 1.0, 2.0],
+      "is_chief": True, "export_dir": os.path.join(workdir, "ex"),
+      "exported": ["state.json", "state.pt"]}
+  assert os.path.exists(os.path.join(workdir, "ck", ".commit-0.json"))
 
 
 # -- the seams ----------------------------------------------------------------

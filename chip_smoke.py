@@ -118,6 +118,32 @@ failure:
    (exactly 12 flash forwards and 25 LayerNorm forwards each) and returns
    one (mean next-token loss, last-position argmax) per row, which must
    equal the driver's forward on the same batches, in partition order;
+   (6l) data parallelism across processes: (6l-a) [6]'s steps (2 warm-up,
+   4 ``make_train_step``, one unroll-4 slab, one profiled) with no mesh
+   and then over the data axis of a 1-rank NCCL group
+   (``build_mesh(MeshSpec(data=-1))``, ``create_sharded_state``): the
+   losses equal to the bit, [6]'s launch counts on both, one bucketed
+   all-reduce per gradient bucket a step moving every weight's f32
+   gradient (and one for the losses), both paths' ms/step and the
+   all-reduce's device time in the profiled step; (6l-b) ``cluster.run(
+   LocalEngine(num_executors=2), ..., InputMode.FILES, chips_per_node=0,
+   max_restarts=0)``: both executors on the one card join a gloo group
+   (NCCL refuses two ranks on one card) and run ``train_gpt``'s pieces at
+   full width with ``--batch 16 --dp 2`` (4 steps, then an unroll-2 slab)
+   from seeded TFRecord files, against the same flags at ``--dp 1`` in the
+   driver: equal losses and weights' prints on both ranks, [6]'s launch
+   counts per step on each, no restart, every loss within 2e-3 relative of
+   the 1-process run's; each rank's ms/step (labelled: gloo over the host,
+   two ranks sharing one card), all-reduce seconds a step and peak memory;
+   each rank then holds ``psum_mean``, ``all_reduce``, ``all_gather``,
+   ``reduce_scatter`` and ``broadcast_from`` on CUDA tensors over gloo to
+   their exact values; then NCCL's answer to a 2-rank group on one card, untimed; (6l-c)
+   ``Cluster.train`` feeds 184 seeded rows in partitions of 96 and 88 to
+   two ranks training B8 each from ``next_batch_synced(8)``: both stop
+   after 11 steps, having trained exactly the vote-passed batches, with
+   equal weights, and the driver's one-process steps on each step's global
+   batch (reassembled from the row ids the ranks wrote) give losses within
+   2e-3;
    (6e) the flagship MHA at
    B16 x S1024 like 6 under ``TFOS_TPU_FLASH_BWD=split`` (12 dQ + 12 dK/dV
    per step, no fused backward), beside 6's fused plan; (6f) the port's
@@ -162,6 +188,10 @@ first use) and prints its measurements as one JSON line.
 ``python3 chip_smoke.py --ckpt-only`` runs phases 1 and 6k alone (6d's
 TFRecord files are written first) and prints its measurements as one JSON
 line.
+
+``python3 chip_smoke.py --dp-only`` runs phases 1 and 6l alone (the driver
+builds each kernel at its first use, the executors load them) and prints
+its measurements as one JSON line.
 
 ``python3 chip_smoke.py --feed-only`` runs phases 1, 6i and 6j alone (the
 driver builds each kernel at its first use, the executors load them) and
@@ -1476,8 +1506,11 @@ def _profile_step(torch, step, state, batch):
     wall_ms = (time.monotonic() - t0) * 1e3
   rows = _kernel_rows(torch, prof)
   busy = sum(r[1] for r in rows)
+  nccl = [r for r in rows if "nccl" in r[0].lower()]
   res = {"wall_ms": wall_ms, "device_busy_ms": busy,
          "kernel_launches": sum(r[2] for r in rows),
+         "nccl_ms": sum(r[1] for r in nccl),
+         "nccl_kernels": sum(r[2] for r in nccl),
          "top": [{"kernel": k[:90], "ms": ms, "count": n}
                  for k, ms, n in rows[:12]],
          "port_kernels": port_kernel_ms(rows)}
@@ -2575,6 +2608,611 @@ def feed_phases(torch, ops, tfm, card, params, cfg, train_res=None):
   return {"train": train, "inference": infer}
 
 
+# -- phase 6l: data parallelism across processes -----------------------------
+
+DP_STEPS, DP_UNROLL = 4, 2          # [6l-b]: per-step steps, then one slab
+DP_REL = 2e-3                       # 2 ranks against 1 process, bf16
+DP_ARGS = ["--layers", "12", "--d_model", "768", "--heads", "12", "--vocab",
+           "32000", "--seq_len", str(TRAIN_S), "--batch", str(TRAIN_B)]
+# [6l-c]: 184 seeded rows in partitions of 96 and 88, 8 rows a rank a
+# step (B16 global): the short rank runs dry after 11 batches, and the
+# vote stops both there. A partition may run at most one batch past the
+# shortest: the long rank must have taken all its rows when it waits in
+# the failing vote, or its feeder waits for rows no one takes while the
+# short rank waits for the end of feed that shutdown() sends after
+# train() returns
+DP_FEED_ROWS, DP_FEED_SPLIT, DP_FEED_B = 184, 96, TRAIN_B // 2
+DP_FEED_SEED = SEED + 13
+DP_LABEL = "gloo over host, two ranks sharing one card"
+
+
+def dp_reassemble(ids_by_rank, rows):
+  """Each step's global batch from the row ids each rank trained: rank
+  0's rows, then rank 1's, ... (what ``shard_batch`` of that batch gives
+  each rank back). The ranks must have trained the same number of
+  steps."""
+  import numpy as np
+  steps = {len(ids) for ids in ids_by_rank}
+  if len(steps) != 1:
+    raise AssertionError("the ranks trained %s steps" % sorted(steps))
+  return [np.stack([rows[i] for ids in ids_by_rank for i in ids[s]])
+          for s in range(steps.pop())]
+
+
+def dp_vote_passed(part_rows, per_rank):
+  """The row ids a 2-rank ``next_batch_synced(per_rank)`` run trains when
+  partition ``p`` (``part_rows[p]`` rows, ids numbered through the
+  partitions) feeds one rank: full batches of each partition, up to the
+  step where the shortest partition runs dry."""
+  steps = min(n // per_rank for n in part_rows)
+  out, first = [], 0
+  for n in part_rows:
+    out.append([list(range(first + s * per_rank, first + (s + 1) * per_rank))
+                for s in range(steps)])
+    first += n
+  return out
+
+
+def dp_max_rel(got, want):
+  """The largest relative difference of two loss lists of one length."""
+  if len(got) != len(want):
+    raise AssertionError("%d losses against %d" % (len(got), len(want)))
+  return max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, want))
+
+
+def _dp_run(torch, ops, tfm, optim, sharding, Slab, params, cfg, mesh):
+  """[6]'s steps on its fixed batch over ``mesh`` (None: no mesh): 2
+  warm-up steps, 4 ``make_train_step`` steps and one unroll-4 slab with
+  exact launch counts and the collectives' counts, then one profiled
+  step."""
+  import numpy as np
+  from tensorflowonspark_tpu_torch.parallel import collectives
+  tx = optim.make_optimizer(learning_rate=3e-4, clip_norm=1.0)
+  state = tfm.create_state(cfg, params, tx=tx) if mesh is None else \
+      tfm.create_sharded_state(cfg, params, mesh, tx=tx)
+  batch = _synthetic_batch(TRAIN_B, TRAIN_S, cfg.vocab_size)
+  loss_fn = _lm_loss(tfm)
+  step = sharding.make_train_step(loss_fn, mesh)
+  loop = sharding.make_train_loop(loss_fn, mesh, unroll=4)
+  losses = []
+  for _ in range(2):                               # warm-up
+    state, loss = step(state, batch)
+    losses.append(loss)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  res = {}
+  for path in ("per_step", "fused_loop"):
+    ops.reset_launches()
+    collectives.reset_counts()
+    t0 = time.monotonic()
+    if path == "per_step":
+      for _ in range(4):
+        state, loss = step(state, batch)
+        losses.append(loss)
+    else:
+      state, got = loop(state, Slab(np.stack([batch] * 4)))
+      losses += list(got)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    res[path] = {"ms_per_step": wall / 4 * 1e3,
+                 "tokens_per_s": TRAIN_B * TRAIN_S * 4 / wall,
+                 "launches_per_step": _per_step_launches(
+                     dict(ops.LAUNCHES), 4, WANT_PER_STEP,
+                     "[6l-a] %s %s" % ("mesh" if mesh else "no mesh", path)),
+                 "collectives": dict(collectives.COUNTS)}
+  res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+  state, loss, res["profile"] = _profile_step(torch, step, state, batch)
+  res["losses"] = [float(x) for x in losses + [loss]]
+  weights = list(state.params.values())
+  res["weights"] = sum(w.numel() for w in weights)
+  res["buckets_per_step"] = len(collectives._buckets(
+      weights, collectives.BUCKET_BYTES))
+  return res
+
+
+def _check_dp_collectives(res):
+  """One bucketed all-reduce per bucket each step, every weight's f32
+  gradient once; plus one all-reduce of the loss a step (per-step path)
+  or of the slab's [4] losses."""
+  per, nbytes = res["buckets_per_step"], 4 * res["weights"]
+  for path, loss_reduces in (("per_step", 4), ("fused_loop", 1)):
+    got = res[path]["collectives"]
+    want = {"sync_gradients": 4, "buckets": 4 * per,
+            "bucket_bytes": 4 * nbytes, "all_reduce": 4 * per + loss_reduces}
+    if any(got[k] != v for k, v in want.items()):
+      raise AssertionError("[6l-a] %s collectives %s, want %s"
+                           % (path, got, want))
+
+
+def dp_nccl_degree1(torch, ops, tfm, optim, sharding, Slab, params, cfg):
+  """[6l-a]: [6]'s steps with no mesh, then over a 1-rank NCCL group's
+  data axis (the bucket, the collective and the divide on the card):
+  the losses equal to the bit, [6]'s launch counts on both, the
+  collectives counted."""
+  import torch.distributed as dist
+  from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
+  from tensorflowonspark_tpu_torch.utils.hostinfo import get_free_port
+  plain = _dp_run(torch, ops, tfm, optim, sharding, Slab, params, cfg, None)
+  torch.cuda.empty_cache()
+  if any(plain["per_step"]["collectives"].values()):
+    raise AssertionError("[6l-a] the no-mesh path ran a collective: %s"
+                         % plain["per_step"]["collectives"])
+  torch.cuda.set_device(0)
+  t0 = time.monotonic()
+  dist.init_process_group("nccl", init_method="tcp://localhost:%d"
+                          % get_free_port(), rank=0, world_size=1)
+  init_s = time.monotonic() - t0
+  try:
+    mesh = mesh_lib.build_mesh(mesh_lib.MeshSpec(data=-1))
+    if mesh.shape["data"] != 1 or mesh.group("data") is None:
+      raise AssertionError("[6l-a] mesh %s" % mesh)
+    dp = _dp_run(torch, ops, tfm, optim, sharding, Slab, params, cfg, mesh)
+  finally:
+    dist.destroy_process_group()
+  torch.cuda.empty_cache()
+  _check_dp_collectives(dp)
+  if dp["losses"] != plain["losses"]:
+    raise AssertionError("[6l-a] NCCL degree-1 losses %s differ from the "
+                         "no-mesh path's %s" % (dp["losses"],
+                                                plain["losses"]))
+  res = {"plain": plain, "nccl": dp, "init_s": init_s}
+  log("  NCCL init %.2f s; %d weights, %d buckets a step (%.1f MB of f32 "
+      "gradients); losses equal to the no-mesh path's to the bit: %s"
+      % (init_s, dp["weights"], dp["buckets_per_step"],
+         4 * dp["weights"] / 1e6, " ".join("%.6f" % x for x in dp["losses"])))
+  for path in ("per_step", "fused_loop"):
+    log("  %-10s no mesh %.1f ms/step | NCCL data axis (1 rank) %.1f ms/step;"
+        " collectives %s" % (path, plain[path]["ms_per_step"],
+                             dp[path]["ms_per_step"],
+                             dp[path]["collectives"]))
+  log("  profiled step: no mesh device busy %.2f ms, NCCL %.2f ms, of it "
+      "the all-reduce %.3f ms (%d NCCL kernels); peak memory %.2f / %.2f "
+      "GiB" % (plain["profile"]["device_busy_ms"],
+               dp["profile"]["device_busy_ms"],
+               dp["profile"]["nccl_ms"], dp["profile"]["nccl_kernels"],
+               plain["peak_mem_gib"], dp["peak_mem_gib"]))
+  return res
+
+
+def dp_train(torch, ops, train_gpt, sharding, argv):
+  """train_gpt's pieces at ``argv`` (its mesh, state, loss and stream):
+  DP_STEPS steps through ``device_prefetch``, then one unroll-DP_UNROLL
+  slab from the same stream; per-step launch counts, losses and ms, the
+  gradient all-reduce's seconds, peak memory and the final weights'
+  print."""
+  import itertools
+  import numpy as np
+  from tensorflowonspark_tpu_torch.data import readers
+  from tensorflowonspark_tpu_torch.data.readers import Slab
+  from tensorflowonspark_tpu_torch.parallel import collectives
+  from tensorflowonspark_tpu_torch.utils.checkpoint import params_fingerprint
+  args = train_gpt.parse_args(argv)
+  mesh = train_gpt.make_mesh(args)
+  cfg = train_gpt.make_config(args)
+  state = train_gpt.make_state(args, cfg, mesh)
+  loss_fn = train_gpt.make_loss_fn(args)
+  step = sharding.make_train_step(loss_fn, mesh)
+  loop = sharding.make_train_loop(loss_fn, mesh, unroll=DP_UNROLL)
+  stream = train_gpt.batch_stream(args)
+  mine = (lambda b: b) if mesh is None else \
+      (lambda b: sharding.shard_batch(b, mesh))
+  batches = readers.device_prefetch(
+      (mine(b) for b in itertools.islice(stream, DP_STEPS)), size=2)
+  sync_s, real_sync = [], collectives.sync_gradients
+
+  def timed_sync(grads, mesh, **kw):
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = real_sync(grads, mesh, **kw)
+    torch.cuda.synchronize()
+    sync_s.append(time.monotonic() - t0)
+    return out
+
+  collectives.sync_gradients = timed_sync
+  try:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, launches, step_ms = [], [], []
+    for batch in batches:
+      before = dict(ops.LAUNCHES)
+      t0 = time.monotonic()
+      state, loss = step(state, batch)
+      losses.append(float(loss))
+      step_ms.append((time.monotonic() - t0) * 1e3)
+      launches.append({k: ops.LAUNCHES[k] - before[k] for k in before})
+    slab = Slab(np.stack([np.asarray(b, "int32") for b in
+                          itertools.islice(stream, DP_UNROLL)]))
+    if mesh is not None:
+      slab = sharding.shard_slab(slab, mesh)
+    before = dict(ops.LAUNCHES)
+    t0 = time.monotonic()
+    state, got = loop(state, slab)
+    losses += got.float().tolist()
+    slab_ms = (time.monotonic() - t0) * 1e3 / DP_UNROLL
+    launches.append({k: (ops.LAUNCHES[k] - before[k]) / DP_UNROLL
+                     for k in before})
+  finally:
+    collectives.sync_gradients = real_sync
+  return {"rank": mesh.rank if mesh is not None else 0,
+          "ranks": mesh.size if mesh is not None else 1,
+          "losses": losses, "launches_per_step": launches,
+          "step_ms": step_ms, "ms_per_step": statistics.median(step_ms[1:]),
+          "slab_ms_per_step": slab_ms, "all_reduce_s": sync_s,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "print": params_fingerprint(state)}
+
+
+def dp_check_collectives(torch):
+  """The data axis's collectives on CUDA tensors in a 2-rank gloo group:
+  each rank holds ``arange(8).view(4, 2) + 10 * rank``; every result must
+  be exact and on the card. Returns the helpers checked."""
+  from tensorflowonspark_tpu_torch.parallel import collectives
+  from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
+  mesh = mesh_lib.build_mesh(mesh_lib.MeshSpec(data=2))
+  base = torch.arange(8.0, device="cuda").view(4, 2)
+  x = base + 10 * mesh.rank
+  total = 2 * base + 10
+  want = {"psum_mean": (collectives.psum_mean(x, mesh), total / 2),
+          "all_reduce": (collectives.all_reduce(x, mesh), total),
+          "all_gather": (collectives.all_gather(x, mesh),
+                         torch.cat([base, base + 10])),
+          "reduce_scatter": (collectives.reduce_scatter(x, mesh),
+                             total[2 * mesh.rank:2 * mesh.rank + 2]),
+          "broadcast_from": (collectives.broadcast_from(x, mesh, src_index=1),
+                             base + 10)}
+  for name, (got, exact) in want.items():
+    if not got.is_cuda or not torch.equal(got, exact):
+      raise AssertionError("[6l-b] %s over gloo on the card gave %s, want %s"
+                           % (name, got.cpu().tolist(), exact.cpu().tolist()))
+  return sorted(want)
+
+
+def dp_files_main(args, ctx):
+  """[6l-b]'s main fn in each of two LocalEngine executors on the one
+  card: join the gloo group, run ``dp_train`` at ``args["argv"]``
+  (``--dp 2``) and write the result to ``args["out"] % rank``."""
+  import torch
+  import torch.distributed as dist
+  from tensorflowonspark_tpu_torch import ops
+  from tensorflowonspark_tpu_torch.examples import train_gpt
+  from tensorflowonspark_tpu_torch.parallel import sharding
+  _no_tf32(torch)
+  ctx.initialize_distributed(backend="gloo")
+  try:
+    res = dp_train(torch, ops, train_gpt, sharding, args["argv"])
+    res["card"] = torch.cuda.get_device_name()
+    res["collectives_on_card"] = dp_check_collectives(torch)
+    with open(args["out"] % ctx.process_id, "w") as f:
+      json.dump(res, f)
+  finally:
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+
+def dp_feed_main(args, ctx):
+  """[6l-c]'s main fn in each of two LocalEngine executors' background
+  processes (InputMode.SPARK): the flagship (``args["layers"]`` deep)
+  from rank 0's weights, trained from ``feed.next_batch_synced`` in the
+  gloo group until the vote fails; writes each step's row ids, loss and
+  launch counts and the final weights' print to ``args["out"] % rank``."""
+  import numpy as np
+  import torch
+  from tensorflowonspark_tpu_torch import ops, optim
+  from tensorflowonspark_tpu_torch.models import transformer as tfm
+  from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
+  from tensorflowonspark_tpu_torch.parallel import sharding
+  from tensorflowonspark_tpu_torch.utils.checkpoint import params_fingerprint
+  from tensorflowonspark_tpu_torch.utils.params import init_params
+  _no_tf32(torch)
+  with open(args["ready"] % ctx.executor_id, "w"):
+    pass
+  ctx.initialize_distributed(backend="gloo")
+  mesh = mesh_lib.build_mesh(mesh_lib.MeshSpec(data=-1))
+  cfg = tfm.TransformerConfig(num_layers=args["layers"])
+  state = tfm.create_sharded_state(
+      cfg, init_params(cfg, seed=SEED), mesh,
+      tx=optim.make_optimizer(learning_rate=3e-4, clip_norm=1.0))
+  step = sharding.make_train_step(_lm_loss(tfm), mesh)
+  ids = {r.tobytes(): i for i, r in enumerate(feed_rows(DP_FEED_ROWS,
+                                                        DP_FEED_SEED))}
+  feed = ctx.get_data_feed()
+  trained, losses, launches, step_ms = [], [], [], []
+  while not feed.should_stop():
+    batch = feed.next_batch_synced(DP_FEED_B)
+    if len(batch) < DP_FEED_B:
+      break
+    tokens = np.stack([np.asarray(r, np.int32) for r in batch])
+    trained.append([ids[r.tobytes()] for r in tokens])
+    before = dict(ops.LAUNCHES)
+    t0 = time.monotonic()
+    state, loss = step(state, tokens)
+    losses.append(float(loss))
+    step_ms.append((time.monotonic() - t0) * 1e3)
+    launches.append({k: ops.LAUNCHES[k] - before[k] for k in before})
+  with open(args["out"] % mesh.rank, "w") as f:
+    json.dump({"rank": mesh.rank, "trained": trained, "losses": losses,
+               "launches_per_step": launches, "step_ms": step_ms,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "print": params_fingerprint(state)}, f)
+
+
+def _nccl_two_ranks(rank, port, out):
+  """One rank of a 2-rank NCCL group on card 0: its first all-reduce's
+  outcome, written to ``out % rank``."""
+  import datetime
+  import torch
+  import torch.distributed as dist
+  try:
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="tcp://localhost:%d" % port,
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=60))
+    t = torch.ones(1, device="cuda")
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    msg = "no refusal: the all-reduce gave %s" % t.item()
+  except Exception as e:  # noqa: BLE001 - the refusal is what is recorded
+    msg = "%s: %s" % (type(e).__name__, e)
+  with open(out % rank, "w") as f:
+    f.write(msg)
+
+
+def nccl_refusal():
+  """NCCL's answer to two ranks on one card: two spawned processes try
+  one all-reduce; whatever each reports (killed after 120 s)."""
+  import multiprocessing as mp
+  from tensorflowonspark_tpu_torch.utils.hostinfo import get_free_port
+  out = os.path.join(HERE, "build", "chip_smoke_nccl_rank%d.txt")
+  for r in range(2):
+    _fresh(out % r)
+  ctx = mp.get_context("spawn")
+  port = get_free_port()
+  procs = [ctx.Process(target=_nccl_two_ranks, args=(r, port, out))
+           for r in range(2)]
+  for p in procs:
+    p.start()
+  for p in procs:
+    p.join(timeout=120)
+  msgs = []
+  for r, p in enumerate(procs):
+    if p.is_alive():
+      p.kill()
+      p.join()
+    msgs.append(open(out % r).read() if os.path.exists(out % r) else
+                "no answer (exit code %s)" % p.exitcode)
+  return msgs
+
+
+def _dp_cluster_done(c, what):
+  c.shutdown(timeout=900)
+  if c.supervisor.restarts:
+    raise AssertionError("%s: the supervisor relaunched a node: %s"
+                         % (what, c.supervisor.restarts))
+
+
+def dp_two_ranks_files(torch, ops, train_gpt, sharding, cluster, engine):
+  """[6l-b]: ``train_gpt --dp 2`` in two executors sharing the card over
+  gloo, against the same flags at ``--dp 1`` in the driver."""
+  pattern = write_token_files(os.path.join(HERE, "build",
+                                           "chip_smoke_dp_tokens"),
+                              32000, TRAIN_S, files=4, rows=16)
+  argv = DP_ARGS + ["--data", os.path.abspath(pattern), "--steps",
+                    str(DP_STEPS)]
+  one = dp_train(torch, ops, train_gpt, sharding, argv + ["--dp", "1"])
+  torch.cuda.empty_cache()
+  for i, got in enumerate(one["launches_per_step"]):
+    _per_step_launches(got, 1, WANT_PER_STEP, "[6l-b] one process step %d"
+                       % i)
+  out = os.path.join(HERE, "build", "chip_smoke_dp_rank%d.json")
+  for r in range(2):
+    _fresh(out % r)
+  t0 = time.monotonic()
+  c = cluster.run(engine, dp_files_main, {"argv": argv + ["--dp", "2"],
+                                          "out": out},
+                  input_mode=cluster.InputMode.FILES, chips_per_node=0,
+                  max_restarts=0, reservation_timeout=300)
+  _dp_cluster_done(c, "[6l-b]")
+  cluster_s = time.monotonic() - t0
+  ranks = []
+  for r in range(2):
+    with open(out % r) as f:
+      ranks.append(json.load(f))
+  for rank in ranks:
+    for i, got in enumerate(rank["launches_per_step"]):
+      _per_step_launches(got, 1, WANT_PER_STEP, "[6l-b] rank %d step %d"
+                         % (rank["rank"], i))
+    if len(rank["collectives_on_card"]) != 5:
+      raise AssertionError("[6l-b] rank %d checked %s"
+                           % (rank["rank"], rank["collectives_on_card"]))
+  if ranks[0]["losses"] != ranks[1]["losses"] or \
+      ranks[0]["print"] != ranks[1]["print"]:
+    raise AssertionError("[6l-b] the ranks disagree: losses %s / %s, "
+                         "weights %s / %s" % (
+                             ranks[0]["losses"], ranks[1]["losses"],
+                             ranks[0]["print"], ranks[1]["print"]))
+  rel = dp_max_rel(ranks[0]["losses"], one["losses"])
+  if not rel <= DP_REL or not all(math.isfinite(x) for x in one["losses"]):
+    raise AssertionError("[6l-b] 2 ranks %s against 1 process %s: %.3g "
+                         "relative" % (ranks[0]["losses"], one["losses"],
+                                       rel))
+  log("[6l-b] NCCL's answer to two ranks on one card (one attempt, "
+      "untimed)")
+  refusal = nccl_refusal()
+  res = {"one_process": one, "ranks": ranks, "max_rel_loss_diff": rel,
+         "cluster_s": cluster_s, "nccl_two_ranks_one_card": refusal,
+         "label": DP_LABEL}
+  log("  losses: 2 ranks %s; 1 process %s; largest relative difference "
+      "%.3g (limit %g); weights' print %s on both ranks" % (
+          " ".join("%.5f" % x for x in ranks[0]["losses"]),
+          " ".join("%.5f" % x for x in one["losses"]), rel, DP_REL,
+          ranks[0]["print"]))
+  for rank in ranks:
+    log("  rank %d (%s): %.1f ms/step, slab %.1f ms/step, all-reduce %s s "
+        "a step, peak memory %.2f GiB; 1 process B%d: %.1f ms/step, slab "
+        "%.1f, peak %.2f GiB" % (
+            rank["rank"], DP_LABEL, rank["ms_per_step"],
+            rank["slab_ms_per_step"],
+            " ".join("%.3f" % s for s in rank["all_reduce_s"]),
+            rank["peak_mem_gib"], TRAIN_B, one["ms_per_step"],
+            one["slab_ms_per_step"], one["peak_mem_gib"]))
+  log("  %s exact on CUDA tensors over gloo on both ranks; cluster.run to "
+      "shutdown %.1f s; NCCL, rank 0: %s" % (
+          ", ".join(ranks[0]["collectives_on_card"]), cluster_s,
+          refusal[0][:400]))
+  return res
+
+
+def dp_two_ranks_feed(torch, ops, tfm, optim, sharding, cluster, engine,
+                      layers=12):
+  """[6l-c]: DP_FEED_ROWS rows fed by ``Cluster.train`` in uneven
+  partitions to two ranks that train from ``next_batch_synced``; the
+  driver replays each step's reassembled global batch in one process."""
+  from tensorflowonspark_tpu_torch.utils.params import init_params
+  rows = feed_rows(DP_FEED_ROWS, DP_FEED_SEED)
+  out = os.path.join(HERE, "build", "chip_smoke_dp_feed_rank%d.json")
+  ready = os.path.join(HERE, "build", "chip_smoke_dp_ready%d")
+  for r in range(2):
+    _fresh(out % r)
+    _fresh(ready % r)
+  t0 = time.monotonic()
+  c = cluster.run(engine, dp_feed_main, {"out": out, "ready": ready,
+                                         "layers": layers},
+                  input_mode=cluster.InputMode.SPARK, chips_per_node=0,
+                  max_restarts=0, reservation_timeout=300)
+  # feed once both nodes run their fn: a node still starting would leave
+  # both partitions to the other
+  deadline = time.monotonic() + 300
+  while not all(os.path.exists(ready % r) for r in range(2)):
+    if time.monotonic() > deadline:
+      raise AssertionError("[6l-c] a node never started its fn")
+    time.sleep(0.05)
+  parts = [rows[:DP_FEED_SPLIT], rows[DP_FEED_SPLIT:]]
+  c.train(parts, num_epochs=1)
+  _dp_cluster_done(c, "[6l-c]")
+  cluster_s = time.monotonic() - t0
+  ranks = []
+  for r in range(2):
+    with open(out % r) as f:
+      ranks.append(json.load(f))
+  want = _want_per_layer(layers)
+  for rank in ranks:
+    for i, got in enumerate(rank["launches_per_step"]):
+      _per_step_launches(got, 1, want, "[6l-c] rank %d step %d"
+                         % (rank["rank"], i))
+  passed = dp_vote_passed([len(p) for p in parts], DP_FEED_B)
+  trained = sorted((r["trained"] for r in ranks), key=lambda t: t[0][0])
+  if trained != passed:
+    raise AssertionError("[6l-c] the ranks trained %s, the vote passed %s"
+                         % (trained, passed))
+  if ranks[0]["losses"] != ranks[1]["losses"] or \
+      ranks[0]["print"] != ranks[1]["print"]:
+    raise AssertionError("[6l-c] the ranks disagree: %s / %s"
+                         % (ranks[0]["print"], ranks[1]["print"]))
+  cfg = tfm.TransformerConfig(num_layers=layers)
+  state = tfm.create_state(cfg, init_params(cfg, seed=SEED),
+                           tx=optim.make_optimizer(learning_rate=3e-4,
+                                                   clip_norm=1.0))
+  step = sharding.make_train_step(_lm_loss(tfm))
+  one = []
+  for batch in dp_reassemble([r["trained"] for r in ranks], rows):
+    state, loss = step(state, batch)
+    one.append(float(loss))
+  del state
+  torch.cuda.empty_cache()
+  rel = dp_max_rel(ranks[0]["losses"], one)
+  if not rel <= DP_REL:
+    raise AssertionError("[6l-c] 2 ranks %s against 1 process %s: %.3g "
+                         "relative" % (ranks[0]["losses"], one, rel))
+  res = {"ranks": ranks, "one_process": one, "max_rel_loss_diff": rel,
+         "steps": len(one), "cluster_s": cluster_s, "layers": layers,
+         "label": DP_LABEL}
+  log("  partitions of %d and %d rows, %d a rank a step: both ranks stopped "
+      "after %d steps, exactly the vote-passed batches; losses %s; 1 process "
+      "on the reassembled batches %s; largest relative difference %.3g; "
+      "weights' print %s on both" % (
+          len(parts[0]), len(parts[1]), DP_FEED_B, len(one),
+          " ".join("%.5f" % x for x in ranks[0]["losses"]),
+          " ".join("%.5f" % x for x in one), rel, ranks[0]["print"]))
+  log("  %s: rank 0 %.1f ms/step, rank 1 %.1f ms/step (median after the "
+      "first); cluster.run to shutdown %.1f s" % (
+          DP_LABEL, statistics.median(ranks[0]["step_ms"][1:]),
+          statistics.median(ranks[1]["step_ms"][1:]), cluster_s))
+  return res
+
+
+def dp_phases(torch, ops, tfm, optim, sharding, Slab, train_gpt, params,
+              cfg):
+  """[6l]: the data axis over NCCL at degree 1 in the driver, then two
+  executors sharing the card over gloo in InputMode.FILES and SPARK."""
+  from tensorflowonspark_tpu_torch import cluster
+  from tensorflowonspark_tpu_torch.engine import LocalEngine
+  t0 = time.monotonic()
+  log("[6l-a] [6] over the data axis of a 1-rank NCCL group, beside the "
+      "no-mesh path")
+  nccl = dp_nccl_degree1(torch, ops, tfm, optim, sharding, Slab, params,
+                         cfg)
+  engine = LocalEngine(num_executors=2)
+  try:
+    log("[6l-b] train_gpt --dp 2 in cluster.run(LocalEngine(2), ..., "
+        "InputMode.FILES): %s" % DP_LABEL)
+    files = dp_two_ranks_files(torch, ops, train_gpt, sharding, cluster,
+                               engine)
+    log("[6l-c] Cluster.train in uneven partitions to 2 ranks training from "
+        "next_batch_synced (InputMode.SPARK): %s" % DP_LABEL)
+    feed = dp_two_ranks_feed(torch, ops, tfm, optim, sharding, cluster,
+                             engine)
+  finally:
+    engine.stop()
+  res = {"nccl_degree1": nccl, "files": files, "feed": feed,
+         "seconds": time.monotonic() - t0}
+  log("  [6l] %.1f s" % res["seconds"])
+  return res
+
+
+def dp_launches(dp_res, name):
+  """[6l]'s launches of kernel ``name``: the NCCL per-step path's 4 steps,
+  and rank 0's steps in [6l-b] (slab steps counted once each) and
+  [6l-c]."""
+  nccl = int(dp_res["nccl_degree1"]["nccl"]["per_step"][
+      "launches_per_step"][name] * 4)
+  per = dp_res["files"]["ranks"][0]["launches_per_step"]
+  files = int(sum(p[name] for p in per[:-1]) + DP_UNROLL * per[-1][name])
+  feed = sum(p[name] for p in dp_res["feed"]["ranks"][0]["launches_per_step"])
+  return {"dp_nccl_degree1_4_steps": nccl,
+          "dp_files_rank0_%d_steps" % (DP_STEPS + DP_UNROLL): files,
+          "dp_feed_rank0_%d_steps" % dp_res["feed"]["steps"]: feed}
+
+
+def dp_only(torch, ops, tfm, optim, sharding, Slab, train_gpt, init_params,
+            card):
+  """``--dp-only``: phase 6l alone."""
+  cfg = tfm.TransformerConfig()
+  res = dp_phases(torch, ops, tfm, optim, sharding, Slab, train_gpt,
+                  init_params(cfg, seed=SEED), cfg)
+  os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+  with open(os.path.join(HERE, "chiprun_out", "chip_smoke_dp.json"),
+            "w") as f:
+    json.dump({"dp": res, "card": card}, f, indent=1)
+  log(card)
+  log(json.dumps({"dp": {
+      "nccl_ms_per_step": [res["nccl_degree1"][k]["per_step"]["ms_per_step"]
+                           for k in ("plain", "nccl")],
+      "files_ms_per_step": [r["ms_per_step"]
+                            for r in res["files"]["ranks"]],
+      "files_one_process_ms_per_step": res["files"]["one_process"][
+          "ms_per_step"],
+      "files_max_rel": res["files"]["max_rel_loss_diff"],
+      "feed_max_rel": res["feed"]["max_rel_loss_diff"],
+      "launches": {n: dp_launches(res, n) for n in (
+          "flash_attention_fwd", "flash_attention_bwd", "layer_norm",
+          "layer_norm_bwd")},
+      "seconds": res["seconds"]}, "card": card}))
+  log(json.dumps({"ok": True, "device": {
+      "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+      "count": torch.cuda.device_count()}}))
+  return 0
+
+
 # train_gpt.py's default model flags (4 layers, d_model 256, 8 heads:
 # head_dim 32, seq 512, vocab 1024, batch 8): 2 flash forwards per layer
 # (forward and remat recompute), one fused backward, 4 LayerNorm forwards
@@ -2840,11 +3478,14 @@ def main(argv):
   only_cluster = argv == ["--cluster-only"]
   only_feed = argv == ["--feed-only"]
   only_ckpt = argv == ["--ckpt-only"]
+  only_dp = argv == ["--dp-only"]
   if argv[:1] == ["--serving-only"] and len(argv) == 2:
     repeats = int(argv[1])
-  elif argv and not (ln_only or only_cluster or only_feed or only_ckpt):
+  elif argv and not (ln_only or only_cluster or only_feed or only_ckpt
+                     or only_dp):
     log("usage: python3 chip_smoke.py [--serving-only N | "
-        "--layer-norm-only | --cluster-only | --feed-only | --ckpt-only]")
+        "--layer-norm-only | --cluster-only | --feed-only | --ckpt-only | "
+        "--dp-only]")
     return 2
   try:
     import torch
@@ -2887,6 +3528,9 @@ def main(argv):
     return feed_only(torch, ops, tfm, init_params, card)
   if only_ckpt:
     return ckpt_only(torch)
+  if only_dp:
+    return dp_only(torch, ops, tfm, optim, sharding, Slab, train_gpt,
+                   init_params, card)
 
   log("[2] build")
   t0 = time.monotonic()
@@ -3023,6 +3667,9 @@ def main(argv):
   feed_res = feed_phases(torch, ops, tfm, torch.cuda.get_device_name(0),
                          params, cfg, train_res)
   torch.cuda.empty_cache()
+  dp_res = dp_phases(torch, ops, tfm, optim, sharding, Slab, train_gpt,
+                     params, cfg)
+  torch.cuda.empty_cache()
 
   log("[6e] the flagship MHA under TFOS_TPU_FLASH_BWD=split, B%d x S%d"
       % (TRAIN_B, TRAIN_S))
@@ -3107,7 +3754,8 @@ def main(argv):
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "flash_attention_fwd"),
              "serve_gpt_config_bf16": serve_gpt_res["bfloat16"]["launches"][
-                 "flash_attention_fwd"]},
+                 "flash_attention_fwd"],
+             **dp_launches(dp_res, "flash_attention_fwd")},
             max(fa_err, hd_err["fwd"]), pick(fa_rows, case="s512"),
             design="wgmma+tma", head_dims="8..128 (d % 8 == 0)",
             train={k: fa_train[k] for k in ("ms", "plain_ms", "library_ms",
@@ -3123,7 +3771,8 @@ def main(argv):
              "feed_train_12_steps": feed_launches("layer_norm"),
              "feed_inference_4_forwards": infer_launches("layer_norm"),
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
-                 gpt_res, GPT_DEFAULT_STEPS, "layer_norm")},
+                 gpt_res, GPT_DEFAULT_STEPS, "layer_norm"),
+             **dp_launches(dp_res, "layer_norm")},
             ln_err, pick(ln_rows, rows=512, dtype="bfloat16"),
             train={k: pick(ln_rows, rows=16384)[k]
                    for k in ("ms", "device_ms", "library_ms", "bound_ms")}),
@@ -3133,7 +3782,8 @@ def main(argv):
              "train_fused_4_steps": fused_l["flash_attention_bwd"],
              "feed_train_12_steps": feed_launches("flash_attention_bwd"),
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
-                 gpt_res, GPT_DEFAULT_STEPS, "flash_attention_bwd")},
+                 gpt_res, GPT_DEFAULT_STEPS, "flash_attention_bwd"),
+             **dp_launches(dp_res, "flash_attention_bwd")},
             max(fab_err, hd_err["bwd"]), pick(fab_rows, case="train"),
             design="wgmma+tma", head_dims="8..128 (d % 8 == 0)"),
       entry("flash_attention_bwd_gqa", "flash_attention_bwd.cu",
@@ -3152,7 +3802,8 @@ def main(argv):
              "ckpt_resume_6_steps": ckpt_launches("layer_norm_bwd"),
              "feed_train_12_steps": feed_launches("layer_norm_bwd"),
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
-                 gpt_res, GPT_DEFAULT_STEPS, "layer_norm_bwd")},
+                 gpt_res, GPT_DEFAULT_STEPS, "layer_norm_bwd"),
+             **dp_launches(dp_res, "layer_norm_bwd")},
             lnb_err, pick(lnb_rows, rows=16384, dtype="bfloat16"),
             design="row in registers, grid from the SM count"),
       entry("ln_matmul", "ln_matmul.cu", "ln_matmul.py:31",
@@ -3212,7 +3863,7 @@ def main(argv):
             "train_fused": fused_res, "train_fused_gqa": fgqa_res,
             "train_long_gqa": long_res, "cluster_long_gqa": cluster_res,
             "ckpt_resume": ckpt_res,
-            "feed": feed_res,
+            "feed": feed_res, "dp": dp_res,
             "train_split": split_res,
             "train_parity_f32": train_parity,
             "train_fused_parity_f32": fused_parity,

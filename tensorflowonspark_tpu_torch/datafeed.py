@@ -772,16 +772,9 @@ def prefetch_to_device(batches, size: int = 2, device=None):
 
 def _all_processes_agree(ok: bool) -> bool:
   """True when every process of the ``torch.distributed`` group votes
-  ``ok``: one ``all_reduce(MIN)`` of a one-element tensor, on the card
-  under NCCL and on the CPU otherwise; the local vote when no group is
-  initialized. (The JAX package's ``parallel.collectives.
-  all_processes_agree``; the port's collectives are ROADMAP Queue 1 item
-  10.)"""
-  import torch
-  import torch.distributed as dist
-  if not (dist.is_available() and dist.is_initialized()):
-    return bool(ok)
-  device = "cuda" if dist.get_backend() == "nccl" else "cpu"
-  vote = torch.tensor([1 if ok else 0], dtype=torch.int32, device=device)
-  dist.all_reduce(vote, op=dist.ReduceOp.MIN)
-  return bool(vote.item())
+  ``ok``; the local vote when no group is initialized. It is
+  :func:`~tensorflowonspark_tpu_torch.parallel.collectives.all_processes_agree`
+  (the JAX package's ``parallel.collectives.all_processes_agree``),
+  imported at the call so that a feed that never votes loads no torch."""
+  from tensorflowonspark_tpu_torch.parallel import collectives
+  return collectives.all_processes_agree(ok)

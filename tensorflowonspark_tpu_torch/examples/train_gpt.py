@@ -1,15 +1,25 @@
-"""Long-context Transformer training on one card.
+"""Long-context Transformer training on one card, or data-parallel
+across the processes of a ``torch.distributed`` group.
 
-The port of the single-device path of the JAX package's
-``examples/transformer/train_gpt.py`` (:186-243): the same flags and
-config, batches from TFRecord files through the FILES-mode pipeline
-(``shard_files`` -> ``shuffled`` -> ``batched``) with one batch always
-staged ahead on the card (``device_prefetch``), or one synthetic batch;
-the per-step train step, or the fused K-step loop with ``--unroll``. The
-flash-attention backward plan comes from ``TFOS_TPU_FLASH_BWD`` (default
-``fused``; grouped K/V at long sequence lengths takes the split plan, as
-in the reference). Mesh flags other than 1 and ``--pp`` > 1 raise: multi-
-GPU parallelism is not ported yet (ROADMAP Queue 1 item 10).
+The port of the JAX package's ``examples/transformer/train_gpt.py``
+(:186-243) on the mesh's data axis: the same flags and config, batches
+from TFRecord files through the FILES-mode pipeline (``shard_files`` ->
+``shuffled`` -> ``batched``) with one batch always staged ahead on the
+card (``device_prefetch``), or one synthetic batch; the per-step train
+step, or the fused K-step loop with ``--unroll``. The flash-attention
+backward plan comes from ``TFOS_TPU_FLASH_BWD`` (default ``fused``;
+grouped K/V at long sequence lengths takes the split plan, as in the
+reference).
+
+``--dp N`` trains data-parallel over a process group of N ranks, which
+the caller opens first (under ``cluster.run``, ``ctx.initialize_distributed``);
+``--dp -1`` (the default) takes every process of the group, or one card
+outside a group. ``--batch`` is the GLOBAL batch, as in the reference:
+every rank reads the same stream and keeps its rows of each batch
+(``parallel.sharding.shard_batch``). Rank 0 prints the losses, every rank
+returns them. ``--fsdp``, ``--sp``, ``--tp`` and ``--pp`` above 1 raise:
+the other mesh axes, ring attention and the 1F1B pipeline are ROADMAP
+Queue 1 item 10.
 
   python -m tensorflowonspark_tpu_torch.examples.train_gpt --layers 12 \\
       --d_model 768 --heads 12 --kv_heads 4 --seq_len 16384 --vocab 32000 \\
@@ -30,7 +40,9 @@ import numpy as np
 
 def make_parser() -> argparse.ArgumentParser:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-  parser.add_argument("--dp", type=int, default=-1)
+  parser.add_argument("--dp", type=int, default=-1,
+                      help="data-parallel ranks: the process group's size "
+                           "(-1: every process of the group)")
   parser.add_argument("--fsdp", type=int, default=1)
   parser.add_argument("--sp", type=int, default=1)
   parser.add_argument("--tp", type=int, default=1)
@@ -76,23 +88,43 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
-  """The flags, with the options the port does not run refused by name."""
+  """The flags, with the options the port does not run refused by name:
+  ``--fsdp``, ``--sp``, ``--tp`` and ``--pp`` above 1 (item 10; ``--dp``
+  is checked against the process group by :func:`make_mesh`)."""
   args = make_parser().parse_args(argv)
-  # --dp -1 means every device: one card here
+  if args.dp == 0 or args.dp < -1:
+    raise ValueError("--dp must be -1 (every process) or a rank count >= 1, "
+                     "got %d" % args.dp)
   wide = ["--%s %d" % (flag, n) for flag, n, ok in (
-      ("dp", args.dp, args.dp in (-1, 1)), ("fsdp", args.fsdp, args.fsdp == 1),
-      ("sp", args.sp, args.sp == 1), ("tp", args.tp, args.tp == 1),
-      ("pp", args.pp, args.pp <= 1)) if not ok]
+      ("fsdp", args.fsdp, args.fsdp == 1), ("sp", args.sp, args.sp == 1),
+      ("tp", args.tp, args.tp == 1), ("pp", args.pp, args.pp <= 1)) if not ok]
   if wide:
     raise NotImplementedError(
-        "%s: multi-GPU parallelism (a mesh, ring attention, the 1F1B "
-        "pipeline) is not ported to PyTorch yet (ROADMAP Queue 1 item 10)"
-        % ", ".join(wide))
+        "%s: FSDP, ring attention, tensor parallelism and the 1F1B pipeline "
+        "are not ported to PyTorch yet (ROADMAP Queue 1 item 10); --dp "
+        "trains data-parallel across processes" % ", ".join(wide))
   if args.remat_policy == "dots":
     raise NotImplementedError(
         "--remat_policy dots is not ported to PyTorch yet (ROADMAP Queue 1 "
         "item 12)")
   return args
+
+
+def make_mesh(args: argparse.Namespace):
+  """The data-parallel mesh over the ``torch.distributed`` group, or None
+  (one card) outside a group at ``--dp`` -1 or 1. ``--dp N`` must equal the
+  group's size; outside a group anything but 1 raises."""
+  import torch.distributed as dist
+  from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
+  if not (dist.is_available() and dist.is_initialized()):
+    if args.dp in (-1, 1):
+      return None
+    raise ValueError(
+        "--dp %d needs a torch.distributed process group of %d ranks: run "
+        "train_gpt in each node of cluster.run after "
+        "ctx.initialize_distributed() (or init_process_group yourself)"
+        % (args.dp, args.dp))
+  return mesh_lib.build_mesh(mesh_lib.MeshSpec(data=args.dp))
 
 
 def make_config(args: argparse.Namespace):
@@ -106,14 +138,17 @@ def make_config(args: argparse.Namespace):
       num_kv_heads=args.kv_heads, remat_policy=args.remat_policy, **fused)
 
 
-def make_state(args: argparse.Namespace, cfg):
+def make_state(args: argparse.Namespace, cfg, mesh=None):
   """The train state: weights from seed 0 and the reference's optimizer
-  recipe (``--optimizer adafactor`` raises by name)."""
+  recipe (``--optimizer adafactor`` raises by name); over a ``mesh``,
+  rank 0's state on every rank."""
   from tensorflowonspark_tpu_torch import optim
   from tensorflowonspark_tpu_torch.models import transformer as tfm
   tx = optim.make_optimizer(learning_rate=args.lr, clip_norm=1.0,
                             optimizer=args.optimizer,
                             grad_accum_steps=args.grad_accum)
+  if mesh is not None:
+    return tfm.create_sharded_state(cfg, 0, mesh, tx=tx, device=args.device)
   return tfm.create_state(cfg, 0, tx=tx, device=args.device)
 
 
@@ -172,16 +207,21 @@ def pad_tokens(rows, seq_len: int, vocab: int) -> np.ndarray:
 
 def run(args: argparse.Namespace) -> List[float]:
   """Train ``args.steps`` steps, printing each step's loss and time as
-  the reference does; returns the losses."""
+  the reference does (rank 0 alone over a mesh); returns the losses,
+  the global batch's on every rank."""
   from tensorflowonspark_tpu_torch.data.readers import Slab, device_prefetch
   from tensorflowonspark_tpu_torch.parallel import sharding
+  mesh = make_mesh(args)
+  say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
+  if mesh is not None:
+    say("mesh:", dict(mesh.shape))
   cfg = make_config(args)
-  state = make_state(args, cfg)
+  state = make_state(args, cfg, mesh)
   loss_fn = make_loss_fn(args)
   losses = []
   unroll = sharding.resolve_unroll(args.unroll or None)
   if unroll > 1:
-    loop = sharding.make_train_loop(loss_fn, unroll=unroll)
+    loop = sharding.make_train_loop(loss_fn, mesh, unroll=unroll)
     stream = batch_stream(args)
     while loop.steps < args.steps:
       group = [np.asarray(b, "int32") for b in
@@ -189,24 +229,30 @@ def run(args: argparse.Namespace) -> List[float]:
       if not group:
         break
       t0 = time.time()
-      state, got = loop(state, Slab(np.stack(group)))
+      slab = Slab(np.stack(group))
+      if mesh is not None:
+        slab = sharding.shard_slab(slab, mesh)
+      state, got = loop(state, slab)
       got = got.float().cpu().numpy()
       losses += got.tolist()
-      print("steps %d..%d mean loss %.4f (%.0f ms, %d step(s)/dispatch)"
-            % (loop.steps - len(group), loop.steps - 1, got.mean(),
-               1000 * (time.time() - t0), len(group)))
+      say("steps %d..%d mean loss %.4f (%.0f ms, %d step(s)/dispatch)"
+          % (loop.steps - len(group), loop.steps - 1, got.mean(),
+             1000 * (time.time() - t0), len(group)))
   else:
-    step = sharding.make_train_step(loss_fn)
+    step = sharding.make_train_step(loss_fn, mesh)
+    stream = batch_stream(args)
+    if mesh is not None:
+      stream = (sharding.shard_batch(b, mesh) for b in stream)
     # one batch always staged ahead on the device: its copy overlaps the
     # step before it and stays out of the printed step time
-    batches = device_prefetch(batch_stream(args), size=2, device=args.device)
+    batches = device_prefetch(stream, size=2, device=args.device)
     for i, batch in zip(range(args.steps), batches):
       t0 = time.time()
       state, loss = step(state, batch)
       losses.append(float(loss))
-      print("step %d loss %.4f (%.0f ms)"
-            % (i, losses[-1], 1000 * (time.time() - t0)))
-  print("done; tokens/step = %d" % (args.batch * args.seq_len))
+      say("step %d loss %.4f (%.0f ms)"
+          % (i, losses[-1], 1000 * (time.time() - t0)))
+  say("done; tokens/step = %d" % (args.batch * args.seq_len))
   return losses
 
 

@@ -684,7 +684,32 @@ def create_state(cfg: TransformerConfig, params: Union[int, Mapping[str, Any]],
   return TrainState.create(model, tx)
 
 
+def create_sharded_state(cfg: TransformerConfig,
+                         params: Union[int, Mapping[str, Any]], mesh,
+                         tx=None, device=None,
+                         learning_rate: float = 3e-4):
+  """:func:`create_state` replicated over a data-parallel ``mesh``
+  (:func:`~tensorflowonspark_tpu_torch.parallel.mesh.build_mesh`): every
+  rank builds its state, then takes rank 0's weights and optimizer state
+  (a broadcast over the data axis), so all ranks start bitwise equal
+  whatever seed or weights each was given. The counterpart of the
+  reference's ``create_sharded_state`` for a data-only mesh, where the
+  state is replicated; it returns the state alone, since a replicated
+  state needs no sharding. Any other axis above 1 raises (item 10).
+  """
+  from tensorflowonspark_tpu_torch.parallel import collectives
+  from tensorflowonspark_tpu_torch.parallel import sharding
+  sharding._refuse_mesh(mesh, None, ())
+  state = create_state(cfg, params, tx=tx, device=device,
+                       learning_rate=learning_rate)
+  with torch.no_grad():
+    for t in (list(state.model.parameters())
+              + collectives.tensors_of(state.opt_state)):
+      t.copy_(collectives.broadcast_from(t, mesh))
+  return state
+
+
 __all__ = ["TransformerConfig", "KVCache", "Transformer", "TiedEmbed",
            "Attention", "MLPBlock", "Block", "LayerNorm", "greedy_generate_kv",
            "causal_lm_loss", "causal_lm_loss_blocked", "tied_embedding_table",
-           "create_state"]
+           "create_state", "create_sharded_state"]

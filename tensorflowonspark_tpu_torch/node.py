@@ -208,9 +208,12 @@ class NodeContext(object):
     TF_CONFIG, and of the JAX package's ``jax.distributed.initialize``).
 
     ``backend`` is NCCL by default, for the card; a caller on the CPU
-    passes ``"gloo"``. Process 0's reserved port is the coordinator: each
-    node releases its own reserved socket first, so process 0's TCP store
-    can bind it. Skipped for single-process clusters; ps/evaluator nodes
+    passes ``"gloo"``, and so must two ranks that share one card: NCCL
+    refuses a group whose ranks sit on the same card. The group carries
+    the data axis of ``parallel.mesh.build_mesh`` (the gradient
+    all-reduce of data-parallel training). Process 0's reserved port is
+    the coordinator: each node releases its own reserved socket first, so
+    process 0's TCP store can bind it. Skipped for single-process clusters; ps/evaluator nodes
     never call this — they are outside the group.
     """
     if self.num_processes <= 1:

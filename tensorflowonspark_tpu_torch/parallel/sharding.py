@@ -1,10 +1,30 @@
-"""The train step and the fused K-step train loop, on one card.
+"""The train step and the fused K-step train loop: one card, or data
+parallelism across processes.
 
-Counterpart of the single-device part of
-``tensorflowonspark_tpu/parallel/sharding.py``: :func:`resolve_unroll`,
-:func:`make_train_step` and :class:`TrainLoop` / :func:`make_train_loop`.
-A mesh (data, FSDP, tensor or sequence sharding) raises
-``NotImplementedError``: multi-GPU parallelism is ROADMAP Queue 1 item 10.
+Counterpart of ``tensorflowonspark_tpu/parallel/sharding.py``:
+:func:`resolve_unroll`, :func:`make_train_step`, :class:`TrainLoop` /
+:func:`make_train_loop` and :func:`shard_batch`. ``mesh=None`` trains on
+one card. A mesh from
+:func:`~tensorflowonspark_tpu_torch.parallel.mesh.build_mesh` whose only
+axis above 1 is ``data`` trains data-parallel over its process group:
+every rank holds the whole state (replicated, as
+``models.transformer.create_sharded_state`` makes it) and its own rows of
+the global batch, and the step averages the local gradients over the
+group (:func:`~tensorflowonspark_tpu_torch.parallel.collectives.
+sync_gradients`, a bucketed all-reduce) before the optimizer sees them,
+so the clip, the weight decay and ``MultiSteps`` accumulation see the
+averaged gradient, as in the reference, where XLA inserts the all-reduce.
+The returned loss is averaged over the group too: every rank returns the
+global batch's loss, as the reference's replicated loss. FSDP, tensor or
+sequence sharding, a state sharding and extra batch axes raise
+``NotImplementedError``: ROADMAP Queue 1 item 10.
+
+A batch handed to a step is this rank's local shard (the counterpart of
+``jax.make_array_from_process_local_data``); :func:`shard_batch` and
+:func:`shard_slab` cut a rank's rows out of a global host batch (what
+the reference's ``device_put`` of the global batch gives each device).
+The mean of the local gradients equals the global batch's gradient when
+the loss is a mean over equal local batches, as ``causal_lm_loss`` is.
 
 ``loss_fn(model, batch)`` returns a scalar loss tensor; it stands for the
 reference's pure ``loss_fn(params, batch)``, the model carrying the
@@ -17,9 +37,10 @@ passed in stays as it was.
 
 There is no ``jit``: the fused loop runs the same step body K times over
 a slab moved to the card in one copy, and keeps the K losses on the card
-until the caller reads them — one transfer and one host read per slab.
-Same batches in the same order give bit-identical losses and weights on
-both paths, because they run the same code.
+until the caller reads them — one transfer and one host read per slab,
+and over a mesh one all-reduce of the ``[K]`` losses. Same batches in the
+same order give bit-identical losses and weights on both paths, because
+they run the same code.
 """
 
 import copy
@@ -28,6 +49,9 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from tensorflowonspark_tpu_torch.parallel import collectives
+from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
 
 #: default unroll for :func:`make_train_loop` — optimizer steps per slab;
 #: 1 = the per-step path
@@ -51,34 +75,56 @@ def resolve_unroll(unroll: Optional[int] = None) -> int:
 
 
 def _refuse_mesh(mesh, state_sharding, batch_extra_axes) -> None:
-  if mesh is not None or state_sharding is not None or batch_extra_axes:
+  """Refuse what only item 10 would run: a state sharding, extra batch
+  axes, or a mesh with an axis other than ``data`` above 1."""
+  if state_sharding is not None or batch_extra_axes:
     raise NotImplementedError(
-        "sharded training (a mesh, a state sharding or batch axes) is not "
-        "ported to PyTorch yet (ROADMAP Queue 1 item 10); pass mesh=None")
+        "a state sharding or extra batch axes %r (FSDP, tensor or sequence "
+        "sharding) are not ported to PyTorch yet (ROADMAP Queue 1 item 10); "
+        "data parallelism needs neither" % (tuple(batch_extra_axes),))
+  if mesh is None:
+    return
+  if not isinstance(mesh, mesh_lib.Mesh):
+    raise NotImplementedError(
+        "a mesh of type %s: the port trains over parallel.mesh.build_mesh's "
+        "Mesh (its data axis); device meshes are ROADMAP Queue 1 item 10"
+        % type(mesh).__name__)
+  wide = ["%s=%d" % (a, d) for a, d in mesh.shape.items()
+          if a != mesh_lib.AXIS_DATA and d > 1]
+  if wide:
+    raise NotImplementedError(
+        "mesh axes %s are not ported to PyTorch yet (ROADMAP Queue 1 item "
+        "10); only the data axis trains across processes" % ", ".join(wide))
 
 
 def _state_device(state) -> torch.device:
   return next(state.model.parameters()).device
 
 
+def _map_batch(fn, batch):
+  """``fn`` on each array of a batch (an array, a tensor, or a dict /
+  tuple / list of them)."""
+  if isinstance(batch, dict):
+    return {k: _map_batch(fn, v) for k, v in batch.items()}
+  if isinstance(batch, (tuple, list)):
+    return type(batch)(_map_batch(fn, v) for v in batch)
+  return fn(batch)
+
+
+def _on_device(x, device: torch.device):
+  if isinstance(x, np.ndarray):
+    x = torch.from_numpy(np.ascontiguousarray(x))
+  return torch.as_tensor(x).to(device)
+
+
 def _to_device(batch, device: torch.device):
   """A host batch (numpy array, tensor, or a dict / tuple of them) on
   ``device``."""
-  if isinstance(batch, dict):
-    return {k: _to_device(v, device) for k, v in batch.items()}
-  if isinstance(batch, (tuple, list)):
-    return type(batch)(_to_device(v, device) for v in batch)
-  if isinstance(batch, np.ndarray):
-    batch = torch.from_numpy(np.ascontiguousarray(batch))
-  return torch.as_tensor(batch).to(device)
+  return _map_batch(lambda x: _on_device(x, device), batch)
 
 
 def _take(slab, i: int):
-  if isinstance(slab, dict):
-    return {k: _take(v, i) for k, v in slab.items()}
-  if isinstance(slab, (tuple, list)):
-    return type(slab)(_take(v, i) for v in slab)
-  return slab[i]
+  return _map_batch(lambda x: x[i], slab)
 
 
 def _slab_len(slab) -> int:
@@ -89,12 +135,22 @@ def _slab_len(slab) -> int:
   return int(slab.shape[0])
 
 
-def _step_body(loss_fn: Callable, state, batch) -> torch.Tensor:
+def _step_body(loss_fn: Callable, state, batch, mesh=None) -> torch.Tensor:
+  """One optimizer step on the local batch; the local loss. Over a mesh
+  the gradients are averaged over its data axis before the update."""
   params = state.params
   loss = loss_fn(state.model, batch)
   grads = torch.autograd.grad(loss, list(params.values()))
+  if mesh is not None:
+    grads = collectives.sync_gradients(grads, mesh)
   state.apply_gradients(dict(zip(params, grads)))
   return loss.detach()
+
+
+def _global_loss(losses: torch.Tensor, mesh) -> torch.Tensor:
+  """The local losses averaged over the mesh's data axis: the global
+  batch's loss on every rank (one collective however many steps)."""
+  return losses if mesh is None else collectives.psum_mean(losses, mesh)
 
 
 def make_train_step(loss_fn: Callable, mesh=None, state_sharding=None,
@@ -102,14 +158,16 @@ def make_train_step(loss_fn: Callable, mesh=None, state_sharding=None,
                     batch_extra_axes: Tuple[str, ...] = ()):
   """``step(state, batch) -> (state, loss)``: one optimizer step on the
   card (or wherever the state's model lives). The batch is moved to the
-  model's device; ``loss`` stays there (read it with ``float``)."""
+  model's device; ``loss`` stays there (read it with ``float``). Over a
+  ``mesh`` the batch is this rank's shard and ``loss`` the global
+  batch's (see the module docstring)."""
   _refuse_mesh(mesh, state_sharding, batch_extra_axes)
 
   def step(state, batch):
     if not donate_state:
       state = copy.deepcopy(state)
     batch = _to_device(batch, _state_device(state))
-    return state, _step_body(loss_fn, state, batch)
+    return state, _global_loss(_step_body(loss_fn, state, batch, mesh), mesh)
 
   return step
 
@@ -126,9 +184,11 @@ class TrainLoop(object):
   counts optimizer steps taken.
   """
 
-  def __init__(self, loss_fn: Callable, unroll: int, donate_state: bool):
+  def __init__(self, loss_fn: Callable, unroll: int, donate_state: bool,
+               mesh=None):
     self._loss_fn = loss_fn
-    self._step = make_train_step(loss_fn, donate_state=donate_state)
+    self._mesh = mesh
+    self._step = make_train_step(loss_fn, mesh, donate_state=donate_state)
     self._donate = donate_state
     self.unroll = unroll
     #: optimizer steps dispatched through this loop (host-side count)
@@ -146,10 +206,10 @@ class TrainLoop(object):
     if not self._donate:
       state = copy.deepcopy(state)
     slab = _to_device(slab, _state_device(state))      # one copy per slab
-    losses = [_step_body(self._loss_fn, state, _take(slab, i))
+    losses = [_step_body(self._loss_fn, state, _take(slab, i), self._mesh)
               for i in range(self.unroll)]
     self.steps += self.unroll
-    return state, torch.stack(losses)
+    return state, _global_loss(torch.stack(losses), self._mesh)
 
   def __call__(self, state, item):
     from tensorflowonspark_tpu_torch.data.readers import Slab
@@ -167,6 +227,43 @@ def make_train_loop(loss_fn: Callable, mesh=None, state_sharding=None,
                     unroll: Optional[int] = None) -> TrainLoop:
   """A train loop taking ``unroll`` optimizer steps per slab (``None``
   reads ``TOS_TRAIN_UNROLL``); see :class:`TrainLoop`. Feed it with
-  :func:`~tensorflowonspark_tpu_torch.data.readers.slab_batches`."""
+  :func:`~tensorflowonspark_tpu_torch.data.readers.slab_batches`. Over a
+  ``mesh`` a slab holds this rank's rows (:func:`shard_slab`) and the
+  ``[unroll]`` losses are the global batches'."""
   _refuse_mesh(mesh, state_sharding, batch_extra_axes)
-  return TrainLoop(loss_fn, resolve_unroll(unroll), donate_state)
+  return TrainLoop(loss_fn, resolve_unroll(unroll), donate_state, mesh)
+
+
+def _rows(x, dim: int, mesh):
+  """This rank's rows ``[rank * B / N, (rank + 1) * B / N)`` of ``x``
+  along ``dim``."""
+  n = mesh_lib.axis_size(mesh, *mesh_lib.data_axes(mesh))
+  b = int(x.shape[dim])
+  if b % n:
+    raise ValueError("a global batch of %d rows does not divide over the "
+                     "%d ranks of the data axis" % (b, n))
+  per = b // n
+  index = [slice(None)] * (dim + 1)
+  index[dim] = slice(mesh.rank * per, (mesh.rank + 1) * per)
+  return x[tuple(index)]
+
+
+def shard_batch(batch, mesh, extra_axes: Tuple[str, ...] = ()):
+  """This rank's rows (dim 0) of a GLOBAL host batch (an array, a tensor,
+  or a dict / tuple / list of them) that every rank holds alike; what
+  the reference's ``device_put`` over the data axes gives each device. A
+  batch that does not divide by the data axis raises; ``extra_axes``
+  (sequence sharding) is item 10."""
+  _refuse_mesh(mesh, None, extra_axes)
+  return _map_batch(lambda x: _rows(x, 0, mesh), batch)
+
+
+def shard_slab(slab, mesh, extra_axes: Tuple[str, ...] = ()):
+  """:func:`shard_batch` for a ``[K, B, ...]`` slab (or a
+  :class:`~tensorflowonspark_tpu_torch.data.readers.Slab`): this rank's
+  rows of dim 1, the reference's ``slab_sharding``."""
+  from tensorflowonspark_tpu_torch.data.readers import Slab
+  _refuse_mesh(mesh, None, extra_axes)
+  if isinstance(slab, Slab):
+    return Slab(shard_slab(slab.data, mesh))
+  return _map_batch(lambda x: _rows(x, 1, mesh), slab)

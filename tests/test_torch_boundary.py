@@ -45,7 +45,10 @@ def test_port_sources_import_no_jax():
                "utils/hostinfo.py", "utils/paths.py",
                # and checkpoint, export and resume
                "utils/checkpoint.py", "utils/compat.py", "utils/chaos.py",
-               "data/indexed.py"):
+               "data/indexed.py",
+               # and data parallelism across processes
+               "parallel/mesh.py", "parallel/collectives.py",
+               "parallel/sharding.py"):
     assert os.path.join(*name.split("/")) in scanned, name
   bad = sorted((os.path.relpath(p, ROOT), root) for p in files
                for root in _imported_roots(p) if root in FORBIDDEN)
@@ -89,6 +92,20 @@ def test_running_the_port_loads_no_jax_module():
       state = tfm.create_state(fused, 0, device="cpu")
       state, loss = step(state, np.arange(16).reshape(2, 8) % 32)
       assert bool(torch.isfinite(loss)), loss
+      # and one data-parallel step over a 1-rank gloo group
+      import torch.distributed as dist
+      from tensorflowonspark_tpu_torch.parallel import collectives, mesh
+      from tensorflowonspark_tpu_torch.utils.hostinfo import get_free_port
+      dist.init_process_group("gloo", rank=0, world_size=1,
+                              init_method="tcp://127.0.0.1:%d"
+                              % get_free_port())
+      m = mesh.build_mesh(mesh.MeshSpec(data=-1))
+      state = tfm.create_sharded_state(cfg, 0, m, device="cpu")
+      state, loss = make_train_step(
+          lambda m, t: tfm.causal_lm_loss(m(t), t), m)(
+              state, np.arange(16).reshape(2, 8) % 32)
+      assert collectives.COUNTS["buckets"] >= 1, collectives.COUNTS
+      dist.destroy_process_group()
       loaded = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
                       or m.startswith("tensorflowonspark_tpu."))

@@ -229,7 +229,7 @@ def test_train_gpt_checks_the_vocabulary(token_files):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--tp", "2"], "item 10"), (["--dp", "2"], "item 10"),
+    (["--tp", "2"], "item 10"), (["--sp", "2"], "item 10"),
     (["--pp", "2"], "item 10"), (["--remat_policy", "dots"], "item 12")])
 def test_train_gpt_refuses_what_is_not_ported(flags, item):
   with pytest.raises(NotImplementedError, match=item):

@@ -133,3 +133,41 @@ def test_ln_inputs_follow_their_case(backward):
       assert got[2].shape == x.shape and got[2].dtype == x.dtype
     again = chip_smoke._ln_inputs(torch, cases, i, backward, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# -- [6l]: the data-parallel phase's bookkeeping --------------------------------
+
+
+def test_dp_reassemble_puts_rank0s_rows_first():
+  import numpy as np
+  rows = [np.full(3, i, np.int32) for i in range(10)]
+  ids = [[[0, 1], [4, 5]], [[8, 9], [2, 3]]]
+  got = chip_smoke.dp_reassemble(ids, rows)
+  assert [b[:, 0].tolist() for b in got] == [[0, 1, 8, 9], [4, 5, 2, 3]]
+  with pytest.raises(AssertionError, match="steps"):
+    chip_smoke.dp_reassemble([[[0]], []], rows)
+
+
+@pytest.mark.parametrize("parts,per,steps", [([96, 88], 8, 11),
+                                             ([12, 8], 4, 2),
+                                             ([8, 12], 4, 2),
+                                             ([16, 16], 8, 2)])
+def test_dp_vote_passed_counts_the_shortest_partitions_batches(parts, per,
+                                                               steps):
+  got = chip_smoke.dp_vote_passed(parts, per)
+  assert [len(r) for r in got] == [steps, steps]
+  # each rank trains the first full batches of its own partition, in order
+  assert got[0][0] == list(range(per))
+  assert got[1][0] == list(range(parts[0], parts[0] + per))
+  assert all(len(b) == per for r in got for b in r)
+  # the tier-1 twin: 12 and 8 rows at 4 train ids 0-7 and 12-19
+  if parts == [12, 8]:
+    assert sum(i for r in got for b in r for i in b) == \
+        sum(range(8)) + sum(range(12, 20))
+
+
+def test_dp_max_rel():
+  assert chip_smoke.dp_max_rel([1.0, 2.002], [1.0, 2.0]) == \
+      pytest.approx(1e-3)
+  with pytest.raises(AssertionError, match="losses"):
+    chip_smoke.dp_max_rel([1.0], [1.0, 2.0])

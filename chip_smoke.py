@@ -144,6 +144,35 @@ failure:
    equal weights, and the driver's one-process steps on each step's global
    batch (reassembled from the row ids the ranks wrote) give losses within
    2e-3;
+   (6m) the pipeline layer on one ``LocalEngine(num_executors=2)`` whose
+   executors share the card: (a) ``TFEstimator.fit`` (InputMode.SPARK)
+   feeds 4 partitions of 24 seeded token rows; each node trains the
+   flagship at full width 3 steps of B8 x S1024 from ``next_batch_arrays``
+   (exactly [6]'s launches a step on both), then ``terminate()``s its
+   feed, and the chief exports a bundle (the bf16 serving weights,
+   ``make_serving_predict_fn(cfg, 32)``, a signature); (b)
+   ``TFModel.transform`` (``chips_per_node=1``: both executors claim card
+   0) of 2 partitions of 16 prompts of 128 tokens, batch 8, collected:
+   every row equal to the driver's ``greedy_generate_kv`` on the weights
+   from ``load_bundle`` (the same 8-row batches) to the bit, and each
+   executor launching 12 flash and 25 LayerNorm forwards a prefill (800
+   LayerNorm forwards a batch); (c) one partition of 16 prompts of 17-600
+   tokens, lazy (``collect=False``): equal to the driver's
+   ``ServingEngine`` at the same slots to the bit, the executor's engine
+   cache built once and hit on the second batch; (d) sampled serving at T
+   0.8, top-40: two serves of one batch differ, every token lies in its
+   step's top 40 (replayed through the same decode path), top-1 equals
+   greedy in every row whose maxima never tied; (e) ``runner.run(...,
+   use_barrier=True, chips_per_node=1)`` of 2 tasks, each serving its
+   shard through the bundle on the card: rows equal to (b)'s, both ctxs
+   carrying the same 2 addresses; (f) ``dfutil.save_as_tfrecords`` on
+   the executors writes (b)'s prompts, which read back with their
+   inferred schema, and ``python -m tensorflowonspark_tpu_torch.
+   inference_cli --num_executors 1`` over them writes JSONL lines, named
+   by the signature, equal to (b)'s rows; (g) the port's
+   ``examples/serve_gpt.py`` at its defaults, ``mnist_pipeline.py`` and
+   ``mnist_parallel_inference.py`` at 512 samples, started together as
+   subprocesses, each exiting 0;
    (6e) the flagship MHA at
    B16 x S1024 like 6 under ``TFOS_TPU_FLASH_BWD=split`` (12 dQ + 12 dK/dV
    per step, no fused backward), beside 6's fused plan; (6f) the port's
@@ -192,6 +221,10 @@ line.
 ``python3 chip_smoke.py --dp-only`` runs phases 1 and 6l alone (the driver
 builds each kernel at its first use, the executors load them) and prints
 its measurements as one JSON line.
+
+``python3 chip_smoke.py --pipeline-only`` runs phases 1 and 6m alone (the
+driver builds every kernel first; the nodes and executors load them) and
+prints its measurements as one JSON line.
 
 ``python3 chip_smoke.py --feed-only`` runs phases 1, 6i and 6j alone (the
 driver builds each kernel at its first use, the executors load them) and
@@ -3213,6 +3246,579 @@ def dp_only(torch, ops, tfm, optim, sharding, Slab, train_gpt, init_params,
   return 0
 
 
+# -- phase 6m: the pipeline layer ----------------------------------------------
+
+PIPE_B = 8                              # rows a training step and a serve batch
+PIPE_STEPS = 3                          # training steps on each node
+PIPE_PARTS = 4
+PIPE_PART_ROWS = PIPE_B * PIPE_STEPS    # a partition is one node's 3 steps
+PIPE_SEED = SEED + 29
+PIPE_PROMPTS = 32
+PIPE_PLEN = 128
+PIPE_SLOTS = 8                          # [4]'s slot count
+PIPE_TEMP = 0.8
+PIPE_TOP_K = 40
+PIPE_SCHEMA = "struct<prompt:array<long>>"
+# the decode path of one rectangular batch: one prefill (12 flash forwards,
+# 25 LayerNorm forwards), then MAIN_NEW - 1 one-token forwards (25 LayerNorm
+# forwards each, dense attention against the cache)
+WANT_PER_PREFILL = {"flash_attention_fwd": 12, "layer_norm": 25}
+
+
+def pipe_train_main(args, ctx):
+  """[6m-a]'s train fn, run by ``TFEstimator.fit`` in each node's
+  background process (InputMode.SPARK): [6]'s training of the flagship at
+  full width on PIPE_STEPS batches of PIPE_B rows from the feed, then
+  ``feed.terminate()``; the chief exports the bundle (the bf16 serving
+  weights, ``make_serving_predict_fn(cfg, MAIN_NEW)`` and a signature).
+  Writes its record to ``args["out"] % executor_id``."""
+  t_enter = time.time()
+  import numpy as np
+  import torch
+  from tensorflowonspark_tpu_torch import ops, optim, pipeline
+  from tensorflowonspark_tpu_torch.models import transformer as tfm
+  from tensorflowonspark_tpu_torch.parallel import sharding
+  from tensorflowonspark_tpu_torch.utils.params import init_params
+  _no_tf32(torch)
+  t_import = time.time()
+  cfg = tfm.TransformerConfig()
+  state = tfm.create_state(cfg, init_params(cfg, seed=SEED),
+                           tx=optim.make_optimizer(learning_rate=3e-4,
+                                                   clip_norm=1.0))
+  step = sharding.make_train_step(_lm_loss(tfm))
+  torch.cuda.synchronize()
+  t_state = time.time()
+  feed = ctx.get_data_feed()
+  losses, launches, step_s = [], [], []
+  ops.reset_launches()
+  while len(losses) < PIPE_STEPS:
+    batch = feed.next_batch_arrays(PIPE_B)
+    if len(batch) != PIPE_B:
+      raise AssertionError("executor %d got a batch of %d rows after %d "
+                           "steps" % (ctx.executor_id, len(batch),
+                                      len(losses)))
+    before = dict(ops.LAUNCHES)
+    t0 = time.monotonic()
+    state, loss = step(state, batch)
+    losses.append(float(loss))
+    step_s.append(time.monotonic() - t0)
+    launches.append({k: ops.LAUNCHES[k] - before[k] for k in before})
+  t_trained = time.time()
+  feed.terminate()
+  export = None
+  if ctx.is_chief:
+    t0 = time.monotonic()
+    target = pipeline.export_bundle(
+        state.model.serving_params(),
+        tfm.make_serving_predict_fn(cfg, MAIN_NEW, num_slots=PIPE_SLOTS),
+        args["export_dir"], is_chief=True,
+        example_batch={"prompt": np.zeros((1, PIPE_PLEN), np.int32)})
+    export = {"seconds": time.monotonic() - t0, "dir": target}
+  with open(args["out"] % ctx.executor_id, "w") as f:
+    json.dump({"executor": ctx.executor_id, "chief": ctx.is_chief,
+               "losses": losses, "launches_per_step": launches,
+               "step_s": step_s, "t_enter": t_enter,
+               "import_s": t_import - t_enter, "state_s": t_state - t_import,
+               "train_s": t_trained - t_state, "export": export,
+               "card": torch.cuda.get_device_name(), "t_end": time.time(),
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30},
+              f)
+
+
+class PipeCounts(object):
+  """An engine task that reports its executor's launch counts, serving
+  cache stats and transform stats (module-level: pickled by name)."""
+
+  def __call__(self, it):
+    from tensorflowonspark_tpu_torch import ops, pipeline
+    from tensorflowonspark_tpu_torch.models import transformer as tfm
+    return {"slot": int(os.environ.get("TOS_EXECUTOR_SLOT", "-1")),
+            "pid": os.getpid(), "launches": dict(ops.LAUNCHES),
+            "serving": dict(tfm.SERVING_STATS),
+            "transform": dict(pipeline.TRANSFORM_STATS),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+def _pipe_counts(engine):
+  return engine.run_on_executors(PipeCounts()).wait(timeout=300)
+
+
+def _pipe_delta(before, after):
+  """Per executor: the launch counts and serving stats a phase added."""
+  out = []
+  for b, a in zip(before, after):
+    if a["pid"] != b["pid"]:
+      raise AssertionError("executor slot %d was replaced (pid %d -> %d)"
+                           % (a["slot"], b["pid"], a["pid"]))
+    out.append({"slot": a["slot"], "visible": a["visible"],
+                "launches": {k: a["launches"][k] - b["launches"][k]
+                             for k in a["launches"]},
+                "serving": {k: a["serving"][k] - b["serving"][k]
+                            for k in a["serving"]},
+                "transform": a["transform"]})
+  return out
+
+
+def _check_prefills(delta, what, calls_each=None):
+  """Each executor that served launched exactly WANT_PER_PREFILL per
+  rectangular batch (one prefill and MAIN_NEW - 1 one-token forwards)."""
+  for d in delta:
+    calls = d["serving"]["rect_calls"]
+    if calls_each is not None and calls != calls_each:
+      raise AssertionError("%s: executor %d served %d batches, want %d"
+                           % (what, d["slot"], calls, calls_each))
+    want = {"flash_attention_fwd": 12 * calls,
+            "layer_norm": 25 * MAIN_NEW * calls}
+    got = {k: d["launches"][k] for k in want}
+    if got != want or any(v for k, v in d["launches"].items()
+                           if k not in want):
+      raise AssertionError("%s: executor %d launched %s for %d batches, "
+                           "the path needs %s" % (what, d["slot"],
+                                                  d["launches"], calls, want))
+
+
+def pipe_infer_main(args, ctx):
+  """[6m-e]'s map fn under ``runner.run``: this task's shard of the
+  prompts, served batch by batch through the bundle's predict fn on the
+  card."""
+  import numpy as np
+  import torch
+  from tensorflowonspark_tpu_torch import pipeline
+  params, predict = pipeline.load_bundle(args["export_dir"])
+  n = len(ctx.cluster_spec["worker"])
+  per = len(args["prompts"]) // n
+  shard = args["prompts"][ctx.task_index * per:(ctx.task_index + 1) * per]
+  rows = []
+  for i in range(0, len(shard), PIPE_B):
+    rows += predict(params, {"prompt": np.asarray(shard[i:i + PIPE_B],
+                                                  np.int32)})[
+                                                      "tokens"].tolist()
+  return {"task": ctx.task_index, "addresses": ctx.cluster_spec["worker"],
+          "rows": rows, "card": torch.cuda.get_device_name(),
+          "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+def _replay_top_k(torch, model, prompts, out, k, temp):
+  """The drawn tokens replayed through the same decode path (the same
+  logits, bit for bit): each must lie in its step's top ``k`` of the
+  logits over ``temp``. Returns per row whether a step's k-th largest was
+  tied (bf16 logits tie; a tie is kept, as the reference keeps it)."""
+  plen = prompts.shape[1]
+  out = torch.as_tensor(out, device=model.device).long()
+  tied = torch.zeros(out.shape[0], dtype=torch.bool, device=model.device)
+  with torch.inference_mode():
+    cache = model.init_cache(out.shape[0])
+    logits = model(torch.as_tensor(prompts, device=model.device), cache)[:, -1]
+    for i in range(out.shape[1] - plen):
+      tok = out[:, plen + i]
+      scaled = logits.float() / temp
+      kth = torch.topk(scaled, k, dim=-1).values[:, -1:]
+      if not bool((scaled.gather(1, tok[:, None]) >= kth).all()):
+        raise AssertionError("step %d drew a token outside its top %d"
+                             % (i, k))
+      tied |= (scaled >= kth).sum(-1) > k
+      logits = model(tok[:, None], cache)[:, -1]
+  return tied.cpu().numpy()
+
+
+def _bytes_under(path):
+  return sum(os.path.getsize(os.path.join(d, f))
+             for d, _, fs in os.walk(path) for f in fs)
+
+
+def pipe_fit(torch, pipeline, engine, export_dir):
+  """[6m-a]: ``TFEstimator.fit`` of PIPE_PARTS partitions of
+  PIPE_PART_ROWS token rows on the two executors."""
+  rows = feed_rows(PIPE_PARTS * PIPE_PART_ROWS, PIPE_SEED)
+  out = os.path.join(HERE, "build", "chip_smoke_pipe_node%d.json")
+  for i in range(2):
+    _fresh(out % i)
+  shutil.rmtree(export_dir, ignore_errors=True)
+  est = pipeline.TFEstimator(pipe_train_main, {"export_dir": export_dir,
+                                               "out": out})
+  est.setEpochs(1).setGraceSecs(1).setReservationTimeout(300)
+  t0 = time.time()
+  model = est.fit(engine, _split(rows, PIPE_PART_ROWS))
+  t_end = time.time()
+  nodes = []
+  for i in range(2):
+    with open(out % i) as f:
+      nodes.append(json.load(f))
+  for n in nodes:
+    if len(n["losses"]) != PIPE_STEPS or \
+        not all(math.isfinite(x) for x in n["losses"]):
+      raise AssertionError("[6m-a] executor %d losses %s"
+                           % (n["executor"], n["losses"]))
+    for i, got in enumerate(n["launches_per_step"]):
+      _per_step_launches(got, 1, WANT_PER_STEP, "[6m-a] executor %d step %d"
+                         % (n["executor"], i))
+  chief = [n for n in nodes if n["chief"]]
+  if len(chief) != 1 or chief[0]["export"] is None:
+    raise AssertionError("[6m-a] no chief export: %s" % nodes)
+  for name in ("predict.pkl", "signature.json", "model"):
+    if not os.path.exists(os.path.join(export_dir, name)):
+      raise AssertionError("[6m-a] the bundle has no %s" % name)
+  res = {"nodes": nodes, "fit_s": t_end - t0,
+         "bringup_s": min(n["t_enter"] for n in nodes) - t0,
+         "shutdown_s": t_end - max(n["t_end"] for n in nodes),
+         "export_s": chief[0]["export"]["seconds"],
+         "bundle_bytes": _bytes_under(export_dir),
+         "signature": pipeline.load_signature(export_dir)}
+  log("  fit %.1f s: cluster bring-up to the fns' start %.1f s, imports "
+      "%s s, state %s s, training %s s (3 steps each; ms/step %s), export "
+      "%.1f s of %.3f GB (bf16 serving weights), shutdown %.1f s" % (
+          res["fit_s"], res["bringup_s"],
+          "/".join("%.1f" % n["import_s"] for n in nodes),
+          "/".join("%.1f" % n["state_s"] for n in nodes),
+          "/".join("%.1f" % n["train_s"] for n in nodes),
+          " | ".join(" ".join("%.0f" % (s * 1e3) for s in n["step_s"])
+                     for n in nodes),
+          res["export_s"], res["bundle_bytes"] / 1e9, res["shutdown_s"]))
+  log("  losses %s; [6]'s 24/12/49/25 launches per step in both executors; "
+      "signature %s" % (" | ".join(" ".join("%.4f" % x for x in n["losses"])
+                                   for n in nodes),
+                        res["signature"]["outputs"]))
+  return res, model
+
+
+def pipe_transform(torch, np, tfm, pipeline, engine, export_dir, cfg):
+  """[6m-b] and [6m-c]: rectangular and ragged transforms, each against
+  the driver's decode of the bundle's weights."""
+  from tensorflowonspark_tpu_torch.serving import ServingEngine
+  prompts = [p.astype(np.int32) for p in
+             np.random.default_rng(PIPE_SEED + 1).integers(
+                 1, cfg.vocab_size, (PIPE_PROMPTS, PIPE_PLEN))]
+  half = PIPE_PROMPTS // 2
+  model = pipeline.TFModel({"export_dir": export_dir, "batch_size": PIPE_B,
+                            "chips_per_node": 1})
+  before = _pipe_counts(engine)
+  t0 = time.monotonic()
+  rows = model.transform(engine, [[(p,) for p in prompts[:half]],
+                                  [(p,) for p in prompts[half:]]])
+  rect_s = time.monotonic() - t0
+  rect = _pipe_delta(before, _pipe_counts(engine))
+  _check_prefills(rect, "[6m-b]", calls_each=half // PIPE_B)
+  if [d["visible"] for d in rect] != ["0", "0"]:
+    raise AssertionError("[6m-b] executors claimed cards %s"
+                         % [d["visible"] for d in rect])
+  t0 = time.monotonic()
+  params, _ = pipeline.load_bundle(export_dir)
+  load_s = time.monotonic() - t0
+  ref = tfm.Transformer(cfg, params)
+  want = []
+  for i in range(0, PIPE_PROMPTS, PIPE_B):
+    want += tfm.greedy_generate_kv(ref, np.stack(prompts[i:i + PIPE_B]),
+                                   MAIN_NEW).cpu().numpy().astype(
+                                       np.int32).tolist()
+  if rows != want:
+    bad = [i for i, (a, b) in enumerate(zip(rows, want)) if a != b]
+    raise AssertionError("[6m-b] transform rows %s differ from the driver's "
+                         "greedy_generate_kv" % bad[:8])
+  log("  [6m-b] 2 partitions x %d prompts of %d tokens, batch %d: every row "
+      "equal to the driver's greedy_generate_kv to the bit; %.1f rows/s "
+      "(%.2f s, bundle loads included); first batch %s s after its task "
+      "started (card claim + bundle load %s s + model build + decode); "
+      "launches per executor %s; the driver's bundle load %.2f s" % (
+          half, PIPE_PLEN, PIPE_B, PIPE_PROMPTS / rect_s, rect_s,
+          "/".join("%.2f" % d["transform"]["first_batch_s"] for d in rect),
+          "/".join("%.2f" % d["transform"]["load_s"] for d in rect),
+          [{k: v for k, v in d["launches"].items() if v} for d in rect],
+          load_s))
+
+  ragged = [p.tolist() for p in _prompts(MAIN_LENGTHS, cfg.vocab_size,
+                                         PIPE_SEED + 2)]
+  before = _pipe_counts(engine)
+  t0 = time.monotonic()
+  stream = model.transform(engine, [[(p,) for p in ragged]], collect=False)
+  if isinstance(stream, list):
+    raise AssertionError("[6m-c] collect=False returned a list")
+  got = list(stream)
+  ragged_s = time.monotonic() - t0
+  rag = _pipe_delta(before, _pipe_counts(engine))
+  stats = {k: sum(d["serving"][k] for d in rag) for k in rag[0]["serving"]}
+  if (stats["ragged_calls"], stats["engine_builds"],
+      stats["engine_hits"]) != (2, 1, 1):
+    raise AssertionError("[6m-c] the engine cache: %s" % stats)
+  eng = ServingEngine(params, cfg, num_slots=PIPE_SLOTS,
+                      max_new_tokens=MAIN_NEW, max_queue=0,
+                      max_queued_tokens=0).start()
+  try:
+    want_r = []
+    for i in range(0, len(ragged), PIPE_B):
+      outs = eng.generate([np.asarray(p, np.int32)
+                           for p in ragged[i:i + PIPE_B]],
+                          max_new_tokens=MAIN_NEW)
+      width = max(len(o) for o in outs)
+      want_r += [list(o) + [0] * (width - len(o)) for o in outs]
+  finally:
+    eng.stop()
+  want_r = [[int(x) for x in r] for r in want_r]
+  if got != want_r:
+    bad = [i for i, (a, b) in enumerate(zip(got, want_r)) if a != b]
+    raise AssertionError("[6m-c] ragged rows %s differ from the driver's "
+                         "ServingEngine" % bad[:8])
+  log("  [6m-c] 1 partition of %d prompts of %d-%d tokens, lazy: equal to "
+      "the driver's ServingEngine(num_slots=%d) to the bit; the engine "
+      "cache built once and hit on the second batch; %.0f new tokens/s "
+      "(%.2f s)" % (len(ragged), min(MAIN_LENGTHS), max(MAIN_LENGTHS),
+                    PIPE_SLOTS, len(ragged) * MAIN_NEW / ragged_s,
+                    ragged_s))
+  res = {"rect_s": rect_s, "rows_per_s": PIPE_PROMPTS / rect_s,
+         "first_batch_s": [d["transform"]["first_batch_s"] for d in rect],
+         "executor_load_s": [d["transform"]["load_s"] for d in rect],
+         "driver_load_s": load_s, "rect": rect, "ragged": rag,
+         "ragged_s": ragged_s,
+         "ragged_tokens_per_s": len(ragged) * MAIN_NEW / ragged_s}
+  return res, prompts, want, params, ref
+
+
+def pipe_sampled(torch, np, tfm, params, ref, cfg, prompts, want):
+  """[6m-d]: sampled serving through the predict fn in the driver."""
+  batch = {"prompt": np.stack(prompts[:PIPE_B])}
+  fn = tfm.make_serving_predict_fn(cfg, MAIN_NEW, temperature=PIPE_TEMP,
+                                   top_k=PIPE_TOP_K)
+  a = fn(params, batch)["tokens"]
+  b = fn(params, batch)["tokens"]
+  if np.array_equal(a, b):
+    raise AssertionError("[6m-d] two sampled serves of one batch are equal")
+  for out in (a, b):
+    _replay_top_k(torch, ref, batch["prompt"], out, PIPE_TOP_K, PIPE_TEMP)
+  one = tfm.make_serving_predict_fn(cfg, MAIN_NEW, temperature=PIPE_TEMP,
+                                    top_k=1)(params, batch)["tokens"]
+  tied = _replay_top_k(torch, ref, batch["prompt"], one, 1, PIPE_TEMP)
+  greedy = np.asarray(want[:PIPE_B], np.int32)
+  if not np.array_equal(one[~tied], greedy[~tied]):
+    raise AssertionError("[6m-d] top_k=1 differs from greedy in an untied "
+                         "row")
+  differ = int((a != b).any(1).sum())
+  log("  [6m-d] T %.1f top-%d: two serves of one batch differ in %d of %d "
+      "rows, every token in its step's top %d; top_k=1 equal to greedy to "
+      "the bit in the %d rows whose maxima never tied (%d rows met a bf16 "
+      "tie at the top and drew among the tied)" % (
+          PIPE_TEMP, PIPE_TOP_K, differ, PIPE_B, PIPE_TOP_K,
+          int((~tied).sum()), int(tied.sum())))
+  return {"rows_differ": differ, "top1_untied_rows": int((~tied).sum())}
+
+
+def pipe_runner(runner, engine, export_dir, prompts, want, card_name):
+  """[6m-e]: ``runner.run`` of 2 barrier tasks, each serving its shard."""
+  before = _pipe_counts(engine)
+  t0 = time.monotonic()
+  results = runner.run(engine, pipe_infer_main,
+                       {"export_dir": export_dir,
+                        "prompts": [p.tolist() for p in prompts]},
+                       num_tasks=2, use_barrier=True, chips_per_node=1,
+                       timeout=600)
+  run_s = time.monotonic() - t0
+  delta = _pipe_delta(before, _pipe_counts(engine))
+  _check_prefills(delta, "[6m-e]", calls_each=PIPE_PROMPTS // 2 // PIPE_B)
+  results = sorted(results, key=lambda r: r["task"])
+  per = PIPE_PROMPTS // 2
+  for r in results:
+    if r["rows"] != want[r["task"] * per:(r["task"] + 1) * per]:
+      raise AssertionError("[6m-e] task %d's rows differ from [6m-b]'s"
+                           % r["task"])
+    if r["card"] != card_name or r["visible"] != "0":
+      raise AssertionError("[6m-e] task %d ran on %s (%s)"
+                           % (r["task"], r["card"], r["visible"]))
+  if results[0]["addresses"] != results[1]["addresses"] or \
+      len(results[0]["addresses"]) != 2:
+    raise AssertionError("[6m-e] the gang's addresses: %s"
+                         % [r["addresses"] for r in results])
+  log("  [6m-e] runner.run(use_barrier=True) x2: each task served its %d "
+      "prompts on the card, rows equal to [6m-b]'s, both ctxs carry %s; "
+      "%.2f s" % (per, results[0]["addresses"], run_s))
+  return {"seconds": run_s, "delta": delta,
+          "addresses": results[0]["addresses"]}
+
+
+def pipe_cli(dfutil, parse_schema, pipeline, engine, export_dir, prompts,
+             want):
+  """[6m-f]: the prompts written as TFRecords by the executors, then the
+  inference CLI as a subprocess over them."""
+  data_dir = os.path.join(HERE, "build", "chip_smoke_pipe_prompts")
+  shutil.rmtree(data_dir, ignore_errors=True)
+  half = PIPE_PROMPTS // 2
+  t0 = time.monotonic()
+  dfutil.save_as_tfrecords([[(p.tolist(),) for p in prompts[:half]],
+                            [(p.tolist(),) for p in prompts[half:]]],
+                           parse_schema(PIPE_SCHEMA), data_dir,
+                           engine=engine)
+  write_s = time.monotonic() - t0
+  parts, schema = dfutil.load_tfrecords(data_dir)
+  if str(schema) != PIPE_SCHEMA or \
+      [r[0] for p in parts for r in p] != [p.tolist() for p in prompts]:
+    raise AssertionError("[6m-f] the files read back as %s" % schema)
+  out = _fresh(os.path.join(HERE, "build", "chip_smoke_pipe_preds.jsonl"))
+  t0 = time.monotonic()
+  proc = subprocess.run(
+      [sys.executable, "-m", "tensorflowonspark_tpu_torch.inference_cli",
+       "--export_dir", export_dir, "--input", data_dir, "--output", out,
+       "--num_executors", "1", "--batch_size", str(PIPE_B)],
+      cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE), capture_output=True,
+      text=True, timeout=600)
+  cli_s = time.monotonic() - t0
+  if proc.returncode != 0:
+    raise AssertionError("[6m-f] the CLI exited %d: %s"
+                         % (proc.returncode, proc.stderr[-3000:]))
+  names = pipeline.signature_output_names(export_dir)
+  with open(out) as f:
+    lines = [json.loads(line) for line in f]
+  if names != ["tokens"] or any(sorted(l) != names for l in lines) or \
+      [l["tokens"] for l in lines] != want:
+    raise AssertionError("[6m-f] the CLI's %d lines differ from [6m-b]'s "
+                         "rows" % len(lines))
+  log("  [6m-f] save_as_tfrecords on the executors %.2f s (2 part files, "
+      "read back with the inferred %s); python -m ...inference_cli "
+      "--num_executors 1: %d JSONL lines named by the signature %s, equal "
+      "to [6m-b]'s rows; %.1f s" % (write_s, schema, len(lines), names,
+                                    cli_s))
+  return {"write_s": write_s, "cli_s": cli_s, "lines": len(lines)}
+
+
+PIPE_EXAMPLES = (
+    ("serve_gpt", ["--export_dir", os.path.join(
+        HERE, "build", "chip_smoke_serve_gpt")]),
+    ("mnist_pipeline", ["--num_samples", "512", "--export_dir",
+                        os.path.join(HERE, "build", "chip_smoke_mnist")]),
+    ("mnist_parallel_inference", ["--num_samples", "512", "--warm_steps",
+                                  "20"]))
+
+
+def pipe_examples():
+  """[6m-g]: the port's serving and MNIST examples, as subprocesses
+  started together on the card; each must exit 0."""
+  procs = []
+  t0 = time.monotonic()
+  for name, argv in PIPE_EXAMPLES:
+    procs.append((name, subprocess.Popen(
+        [sys.executable, "-m", "tensorflowonspark_tpu_torch.examples." + name]
+        + argv, cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+  res = {}
+  try:
+    for name, proc in procs:
+      out, err = proc.communicate(timeout=600)
+      res[name] = {"rc": proc.returncode, "seconds": time.monotonic() - t0,
+                   "last": out.strip().splitlines()[-1:]}
+      if proc.returncode != 0:
+        raise AssertionError("[6m-g] %s exited %d: %s"
+                             % (name, proc.returncode, err[-3000:]))
+  finally:
+    for _, proc in procs:
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+  for name, r in res.items():
+    log("  [6m-g] %s exited 0 after %.1f s: %s" % (name, r["seconds"],
+                                                   r["last"]))
+  return res
+
+
+def pipeline_phase(torch, card_name):
+  """[6m]: the pipeline layer at full width on one LocalEngine(2) whose
+  executors share the card."""
+  import numpy as np
+  from tensorflowonspark_tpu_torch import pipeline
+  from tensorflowonspark_tpu_torch.data import dfutil
+  from tensorflowonspark_tpu_torch.data.schema import parse_schema
+  from tensorflowonspark_tpu_torch.engine import LocalEngine
+  from tensorflowonspark_tpu_torch.models import transformer as tfm
+  from tensorflowonspark_tpu_torch.parallel import runner
+  t_start = time.monotonic()
+  cfg = tfm.TransformerConfig()
+  export_dir = os.path.join(HERE, "build", "chip_smoke_pipe_bundle")
+  t0 = time.monotonic()
+  engine = LocalEngine(num_executors=2)
+  engine_s = time.monotonic() - t0
+  try:
+    log("[6m-a] TFEstimator.fit: the flagship trained %d steps of B%d x "
+        "S%d on each of 2 executors sharing the card (InputMode.SPARK); "
+        "the chief exports a bundle" % (PIPE_STEPS, PIPE_B, TRAIN_S))
+    fit, _ = pipe_fit(torch, pipeline, engine, export_dir)
+    fit["engine_s"] = engine_s
+    log("  engine start %.2f s (the executors spawn in the background)"
+        % engine_s)
+    log("[6m-b/c] TFModel.transform: rectangular (collected), ragged (lazy)")
+    tr, prompts, want, params, ref = pipe_transform(
+        torch, np, tfm, pipeline, engine, export_dir, cfg)
+    log("[6m-d] sampled serving through make_serving_predict_fn")
+    sampled = pipe_sampled(torch, np, tfm, params, ref, cfg, prompts, want)
+    del ref
+    torch.cuda.empty_cache()
+    log("[6m-e] the TFParallel runner")
+    run = pipe_runner(runner, engine, export_dir, prompts, want, card_name)
+    log("[6m-f] TFRecords and the inference CLI")
+    cli = pipe_cli(dfutil, parse_schema, pipeline, engine, export_dir,
+                   prompts, want)
+  finally:
+    engine.stop()
+  log("[6m-g] examples/serve_gpt.py, mnist_pipeline.py and "
+      "mnist_parallel_inference.py")
+  examples = pipe_examples()
+  res = {"fit": fit, "transform": tr, "sampled": sampled, "runner": run,
+         "cli": cli, "examples": examples,
+         "seconds": time.monotonic() - t_start}
+  log("  [6m] %.1f s" % res["seconds"])
+  return res
+
+
+def pipe_launches(res, name):
+  """[6m]'s launches of kernel ``name`` on its main path: both nodes'
+  training steps, the rectangular transform and the runner, per path."""
+  fit = sum(step[name] for n in res["fit"]["nodes"]
+            for step in n["launches_per_step"])
+  out = {"pipeline_fit_%d_steps" % (2 * PIPE_STEPS): fit}
+  for key, delta in (("pipeline_transform_%d_batches", res["transform"][
+      "rect"]), ("pipeline_runner_%d_batches", res["runner"]["delta"])):
+    batches = sum(d["serving"]["rect_calls"] for d in delta)
+    n = sum(d["launches"][name] for d in delta)
+    if n:
+      out[key % batches] = n
+  return out
+
+
+def pipeline_only(torch, _build, card):
+  """``--pipeline-only``: phase 6m alone (the driver builds every kernel
+  first; the nodes and executors load them)."""
+  t0 = time.monotonic()
+  _build.build_all()
+  log("  built the kernels in %.1f s" % (time.monotonic() - t0))
+  res = pipeline_phase(torch, torch.cuda.get_device_name(0))
+  os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+  with open(os.path.join(HERE, "chiprun_out", "chip_smoke_pipeline.json"),
+            "w") as f:
+    json.dump({"pipeline": res, "card": card}, f, indent=1)
+  log(card)
+  log(json.dumps({"pipeline": pipe_summary(res), "card": card}))
+  log(json.dumps({"ok": True, "device": {
+      "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+      "count": torch.cuda.device_count()}}))
+  return 0
+
+
+def pipe_summary(res):
+  fit, tr = res["fit"], res["transform"]
+  return {
+      "fit_s": fit["fit_s"], "engine_s": fit["engine_s"],
+      "bringup_s": fit["bringup_s"],
+      "train_s": [n["train_s"] for n in fit["nodes"]],
+      "ms_per_step": [[s * 1e3 for s in n["step_s"]] for n in fit["nodes"]],
+      "export_s": fit["export_s"], "shutdown_s": fit["shutdown_s"],
+      "bundle_bytes": fit["bundle_bytes"],
+      "transform_rows_per_s": tr["rows_per_s"],
+      "first_batch_s": tr["first_batch_s"],
+      "executor_load_s": tr["executor_load_s"],
+      "driver_load_s": tr["driver_load_s"],
+      "ragged_tokens_per_s": tr["ragged_tokens_per_s"],
+      "runner_s": res["runner"]["seconds"], "cli_s": res["cli"]["cli_s"],
+      "examples_s": {k: v["seconds"] for k, v in res["examples"].items()},
+      "launches": {n: pipe_launches(res, n) for n in (
+          "flash_attention_fwd", "flash_attention_bwd", "layer_norm",
+          "layer_norm_bwd")},
+      "seconds": res["seconds"]}
+
+
 # train_gpt.py's default model flags (4 layers, d_model 256, 8 heads:
 # head_dim 32, seq 512, vocab 1024, batch 8): 2 flash forwards per layer
 # (forward and remat recompute), one fused backward, 4 LayerNorm forwards
@@ -3479,13 +4085,14 @@ def main(argv):
   only_feed = argv == ["--feed-only"]
   only_ckpt = argv == ["--ckpt-only"]
   only_dp = argv == ["--dp-only"]
+  only_pipeline = argv == ["--pipeline-only"]
   if argv[:1] == ["--serving-only"] and len(argv) == 2:
     repeats = int(argv[1])
   elif argv and not (ln_only or only_cluster or only_feed or only_ckpt
-                     or only_dp):
+                     or only_dp or only_pipeline):
     log("usage: python3 chip_smoke.py [--serving-only N | "
         "--layer-norm-only | --cluster-only | --feed-only | --ckpt-only | "
-        "--dp-only]")
+        "--dp-only | --pipeline-only]")
     return 2
   try:
     import torch
@@ -3531,6 +4138,8 @@ def main(argv):
   if only_dp:
     return dp_only(torch, ops, tfm, optim, sharding, Slab, train_gpt,
                    init_params, card)
+  if only_pipeline:
+    return pipeline_only(torch, _build, card)
 
   log("[2] build")
   t0 = time.monotonic()
@@ -3670,6 +4279,10 @@ def main(argv):
   dp_res = dp_phases(torch, ops, tfm, optim, sharding, Slab, train_gpt,
                      params, cfg)
   torch.cuda.empty_cache()
+  log("[6m] the pipeline layer: TFEstimator.fit -> export_bundle -> "
+      "TFModel.transform, the runner, the CLI and the examples")
+  pipe_res = pipeline_phase(torch, torch.cuda.get_device_name(0))
+  torch.cuda.empty_cache()
 
   log("[6e] the flagship MHA under TFOS_TPU_FLASH_BWD=split, B%d x S%d"
       % (TRAIN_B, TRAIN_S))
@@ -3755,7 +4368,8 @@ def main(argv):
                  gpt_res, GPT_DEFAULT_STEPS, "flash_attention_fwd"),
              "serve_gpt_config_bf16": serve_gpt_res["bfloat16"]["launches"][
                  "flash_attention_fwd"],
-             **dp_launches(dp_res, "flash_attention_fwd")},
+             **dp_launches(dp_res, "flash_attention_fwd"),
+             **pipe_launches(pipe_res, "flash_attention_fwd")},
             max(fa_err, hd_err["fwd"]), pick(fa_rows, case="s512"),
             design="wgmma+tma", head_dims="8..128 (d % 8 == 0)",
             train={k: fa_train[k] for k in ("ms", "plain_ms", "library_ms",
@@ -3772,7 +4386,8 @@ def main(argv):
              "feed_inference_4_forwards": infer_launches("layer_norm"),
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "layer_norm"),
-             **dp_launches(dp_res, "layer_norm")},
+             **dp_launches(dp_res, "layer_norm"),
+             **pipe_launches(pipe_res, "layer_norm")},
             ln_err, pick(ln_rows, rows=512, dtype="bfloat16"),
             train={k: pick(ln_rows, rows=16384)[k]
                    for k in ("ms", "device_ms", "library_ms", "bound_ms")}),
@@ -3783,7 +4398,8 @@ def main(argv):
              "feed_train_12_steps": feed_launches("flash_attention_bwd"),
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "flash_attention_bwd"),
-             **dp_launches(dp_res, "flash_attention_bwd")},
+             **dp_launches(dp_res, "flash_attention_bwd"),
+             **pipe_launches(pipe_res, "flash_attention_bwd")},
             max(fab_err, hd_err["bwd"]), pick(fab_rows, case="train"),
             design="wgmma+tma", head_dims="8..128 (d % 8 == 0)"),
       entry("flash_attention_bwd_gqa", "flash_attention_bwd.cu",
@@ -3803,7 +4419,8 @@ def main(argv):
              "feed_train_12_steps": feed_launches("layer_norm_bwd"),
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "layer_norm_bwd"),
-             **dp_launches(dp_res, "layer_norm_bwd")},
+             **dp_launches(dp_res, "layer_norm_bwd"),
+             **pipe_launches(pipe_res, "layer_norm_bwd")},
             lnb_err, pick(lnb_rows, rows=16384, dtype="bfloat16"),
             design="row in registers, grid from the SM count"),
       entry("ln_matmul", "ln_matmul.cu", "ln_matmul.py:31",
@@ -3863,7 +4480,7 @@ def main(argv):
             "train_fused": fused_res, "train_fused_gqa": fgqa_res,
             "train_long_gqa": long_res, "cluster_long_gqa": cluster_res,
             "ckpt_resume": ckpt_res,
-            "feed": feed_res, "dp": dp_res,
+            "feed": feed_res, "dp": dp_res, "pipeline": pipe_res,
             "train_split": split_res,
             "train_parity_f32": train_parity,
             "train_fused_parity_f32": fused_parity,

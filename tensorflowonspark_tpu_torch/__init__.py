@@ -9,7 +9,8 @@ plain PyTorch version beside it for the CPU.
 Serving, single-card training (unfused, all-fused, and long-context
 grouped-KV from TFRecord files) of the flagship Transformer, the cluster
 runtime in InputMode.TENSORFLOW and its engine feed plane
-(InputMode.SPARK) are ported, in these modules:
+(InputMode.SPARK), checkpointing, data parallelism across processes and
+the pipeline layer are ported, in these modules:
 
 * :mod:`.ops` — LayerNorm, flash attention (forward, and the fused and
   split backward plans), LN->matmul and GELU->matmul;
@@ -31,7 +32,13 @@ runtime in InputMode.TENSORFLOW and its engine feed plane
   CUDA cards and runs the user's ``main_fn(args, ctx)`` on it;
 * :mod:`.datafeed` and :mod:`.control.shmring` — ``Cluster.train`` /
   ``inference`` feed partitions to the nodes over a shared-memory ring or
-  the hub's queues, and ``ctx.get_data_feed()`` reads them as batches.
+  the hub's queues, and ``ctx.get_data_feed()`` reads them as batches;
+* :mod:`.pipeline`, :mod:`.parallel.runner`, :mod:`.inference_cli`,
+  :mod:`.data.dfutil` and :mod:`.models.mnist` — ``TFEstimator.fit`` /
+  ``export_bundle`` / ``TFModel.transform`` (serving bundles from
+  ``models.transformer.make_serving_predict_fn``), the TFParallel
+  runner, the batch-inference CLI, the TFRecord <-> rows converter, and
+  the MNIST models of the examples.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

@@ -27,7 +27,8 @@ def strip_scheme(path: str) -> str:
   return path[len("file://"):] if path.startswith("file://") else path
 
 
-def _refuse_remote(path: str) -> None:
+def refuse_remote(path: str) -> None:
+  """Raise ``NotImplementedError`` naming the scheme of a remote path."""
   if is_remote(path):
     raise NotImplementedError(
         "remote storage (%r) is not ported to PyTorch yet: the port reads "
@@ -37,17 +38,17 @@ def _refuse_remote(path: str) -> None:
 
 def open_file(path: str, mode: str = "rb"):
   """Open a local ``path`` (or ``file://`` URI) for streamed IO."""
-  _refuse_remote(path)
+  refuse_remote(path)
   return open(strip_scheme(path), mode)
 
 
 def file_size(path: str) -> int:
   """Size in bytes of a local ``path`` (or ``file://`` URI)."""
-  _refuse_remote(path)
+  refuse_remote(path)
   return os.path.getsize(strip_scheme(path))
 
 
 def glob_files(pattern: str):
   """Expand a local glob pattern into concrete paths, as ``glob.glob``."""
-  _refuse_remote(pattern)
+  refuse_remote(pattern)
   return _glob.glob(strip_scheme(pattern))

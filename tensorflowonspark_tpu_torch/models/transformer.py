@@ -5,9 +5,11 @@ serving and training paths: the config (same fields, same validation),
 rotary positions, the tied embedding, pre-LN blocks, the non-decode
 forward (with ``remat`` and ``return_hidden``), the KV-cache decode
 (``Attention._decode_attend``) with a scalar cursor (rows in lockstep) or
-a vector of per-row cursors (the serving slab), the losses
-(:func:`causal_lm_loss`, :func:`causal_lm_loss_blocked`) and
-:func:`create_state`.
+a vector of per-row cursors (the serving slab), greedy and sampled
+decoding (:func:`greedy_generate_kv`, top-k temperature sampling from a
+``torch.Generator``), the pipeline's serving predict fn
+(:func:`make_serving_predict_fn`), the losses (:func:`causal_lm_loss`,
+:func:`causal_lm_loss_blocked`) and :func:`create_state`.
 
 What differs from the flax model, by design of the port:
 
@@ -46,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tensorflowonspark_tpu_torch import ops
 from tensorflowonspark_tpu_torch.utils.device import resolve_device
+from tensorflowonspark_tpu_torch.utils.params import copy_into
 
 NEG_INF = -1e30
 
@@ -468,21 +471,10 @@ class Transformer(nn.Module):
     self.ln_f = LayerNorm(cfg, self.device, trainable)
     self.load_params(params)
 
-  @torch.no_grad()
-  def load_params(self, params: Mapping[str, np.ndarray]) -> None:
-    """Copy a flat weight dict in (cast to each parameter's dtype)."""
-    own = dict(self.named_parameters())
-    missing = sorted(set(own) - set(params))
-    extra = sorted(set(params) - set(own))
-    if missing or extra:
-      raise KeyError("weights do not match the model: missing %s, "
-                     "unexpected %s" % (missing[:4], extra[:4]))
-    for name, p in own.items():
-      arr = np.asarray(params[name])
-      if arr.shape != tuple(p.shape):
-        raise ValueError("%s: shape %s, model expects %s"
-                         % (name, arr.shape, tuple(p.shape)))
-      p.copy_(torch.tensor(arr, dtype=p.dtype))
+  def load_params(self, params: Mapping[str, Any]) -> None:
+    """Copy a flat weight dict in (numpy arrays or tensors, each cast to
+    its parameter's dtype)."""
+    copy_into(dict(self.named_parameters()), params)
 
   def init_cache(self, batch: int) -> KVCache:
     """A fresh zeroed cache for ``batch`` rows with the scalar cursor 0.
@@ -494,6 +486,16 @@ class Transformer(nn.Module):
                              device=self.device)
     return KVCache([mk() for _ in range(cfg.num_layers)],
                    [mk() for _ in range(cfg.num_layers)], 0)
+
+  def serving_params(self) -> dict:
+    """The weights as a serving model stores them: a flat dict of CPU
+    tensors, each LayerNorm scale in f32 and every other weight in
+    ``cfg.dtype`` (what ``pipeline.export_bundle`` writes for
+    :func:`make_serving_predict_fn`: a bf16 model's bundle is half the
+    bytes of its f32 master weights)."""
+    return {name: p.detach().to(torch.float32 if name.endswith(".scale")
+                                else self.cfg.dtype).cpu()
+            for name, p in self.named_parameters()}
 
   def numpy_params(self) -> dict:
     """The weights as the flat f32 numpy dict ``load_params`` takes (see
@@ -554,23 +556,54 @@ def _as_prompt(prompt, device) -> torch.Tensor:
   return t.to(device=device, dtype=torch.long)
 
 
+def _select_token(logits: torch.Tensor, generator: Optional[torch.Generator],
+                  temperature: float, top_k: int) -> torch.Tensor:
+  """Greedy (``temperature == 0``) or top-k temperature sampling, as the
+  reference's ``_select_token``: the logits are divided by
+  ``temperature``; with ``0 < top_k < vocab`` every logit below the k-th
+  largest is masked (ties at the k-th are kept, as ``lax.top_k`` + ``>=``
+  keeps them); the token is drawn from the categorical of what is left,
+  with ``generator``."""
+  if temperature == 0.0:
+    return logits.argmax(dim=-1)
+  scaled = logits.float() / temperature
+  if 0 < top_k < logits.shape[-1]:
+    kth = torch.topk(scaled, top_k, dim=-1).values[..., -1:]
+    scaled = torch.where(scaled < kth, torch.full_like(scaled, NEG_INF),
+                         scaled)
+  probs = torch.softmax(scaled, dim=-1)
+  return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
 def greedy_generate_kv(model: Transformer, prompt, num_steps: int,
                        eos_id: Optional[int] = None, pad_id: int = 0,
-                       temperature: float = 0.0) -> torch.Tensor:
-  """Greedy decoding with a per-layer KV cache (the serving path).
+                       temperature: float = 0.0, top_k: int = 0,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+  """Decoding with a per-layer KV cache (the serving path).
 
   prompt: ``[batch, prompt_len]`` ints. Returns ``[batch, prompt_len +
-  num_steps]`` int64 on the model's device. With ``eos_id``, a row that
-  emits it keeps the EOS and every later position is ``pad_id``. The
-  whole prompt is one fresh-cache prefill (flash where its length
-  divides into kernel blocks), then one token per step.
+  num_steps]`` int64 on the model's device. Greedy by default;
+  ``temperature > 0`` samples (optionally top-k filtered, see
+  :func:`_select_token`) with ``generator``, a ``torch.Generator`` on the
+  model's device. Where the reference demands an explicit ``rng`` key,
+  the port demands the generator: a silent fixed seed would make every
+  "sampled" call identical. The draws are not JAX's stream, so a sampled
+  decode differs from the reference's. With ``eos_id``, a row that emits
+  it keeps the EOS and every later position is ``pad_id``. The whole
+  prompt is one fresh-cache prefill (flash where its length divides into
+  kernel blocks), then one token per step.
   """
   cfg = model.cfg
   if temperature < 0:
     raise ValueError("temperature must be >= 0, got %r" % temperature)
   if temperature > 0:
-    raise NotImplementedError("sampling (temperature > 0) is not ported to "
-                              "PyTorch yet (ROADMAP Queue 1 item 9)")
+    if generator is None:
+      raise ValueError("temperature > 0 requires an explicit "
+                       "torch.Generator (generator=)")
+    if torch.device(generator.device).type != model.device.type:
+      raise ValueError("the generator lives on %s, the model on %s"
+                       % (generator.device, model.device))
   prompt = _as_prompt(prompt, model.device)
   b, plen = prompt.shape
   if plen + num_steps > cfg.max_seq_len:
@@ -582,20 +615,265 @@ def greedy_generate_kv(model: Transformer, prompt, num_steps: int,
                      "position would read as a fresh stop" % int(pad_id))
   if num_steps < 1:
     return prompt
+
+  def select(logits):
+    return _select_token(logits[:, -1], generator, temperature, top_k)
+
   with torch.inference_mode():
     cache = model.init_cache(b)
-    nxt = model(prompt, cache)[:, -1].argmax(dim=-1)
+    nxt = select(model(prompt, cache))
     done = nxt == eos_id if eos_id is not None \
         else torch.zeros_like(nxt, dtype=torch.bool)
     out, tok = [nxt], nxt
     for _ in range(num_steps - 1):
-      new = model(tok[:, None], cache)[:, -1].argmax(dim=-1)
+      new = select(model(tok[:, None], cache))
       if eos_id is not None:
         new = torch.where(done, torch.full_like(new, pad_id), new)
         done = done | (new == eos_id)
       out.append(new)
       tok = new
     return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+
+
+# -- serving through a pipeline bundle -----------------------------------------
+
+# Per-process caches of the serving predict fn, reached at call time and
+# never pickled with it (a live model or engine holds card memory and a
+# thread): the model per (config, device), and the continuous-batching
+# engine per serving config and weights' content.
+_SERVING_MODEL_CACHE: dict = {}
+_SERVING_ENGINE_CACHE: dict = {}
+# the last params tree fingerprinted, with its print: the identity fast
+# path of both caches
+_SERVING_PRINT: list = [None, None]
+
+# how long a cached-engine rebuild waits for the old engine to finish its
+# accepted requests before stopping it (ServingEngine.drain)
+_SERVING_ENGINE_DRAIN_TIMEOUT = 60.0
+
+#: per-process counters of :class:`ServingPredictFn` batches by path and
+#: of its engine cache's outcomes (built or rebuilt; reused)
+SERVING_STATS = {"rect_calls": 0, "ragged_calls": 0, "engine_builds": 0,
+                 "engine_hits": 0}
+
+
+def reset_serving_stats() -> None:
+  for k in SERVING_STATS:
+    SERVING_STATS[k] = 0
+
+
+def _prompt_rows(prompts):
+  """Normalize a predict-fn prompt column to (rows, ragged?).
+
+  ``rows`` is a list of 1-D int32 arrays; ``ragged`` is True when rows
+  disagree on length — list/tuple columns of per-row sequences and
+  object-dtype arrays (``pipeline``'s ragged-column fallback) both land
+  here. Rectangular ndarrays return (None, False): the batched
+  fixed-shape path handles them without row materialization.
+  """
+  if isinstance(prompts, np.ndarray) and prompts.dtype != object:
+    return None, False
+  rows = [np.atleast_1d(np.asarray(r, np.int32).ravel()) for r in prompts]
+  lengths = {len(r) for r in rows}
+  return rows, len(lengths) > 1
+
+
+def _params_print(params) -> str:
+  """``params_fingerprint`` of ``params``, computed once per tree object."""
+  if _SERVING_PRINT[0] is not params:
+    from tensorflowonspark_tpu_torch.utils.checkpoint import (
+        params_fingerprint)
+    _SERVING_PRINT[:] = [params, params_fingerprint(params)]
+  return _SERVING_PRINT[1]
+
+
+def _check_serving_mesh(mesh, mesh_spec) -> None:
+  """One card per executor: a mesh or spec whose every degree is 1 (or
+  -1, which one process absorbs as 1) is accepted; any degree above 1
+  raises, as ``parallel.mesh.build_mesh`` does."""
+  if mesh is not None and mesh_spec is not None:
+    raise ValueError("pass mesh OR mesh_spec, not both")
+  degrees = dict(mesh.shape) if mesh is not None else \
+      (mesh_spec.degrees() if mesh_spec is not None else {})
+  wide = ["%s=%d" % (a, d) for a, d in degrees.items() if d > 1]
+  if wide:
+    raise NotImplementedError(
+        "mesh axes %s: serving over more than one card (tensor-parallel "
+        "decode) is not ported to PyTorch yet (ROADMAP Queue 1 item 10)"
+        % ", ".join(wide))
+
+
+class ServingPredictFn(object):
+  """The ``predict_fn(params, batch)`` of :func:`make_serving_predict_fn`.
+
+  A module-level class, so a bundle's ``predict.pkl`` pickles it by name
+  with the standard ``pickle``: it holds only its settings (and a call
+  count). The model and the engine it serves with live in this module's
+  caches, reached at call time, so pickling it after a serve still works.
+  ``params``: the flat weight dict (``Transformer.serving_params``,
+  ``init_params``, ``params_from_flax`` or a bundle's, loaded by
+  ``compat.import_model``).
+  """
+
+  def __init__(self, cfg: "TransformerConfig", num_steps: int,
+               temperature: float = 0.0, top_k: int = 0, seed: int = 0,
+               eos_id: Optional[int] = None, pad_id: int = 0,
+               num_slots: Optional[int] = None, device=None):
+    self.cfg = cfg
+    self.num_steps = int(num_steps)
+    self.temperature = float(temperature)
+    self.top_k = int(top_k)
+    self.seed = int(seed)
+    self.eos_id = None if eos_id is None else int(eos_id)
+    self.pad_id = int(pad_id)
+    self.num_slots = num_slots
+    self.device = device
+    self._calls = 0
+
+  def _model(self, params, dev: torch.device) -> Transformer:
+    """The serving model of ``params`` on ``dev``: built once per
+    (config, device), reloaded in place when the weights' content
+    changes, reused as it is for the same tree object or content."""
+    key = (self.cfg, str(dev))
+    hit = _SERVING_MODEL_CACHE.get(key)
+    if hit is not None and (hit[0] is params
+                            or hit[1] == _params_print(params)):
+      hit[0] = params
+      return hit[2]
+    if hit is not None:
+      hit[2].load_params(params)
+      model = hit[2]
+    else:
+      model = Transformer(self.cfg, params, device=dev)
+    _SERVING_MODEL_CACHE[key] = [params, _params_print(params), model]
+    return model
+
+  def _engine(self, params, dev: torch.device):
+    """The continuous-batching engine for ragged batches: one per serving
+    config AND weights' content; a stale or dead engine is drained and
+    rebuilt. Admission bounds are off (``max_queue=0``,
+    ``max_queued_tokens=0``): the transform feed is already bounded by its
+    batch size and has no retry story."""
+    from tensorflowonspark_tpu_torch.serving import ServingEngine
+    cfg_key = (self.cfg, self.num_steps, self.eos_id, self.pad_id,
+               self.num_slots, str(dev))
+    for k, (p, eng) in list(_SERVING_ENGINE_CACHE.items()):
+      if k[:len(cfg_key)] == cfg_key and p is params and eng.alive:
+        SERVING_STATS["engine_hits"] += 1
+        return eng
+    key = cfg_key + (_params_print(params),)
+    cached = _SERVING_ENGINE_CACHE.get(key)
+    if cached is not None and cached[1].alive:
+      SERVING_STATS["engine_hits"] += 1
+      return cached[1]
+    # retire every engine under this serving config (the stale version
+    # and any dead same-version entry): drain finishes what the old engine
+    # accepted (bounded), then stops it
+    for k in [k for k in _SERVING_ENGINE_CACHE
+              if k == key or k[:len(cfg_key)] == cfg_key]:
+      _SERVING_ENGINE_CACHE.pop(k)[1].drain(
+          timeout=_SERVING_ENGINE_DRAIN_TIMEOUT)
+    SERVING_STATS["engine_builds"] += 1
+    eng = ServingEngine(params, self.cfg, num_slots=self.num_slots,
+                        eos_id=self.eos_id, pad_id=self.pad_id,
+                        max_new_tokens=self.num_steps, max_queue=0,
+                        max_queued_tokens=0, device=dev).start()
+    _SERVING_ENGINE_CACHE[key] = (params, eng)
+    return eng
+
+  def _generator(self, prompts: np.ndarray, dev: torch.device):
+    """The sampling generator of one batch: seeded from ``(seed,
+    crc32(prompts.tobytes()), call count)`` through a numpy
+    ``SeedSequence`` (the reference folds its key with the same three), so
+    different batches and repeated serves of one batch draw different
+    streams, and a fresh process repeats them."""
+    import zlib
+    self._calls += 1
+    state = np.random.SeedSequence(
+        [self.seed, zlib.crc32(prompts.tobytes()), self._calls]
+    ).generate_state(1, np.uint64)[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(state))
+    return gen
+
+  def __call__(self, params, batch):
+    dev = resolve_device(self.device)
+    raw = next(iter(batch.values()))
+    rows, ragged = _prompt_rows(raw)
+    if ragged:
+      # mixed-length generation: the continuous-batching engine decodes
+      # each row to ITS own length/stop instead of a padded lockstep loop
+      if self.temperature > 0:
+        raise ValueError(
+            "variable-length serving batches decode through the "
+            "continuous-batching engine, which is greedy-only — "
+            "temperature > 0 needs equal-length prompts")
+      SERVING_STATS["ragged_calls"] += 1
+      outs = self._engine(params, dev).generate(
+          rows, max_new_tokens=self.num_steps)
+      width = max(len(o) for o in outs)
+      padded = np.full((len(outs), width), self.pad_id, np.int32)
+      for i, o in enumerate(outs):
+        padded[i, :len(o)] = o
+      return {"tokens": padded}
+    # an object/list column whose rows happen to share one length is not
+    # ragged: stack the already-normalized rows
+    prompts = np.stack(rows) if rows is not None else \
+        np.asarray(raw, np.int32)
+    if prompts.ndim == 1:          # one column of scalar token ids
+      prompts = prompts[:, None]
+    SERVING_STATS["rect_calls"] += 1
+    gen = None
+    if self.temperature > 0:
+      gen = self._generator(prompts, dev)
+    out = greedy_generate_kv(self._model(params, dev), prompts,
+                             self.num_steps, eos_id=self.eos_id,
+                             pad_id=self.pad_id,
+                             temperature=self.temperature, top_k=self.top_k,
+                             generator=gen)
+    return {"tokens": out.cpu().numpy().astype(np.int32)}
+
+
+def make_serving_predict_fn(cfg: TransformerConfig, num_steps: int,
+                            temperature: float = 0.0, top_k: int = 0,
+                            seed: int = 0, mesh=None, mesh_spec=None,
+                            eos_id: Optional[int] = None, pad_id: int = 0,
+                            num_slots: Optional[int] = None,
+                            device=None) -> ServingPredictFn:
+  """Build a ``predict_fn(params, batch)`` for ``pipeline.export_bundle``.
+
+  The port of the reference's ``make_serving_predict_fn``: the batched
+  KV-cache serving loop as a pipeline bundle. ``TFModel.transform``
+  batches rows with ``yield_batch``; ``batch`` maps an input tensor name
+  to a stacked prompt array ``[B, prompt_len]``; each batch decodes
+  through :func:`greedy_generate_kv` (one prefill, then one token a
+  step). Returns ``{"tokens": int32 [B, prompt_len + num_steps]}``, the
+  reference's dtype, so signatures and CLI JSON match.
+
+  With ``temperature > 0`` each batch samples (``top_k`` filtered) from a
+  ``torch.Generator`` seeded from ``(seed, crc32 of the prompts, the
+  call count)`` through a numpy ``SeedSequence``
+  (:meth:`ServingPredictFn._generator`). ``eos_id`` stops a row on the
+  rectangular path too.
+
+  VARIABLE-LENGTH batches (an object column whose rows differ in length,
+  ``TFModel.transform``'s ragged fallback) decode through a per-process
+  continuous-batching ``ServingEngine`` (``num_slots`` slots, default
+  ``TOS_SERVE_SLOTS``), cached per config and ``params_fingerprint``;
+  outputs are right-padded with ``pad_id``. The engine is greedy-only, so
+  a ragged batch with ``temperature > 0`` raises.
+
+  What differs from the reference: the predict fn is an instance of the
+  module-level :class:`ServingPredictFn`, not a closure, since the port
+  pickles with the standard ``pickle``; ``device=None`` is the card
+  (raises without one; the tests pass ``"cpu"``); and a ``mesh`` or
+  ``mesh_spec`` with a degree above 1 raises (ROADMAP Queue 1 item 10),
+  since the port serves on one card per executor.
+  """
+  _check_serving_mesh(mesh, mesh_spec)
+  return ServingPredictFn(cfg, num_steps, temperature=temperature,
+                          top_k=top_k, seed=seed, eos_id=eos_id,
+                          pad_id=pad_id, num_slots=num_slots, device=device)
 
 
 def causal_lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
@@ -711,5 +989,7 @@ def create_sharded_state(cfg: TransformerConfig,
 
 __all__ = ["TransformerConfig", "KVCache", "Transformer", "TiedEmbed",
            "Attention", "MLPBlock", "Block", "LayerNorm", "greedy_generate_kv",
+           "ServingPredictFn", "make_serving_predict_fn", "SERVING_STATS",
+           "reset_serving_stats",
            "causal_lm_loss", "causal_lm_loss_blocked", "tied_embedding_table",
            "create_state", "create_sharded_state"]

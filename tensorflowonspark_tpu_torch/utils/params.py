@@ -26,9 +26,10 @@ passes ``jax.tree.map(np.asarray, params)`` — and leaves as one, so this
 module never sees a JAX type.
 """
 
-from typing import Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
+import torch
 
 # flax's lecun_normal: truncated normal on [-2, 2] rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
@@ -66,6 +67,35 @@ def _truncated_normal(rng: np.random.Generator, shape) -> np.ndarray:
   return z
 
 
+def lecun_normal(rng: np.random.Generator, shape, fan_in: int) -> np.ndarray:
+  """flax's ``lecun_normal`` law drawn with numpy: a truncated normal of
+  std ``1 / sqrt(fan_in)``."""
+  std = np.float32(np.sqrt(1.0 / fan_in) / _TRUNC_STD)
+  return _truncated_normal(rng, shape) * std
+
+
+def copy_into(own: Mapping[str, torch.Tensor],
+              params: Mapping[str, Any]) -> None:
+  """Copy a flat weight dict (numpy arrays or tensors) into a module's
+  ``named_parameters`` ``own``, each cast to its parameter's dtype; a
+  tensor is copied as it is (numpy has no bfloat16). Raises on a missing
+  or unexpected name or a shape that disagrees."""
+  missing = sorted(set(own) - set(params))
+  extra = sorted(set(params) - set(own))
+  if missing or extra:
+    raise KeyError("weights do not match the model: missing %s, "
+                   "unexpected %s" % (missing[:4], extra[:4]))
+  with torch.no_grad():
+    for name, p in own.items():
+      src = params[name]
+      src = src.detach() if torch.is_tensor(src) else \
+          torch.tensor(np.asarray(src))
+      if tuple(src.shape) != tuple(p.shape):
+        raise ValueError("%s: shape %s, model expects %s"
+                         % (name, tuple(src.shape), tuple(p.shape)))
+      p.copy_(src.to(p.dtype))
+
+
 def init_params(cfg, seed: int) -> Dict[str, np.ndarray]:
   """Random float32 weights with the flax model's shapes and init laws,
   from ``seed`` — so the port runs at full width with no JAX present.
@@ -80,8 +110,7 @@ def init_params(cfg, seed: int) -> Dict[str, np.ndarray]:
       out[name] = rng.standard_normal(shape, dtype=np.float32) * \
           np.float32(0.02)
     else:
-      std = np.float32(np.sqrt(1.0 / fan_in) / _TRUNC_STD)
-      out[name] = _truncated_normal(rng, shape) * std
+      out[name] = lecun_normal(rng, shape, fan_in)
   return out
 
 

@@ -48,7 +48,12 @@ def test_port_sources_import_no_jax():
                "data/indexed.py",
                # and data parallelism across processes
                "parallel/mesh.py", "parallel/collectives.py",
-               "parallel/sharding.py"):
+               "parallel/sharding.py",
+               # and the pipeline layer
+               "pipeline.py", "inference_cli.py", "parallel/runner.py",
+               "models/mnist.py", "examples/serve_gpt.py",
+               "examples/mnist_pipeline.py",
+               "examples/mnist_parallel_inference.py"):
     assert os.path.join(*name.split("/")) in scanned, name
   bad = sorted((os.path.relpath(p, ROOT), root) for p in files
                for root in _imported_roots(p) if root in FORBIDDEN)
@@ -204,6 +209,77 @@ def test_cluster_run_loads_no_jax_msgpack_or_cloudpickle(tmp_path):
   env = dict(os.environ, PYTHONPATH=ROOT)
   proc = subprocess.run([sys.executable, str(script),
                          str(tmp_path / "executor_modules.json")],
+                        cwd=str(tmp_path), env=env, capture_output=True,
+                        text=True, timeout=180)
+  assert proc.returncode == 0, proc.stdout + proc.stderr
+  assert "DRIVER []" in proc.stdout and "EXECUTOR []" in proc.stdout, \
+      proc.stdout
+
+
+_TRANSFORM_DRIVE = textwrap.dedent("""
+    import json
+    import sys
+
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch import pipeline
+    from tensorflowonspark_tpu_torch.data import dfutil
+    from tensorflowonspark_tpu_torch.data.schema import parse_schema
+    from tensorflowonspark_tpu_torch.engine import LocalEngine
+    from tensorflowonspark_tpu_torch.models import transformer as tfm
+    from tensorflowonspark_tpu_torch.utils.params import init_params
+
+    BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack", "cloudpickle")
+
+
+    def loaded():
+      return sorted(m for m in sys.modules
+                    if m.split(".")[0] in BANNED
+                    or m.startswith("tensorflowonspark_tpu."))
+
+
+    class Report(object):
+      def __call__(self, it):
+        return loaded()
+
+
+    if __name__ == "__main__":
+      out = sys.argv[1]
+      cfg = tfm.TransformerConfig(vocab_size=32, num_layers=1, num_heads=2,
+                                  d_model=16, d_ff=32, max_seq_len=32,
+                                  dtype=torch.float32)
+      pipeline.export_bundle(init_params(cfg, 0),
+                             tfm.make_serving_predict_fn(cfg, 3,
+                                                         device="cpu"),
+                             out + "/bundle")
+      rows = [([1, 2, 3],), ([4, 5, 6],), ([7, 8],)]
+      dfutil.save_as_tfrecords([rows], parse_schema(
+          "struct<p:array<long>>"), out + "/data")
+      parts, _ = dfutil.load_tfrecords(out + "/data", lazy=True)
+      engine = LocalEngine(num_executors=1)
+      try:
+        model = pipeline.TFModel({"export_dir": out + "/bundle",
+                                  "batch_size": 2})
+        got = model.transform(engine, [[r for r in parts[0]()]])
+        assert [len(r) for r in got] == [6, 6, 5], got
+        executor = engine.run_on_executors(Report()).wait(timeout=60)[0]
+      finally:
+        engine.stop()
+      print("DRIVER", json.dumps(loaded()))
+      print("EXECUTOR", json.dumps(executor))
+""")
+
+
+def test_transform_loads_no_jax_msgpack_or_cloudpickle(tmp_path):
+  """A serving bundle exported, TFRecords written and read by the port's
+  ``dfutil``, and ``TFModel.transform`` on a LocalEngine executor: neither
+  the driver nor the executor loads jax, flax, the JAX package, msgpack
+  or cloudpickle."""
+  script = tmp_path / "transform.py"
+  script.write_text(_TRANSFORM_DRIVE)
+  env = dict(os.environ, PYTHONPATH=ROOT)
+  proc = subprocess.run([sys.executable, str(script), str(tmp_path)],
                         cwd=str(tmp_path), env=env, capture_output=True,
                         text=True, timeout=180)
   assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -150,7 +150,11 @@ def test_generate_guards_match_jax(full_causal):
                                eos_id=0, pad_id=0)
   with pytest.raises(ValueError, match="must differ"):
     tfm.greedy_generate_kv(model, short, 2, eos_id=0, pad_id=0)
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
+  # sampling needs an explicit source of randomness in both packages
+  with pytest.raises(ValueError, match="explicit"):
+    jax_tfm.greedy_generate_kv(params, jcfg, jnp.asarray(short), 2,
+                               temperature=0.7)
+  with pytest.raises(ValueError, match="explicit"):
     tfm.greedy_generate_kv(model, short, 2, temperature=0.7)
 
 

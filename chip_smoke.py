@@ -1544,6 +1544,7 @@ def _profile_step(torch, step, state, batch):
          "kernel_launches": sum(r[2] for r in rows),
          "nccl_ms": sum(r[1] for r in nccl),
          "nccl_kernels": sum(r[2] for r in nccl),
+         "gemm_kernels": gemm_kernels(rows),
          "top": [{"kernel": k[:90], "ms": ms, "count": n}
                  for k, ms, n in rows[:12]],
          "port_kernels": port_kernel_ms(rows)}
@@ -2170,6 +2171,224 @@ def ckpt_resume(torch, pattern, long_res=None):
   shutil.rmtree(ckpt_dir)
   shutil.rmtree(export_dir)
   return res
+
+
+# -- phase 6n: [6d] with Adafactor, remat "dots" and the native codec --------
+
+OPTIONS_STEPS = 2
+OPTIONS_REMAT = ("off", "none", "dots")
+# remat off: no block re-runs its forward (flash, ln1, ln2) in the backward
+WANT_LONG_OFF_PER_STEP = dict(WANT_LONG_PER_STEP, flash_attention_fwd=12,
+                              layer_norm=25)
+# the products "dots" saves and "none" recomputes: q, k, v, out and up of
+# each of 12 layers (the recompute stops before down under both policies:
+# the backward never reads down's output)
+DOTS_SAVED_GEMMS = 5 * 12
+DOTS_LOSS_REL = 1e-3
+_GEMM_PARTS = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def gemm_kernels(rows):
+  """Launches of library matrix-product kernels among the profiler's
+  rows (the port's own kernels excluded)."""
+  return sum(count for key, _, count in rows if _port_kernel(key) is None
+             and any(p in key.lower() for p in _GEMM_PARTS))
+
+
+def state_bytes(tree):
+  """Bytes of every tensor in an optimizer state (host counters aside)."""
+  from tensorflowonspark_tpu_torch.parallel import collectives
+  return sum(t.numel() * t.element_size()
+             for t in collectives.tensors_of(tree))
+
+
+def codec_check(pattern):
+  """[6n-a]: every record of ``pattern``'s files read by the native codec
+  and by the pure-Python framing (byte-equal lists), the first file framed
+  again by the Python writer (byte-equal file), and the host ms a row of
+  each reader and of the Example decode."""
+  import glob
+  from tensorflowonspark_tpu_torch.data import dfutil, tfrecord
+  from tensorflowonspark_tpu_torch.data.schema import parse_schema
+  sch = parse_schema(CKPT_SCHEMA)
+  files = sorted(glob.glob(pattern))
+  secs = {"native": 0.0, "python": 0.0, "decode": 0.0}
+  rows = tokens = nbytes = 0
+  for i, path in enumerate(files):
+    t0 = time.perf_counter()
+    native = list(tfrecord.NativeTFRecordReader(path))
+    t1 = time.perf_counter()
+    plain = list(tfrecord.PyTFRecordReader(path))
+    t2 = time.perf_counter()
+    decoded = [dfutil.from_example(r, sch) for r in native]
+    t3 = time.perf_counter()
+    secs["native"] += t1 - t0
+    secs["python"] += t2 - t1
+    secs["decode"] += t3 - t2
+    if native != plain or not native:
+      raise AssertionError("%s: the native and the Python readers disagree "
+                           "(%d and %d records)" % (path, len(native),
+                                                    len(plain)))
+    if i == 0:
+      again = path + ".python"
+      with tfrecord.PyTFRecordWriter(again) as w:
+        for r in plain:
+          w.write(r)
+      with open(path, "rb") as a, open(again, "rb") as b:
+        if a.read() != b.read():
+          raise AssertionError("%s: the Python writer frames other bytes "
+                               "than the native codec" % path)
+      os.remove(again)
+    rows += len(native)
+    tokens += sum(len(d[0]) for d in decoded)
+    nbytes += sum(len(r) for r in native)
+  per_row = {k: v * 1e3 / rows for k, v in secs.items()}
+  res = {"files": len(files), "rows": rows, "tokens": tokens,
+         "record_bytes": nbytes, "ms_per_row": per_row,
+         "tokens_per_row": tokens / rows}
+  log("  %d rows (%.0f tokens, %.0f bytes a row) byte-equal through both "
+      "readers; host ms a row: native framing + CRC %.3f, Python framing + "
+      "CRC %.3f, Example decode %.3f" % (
+          rows, tokens / rows, nbytes / rows, per_row["native"],
+          per_row["python"], per_row["decode"]))
+  return res
+
+
+def options_run(torch, ops, sharding, readers, train_gpt, pattern, remat):
+  """[6n-b]: [6d]'s configuration through train_gpt with ``--optimizer
+  adafactor`` and remat ``remat`` ("off": ``cfg.remat`` False): a warm-up
+  step, 2 timed steps with exact launch counts and the peak memory, one
+  profiled step."""
+  import dataclasses
+  policy = "none" if remat == "off" else remat
+  args = train_gpt.parse_args(LONG_ARGS + [
+      "--data", pattern, "--steps", "4", "--optimizer", "adafactor",
+      "--remat_policy", policy])
+  cfg = train_gpt.make_config(args)
+  if remat == "off":
+    cfg = dataclasses.replace(cfg, remat=False)
+  state = train_gpt.make_state(args, cfg)
+  step = sharding.make_train_step(train_gpt.make_loss_fn(args))
+  batches = readers.device_prefetch(train_gpt.batch_stream(args), size=2)
+  state, first = step(state, next(batches))          # warm-up
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  ops.reset_launches()
+  t0 = time.monotonic()
+  losses = []
+  for _ in range(OPTIONS_STEPS):
+    state, loss = step(state, next(batches))
+    losses.append(loss)
+  torch.cuda.synchronize()
+  wall = time.monotonic() - t0
+  launches = dict(ops.LAUNCHES)
+  peak = torch.cuda.max_memory_allocated()
+  state, prof_loss, prof = _profile_step(torch, step, state, next(batches))
+  losses = [float(first)] + [float(x) for x in losses] + [float(prof_loss)]
+  res = {"remat": remat, "losses": losses,
+         "ms_per_step": wall / OPTIONS_STEPS * 1e3,
+         "tokens_per_s": LONG_B * LONG_S * OPTIONS_STEPS / wall,
+         "peak_mem_bytes": peak, "opt_state_bytes": state_bytes(
+             state.opt_state), "gemm_kernels": prof["gemm_kernels"],
+         "profile": prof}
+  log("  remat %-4s: %.1f ms/step, %.0f tokens/s, peak %.3f GiB, profiled "
+      "step %d library GEMM kernels (wall %.1f ms, device busy %.1f ms), "
+      "losses %s" % (remat, res["ms_per_step"], res["tokens_per_s"],
+                     peak / 2 ** 30, res["gemm_kernels"], prof["wall_ms"],
+                     prof["device_busy_ms"],
+                     " ".join(repr(x) for x in losses)))
+  want = WANT_LONG_OFF_PER_STEP if remat == "off" else WANT_LONG_PER_STEP
+  res["launches_per_step"] = _per_step_launches(
+      launches, OPTIONS_STEPS, want, "[6n] adafactor, remat %s" % remat)
+  if not all(math.isfinite(x) for x in losses):
+    raise AssertionError("[6n] remat %s: non-finite loss %s"
+                         % (remat, losses))
+  return res
+
+
+def train_options(torch, ops, sharding, readers, train_gpt):
+  """[6n]: [6d]'s TFRecord files written by the native codec and checked
+  against the Python framing (a), then [6d] trained with Adafactor under
+  remat off, "none" and "dots" (b); the "dots" losses against "none"'s
+  (c), the peak memory and the optimizer state's bytes against AdamW's
+  (d), the launches and the profiled step's library GEMMs (e), ms/step
+  and tokens/s (f)."""
+  from tensorflowonspark_tpu_torch import optim
+  from tensorflowonspark_tpu_torch.data import tfrecord
+  from tensorflowonspark_tpu_torch.utils.params import param_specs
+  t0 = time.monotonic()
+  pattern = write_token_files(
+      os.path.join(HERE, "build", "chip_smoke_tokens_6n"), 32000, LONG_S)
+  write_s = time.monotonic() - t0
+  log("[6n-a] TFRecords written by the native codec (%s) in %.3f s"
+      % (tfrecord.library_path().name, write_s))
+  codec = codec_check(pattern)
+  codec["write_s"] = write_s
+  log("[6n-b] train_gpt --optimizer adafactor, remat off / none / dots, "
+      "B%d x S%d Hk 4, from those files" % (LONG_B, LONG_S))
+  runs = {}
+  for remat in OPTIONS_REMAT:
+    runs[remat] = options_run(torch, ops, sharding, readers, train_gpt,
+                              pattern, remat)
+    torch.cuda.empty_cache()
+  off, none, dots = (runs[k] for k in OPTIONS_REMAT)
+  rel = max(abs(a - b) / max(abs(b), 1e-30)
+            for a, b in zip(dots["losses"], none["losses"]))
+  log("[6n-c] dots losses %s none's (largest relative difference %r); "
+      "off %s none's" % (
+          "equal to the bit to" if dots["losses"] == none["losses"]
+          else "differ from", rel,
+          "equal to the bit to" if off["losses"] == none["losses"]
+          else "differ from"))
+  if rel > DOTS_LOSS_REL:
+    raise AssertionError("[6n] dots losses %s against none's %s"
+                         % (dots["losses"], none["losses"]))
+  cfg = train_gpt.make_config(train_gpt.parse_args(LONG_ARGS))
+  meta = {n: torch.empty(spec[0], device="meta")
+          for n, spec in param_specs(cfg).items()}
+  adamw_bytes = state_bytes(optim.make_optimizer(
+      learning_rate=3e-4, clip_norm=1.0).init(meta))
+  peaks = {k: r["peak_mem_bytes"] for k, r in runs.items()}
+  log("[6n-d] peak memory off %d, dots %d, none %d bytes; optimizer state "
+      "of %d weights: Adafactor %d bytes, AdamW %d" % (
+          peaks["off"], peaks["dots"], peaks["none"],
+          sum(t.numel() for t in meta.values()), dots["opt_state_bytes"],
+          adamw_bytes))
+  if not peaks["off"] > peaks["dots"] > peaks["none"]:
+    raise AssertionError("[6n] peak memory not in the order off > dots > "
+                         "none: %s" % peaks)
+  gemms = {k: r["gemm_kernels"] for k, r in runs.items()}
+  log("[6n-e] library GEMM kernels in the profiled step: off %d, none %d, "
+      "dots %d (none - dots = %d; want %d)"
+      % (gemms["off"], gemms["none"], gemms["dots"],
+         gemms["none"] - gemms["dots"], DOTS_SAVED_GEMMS))
+  if gemms["none"] - gemms["dots"] != DOTS_SAVED_GEMMS \
+      or gemms["dots"] != gemms["off"]:
+    raise AssertionError("[6n] the profiled steps' GEMMs %s: dots must "
+                         "launch %d fewer than none and as many as off"
+                         % (gemms, DOTS_SAVED_GEMMS))
+  log("[6n-f] ms/step: off %.1f, none %.1f, dots %.1f; tokens/s: off %.0f, "
+      "none %.0f, dots %.0f" % tuple(
+          [runs[k]["ms_per_step"] for k in OPTIONS_REMAT]
+          + [runs[k]["tokens_per_s"] for k in OPTIONS_REMAT]))
+  return {"codec": codec, "runs": runs, "adamw_state_bytes": adamw_bytes,
+          "dots_max_rel_loss_diff": rel}
+
+
+def options_launches(res, name):
+  """[6n]'s launches of kernel ``name`` in each run's timed steps."""
+  return {"train_options_%s_%d_steps" % (k, OPTIONS_STEPS):
+          int(r["launches_per_step"][name] * OPTIONS_STEPS)
+          for k, r in res["runs"].items()}
+
+
+def options_summary(res):
+  return {"codec_ms_per_row": res["codec"]["ms_per_row"],
+          "adamw_state_bytes": res["adamw_state_bytes"],
+          "runs": {k: {f: r[f] for f in ("ms_per_step", "tokens_per_s",
+                                         "peak_mem_bytes", "opt_state_bytes",
+                                         "gemm_kernels", "losses")}
+                   for k, r in res["runs"].items()}}
 
 
 # -- phases 6i and 6j: the flagship fed through the engine feed plane --------
@@ -4079,6 +4298,27 @@ def feed_only(torch, ops, tfm, init_params, card):
   return 0
 
 
+def train_options_only(torch, ops, sharding, readers, train_gpt, _build,
+                       card):
+  """``--train-options-only``: phase 6n alone, after the build."""
+  t0 = time.monotonic()
+  build_s = _build.build_all()
+  log("  built %s in %.1f s wall" % (
+      ", ".join("%s %.1fs" % kv for kv in build_s.items()),
+      time.monotonic() - t0))
+  res = train_options(torch, ops, sharding, readers, train_gpt)
+  os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+  with open(os.path.join(HERE, "chiprun_out",
+                         "chip_smoke_train_options.json"), "w") as f:
+    json.dump({"train_options": res, "card": card}, f, indent=1)
+  log(card)
+  log(json.dumps({"train_options": options_summary(res), "card": card}))
+  log(json.dumps({"ok": True, "device": {
+      "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+      "count": torch.cuda.device_count()}}))
+  return 0
+
+
 def main(argv):
   repeats, ln_only = 0, argv == ["--layer-norm-only"]
   only_cluster = argv == ["--cluster-only"]
@@ -4086,13 +4326,14 @@ def main(argv):
   only_ckpt = argv == ["--ckpt-only"]
   only_dp = argv == ["--dp-only"]
   only_pipeline = argv == ["--pipeline-only"]
+  only_options = argv == ["--train-options-only"]
   if argv[:1] == ["--serving-only"] and len(argv) == 2:
     repeats = int(argv[1])
   elif argv and not (ln_only or only_cluster or only_feed or only_ckpt
-                     or only_dp or only_pipeline):
+                     or only_dp or only_pipeline or only_options):
     log("usage: python3 chip_smoke.py [--serving-only N | "
         "--layer-norm-only | --cluster-only | --feed-only | --ckpt-only | "
-        "--dp-only | --pipeline-only]")
+        "--dp-only | --pipeline-only | --train-options-only]")
     return 2
   try:
     import torch
@@ -4140,6 +4381,9 @@ def main(argv):
                    init_params, card)
   if only_pipeline:
     return pipeline_only(torch, _build, card)
+  if only_options:
+    return train_options_only(torch, ops, sharding, readers, train_gpt,
+                              _build, card)
 
   log("[2] build")
   t0 = time.monotonic()
@@ -4273,6 +4517,11 @@ def main(argv):
       "InputMode.FILES), SIGKILLed after step 2, resumed")
   ckpt_res = ckpt_resume(torch, long_res["data"], long_res)
   torch.cuda.empty_cache()
+
+  log("[6n] [6d] with Adafactor and remat off / none / dots, from "
+      "TFRecords framed by the native codec")
+  options_res = train_options(torch, ops, sharding, readers, train_gpt)
+  torch.cuda.empty_cache()
   feed_res = feed_phases(torch, ops, tfm, torch.cuda.get_device_name(0),
                          params, cfg, train_res)
   torch.cuda.empty_cache()
@@ -4361,6 +4610,7 @@ def main(argv):
              "cluster_train_gpt_long_4_steps": cluster_launches(
                  "flash_attention_fwd"),
              "ckpt_resume_6_steps": ckpt_launches("flash_attention_fwd"),
+             **options_launches(options_res, "flash_attention_fwd"),
              "feed_train_12_steps": feed_launches("flash_attention_fwd"),
              "feed_inference_4_forwards": infer_launches(
                  "flash_attention_fwd"),
@@ -4382,6 +4632,7 @@ def main(argv):
              "train_fused_4_steps": fused_l["layer_norm"],
              "cluster_train_gpt_long_4_steps": cluster_launches("layer_norm"),
              "ckpt_resume_6_steps": ckpt_launches("layer_norm"),
+             **options_launches(options_res, "layer_norm"),
              "feed_train_12_steps": feed_launches("layer_norm"),
              "feed_inference_4_forwards": infer_launches("layer_norm"),
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
@@ -4416,6 +4667,7 @@ def main(argv):
              "cluster_train_gpt_long_4_steps": cluster_launches(
                  "layer_norm_bwd"),
              "ckpt_resume_6_steps": ckpt_launches("layer_norm_bwd"),
+             **options_launches(options_res, "layer_norm_bwd"),
              "feed_train_12_steps": feed_launches("layer_norm_bwd"),
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "layer_norm_bwd"),
@@ -4448,6 +4700,7 @@ def main(argv):
         "cluster_train_gpt_long_4_steps": cluster_launches(
             "flash_attention_bwd_dq"),
         "ckpt_resume_6_steps": ckpt_launches("flash_attention_bwd_dq"),
+        **options_launches(options_res, "flash_attention_bwd_dq"),
         "train_split_4_steps": split_l["flash_attention_bwd_dq"]}, "long"),
       ("dkv", "flash_attention_bwd_dkv", "flash_attention.py:197",
        {"train_split_4_steps": split_l["flash_attention_bwd_dkv"]}, "train"),
@@ -4456,7 +4709,8 @@ def main(argv):
                                            "flash_attention_bwd_dkv_gqa"),
         "cluster_train_gpt_long_4_steps": cluster_launches(
             "flash_attention_bwd_dkv_gqa"),
-        "ckpt_resume_6_steps": ckpt_launches("flash_attention_bwd_dkv_gqa")},
+        "ckpt_resume_6_steps": ckpt_launches("flash_attention_bwd_dkv_gqa"),
+        **options_launches(options_res, "flash_attention_bwd_dkv_gqa")},
        "long")):
     row = pick(split_rows, case=case, kernel=kern)
     kernels.append(entry(
@@ -4479,7 +4733,7 @@ def main(argv):
             "parity_f32": parity, "train": train_res, "train_gqa": gqa_res,
             "train_fused": fused_res, "train_fused_gqa": fgqa_res,
             "train_long_gqa": long_res, "cluster_long_gqa": cluster_res,
-            "ckpt_resume": ckpt_res,
+            "ckpt_resume": ckpt_res, "train_options": options_res,
             "feed": feed_res, "dp": dp_res, "pipeline": pipe_res,
             "train_split": split_res,
             "train_parity_f32": train_parity,

@@ -13,8 +13,8 @@ Built on the port's own ``example_codec``, ``tfrecord`` and ``schema``,
 so files written by either package read in the other. What differs from
 the reference:
 
-* remote paths (``gs://`` and any other scheme but ``file://``) are
-  refused by name, as :mod:`.fs` refuses them (ROADMAP Queue 1 item 15);
+* remote paths (``gs://`` and any other scheme but ``file://``) go
+  through fsspec (:mod:`.fs`), as in the reference;
 * a partition handle and the executor-side writer travel by the standard
   ``pickle``, so they are instances of module-level classes
   (:class:`_LazyFileReader`, :class:`_WriteTask`); a partition given as a
@@ -37,8 +37,7 @@ _loaded_paths: Dict[str, Schema] = {}
 
 
 def _path_key(path: str) -> str:
-  fs.refuse_remote(path)
-  return os.path.abspath(fs.strip_scheme(path))
+  return path if fs.is_remote(path) else os.path.abspath(fs.strip_scheme(path))
 
 
 def is_loaded_path(path: str) -> bool:
@@ -110,7 +109,7 @@ def infer_schema(example_bytes: bytes,
 
 
 def _part_path(output_dir: str, index: int) -> str:
-  return os.path.join(output_dir, "part-%05d.tfrecord" % index)
+  return fs.join(output_dir, "part-%05d.tfrecord" % index)
 
 
 def _write_partition(output_dir: str, schema: Schema, index: int,
@@ -147,11 +146,12 @@ def save_as_tfrecords(partitions: Sequence[Iterable], schema: Schema,
   an iterable (an instance of a module-level class, such as
   ``load_tfrecords(lazy=True)``'s handles), in which case rows are
   produced on the executor. Plain lists still work (and are pickled
-  whole, fine for small data).
+  whole, fine for small data). ``output_dir`` may be a remote URI: the
+  writers stream through fsspec.
   """
-  fs.refuse_remote(output_dir)
-  output_dir = fs.strip_scheme(output_dir)
-  os.makedirs(output_dir, exist_ok=True)
+  if not fs.is_remote(output_dir):
+    output_dir = fs.strip_scheme(output_dir)
+  fs.makedirs(output_dir, exist_ok=True)
   if engine is None:
     return [_write_partition(output_dir, schema, i, p)
             for i, p in enumerate(partitions)]
@@ -174,7 +174,14 @@ def save_as_tfrecords(partitions: Sequence[Iterable], schema: Schema,
 
 
 def _list_tfrecord_files(path: str) -> List[str]:
-  fs.refuse_remote(path)
+  if fs.is_remote(path):
+    base = path.rstrip("/")
+    files = sorted(fs.glob_files(base + "/*.tfrecord")) or \
+        sorted(fs.glob_files(base + "/part-*")) or \
+        sorted(fs.glob_files(path))
+    if not files:
+      raise FileNotFoundError("no TFRecord files at %r" % path)
+    return files
   path = fs.strip_scheme(path)
   if os.path.isdir(path):
     files = sorted(glob.glob(os.path.join(path, "*.tfrecord"))) or \

@@ -68,9 +68,13 @@ def _sidecar_path(path: str) -> str:
 def build_index(path: str, cache: bool = True) -> np.ndarray:
   """Record byte offsets of one TFRecord file, cached in a sidecar that
   records the file's (size, mtime_ns): a same-size rewrite whose record
-  boundaries moved is seen by its mtime."""
+  boundaries moved is seen by its mtime. A remote file (fsspec) is
+  indexed but never cached: writing next to remote data is often not
+  permitted."""
+  remote = fs.is_remote(path)
+  cache = cache and not remote
   data_size = fs.file_size(path)
-  mtime_ns = os.stat(fs.strip_scheme(path)).st_mtime_ns
+  mtime_ns = 0 if remote else os.stat(fs.strip_scheme(path)).st_mtime_ns
   side = _sidecar_path(fs.strip_scheme(path))
   if cache and os.path.exists(side):
     try:

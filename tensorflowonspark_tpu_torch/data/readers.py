@@ -78,7 +78,8 @@ def slab_batches(feed, batch_size: int, unroll: Optional[int] = None,
 def shard_files(pattern_or_paths, num_shards: int, shard_index: int
                 ) -> List[str]:
   """Deterministically assign files to one of ``num_shards`` readers:
-  the sorted matches of a local glob pattern (or the sorted paths given),
+  the sorted matches of a glob pattern (a remote one lists through fsspec
+  and gives scheme-qualified paths) or the sorted paths given,
   every ``num_shards``-th from ``shard_index``."""
   if isinstance(pattern_or_paths, str):
     paths = sorted(fs.glob_files(pattern_or_paths))

@@ -25,6 +25,9 @@ Queue 1 item 10.
       --d_model 768 --heads 12 --kv_heads 4 --seq_len 16384 --vocab 32000 \\
       --batch 1 --steps 10 --data 'tokens/part-*.tfrecord'
 
+``--optimizer adafactor`` keeps factored second moments (a tenth of
+AdamW's optimizer state at these widths); ``--remat_policy dots`` saves
+each block's weight products for the backward and recomputes the rest.
 ``--device cpu`` runs the kernels' plain versions on the CPU (tests).
 """
 
@@ -103,10 +106,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         "%s: FSDP, ring attention, tensor parallelism and the 1F1B pipeline "
         "are not ported to PyTorch yet (ROADMAP Queue 1 item 10); --dp "
         "trains data-parallel across processes" % ", ".join(wide))
-  if args.remat_policy == "dots":
-    raise NotImplementedError(
-        "--remat_policy dots is not ported to PyTorch yet (ROADMAP Queue 1 "
-        "item 12)")
   return args
 
 
@@ -140,8 +139,7 @@ def make_config(args: argparse.Namespace):
 
 def make_state(args: argparse.Namespace, cfg, mesh=None):
   """The train state: weights from seed 0 and the reference's optimizer
-  recipe (``--optimizer adafactor`` raises by name); over a ``mesh``,
-  rank 0's state on every rank."""
+  recipe; over a ``mesh``, rank 0's state on every rank."""
   from tensorflowonspark_tpu_torch import optim
   from tensorflowonspark_tpu_torch.models import transformer as tfm
   tx = optim.make_optimizer(learning_rate=args.lr, clip_norm=1.0,

@@ -25,6 +25,12 @@ What differs from the flax model, by design of the port:
   both, because the kernel takes them so.
 * ``cfg.remat`` wraps each block of a differentiated forward in
   ``torch.utils.checkpoint`` (non-reentrant), as ``nn.remat(Block)`` does.
+  ``remat_policy="dots"`` keeps what the reference's
+  ``dots_with_no_batch_dims_saveable`` keeps: the outputs of the block's
+  products with no batch dims that the backward reads (q, k, v or qkv,
+  out, up), saved by a selective-checkpoint policy; everything else
+  recomputes in the backward, the hand-written kernels included (a Pallas
+  call is no dot in the reference either).
 * the decode cache is a :class:`KVCache` updated IN PLACE (the flax cache
   is a returned pytree); one cursor serves every layer.
 * the hot ops go through ``tensorflowonspark_tpu_torch.ops``: on the card
@@ -37,6 +43,8 @@ Options outside this slice raise ``NotImplementedError`` naming the
 ROADMAP item that brings them.
 """
 
+import contextlib
+import threading
 from dataclasses import dataclass
 from typing import Any, List, Mapping, Optional, Union
 
@@ -44,7 +52,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from tensorflowonspark_tpu_torch import ops
 from tensorflowonspark_tpu_torch.utils.device import resolve_device
@@ -231,6 +240,43 @@ def _param(shape, cfg: TransformerConfig, device, trainable: bool,
                       requires_grad=trainable)
 
 
+# -- remat "dots": the block's products with no batch dims are saved ----------
+
+#: ``.on`` while one of the block's weight products runs (in this thread)
+_IN_PRODUCT = threading.local()
+# what a product over [..., D] @ [D, N] lowers to: mm (folded), addmm, or
+# bmm against the weight broadcast over the batch
+_PRODUCT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                torch.ops.aten.bmm.default)
+
+
+@contextlib.contextmanager
+def _weight_product():
+  """Marks the products with no batch dims that remat "dots" saves: q, k
+  and v (or qkv), out and up. Not down: the backward never reads its
+  output (the residual add passes the gradient on), so the reference
+  keeps no residual for it and the recompute stops before it under
+  either policy; saving it would only hold memory."""
+  before = getattr(_IN_PRODUCT, "on", False)
+  _IN_PRODUCT.on = True
+  try:
+    yield
+  finally:
+    _IN_PRODUCT.on = before
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+  """``dots_with_no_batch_dims_saveable``: save a marked product, recompute
+  the rest. Attention's products (batch dims B and H) are never marked."""
+  if op in _PRODUCT_OPS and getattr(_IN_PRODUCT, "on", False):
+    return CheckpointPolicy.MUST_SAVE
+  return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+  return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def _dense(x: torch.Tensor, w: torch.Tensor,
            dtype: torch.dtype) -> torch.Tensor:
   """flax ``DenseGeneral(dtype=dtype)`` over the last axis: x [..., D] @
@@ -292,18 +338,21 @@ class Attention(nn.Module):
         qkv = ops.ln_matmul(x, ln_scale, w).reshape(
             x.shape[:-1] + (h + 2 * hk, cfg.head_dim))
       else:
-        qkv = _dense(x, self.qkv, cfg.dtype)
+        with _weight_product():
+          qkv = _dense(x, self.qkv, cfg.dtype)
       return qkv[..., :h, :], qkv[..., h:h + hk, :], qkv[..., h + hk:, :]
     if ln_scale is not None:
       raise ValueError("ln-fused attention requires fuse_qkv")
-    return (_dense(x, self.q, cfg.dtype), _dense(x, self.k, cfg.dtype),
-            _dense(x, self.v, cfg.dtype))
+    with _weight_product():
+      return (_dense(x, self.q, cfg.dtype), _dense(x, self.k, cfg.dtype),
+              _dense(x, self.v, cfg.dtype))
 
   def _out_proj(self, o: torch.Tensor) -> torch.Tensor:
     b, s = o.shape[:2]
     dt = self.cfg.dtype
     w = self.out.to(dt)
-    return o.to(dt).reshape(b, s, -1) @ w.reshape(-1, w.shape[-1])
+    with _weight_product():
+      return o.to(dt).reshape(b, s, -1) @ w.reshape(-1, w.shape[-1])
 
   def forward(self, x, rope, cache: Optional[KVCache] = None,
               layer: int = 0, ln_scale: Optional[torch.Tensor] = None):
@@ -409,7 +458,8 @@ class MLPBlock(nn.Module):
     if ln_scale is not None:
       h = ops.ln_matmul(x, ln_scale, self.up.to(self.dtype))
     else:
-      h = _dense(x, self.up, self.dtype)
+      with _weight_product():
+        h = _dense(x, self.up, self.dtype)
     if act_fused:
       return ops.gelu_matmul(h, self.down.to(self.dtype))
     return _dense(F.gelu(h, approximate="tanh"), self.down, self.dtype)
@@ -513,17 +563,17 @@ class Transformer(nn.Module):
     the cursor advances by ``tokens.shape[1]``. ``return_hidden`` returns
     the final-norm output in ``cfg.dtype`` instead of the logits (for
     :func:`causal_lm_loss_blocked`). A differentiated forward without a
-    cache recomputes each block in the backward when ``cfg.remat``."""
+    cache recomputes each block in the backward when ``cfg.remat``, all
+    of it (``remat_policy="none"``) or all but its weight products
+    (``"dots"``)."""
     cfg = self.cfg
     if exit_layer is not None:
       raise NotImplementedError(
           "exit_layer (the shallow-exit draft of self-speculative decoding) "
           "is not ported to PyTorch yet (ROADMAP Queue 1 item 9)")
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
-    if remat and cfg.remat_policy == "dots":
-      raise NotImplementedError(
-          "remat_policy='dots' is not ported to PyTorch yet (ROADMAP Queue "
-          "1 item 12); use remat_policy='none'")
+    remat_kw = {"context_fn": _dots_contexts} \
+        if cfg.remat_policy == "dots" else {}
     tokens = tokens.to(self.device)
     b, s = tokens.shape
     ar = torch.arange(s, device=self.device)
@@ -537,7 +587,7 @@ class Transformer(nn.Module):
     x = self.embed(tokens)
     for i, block in enumerate(self.layers):
       if remat:
-        x = checkpoint(block, x, rope, use_reentrant=False)
+        x = checkpoint(block, x, rope, use_reentrant=False, **remat_kw)
       else:
         x = block(x, rope, cache, i)
     if cache is not None:

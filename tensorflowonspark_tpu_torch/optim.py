@@ -2,7 +2,7 @@
 
 Counterpart of ``tensorflowonspark_tpu/optim.py``, which builds optax
 transforms. The port carries optax's algorithms over term for term
-(``torch.optim``'s AdamW, Lion and SGD are other update rules): a
+(``torch.optim``'s AdamW, Adafactor and SGD are other update rules): a
 :class:`GradientTransformation` is an ``(init, update)`` pair over flat
 ``{name: tensor}`` dicts, composed with :func:`chain` and applied by
 :func:`apply_updates`.
@@ -16,7 +16,8 @@ in optax.
 """
 
 import math
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -257,18 +258,140 @@ def add_decayed_weights(weight_decay: float,
   return GradientTransformation(lambda params: None, update)
 
 
-def scale_by_learning_rate(learning_rate) -> GradientTransformation:
-  """Multiply by ``-learning_rate`` (a float, or a schedule evaluated at
-  this transformation's own count)."""
+def scale_by_learning_rate(learning_rate,
+                           flip_sign: bool = True) -> GradientTransformation:
+  """Multiply by ``-learning_rate`` (``+learning_rate`` without
+  ``flip_sign``; a float, or a schedule evaluated at this
+  transformation's own count)."""
   sched = learning_rate if callable(learning_rate) else \
       constant_schedule(learning_rate)
+  sign = -1.0 if flip_sign else 1.0
 
   def update(updates, state, params=None):
     lr = sched(state.count)
     state.count += 1
-    torch._foreach_mul_(_lists(updates), -float(lr))
+    torch._foreach_mul_(_lists(updates), sign * float(lr))
     return updates, state
   return GradientTransformation(lambda params: _Count(), update)
+
+
+def scale(step_size: float) -> GradientTransformation:
+  """optax.scale: multiply every update by ``step_size``."""
+  def update(updates, state, params=None):
+    torch._foreach_mul_(_lists(updates), step_size)
+    return updates, state
+  return GradientTransformation(lambda params: None, update)
+
+
+def _block_rms(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+  """``sqrt(mean(x ** 2))`` of each tensor, on its device."""
+  return [torch.sqrt(torch.mean(t * t)) for t in tensors]
+
+
+def clip_by_block_rms(threshold: float) -> GradientTransformation:
+  """optax.clip_by_block_rms: divide each update by ``max(1, rms(u) /
+  threshold)``."""
+  def update(updates, state, params=None):
+    u = _lists(updates)
+    if u:
+      denom = [torch.clamp(r / threshold, min=1.0) for r in _block_rms(u)]
+      torch._foreach_div_(u, denom)
+    return updates, state
+  return GradientTransformation(lambda params: None, update)
+
+
+def scale_by_param_block_rms(min_scale: float = 1e-3
+                             ) -> GradientTransformation:
+  """optax.scale_by_param_block_rms: multiply each update by its
+  parameter's rms, or by ``min_scale`` where that is at or below it."""
+  def update(updates, state, params=None):
+    if params is None:
+      raise ValueError("scale_by_param_block_rms needs the params")
+    names = list(updates)
+    if names:
+      factors = [torch.where(r <= min_scale, torch.full_like(r, min_scale), r)
+                 for r in _block_rms(_lists(params, names))]
+      torch._foreach_mul_(_lists(updates, names), factors)
+    return updates, state
+  return GradientTransformation(lambda params: None, update)
+
+
+def _factored_dims(shape: Sequence[int], min_dim_size_to_factor: int
+                   ) -> Optional[Tuple[int, int]]:
+  """optax's rule: the (second largest, largest) dims of a parameter of
+  two or more dims whose second largest is at least
+  ``min_dim_size_to_factor``, else None. The shape is the parameter's
+  own: a [D, H, d] kernel is never viewed as a matrix."""
+  if len(shape) < 2:
+    return None
+  order = np.argsort(shape)
+  if shape[order[-2]] < min_dim_size_to_factor:
+    return None
+  return int(order[-2]), int(order[-1])
+
+
+class FactoredState(NamedTuple):
+  """optax.FactoredState: the step count and, per parameter, its row and
+  column second moments (factored) or its whole second moment (not); a
+  slot a parameter does not use holds one zero, as in optax."""
+  count: _Count
+  v_row: List[torch.Tensor]
+  v_col: List[torch.Tensor]
+  v: List[torch.Tensor]
+
+
+def scale_by_factored_rms(decay_rate: float = 0.8,
+                          min_dim_size_to_factor: int = 128,
+                          epsilon: float = 1e-30) -> GradientTransformation:
+  """optax.scale_by_factored_rms (no step offset): the gradient scaled by
+  the inverse root of a second-moment estimate decayed at ``1 - (t +
+  1) ** -decay_rate`` from ``g ** 2 + epsilon``. A factored parameter keeps
+  the means over its largest dim (``v_row``) and over its second largest
+  (``v_col``) and scales by their outer product over ``v_row``'s mean."""
+  def init(params):
+    v_row, v_col, v = [], [], []
+    for p in params.values():
+      dims = _factored_dims(p.shape, min_dim_size_to_factor)
+      if dims is None:
+        v_row.append(p.new_zeros(1))
+        v_col.append(p.new_zeros(1))
+        v.append(torch.zeros_like(p))
+        continue
+      d1, d0 = dims
+      shape = list(p.shape)
+      v_row.append(p.new_zeros(shape[:d0] + shape[d0 + 1:]))
+      v_col.append(p.new_zeros(shape[:d1] + shape[d1 + 1:]))
+      v.append(p.new_zeros(1))
+    return FactoredState(_Count(), v_row, v_col, v)
+
+  def update(updates, state, params=None):
+    if params is None:
+      raise ValueError("scale_by_factored_rms needs the params")
+    # the decay in f32, as optax computes it on the device
+    t = np.float32(state.count.count + 1)
+    beta = np.float32(1.0) - t ** np.float32(-decay_rate)
+    keep, take = float(beta), float(np.float32(1.0) - beta)
+    out = {}
+    for i, (name, g) in enumerate(updates.items()):
+      g2 = (g * g).add_(epsilon)
+      dims = _factored_dims(g.shape, min_dim_size_to_factor)
+      if dims is None:
+        v = state.v[i]
+        v.mul_(keep).add_(g2, alpha=take)
+        out[name] = g * torch.rsqrt(v)
+        continue
+      d1, d0 = dims
+      v_row, v_col = state.v_row[i], state.v_col[i]
+      v_row.mul_(keep).add_(g2.mean(dim=d0), alpha=take)
+      v_col.mul_(keep).add_(g2.mean(dim=d1), alpha=take)
+      reduced_d1 = d1 - 1 if d1 > d0 else d1
+      row_factor = torch.rsqrt(
+          v_row / v_row.mean(dim=reduced_d1, keepdim=True))
+      col_factor = torch.rsqrt(v_col)
+      out[name] = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+    state.count.count += 1
+    return out, state
+  return GradientTransformation(init, update)
 
 
 def adamw(learning_rate, b1: float = 0.9, b2: float = 0.999,
@@ -287,6 +410,16 @@ def lion(learning_rate, b1: float = 0.9, b2: float = 0.99,
                scale_by_learning_rate(learning_rate))
 
 
+def adafactor(learning_rate) -> GradientTransformation:
+  """optax.adafactor at its defaults: factored second moments (decay
+  0.8, factored from dims of 128), each update clipped to rms 1, scaled
+  by the learning rate and by its parameter's rms (at least 1e-3); no
+  momentum, no weight decay of its own."""
+  return chain(scale_by_factored_rms(), clip_by_block_rms(1.0),
+               scale_by_learning_rate(learning_rate, flip_sign=False),
+               scale_by_param_block_rms(), scale(-1.0))
+
+
 def sgd(learning_rate, momentum: Optional[float] = None,
         nesterov: bool = False) -> GradientTransformation:
   """optax.sgd: optional (Nesterov) momentum, then the learning rate."""
@@ -297,8 +430,8 @@ def sgd(learning_rate, momentum: Optional[float] = None,
 def _lr_scaled_weight_decay(sched: Schedule, weight_decay: float,
                             mask) -> GradientTransformation:
   """Decoupled weight decay ``u - lr_t * weight_decay * p`` on its own
-  count, honouring the mask (the reference adds it after cores that lack
-  an lr-scaled decay: sgd here)."""
+  count, honouring the mask (the reference adds it after the cores that
+  lack an lr-scaled decay: adafactor and sgd)."""
   def update(updates, state, params=None):
     if params is None:
       raise ValueError("weight decay requires params")
@@ -374,16 +507,12 @@ def make_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.01,
   clipping; ``decay_mask="auto"`` decays only ndim >= 2 params (None
   decays everything, or pass a dict / callable); ``tx_extra`` is chained
   last; ``grad_accum_steps`` > 1 wraps the chain in :class:`MultiSteps`.
-  Cores: ``adamw``, ``lion``, ``sgd`` (Nesterov, with lr-scaled decay).
-  ``adafactor`` raises ``NotImplementedError`` (ROADMAP Queue 1 item 13).
+  Cores: ``adamw``, ``lion``, ``adafactor`` and ``sgd`` (Nesterov); the
+  last two take their decay from :func:`_lr_scaled_weight_decay`.
   """
   if optimizer not in OPTIMIZERS:
     raise ValueError("optimizer must be one of %s, got %r"
                      % (OPTIMIZERS, optimizer))
-  if optimizer == "adafactor":
-    raise NotImplementedError(
-        "optimizer='adafactor' (factored second moments) is not ported to "
-        "PyTorch yet (ROADMAP Queue 1 item 13)")
   sched = make_schedule(learning_rate, schedule, warmup_steps, decay_steps,
                         end_value)
   if isinstance(decay_mask, str) and decay_mask == "auto":
@@ -397,10 +526,12 @@ def make_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.01,
   elif optimizer == "lion":
     parts.append(lion(sched, b1=b1, b2=b2, weight_decay=weight_decay,
                       mask=decay_mask))
+  elif optimizer == "adafactor":
+    parts.append(adafactor(sched))
   else:
     parts.append(sgd(sched, momentum=momentum, nesterov=True))
-    if weight_decay:
-      parts.append(_lr_scaled_weight_decay(sched, weight_decay, decay_mask))
+  if optimizer in ("adafactor", "sgd") and weight_decay:
+    parts.append(_lr_scaled_weight_decay(sched, weight_decay, decay_mask))
   if tx_extra is not None:
     parts.append(tx_extra)
   tx = chain(*parts) if len(parts) > 1 else parts[0]

@@ -28,11 +28,22 @@ tensor is ``copy_``'d into the template's tensor, on its device and in its
 dtype, so the model's parameters that a train step holds stay the same
 objects.
 
+A remote directory (any ``scheme://`` but ``file://``, through fsspec,
+:mod:`~tensorflowonspark_tpu_torch.data.fs`) has no atomic rename and, as
+in the reference, no commit markers: those live in local directories
+only. A step is written in place, ``data.json`` first and ``state.json``
+last, so a save cut short leaves a step without its tree, which does not
+load; ``restore_or`` then falls back to the newest older step that loads,
+the reference's rule for a directory without markers. Where the reference
+leans on orbax's own finalisation of a remote step, the port has only
+that order and that fallback.
+
 Neither the orbax layout nor the ``torch.save`` layout is read by the
 other package; only the commit markers are shared. The port has no
 counterpart of orbax's save-on-preemption signal (``reached_preemption``).
 """
 
+import contextlib
 import glob
 import json
 import logging
@@ -43,6 +54,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from tensorflowonspark_tpu_torch.data import fs
 
 logger = logging.getLogger(__name__)
 
@@ -69,15 +82,11 @@ def atomic_write_json(path: str, payload: dict) -> None:
   os.replace(tmp, path)
 
 
-def local_dir(path: str) -> str:
-  """``path`` as an absolute local directory. A remote URI is refused by
-  name: the port reads and writes local paths and ``file://`` URIs only."""
-  from tensorflowonspark_tpu_torch.data import fs
+def storage_dir(path: str) -> str:
+  """``path`` as an absolute local directory, or a remote URI as given
+  (without a trailing ``/``)."""
   if fs.is_remote(path):
-    raise NotImplementedError(
-        "remote storage (%r) for checkpoints and exports is not ported to "
-        "PyTorch yet (ROADMAP Queue 1 item 15): local paths and file:// "
-        "URIs only" % path.split("://", 1)[0])
+    return path.rstrip("/")
   return os.path.abspath(fs.strip_scheme(path))
 
 
@@ -293,25 +302,32 @@ def commit_dir(tmp: str, final: str) -> None:
   _fsync_dir(os.path.dirname(final))
 
 
+@contextlib.contextmanager
+def durable_file(path: str):
+  """``path`` open for writing; on a local disk it is fsynced before it
+  closes, on remote storage the backend's close commits the object."""
+  with fs.open_file(path, "wb") as f:
+    yield f
+    if not fs.is_remote(path):
+      f.flush()
+      os.fsync(f.fileno())
+
+
 def save_tree(directory: str, tree: Any) -> Dict[str, float]:
-  """Write ``tree`` into ``directory`` (created) as ``state.pt`` +
-  ``state.json``, each fsynced. Returns the bytes written and the
-  seconds of the copy to the host (``host_s``) and of the write
+  """Write ``tree`` into ``directory`` (created; local or remote) as
+  ``state.pt`` + ``state.json``, the tree last. Returns the bytes written
+  and the seconds of the copy to the host (``host_s``) and of the write
   (``write_s``)."""
   t0 = time.monotonic()
   tensors: Dict[str, torch.Tensor] = {}
   node = _encode(tree, "", tensors)
   t1 = time.monotonic()
-  os.makedirs(directory, exist_ok=True)
-  with open(os.path.join(directory, _TENSORS), "wb") as f:
+  fs.makedirs(directory, exist_ok=True)
+  with durable_file(fs.join(directory, _TENSORS)) as f:
     torch.save(tensors, f)
-    f.flush()
-    os.fsync(f.fileno())
-  with open(os.path.join(directory, _TREE), "w") as f:
-    json.dump({"format": _FORMAT, "tree": node}, f)
-    f.flush()
-    os.fsync(f.fileno())
-  return {"bytes": sum(os.path.getsize(os.path.join(directory, n))
+  with durable_file(fs.join(directory, _TREE)) as f:
+    f.write(json.dumps({"format": _FORMAT, "tree": node}).encode())
+  return {"bytes": sum(fs.file_size(fs.join(directory, n))
                        for n in (_TENSORS, _TREE)),
           "host_s": t1 - t0, "write_s": time.monotonic() - t1}
 
@@ -320,13 +336,13 @@ def load_tree(directory: str, template: Any = None) -> Any:
   """The tree :func:`save_tree` wrote: restored in place into
   ``template``, or (no template) as plain containers of CPU tensors and
   numpy arrays."""
-  with open(os.path.join(directory, _TREE)) as f:
+  with fs.open_file(fs.join(directory, _TREE), "rb") as f:
     meta = json.load(f)
   if meta.get("format") != _FORMAT:
     raise ValueError("unknown checkpoint format %r in %s"
                      % (meta.get("format"), directory))
-  tensors = torch.load(os.path.join(directory, _TENSORS),
-                       map_location="cpu", weights_only=True)
+  with fs.open_file(fs.join(directory, _TENSORS), "rb") as f:
+    tensors = torch.load(f, map_location="cpu", weights_only=True)
   if template is None:
     return _decode(meta["tree"], tensors)
   _restore(meta["tree"], template, tensors, apply=False)
@@ -410,8 +426,10 @@ class CheckpointManager(object):
   def __init__(self, directory: str, save_interval_steps: int = 100,
                max_to_keep: Optional[int] = 3,
                publish_hook: Optional[Any] = None):
-    self.directory = local_dir(directory)
-    os.makedirs(self.directory, exist_ok=True)
+    self.directory = storage_dir(directory)
+    #: commit markers are plain files: local directories only
+    self._local = not fs.is_remote(self.directory)
+    fs.makedirs(self.directory, exist_ok=True)
     self.save_interval_steps = save_interval_steps
     self.max_to_keep = max_to_keep
     #: ``publish_hook(step, state, manifest)`` fires after a save commits;
@@ -436,16 +454,16 @@ class CheckpointManager(object):
   # -- steps on disk -----------------------------------------------------------
 
   def _step_dir(self, step: int) -> str:
-    return os.path.join(self.directory, str(int(step)))
+    return fs.join(self.directory, str(int(step)))
 
   def all_steps(self):
     """Every step with a checkpoint in this directory (ascending)."""
     try:
-      names = os.listdir(self.directory)
+      names = fs.listdir(self.directory)
     except OSError:
       return []
     return sorted(int(n) for n in names if n.isdigit()
-                  and os.path.isdir(os.path.join(self.directory, n)))
+                  and fs.isdir(self._step_dir(int(n))))
 
   def latest_step(self, refresh: bool = False) -> Optional[int]:
     """Newest checkpointed step, or None. The directory is scanned on
@@ -502,23 +520,36 @@ class CheckpointManager(object):
   def _write(self, step: int, state: Any, data_state: Optional[dict],
              manifest: Optional[dict]) -> None:
     final = self._step_dir(step)
-    # a save of this step that died mid-write left its temporary dir
-    for stale in glob.glob(os.path.join(self.directory, ".%d.tmp-*" % step)):
-      shutil.rmtree(stale, ignore_errors=True)
-    tmp = os.path.join(self.directory, ".%d.tmp-%d" % (step, os.getpid()))
-    rec = save_tree(tmp, state)
-    t0 = time.monotonic()
+    if self._local:
+      # a save of this step that died mid-write left its temporary dir
+      for stale in glob.glob(os.path.join(self.directory,
+                                          ".%d.tmp-*" % step)):
+        shutil.rmtree(stale, ignore_errors=True)
+      target = os.path.join(self.directory,
+                            ".%d.tmp-%d" % (step, os.getpid()))
+    else:
+      # no rename on remote storage: the step is written in place, the
+      # input position first and the tree last (see the module notes)
+      if fs.exists(final):
+        fs.remove_tree(final)
+      target = final
+    data_bytes = 0
     if data_state is not None:
-      path = os.path.join(tmp, _DATA)
-      with open(path, "w") as f:
-        json.dump(data_state, f)
-        f.flush()
-        os.fsync(f.fileno())
-      rec["bytes"] += os.path.getsize(path)
-    # an overwrite: the old step stops committing before it goes
-    self._remove_marker(step)
-    commit_dir(tmp, final)
-    self._write_marker(step, manifest)
+      fs.makedirs(target, exist_ok=True)
+      with durable_file(fs.join(target, _DATA)) as f:
+        payload = json.dumps(data_state).encode()
+        f.write(payload)
+      data_bytes = len(payload)
+    rec = save_tree(target, state)
+    rec["bytes"] += data_bytes
+    t0 = time.monotonic()
+    if self._local:
+      # an overwrite: the old step stops committing before it goes
+      self._remove_marker(step)
+      commit_dir(target, final)
+      self._write_marker(step, manifest)
+    else:
+      self._retain()
     rec["commit_s"] = time.monotonic() - t0
     self.last_save = rec
     logger.info("checkpoint saved at step %d (%d bytes)", step, rec["bytes"])
@@ -541,9 +572,7 @@ class CheckpointManager(object):
       pass
 
   def _write_marker(self, step: int, manifest: Optional[dict]) -> None:
-    """Commit the save (the step is durable), then apply retention: the
-    oldest steps past ``max_to_keep`` lose their marker, then their data,
-    and markers whose step is gone are pruned."""
+    """Commit the save (the step is durable), then apply retention."""
     try:
       atomic_write_json(self._marker_path(step),
                         {"step": int(step), "manifest": manifest or {}})
@@ -551,11 +580,22 @@ class CheckpointManager(object):
       # the data is durable; the step merely never commits (a torn save)
       logger.warning("commit marker for step %d failed: %s", step, e)
       return
+    self._retain()
+
+  def _retain(self) -> None:
+    """Retention: the oldest steps past ``max_to_keep`` lose their marker,
+    then their data; in a local directory, markers whose step is gone are
+    pruned."""
     steps = self.all_steps()
     if self.max_to_keep is not None and len(steps) > self.max_to_keep:
       for old in steps[:len(steps) - self.max_to_keep]:
-        self._remove_marker(old)
-        shutil.rmtree(self._step_dir(old), ignore_errors=True)
+        if self._local:
+          self._remove_marker(old)
+          shutil.rmtree(self._step_dir(old), ignore_errors=True)
+        else:
+          fs.remove_tree(self._step_dir(old))
+    if not self._local:
+      return
     live = set(self.all_steps())
     for name in os.listdir(self.directory):
       s = self._marker_step(name)
@@ -573,7 +613,9 @@ class CheckpointManager(object):
 
   def _has_markers(self) -> bool:
     """True when this directory uses commit markers at all; marker-free
-    directories keep the load-failure fallback."""
+    directories (every remote one) keep the load-failure fallback."""
+    if not self._local:
+      return False
     try:
       return any(self._marker_step(n) is not None
                  for n in os.listdir(self.directory))
@@ -582,7 +624,9 @@ class CheckpointManager(object):
 
   def _read_marker(self, step: int) -> Optional[dict]:
     """The step's commit record, or None (missing or unparseable: both
-    mean the save never committed)."""
+    mean the save never committed; a remote directory has none)."""
+    if not self._local:
+      return None
     try:
       with open(self._marker_path(step)) as f:
         return json.load(f)
@@ -629,8 +673,8 @@ class CheckpointManager(object):
     if not with_data:
       return state
     data = None
-    if os.path.exists(os.path.join(path, _DATA)):
-      with open(os.path.join(path, _DATA)) as f:
+    if fs.exists(fs.join(path, _DATA)):
+      with fs.open_file(fs.join(path, _DATA), "rb") as f:
         data = json.load(f)
     return state, data
 

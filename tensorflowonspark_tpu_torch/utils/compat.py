@@ -19,6 +19,7 @@ import os
 import shutil
 import tempfile
 
+from tensorflowonspark_tpu_torch.data import fs
 from tensorflowonspark_tpu_torch.utils import checkpoint
 
 logger = logging.getLogger(__name__)
@@ -29,10 +30,20 @@ def export_model(state, export_dir: str, is_chief: bool) -> str:
   the chief writes to ``export_dir``, the others to a temporary dir.
 
   ``<dir>/model`` is written under a temporary name and renamed into
-  place, replacing an earlier export. Returns the directory written to.
+  place, replacing an earlier export. A remote ``export_dir`` (fsspec)
+  has no rename: an earlier export is removed and the new one written in
+  place, its tree last (a cut-short export does not load). Returns the
+  directory written to.
   """
-  target = checkpoint.local_dir(export_dir) if is_chief else \
+  target = checkpoint.storage_dir(export_dir) if is_chief else \
       tempfile.mkdtemp(prefix="nonchief_export_")
+  if fs.is_remote(target):
+    final = fs.join(target, "model")
+    if fs.exists(final):
+      fs.remove_tree(final)
+    checkpoint.save_tree(final, state)
+    logger.info("exported model to %s (chief=%s)", target, is_chief)
+    return target
   os.makedirs(target, exist_ok=True)
   tmp = os.path.join(target, ".model.tmp-%d" % os.getpid())
   shutil.rmtree(tmp, ignore_errors=True)
@@ -45,7 +56,7 @@ def export_model(state, export_dir: str, is_chief: bool) -> str:
 def import_model(export_dir: str, template=None):
   """Load a state written by :func:`export_model`: into ``template`` in
   place, or (no template) as plain containers of CPU tensors."""
-  path = os.path.join(checkpoint.local_dir(export_dir), "model")
+  path = fs.join(checkpoint.storage_dir(export_dir), "model")
   return checkpoint.load_tree(path, template)
 
 

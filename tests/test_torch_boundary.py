@@ -341,6 +341,49 @@ def test_shm_ring_loads_the_ports_own_library(tmp_path):
   assert "LOADED []" in proc.stdout, proc.stdout
 
 
+_CODEC_DRIVE = textwrap.dedent("""
+    import sys
+
+    from tensorflowonspark_tpu_torch.data import dfutil, readers, schema
+
+    if __name__ == "__main__":
+      sch = schema.parse_schema("struct<tokens:array<long>>")
+      paths = dfutil.save_as_tfrecords([[([1, 2, 3],)], [([4],)]], sch,
+                                       sys.argv[1])
+      rows = list(readers.read_tfrecord_examples(paths, schema=sch))
+      assert rows == [([1, 2, 3],), ([4],)], rows
+      with open("/proc/self/maps") as f:
+        libs = sorted({line.split()[-1] for line in f if "tfrecord" in line})
+      print("LIBS", libs)
+      banned = ("jax", "jaxlib", "flax", "msgpack", "cloudpickle")
+      print("LOADED", sorted(m for m in sys.modules
+                             if m.split(".")[0] in banned
+                             or m.startswith("tensorflowonspark_tpu.")))
+""")
+
+
+def test_tfrecord_codec_loads_the_ports_own_library(tmp_path):
+  """TFRecords written and read through the port's data layer map the
+  codec library the port built from its own ``native/tfrecord_codec.cpp``
+  into ``build/tfrecord/``, never the JAX package's
+  ``_tfrecord_native.so``; the path loads no jax, msgpack or
+  cloudpickle."""
+  script = tmp_path / "codec.py"
+  script.write_text(_CODEC_DRIVE)
+  env = dict(os.environ, PYTHONPATH=ROOT)
+  proc = subprocess.run([sys.executable, str(script), str(tmp_path / "out")],
+                        cwd=str(tmp_path), env=env, capture_output=True,
+                        text=True, timeout=120)
+  assert proc.returncode == 0, proc.stdout + proc.stderr
+  libs = next(line for line in proc.stdout.splitlines()
+              if line.startswith("LIBS"))
+  build = os.path.join(os.path.realpath(ROOT), "build", "tfrecord",
+                       "libtfrecord.")
+  assert libs.count("libtfrecord.") == 1 and build in libs, libs
+  assert "_tfrecord_native" not in libs, libs
+  assert "LOADED []" in proc.stdout, proc.stdout
+
+
 # packages of finished attention kernels: a kernel of the port is written by
 # hand, never a library call
 KERNEL_PACKAGES = ("flash_attn", "flash_attn_interface", "xformers")

@@ -18,7 +18,7 @@ from tensorflowonspark_tpu.data import example_codec as jax_codec
 from tensorflowonspark_tpu.data import readers as jax_readers
 from tensorflowonspark_tpu.data import schema as jax_schema
 from tensorflowonspark_tpu.data import tfrecord as jax_tfrecord
-from tensorflowonspark_tpu_torch.data import (dfutil, example_codec, fs,
+from tensorflowonspark_tpu_torch.data import (dfutil, example_codec,
                                               readers, schema, tfrecord)
 from tensorflowonspark_tpu_torch.examples import train_gpt
 
@@ -147,14 +147,6 @@ def test_pipeline_gives_the_reference_batches(token_files, num_shards, index,
     readers.shard_files(pattern + ".none", 1, 0)
 
 
-def test_remote_storage_is_refused_by_name():
-  assert fs.is_remote("gs://bucket/x") and not fs.is_remote("file:///tmp/x")
-  with pytest.raises(NotImplementedError, match="'gs'"):
-    fs.open_file("gs://bucket/part-0")
-  with pytest.raises(NotImplementedError, match="'hdfs'"):
-    readers.shard_files("hdfs://nn/data/part-*", 1, 0)
-
-
 @pytest.mark.parametrize("size", [1, 2, 3])
 def test_device_prefetch_on_cpu_keeps_order_and_values(size):
   rng = np.random.default_rng(9)
@@ -230,16 +222,30 @@ def test_train_gpt_checks_the_vocabulary(token_files):
 
 @pytest.mark.parametrize("flags,item", [
     (["--tp", "2"], "item 10"), (["--sp", "2"], "item 10"),
-    (["--pp", "2"], "item 10"), (["--remat_policy", "dots"], "item 12")])
+    (["--pp", "2"], "item 10")])
 def test_train_gpt_refuses_what_is_not_ported(flags, item):
   with pytest.raises(NotImplementedError, match=item):
     train_gpt.parse_args(["--device", "cpu"] + flags)
 
 
-def test_train_gpt_refuses_adafactor_by_name():
-  args = train_gpt.parse_args(TINY + ["--optimizer", "adafactor"])
-  with pytest.raises(NotImplementedError, match="item 13"):
-    train_gpt.make_state(args, train_gpt.make_config(args))
+@pytest.mark.parametrize("unroll", [0, 2])
+def test_train_gpt_trains_with_adafactor_and_dots(token_files, unroll):
+  """``--optimizer adafactor --remat_policy dots`` from TFRecords, per step
+  and in slabs: the losses of ``--remat_policy none`` (remat changes no
+  number), Adafactor's factored state in the train state."""
+  pattern, _ = token_files
+  argv = TINY + ["--data", pattern, "--steps", "3", "--optimizer",
+                 "adafactor", "--unroll", str(unroll)]
+  args = train_gpt.parse_args(argv + ["--remat_policy", "dots"])
+  cfg = train_gpt.make_config(args)
+  assert cfg.remat_policy == "dots"
+  state = train_gpt.make_state(args, cfg)
+  # clip_by_global_norm, adafactor's chain, the lr-scaled decay
+  assert type(state.opt_state[1][0]).__name__ == "FactoredState"
+  dots = train_gpt.run(args)
+  none = train_gpt.run(train_gpt.parse_args(argv))
+  assert len(dots) == 3 and all(np.isfinite(dots))
+  np.testing.assert_allclose(dots, none, rtol=1e-6)
 
 
 def test_train_gpt_builds_the_reference_config():

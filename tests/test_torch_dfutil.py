@@ -140,7 +140,7 @@ def test_the_executor_writer_task_and_lazy_handles(tmp_path):
   assert dfutil.load_tfrecords(str(tmp_path / "it"), schema=tsch)[0] == parts
 
 
-def test_errors_and_remote_paths_refused_by_name(tmp_path):
+def test_errors_and_file_uris(tmp_path):
   _, tsch = _schemas()
   with pytest.raises(FileNotFoundError, match="no TFRecord files"):
     dfutil.load_tfrecords(str(tmp_path / "none"))
@@ -150,10 +150,6 @@ def test_errors_and_remote_paths_refused_by_name(tmp_path):
     dfutil.load_tfrecords(str(empty))
   with pytest.raises(ValueError, match="no records"):
     dfutil.load_tfrecords(str(empty), lazy=True)
-  for call in (lambda: dfutil.load_tfrecords("gs://bucket/data"),
-               lambda: dfutil.save_as_tfrecords([[]], tsch, "s3://b/out")):
-    with pytest.raises(NotImplementedError, match="remote storage"):
-      call()
   rows = _rows(2)
   out = dfutil.save_as_tfrecords([rows], tsch,
                                  "file://" + str(tmp_path / "f"))

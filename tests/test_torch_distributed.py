@@ -52,6 +52,7 @@ REL = 1e-5           # 2 ranks against 1 process, f32
 GPT_ARGV = ["--device", "cpu", "--layers", "2", "--d_model", "32", "--heads",
             "4", "--kv_heads", "2", "--seq_len", "32", "--vocab", "64",
             "--batch", "8", "--steps", "4", "--lr", "3e-3"]
+GPT_OPTIONS = ["--optimizer", "adafactor", "--remat_policy", "dots"]
 
 
 def _cfg():
@@ -168,6 +169,8 @@ def _dp_main(args, ctx):
   rec["gpt"] = train_gpt.run(train_gpt.parse_args(argv))
   rec["gpt_unroll"] = train_gpt.run(train_gpt.parse_args(
       argv + ["--unroll", "2"]))
+  rec["gpt_adafactor_dots"] = train_gpt.run(train_gpt.parse_args(
+      argv + GPT_OPTIONS))
   # checkpointed: 4 steps uninterrupted, and the first 2 of them apart
   _, rec["full_losses"], state = _ckpt_run(ctx, mesh, args, args["full"], 4)
   rec["full_print"] = params_fingerprint(state)
@@ -343,18 +346,29 @@ def test_dp_matches_one_process_per_step_and_slab(files_run):
                                err_msg=k)
 
 
-@pytest.mark.parametrize("unroll", [False, True])
-def test_train_gpt_dp2_matches_one_process(files_run, unroll, monkeypatch):
+def _dp2_against_one_process(files_run, key, extra, monkeypatch):
   from tensorflowonspark_tpu_torch.examples import train_gpt
   monkeypatch.setattr(train_gpt, "make_config", _f32_config(train_gpt))
   args, recs = files_run
-  argv = GPT_ARGV + ["--data", args["data"]] + (
-      ["--unroll", "2"] if unroll else [])
-  want = train_gpt.run(train_gpt.parse_args(argv))
-  key = "gpt_unroll" if unroll else "gpt"
+  want = train_gpt.run(train_gpt.parse_args(
+      GPT_ARGV + ["--data", args["data"]] + extra))
   assert len(recs[0][0][key]) == 4
   assert recs[0][0][key] == recs[1][0][key]
   np.testing.assert_allclose(recs[0][0][key], want, rtol=REL)
+
+
+@pytest.mark.parametrize("unroll", [False, True])
+def test_train_gpt_dp2_matches_one_process(files_run, unroll, monkeypatch):
+  _dp2_against_one_process(files_run, "gpt_unroll" if unroll else "gpt",
+                           ["--unroll", "2"] if unroll else [], monkeypatch)
+
+
+def test_train_gpt_dp2_adafactor_dots_matches_one_process(files_run,
+                                                          monkeypatch):
+  """``train_gpt --optimizer adafactor --remat_policy dots --data ... --dp
+  2`` against the same flags in one process."""
+  _dp2_against_one_process(files_run, "gpt_adafactor_dots", GPT_OPTIONS,
+                           monkeypatch)
 
 
 def test_dp_resumes_from_a_checkpoint_to_the_bit(files_run, tmp_path):

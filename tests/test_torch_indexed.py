@@ -301,7 +301,7 @@ def test_truncated_file_raises_descriptive_error(tmp_path):
     indexed.build_index(path, cache=False)
 
 
-def test_bad_specs_and_remote_paths_are_refused(tmp_path):
+def test_bad_specs_are_refused(tmp_path):
   pattern = _write(tmp_path, num_files=1, rows_per=3)
   with pytest.raises(ValueError, match="bad shard spec"):
     indexed.checkpointable_input(pattern, batch_size=1, shard_index=2,
@@ -310,8 +310,6 @@ def test_bad_specs_and_remote_paths_are_refused(tmp_path):
     indexed.checkpointable_input(pattern, batch_size=0)
   with pytest.raises(FileNotFoundError):
     indexed.checkpointable_input(str(tmp_path / "none-*.tfrecord"), 1)
-  with pytest.raises(NotImplementedError, match="remote storage"):
-    indexed.checkpointable_input("gs://bucket/part-*.tfrecord", 1)
   with pytest.raises(ValueError, match="at least one file"):
     indexed.IndexedTFRecordDataset([])
 

@@ -98,8 +98,9 @@ failure:
    driver's final weights', 6d's launch counts in every step; the bytes
    of one checkpoint, the save, restore and kill-to-resume seconds and
    the ms/step of each incarnation are logged; (6i) [6]'s training fed through the engine
-   feed plane: the driver first runs 4 ``make_train_step`` steps and 2
-   ``make_train_loop(unroll=4)`` slabs on 192 seeded int32 token rows
+   feed plane: the driver first runs 4 steps through the per-step path of
+   ``make_train_loop(unroll=4)`` and 2 of its slabs on 192 seeded int32
+   token rows
    (B16 x S1024, from a plain iterator), then ``cluster.run(LocalEngine(
    num_executors=1), main_fn, args, input_mode=InputMode.SPARK,
    chips_per_node=1, max_restarts=0)`` (transport "auto": the shm ring)
@@ -118,6 +119,26 @@ failure:
    (exactly 12 flash forwards and 25 LayerNorm forwards each) and returns
    one (mean next-token loss, last-position argmax) per row, which must
    equal the driver's forward on the same batches, in partition order;
+   (6o) the observability plane: (a) 6i's fed run again with
+   ``TOS_OBS=1`` and ``TOS_OBS_DIR`` under ``build/``, fatal unless its
+   12 losses and per-step launch counts equal 6i's, the driver's sink
+   aggregates ``feed.rows`` = ``feed.wire_rows`` = 192 and
+   ``train.steps`` = 12, ``device.peak_bytes`` lies within 1% below the
+   executor's ``max_memory_allocated``, ``xla.compiles`` does not move
+   after each path's first step, no shipper failed or lost a span and
+   the sink dropped none, a ``HEALTH`` request mid-run carries the
+   executor's obs summary, the detector raised no alert, and the merged
+   JSONL logs give a Chrome trace with driver, executor and feeder tracks,
+   6 ``train.slab`` and 6 ``feed.batch`` spans (192 rows), every executor
+   span inside the driver's ``cluster.run`` window; the feed's fetch /
+   decode / assemble shares, ms/step on and off and MFU are logged; (b)
+   [4]'s 16 requests with the port's registry and recorder on in the
+   driver: outputs equal to [4]'s to the bit, ``serve.completed`` 16,
+   ``serve.tokens`` + ``serve.prefills`` = the tokens generated, one
+   ``serve.decode`` span per dispatch, the ``serve.ttft_ms`` sketch's p50
+   and p99 within its rank error of the exact TTFTs, no SLO burn with
+   ``TOS_SLO_TTFT_MS`` above the worst, and ``prometheus_text`` of the
+   registry parsing line by line;
    (6l) data parallelism across processes: (6l-a) [6]'s steps (2 warm-up,
    4 ``make_train_step``, one unroll-4 slab, one profiled) with no mesh
    and then over the data axis of a 1-rank NCCL group
@@ -229,6 +250,17 @@ prints its measurements as one JSON line.
 ``python3 chip_smoke.py --feed-only`` runs phases 1, 6i and 6j alone (the
 driver builds each kernel at its first use, the executors load them) and
 prints its measurements as one JSON line.
+
+``python3 chip_smoke.py --obs-only`` runs phases 1 and 6o alone (the
+driver builds every kernel first), with an obs-off fed run and an obs-off
+serving run of its own as the references, then 3 more interleaved
+off/on pairs of the fed run and the median obs overhead per step against
+the 3% budget (reported, not gated), then (d) where an overhead would
+come from: the host ms of one memory sample and one ship with the card
+busy, and [6]'s per-step ms/step in the driver with the plane off, its
+step seams alone, the seams and a shipper at ten times the default
+cadence, and the seams and the memory sampler alone at that cadence,
+interleaved; it prints its measurements as one JSON line.
 
 ``python3 chip_smoke.py --serving-only N`` runs phases 1, 2 and 4 alone:
 the serving main path N times in one process, then the host time of one
@@ -1270,13 +1302,14 @@ def _prompts(lengths, vocab, seed):
 
 
 def serve_main_path(torch, ops, tfm, ServingEngine, slots, params, cfg,
-                    device=None):
+                    device=None, warm=True):
   eng = ServingEngine(params, cfg, num_slots=8, horizon=4,
                       max_new_tokens=MAIN_NEW, device=device).start()
   try:
-    # warm-up: cuBLAS handles, allocator pools, first launches
-    eng.generate(_prompts((40, 130), cfg.vocab_size, SEED + 7),
-                 max_new_tokens=4, timeout=600)
+    if warm:
+      # warm-up: cuBLAS handles, allocator pools, first launches
+      eng.generate(_prompts((40, 130), cfg.vocab_size, SEED + 7),
+                   max_new_tokens=4, timeout=600)
     prompts = _prompts(MAIN_LENGTHS, cfg.vocab_size, SEED + 2)
     before = dict(eng.stats)
     torch.cuda.synchronize()
@@ -1325,7 +1358,8 @@ def serve_main_path(torch, ops, tfm, ServingEngine, slots, params, cfg,
                                  int(math.ceil(0.99 * len(ttft))) - 1)],
          "decode_steps": steps, "decode_ms_per_step": decode_s / steps * 1e3,
          "prefill_chunks": chunks, "launches": launches,
-         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+         "ttft_ms_exact": ttft, "outputs": [o.tolist() for o in outs]}
   log("  served %d requests, %d tokens in %.3f s: %.1f tok/s, TTFT p50 %.1f "
       "ms p99 %.1f ms, %.3f ms/decode step, launches %s" % (
           len(prompts), generated, wall, res["tokens_per_s"],
@@ -2437,13 +2471,27 @@ def feed_train_pieces(torch):
 
 
 def feed_steps(torch, ops, pieces, batches, slabs):
-  """FEED_PER_STEP steps on ``batches`` (the first takes the kernels' and
-  the allocator's start, the next FEED_PER_STEP - 2 are timed, the last is
-  profiled), then FEED_SLABS slabs of ``slabs`` through the unroll loop,
-  timed. Launch counts per optimizer step on both paths; losses, ms/step
-  and the profile, unlogged."""
+  """FEED_PER_STEP steps on ``batches`` through the unroll loop's per-step
+  path (the first takes the kernels' and the allocator's start, the next
+  FEED_PER_STEP - 2 are timed, the last is profiled), then FEED_SLABS
+  slabs of ``slabs`` through its fused path, timed. Launch counts per
+  optimizer step on both paths; losses, ms/step and the profile, unlogged.
+  Under the obs plane also the process's ``xla.compiles`` after each
+  batch."""
   from torch.profiler import ProfilerActivity, profile
-  state, step, loop = pieces
+  from tensorflowonspark_tpu_torch.obs import metrics as obs_metrics
+  state, _, loop = pieces
+  reg = obs_metrics.active()
+  compiles = []
+
+  def step(state, batch):
+    state, got = loop(state, batch)
+    return state, got[0]
+
+  def after_batch():
+    if reg is not None:
+      compiles.append(reg.counter("xla.compiles").value)
+
   losses, launches = [], []
   # a process's first profiler session starts CUPTI inside its window (a
   # fresh executor's profiled step ran 42% idle against [6]'s 13%): open
@@ -2464,6 +2512,7 @@ def feed_steps(torch, ops, pieces, batches, slabs):
       state, loss = step(state, next(batches))
     losses.append(loss)
     launches.append({k: ops.LAUNCHES[k] - before[k] for k in before})
+    after_batch()
     if i == 0:
       torch.cuda.synchronize()
       first_s = time.monotonic() - t0
@@ -2478,11 +2527,15 @@ def feed_steps(torch, ops, pieces, batches, slabs):
     losses += list(got)
     launches.append({k: (ops.LAUNCHES[k] - before[k]) / FEED_UNROLL
                      for k in before})
+    after_batch()
   torch.cuda.synchronize()
   slab_wall = time.monotonic() - t0
   steps, slab_steps = FEED_PER_STEP - 2, FEED_SLABS * FEED_UNROLL
   return {"losses": [float(x) for x in losses], "launches_per_step": launches,
           "profiler_start_s": profiler_start_s, "first_step_s": first_s,
+          "compiles_by_batch": compiles,
+          "timed_ms_per_step": (step_wall + slab_wall) / (steps + slab_steps)
+          * 1e3,
           "ms_per_step": step_wall / steps * 1e3,
           "tokens_per_s": TRAIN_B * TRAIN_S * steps / step_wall,
           "slab_ms_per_step": slab_wall / slab_steps * 1e3,
@@ -2531,7 +2584,10 @@ def feed_train_main(args, ctx):
   res = feed_steps(torch, ops, pieces, batches, slabs)
   for _ in slabs:                      # the end of feed from shutdown()
     raise AssertionError("the feed gave more than %d slabs" % FEED_SLABS)
+  from tensorflowonspark_tpu_torch.obs import device as obs_device
   res.update(card=card, import_s=import_s, state_s=state_s,
+             peak_bytes=torch.cuda.max_memory_allocated(),
+             sentinel_errors=obs_device.SENTINEL_ERRORS["count"],
              stats=dict(feed.stats), channels=feed.channel_chunks(),
              ring_name=ctx.hub.get("ring_name"), batches=len(
                  res["losses"]), t_end_wall=time.time())
@@ -2858,6 +2914,483 @@ def feed_phases(torch, ops, tfm, card, params, cfg, train_res=None):
   finally:
     engine.stop()
   return {"train": train, "inference": infer}
+
+
+# -- phase 6o: the observability plane ----------------------------------------
+
+OBS_PAIRS = 3                      # --obs-only: interleaved off/on fed runs
+OBS_BUDGET = 0.03                  # docs/OBSERVABILITY.md: at most 3% a step
+
+
+class _DropLedger(object):
+  """Wraps a driver sink's ``ingest``: the last ``drops`` each (executor,
+  shipper label) sent. The sink keeps one executor's newest message only,
+  and a node's and a feeder's shipper share the executor id."""
+
+  def __init__(self, sink):
+    self.last = {}
+    inner = sink.ingest
+
+    def ingest(msg):
+      self.last[(msg.get("executor_id"), msg.get("label"))] = dict(
+          msg.get("drops") or {})
+      return inner(msg)
+
+    sink.ingest = ingest
+
+
+def obs_feed_run(torch, cluster, card_name, rows, obs_dir=None):
+  """[6i]'s fed run — ``feed_train_main`` on ``rows`` through
+  ``cluster.run(LocalEngine(1), ..., InputMode.SPARK)`` and
+  ``Cluster.train`` — with the obs plane on (``TOS_OBS=1``, JSONL logs
+  under ``obs_dir``) or off. Returns the executor's record, plus the
+  driver's sink, detector, ``HEALTH`` reply and drop ledger when on."""
+  from tensorflowonspark_tpu_torch.engine import LocalEngine
+  from tensorflowonspark_tpu_torch.obs import metrics, spans
+  os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+  out = _fresh(os.path.join(HERE, "build", "chip_smoke_obs_feed.json"))
+  env = {} if obs_dir is None else {"TOS_OBS": "1", "TOS_OBS_DIR": obs_dir}
+  with contextlib.ExitStack() as stack:
+    for k, v in env.items():
+      stack.enter_context(env_var(k, v))
+    engine = LocalEngine(num_executors=1, env=env)
+    try:
+      t0 = time.monotonic()
+      c, _ = _cluster(cluster, engine, feed_train_main,
+                      {"out": out, "card": card_name})
+      ledger = _DropLedger(c.obs_sink) if c.obs_sink is not None else None
+      c.train(_split(rows, FEED_PART_ROWS), num_epochs=1)
+      health = None
+      if obs_dir is not None:
+        # the run is still on: the executor waits for the end of feed
+        from tensorflowonspark_tpu_torch.control import rendezvous
+        client = rendezvous.Client(tuple(c.server.addr), timeout=30)
+        health = client._request({"type": "HEALTH"})
+        client.close()
+      c.shutdown(timeout=900)
+      run_s = time.monotonic() - t0
+    finally:
+      engine.stop()
+      metrics.deactivate()        # the driver's registry and recorder
+      spans.deactivate()
+  if c.supervisor.restarts:
+    raise AssertionError("the supervisor relaunched a node: %s"
+                         % c.supervisor.restarts)
+  with open(out) as f:
+    res = json.load(f)
+  _check_steps(res, "fed (obs %s)" % ("on" if obs_dir else "off"))
+  res["run_s"] = run_s
+  return res, (c, health, ledger)
+
+
+def _check_same_run(res, ref, what):
+  if res["losses"] != ref["losses"]:
+    raise AssertionError("%s: losses differ from the obs-off run's:\n%s\n%s"
+                         % (what, res["losses"], ref["losses"]))
+  if res["launches_per_step"] != ref["launches_per_step"]:
+    raise AssertionError("%s: launches per step %s, obs off %s" % (
+        what, res["launches_per_step"], ref["launches_per_step"]))
+
+
+def _spans_by_name(trace):
+  by = {}
+  for e in trace["traceEvents"]:
+    if e.get("ph") == "X":
+      by.setdefault(e["name"], []).append(e)
+  return by
+
+
+def obs_feed_gates(res, ref, plane, obs_dir):
+  """[6o](a)'s fatal gates on an obs-on fed run ``res`` against the
+  obs-off run ``ref``; returns the feed's stage shares and the trace's
+  span counts."""
+  from tensorflowonspark_tpu_torch.obs import export
+  c, health, ledger = plane
+  what = "[6o] fed run, obs on"
+  _check_same_run(res, ref, what)
+  sink, rows = c.obs_sink, FEED_PARTS * FEED_PART_ROWS
+  steps = FEED_PER_STEP + FEED_SLABS * FEED_UNROLL
+  batches = FEED_PER_STEP + FEED_SLABS
+  got = {k: sink.aggregate(k) for k in ("feed.rows", "feed.wire_rows",
+                                        "train.steps", "device.peak_bytes",
+                                        "xla.compiles", "feed.fetch_s",
+                                        "feed.decode_s", "feed.assemble_s")}
+  want = {"feed.rows": rows, "feed.wire_rows": rows, "train.steps": steps}
+  for k, v in want.items():
+    if got[k] != v:
+      raise AssertionError("%s: sink %s = %s, want %s" % (what, k, got[k], v))
+  peak = got["device.peak_bytes"]
+  if not res["peak_bytes"] * 0.99 <= peak <= res["peak_bytes"]:
+    raise AssertionError("%s: device.peak_bytes %d against the executor's "
+                         "max_memory_allocated %d" % (what, peak,
+                                                      res["peak_bytes"]))
+  comp = res["compiles_by_batch"]
+  if len(comp) != batches or comp[1:FEED_PER_STEP] != \
+      [comp[0]] * (FEED_PER_STEP - 1) or \
+      comp[FEED_PER_STEP + 1:] != [comp[FEED_PER_STEP]] * (FEED_SLABS - 1):
+    raise AssertionError("%s: xla.compiles advanced after a path's first "
+                         "step: %s" % (what, comp))
+  drops = {k: v for k, v in ledger.last.items()}
+  bad = {k: v for k, v in drops.items()
+         if v.get("ship_failures") or v.get("spans_lost")
+         or v.get("spans_dropped")}
+  if bad or sink.spans_dropped or res["sentinel_errors"] or \
+      len(drops) != 2:
+    raise AssertionError("%s: drops %s, sink spans_dropped %d, sentinel "
+                         "errors %d" % (what, drops, sink.spans_dropped,
+                                        res["sentinel_errors"]))
+  entry = (health or {}).get("obs", {}).get("0")
+  if entry is None or not entry["ships"] or \
+      "feed.rows" not in entry["metrics"]:
+    raise AssertionError("%s: HEALTH during the run carried no obs summary "
+                         "of executor 0: %s" % (what, health))
+  if c.alerts() or c.detector.summary()["eval_failures"]:
+    raise AssertionError("%s: alerts on a healthy run: %s (%s)" % (
+        what, c.alerts(), c.detector.summary()))
+  procs = export.merge_jsonl(export.find_logs(obs_dir))
+  trace = export.chrome_trace(procs)
+  tracks = sorted(e["args"]["name"] for e in trace["traceEvents"]
+                  if e.get("name") == "process_name")
+  if tracks != ["driver0", "exec0", "feeder0"]:
+    raise AssertionError("%s: trace tracks %s" % (what, tracks))
+  by = _spans_by_name(trace)
+  # one feed.batch per batch the loop took (a slab's rows come in one)
+  fed = [e for e in by.get("feed.batch", []) if e["args"].get("rows")]
+  counts = {"train.slab": len(by.get("train.slab", [])),
+            "feed.batch": len(fed),
+            "feed.batch rows": sum(e["args"]["rows"] for e in fed)}
+  if counts != {"train.slab": batches, "feed.batch": batches,
+                "feed.batch rows": rows}:
+    raise AssertionError("%s: trace spans %s, want %d train.slab and "
+                         "feed.batch, %d rows" % (what, counts, batches, rows))
+  lo = min(e["ts"] for e in by["cluster.assemble"])
+  hi = max(e["ts"] + e["dur"] for e in by["cluster.shutdown"])
+  outside = [e["name"] for e in by["train.slab"] + fed
+             if e["ts"] < lo or e["ts"] + e["dur"] > hi]
+  if outside:
+    raise AssertionError("%s: %d executor spans outside the driver's "
+                         "cluster.run window" % (what, len(outside)))
+  stages = {k: got["feed.%s" % k] for k in ("fetch_s", "decode_s",
+                                            "assemble_s")}
+  total = sum(stages.values())
+  return {"sink": got, "stage_s": stages,
+          "stage_share": {k: v / total for k, v in stages.items()},
+          "trace_spans": counts, "tracks": tracks,
+          "health_ships": entry["ships"]}
+
+
+def obs_mfu(ms_per_step):
+  """MFU of [6]'s step at ``ms_per_step`` by ``obs.profiler.mfu`` against
+  the card's dense bf16 peak."""
+  from tensorflowonspark_tpu_torch.models import transformer as tfm
+  from tensorflowonspark_tpu_torch.obs import profiler
+  from tensorflowonspark_tpu_torch.utils.params import init_params
+  cfg = tfm.TransformerConfig()
+  n = sum(int(v.size) for v in init_params(cfg, seed=SEED).values())
+  fpt = profiler.transformer_flops_per_token(n, cfg.num_layers, cfg.d_model,
+                                             TRAIN_S)
+  return profiler.mfu(fpt, TRAIN_B * TRAIN_S / (ms_per_step / 1e3),
+                      profiler.PEAK_BF16_FLOPS["h100"])
+
+
+def obs_serving(torch, ops, tfm, ServingEngine, slots, params, cfg, ref):
+  """[6o](b): [4]'s 16 requests with the registry and the recorder active
+  in the driver (no warm-up: the engine's handles are cached at
+  construction, and warm-up requests would join the counts). ``ref`` is
+  [4]'s obs-off result."""
+  from tensorflowonspark_tpu_torch.obs import export, metrics, quantiles
+  from tensorflowonspark_tpu_torch.obs import slo, spans
+  reg, rec = metrics.activate(), spans.activate()
+  try:
+    res, model = serve_main_path(torch, ops, tfm, ServingEngine, slots,
+                                 params, cfg, warm=False)
+  finally:
+    metrics.deactivate()
+    spans.deactivate()
+  del model
+  what = "[6o] serving, obs on"
+  if res["outputs"] != ref["outputs"]:
+    raise AssertionError("%s: outputs differ from [4]'s obs-off outputs"
+                         % what)
+  snap, records = reg.snapshot(), rec.drain(None)
+  n = len(ref["outputs"])
+  names = [r["name"] for r in records]
+  lanes = [r["attrs"]["tokens"] for r in records
+           if r["name"] == "serve.decode.slot"]
+  counts = {k: snap[k]["value"] for k in ("serve.completed", "serve.tokens",
+                                          "serve.prefills", "serve.steps")}
+  if counts["serve.completed"] != n or \
+      counts["serve.tokens"] + counts["serve.prefills"] != \
+      res["generated_tokens"] or sum(lanes) != counts["serve.tokens"]:
+    raise AssertionError("%s: %s, %d generated tokens, %d by the lane "
+                         "spans" % (what, counts, res["generated_tokens"],
+                                    sum(lanes)))
+  dispatches = res["decode_steps"] // 4
+  if names.count("serve.decode") != dispatches or \
+      snap["serve.decode_ms"]["count"] != dispatches:
+    raise AssertionError("%s: %d serve.decode spans, %d decode_ms, %d "
+                         "dispatches" % (what, names.count("serve.decode"),
+                                         snap["serve.decode_ms"]["count"],
+                                         dispatches))
+  sk = quantiles.QuantileSketch.from_dict(snap["serve.ttft_ms"]["data"])
+  exact = res["ttft_ms_exact"]
+  if sk.count != n:
+    raise AssertionError("%s: serve.ttft_ms counts %d" % (what, sk.count))
+  for q in (0.5, 0.99):
+    # the sketch's answer must sit within its stated rank error of q
+    rank = sum(1 for v in exact if v <= sk.quantile(q))
+    if abs(rank - q * n) > sk.rank_error + 1:
+      raise AssertionError("%s: p%g %.3f ms at rank %d of %d (error %d)"
+                           % (what, 100 * q, sk.quantile(q), rank, n,
+                              sk.rank_error))
+  with env_var(slo.ENV_SLO_TTFT_MS, "%d" % (2 * max(exact) + 1)):
+    objs = slo.objectives_from_env()
+  tracker = slo.SLOTracker(objectives=objs, window=60.0, min_events=1)
+  tracker.sample(0.0, {0: {}})
+  tracker.sample(1.0, {0: snap})
+  verdicts = tracker.evaluate(1.0)
+  if any(v["burning"] for v in verdicts) or \
+      not any(v["name"].startswith("ttft") for v in verdicts):
+    raise AssertionError("%s: SLO verdicts %s" % (what, verdicts))
+  text = export.prometheus_text(snap, labels={"proc": "driver"})
+  for line in text.splitlines():
+    head, _, value = line.rpartition(" ")
+    if not (line.startswith("# TYPE tos_") or
+            (head.startswith("tos_") and math.isfinite(float(value)))):
+      raise AssertionError("%s: prometheus line %r" % (what, line))
+  res.update(obs={"counts": counts, "decode_spans": dispatches,
+                  "ttft_p50_sketch": sk.quantile(0.5),
+                  "ttft_p99_sketch": sk.quantile(0.99),
+                  "rank_error": sk.rank_error,
+                  "slo": [{k: v.get(k) for k in ("name", "burning",
+                                                 "burn_fast")}
+                          for v in verdicts],
+                  "prometheus_lines": len(text.splitlines())})
+  log("  %d requests served with the obs plane on: outputs equal [4]'s to "
+      "the bit; %s; %d serve.decode spans = dispatches; TTFT sketch p50 "
+      "%.1f ms p99 %.1f ms (exact %.1f / %.1f, rank error %d); no SLO burn "
+      "at TTFT <= %d ms; %d Prometheus lines; launches %s" % (
+          n, counts, dispatches, sk.quantile(0.5), sk.quantile(0.99),
+          res["ttft_ms_p50"], res["ttft_ms_p99"], sk.rank_error,
+          2 * max(exact) + 1, len(text.splitlines()), res["launches"]))
+  return res
+
+
+OBS_FAST_INTERVAL = 0.2          # (d): ten times the default ship cadence
+OBS_SEAM_ROUNDS, OBS_SEAM_STEPS = 3, 10
+
+
+def _sink_server(addr_q, stop):
+  """A rendezvous server with an ``ObsSink``, in a process of its own (the
+  driver's side of the wire, as in a cluster run)."""
+  sys.path.insert(0, HERE)
+  from tensorflowonspark_tpu_torch.control import rendezvous
+  from tensorflowonspark_tpu_torch.obs import collector
+  server = rendezvous.Server(1)
+  server.obs_sink = collector.ObsSink()
+  addr_q.put(server.start())
+  stop.wait(900)
+  server.stop()
+
+
+def _busy_ms(torch, fn, a, calls=20):
+  """Median host ms of ``fn`` called with ~30 ms of matmuls queued on the
+  card (busy, as under a training step)."""
+  out = []
+  for _ in range(calls):
+    for _ in range(20):
+      a @ a
+    t0 = time.perf_counter()
+    fn()
+    out.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+  return statistics.median(out)
+
+
+def obs_seam_costs(torch, tfm, card):
+  """(d) Where an obs overhead would come from, in the driver: the host ms
+  of one memory sample (and of the driver calls in it) and of one ship,
+  each with the card busy; then [6]'s per-step training in rounds of
+  OBS_SEAM_STEPS steps, interleaved over OBS_SEAM_ROUNDS rounds: the plane
+  off; its step seams (registry and recorder active: ``note_trace``, the
+  loop's counter and span); the seams and a shipper with the memory
+  sampler every OBS_FAST_INTERVAL s into a sink in another process; the
+  seams and the memory sampler alone at that cadence."""
+  import multiprocessing as mp
+  import threading
+  import numpy as np
+  from tensorflowonspark_tpu_torch.obs import collector
+  from tensorflowonspark_tpu_torch.obs import device as obs_device
+  from tensorflowonspark_tpu_torch.obs import metrics, profiler, spans
+  from tensorflowonspark_tpu_torch.parallel import sharding
+  ctx = mp.get_context("spawn")
+  addr_q, stop = ctx.Queue(), ctx.Event()
+  proc = ctx.Process(target=_sink_server, args=(addr_q, stop), daemon=True)
+  proc.start()
+  res = {}
+  try:
+    addr = tuple(addr_q.get(timeout=120))
+    state = feed_train_pieces(torch)[0]
+    loss_fn = _lm_loss(tfm)
+    batch = np.random.default_rng(SEED).integers(
+        0, state.model.cfg.vocab_size, (TRAIN_B, TRAIN_S), dtype=np.int32)
+    a = torch.randn(4096, 4096, device="cuda", dtype=torch.bfloat16)
+    reg = metrics.MetricsRegistry()
+    shipper = collector.ObsShipper(addr, 0, registry=reg,
+                                   recorder=spans.SpanRecorder(),
+                                   interval=60, label="exec")
+    sample = obs_device.make_memory_sampler(reg)
+    for i in range(40):                  # an executor's registry, roughly
+      reg.counter("bench.c%d" % i).inc(i)
+      reg.histogram("bench.h%d" % (i % 4)).observe(float(i))
+    res["host_ms"] = {
+        "memory_sample": _busy_ms(torch, profiler.device_memory_stats, a),
+        "mem_get_info": _busy_ms(torch, lambda: torch.cuda.mem_get_info(0),
+                                 a),
+        "memory_stats": _busy_ms(torch, lambda: torch.cuda.memory_stats(0),
+                                 a),
+        "ship": _busy_ms(torch, lambda: (reg.counter("bench.tick").inc(),
+                                         shipper.ship(timeout=10)), a)}
+    shipper.stop(timeout=5)
+    del a
+
+    def run(state, variant):
+      """One round of ``variant``: (state, ms/step)."""
+      if variant != "off":
+        metrics.activate()
+        spans.activate()
+      loop = sharding.make_train_loop(loss_fn, unroll=FEED_UNROLL)
+      halt = threading.Event()
+      ship = thread = None
+      if variant == "seams+shipper":
+        ship = collector.ObsShipper(addr, 0, interval=OBS_FAST_INTERVAL,
+                                    label="exec")
+        ship.add_sampler(obs_device.make_memory_sampler(ship.registry))
+        ship.start()
+      elif variant == "seams+sampler":
+        tick = obs_device.make_memory_sampler(metrics.active())
+
+        def sampling():
+          while not halt.wait(OBS_FAST_INTERVAL):
+            tick()
+
+        thread = threading.Thread(target=sampling, daemon=True)
+        thread.start()
+      try:
+        state, _ = loop(state, batch)                # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OBS_SEAM_STEPS):
+          state, _ = loop(state, batch)
+        torch.cuda.synchronize()
+        return state, (time.perf_counter() - t0) / OBS_SEAM_STEPS * 1e3
+      finally:
+        halt.set()
+        if ship is not None:
+          ship.stop(timeout=5)
+        if thread is not None:
+          thread.join(timeout=5)
+        metrics.deactivate()
+        spans.deactivate()
+
+    variants = ("off", "seams", "seams+shipper", "seams+sampler")
+    times = {v: [] for v in variants}
+    for r in range(OBS_SEAM_ROUNDS):
+      for v in (variants if r % 2 == 0 else variants[::-1]):
+        state, ms = run(state, v)
+        times[v].append(ms)
+    res["ms_per_step"] = {v: statistics.median(t) for v, t in times.items()}
+    res["rounds"] = times
+  finally:
+    stop.set()
+    proc.join(timeout=30)
+  off = res["ms_per_step"]["off"]
+  log("  (d) host ms with the card busy: a memory sample %.3f (mem_get_info "
+      "%.3f, memory_stats %.3f), a ship %.3f; [6]'s per-step ms/step, "
+      "median of %d rounds of %d: %s (against off: %s); %s" % (
+          res["host_ms"]["memory_sample"], res["host_ms"]["mem_get_info"],
+          res["host_ms"]["memory_stats"], res["host_ms"]["ship"],
+          OBS_SEAM_ROUNDS, OBS_SEAM_STEPS,
+          ", ".join("%s %.2f" % kv for kv in res["ms_per_step"].items()),
+          ", ".join("%s %+.2f%%" % (v, 100 * (t / off - 1))
+                    for v, t in res["ms_per_step"].items() if v != "off"),
+          card))
+  return res
+
+
+def obs_phase(torch, ops, tfm, ServingEngine, slots, card, params, cfg,
+              feed_ref=None, serve_ref=None, pairs=0):
+  """[6o]: (a) [6i]'s fed training under ``TOS_OBS=1`` against an obs-off
+  fed run (``feed_ref``: [6i]'s, or one made here), (b) [4]'s serving
+  with the registry on against ``serve_ref`` ([4]'s, or one made here),
+  (c) with ``pairs``, that many more interleaved off/on fed runs and the
+  median obs overhead per step."""
+  from tensorflowonspark_tpu_torch import cluster
+  torch.cuda.empty_cache()
+  log("[6o] the observability plane: [6i]'s fed training under TOS_OBS=1, "
+      "[4]'s serving with the registry on")
+  rows = feed_rows(FEED_PARTS * FEED_PART_ROWS, SEED + 10)
+  name = torch.cuda.get_device_name(0)      # what the node must run on
+  if feed_ref is None:
+    feed_ref, _ = obs_feed_run(torch, cluster, name, rows)
+  obs_dir = os.path.join(HERE, "build", "chip_smoke_obs")
+  shutil.rmtree(obs_dir, ignore_errors=True)
+  on, plane = obs_feed_run(torch, cluster, name, rows, obs_dir)
+  gates = obs_feed_gates(on, feed_ref, plane, obs_dir)
+  share = gates["stage_share"]
+  log("  fed run under TOS_OBS=1: 12 losses and per-step launches equal to "
+      "the obs-off run's; sink feed.rows %d = feed.wire_rows, train.steps "
+      "%d, device.peak_bytes %d (executor's max_memory_allocated %d); "
+      "xla.compiles %d, none after a path's first step; no drop, no "
+      "alert; HEALTH carried executor 0 (%d ships); tracks %s, spans %s" % (
+          gates["sink"]["feed.rows"], gates["sink"]["train.steps"],
+          gates["sink"]["device.peak_bytes"], on["peak_bytes"],
+          gates["sink"]["xla.compiles"], gates["health_ships"],
+          gates["tracks"], gates["trace_spans"]))
+  log("  feed stages (sink feed.* seconds): fetch %.3f s (%.1f%%), decode "
+      "%.3f s (%.1f%%), assemble %.3f s (%.1f%%)" % (
+          gates["stage_s"]["fetch_s"], 100 * share["fetch_s"],
+          gates["stage_s"]["decode_s"], 100 * share["decode_s"],
+          gates["stage_s"]["assemble_s"], 100 * share["assemble_s"]))
+  log("  ms/step obs on %.1f (per-step) %.1f (slabs) %.1f (all 10 timed), "
+      "obs off %.1f / %.1f / %.1f; MFU %.3f on, %.3f off (obs.profiler.mfu, "
+      "989e12 peak); %s" % (
+          on["ms_per_step"], on["slab_ms_per_step"], on["timed_ms_per_step"],
+          feed_ref["ms_per_step"], feed_ref["slab_ms_per_step"],
+          feed_ref["timed_ms_per_step"], obs_mfu(on["timed_ms_per_step"]),
+          obs_mfu(feed_ref["timed_ms_per_step"]), card))
+  res = {"feed_on": on, "feed_off": feed_ref, "gates": gates,
+         "mfu_on": obs_mfu(on["timed_ms_per_step"]),
+         "mfu_off": obs_mfu(feed_ref["timed_ms_per_step"])}
+  if serve_ref is None:
+    serve_ref, model = serve_main_path(torch, ops, tfm, ServingEngine, slots,
+                                       params, cfg)
+    del model
+  torch.cuda.empty_cache()
+  res["serve"] = obs_serving(torch, ops, tfm, ServingEngine, slots, params,
+                             cfg, serve_ref)
+  torch.cuda.empty_cache()
+  if pairs:
+    over = []
+    for i in range(pairs):
+      off, _ = obs_feed_run(torch, cluster, name, rows)
+      shutil.rmtree(obs_dir, ignore_errors=True)
+      on_i, plane = obs_feed_run(torch, cluster, name, rows, obs_dir)
+      obs_feed_gates(on_i, feed_ref, plane, obs_dir)
+      _check_same_run(off, feed_ref, "[6o](c) obs-off run %d" % i)
+      over.append(on_i["timed_ms_per_step"] / off["timed_ms_per_step"] - 1)
+      log("  pair %d: obs off %.2f ms/step, on %.2f ms/step (%+.2f%%)" % (
+          i, off["timed_ms_per_step"], on_i["timed_ms_per_step"],
+          100 * over[-1]))
+    med = statistics.median(over)
+    res["overhead"] = {"per_pair": over, "median": med,
+                       "budget": OBS_BUDGET}
+    log("  obs overhead, median of %d interleaved pairs: %+.2f%% per step "
+        "(budget %.0f%%, reported, not gated); %s" % (
+            pairs, 100 * med, 100 * OBS_BUDGET, card))
+    torch.cuda.empty_cache()
+    res["seams"] = obs_seam_costs(torch, tfm, card)
+  return res
 
 
 # -- phase 6l: data parallelism across processes -----------------------------
@@ -4319,6 +4852,34 @@ def train_options_only(torch, ops, sharding, readers, train_gpt, _build,
   return 0
 
 
+def obs_only(torch, ops, tfm, ServingEngine, slots, init_params, _build,
+             card):
+  """``--obs-only``: phase 6o alone, with its obs-off references made here
+  and OBS_PAIRS interleaved off/on fed runs for the overhead (the driver
+  builds every kernel first; the executors load them)."""
+  log("  built %s" % _build.build_all())
+  cfg = tfm.TransformerConfig()
+  res = obs_phase(torch, ops, tfm, ServingEngine, slots, card,
+                  init_params(cfg, seed=SEED), cfg, pairs=OBS_PAIRS)
+  os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+  with open(os.path.join(HERE, "chiprun_out", "chip_smoke_obs.json"),
+            "w") as f:
+    json.dump({"obs": res, "card": card}, f, indent=1)
+  log(card)
+  log(json.dumps({"obs": {
+      "ms_per_step_on": res["feed_on"]["timed_ms_per_step"],
+      "ms_per_step_off": res["feed_off"]["timed_ms_per_step"],
+      "overhead_median": res["overhead"]["median"],
+      "overhead_per_pair": res["overhead"]["per_pair"],
+      "feed_stage_share": res["gates"]["stage_share"],
+      "mfu_on": res["mfu_on"],
+      "serve_counts": res["serve"]["obs"]["counts"]}, "card": card}))
+  log(json.dumps({"ok": True, "device": {
+      "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+      "count": torch.cuda.device_count()}}))
+  return 0
+
+
 def main(argv):
   repeats, ln_only = 0, argv == ["--layer-norm-only"]
   only_cluster = argv == ["--cluster-only"]
@@ -4327,13 +4888,15 @@ def main(argv):
   only_dp = argv == ["--dp-only"]
   only_pipeline = argv == ["--pipeline-only"]
   only_options = argv == ["--train-options-only"]
+  only_obs = argv == ["--obs-only"]
   if argv[:1] == ["--serving-only"] and len(argv) == 2:
     repeats = int(argv[1])
   elif argv and not (ln_only or only_cluster or only_feed or only_ckpt
-                     or only_dp or only_pipeline or only_options):
+                     or only_dp or only_pipeline or only_options
+                     or only_obs):
     log("usage: python3 chip_smoke.py [--serving-only N | "
         "--layer-norm-only | --cluster-only | --feed-only | --ckpt-only | "
-        "--dp-only | --pipeline-only | --train-options-only]")
+        "--dp-only | --pipeline-only | --train-options-only | --obs-only]")
     return 2
   try:
     import torch
@@ -4384,6 +4947,9 @@ def main(argv):
   if only_options:
     return train_options_only(torch, ops, sharding, readers, train_gpt,
                               _build, card)
+  if only_obs:
+    return obs_only(torch, ops, tfm, ServingEngine, slots, init_params,
+                    _build, card)
 
   log("[2] build")
   t0 = time.monotonic()
@@ -4525,6 +5091,9 @@ def main(argv):
   feed_res = feed_phases(torch, ops, tfm, torch.cuda.get_device_name(0),
                          params, cfg, train_res)
   torch.cuda.empty_cache()
+  obs_res = obs_phase(torch, ops, tfm, ServingEngine, slots, card, params,
+                      cfg, feed_ref=feed_res["train"], serve_ref=main_res)
+  torch.cuda.empty_cache()
   dp_res = dp_phases(torch, ops, tfm, optim, sharding, Slab, train_gpt,
                      params, cfg)
   torch.cuda.empty_cache()
@@ -4580,6 +5149,11 @@ def main(argv):
   def infer_launches(name):
     return sum(p[name] for p in feed_res["inference"]["launches_per_forward"])
 
+  def obs_launches(name):
+    per = obs_res["feed_on"]["launches_per_step"]
+    return int(sum(p[name] for p in per[:FEED_PER_STEP]) + FEED_UNROLL * sum(
+        p[name] for p in per[FEED_PER_STEP:]))
+
   def entry(name, source, replaces, by_path, err, row, **extra):
     return dict({"name": name, "route": "cuda",
                  "source": "tensorflowonspark_tpu_torch/csrc/" + source,
@@ -4614,6 +5188,9 @@ def main(argv):
              "feed_train_12_steps": feed_launches("flash_attention_fwd"),
              "feed_inference_4_forwards": infer_launches(
                  "flash_attention_fwd"),
+             "obs_feed_train_12_steps": obs_launches("flash_attention_fwd"),
+             "obs_serve": obs_res["serve"]["launches"][
+                 "flash_attention_fwd"],
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "flash_attention_fwd"),
              "serve_gpt_config_bf16": serve_gpt_res["bfloat16"]["launches"][
@@ -4635,6 +5212,8 @@ def main(argv):
              **options_launches(options_res, "layer_norm"),
              "feed_train_12_steps": feed_launches("layer_norm"),
              "feed_inference_4_forwards": infer_launches("layer_norm"),
+             "obs_feed_train_12_steps": obs_launches("layer_norm"),
+             "obs_serve": obs_res["serve"]["launches"]["layer_norm"],
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "layer_norm"),
              **dp_launches(dp_res, "layer_norm"),
@@ -4647,6 +5226,7 @@ def main(argv):
             {"train_4_steps": step_l["flash_attention_bwd"],
              "train_fused_4_steps": fused_l["flash_attention_bwd"],
              "feed_train_12_steps": feed_launches("flash_attention_bwd"),
+             "obs_feed_train_12_steps": obs_launches("flash_attention_bwd"),
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "flash_attention_bwd"),
              **dp_launches(dp_res, "flash_attention_bwd"),
@@ -4669,6 +5249,7 @@ def main(argv):
              "ckpt_resume_6_steps": ckpt_launches("layer_norm_bwd"),
              **options_launches(options_res, "layer_norm_bwd"),
              "feed_train_12_steps": feed_launches("layer_norm_bwd"),
+             "obs_feed_train_12_steps": obs_launches("layer_norm_bwd"),
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "layer_norm_bwd"),
              **dp_launches(dp_res, "layer_norm_bwd"),
@@ -4734,7 +5315,8 @@ def main(argv):
             "train_fused": fused_res, "train_fused_gqa": fgqa_res,
             "train_long_gqa": long_res, "cluster_long_gqa": cluster_res,
             "ckpt_resume": ckpt_res, "train_options": options_res,
-            "feed": feed_res, "dp": dp_res, "pipeline": pipe_res,
+            "feed": feed_res, "obs": obs_res, "dp": dp_res,
+            "pipeline": pipe_res,
             "train_split": split_res,
             "train_parity_f32": train_parity,
             "train_fused_parity_f32": fused_parity,

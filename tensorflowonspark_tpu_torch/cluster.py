@@ -26,10 +26,17 @@ PyTorch on CUDA cards:
     c.train(partitions, num_epochs=1)   # main_fn reads ctx.get_data_feed()
     c.shutdown()
 
-Not ported yet, each refused by name before any executor is touched: the
-observability plane (``TOS_OBS=1``: ROADMAP Queue 1 item 7), elastic
-groups (``group_map``, ``elastic``: item 10) and feeder pushdown segments
-(``feed_segment``: item 11).
+With ``TOS_OBS=1`` the observability plane runs as in the JAX package:
+every executor ships metric/span deltas over the rendezvous ``OBS`` verb
+into the driver's ``Cluster.obs_sink``, the ``AnomalyDetector`` (and its
+``SLOTracker``) watches the sink online (``Cluster.alerts()``,
+``obs_summary()``, ``slo_status()``; ``HEALTH`` replies carry the same),
+and ``TOS_OBS_DIR`` collects per-process JSONL logs that
+``obs.export.merge_jsonl`` + ``chrome_trace`` turn into one trace.
+
+Not ported yet, each refused by name before any executor is touched:
+elastic groups (``group_map``, ``elastic``: item 10) and feeder pushdown
+segments (``feed_segment``: item 11).
 """
 
 import collections.abc
@@ -343,6 +350,16 @@ class ClusterSupervisor(object):
     return False
 
 
+def _driver_obs_log(recorder=None):
+  """The driver's per-process obs JSONL (anchored by the recorder's
+  clock when one is live) — shared between the detector's per-alert
+  appends and the shutdown span/metrics dump."""
+  from tensorflowonspark_tpu_torch.obs import export as obs_export
+  return obs_export.ProcessLog(
+      label="driver", executor_id=0,
+      clock=recorder.clock if recorder is not None else None)
+
+
 class InputMode(object):
   """How the cluster gets training data (parity: TFCluster.py:43-46).
 
@@ -375,7 +392,8 @@ class Cluster(object):
   def __init__(self, engine: Engine, cluster_info: List[dict],
                cluster_meta: dict, server: rendezvous.Server,
                input_mode: int, node_job, tf_status: dict,
-               driver_ps_procs: Sequence = (), supervisor=None):
+               driver_ps_procs: Sequence = (), supervisor=None,
+               detector=None):
     self.engine = engine
     self.cluster_info = cluster_info
     self.cluster_meta = cluster_meta
@@ -386,10 +404,56 @@ class Cluster(object):
     self.queues = cluster_meta["queues"]
     self.driver_ps_procs = list(driver_ps_procs)
     self.supervisor = supervisor
+    #: the driver-side obs aggregation (obs.collector.ObsSink) when the
+    #: obs plane is on (TOS_OBS=1) — executors ship metric/span deltas
+    #: here through the rendezvous OBS verb; None when off. getattr:
+    #: tests hand in stand-in servers without the field
+    self.obs_sink = getattr(server, "obs_sink", None)
+    #: the driver-side detector loop (obs.anomaly.AnomalyDetector)
+    #: evaluating the sink online; None when the plane (or the detector,
+    #: TOS_OBS_DETECT=0) is off
+    self.detector = detector
+
+  def alerts(self, max_items: int = 64) -> List[dict]:
+    """Newest-first structured alerts from the online detector loop
+    (empty when the obs plane / detector is off)."""
+    if self.detector is None:
+      return []
+    return self.detector.recent_alerts(max_items)
+
+  def obs_summary(self) -> dict:
+    """The in-process equivalent of the HEALTH verb's obs payload:
+    liveness snapshot + per-executor metric state + live alerts + SLO
+    and deploy status."""
+    out = {"data": {str(k): v for k, v in
+                    self.server.liveness.snapshot().items()}}
+    if self.obs_sink is not None:
+      out["obs"] = self.obs_sink.top_summary()
+    if self.detector is not None:
+      out["alerts"] = self.detector.recent_alerts()
+      for key in ("slo", "deploy"):
+        status = getattr(self.detector, key + "_status")()
+        if status is not None:
+          out[key] = status
+    return out
+
+  def slo_status(self) -> Optional[dict]:
+    """Live SLO burn-rate verdicts (``obs.slo``; None when the obs
+    plane/detector is off or no objectives are declared)."""
+    if self.detector is None:
+      return None
+    return self.detector.slo_status()
+
+  def deploy_status(self) -> Optional[dict]:
+    """Continuous-deployment state as the detector samples it (None
+    when the obs plane/detector is off or nothing shipped ``deploy.*``)."""
+    if self.detector is None:
+      return None
+    return self.detector.deploy_status()
 
   @staticmethod
-  def _span(name: str, **attrs):
-    """Driver-side span, or a null context when no recorder is active."""
+  def span(name: str, **attrs):
+    """Driver-side span, or a null context when the obs plane is off."""
     rec = obs_spans.active()
     if rec is None:
       return contextlib.nullcontext()
@@ -444,7 +508,7 @@ class Cluster(object):
         stream.count()
       return
     parts = self._replicate(parts, epochs)
-    with self._span("cluster.train_feed", epochs=epochs):
+    with self.span("cluster.train_feed", epochs=epochs):
       self.engine.foreach_partition(parts, fn).wait()
 
   def train_stream(self, batch_stream, feed_timeout: float = 600,
@@ -546,7 +610,7 @@ class Cluster(object):
                                   feed_timeout=feed_timeout, qname=qname)
     data_partitions = self._wrap_lazy(data_partitions)
     if collect:
-      with self._span("cluster.inference_feed"):
+      with self.span("cluster.inference_feed"):
         return self.engine.map_partitions(data_partitions, fn)
     return self.engine.map_partitions_lazy(data_partitions, fn,
                                            timeout=feed_timeout)
@@ -608,12 +672,28 @@ class Cluster(object):
       old = signal.signal(signal.SIGALRM, _watchdog)
       signal.alarm(int(timeout))
     try:
-      with self._span("cluster.shutdown"):
+      with self.span("cluster.shutdown"):
         self._shutdown_inner(grace_secs)
     finally:
       if timeout and in_main:
         signal.alarm(0)
         signal.signal(signal.SIGALRM, old)
+      # offline-log plane: the driver's own spans + metrics land in the
+      # same per-process JSONL scheme the executors use, so one run
+      # merges from one directory
+      self._dump_driver_obs_log()
+
+  def _dump_driver_obs_log(self) -> None:
+    if not obs_metrics.enabled():
+      return
+    rec = obs_spans.active()
+    reg = obs_metrics.active()
+    # reuse the detector's log when one exists: same file, ONE meta header
+    log = self.detector.jsonl if self.detector is not None \
+        and self.detector.jsonl is not None else _driver_obs_log(rec)
+    if rec is not None:
+      log.append_spans(rec.drain(None))
+    log.close(metrics_snapshot=reg.snapshot() if reg is not None else None)
 
   def _shutdown_inner(self, grace_secs: float) -> None:
     workers = [n for n in self.cluster_info
@@ -682,6 +762,12 @@ class Cluster(object):
           break
         self.node_job.wait(raise_on_error=False)
       self.supervisor.stop()
+    if self.detector is not None:
+      # stand the loop down FIRST (stop joins the thread), then one last
+      # pass so late-arriving deltas (executors final-flush on exit) are
+      # evaluated — the other order races the thread's own poll
+      self.detector.stop()
+      self.detector.poll()
     self.server.stop()
     err = self.node_job.first_error() or self.tf_status.get("error")
     if err:
@@ -699,11 +785,6 @@ class Cluster(object):
 
 def _refuse_unported(group_map, elastic, feed_segment) -> None:
   """Raise, naming the ROADMAP item, for what the port cannot run yet."""
-  if obs_metrics.enabled():
-    raise NotImplementedError(
-        "TOS_OBS=1: the observability plane (the executor shippers, the "
-        "driver sink and detector) is not ported to PyTorch yet (ROADMAP "
-        "Queue 1 item 7); unset %s" % obs_metrics.ENV_OBS)
   if group_map or elastic:
     raise NotImplementedError(
         "group_map / elastic: elastic multi-group training is not ported "
@@ -866,6 +947,11 @@ def run(engine: Engine, main_fn, tf_args=None,
   server = rendezvous.Server(num_executors,
                              heartbeat_interval=heartbeat_interval,
                              startup_grace=reservation_timeout)
+  if obs_metrics.enabled():
+    # the driver end of the obs plane: executors ship metric/span deltas
+    # through the rendezvous OBS verb into this bounded sink
+    from tensorflowonspark_tpu_torch.obs import collector as obs_collector
+    server.obs_sink = obs_collector.ObsSink()
   server_addr = server.start()
   cluster_meta["server_addr"] = list(server_addr)
 
@@ -892,8 +978,14 @@ def run(engine: Engine, main_fn, tf_args=None,
   else:
     engine_ids = executors
 
-  node_job = engine.run_on_executors(node_fn, num_tasks=len(engine_ids),
-                                     task_payloads=engine_ids)
+  try:
+    node_job = engine.run_on_executors(node_fn, num_tasks=len(engine_ids),
+                                       task_payloads=engine_ids)
+  except BaseException:
+    server.stop()              # no node will ever reach it
+    for p in driver_ps_procs:
+      p.terminate()
+    raise
 
   def _watch_job():
     # poll: a single failed bring-up task must surface its traceback
@@ -931,15 +1023,33 @@ def run(engine: Engine, main_fn, tf_args=None,
         tf_status, max_restarts=max_restarts, backoff=restart_backoff,
         backoff_cap=restart_backoff_cap).start()
 
+  # the online consumer of the obs plane: a driver thread evaluating the
+  # sink's rolling windows (stragglers, feed stalls, recompile storms,
+  # serving saturation, memory slope, SLO burn). Alerts are counted +
+  # mirrored into the supervisor event stream + JSONL'd + served over
+  # HEALTH — never raised. Starts before the reservation wait so
+  # bring-up is covered.
+  detector = None
+  if server.obs_sink is not None:
+    from tensorflowonspark_tpu_torch.obs import anomaly as obs_anomaly
+    if obs_anomaly.detect_enabled():
+      # ONE driver ProcessLog, shared with the shutdown span/metrics dump
+      detector = obs_anomaly.AnomalyDetector(
+          server.obs_sink, supervisor=supervisor,
+          jsonl=_driver_obs_log(obs_spans.active())).start()
+      server.alert_source = detector
+
   def _abort_cleanup():
     if supervisor is not None:
       supervisor.stop()
+    if detector is not None:
+      detector.stop()
     server.stop()
     for p in driver_ps_procs:
       p.terminate()
 
   try:
-    with Cluster._span("cluster.assemble", nodes=num_executors):
+    with Cluster.span("cluster.assemble", nodes=num_executors):
       cluster_info.extend(server.await_reservations(
           timeout=reservation_timeout, status=tf_status))
   except Exception:
@@ -958,4 +1068,4 @@ def run(engine: Engine, main_fn, tf_args=None,
                for n in cluster_info])
   return Cluster(engine, cluster_info, cluster_meta, server, input_mode,
                  node_job, tf_status, driver_ps_procs=driver_ps_procs,
-                 supervisor=supervisor)
+                 supervisor=supervisor, detector=detector)

@@ -26,12 +26,17 @@ marks clean departure) and ``HEALTH`` (snapshot of the liveness table) —
 the reference had no liveness detection at all: a hung executor stalled the
 job until the 3-day shutdown watchdog fired (TFCluster.py:136-144).
 
+Observability rides the same wire: ``OBS`` ships bounded metric/span
+deltas from executors into the driver's ``Server.obs_sink``
+(``obs.collector.ObsSink``; without a sink the verb is acked and
+dropped), ``HEALTH`` replies carry the sink's per-executor summary and
+the detector's alert ring, and ``BEAT``/``OBS`` replies carry
+``server_time`` (the TIME exchange behind ``obs.spans.ClockOffset``).
+
 The verbs of planes the port does not have yet are answered with an
-``ERROR`` reply that names their ROADMAP item: ``OBS`` (the observability
-plane, item 7), ``SYNC``/``SYNCQ``/``GROUP`` (elastic groups, item 10)
-and ``SHREG``/``SHSYNC``/``SHBYE`` (cross-host serving, item 8). ``BEAT``
-replies carry ``server_time`` as in the JAX package, so a heartbeat still
-estimates the clock offset to the driver (``obs.spans.ClockOffset``).
+``ERROR`` reply that names their ROADMAP item: ``SYNC``/``SYNCQ``/
+``GROUP`` (elastic groups, item 10) and ``SHREG``/``SHSYNC``/``SHBYE``
+(cross-host serving, item 8).
 
 Env overrides (parity with reservation.py:25-26,190-206):
 ``TOS_TPU_SERVER_HOST`` pins the server bind/advertise host;
@@ -406,7 +411,6 @@ class HeartbeatSender(object):
 _UNPORTED_VERBS = {
     verb: "%s is not ported yet (ROADMAP Queue 1 item %d)" % (what, item)
     for verbs, what, item in (
-        (("OBS",), "the observability plane", 7),
         (("SYNC", "SYNCQ", "GROUP"), "elastic multi-group training", 10),
         (("SHREG", "SHSYNC", "SHBYE"), "cross-host serving", 8))
     for verb in verbs}
@@ -441,6 +445,17 @@ class Server(MessageSocket):
     # stop signal retry against ECONNREFUSED for its whole reservation
     # timeout and fail the node (the train_stream shutdown flake).
     self.stop_requested = threading.Event()
+    #: driver-attached ``obs.collector.ObsSink`` consuming OBS deltas;
+    #: None (the default) acks-and-drops so the obs plane is never a
+    #: prerequisite for the control plane
+    self.obs_sink = None
+    #: driver-attached ``obs.anomaly.AnomalyDetector`` (or anything with
+    #: ``recent_alerts(max_items)``): HEALTH replies then carry the live
+    #: alert ring (and its ``slo_status``/``deploy_status`` when it has
+    #: them). None = no ``alerts`` field.
+    self.alert_source = None
+    #: HEALTH obs/alert enrichment failures (counted, never raised)
+    self.health_obs_failures = 0
     self._listener: Optional[socket.socket] = None
     self.addr: Optional[Tuple[str, int]] = None
     # round -> set of arrived task ids; sets make re-sent arrivals (client
@@ -557,6 +572,42 @@ class Server(MessageSocket):
       except OSError:
         pass
 
+  def _health_reply(self) -> dict:
+    """The liveness snapshot, plus the obs extension: per-executor
+    metric state and the detector's alert ring (with its SLO and deploy
+    status). Every enrichment is bounded and best-effort — a telemetry
+    bug must never break a HEALTH poll."""
+    snap = {str(k): v for k, v in self.liveness.snapshot().items()}
+    reply = {"type": "HEALTH", "data": snap, "server_time": time.monotonic()}
+    sink = self.obs_sink
+    if sink is not None:
+      try:
+        reply["obs"] = sink.top_summary()
+      except Exception as e:  # noqa: BLE001 - reply stays liveness-only;
+        # counted so a chronically failing summary is diagnosable
+        self.health_obs_failures += 1
+        logger.warning("obs summary for HEALTH failed: %s", e)
+    alerts = self.alert_source
+    if alerts is None:
+      return reply
+    try:
+      reply["alerts"] = alerts.recent_alerts()
+    except Exception as e:  # noqa: BLE001 - reply stays alert-free
+      self.health_obs_failures += 1
+      logger.warning("alert ring for HEALTH failed: %s", e)
+    for key in ("slo", "deploy"):
+      status_fn = getattr(alerts, key + "_status", None)
+      if status_fn is None:
+        continue
+      try:
+        status = status_fn()
+        if status is not None:
+          reply[key] = status
+      except Exception as e:  # noqa: BLE001 - reply stays without it
+        self.health_obs_failures += 1
+        logger.warning("%s status for HEALTH failed: %s", key, e)
+    return reply
+
   def _handle(self, sock: socket.socket, msg: dict) -> None:
     mtype = msg.get("type")
     if mtype == "REG":
@@ -572,10 +623,22 @@ class Server(MessageSocket):
       # server_time turns every beat into a TIME exchange (clock-offset
       # estimation for the obs plane — see HeartbeatSender.clock)
       self.send(sock, {"type": "OK", "server_time": time.monotonic()})
-    elif mtype == "HEALTH":
-      snap = {str(k): v for k, v in self.liveness.snapshot().items()}
-      self.send(sock, {"type": "HEALTH", "data": snap,
+    elif mtype == "OBS":
+      sink = self.obs_sink
+      accepted = False
+      if sink is not None:
+        # ingest is bounded and swallows its own malformed-payload cases;
+        # a sink bug must not kill the serve loop, so the failure is
+        # reported to the SENDER (accepted=False) instead of raised here
+        try:
+          accepted = bool(sink.ingest(msg))
+        except Exception as e:  # noqa: BLE001 - reported via accepted flag
+          accepted = False
+          logger.warning("obs sink rejected a delta: %s", e)
+      self.send(sock, {"type": "OK", "accepted": accepted,
                        "server_time": time.monotonic()})
+    elif mtype == "HEALTH":
+      self.send(sock, self._health_reply())
     elif mtype in _UNPORTED_VERBS:
       self.send(sock, {"type": "ERROR", "error": "%s: %s" % (
           mtype, _UNPORTED_VERBS[mtype])})

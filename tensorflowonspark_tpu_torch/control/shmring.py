@@ -36,6 +36,7 @@ from pathlib import Path
 from typing import Optional
 
 from tensorflowonspark_tpu_torch.control import chunkcodec
+from tensorflowonspark_tpu_torch.obs import device as obs_device
 
 logger = logging.getLogger(__name__)
 
@@ -110,8 +111,11 @@ def load():
   with _lib_lock:
     if _lib is None:
       path = library_path()
-      if not path.exists():
+      t0, cached = time.monotonic(), path.exists()
+      if not cached:
         _build(path)
+      # the port's compile event (obs.device): g++ at first use
+      obs_device.note_build("shmring", time.monotonic() - t0, cached)
       try:
         _lib = _bind(str(path))
       except (OSError, AttributeError) as e:

@@ -29,10 +29,12 @@ import platform
 import struct
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Iterator, List
 
 from tensorflowonspark_tpu_torch.data import fs
+from tensorflowonspark_tpu_torch.obs import device as obs_device
 
 NATIVE_SRC = Path(__file__).resolve().parent.parent / "native" / \
     "tfrecord_codec.cpp"
@@ -105,8 +107,11 @@ def load():
   with _lib_lock:
     if _lib is None:
       path = library_path()
-      if not path.exists():
+      t0, cached = time.monotonic(), path.exists()
+      if not cached:
         _build(path)
+      # the port's compile event (obs.device): g++ at first use
+      obs_device.note_build("tfrecord_codec", time.monotonic() - t0, cached)
       try:
         _lib = _bind(str(path))
       except (OSError, AttributeError) as e:

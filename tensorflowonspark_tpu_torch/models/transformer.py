@@ -56,6 +56,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from tensorflowonspark_tpu_torch import ops
+from tensorflowonspark_tpu_torch.obs import device as obs_device
+from tensorflowonspark_tpu_torch.obs import metrics as obs_metrics
 from tensorflowonspark_tpu_torch.utils.device import resolve_device
 from tensorflowonspark_tpu_torch.utils.params import copy_into
 
@@ -665,6 +667,12 @@ def greedy_generate_kv(model: Transformer, prompt, num_steps: int,
                      "position would read as a fresh stop" % int(pad_id))
   if num_steps < 1:
     return prompt
+
+  if obs_metrics.active() is not None:
+    # recompile sentinel seam: the reference compiles one decode loop per
+    # (batch, prompt length, steps, sampling, eos, pad)
+    obs_device.note_trace("transformer.kv_generate", b, plen, num_steps,
+                          temperature, top_k, eos_id, pad_id)
 
   def select(logits):
     return _select_token(logits[:, -1], generator, temperature, top_k)

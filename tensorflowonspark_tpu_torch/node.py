@@ -43,6 +43,7 @@ import pickle
 import socket
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from typing import Dict, List, Optional
@@ -340,6 +341,67 @@ def _start_heartbeats(server_addr, executor_id: int, interval: float):
                                     interval=interval).start()
 
 
+def _start_obs_shipper(server_addr, executor_id: int, sender):
+  """Executor-side obs plane bring-up (None when ``TOS_OBS`` is off).
+
+  The shipper shares the HeartbeatSender's clock estimator — the BEAT
+  round-trip is the TIME exchange — so span timestamps anchor to the
+  driver's monotonic clock without extra control-plane traffic; the
+  process recorder adopts the same estimator for its JSONL exports. The
+  device tier (card-memory sampler) rides this shipper's cadence.
+  """
+  if not (obs_metrics.enabled() and server_addr):
+    return None
+  from tensorflowonspark_tpu_torch.obs import collector as obs_collector
+  from tensorflowonspark_tpu_torch.obs import device as obs_device
+  from tensorflowonspark_tpu_torch.obs import spans as obs_spans
+  clock = sender.clock if sender is not None else None
+  rec = obs_spans.active()
+  if rec is not None and clock is not None:
+    rec.clock = clock
+  shipper = obs_collector.ObsShipper(tuple(server_addr), executor_id,
+                                     clock=clock, label="exec")
+  obs_device.install(shipper)
+  return shipper.start()
+
+
+# feeder-task obs shipper: one per executor PROCESS, shared across feed
+# tasks (they are too short-lived to each own a thread + socket)
+_feeder_shipper = None
+_feeder_shipper_addr = None
+_feeder_shipper_lock = threading.Lock()
+
+
+def _ensure_feeder_shipper(server_addr, executor_id: int):
+  """Obs shipper for feeder tasks (None when ``TOS_OBS`` is off).
+
+  Feeder tasks run in the engine's executor process, which hosts no node
+  runtime in InputMode.SPARK (the node's shipper lives in the background
+  runner). Without a shipper HERE the feeder-side wire counters
+  (``feed.wire_bytes``/``feed.wire_rows``/``feed.wire_enc.*``) never
+  reach the driver's sink. Cached across feed tasks; re-pointed when a
+  new cluster (fresh rendezvous server) reuses the executor process. The
+  sink merges metric deltas additively per executor id, so this coexists
+  with the node's shipper (the feeder owns a disjoint metric set). It
+  installs no device tier: a feeder must never create a CUDA context.
+  """
+  global _feeder_shipper, _feeder_shipper_addr
+  if not (obs_metrics.enabled() and server_addr):
+    return None
+  addr = (server_addr[0], int(server_addr[1]))
+  with _feeder_shipper_lock:
+    if _feeder_shipper is not None and _feeder_shipper_addr == addr:
+      return _feeder_shipper
+    if _feeder_shipper is not None:
+      _feeder_shipper.stop(timeout=1.0)
+    from tensorflowonspark_tpu_torch.obs import collector as obs_collector
+    shipper = obs_collector.ObsShipper(addr, executor_id,
+                                       label="feeder").start()
+    _feeder_shipper = shipper
+    _feeder_shipper_addr = addr
+    return shipper
+
+
 def _background_runner(fn_bytes: bytes, tf_args, ctx_kwargs: dict,
                        hub_addr, authkey: bytes, server_addr=None,
                        heartbeat_interval=None):
@@ -358,6 +420,8 @@ def _background_runner(fn_bytes: bytes, tf_args, ctx_kwargs: dict,
   if server_addr and heartbeat_interval:
     sender = _start_heartbeats(server_addr, ctx_kwargs["executor_id"],
                                heartbeat_interval)
+  shipper = _start_obs_shipper(server_addr, ctx_kwargs["executor_id"],
+                               sender)
   ctx = NodeContext(hub=hub, heartbeat=sender, **ctx_kwargs)
   try:
     pickle.loads(fn_bytes)(tf_args, ctx)
@@ -375,7 +439,9 @@ def _background_runner(fn_bytes: bytes, tf_args, ctx_kwargs: dict,
         # executor's inherited stderr is the last channel that still works
         os.write(2, ("background main fn failed:\n%s" % tb).encode())
   finally:
-    if sender is not None:
+    if shipper is not None:
+      shipper.stop()           # final delta flush + JSONL close first,
+    if sender is not None:     # so the driver hears it before the bye
       sender.stop()
     try:
       hub.set("state", "stopped")
@@ -657,8 +723,7 @@ class NodeTask(object):
     if hb_interval:
       sender = _start_heartbeats(meta["server_addr"], executor_id,
                                  hb_interval)
-    # the executor-side obs shipper of the JAX package (TOS_OBS=1) is
-    # ROADMAP Queue 1 item 7; cluster.run refuses TOS_OBS=1 until then
+    shipper = _start_obs_shipper(meta["server_addr"], executor_id, sender)
     ctx = NodeContext(hub=hub, tmp_socket=tmp_sock, heartbeat=sender,
                       **ctx_kwargs)
     try:
@@ -674,6 +739,8 @@ class NodeTask(object):
       raise
     finally:
       ctx.release_port()
+      if shipper is not None:
+        shipper.stop()
       if sender is not None:
         sender.stop()
     return [executor_id]
@@ -1047,9 +1114,7 @@ def _materialize_partition(iterator):
 
 
 # The JAX package's feeders also call ``chaos.stall_point("feeder")`` (the
-# fault sites of utils/chaos.py, ROADMAP Queue 1 item 8) and ship their wire
-# counters through a per-process obs shipper (``_ensure_feeder_shipper``,
-# the observability plane, item 7); cluster.run refuses TOS_OBS=1 until then.
+# fault sites of utils/chaos.py, ROADMAP Queue 1 item 8).
 
 
 class TrainFeeder(object):
@@ -1088,6 +1153,8 @@ class TrainFeeder(object):
       for _ in iterator:
         pass
       return [0]
+    shipper = _ensure_feeder_shipper(self.cluster_meta.get("server_addr"),
+                                     executor_id)
     size, sizer = _feed_plan(self.cluster_meta, self.chunk_size)
     rows = 0
     flushes = 0
@@ -1112,6 +1179,12 @@ class TrainFeeder(object):
             "feed timeout (%ds) waiting for node to consume %d rows"
             % (self.feed_timeout, rows))
     _check_errors(hub, "feeding")
+    if shipper is not None:
+      # final flush: this may be the run's last feed task, and engine
+      # teardown won't wait for the cadence thread's next round; the
+      # stamp gives the feeder its log (and trace track) now
+      shipper.ship(timeout=5.0)
+      shipper.stamp_log()
     logger.info("fed %d rows to executor %d", rows, executor_id)
     return [rows]
 

@@ -26,6 +26,8 @@ from typing import Dict
 
 import torch
 
+from tensorflowonspark_tpu_torch.obs import device as obs_device
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNELS = ("flash_attention", "flash_attention_bwd",
@@ -105,6 +107,7 @@ def build_all() -> Dict[str, float]:
   for name in KERNELS:
     if library_path(name).exists():
       secs[name] = 0.0
+      obs_device.note_build("kernel." + name, 0.0, cached=True)
     else:
       started[name] = (time.monotonic(),) + _start(name)
   errors = []
@@ -114,6 +117,7 @@ def build_all() -> Dict[str, float]:
     except RuntimeError as e:
       errors.append(e)
     secs[name] = time.monotonic() - t0
+    obs_device.note_build("kernel." + name, secs[name], cached=False)
   if errors:
     raise errors[0]
   return secs
@@ -126,8 +130,11 @@ def load(name: str) -> ctypes.CDLL:
     if lib is not None:
       return lib
     path = library_path(name)
-    if not path.exists():
+    t0, cached = time.monotonic(), path.exists()
+    if not cached:
       _finish(name, *_start(name))
+    # the port's compile event (obs.device): nvcc at first use
+    obs_device.note_build("kernel." + name, time.monotonic() - t0, cached)
     lib = ctypes.CDLL(str(path))
     lib.tos_error_string.argtypes = [ctypes.c_int]
     lib.tos_error_string.restype = ctypes.c_char_p

@@ -41,15 +41,28 @@ until the caller reads them — one transfer and one host read per slab,
 and over a mesh one all-reduce of the ``[K]`` losses. Same batches in the
 same order give bit-identical losses and weights on both paths, because
 they run the same code.
+
+Obs seams (``TOS_OBS=1``; one cached None check per call when off): the
+step and the fused loop call ``obs.device.note_trace("train.step")`` /
+``("train.loop")`` with the batch (or slab), so ``xla.compiles.<label>``
+counts each new batch shape once, where the reference's jit retraces,
+and set their ``xla.cost.<label>.flops`` / ``.bytes`` gauges once per
+shape from :func:`step_cost`. :class:`TrainLoop` owns the step
+accounting the detectors read: ``train.steps`` (by K per fused slab),
+``train.unroll`` and one ``train.slab`` span per call.
 """
 
 import copy
 import os
+import time
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from tensorflowonspark_tpu_torch.obs import device as obs_device
+from tensorflowonspark_tpu_torch.obs import metrics as obs_metrics
+from tensorflowonspark_tpu_torch.obs import spans as obs_spans
 from tensorflowonspark_tpu_torch.parallel import collectives
 from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
 
@@ -153,6 +166,62 @@ def _global_loss(losses: torch.Tensor, mesh) -> torch.Tensor:
   return losses if mesh is None else collectives.psum_mean(losses, mesh)
 
 
+def _tree_bytes(tree) -> int:
+  """Bytes of every tensor and array in a nested dict / list / tuple /
+  object (an optimizer state)."""
+  if isinstance(tree, torch.Tensor):
+    return tree.numel() * tree.element_size()
+  if isinstance(tree, np.ndarray):
+    return tree.nbytes
+  if isinstance(tree, dict):
+    return sum(_tree_bytes(v) for v in tree.values())
+  if isinstance(tree, (list, tuple)):
+    return sum(_tree_bytes(v) for v in tree)
+  if hasattr(tree, "__dict__"):
+    return _tree_bytes(vars(tree))
+  return 0
+
+
+def _first_leaf(batch):
+  if isinstance(batch, dict):
+    return _first_leaf(next(iter(batch.values())))
+  if isinstance(batch, (tuple, list)):
+    return _first_leaf(batch[0])
+  return batch
+
+
+def step_cost(state, batch, steps: int = 1) -> dict:
+  """The analytic count behind the ``xla.cost.train.step`` /
+  ``train.loop`` gauges, for ``steps`` optimizer steps on ``batch`` (one
+  step's batch; the reference reads XLA's cost analysis instead).
+
+  ``flops``: a model with a ``TransformerConfig`` (``model.cfg``) takes
+  ``transformer_flops_per_token(N, L, d_model, S)`` per token of a
+  ``[B, S]`` batch (6N for the matmuls forward and backward, plus the
+  attention term); any other model ``6·N`` per example (the leading dim).
+  ``bytes``: the weights read by the forward and by the backward and read
+  and written by the update (4P), the gradients written and read once
+  (2P), each optimizer-state tensor read and written once (2O), the batch
+  read once — ``6P + 2O + batch``, P the weight bytes, O the optimizer
+  state's. A lower bound: activations are not counted.
+  """
+  from tensorflowonspark_tpu_torch.obs import profiler as obs_profiler
+  params = state.params
+  n = sum(int(p.numel()) for p in params.values())
+  lead = _first_leaf(batch)
+  shape = tuple(getattr(lead, "shape", ()))
+  cfg = getattr(state.model, "cfg", None)
+  if cfg is not None and hasattr(cfg, "num_layers") and len(shape) >= 2:
+    flops = obs_profiler.transformer_flops_per_token(
+        n, cfg.num_layers, cfg.d_model, shape[1]) * shape[0] * shape[1]
+  else:
+    flops = 6.0 * n * (shape[0] if shape else 1)
+  pbytes = _tree_bytes(params)
+  nbytes = 6 * pbytes + 2 * _tree_bytes(state.opt_state) + \
+      _tree_bytes(batch)
+  return {"flops": float(flops * steps), "bytes": float(nbytes * steps)}
+
+
 def make_train_step(loss_fn: Callable, mesh=None, state_sharding=None,
                     donate_state: bool = True,
                     batch_extra_axes: Tuple[str, ...] = ()):
@@ -162,8 +231,14 @@ def make_train_step(loss_fn: Callable, mesh=None, state_sharding=None,
   ``mesh`` the batch is this rank's shard and ``loss`` the global
   batch's (see the module docstring)."""
   _refuse_mesh(mesh, state_sharding, batch_extra_axes)
+  # obs seam, cached at build: off = one None check per step
+  obs_on = obs_metrics.active() is not None
+  seen: set = set()              # this step's "jit cache" of batch shapes
 
   def step(state, batch):
+    if obs_on:
+      obs_device.note_trace("train.step", batch, cache=seen)
+      obs_device.capture_cost("train.step", step_cost, state, batch)
     if not donate_state:
       state = copy.deepcopy(state)
     batch = _to_device(batch, _state_device(state))
@@ -185,7 +260,7 @@ class TrainLoop(object):
   """
 
   def __init__(self, loss_fn: Callable, unroll: int, donate_state: bool,
-               mesh=None):
+               mesh=None, obs_handles=None):
     self._loss_fn = loss_fn
     self._mesh = mesh
     self._step = make_train_step(loss_fn, mesh, donate_state=donate_state)
@@ -193,32 +268,49 @@ class TrainLoop(object):
     self.unroll = unroll
     #: optimizer steps dispatched through this loop (host-side count)
     self.steps = 0
+    self._obs = obs_handles      # None, or (counter, recorder-or-None)
+    self._seen: set = set()      # the fused loop's "jit cache" of shapes
 
-  def _per_step(self, state, batches: List):
+  def _record(self, n: int, t0: float) -> None:
+    self.steps += n
+    if self._obs is None:
+      return
+    counter, rec = self._obs
+    counter.inc(n)
+    if rec is not None:
+      rec.record_span("train.slab", t0, time.monotonic() - t0, steps=n)
+
+  def _per_step(self, state, batches: List, t0: float):
     losses = []
     for batch in batches:
       state, loss = self._step(state, batch)
       losses.append(loss)
-    self.steps += len(losses)
+    self._record(len(losses), t0)
     return state, (torch.stack(losses) if losses else torch.zeros((0,)))
 
-  def _fused(self, state, slab):
+  def _fused(self, state, slab, t0: float):
+    if self._obs is not None:
+      obs_device.note_trace("train.loop", slab, cache=self._seen)
+      obs_device.capture_cost("train.loop", step_cost, state,
+                              _take(slab, 0), self.unroll)
     if not self._donate:
       state = copy.deepcopy(state)
     slab = _to_device(slab, _state_device(state))      # one copy per slab
     losses = [_step_body(self._loss_fn, state, _take(slab, i), self._mesh)
               for i in range(self.unroll)]
-    self.steps += self.unroll
+    self._record(self.unroll, t0)
     return state, _global_loss(torch.stack(losses), self._mesh)
 
   def __call__(self, state, item):
     from tensorflowonspark_tpu_torch.data.readers import Slab
+    t0 = time.monotonic()
     if isinstance(item, Slab):
       k = _slab_len(item.data)
       if self.unroll > 1 and k == self.unroll:
-        return self._fused(state, item.data)
-      return self._per_step(state, [_take(item.data, i) for i in range(k)])
-    return self._per_step(state, [item])
+        return self._fused(state, item.data, t0)
+      return self._per_step(state, [_take(item.data, i) for i in range(k)],
+                            t0)
+    return self._per_step(state, [item], t0)
 
 
 def make_train_loop(loss_fn: Callable, mesh=None, state_sharding=None,
@@ -231,7 +323,17 @@ def make_train_loop(loss_fn: Callable, mesh=None, state_sharding=None,
   ``mesh`` a slab holds this rank's rows (:func:`shard_slab`) and the
   ``[unroll]`` losses are the global batches'."""
   _refuse_mesh(mesh, state_sharding, batch_extra_axes)
-  return TrainLoop(loss_fn, resolve_unroll(unroll), donate_state, mesh)
+  unroll = resolve_unroll(unroll)
+  obs_handles = None
+  reg = obs_metrics.active()
+  if reg is not None:
+    # the loop owns the step accounting the detectors read: train.steps
+    # bumps by K per fused dispatch (obs/anomaly.py discounts one-slab
+    # quantization via this gauge), train.slab spans each call. Don't
+    # ALSO wrap loop calls in a StepTimer, or steps double-count.
+    reg.gauge("train.unroll").set(unroll)
+    obs_handles = (reg.counter("train.steps"), obs_spans.active())
+  return TrainLoop(loss_fn, unroll, donate_state, mesh, obs_handles)
 
 
 def _rows(x, dim: int, mesh):

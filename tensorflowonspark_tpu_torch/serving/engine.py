@@ -36,8 +36,19 @@ Usage::
 Not in this slice, and refused with ``NotImplementedError`` when asked
 for: the paged slab (``page_size``/``num_pages``), the shared-prefix
 cache (``prefix_pages``) and self-speculative decode (``spec_depth``/
-``spec_layers``). The obs spans/metrics seams and the chaos fault sites
-arrive with their own slices (ROADMAP).
+``spec_layers``). The chaos fault sites arrive with their own slice
+(ROADMAP Queue 1 item 8).
+
+Obs seams (``TOS_OBS=1``; handles cached at construction, so with the
+plane off each seam is one None check): the reference's ``serve.*``
+counters and gauges (``kv_pages_*``, ``prefix_*`` and ``spec_*`` stay at
+zero, as in an unpaged reference engine), the ``serve.decode_ms``
+histogram, the ``serve.ttft_ms`` / ``tpot_ms`` / ``e2e_ms`` /
+``queue_wait_ms`` sketches, the ``serve.queue`` / ``prefill`` /
+``decode`` / ``decode.slot`` / ``stream`` spans and the
+``serve.replay`` / ``serve.restart`` events; ``TOS_OBS_TRACE_DETAIL=0``
+drops the per-lane and per-chunk detail spans. Seams pass host ints
+only: a span attribute handed a card tensor would sync the host.
 """
 
 import contextlib
@@ -52,6 +63,8 @@ import numpy as np
 import torch
 
 from tensorflowonspark_tpu_torch.models.transformer import Transformer
+from tensorflowonspark_tpu_torch.obs import metrics as obs_metrics
+from tensorflowonspark_tpu_torch.obs import spans as obs_spans
 from tensorflowonspark_tpu_torch.serving import scheduler as sched
 from tensorflowonspark_tpu_torch.serving import slots as slots_lib
 
@@ -76,6 +89,11 @@ ENV_SERVE_MAX_RESTARTS = "TOS_SERVE_MAX_RESTARTS"
 ENV_SERVE_RESTART_BACKOFF = "TOS_SERVE_RESTART_BACKOFF"
 #: a request blamed for this many consecutive crashes is failed
 ENV_SERVE_POISON_CRASHES = "TOS_SERVE_POISON_CRASHES"
+#: request-trace detail spans (``serve.decode.slot`` per lane per
+#: dispatch + ``serve.prefill.chunk`` per bucket chunk): ``0`` keeps
+#: request tracing on (queue/prefill/stream spans, trace ids) but drops
+#: the high-volume detail records
+ENV_OBS_TRACE_DETAIL = "TOS_OBS_TRACE_DETAIL"
 #: the reference's knobs that this slice does not port: set non-zero,
 #: they raise instead of being ignored
 _UNPORTED_ENV = {"TOS_SERVE_PAGE_SIZE": "page_size",
@@ -95,6 +113,13 @@ _DEFAULT_POISON_CRASHES = 2
 _BACKOFF_CAP = 2.0
 _COLD_RETRY_AFTER = 0.25
 _RESTART_LOG_CAP = 64
+#: stats keys whose ``serve.<key>`` counter moves with them
+_STATS_TWINS = ("submitted", "completed", "prefills", "rejected", "expired",
+                "cancelled", "replays", "engine_restarts", "poisoned")
+#: the reference's metrics of planes this engine does not have
+_ZERO_COUNTERS = ("serve.prefix_hits", "serve.prefix_evictions",
+                  "serve.spec_accepted", "serve.spec_rejected")
+_ZERO_GAUGES = ("serve.kv_pages_in_use", "serve.kv_pages_free")
 
 
 def _env_int(name: str, default: int) -> int:
@@ -212,12 +237,54 @@ class ServingEngine(object):
                   "rejected": 0, "expired": 0, "cancelled": 0,
                   "replays": 0, "engine_restarts": 0, "poisoned": 0,
                   "replay_mismatches": 0, "decode_s": 0.0}
+    # obs seam: cached handles; disabled = one None check per seam
+    self._rec = obs_spans.active()
+    self._trace_detail = os.environ.get(ENV_OBS_TRACE_DETAIL,
+                                        "1") not in ("0",)
+    reg = obs_metrics.active()
+    self._obs_m = None if reg is None else {
+        # stats twins, bumped by _count
+        **{key: reg.counter("serve." + key) for key in _STATS_TWINS},
+        "tokens": reg.counter("serve.tokens"),
+        "steps": reg.counter("serve.steps"),
+        "occupancy": reg.gauge("serve.occupancy"),
+        "queue_depth": reg.gauge("serve.queue_depth"),
+        "slots_active": reg.gauge("serve.slots_active"),
+        "decode_ms": reg.histogram("serve.decode_ms"),
+    }
+    if reg is not None:
+      # the reference's paged-slab, prefix-cache and speculative-decode
+      # metrics: registered, and zero, as in an unpaged reference engine
+      for name in _ZERO_COUNTERS:
+        reg.counter(name)
+      for name in _ZERO_GAUGES:
+        reg.gauge(name)
+    # the SLO plane's latency objects (obs.quantiles): mergeable
+    # streaming sketches — per-executor sketches ship whole over the OBS
+    # verb and the driver MERGES them
+    self._obs_q = None if reg is None else {
+        "ttft_ms": reg.quantiles("serve.ttft_ms"),
+        "tpot_ms": reg.quantiles("serve.tpot_ms"),
+        "e2e_ms": reg.quantiles("serve.e2e_ms"),
+        "queue_wait_ms": reg.quantiles("serve.queue_wait_ms"),
+    }
 
   def _count(self, key: str, n: int = 1) -> None:
-    """Bump a stats key. Locked: some keys are bumped from client
-    threads (submit, cancel) AND the loop thread."""
+    """Bump a stats key and its obs counter twin (when the plane is
+    on). Locked: some keys are bumped from client threads (submit,
+    cancel) AND the loop thread."""
     with self._stats_lock:
       self.stats[key] += n
+    if self._obs_m is not None and key in _STATS_TWINS:
+      self._obs_m[key].inc(n)
+
+  @property
+  def occupancy(self) -> float:
+    """Live-slot fraction over all decode steps so far (goodput proxy)."""
+    steps = self.stats["steps"]
+    if not steps:
+      return 0.0
+    return self.stats["live_slot_steps"] / float(steps * self.num_slots)
 
   # -- lifecycle ------------------------------------------------------------
 
@@ -452,6 +519,7 @@ class ServingEngine(object):
     replays are invisible (the re-emitted prefix is suppressed)."""
     req = self._req(rid)
     deadline = time.monotonic() + timeout
+    t0 = time.monotonic()
     emitted = 0
     while True:
       remaining = deadline - time.monotonic()
@@ -466,6 +534,10 @@ class ServingEngine(object):
         break
       emitted += 1
       yield tok
+    if self._rec is not None:
+      # the delivery phase of the waterfall: stream attach → sentinel
+      self._rec.record_span("serve.stream", t0, time.monotonic() - t0,
+                            trace=req.trace_id, rid=rid, tokens=emitted)
     with self._lock:
       self._requests.pop(rid, None)
     err = req.error
@@ -592,6 +664,12 @@ class ServingEngine(object):
       return False
     if replay:
       self._count("replays", len(replay))
+      if self._rec is not None:
+        for req in replay:
+          # the crash-replay suppression window on the request's trace
+          self._rec.event("serve.replay", trace=req.trace_id,
+                          rid=req.rid, suppressed=len(req.tokens),
+                          streak=streak)
     if poisoned:
       # removing the suspected cause IS progress
       self._crash_streak = 0
@@ -604,6 +682,9 @@ class ServingEngine(object):
          "replayed": len(replay), "poisoned": poisoned, "streak": streak,
          "error": repr(error)[:200]})
     del self.restart_log[:-_RESTART_LOG_CAP]
+    if self._rec is not None:
+      self._rec.event("serve.restart", replayed=len(replay),
+                      poisoned=poisoned, streak=streak)
     return True
 
   def _die(self, error: BaseException) -> None:
@@ -675,7 +756,21 @@ class ServingEngine(object):
           req = None
       if req.started_at is None:
         req.started_at = time.monotonic()
-      row_cache, first = self.decoder.prefill(req.prompt, self.buckets)
+        if self._rec is not None:
+          # the queue-wait phase of the waterfall, at FIRST admission (a
+          # crash-replay re-admission is not a client-visible queue wait)
+          self._rec.record_span("serve.queue", req.submitted_at,
+                                req.started_at - req.submitted_at,
+                                trace=req.trace_id, rid=req.rid)
+      cm = self._rec.span("serve.prefill", trace=req.trace_id,
+                          rid=req.rid, prompt_len=len(req.prompt),
+                          slot=slot, shared_tokens=0) \
+          if self._rec is not None else contextlib.nullcontext()
+      with cm:
+        row_cache, first = self.decoder.prefill(
+            req.prompt, self.buckets,
+            trace=req.trace_id if self._rec is not None
+            and self._trace_detail else None)
       if req.prefill_done_at is None:   # replays keep the original stamp
         req.prefill_done_at = time.monotonic()
       self._count("prefills")
@@ -703,6 +798,18 @@ class ServingEngine(object):
   def _complete(self, req: sched.Request) -> None:
     self._count("completed")
     req.finish(None)
+    if self._obs_q is not None:
+      # the request's timing ledger feeds the mergeable latency sketches
+      # (completed requests only: a rejected request has no latency)
+      q = self._obs_q
+      if req.ttft is not None:
+        q["ttft_ms"].observe(req.ttft * 1e3)
+      if req.tpot is not None:
+        q["tpot_ms"].observe(req.tpot * 1e3)
+      if req.latency is not None:
+        q["e2e_ms"].observe(req.latency * 1e3)
+      if req.queue_wait is not None:
+        q["queue_wait_ms"].observe(req.queue_wait * 1e3)
 
   # -- decode ----------------------------------------------------------------
 
@@ -720,17 +827,23 @@ class ServingEngine(object):
                                         remaining, self.horizon)
     toks = toks.cpu().numpy()                     # [horizon, num_slots]
     self._count("steps", self.horizon)
+    want_lanes = self._rec is not None and self._trace_detail
+    lanes: List[tuple] = []
     emitted = 0
     for slot in range(self.num_slots):
       req = self._slots[slot]
       if req is None:
         continue
+      lane = 0
       for j in range(self.horizon):
-        emitted += 1
+        lane += 1
         if self._harvest(req, int(toks[j, slot]), slot):
           break
       else:
         self._last[slot] = int(toks[self.horizon - 1, slot])
+      emitted += lane
+      if want_lanes:
+        lanes.append((slot, req.trace_id, lane))
     dt = time.monotonic() - t0
     self._count("decode_s", dt)
     if dt > 0 and emitted:
@@ -738,6 +851,29 @@ class ServingEngine(object):
       rate = emitted / dt
       self._tok_rate = rate if self._tok_rate <= 0 \
           else 0.5 * self._tok_rate + 0.5 * rate
+    if self._rec is not None or self._obs_m is not None:
+      self._obs_decode(t0, dt, int(active.sum()), emitted, lanes)
+
+  def _obs_decode(self, t0: float, dt: float, active: int, emitted: int,
+                  lanes: List[tuple]) -> None:
+    """One decode dispatch into the obs plane: the ``serve.decode`` span
+    and its per-lane ``serve.decode.slot`` children, the token/step
+    counters, the dispatch histogram and the load gauges. ``active`` is
+    the host's count of lanes that entered the dispatch."""
+    if self._rec is not None:
+      self._rec.record_span("serve.decode", t0, dt, horizon=self.horizon,
+                            active=active)
+      for slot, trace, tokens in lanes:
+        self._rec.record_span("serve.decode.slot", t0, dt, trace=trace,
+                              slot=slot, tokens=tokens)
+    m = self._obs_m
+    if m is not None:
+      m["steps"].inc(self.horizon)
+      m["tokens"].inc(emitted)
+      m["decode_ms"].observe(dt * 1e3)
+      m["occupancy"].set(self.occupancy)
+      m["queue_depth"].set(len(self._queue))
+      m["slots_active"].set(sum(1 for r in self._slots if r is not None))
 
   def _harvest(self, req: sched.Request, tok: int, slot: int) -> bool:
     """Record one emitted token; on the request's stop, free its slot

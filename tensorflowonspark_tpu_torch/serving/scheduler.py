@@ -187,6 +187,24 @@ class Request(object):
       return None
     return self.first_token_at - self.submitted_at
 
+  @property
+  def queue_wait(self) -> Optional[float]:
+    """Submit → admitted-to-a-slot wait (None while still queued)."""
+    if self.started_at is None:
+      return None
+    return self.started_at - self.submitted_at
+
+  @property
+  def tpot(self) -> Optional[float]:
+    """Per-output-token time: decode seconds per generated token past
+    the first (None until finished with >= 2 tokens)."""
+    if self.finished_at is None or self.first_token_at is None:
+      return None
+    n = len(self.tokens) - 1
+    if n < 1:
+      return None
+    return (self.finished_at - self.first_token_at) / n
+
   def output(self) -> np.ndarray:
     """prompt + generated tokens (EOS inclusive, no padding)."""
     return np.concatenate(

@@ -22,14 +22,25 @@ the paged slab and self-speculative decode arrive with later slices.
 
 The slab is updated in place (the JAX package returns a new pytree per
 call). The ``ServingEngine`` thread owns it and the host bookkeeping.
+
+Obs seams (``TOS_OBS=1``): prefill, insert, step and step_many call
+``obs.device.note_trace`` (``serve.prefill`` once per chunk shape,
+``serve.insert``, ``serve.step``, ``serve.step_many`` once per horizon),
+counting where the reference's jit retraces; a prefill handed a request
+trace id records one ``serve.prefill.chunk`` span per chunk (dispatch to
+dispatch: only the last chunk's token syncs the host).
 """
 
-from typing import Sequence, Tuple
+import time
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from tensorflowonspark_tpu_torch.models.transformer import KVCache, Transformer
+from tensorflowonspark_tpu_torch.obs import device as obs_device
+from tensorflowonspark_tpu_torch.obs import metrics as obs_metrics
+from tensorflowonspark_tpu_torch.obs import spans as obs_spans
 
 #: prompt-chunk sizes for bucketed prefill, largest-first; 1 must be
 #: reachable so every length decomposes
@@ -74,6 +85,9 @@ class SlotDecoder(object):
     self.num_slots = num_slots
     self.pad_id = int(pad_id)
     self.eos_id = None if eos_id is None else int(eos_id)
+    # obs seam, cached: off = one None check per call
+    self._obs = obs_metrics.active() is not None
+    self._seen: set = set()      # this decoder's "jit cache" of shapes
 
   # -- slab construction ----------------------------------------------------
 
@@ -87,14 +101,16 @@ class SlotDecoder(object):
   # -- prefill (single row, bucketed chunks) --------------------------------
 
   @torch.inference_mode()
-  def prefill(self, prompt, buckets: Sequence[int] = DEFAULT_BUCKETS
-              ) -> Tuple[KVCache, int]:
+  def prefill(self, prompt, buckets: Sequence[int] = DEFAULT_BUCKETS,
+              trace: Optional[str] = None) -> Tuple[KVCache, int]:
     """Prefill one prompt into a fresh ``[1, ...]`` row cache.
 
     Returns ``(row_cache, first_token)``: the warm cache (cursor at
     ``len(prompt)``) and the first generated token. Chunks follow
     :func:`chunk_plan`, so only the LAST chunk's logits matter; the one
-    host sync is reading that token.
+    host sync is reading that token. ``trace`` (a request trace id) turns
+    on the per-chunk ``serve.prefill.chunk`` spans when the obs recorder
+    is live.
     """
     plen = len(prompt)
     if plen + 1 > self.cfg.max_seq_len:
@@ -104,9 +120,17 @@ class SlotDecoder(object):
     tokens = torch.as_tensor(np.asarray(prompt, np.int64).reshape(1, plen),
                              device=self.device)
     row = self.model.init_cache(1)
+    rec = obs_spans.active() if trace is not None else None
     off, logits = 0, None
     for seg in chunk_plan(plen, buckets):
+      t0 = time.monotonic()
+      if self._obs:
+        # the reference's prefill jit retraces once per chunk length
+        obs_device.note_trace("serve.prefill", seg, cache=self._seen)
       logits = self.model(tokens[:, off:off + seg], row)
+      if rec is not None:
+        rec.record_span("serve.prefill.chunk", t0, time.monotonic() - t0,
+                        trace=trace, chunk=seg, offset=off)
       off += seg
     return row, int(logits[0, -1].argmax())
 
@@ -116,6 +140,8 @@ class SlotDecoder(object):
   def insert(self, slabs: KVCache, row: KVCache, slot: int) -> KVCache:
     """Write a prefilled row cache into slab position ``slot`` (the whole
     row, so the previous occupant's entries are overwritten)."""
+    if self._obs:
+      obs_device.note_trace("serve.insert", cache=self._seen)
     for dst, src in zip(slabs.k + slabs.v, row.k + row.v):
       dst[slot].copy_(src[0])
     slabs.index[slot] = int(row.index)
@@ -145,6 +171,8 @@ class SlotDecoder(object):
     ``active``: ``[num_slots]`` bools. Inactive lanes compute but are
     frozen.
     """
+    if self._obs:
+      obs_device.note_trace("serve.step", cache=self._seen)
     return self._one_step(slabs, self._device(last_tokens, torch.long),
                           self._device(active, torch.bool))
 
@@ -160,6 +188,9 @@ class SlotDecoder(object):
     """
     if horizon < 1:
       raise ValueError("horizon must be >= 1, got %d" % horizon)
+    if self._obs:
+      # one compile per distinct horizon in the reference
+      obs_device.note_trace("serve.step_many", horizon, cache=self._seen)
     tok = self._device(last_tokens, torch.long)
     active = self._device(active, torch.bool)
     remaining = self._device(remaining, torch.long)

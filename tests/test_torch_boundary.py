@@ -53,7 +53,11 @@ def test_port_sources_import_no_jax():
                "pipeline.py", "inference_cli.py", "parallel/runner.py",
                "models/mnist.py", "examples/serve_gpt.py",
                "examples/mnist_pipeline.py",
-               "examples/mnist_parallel_inference.py"):
+               "examples/mnist_parallel_inference.py",
+               # and the observability plane
+               "obs/collector.py", "obs/export.py", "obs/slo.py",
+               "obs/anomaly.py", "obs/device.py", "obs/profiler.py",
+               "utils/profiler.py"):
     assert os.path.join(*name.split("/")) in scanned, name
   bad = sorted((os.path.relpath(p, ROOT), root) for p in files
                for root in _imported_roots(p) if root in FORBIDDEN)

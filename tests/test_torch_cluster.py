@@ -400,7 +400,9 @@ def _local_closure():
 
 
 @pytest.mark.parametrize("kwargs,env,exc,match", [
-    (dict(), {"TOS_OBS": "1"}, NotImplementedError, "item 7"),
+    # the observability plane is ported: TOS_OBS=1 is no longer refused,
+    # and the run goes on to launch its nodes on the engine
+    (dict(), {"TOS_OBS": "1"}, AssertionError, "executor was touched"),
     (dict(group_map={0: 0, 1: 1}), {}, NotImplementedError, "item 10"),
     (dict(elastic=True), {}, NotImplementedError, "item 10"),
     (dict(feed_segment=object()), {}, NotImplementedError, "item 11"),
@@ -410,11 +412,16 @@ def _local_closure():
         "closure"])
 def test_unported_paths_are_refused_before_any_executor(kwargs, env, exc,
                                                         match, monkeypatch):
+  from tensorflowonspark_tpu_torch.obs import metrics, spans
   for k, v in env.items():
     monkeypatch.setenv(k, v)
   main_fn = kwargs.pop("main_fn", _report_roles)
-  with pytest.raises(exc, match=match):
-    port_cluster.run(_UntouchedEngine(), main_fn, **kwargs)
+  try:
+    with pytest.raises(exc, match=match):
+      port_cluster.run(_UntouchedEngine(), main_fn, **kwargs)
+  finally:
+    metrics.deactivate()       # what TOS_OBS=1 installed in this process
+    spans.deactivate()
 
 
 # -- the engine feed plane ------------------------------------------------------

@@ -139,6 +139,33 @@ failure:
    and p99 within its rank error of the exact TTFTs, no SLO burn with
    ``TOS_SLO_TTFT_MS`` above the worst, and ``prometheus_text`` of the
    registry parsing line by line;
+   (6p) the serving fleet, in the driver on the one card: (a) [4]'s 16
+   requests through a bare ``ServingEngine(num_slots=8, horizon=4)`` (its
+   outputs equal to [4]'s in the full run); (b) the same through
+   ``ServingFleet(factory, num_replicas=2)`` of [4]'s engines, both on the
+   card, with the registry on: every output equal to (a)'s to the bit,
+   both replicas prefilling requests, exactly 12 flash forwards a prefill
+   (192, as in (a)) and 25 LayerNorm forwards a forward (the prefill
+   chunks, as in (a), plus both replicas' decode steps), the ``fleet.*``
+   counters and gauges the detector and the SLO tracker read (16
+   submitted, dispatched and completed, nothing rejected, shed or failed
+   over, 2 of 2 replicas active, queue and occupancy 0) and no alert from
+   the detector; (d) the 16 again with ``rolling_swap`` to a factory of
+   the same weights while they are in flight: 2 replicas swapped, all
+   drained, nothing shed, outputs equal to (a)'s; (c) a fresh fleet under
+   ``TOS_CHAOS_FLEET=dispatch@1#3:kill``: request 0 lands on replica 0,
+   request 1 on replica 1 and is read through ``stream()``; after its 2nd
+   token the other 14 are submitted, and replica 1's 3rd dispatch consult
+   kills it with request 1 mid-decode: replica 1 ejected, failovers >= 1,
+   shed 0, replay mismatches 0, the detector raising ``fleet_degraded``,
+   every output equal to (a)'s, and the stream giving each of request 1's
+   32 positions once across its hop from replica 1 to 0; (e) a bare engine
+   under ``TOS_CHAOS_SERVE=decode#3:raise``: exactly one restart, the
+   in-flight requests replayed, outputs equal to (a)'s. Logged beside the
+   card's name and power limit: tokens/s and TTFT p50 / p99 of (a) and
+   (b) (two replicas share one card and one host process), the seconds
+   from the kill to the last replayed completion, the swap's seconds and
+   the peak memory with one and with two replicas;
    (6l) data parallelism across processes: (6l-a) [6]'s steps (2 warm-up,
    4 ``make_train_step``, one unroll-4 slab, one profiled) with no mesh
    and then over the data axis of a 1-rank NCCL group
@@ -261,6 +288,10 @@ busy, and [6]'s per-step ms/step in the driver with the plane off, its
 step seams alone, the seams and a shipper at ten times the default
 cadence, and the seams and the memory sampler alone at that cadence,
 interleaved; it prints its measurements as one JSON line.
+
+``python3 chip_smoke.py --fleet-only`` runs phases 1 and 6p alone (the
+driver builds every kernel first) at [4]'s sizes and prints its
+measurements as one JSON line.
 
 ``python3 chip_smoke.py --serving-only N`` runs phases 1, 2 and 4 alone:
 the serving main path N times in one process, then the host time of one
@@ -3393,6 +3424,399 @@ def obs_phase(torch, ops, tfm, ServingEngine, slots, card, params, cfg,
   return res
 
 
+# -- phase 6p: the serving fleet and the chaos fault sites -------------------
+
+FLEET_REPLICAS = 2
+FLEET_KILL = "dispatch@1#3:kill"     # (c): replica 1's 3rd dispatch consult
+FLEET_CRASH = "decode#3:raise"       # (e): the bare engine's 3rd decode
+FLEET_STREAMED = 1                   # (c): the request read through stream()
+
+
+def _fleet_factory(ServingEngine, params, cfg):
+  """The replicas' factory: [4]'s engine on [4]'s weights, on the card."""
+  return lambda: ServingEngine(params, cfg, num_slots=8, horizon=4,
+                               max_new_tokens=MAIN_NEW)
+
+
+def _warm_replicas(fl, cfg):
+  """[4]'s warm-up on each replica directly (no fleet dispatch, so no chaos
+  consult): cuBLAS handles and first launches of each loop thread."""
+  for rep in fl._replicas.values():
+    rep.engine.generate(_prompts((40, 130), cfg.vocab_size, SEED + 7),
+                        max_new_tokens=4, timeout=600)
+
+
+def _engine_counts(engines):
+  return {id(e): (e.stats["prefills"], e.stats["steps"]) for e in engines}
+
+
+def _fleet_launch_check(what, launches, engines, before, cfg, chunks=None):
+  """The launch rule of [4] over every engine a fleet phase ran: 12 flash
+  forwards a prefill (the fresh-cache first chunk) and 25 LayerNorm
+  forwards a forward, prefill chunk or decode step. ``chunks`` (the prefill
+  chunks of the phase's prompts, each prefilled once) makes the LayerNorm
+  count exact; without it (a replay prefills some prompts again) it is a
+  floor."""
+  prefills = sum(e.stats["prefills"] - before.get(id(e), (0, 0))[0]
+                 for e in engines)
+  steps = sum(e.stats["steps"] - before.get(id(e), (0, 0))[1]
+              for e in engines)
+  per_forward = 2 * cfg.num_layers + 1
+  want_flash = cfg.num_layers * prefills
+  if launches["flash_attention_fwd"] != want_flash:
+    raise AssertionError("%s: flash attention launched %d times, %d "
+                         "prefills need %d" % (
+                             what, launches["flash_attention_fwd"], prefills,
+                             want_flash))
+  if chunks is not None:
+    want_ln = per_forward * (chunks + steps)
+    if launches["layer_norm"] != want_ln:
+      raise AssertionError("%s: layer_norm launched %d times, the path needs "
+                           "%d (25 x (%d chunks + %d steps))" % (
+                               what, launches["layer_norm"], want_ln, chunks,
+                               steps))
+  elif launches["layer_norm"] < per_forward * steps:
+    raise AssertionError("%s: layer_norm launched %d times, under 25 a "
+                         "step for %d steps" % (what, launches["layer_norm"],
+                                                steps))
+  return {"prefills": prefills, "steps": steps}
+
+
+def _ttft_ms(freqs):
+  ttft = sorted(f.ttft * 1e3 for f in freqs)
+  return (statistics.median(ttft),
+          ttft[min(len(ttft) - 1, int(math.ceil(0.99 * len(ttft))) - 1)])
+
+
+def _same_outputs(what, outs, want):
+  bad = [i for i, (o, w) in enumerate(zip(outs, want)) if o != w]
+  if len(outs) != len(want) or bad:
+    raise AssertionError("%s: outputs of requests %s differ from (a)'s bare "
+                         "engine" % (what, bad or "(count)"))
+
+
+def fleet_served(torch, ops, fl, prompts, cfg, chunks, what):
+  """(b): the requests through a running fleet, launch counts zeroed just
+  before and read just after."""
+  engines = [rep.engine for rep in fl._replicas.values()]
+  before = _engine_counts(engines)
+  decode_s = [e.stats["decode_s"] for e in engines]
+  torch.cuda.synchronize()
+  ops.reset_launches()
+  t0 = time.monotonic()
+  frids = [fl.submit(p) for p in prompts]
+  freqs = [fl.request(f) for f in frids]
+  outs = [fl.result(f, timeout=600).tolist() for f in frids]
+  torch.cuda.synchronize()
+  wall = time.monotonic() - t0
+  launches = dict(ops.LAUNCHES)
+  counts = _fleet_launch_check(what, launches, engines, before, cfg, chunks)
+  generated = sum(len(o) - len(p) for p, o in zip(prompts, outs))
+  p50, p99 = _ttft_ms(freqs)
+  steps = [e.stats["steps"] - before[id(e)][1] for e in engines]
+  return outs, {"wall_s": wall, "tokens_per_s": generated / wall,
+                "ttft_ms_p50": p50, "ttft_ms_p99": p99,
+                "launches": launches, **counts,
+                "prefills_by_replica": [
+                    e.stats["prefills"] - before[id(e)][0] for e in engines],
+                "steps_by_replica": steps,
+                # wall ms of a decode step in each replica's loop thread
+                # (a dispatch ends in its host harvest): against (a)'s,
+                # what sharing the card and the process costs a replica
+                "decode_ms_per_step_by_replica": [
+                    (e.stats["decode_s"] - d) / max(1, n) * 1e3
+                    for e, d, n in zip(engines, decode_s, steps)]}
+
+
+def fleet_gauges(metrics, anomaly, reg, fl, n):
+  """(b)'s obs gates: the fleet's counters and gauges under the names the
+  port's detector and SLO tracker read, and no alert from the detector."""
+  time.sleep(4 * fl._poll)           # the monitor's next gauge pass
+  snap = reg.snapshot()
+  got = {k: snap[k]["value"] for k in snap if k.startswith("fleet.")}
+  want = {"fleet.submitted": n, "fleet.dispatched": n, "fleet.completed": n,
+          "fleet.rejected": 0, "fleet.failovers": 0, "fleet.shed": 0,
+          "fleet.ejections": 0, "fleet.replay_mismatches": 0,
+          "fleet.replicas_total": FLEET_REPLICAS,
+          "fleet.replicas_active": FLEET_REPLICAS,
+          "fleet.replicas_draining": 0, "fleet.queue_depth": 0,
+          "fleet.occupancy": 0}
+  bad = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+  if bad:
+    raise AssertionError("[6p](b): fleet metrics (got, want) %s" % bad)
+  det = anomaly.AnomalyDetector(_OneExecutorSink(reg), interval=0.05,
+                                window=0.2,
+                                registry=metrics.MetricsRegistry())
+  t = time.monotonic()
+  alerts = det.poll(t) + det.poll(t + 1.0)
+  if alerts:
+    raise AssertionError("[6p](b): the detector raised %s"
+                         % [a["alert"] for a in alerts])
+  return got
+
+
+class _OneExecutorSink(object):
+  """The detector's view of one process's registry (the driver-side sink
+  a cluster would feed): executor 0's metrics are this registry's."""
+
+  def __init__(self, reg):
+    self.executors = {0: None}
+    self._reg = reg
+
+  def metrics(self, executor_id=None):
+    return self._reg.snapshot()
+
+
+def fleet_failover(torch, ops, fleet_mod, fl, prompts, cfg, want, det):
+  """(c): request 0 goes to replica 0 and request 1 to replica 1 (the idle
+  one scores first); request 1 is read through ``stream()``, and after its
+  2nd token the other 14 are submitted, so replica 1's 3rd dispatch consult
+  kills it with request 1 mid-decode. Every output must equal (a)'s and the
+  streamed one must give each position exactly once."""
+  engines = [rep.engine for rep in fl._replicas.values()]
+  before = _engine_counts(engines)
+  torch.cuda.synchronize()
+  ops.reset_launches()
+  t0 = time.monotonic()
+  frids = [fl.submit(prompts[0]), fl.submit(prompts[FLEET_STREAMED])]
+  x = fl.request(frids[1])
+  streamed = []
+  for tok in fl.stream(frids[1], timeout=600):
+    streamed.append(tok)
+    if len(streamed) == 2:
+      frids[2:] = [fl.submit(p) for p in prompts[2:]]
+  # the stream consumer recorded request 1's verdict and popped its entry
+  freqs = [x if f == frids[1] else fl.request(f) for f in frids]
+  outs = [x.output.tolist() if f == frids[1] else
+          fl.result(f, timeout=600).tolist() for f in frids]
+  torch.cuda.synchronize()
+  wall = time.monotonic() - t0
+  launches = dict(ops.LAUNCHES)
+  counts = _fleet_launch_check("[6p](c)", launches, engines, before, cfg)
+  states = fl.replica_states()
+  stats = dict(fl.stats)
+  eject = next(e for e in fl.events if e["event"] == "eject")
+  replayed = [f for f in freqs if f.failovers]
+  kill_to_done = max(f.finished_at for f in replayed) - eject["t"]
+  alerts = det.poll(time.monotonic() + 2.0) + det.poll(time.monotonic()
+                                                         + 3.0)
+  what = "[6p](c) failover under TOS_CHAOS_FLEET=%s" % FLEET_KILL
+  _same_outputs(what, outs, want)
+  x_want = want[FLEET_STREAMED][len(prompts[FLEET_STREAMED]):]
+  if streamed != x_want or len(streamed) != MAIN_NEW:
+    raise AssertionError("%s: stream() gave %d tokens, not each of the %d "
+                         "positions once" % (what, len(streamed), MAIN_NEW))
+  hop = [rid for rid, _ in x.attempts]
+  if states[1] != fleet_mod.EJECTED or states[0] != fleet_mod.ACTIVE or \
+      hop != [1, 0] or "InjectedFault" not in eject["cause"]:
+    raise AssertionError("%s: replica states %s, the streamed request's "
+                         "replicas %s, eject %s" % (what, states, hop, eject))
+  if stats["failovers"] < 1 or stats["shed"] or stats["replay_mismatches"] \
+      or stats["completed"] != len(prompts):
+    raise AssertionError("%s: stats %s" % (what, stats))
+  if "fleet_degraded" not in [a["alert"] for a in alerts]:
+    raise AssertionError("%s: the detector did not read the ejection as "
+                         "fleet_degraded: %s" % (what, alerts))
+  return {"wall_s": wall, "kill_to_last_replay_s": kill_to_done,
+          "failovers": stats["failovers"], "replays": stats["replays"],
+          "replayed_requests": len(replayed), "shed": stats["shed"],
+          "replay_mismatches": stats["replay_mismatches"],
+          "streamed_tokens": len(streamed), "streamed_hop": hop,
+          "states": {str(k): v for k, v in states.items()},
+          "alerts": sorted({a["alert"] for a in alerts}),
+          "launches": launches, **counts}
+
+
+def fleet_swap(torch, ops, fl, prompts, cfg, factory, want):
+  """(d): the 16 requests submitted, then ``rolling_swap`` to a factory with
+  the same weights while they are in flight."""
+  engines = [rep.engine for rep in fl._replicas.values()]
+  before = _engine_counts(engines)
+  torch.cuda.synchronize()
+  ops.reset_launches()
+  frids = [fl.submit(p) for p in prompts]
+  t0 = time.monotonic()
+  report = fl.rolling_swap(timeout=600.0, engine_factory=factory)
+  swap_s = time.monotonic() - t0
+  outs = [fl.result(f, timeout=600).tolist() for f in frids]
+  torch.cuda.synchronize()
+  launches = dict(ops.LAUNCHES)
+  engines += [rep.engine for rep in fl._replicas.values()]
+  counts = _fleet_launch_check("[6p](d)", launches, engines, before, cfg)
+  stats = dict(fl.stats)
+  what = "[6p](d) rolling swap mid-flight"
+  _same_outputs(what, outs, want)
+  if report["swapped"] != FLEET_REPLICAS or stats["shed"] or \
+      not all(r["drained"] for r in report["replicas"]):
+    raise AssertionError("%s: report %s, stats %s" % (what, report, stats))
+  return {"swap_s": swap_s, "swapped": report["swapped"],
+          "shed": stats["shed"], "swaps": stats["swaps"],
+          "launches": launches, **counts}
+
+
+def fleet_crash_replay(torch, ops, chaos, ServingEngine, params, cfg, prompts,
+                       want):
+  """(e): the bare engine under ``TOS_CHAOS_SERVE=decode#3:raise``."""
+  chaos.reset()
+  with env_var(chaos.ENV_SERVE, FLEET_CRASH):
+    eng = ServingEngine(params, cfg, num_slots=8, horizon=4,
+                        max_new_tokens=MAIN_NEW).start()
+    try:
+      torch.cuda.synchronize()
+      ops.reset_launches()
+      rids = [eng.submit(p) for p in prompts]
+      handles = [eng.request(r) for r in rids]
+      outs = [eng.result(r, timeout=600).tolist() for r in rids]
+      torch.cuda.synchronize()
+    finally:
+      eng.stop()
+  chaos.reset()
+  launches = dict(ops.LAUNCHES)
+  replays = sum(h.replays for h in handles)
+  counts = _fleet_launch_check("[6p](e)", launches, [eng], {}, cfg)
+  what = "[6p](e) crash replay under TOS_CHAOS_SERVE=%s" % FLEET_CRASH
+  _same_outputs(what, outs, want)
+  if eng.stats["engine_restarts"] != 1 or eng.stats["replay_mismatches"] \
+      or eng.stats["poisoned"] or not replays:
+    raise AssertionError("%s: stats %s, %d replays" % (what, eng.stats,
+                                                       replays))
+  return {"engine_restarts": eng.stats["engine_restarts"],
+          "replayed_requests": replays,
+          "restart_s": eng.restart_log[0]["duration_s"],
+          "launches": launches, **counts}
+
+
+def fleet_phase(torch, ops, tfm, ServingEngine, slots, card, params, cfg,
+                serve_ref=None):
+  """[6p]: [4]'s 16 requests through a 2-replica ``ServingFleet`` sharing
+  the card, against a bare engine, with a replica killed, a rolling swap
+  and a crash replay (module docstring). ``serve_ref`` is [4]'s result in
+  the full run, whose outputs (a) must equal."""
+  from tensorflowonspark_tpu_torch.obs import anomaly, metrics
+  from tensorflowonspark_tpu_torch.serving import ServingFleet
+  from tensorflowonspark_tpu_torch.serving import fleet as fleet_mod
+  from tensorflowonspark_tpu_torch.utils import chaos
+  prompts = _prompts(MAIN_LENGTHS, cfg.vocab_size, SEED + 2)
+  chunks = sum(len(slots.chunk_plan(len(p), slots.DEFAULT_BUCKETS))
+               for p in prompts)
+  factory = _fleet_factory(ServingEngine, params, cfg)
+  res = {"card": card}
+
+  log("  (a) the bare engine")
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  bare, model = serve_main_path(torch, ops, tfm, ServingEngine, slots,
+                                params, cfg)
+  del model
+  want = bare.pop("outputs")
+  bare.pop("ttft_ms_exact")
+  if serve_ref is not None and want != serve_ref["outputs"]:
+    raise AssertionError("[6p](a): the bare engine's outputs differ from "
+                         "[4]'s")
+  res["bare"] = bare
+
+  log("  (b) ServingFleet(factory, num_replicas=%d), both on the card"
+      % FLEET_REPLICAS)
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  reg = metrics.activate()
+  try:
+    fl = ServingFleet(factory, num_replicas=FLEET_REPLICAS).start()
+  finally:
+    metrics.deactivate()             # the fleet and engines keep handles
+  try:
+    _warm_replicas(fl, cfg)
+    outs, served = fleet_served(torch, ops, fl, prompts, cfg, chunks,
+                                "[6p](b)")
+    served["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    _same_outputs("[6p](b) fleet", outs, want)
+    if not all(served["prefills_by_replica"]):
+      raise AssertionError("[6p](b): a replica took no request: %s"
+                           % served["prefills_by_replica"])
+    if served["launches"]["flash_attention_fwd"] != \
+        bare["launches"]["flash_attention_fwd"] or \
+        served["prefills"] != len(prompts):
+      raise AssertionError("[6p](b): %d flash forwards for %d prefills, "
+                           "(a) launched %d" % (
+                               served["launches"]["flash_attention_fwd"],
+                               served["prefills"],
+                               bare["launches"]["flash_attention_fwd"]))
+    served["metrics"] = fleet_gauges(metrics, anomaly, reg, fl,
+                                     len(prompts))
+    res["fleet"] = served
+    log("  (b) %d requests over %d replicas (prefills %s): outputs equal "
+        "(a)'s to the bit; %.1f tok/s (bare %.1f), decode ms/step by replica "
+        "%s (bare %.3f), TTFT p50 %.1f ms p99 %.1f ms (bare %.1f / %.1f); "
+        "peak %.2f GiB (bare %.2f); launches %s; no alert; %s" % (
+            len(prompts), FLEET_REPLICAS, served["prefills_by_replica"],
+            served["tokens_per_s"], bare["tokens_per_s"],
+            ["%.3f" % x for x in served["decode_ms_per_step_by_replica"]],
+            bare["decode_ms_per_step"],
+            served["ttft_ms_p50"], served["ttft_ms_p99"], bare["ttft_ms_p50"],
+            bare["ttft_ms_p99"], served["peak_mem_gib"], bare["peak_mem_gib"],
+            served["launches"], card))
+
+    log("  (d) rolling_swap mid-flight to a factory with the same weights")
+    res["swap"] = fleet_swap(torch, ops, fl, prompts, cfg, factory, want)
+    log("  (d) swapped %d replicas in %.2f s with %d requests in flight, "
+        "shed %d, outputs equal (a)'s to the bit; %s" % (
+            res["swap"]["swapped"], res["swap"]["swap_s"], len(prompts),
+            res["swap"]["shed"], card))
+  finally:
+    fl.stop()
+  del fl
+  torch.cuda.empty_cache()
+
+  log("  (c) the same under TOS_CHAOS_FLEET=%s, request %d streamed"
+      % (FLEET_KILL, FLEET_STREAMED))
+  chaos.reset()
+  reg = metrics.activate()
+  try:
+    with env_var(chaos.ENV_FLEET, FLEET_KILL):
+      fl = ServingFleet(factory, num_replicas=FLEET_REPLICAS,
+                        poll_interval=0.02).start()
+      try:
+        _warm_replicas(fl, cfg)
+        det = anomaly.AnomalyDetector(_OneExecutorSink(reg), interval=0.05,
+                                      window=0.2,
+                                      registry=metrics.MetricsRegistry())
+        det.poll(time.monotonic())
+        res["failover"] = fleet_failover(torch, ops, fleet_mod, fl, prompts,
+                                         cfg, want, det)
+      finally:
+        fl.stop()
+  finally:
+    metrics.deactivate()
+    chaos.reset()
+  del fl
+  torch.cuda.empty_cache()
+  f = res["failover"]
+  log("  (c) replica 1 ejected at its 3rd dispatch; %d failovers, %d "
+      "requests replayed, shed %d, replay mismatches %d; outputs equal (a)'s "
+      "to the bit; the streamed request hopped %s and gave %d positions "
+      "once each; kill to the last replayed completion %.3f s; alerts %s; "
+      "%s" % (f["failovers"], f["replayed_requests"], f["shed"],
+              f["replay_mismatches"], f["streamed_hop"], f["streamed_tokens"],
+              f["kill_to_last_replay_s"], f["alerts"], card))
+
+  log("  (e) the bare engine under TOS_CHAOS_SERVE=%s" % FLEET_CRASH)
+  res["crash_replay"] = fleet_crash_replay(torch, ops, chaos, ServingEngine,
+                                           params, cfg, prompts, want)
+  log("  (e) one restart, %d requests replayed, outputs equal (a)'s to the "
+      "bit; %s" % (res["crash_replay"]["replayed_requests"], card))
+  torch.cuda.empty_cache()
+  return res
+
+
+def fleet_launches(res, name):
+  """[6p]'s launches of one kernel, by path, for the kernels line."""
+  return {"fleet_bare": res["bare"]["launches"][name],
+          "fleet_2_replicas": res["fleet"]["launches"][name],
+          "fleet_failover": res["failover"]["launches"][name],
+          "fleet_rolling_swap": res["swap"]["launches"][name],
+          "fleet_crash_replay": res["crash_replay"]["launches"][name]}
+
+
 # -- phase 6l: data parallelism across processes -----------------------------
 
 DP_STEPS, DP_UNROLL = 4, 2          # [6l-b]: per-step steps, then one slab
@@ -4880,6 +5304,46 @@ def obs_only(torch, ops, tfm, ServingEngine, slots, init_params, _build,
   return 0
 
 
+def fleet_only(torch, ops, tfm, ServingEngine, slots, init_params, _build,
+               card):
+  """``--fleet-only``: phase 6p alone, at [4]'s sizes (the driver builds
+  every kernel first)."""
+  log("  built %s" % _build.build_all())
+  cfg = tfm.TransformerConfig()
+  t0 = time.monotonic()
+  res = fleet_phase(torch, ops, tfm, ServingEngine, slots, card,
+                    init_params(cfg, seed=SEED), cfg)
+  res["total_s"] = time.monotonic() - t0
+  os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+  with open(os.path.join(HERE, "chiprun_out", "chip_smoke_fleet.json"),
+            "w") as f:
+    json.dump(res, f, indent=1)
+  log(card)
+  log(json.dumps({"fleet": fleet_summary(res), "card": card}))
+  log(json.dumps({"ok": True, "device": {
+      "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+      "count": torch.cuda.device_count()}}))
+  return 0
+
+
+def fleet_summary(res):
+  """[6p]'s numbers for one JSON line."""
+  keys = ("tokens_per_s", "ttft_ms_p50", "ttft_ms_p99", "peak_mem_gib")
+  return {"bare": {k: res["bare"][k] for k in keys + (
+      "decode_ms_per_step",)},
+          "fleet": {k: res["fleet"][k] for k in keys + (
+              "prefills_by_replica", "decode_ms_per_step_by_replica")},
+          "failover": {k: res["failover"][k] for k in (
+              "kill_to_last_replay_s", "failovers", "replayed_requests",
+              "shed", "replay_mismatches", "streamed_tokens",
+              "streamed_hop", "alerts")},
+          "swap": {k: res["swap"][k] for k in ("swap_s", "swapped", "shed")},
+          "crash_replay": {k: res["crash_replay"][k] for k in (
+              "engine_restarts", "replayed_requests")},
+          "launches": {k: fleet_launches(res, k) for k in (
+              "flash_attention_fwd", "layer_norm")}}
+
+
 def main(argv):
   repeats, ln_only = 0, argv == ["--layer-norm-only"]
   only_cluster = argv == ["--cluster-only"]
@@ -4889,14 +5353,16 @@ def main(argv):
   only_pipeline = argv == ["--pipeline-only"]
   only_options = argv == ["--train-options-only"]
   only_obs = argv == ["--obs-only"]
+  only_fleet = argv == ["--fleet-only"]
   if argv[:1] == ["--serving-only"] and len(argv) == 2:
     repeats = int(argv[1])
   elif argv and not (ln_only or only_cluster or only_feed or only_ckpt
                      or only_dp or only_pipeline or only_options
-                     or only_obs):
+                     or only_obs or only_fleet):
     log("usage: python3 chip_smoke.py [--serving-only N | "
         "--layer-norm-only | --cluster-only | --feed-only | --ckpt-only | "
-        "--dp-only | --pipeline-only | --train-options-only | --obs-only]")
+        "--dp-only | --pipeline-only | --train-options-only | --obs-only | "
+        "--fleet-only]")
     return 2
   try:
     import torch
@@ -4950,6 +5416,9 @@ def main(argv):
   if only_obs:
     return obs_only(torch, ops, tfm, ServingEngine, slots, init_params,
                     _build, card)
+  if only_fleet:
+    return fleet_only(torch, ops, tfm, ServingEngine, slots, init_params,
+                      _build, card)
 
   log("[2] build")
   t0 = time.monotonic()
@@ -5094,6 +5563,12 @@ def main(argv):
   obs_res = obs_phase(torch, ops, tfm, ServingEngine, slots, card, params,
                       cfg, feed_ref=feed_res["train"], serve_ref=main_res)
   torch.cuda.empty_cache()
+  log("[6p] the serving fleet: [4]'s requests over %d replicas sharing the "
+      "card, a replica killed, a rolling swap, a crash replay"
+      % FLEET_REPLICAS)
+  fleet_res = fleet_phase(torch, ops, tfm, ServingEngine, slots, card, params,
+                          cfg, serve_ref=main_res)
+  torch.cuda.empty_cache()
   dp_res = dp_phases(torch, ops, tfm, optim, sharding, Slab, train_gpt,
                      params, cfg)
   torch.cuda.empty_cache()
@@ -5191,6 +5666,7 @@ def main(argv):
              "obs_feed_train_12_steps": obs_launches("flash_attention_fwd"),
              "obs_serve": obs_res["serve"]["launches"][
                  "flash_attention_fwd"],
+             **fleet_launches(fleet_res, "flash_attention_fwd"),
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "flash_attention_fwd"),
              "serve_gpt_config_bf16": serve_gpt_res["bfloat16"]["launches"][
@@ -5214,6 +5690,7 @@ def main(argv):
              "feed_inference_4_forwards": infer_launches("layer_norm"),
              "obs_feed_train_12_steps": obs_launches("layer_norm"),
              "obs_serve": obs_res["serve"]["launches"]["layer_norm"],
+             **fleet_launches(fleet_res, "layer_norm"),
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "layer_norm"),
              **dp_launches(dp_res, "layer_norm"),
@@ -5315,7 +5792,8 @@ def main(argv):
             "train_fused": fused_res, "train_fused_gqa": fgqa_res,
             "train_long_gqa": long_res, "cluster_long_gqa": cluster_res,
             "ckpt_resume": ckpt_res, "train_options": options_res,
-            "feed": feed_res, "obs": obs_res, "dp": dp_res,
+            "feed": feed_res, "obs": obs_res, "fleet": fleet_res,
+            "dp": dp_res,
             "pipeline": pipe_res,
             "train_split": split_res,
             "train_parity_f32": train_parity,

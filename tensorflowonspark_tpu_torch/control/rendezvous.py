@@ -56,6 +56,7 @@ from typing import Dict, List, Optional, Tuple
 
 from tensorflowonspark_tpu_torch.control import _msgpack as msgpack
 from tensorflowonspark_tpu_torch.obs import spans as obs_spans
+from tensorflowonspark_tpu_torch.utils import chaos
 
 logger = logging.getLogger(__name__)
 
@@ -752,8 +753,14 @@ class Client(MessageSocket):
     return s
 
   def _request(self, msg: dict) -> dict:
-    # the chaos fault site of the JAX package (dropped / delayed messages)
-    # arrives with the fault-injection harness, ROADMAP Queue 1 item 8
+    if chaos.enabled():
+      drop, delay = chaos.message_fault(msg.get("type"))
+      if delay:
+        time.sleep(delay)
+      if drop:
+        # lost on the (simulated) wire: the server never sees it; callers
+        # polling for state simply observe nothing changed
+        return {"type": "DROPPED", "dropped": True, "done": False}
     deadline = time.monotonic() + self.timeout
     attempt = 0
     last = None

@@ -51,7 +51,7 @@ from typing import Dict, List, Optional
 from tensorflowonspark_tpu_torch.control import chunkcodec, feedhub, rendezvous
 from tensorflowonspark_tpu_torch.control.marker import EndPartition
 from tensorflowonspark_tpu_torch.obs import metrics as obs_metrics
-from tensorflowonspark_tpu_torch.utils import gpu_info, hostinfo, paths
+from tensorflowonspark_tpu_torch.utils import chaos, gpu_info, hostinfo, paths
 
 logger = logging.getLogger(__name__)
 
@@ -1113,10 +1113,6 @@ def _materialize_partition(iterator):
   return itertools.chain([first], iterator)
 
 
-# The JAX package's feeders also call ``chaos.stall_point("feeder")`` (the
-# fault sites of utils/chaos.py, ROADMAP Queue 1 item 8).
-
-
 class TrainFeeder(object):
   """Feeder task: push one data partition into the local node's input
   channel (parity: TFSparkNode.train, TFSparkNode.py:468-535; the JAX
@@ -1142,6 +1138,9 @@ class TrainFeeder(object):
 
   def __call__(self, iterator):
     executor_id = hostinfo.read_executor_id(os.getcwd())
+    # deterministic fault site (TOS_CHAOS_STALL "feeder[@executor]:s"): a
+    # slow feed task, once per process
+    chaos.stall_point("feeder", index=executor_id)
     hub = _get_hub(self.cluster_info, executor_id,
                    bytes(self.cluster_meta["authkey"]))
     state = hub.get("state")

@@ -23,6 +23,7 @@ kernels; their backwards are plain PyTorch, as the reference's are plain
 XLA.
 """
 
+import threading
 from typing import Dict
 
 import torch
@@ -36,6 +37,7 @@ LAUNCHES: Dict[str, int] = {"layer_norm": 0, "layer_norm_bwd": 0,
                              "flash_attention_bwd_dkv": 0,
                              "flash_attention_bwd_dkv_gqa": 0,
                              "ln_matmul": 0, "gelu_matmul": 0}
+_LAUNCH_LOCK = threading.Lock()
 
 
 def on_card(*tensors: torch.Tensor) -> bool:
@@ -55,7 +57,9 @@ def on_card(*tensors: torch.Tensor) -> bool:
 
 
 def count_launch(name: str) -> None:
-  LAUNCHES[name] += 1
+  # locked: the replicas of a serving fleet launch from a loop thread each
+  with _LAUNCH_LOCK:
+    LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:

@@ -33,11 +33,19 @@ Usage::
     tokens = eng.result(rid, timeout=60)        # prompt + generated
     eng.drain(timeout=30)                       # or eng.stop()
 
+The fleet surface is the reference's too: the load properties a router
+scores replicas by (:attr:`queue_depth`, :attr:`queued_tokens`,
+:attr:`tokens_per_sec`, :attr:`slots_in_use`, :attr:`occupancy_now`; host
+state only, none syncs the card), :meth:`poll`, :meth:`stats_snapshot`
+and the terminal-death seam :meth:`kill` that ``serving.fleet`` drives.
+The ``TOS_CHAOS_SERVE`` fault sites sit in ``serving.slots`` (``prefill``
+and ``decode``): an injected raise is healed by crash replay like any
+other loop crash.
+
 Not in this slice, and refused with ``NotImplementedError`` when asked
 for: the paged slab (``page_size``/``num_pages``), the shared-prefix
 cache (``prefix_pages``) and self-speculative decode (``spec_depth``/
-``spec_layers``). The chaos fault sites arrive with their own slice
-(ROADMAP Queue 1 item 8).
+``spec_layers``), ROADMAP Queue 1 item 9.
 
 Obs seams (``TOS_OBS=1``; handles cached at construction, so with the
 plane off each seam is one None check): the reference's ``serve.*``
@@ -278,6 +286,11 @@ class ServingEngine(object):
     if self._obs_m is not None and key in _STATS_TWINS:
       self._obs_m[key].inc(n)
 
+  def stats_snapshot(self) -> obs_metrics.StatsSnapshot:
+    """Subtraction baseline over the live ``stats`` dict: the safe way to
+    read per-pass deltas while the loop thread keeps mutating it."""
+    return obs_metrics.snapshot_stats(self.stats)
+
   @property
   def occupancy(self) -> float:
     """Live-slot fraction over all decode steps so far (goodput proxy)."""
@@ -285,6 +298,56 @@ class ServingEngine(object):
     if not steps:
       return 0.0
     return self.stats["live_slot_steps"] / float(steps * self.num_slots)
+
+  # -- load telemetry (the fleet router's dispatch inputs) -------------------
+
+  @property
+  def queue_depth(self) -> int:
+    """Queued-or-admitting request count: a request the loop popped but
+    has not finished prefilling into a slot is still backlog, or a
+    load-aware router double-books the replica busiest admitting."""
+    adm = self._admitting
+    return len(self._queue) + (1 if adm is not None else 0)
+
+  @property
+  def queued_tokens(self) -> int:
+    """Queued-or-admitting token mass: prompt + budget over the backlog
+    (the :attr:`queue_depth` rule for a request mid-admission)."""
+    adm = self._admitting
+    extra = (len(adm.prompt) + adm.max_new_tokens) if adm is not None \
+        else 0
+    return self._queue.token_mass + extra
+
+  @property
+  def tokens_per_sec(self) -> float:
+    """Live tokens/s EMA over decode passes (0.0 before the first)."""
+    return self._tok_rate
+
+  @property
+  def slots_in_use(self) -> int:
+    with self._lock:
+      return sum(1 for r in self._slots if r is not None)
+
+  @property
+  def occupancy_now(self) -> float:
+    """Instantaneous occupied-slot fraction (against the historical
+    :attr:`occupancy`)."""
+    return self.slots_in_use / float(self.num_slots)
+
+  def kill(self, cause: Optional[BaseException] = None,
+           timeout: float = 5.0) -> None:
+    """Terminal-death seam: die as if the loop spent its restart budget.
+    The loop thread exits, :attr:`alive` turns False, and every waiter
+    (queued, in flight, future) fails fast with ``cause``. The fleet's
+    ``TOS_CHAOS_FLEET`` kill action and the failover tests drive it;
+    production code uses :meth:`stop` or :meth:`drain`."""
+    err = cause if cause is not None else RuntimeError(
+        "serving engine killed")
+    self._stop_evt.set()                   # the loop exits its next pass
+    self._die(err)
+    t = self._thread
+    if t is not None:
+      t.join(timeout=timeout)
 
   # -- lifecycle ------------------------------------------------------------
 
@@ -464,8 +527,15 @@ class ServingEngine(object):
 
   def request(self, rid: int) -> sched.Request:
     """The live Request handle (timing fields ride on it). Hold it before
-    :meth:`result`, which drops the registry entry."""
+    :meth:`result` or :meth:`poll`, which drop the registry entry."""
     return self._req(rid)
+
+  def poll(self, rid: int) -> Optional[np.ndarray]:
+    """The finished output (prompt + generated), or None if in flight."""
+    req = self._req(rid)
+    if not req.done.is_set():
+      return None
+    return self._result_of(req)
 
   def result(self, rid: int, timeout: float = 600.0) -> np.ndarray:
     """Block (bounded) for one request's output (prompt + generated).
@@ -550,9 +620,11 @@ class ServingEngine(object):
 
   def generate(self, prompts: Sequence,
                max_new_tokens: Optional[int] = None,
-               timeout: float = 600.0) -> List[np.ndarray]:
+               timeout: float = 600.0, detailed: bool = False) -> List:
     """Submit a batch of prompts and wait for all outputs (in order). A
-    mid-list rejection cancels the already-submitted prefix first."""
+    mid-list rejection cancels the already-submitted prefix first.
+    ``detailed=True`` returns ``{"tokens", "trace_id", "timing"}`` per
+    prompt: the request's timing ledger (``Request.timing``)."""
     rids = []
     try:
       for p in prompts:
@@ -563,8 +635,14 @@ class ServingEngine(object):
           self.cancel(rid, timeout=1.0)
       raise
     deadline = time.monotonic() + timeout
-    return [self.result(rid, timeout=max(0.001, deadline - time.monotonic()))
-            for rid in rids]
+    outs = []
+    for rid in rids:
+      req = self._req(rid)      # hold the handle: result() pops the map
+      out = self.result(rid, timeout=max(0.001,
+                                         deadline - time.monotonic()))
+      outs.append({"tokens": out, "trace_id": req.trace_id,
+                   "timing": req.timing()} if detailed else out)
+    return outs
 
   @property
   def alive(self) -> bool:

@@ -60,18 +60,35 @@ class ServingOverloaded(RuntimeError):
     self.retry_after = retry_after
     self.draining = bool(draining)
 
+  def __reduce__(self):
+    # the default Exception reduction replays __init__ with the message
+    # alone, which would drop the structured fields the fleet's retry
+    # logic keys on across any pickle boundary
+    return (type(self), (self.args[0] if self.args else "",
+                         self.queue_depth, self.queued_tokens,
+                         self.retry_after, self.draining))
+
 
 class DeadlineExceeded(TimeoutError):
   """The request's deadline/TTL expired before it finished."""
+
+  def __reduce__(self):
+    return (type(self), tuple(self.args))
 
 
 class RequestCancelled(RuntimeError):
   """The client cancelled the request (``ServingEngine.cancel``)."""
 
+  def __reduce__(self):
+    return (type(self), tuple(self.args))
+
 
 class PoisonedRequest(RuntimeError):
   """Failed instead of replayed: the request was in flight across N
   consecutive engine crashes (the crash-loop breaker)."""
+
+  def __reduce__(self):
+    return (type(self), tuple(self.args))
 
 
 class QueueClosed(RuntimeError):
@@ -204,6 +221,18 @@ class Request(object):
     if n < 1:
       return None
     return (self.finished_at - self.first_token_at) / n
+
+  def timing(self) -> dict:
+    """The timing ledger as one plain dict (``generate(detailed=True)``
+    reads it): raw ``time.monotonic`` stamps and derived seconds."""
+    return {"trace_id": self.trace_id, "rid": self.rid,
+            "submitted": self.submitted_at, "admitted": self.started_at,
+            "prefill_done": self.prefill_done_at,
+            "first_token": self.first_token_at,
+            "finished": self.finished_at,
+            "ttft": self.ttft, "e2e": self.latency,
+            "queue_wait": self.queue_wait, "tpot": self.tpot,
+            "generated": len(self.tokens), "replays": self.replays}
 
   def output(self) -> np.ndarray:
     """prompt + generated tokens (EOS inclusive, no padding)."""

@@ -20,6 +20,10 @@ the paged slab and self-speculative decode arrive with later slices.
   per-slot done-mask (EOS hit / budget spent) carried ON DEVICE, so the
   host syncs once per horizon instead of once per token.
 
+The ``TOS_CHAOS_SERVE`` fault sites are the reference's: ``prefill``
+(indexed by the prompt length) and ``decode`` (once per ``step_many``
+dispatch), both consulted before any device work.
+
 The slab is updated in place (the JAX package returns a new pytree per
 call). The ``ServingEngine`` thread owns it and the host bookkeeping.
 
@@ -41,6 +45,7 @@ from tensorflowonspark_tpu_torch.models.transformer import KVCache, Transformer
 from tensorflowonspark_tpu_torch.obs import device as obs_device
 from tensorflowonspark_tpu_torch.obs import metrics as obs_metrics
 from tensorflowonspark_tpu_torch.obs import spans as obs_spans
+from tensorflowonspark_tpu_torch.utils import chaos
 
 #: prompt-chunk sizes for bucketed prefill, largest-first; 1 must be
 #: reachable so every length decomposes
@@ -117,6 +122,11 @@ class SlotDecoder(object):
       raise ValueError(
           "prompt of %d tokens leaves no decode room in the "
           "max_seq_len=%d cache" % (plen, self.cfg.max_seq_len))
+    # deterministic fault site (TOS_CHAOS_SERVE): raise-or-stall here
+    # stands in for a device failure during prefill. The index is the
+    # prompt length, the one identity a spec can pin before request ids
+    # exist (per-length specs make poison requests)
+    chaos.serve_fault("prefill", index=plen)
     tokens = torch.as_tensor(np.asarray(prompt, np.int64).reshape(1, plen),
                              device=self.device)
     row = self.model.init_cache(1)
@@ -188,6 +198,11 @@ class SlotDecoder(object):
     """
     if horizon < 1:
       raise ValueError("horizon must be >= 1, got %d" % horizon)
+    # deterministic fault site (TOS_CHAOS_SERVE): one count per decode
+    # dispatch, so "decode#N:raise" crashes the Nth horizon step. The
+    # reference also consults it once per speculative dispatch
+    # (``step_spec``), which arrives here with ROADMAP Queue 1 item 9
+    chaos.serve_fault("decode")
     if self._obs:
       # one compile per distinct horizon in the reference
       obs_device.note_trace("serve.step_many", horizon, cache=self._seen)

@@ -1,23 +1,58 @@
-"""Deterministic fault injection: the kill site of the fault-tolerance runtime.
+"""Deterministic fault injection for exercising the fault-tolerance runtime.
 
-The port's copy of the part of ``tensorflowonspark_tpu/utils/chaos.py``
-that the checkpoint-and-resume path needs: :func:`kill_point`, armed by
-``TOS_CHAOS_KILL``, with the same spec grammar, the same exactly-once
-sentinel in the node's working directory (a relaunched node sails past
-the point that killed its predecessor) and the same validation of every
-``TOS_CHAOS_*`` name (:func:`check_config`).
+The port's copy of ``tensorflowonspark_tpu/utils/chaos.py``: the same
+knobs, spec grammar, per-process counters and validation of every
+``TOS_CHAOS_*`` name (:func:`check_config`). Faults are armed through
+environment variables, so they flow into engine executor processes
+(``LocalEngine(env=...)``) and every child they spawn. All triggers are
+deterministic: named injection points fire on exact invocation counts,
+never at random.
 
 ``TOS_CHAOS_KILL`` = ``"point[@index][#nth]"`` (comma-separated specs)
     SIGKILL the calling process the nth time (default: 1st) the named
     :func:`kill_point` fires with a matching index. ``"train-step@0#3"``
     kills executor 0 the 3rd time it reaches the ``train-step`` point.
+    Exactly once across process restarts: a sentinel file in the working
+    directory records the fire, so a relaunched node sails past it.
 
-The other fault sites of the reference (``TOS_CHAOS_STALL``, the
-rendezvous message faults, the serving, fleet, deploy, host and group
-faults) are not ported yet (ROADMAP Queue 1 item 8). Arming one raises
-``NotImplementedError`` at the first consult instead of injecting
-nothing: a chaos run that silently injects no fault would pass for the
-wrong reason.
+``TOS_CHAOS_STALL`` = ``"point[@index]:seconds"`` (comma-separated)
+    Sleep at the named :func:`stall_point` (first matching call per
+    process): ``"feeder@1:3"`` stalls executor 1's feed task.
+
+``TOS_CHAOS_RV_DROP`` = ``"VERB:count"`` (comma-separated)
+    Rendezvous client fault: drop the first ``count`` messages of the
+    verb before they reach the wire (``"BEAT:3"``: three lost beats).
+
+``TOS_CHAOS_RV_DELAY`` = ``"VERB:seconds[:count]"`` (comma-separated)
+    Rendezvous client fault: delay messages of the verb by ``seconds``
+    before sending (the first ``count`` of them; default: all).
+
+``TOS_CHAOS_SERVE`` = ``"point[@index][#nth]:raise"`` or
+    ``"point[@index][#nth]:stall:seconds"`` (comma-separated)
+    Serving fault at a named :func:`serve_fault` point (``serving.slots``
+    arms ``prefill``, indexed by the prompt length, and ``decode``, once
+    per ``step_many`` dispatch): ``raise`` throws :class:`InjectedFault`
+    into the engine loop the nth time the point fires (crash replay),
+    ``stall`` sleeps there (a hung device call; deadlines). Without
+    ``@index`` the count is global across the point, with it per index:
+    ``"prefill@13#1:raise,prefill@13#2:raise"`` makes every 13-token
+    prompt a poison request while its neighbours sail through.
+
+``TOS_CHAOS_FLEET`` = ``"point[@replica][#nth]:kill"`` or
+    ``"point[@replica][#nth]:stall:seconds"`` (comma-separated)
+    Replica fault at a named :func:`fleet_fault` point (``serving.fleet``
+    arms ``dispatch`` with the replica id as index): ``kill`` tells the
+    caller to kill that replica terminally the nth time the point fires,
+    with everything it accepted mid-decode (``"dispatch@1#3:kill"``);
+    ``stall`` sleeps at the dispatch (a slow router hop).
+
+Three knobs of the reference arm fault sites the port does not have yet.
+Arming one raises ``NotImplementedError`` at the first consult, naming
+the ROADMAP Queue 1 item that ports its site, instead of injecting
+nothing: a chaos run that injects no fault passes for the wrong reason.
+``TOS_CHAOS_GROUP`` (``parallel.groups``' ``group_fault``) comes with
+item 10, ``TOS_CHAOS_DEPLOY`` (``serving.deploy``) with item 8b and
+``TOS_CHAOS_HOST`` (``serving.host``) with item 8c.
 """
 
 import logging
@@ -25,7 +60,8 @@ import os
 import re
 import signal
 import threading
-from typing import Optional
+import time
+from typing import Optional, Tuple
 
 logger = logging.getLogger(__name__)
 
@@ -42,9 +78,22 @@ ENV_HOST = "TOS_CHAOS_HOST"
 _KNOWN_ENV = (ENV_KILL, ENV_STALL, ENV_RV_DROP, ENV_RV_DELAY, ENV_SERVE,
               ENV_FLEET, ENV_GROUP, ENV_DEPLOY, ENV_HOST)
 _ENV_PREFIX = "TOS_CHAOS_"
+#: the knobs whose fault sites are not ported yet, with the ROADMAP Queue 1
+#: item that ports each
+_UNPORTED = ((ENV_GROUP, "the group fault of parallel/groups.py", "10"),
+             (ENV_DEPLOY, "the deploy fault of serving/deploy.py", "8b"),
+             (ENV_HOST, "the host fault of serving/host.py", "8c"))
+
+
+class InjectedFault(RuntimeError):
+  """The exception a ``raise``-action serving fault throws: a stand-in
+  for any device or runtime error escaping the engine loop thread."""
+
 
 # per-process invocation counters, keyed by (point, index)
 _counts = {}
+_stalled = set()
+_rv_counts = {}
 _lock = threading.Lock()
 #: the last validated env signature (hooks consult check_config per call)
 _validated = None
@@ -66,8 +115,9 @@ def check_config() -> None:
   """Validate every armed fault schedule.
 
   Raises ``ValueError`` for an unknown ``TOS_CHAOS_*`` name or a malformed
-  kill spec, as the reference does, and ``NotImplementedError`` for an
-  armed knob whose fault site the port does not have yet (item 8).
+  spec, with the reference's messages, and ``NotImplementedError`` for an
+  armed knob whose fault site the port does not have yet, naming the
+  ROADMAP item that ports it.
   """
   global _validated
   sig = tuple(os.environ.get(k) for k in _KNOWN_ENV) + tuple(
@@ -86,12 +136,45 @@ def check_config() -> None:
     except ValueError:
       raise ValueError("%s: malformed kill spec %r (want "
                        "'point[@index][#nth]')" % (ENV_KILL, spec))
-  armed = [k for k in _KNOWN_ENV if k != ENV_KILL and os.environ.get(k)]
+  for spec in _split_specs(os.environ.get(ENV_STALL)):
+    try:
+      _parse_stall_spec(spec)
+    except ValueError:
+      raise ValueError("%s: malformed stall spec %r (want "
+                       "'point[@index]:seconds')" % (ENV_STALL, spec))
+  for spec in _split_specs(os.environ.get(ENV_RV_DROP)):
+    try:
+      _parse_drop_spec(spec)
+    except ValueError:
+      raise ValueError("%s: malformed drop spec %r (want 'VERB:count')"
+                       % (ENV_RV_DROP, spec))
+  for spec in _split_specs(os.environ.get(ENV_RV_DELAY)):
+    try:
+      _parse_delay_spec(spec)
+    except ValueError:
+      raise ValueError("%s: malformed delay spec %r (want "
+                       "'VERB:seconds[:count]')" % (ENV_RV_DELAY, spec))
+  for spec in _split_specs(os.environ.get(ENV_SERVE)):
+    try:
+      _parse_serve_spec(spec)
+    except ValueError:
+      raise ValueError("%s: malformed serve spec %r (want "
+                       "'point[@index][#nth]:raise' or "
+                       "'point[@index][#nth]:stall:seconds')"
+                       % (ENV_SERVE, spec))
+  for spec in _split_specs(os.environ.get(ENV_FLEET)):
+    try:
+      _parse_fleet_spec(spec)
+    except ValueError:
+      raise ValueError("%s: malformed fleet spec %r (want "
+                       "'point[@replica][#nth]:kill' or "
+                       "'point[@replica][#nth]:stall:seconds')"
+                       % (ENV_FLEET, spec))
+  armed = ["%s (%s): ROADMAP Queue 1 item %s" % (env, site, item)
+           for env, site, item in _UNPORTED if os.environ.get(env)]
   if armed:
     raise NotImplementedError(
-        "%s: only the kill site (%s) is ported to PyTorch; the other chaos "
-        "fault sites are ROADMAP Queue 1 item 8" % (", ".join(armed),
-                                                      ENV_KILL))
+        "chaos fault sites not ported to PyTorch yet: %s" % "; ".join(armed))
   _validated = sig
 
 
@@ -115,6 +198,8 @@ def reset() -> None:
   global _validated, _first_consult_done
   with _lock:
     _counts.clear()
+    _stalled.clear()
+    _rv_counts.clear()
     _validated = None
     _first_consult_done = False
 
@@ -130,6 +215,65 @@ def _parse_point_spec(spec: str):
     spec, i = spec.rsplit("@", 1)
     index = int(i)
   return spec, index, nth
+
+
+# One parse function per knob grammar, shared by check_config AND the hooks
+# — a validator that re-implemented the grammar could accept a spec the hook
+# then silently never matched (the no-op class this module exists to kill).
+
+def _parse_stall_spec(spec: str):
+  """``"point[@index]:seconds"`` → ((name, index, nth), seconds)."""
+  if ":" not in spec:
+    raise ValueError(spec)
+  target, secs = spec.rsplit(":", 1)
+  return _parse_point_spec(target), float(secs)
+
+
+def _parse_drop_spec(spec: str):
+  """``"VERB:count"`` → (verb, count)."""
+  parts = spec.split(":")
+  if len(parts) != 2 or not parts[0]:
+    raise ValueError(spec)
+  return parts[0], int(parts[1])
+
+
+def _parse_delay_spec(spec: str):
+  """``"VERB:seconds[:count]"`` → (verb, seconds, count_or_None)."""
+  parts = spec.split(":")
+  if len(parts) not in (2, 3) or not parts[0]:
+    raise ValueError(spec)
+  return (parts[0], float(parts[1]),
+          int(parts[2]) if len(parts) == 3 else None)
+
+
+def _parse_action_spec(spec: str, hard_action: str):
+  """``"point[@index][#nth]:<hard_action>"`` / ``"...:stall:seconds"`` →
+  ((name, index, nth), action, seconds_or_None). The shared grammar
+  behind the serve (``raise``) and fleet (``kill``) knobs."""
+  parts = spec.split(":")
+  if len(parts) < 2 or not parts[0]:
+    raise ValueError(spec)
+  target = _parse_point_spec(parts[0])
+  action = parts[1]
+  if action == hard_action:
+    if len(parts) != 2:
+      raise ValueError(spec)
+    return target, action, None
+  if action == "stall":
+    if len(parts) != 3:
+      raise ValueError(spec)
+    return target, action, float(parts[2])
+  raise ValueError(spec)
+
+
+def _parse_serve_spec(spec: str):
+  """``"point[@index][#nth]:raise"`` / ``"...:stall:seconds"``."""
+  return _parse_action_spec(spec, "raise")
+
+
+def _parse_fleet_spec(spec: str):
+  """``"point[@replica][#nth]:kill"`` / ``"...:stall:seconds"``."""
+  return _parse_action_spec(spec, "kill")
 
 
 def _sentinel_path(name: str, index) -> str:
@@ -169,3 +313,156 @@ def kill_point(name: str, index: Optional[int] = None) -> None:
     logger.warning("chaos: SIGKILL at point %r index %r (invocation %d)",
                    name, index, count)
     os.kill(os.getpid(), signal.SIGKILL)
+
+
+def stall_point(name: str, index: Optional[int] = None) -> float:
+  """Deterministic stall site: sleep when armed (first matching call per
+  process). Returns the seconds slept (0.0 when disarmed)."""
+  _first_consult()
+  spec_env = os.environ.get(ENV_STALL)
+  if not spec_env:
+    return 0.0
+  check_config()
+  for spec in spec_env.split(","):
+    (sname, sindex, _), duration = _parse_stall_spec(spec.strip())
+    if sname != name or (sindex is not None and sindex != index):
+      continue
+    key = (name, index, "stall")
+    with _lock:
+      if key in _stalled:
+        return 0.0
+      _stalled.add(key)
+    logger.warning("chaos: stalling %.2fs at point %r index %r",
+                   duration, name, index)
+    time.sleep(duration)
+    return duration
+  return 0.0
+
+
+def serve_fault(name: str, index: Optional[int] = None) -> None:
+  """Deterministic serving-plane fault site (``serving.slots`` arms
+  ``prefill``/``decode``): raise :class:`InjectedFault` or stall when a
+  ``TOS_CHAOS_SERVE`` spec matches this invocation.
+
+  Two invocation counters run per point: a GLOBAL one (specs without
+  ``@index``: "the nth time this point fires at all") and a per-index
+  one (specs with ``@index``: "the nth time it fires for THIS index").
+  The ``prefill`` point passes the prompt length as its index — the only
+  stable identity a spec can name before request ids are assigned — so a
+  per-index spec turns one crafted prompt into a deterministic poison
+  request (docs/ROBUSTNESS.md).
+  """
+  _first_consult()
+  spec_env = os.environ.get(ENV_SERVE)
+  if not spec_env:
+    return
+  check_config()
+  point = "serve." + name
+  with _lock:
+    gcount = _counts[(point, None)] = _counts.get((point, None), 0) + 1
+    icount = gcount
+    if index is not None:
+      icount = _counts[(point, index)] = \
+          _counts.get((point, index), 0) + 1
+  for spec in _split_specs(spec_env):
+    (sname, sindex, nth), action, secs = _parse_serve_spec(spec)
+    if sname != name:
+      continue
+    if sindex is None:
+      if gcount != nth:
+        continue
+    elif sindex != index or icount != nth:
+      continue
+    if action == "stall":
+      logger.warning("chaos: stalling %.2fs at serving point %r index %r "
+                     "(occurrence %d)", secs, name, index, nth)
+      time.sleep(secs)
+      continue
+    logger.warning("chaos: raising at serving point %r index %r "
+                   "(occurrence %d)", name, index, nth)
+    raise InjectedFault(
+        "chaos: injected fault at serving point %r (occurrence %d)"
+        % (name, nth))
+
+
+def fleet_fault(name: str, index: Optional[int] = None) -> Optional[str]:
+  """Deterministic fleet-plane fault site (``serving.fleet`` arms
+  ``dispatch`` with the target replica id as ``index``): returns
+  ``"kill"`` when a ``TOS_CHAOS_FLEET`` kill spec matches this
+  invocation — the CALLER then terminally kills that replica (the fault
+  target is a replica, not the calling thread, so this hook signals
+  instead of raising). Stall specs sleep inline (a slow dispatch hop)
+  and return None, as does a disarmed/unmatched consult.
+
+  Counters mirror :func:`serve_fault`: a GLOBAL per-point count (specs
+  without ``@replica``: "the nth dispatch overall") and a per-index one
+  (specs with it: "the nth dispatch routed to THIS replica").
+  """
+  _first_consult()
+  spec_env = os.environ.get(ENV_FLEET)
+  if not spec_env:
+    return None
+  check_config()
+  point = "fleet." + name
+  with _lock:
+    gcount = _counts[(point, None)] = _counts.get((point, None), 0) + 1
+    icount = gcount
+    if index is not None:
+      icount = _counts[(point, index)] = \
+          _counts.get((point, index), 0) + 1
+  for spec in _split_specs(spec_env):
+    (sname, sindex, nth), action, secs = _parse_fleet_spec(spec)
+    if sname != name:
+      continue
+    if sindex is None:
+      if gcount != nth:
+        continue
+    elif sindex != index or icount != nth:
+      continue
+    if action == "stall":
+      logger.warning("chaos: stalling %.2fs at fleet point %r replica %r "
+                     "(occurrence %d)", secs, name, index, nth)
+      time.sleep(secs)
+      continue
+    logger.warning("chaos: kill verdict at fleet point %r replica %r "
+                   "(occurrence %d)", name, index, nth)
+    return "kill"
+  return None
+
+
+def message_fault(verb) -> Tuple[bool, float]:
+  """(drop, delay_seconds) for a rendezvous message of the given verb.
+
+  Consulted by ``rendezvous.Client`` before each send. A dropped message
+  never reaches the wire — the receiver simply never sees it, exactly like
+  a lost datagram — and the client proceeds as if it were sent.
+  """
+  _first_consult()
+  drop_env = os.environ.get(ENV_RV_DROP)
+  delay_env = os.environ.get(ENV_RV_DELAY)
+  if not drop_env and not delay_env:
+    return False, 0.0
+  check_config()
+  drop = False
+  delay = 0.0
+  if drop_env:
+    for spec in drop_env.split(","):
+      sverb, count = _parse_drop_spec(spec.strip())
+      if sverb != verb:
+        continue
+      with _lock:
+        seen = _rv_counts[(verb, "drop")] = \
+            _rv_counts.get((verb, "drop"), 0) + 1
+      if seen <= count:
+        drop = True
+  if delay_env:
+    for spec in delay_env.split(","):
+      dverb, secs, limit = _parse_delay_spec(spec.strip())
+      if dverb != verb:
+        continue
+      with _lock:
+        seen = _rv_counts[(verb, "delay")] = \
+            _rv_counts.get((verb, "delay"), 0) + 1
+      if limit is None or seen <= limit:
+        delay = secs
+  return drop, delay

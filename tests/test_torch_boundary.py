@@ -57,7 +57,9 @@ def test_port_sources_import_no_jax():
                # and the observability plane
                "obs/collector.py", "obs/export.py", "obs/slo.py",
                "obs/anomaly.py", "obs/device.py", "obs/profiler.py",
-               "utils/profiler.py"):
+               "utils/profiler.py",
+               # and the serving fleet
+               "serving/fleet.py", "serving/engine.py", "serving/slots.py"):
     assert os.path.join(*name.split("/")) in scanned, name
   bad = sorted((os.path.relpath(p, ROOT), root) for p in files
                for root in _imported_roots(p) if root in FORBIDDEN)
@@ -84,6 +86,14 @@ def test_running_the_port_loads_no_jax_module():
                           max_new_tokens=4, timeout=60)
       eng.stop()
       assert [len(o) for o in outs] == [9, 21], outs
+      # and through a 2-replica fleet
+      from tensorflowonspark_tpu_torch.serving import ServingFleet
+      with ServingFleet(lambda: ServingEngine(init_params(cfg, 0), cfg,
+                                              num_slots=2, device="cpu"),
+                        num_replicas=2) as fl:
+        fouts = fl.generate([np.arange(1, 6), np.arange(3, 20)],
+                            max_new_tokens=4, timeout=60)
+      assert [o.tolist() for o in fouts] == [o.tolist() for o in outs]
       # one CPU train step through the training path
       from tensorflowonspark_tpu_torch import optim
       from tensorflowonspark_tpu_torch.parallel.sharding import (

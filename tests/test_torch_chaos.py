@@ -1,11 +1,20 @@
-"""The port's kill site and its acceptance path, held against the JAX package.
+"""The port's fault injection and its acceptance paths, held against the
+JAX package.
 
-- ``check_config`` accepts and refuses the same kill specs as the
-  reference's; an unknown ``TOS_CHAOS_*`` name raises ``ValueError``; an
-  armed fault knob the port does not have yet raises
-  ``NotImplementedError`` naming ROADMAP item 8;
+- ``check_config`` accepts and refuses the same specs as the reference's
+  for every knob the port injects (kill, stall, rendezvous drop and delay,
+  serve, fleet), with the same messages; an unknown ``TOS_CHAOS_*`` name
+  raises ``ValueError``; ``GROUP``, ``DEPLOY`` and ``HOST`` raise
+  ``NotImplementedError`` naming ROADMAP items 10, 8b and 8c;
+- the same call sequences through both modules' ``serve_fault``,
+  ``fleet_fault``, ``stall_point`` and ``message_fault`` give the same
+  verdicts (raises, kills, seconds slept, drops and delays);
 - ``kill_point`` in a subprocess dies by SIGKILL at the nth call, and not
   again once the sentinel exists;
+- the fault sites on the port's runtime: dropped beats read as a dead node
+  by the rendezvous server, then live again once the budget is spent
+  (``tests/test_chaos.py:202``); a stalled feeder delays the feed without
+  losing a row (``:581``);
 - the acceptance path of ``tests/test_chaos.py:319-387`` on the port: 2
   LocalEngine executors, executor 0 SIGKILLed at step 2 by the kill site,
   relaunched by the supervisor, resumed from its checkpoint through
@@ -22,6 +31,7 @@ import pytest
 from tensorflowonspark_tpu.utils import chaos as ref_chaos
 from tensorflowonspark_tpu_torch import cluster as port_cluster
 from tensorflowonspark_tpu_torch.cluster import InputMode
+from tensorflowonspark_tpu_torch.control import rendezvous
 from tensorflowonspark_tpu_torch.engine import LocalEngine
 from tensorflowonspark_tpu_torch.utils import chaos
 
@@ -71,6 +81,29 @@ def test_unknown_knob_raises_as_the_reference(monkeypatch):
   assert chaos._KNOWN_ENV == ref_chaos._KNOWN_ENV
 
 
+#: the knobs whose sites the port does not have yet, and the item of each
+UNPORTED_ITEMS = {"TOS_CHAOS_GROUP": "10", "TOS_CHAOS_DEPLOY": "8b",
+                  "TOS_CHAOS_HOST": "8c"}
+
+
+def _inject(module, name):
+  """Drive the fault site ``name`` arms a few times; its verdicts."""
+  if name == "TOS_CHAOS_STALL":
+    return [module.stall_point("feeder", index=1) for _ in range(2)]
+  if name in ("TOS_CHAOS_RV_DROP", "TOS_CHAOS_RV_DELAY"):
+    return [module.message_fault("BEAT") for _ in range(4)]
+  if name == "TOS_CHAOS_FLEET":
+    return [module.fleet_fault("dispatch", index=1) for _ in range(3)]
+  out = []
+  for _ in range(3):
+    try:
+      module.serve_fault("decode")
+      out.append(None)
+    except module.InjectedFault:
+      out.append("raised")
+  return out
+
+
 @pytest.mark.parametrize("name,value", [
     ("TOS_CHAOS_STALL", "feeder@1:3"), ("TOS_CHAOS_RV_DROP", "BEAT:3"),
     ("TOS_CHAOS_RV_DELAY", "BEAT:0.1"), ("TOS_CHAOS_SERVE", "decode#2:raise"),
@@ -79,13 +112,119 @@ def test_unknown_knob_raises_as_the_reference(monkeypatch):
     ("TOS_CHAOS_HOST", "sync@1#30:kill")])
 def test_armed_fault_sites_not_ported_raise_naming_item_8(monkeypatch, name,
                                                           value):
+  """Each knob the reference injects: the port injects it the same way, or
+  (GROUP, DEPLOY, HOST) refuses it at every consult, naming the ROADMAP
+  item that ports its site."""
   monkeypatch.setenv(name, value)
+  monkeypatch.setattr(time, "sleep", lambda s: None)
   ref_chaos.check_config()              # a fault the reference would inject
-  for call in (chaos.check_config, chaos.enabled,
-               lambda: chaos.kill_point("p", 0)):
-    chaos.reset()
-    with pytest.raises(NotImplementedError, match="item 8"):
+  calls = (chaos.check_config, chaos.enabled, lambda: chaos.kill_point("p", 0))
+  item = UNPORTED_ITEMS.get(name)
+  if item is None:
+    for call in calls:
+      chaos.reset()
       call()
+    chaos.reset()
+    assert chaos.enabled()
+    assert _inject(chaos, name) == _inject(ref_chaos, name)
+    return
+  for call in calls:
+    chaos.reset()
+    with pytest.raises(NotImplementedError,
+                       match=r"%s .*item %s\b" % (name, item)):
+      call()
+
+
+#: (knob, spec, call sequence): each call is (hook, point, index)
+GRAMMAR = [
+    ("TOS_CHAOS_SERVE", "decode#2:raise", [("serve", "decode", None)] * 4),
+    ("TOS_CHAOS_SERVE", "prefill@13#1:raise,prefill@13#2:raise",
+     [("serve", "prefill", 5), ("serve", "prefill", 13),
+      ("serve", "prefill", 8), ("serve", "prefill", 13),
+      ("serve", "prefill", 13)]),
+    ("TOS_CHAOS_SERVE", "prefill#3:raise",
+     [("serve", "prefill", 5), ("serve", "prefill", 13),
+      ("serve", "prefill", 5), ("serve", "decode", None)]),
+    ("TOS_CHAOS_SERVE", "decode#1:stall:0.5,decode#3:raise",
+     [("serve", "decode", None)] * 3 + [("serve", "prefill", 2)]),
+    ("TOS_CHAOS_FLEET", "dispatch@1#3:kill",
+     [("fleet", "dispatch", r) for r in (0, 1, 1, 0, 1, 1)]),
+    ("TOS_CHAOS_FLEET", "dispatch#2:kill,dispatch@0#2:stall:0.2",
+     [("fleet", "dispatch", r) for r in (1, 0, 0, 0)]),
+    ("TOS_CHAOS_STALL", "feeder@1:3,feeder:0.5",
+     [("stall", "feeder", r) for r in (0, 1, 1, 2, 0)]),
+    ("TOS_CHAOS_STALL", "feeder@2:1.5", [("stall", "feeder", r)
+                                         for r in (1, 2, 2)]),
+    ("TOS_CHAOS_RV_DROP", "BEAT:2,RESV:1",
+     [("message", v, None) for v in ("BEAT", "RESV", "BEAT", "QUERY", "BEAT",
+                                     "RESV")]),
+    ("TOS_CHAOS_RV_DELAY", "BEAT:0.25:2,QUERY:1.5",
+     [("message", v, None) for v in ("BEAT", "QUERY", "BEAT", "BEAT",
+                                     "QUERY")]),
+]
+
+
+def _run_calls(module, calls, slept):
+  out = []
+  for hook, point, index in calls:
+    del slept[:]
+    if hook == "serve":
+      try:
+        module.serve_fault(point, index=index)
+        verdict = None
+      except module.InjectedFault as e:
+        verdict = str(e)
+    elif hook == "fleet":
+      verdict = module.fleet_fault(point, index)
+    elif hook == "stall":
+      verdict = module.stall_point(point, index=index)
+    else:
+      verdict = module.message_fault(point)
+    out.append((verdict, list(slept)))
+  return out
+
+
+@pytest.mark.parametrize("name,spec,calls", GRAMMAR,
+                         ids=["%s-%d" % (g[0][11:].lower(), i)
+                              for i, g in enumerate(GRAMMAR)])
+def test_fault_verdicts_equal_the_reference(monkeypatch, name, spec, calls):
+  """The same call sequence through both modules: the same raises, kill
+  verdicts, seconds slept, drops and delays, call by call."""
+  slept = []
+  monkeypatch.setattr(time, "sleep", slept.append)
+  monkeypatch.setenv(name, spec)
+  got = _run_calls(chaos, calls, slept)
+  want = _run_calls(ref_chaos, calls, slept)
+  assert got == want
+  assert any(v != (None, []) and v != (0.0, []) and v != ((False, 0.0), [])
+             for v in want), "the spec injected nothing"
+
+
+MALFORMED = [
+    ("TOS_CHAOS_STALL", "feeder@1"), ("TOS_CHAOS_STALL", "feeder:x"),
+    ("TOS_CHAOS_STALL", "feeder@a:1"), ("TOS_CHAOS_RV_DROP", "BEAT;3"),
+    ("TOS_CHAOS_RV_DROP", ":3"), ("TOS_CHAOS_RV_DROP", "BEAT:1:2"),
+    ("TOS_CHAOS_RV_DELAY", "BEAT"), ("TOS_CHAOS_RV_DELAY", "BEAT:0.1:x"),
+    ("TOS_CHAOS_RV_DELAY", "BEAT:1:2:3"), ("TOS_CHAOS_SERVE", "decode#2"),
+    ("TOS_CHAOS_SERVE", "decode#2:kill"),
+    ("TOS_CHAOS_SERVE", "decode:stall"),
+    ("TOS_CHAOS_SERVE", "decode:raise:1"), ("TOS_CHAOS_SERVE", ":raise"),
+    ("TOS_CHAOS_FLEET", "dispatch@1#2:raise"),
+    ("TOS_CHAOS_FLEET", "dispatch:kill:3"),
+    ("TOS_CHAOS_FLEET", "dispatch@x:kill"),
+    ("TOS_CHAOS_FLEET", "dispatch:stall:slow")]
+
+
+@pytest.mark.parametrize("name,spec", MALFORMED,
+                         ids=["%s-%d" % (m[0][11:].lower(), i)
+                              for i, m in enumerate(MALFORMED)])
+def test_malformed_specs_refused_as_the_reference(monkeypatch, name, spec):
+  monkeypatch.setenv(name, spec)
+  with pytest.raises(ValueError) as want:
+    ref_chaos.check_config()
+  with pytest.raises(ValueError) as got:
+    chaos.check_config()
+  assert str(got.value) == str(want.value)
 
 
 def test_disarmed_kill_point_is_a_noop(tmp_path, monkeypatch):
@@ -120,6 +259,76 @@ def test_kill_point_sigkills_on_nth_invocation_once(tmp_path):
     assert p.exitcode == want
   with open(str(tmp_path / ".tos_chaos_fired_p_1")) as f:
     assert f.read().startswith("fired at count 3 ")
+
+
+# -- the fault sites on the port's runtime -------------------------------------
+
+
+def test_dropped_beats_mark_dead_then_recover(monkeypatch):
+  """Chaos-dropped BEATs drive the node dead on the server; once the drop
+  budget is spent, the next beat revives it (``tests/test_chaos.py:202``
+  on the port's rendezvous)."""
+  s = rendezvous.Server(1, heartbeat_interval=0.1)
+  addr = s.start()
+  sender = None
+  try:
+    c = rendezvous.Client(addr)
+    c.register({"executor_id": 0, "host": "h", "port": 1})
+    sender = rendezvous.HeartbeatSender(addr, 0, interval=0.05).start()
+    assert s.liveness.state(0) == "live"   # first beat confirmed the node
+    monkeypatch.setenv(chaos.ENV_RV_DROP, "BEAT:200")
+    deadline = time.monotonic() + 3
+    while s.liveness.state(0) != "dead" and time.monotonic() < deadline:
+      time.sleep(0.01)
+    assert s.liveness.state(0) == "dead", "dropped beats never marked dead"
+    dropped = c._request({"type": "BEAT", "executor_id": 0})
+    assert dropped == {"type": "DROPPED", "dropped": True, "done": False}
+    monkeypatch.delenv(chaos.ENV_RV_DROP)
+    deadline = time.monotonic() + 3
+    while s.liveness.state(0) != "live" and time.monotonic() < deadline:
+      time.sleep(0.01)
+    assert s.liveness.state(0) == "live", "beats resumed but state stuck"
+    c.close()
+  finally:
+    if sender is not None:
+      sender.stop()
+    s.stop()
+
+
+def _summing_main_fn(args, ctx):
+  """Sum every fed row into the executor's working dir (module level: the
+  port pickles a main fn by name)."""
+  feed = ctx.get_data_feed(train_mode=True)
+  total = 0
+  while not feed.should_stop():
+    for x in feed.next_batch(16):
+      total += x
+  with open("stall_total.txt", "w") as f:
+    f.write(str(total))
+
+
+def test_feeder_stall_injection():
+  """The feeder's stall point is wired: an armed stall delays the feed
+  without breaking delivery (``tests/test_chaos.py:581`` on the port)."""
+  engine = LocalEngine(num_executors=2,
+                       env={chaos.ENV_STALL: "feeder:0.3"})
+  try:
+    c = port_cluster.run(engine, _summing_main_fn,
+                         input_mode=InputMode.SPARK, reservation_timeout=60,
+                         feed_transport="queue")
+    t0 = time.monotonic()
+    c.train([[1] * 10, [2] * 10], num_epochs=1, feed_timeout=60)
+    assert time.monotonic() - t0 >= 0.3, "stall point never fired"
+    c.shutdown(timeout=300)
+    grand = 0
+    for slot in range(2):
+      path = os.path.join(engine.executor_workdir(slot), "stall_total.txt")
+      if os.path.exists(path):
+        with open(path) as f:
+          grand += int(f.read())
+    assert grand == 30
+  finally:
+    engine.stop()
 
 
 # -- the acceptance path ---------------------------------------------------------

@@ -1,7 +1,10 @@
 """The PyTorch port's ServingEngine on the CPU, held against both packages'
-single-request ``greedy_generate_kv``."""
+single-request ``greedy_generate_kv``, and against the JAX engine under the
+same ``TOS_CHAOS_SERVE`` faults."""
 
+import os
 import time
+import types
 
 import numpy as np
 import pytest
@@ -202,3 +205,213 @@ def test_deadlines_fail_requests_without_a_slot(setup):
   finally:
     eng.stop()
   assert eng.stats["expired"] == 2 and eng.stats["prefills"] == 0
+
+
+# -- the TOS_CHAOS_SERVE recovery cases and the fleet surface, against the
+# -- JAX engine (``tests/test_serving.py`` TestServingChaos)
+
+REF_EOS = 7
+TINY = dict(vocab_size=64, num_layers=2, num_heads=2, d_model=32, d_ff=64,
+            max_seq_len=48)
+
+
+@pytest.fixture(scope="module")
+def pair():
+  """Both packages' engines on the reference tests' tiny config and one
+  seeded JAX state; the JAX engines of one slot count share one
+  ``SlotDecoder`` (its jit caches; it holds no request state)."""
+  from tensorflowonspark_tpu.serving import ServingEngine as JaxEngine
+  from tensorflowonspark_tpu.serving import scheduler as jax_sched
+  from tensorflowonspark_tpu.utils import chaos as jax_chaos
+  from tensorflowonspark_tpu_torch.serving import scheduler as port_sched
+  from tensorflowonspark_tpu_torch.utils import chaos as port_chaos
+  jcfg = jax_tfm.TransformerConfig(remat=False, dtype=jnp.float32, **TINY)
+  state = jax_tfm.create_state(jax.random.PRNGKey(0), jcfg, seq_len=16)
+  tcfg = tfm.TransformerConfig(dtype=torch.float32, **TINY)
+  tparams = params_from_flax(jax.tree.map(np.asarray, state.params), tcfg)
+  decoders = {}
+
+  def jax_engine(**kw):
+    eng = JaxEngine(state.params, jcfg, pad_id=PAD, **kw)
+    eng.decoder = decoders.setdefault((eng.num_slots, eng.eos_id),
+                                      eng.decoder)
+    return eng
+
+  def port_engine(**kw):
+    return ServingEngine(tparams, tcfg, pad_id=PAD, device="cpu", **kw)
+
+  return (types.SimpleNamespace(name="jax", engine=jax_engine,
+                                sched=jax_sched, chaos=jax_chaos),
+          types.SimpleNamespace(name="torch", engine=port_engine,
+                                sched=port_sched, chaos=port_chaos))
+
+
+def _prompts_of(seed, lengths):
+  rng = np.random.RandomState(seed)
+  return [rng.randint(1, 64, (n,)).astype(np.int32) for n in lengths]
+
+
+def decode_crash_replays(ns):
+  prompts = _prompts_of(21, (4, 7, 5, 9, 6, 8))
+  with ns.engine(num_slots=2, eos_id=REF_EOS, horizon=4, poison_crashes=3,
+                 restart_backoff=0.01) as eng:
+    outs = eng.generate(prompts, max_new_tokens=8, timeout=120,
+                        detailed=True)
+    assert eng.alive
+    log = list(eng.restart_log)
+  assert eng.stats["replays"] >= 1
+  assert len(log) == 1 and log[0]["duration_s"] >= 0.01
+  replayed = [o for o in outs if o["timing"]["replays"]]
+  assert replayed                  # the crash hit someone in flight
+  for o in replayed:
+    # the first token predates the recovery: replay did not reset it
+    assert o["timing"]["first_token"] <= log[0]["t"]
+  return {"outs": [o["tokens"].tolist() for o in outs],
+          "stats": {k: eng.stats[k] for k in (
+              "engine_restarts", "replay_mismatches", "poisoned",
+              "completed")}}
+
+
+def stream_deduplicated_across_crash(ns):
+  p = np.asarray([3, 9, 4, 1], np.int32)
+  with ns.engine(num_slots=1, eos_id=REF_EOS, horizon=1, poison_crashes=3,
+                 restart_backoff=0.01) as eng:
+    toks = list(eng.stream(eng.submit(p, max_new_tokens=10), timeout=120))
+  return {"stream": [int(t) for t in toks],
+          "stats": {k: eng.stats[k] for k in ("engine_restarts", "replays")}}
+
+
+def prefill_poison_isolated(ns):
+  good_a, poison, good_b = _prompts_of(31, (5, 13, 8))
+  with ns.engine(num_slots=2, eos_id=REF_EOS, horizon=4, poison_crashes=2,
+                 restart_backoff=0.01) as eng:
+    rid_a = eng.submit(good_a, max_new_tokens=6)
+    rid_p = eng.submit(poison, max_new_tokens=6)
+    rid_b = eng.submit(good_b, max_new_tokens=6)
+    out_a = eng.result(rid_a, timeout=120)
+    out_b = eng.result(rid_b, timeout=120)
+    with pytest.raises(ns.sched.PoisonedRequest,
+                       match="consecutive engine crashes"):
+      eng.result(rid_p, timeout=120)
+    assert eng.alive                      # healed, not dead
+  return {"outs": [out_a.tolist(), out_b.tolist()],
+          "stats": {k: eng.stats[k] for k in (
+              "engine_restarts", "poisoned", "replay_mismatches")}}
+
+
+def stall_blows_deadline(ns):
+  victim, healthy = _prompts_of(41, (6, 4))
+  with ns.engine(num_slots=1, eos_id=None, horizon=2,
+                 poll_interval=0.01) as eng:
+    eng.generate([victim, healthy], max_new_tokens=2, timeout=120)  # warm
+    os.environ[ns.chaos.ENV_SERVE] = "decode#1:stall:0.5"
+    ns.chaos.reset()
+    try:
+      rid_v = eng.submit(victim, max_new_tokens=40, ttl=0.2)
+      with pytest.raises(ns.sched.DeadlineExceeded):
+        eng.result(rid_v, timeout=60)
+    finally:
+      del os.environ[ns.chaos.ENV_SERVE]
+      ns.chaos.reset()
+    out_h = eng.result(eng.submit(healthy, max_new_tokens=4), timeout=60)
+  return {"out": out_h.tolist(), "expired": eng.stats["expired"]}
+
+
+def terminal_death_fails_fast(ns):
+  p = np.asarray([2, 3, 4], np.int32)
+  eng = ns.engine(num_slots=1, eos_id=REF_EOS, horizon=4,
+                  max_restarts=0).start()
+  try:
+    rid = eng.submit(p, max_new_tokens=8)
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="request %d failed" % rid):
+      eng.result(rid, timeout=600)
+    assert time.monotonic() - t0 < 30.0   # not the 600 s timeout
+    alive = eng.alive
+    with pytest.raises(RuntimeError, match="serving loop died") as ei:
+      eng.submit(p, max_new_tokens=2)
+    assert isinstance(ei.value.__cause__, ns.chaos.InjectedFault)
+  finally:
+    eng.stop()
+  return {"alive": alive, "cause": str(ei.value.__cause__)}
+
+
+SERVE_CHAOS = {f.__name__: (f, spec) for f, spec in (
+    (decode_crash_replays, "decode#2:raise"),
+    (stream_deduplicated_across_crash, "decode#2:raise"),
+    (prefill_poison_isolated, "prefill@13#1:raise,prefill@13#2:raise"),
+    (stall_blows_deadline, None),
+    (terminal_death_fails_fast, "decode#1:raise"))}
+
+
+@pytest.mark.chaos
+@pytest.mark.parametrize("case", sorted(SERVE_CHAOS))
+def test_serve_chaos_recovery_equals_the_reference(pair, monkeypatch, case):
+  """``tests/test_serving.py``'s TOS_CHAOS_SERVE recovery cases through
+  both engines under the same spec: each package meets the reference
+  test's invariants, and the port's outputs and recovery counts equal the
+  JAX engine's."""
+  fn, spec = SERVE_CHAOS[case]
+  for name in list(os.environ):
+    if name.startswith("TOS_CHAOS_"):
+      monkeypatch.delenv(name)
+  if spec is not None:
+    monkeypatch.setenv("TOS_CHAOS_SERVE", spec)
+  records = {}
+  for ns in pair:
+    for other in pair:
+      other.chaos.reset()
+    records[ns.name] = fn(ns)
+  for ns in pair:
+    ns.chaos.reset()
+  assert records["torch"] == records["jax"]
+
+
+def _load(eng):
+  return [eng.queue_depth, eng.queued_tokens, eng.slots_in_use,
+          eng.occupancy_now]
+
+
+def test_fleet_surface_reads_as_the_reference(pair):
+  """The load properties, ``poll``, ``stats_snapshot`` and ``kill`` read
+  the same on both engines at the same states."""
+  prompts = _prompts_of(7, (3, 6, 9))
+  records = {}
+  for ns in pair:
+    rec = records[ns.name] = {}
+    eng = ns.engine(num_slots=2, eos_id=REF_EOS, horizon=2)
+    rec["fresh"] = _load(eng) + [eng.tokens_per_sec]
+    rids = [eng.submit(p, max_new_tokens=5) for p in prompts]
+    rec["queued"] = _load(eng)
+    snap = eng.stats_snapshot()
+    eng.start()
+    try:
+      handles = [eng.request(r) for r in rids]
+      for h in handles:
+        assert h.done.wait(timeout=120)
+      rec["polled"] = [eng.poll(r).tolist() for r in rids]
+      with pytest.raises(KeyError):
+        eng.poll(rids[0])                  # poll popped the entry
+      rec["delta"] = {k: snap.delta()[k] for k in ("submitted", "completed",
+                                                    "prefills")}
+      rec["idle"] = _load(eng)
+      assert eng.tokens_per_sec > 0
+      eng.kill(RuntimeError("boom"))       # the loop thread exits
+      rec["killed"] = [eng.alive, eng._thread.is_alive(), _load(eng)]
+      with pytest.raises(RuntimeError, match="serving loop died") as ei:
+        eng.submit(prompts[0], max_new_tokens=2)
+      rec["cause"] = str(ei.value.__cause__)
+    finally:
+      eng.stop()
+    # a request the engine holds when it is killed fails with the cause
+    eng = ns.engine(num_slots=2, eos_id=REF_EOS, horizon=2)
+    held = eng.submit(prompts[1], max_new_tokens=5)
+    assert eng.poll(held) is None
+    eng.kill()
+    with pytest.raises(RuntimeError, match="request %d failed" % held) as ei:
+      eng.result(held, timeout=30)
+    rec["held"] = [eng.alive, str(ei.value.__cause__)]
+    eng.stop()
+  assert records["torch"] == records["jax"]
+  assert records["torch"]["queued"] == [3, sum(len(p) + 5 for p in prompts),
+                                        0, 0.0]

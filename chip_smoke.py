@@ -166,6 +166,38 @@ failure:
    (b) (two replicas share one card and one host process), the seconds
    from the kill to the last replayed completion, the swap's seconds and
    the peak memory with one and with two replicas;
+   (6q) the registry, the deploy controller and cross-host serving:
+   v1 (seed 0) published to a ``ModelRegistry`` with ``cfg_wire(cfg)``
+   and [4]'s engine options in its manifest; two ServingHost processes
+   (spawned; each builds its engine on the card from the registry) and a
+   ``ServingFleet(remote_engine_factory(plane), num_replicas=2,
+   health_probe=wire_health_probe(addr))`` behind a rendezvous server
+   with the serving plane attached; (a) [4]'s 16 requests across the
+   wire: every output equal to a bare engine's on v1 in the driver to the
+   bit, both hosts prefilling, the hosts' summed launches exactly 12
+   flash forwards a prefill and 25 LayerNorm forwards a forward (each
+   host process counts its own, zeroed and read through files in the
+   phase's temp dir), none in the driver, the ``fleet.*`` counters exact
+   and no alert; (b) v2 (seed 1) published and driven through
+   ``DeploymentController``: CANARY on host 0, VERIFY with 4 parity spot
+   checks against a bare engine on v2 in the driver (one request at a
+   time), PROMOTE: shed 0, one promotion, no rollback, then [4]'s 16
+   equal to the bare v2 engine's to the bit with both hosts on v2; (c)
+   v3 (seed 2) under ``TOS_CHAOS_DEPLOY=canary:poison``: the poisoned
+   params (staged for the host, which builds versions from the registry)
+   fail VERIFY's parity, the controller rolls back, v3 is quarantined,
+   ``latest()`` stays 2, [4]'s 16 equal v2's to the bit with shed 0, and
+   the detector, read as the controller's SLO source, raises
+   ``canary_degraded``; (d) a fresh pair with
+   ``TOS_CHAOS_HOST=decode@1#3:kill`` in host 1's env: request 1 lands
+   on host 1 and is read through ``stream()``, host 1 SIGKILLs itself on
+   its 3rd sync round with requests in flight (exit -9), its replica is
+   ejected after ``TOS_HOST_TIMEOUT``, every output equals (a)'s, shed
+   0, replay mismatches 0, the stream gives each of its 32 positions once
+   across the hop, and the detector raises ``host_lost``. Logged beside
+   the card's name and power limit: tokens/s and TTFT p50 / p99 against
+   the bare engine's, the hosts' peak memory, the seconds from publish to
+   promoted and from the kill to the last replayed completion;
    (6l) data parallelism across processes: (6l-a) [6]'s steps (2 warm-up,
    4 ``make_train_step``, one unroll-4 slab, one profiled) with no mesh
    and then over the data axis of a 1-rank NCCL group
@@ -293,6 +325,10 @@ interleaved; it prints its measurements as one JSON line.
 driver builds every kernel first) at [4]'s sizes and prints its
 measurements as one JSON line.
 
+``python3 chip_smoke.py --deploy-only`` runs phases 1 and 6q alone (the
+driver builds every kernel first; the host processes load them) at [4]'s
+sizes and prints its measurements as one JSON line.
+
 ``python3 chip_smoke.py --serving-only N`` runs phases 1, 2 and 4 alone:
 the serving main path N times in one process, then the host time of one
 flash-forward wrapper call at the prefill chunks' shapes and the wall time
@@ -311,6 +347,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -3528,7 +3565,7 @@ def fleet_served(torch, ops, fl, prompts, cfg, chunks, what):
                     for e, d, n in zip(engines, decode_s, steps)]}
 
 
-def fleet_gauges(metrics, anomaly, reg, fl, n):
+def fleet_gauges(metrics, anomaly, reg, fl, n, what="[6p](b)"):
   """(b)'s obs gates: the fleet's counters and gauges under the names the
   port's detector and SLO tracker read, and no alert from the detector."""
   time.sleep(4 * fl._poll)           # the monitor's next gauge pass
@@ -3543,15 +3580,15 @@ def fleet_gauges(metrics, anomaly, reg, fl, n):
           "fleet.occupancy": 0}
   bad = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
   if bad:
-    raise AssertionError("[6p](b): fleet metrics (got, want) %s" % bad)
+    raise AssertionError("%s: fleet metrics (got, want) %s" % (what, bad))
   det = anomaly.AnomalyDetector(_OneExecutorSink(reg), interval=0.05,
                                 window=0.2,
                                 registry=metrics.MetricsRegistry())
   t = time.monotonic()
   alerts = det.poll(t) + det.poll(t + 1.0)
   if alerts:
-    raise AssertionError("[6p](b): the detector raised %s"
-                         % [a["alert"] for a in alerts])
+    raise AssertionError("%s: the detector raised %s"
+                         % (what, [a["alert"] for a in alerts]))
   return got
 
 
@@ -3815,6 +3852,579 @@ def fleet_launches(res, name):
           "fleet_failover": res["failover"]["launches"][name],
           "fleet_rolling_swap": res["swap"]["launches"][name],
           "fleet_crash_replay": res["crash_replay"]["launches"][name]}
+
+
+# -- phase 6q: the registry, the deploy controller and cross-host serving ----
+
+DEPLOY_HOSTS = 2
+#: [4]'s engine options, as every published manifest carries them
+DEPLOY_SERVE_OPTS = {"num_slots": 8, "horizon": 4, "max_new_tokens": MAIN_NEW}
+DEPLOY_SPOT_CHECKS = 4
+DEPLOY_POISON = "canary:poison"      # (c): the candidate poisoned at canary
+DEPLOY_KILL = "decode@1#3:kill"      # (d): host 1's 3rd round mid-decode
+DEPLOY_STREAMED = 1                  # (d): the request read through stream()
+
+
+def _write_json(path, payload):
+  tmp = path + ".tmp"
+  with open(tmp, "w") as f:
+    json.dump(payload, f)
+  os.replace(tmp, path)
+
+
+def _deploy_host_main(addr, hid, root, stage, outdir, env):
+  """The spawn target of a [6q] serving host: ``ServingHost.run()`` on the
+  card in a process of its own, building its engines from the registry at
+  ``root``, plus two things only this script needs. Launch windows: a side
+  thread zeroes the port's launch counts when the driver drops
+  ``reset-<n>`` into ``outdir`` (answering ``ack-<n>.<hid>``) and writes
+  this host's counts, its engines' prefills and decode steps since the
+  reset, its peak memory and its engines' devices as
+  ``counts-<n>.<hid>.json`` when the driver drops ``read-<n>`` (the
+  counters are per process, so the driver cannot read them). The poisoned
+  canary: the ``TOS_CHAOS_DEPLOY`` poison corrupts the params the
+  controller hands its engine factory, which a remote factory does not
+  ship, so the driver stages them as ``<stage>/v-<version>.npz`` and a
+  build of that version here serves them instead of the registry's."""
+  os.environ.update({str(k): str(v) for k, v in env.items()})
+  sys.path.insert(0, HERE)
+  import threading
+  import numpy as np
+  import torch
+  from tensorflowonspark_tpu_torch import ops
+  from tensorflowonspark_tpu_torch.serving import host as host_mod
+  from tensorflowonspark_tpu_torch.serving import registry as registry_mod
+  host = host_mod.ServingHost(tuple(addr), int(hid), registry_root=root)
+  engines = []
+  registry_build = host._build_engine
+
+  def build(version):
+    staged = None if version is None else os.path.join(
+        stage, "v-%06d.npz" % int(version))
+    if staged is not None and os.path.exists(staged):
+      with np.load(staged) as z:
+        params = {k: z[k] for k in z.files}
+      manifest = registry_mod.ModelRegistry(root).manifest(int(version))
+      eng, v = host_mod.build_engine_from_manifest(params, manifest), \
+          int(version)
+    else:
+      eng, v = registry_build(version)
+    engines.append(eng)
+    return eng, v
+
+  host._build_engine = build
+  base = {"prefills": 0, "steps": 0, "decode_s": 0.0}
+
+  def totals():
+    return {k: sum(e.stats[k] for e in list(engines))
+            for k in ("prefills", "steps", "decode_s")}
+
+  def counts():
+    torch.cuda.synchronize()
+    now = totals()
+    return {"launches": dict(ops.LAUNCHES),
+            "prefills": now["prefills"] - base["prefills"],
+            "steps": now["steps"] - base["steps"],
+            "decode_s": now["decode_s"] - base["decode_s"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "devices": sorted({str(e.model.device) for e in engines}),
+            "pid": os.getpid()}
+
+  stop, seen = threading.Event(), set()
+
+  def windows():
+    while not stop.is_set():
+      for name in sorted(os.listdir(outdir)):
+        if name in seen or "." in name:
+          continue
+        kind, _, n = name.partition("-")
+        if kind == "reset":
+          seen.add(name)
+          torch.cuda.synchronize()
+          ops.reset_launches()
+          base.update(totals())
+          _write_json(os.path.join(outdir, "ack-%s.%d" % (n, hid)), {})
+        elif kind == "read":
+          seen.add(name)
+          _write_json(os.path.join(outdir, "counts-%s.%d.json" % (n, hid)),
+                      counts())
+      stop.wait(0.02)
+
+  watcher = threading.Thread(target=windows, daemon=True)
+  watcher.start()
+  try:
+    host.run()
+  finally:
+    stop.set()
+    watcher.join(timeout=5)
+
+
+def _start_deploy_hosts(addr, root, stage, outdir, env_by_host=None):
+  """Two serving host processes (spawn: the driver holds a CUDA context)."""
+  import multiprocessing as mp
+  ctx = mp.get_context("spawn")
+  procs = []
+  for hid in range(DEPLOY_HOSTS):
+    p = ctx.Process(target=_deploy_host_main,
+                    args=(list(addr), hid, root, stage, outdir,
+                          dict((env_by_host or {}).get(hid, {}))),
+                    name="chip-smoke-serving-host-%d" % hid, daemon=True)
+    p.start()
+    procs.append(p)
+  return procs
+
+
+def _stop_deploy_hosts(plane, procs):
+  for hid in plane.host_ids():
+    plane.enqueue(hid, {"op": "exit"})
+  for p in procs:
+    p.join(timeout=60)
+    if p.is_alive():
+      p.terminate()
+      p.join(timeout=10)
+
+
+def _await_files(paths, what, timeout=120.0):
+  deadline = time.monotonic() + timeout
+  while not all(os.path.exists(p) for p in paths):
+    if time.monotonic() >= deadline:
+      raise AssertionError("%s: no answer from the hosts within %.0f s "
+                           "(%s)" % (what, timeout, paths))
+    time.sleep(0.02)
+
+
+def _host_window(outdir, n, hids):
+  """Zero every host's launch counts (window ``n``)."""
+  open(os.path.join(outdir, "reset-%d" % n), "w").close()
+  _await_files([os.path.join(outdir, "ack-%d.%d" % (n, h)) for h in hids],
+               "[6q] launch window %d" % n)
+
+
+def _host_counts(outdir, n, hids):
+  """Every host's counts since window ``n`` was opened, by host id."""
+  open(os.path.join(outdir, "read-%d" % n), "w").close()
+  paths = {h: os.path.join(outdir, "counts-%d.%d.json" % (n, h))
+           for h in hids}
+  _await_files(list(paths.values()), "[6q] launch counts %d" % n)
+  out = {}
+  for h, p in paths.items():
+    with open(p) as f:
+      out[h] = json.load(f)
+  return out
+
+
+def deploy_served(torch, ops, fl, prompts, cfg, chunks, outdir, window):
+  """[4]'s requests through the fleet of remote replicas, each host's
+  launch counts zeroed just before and read just after; the driver's own
+  counts must stay 0 (no kernel of the path runs in the driver)."""
+  hids = sorted(r.engine.host_id for r in fl._replicas.values())
+  _host_window(outdir, window, hids)
+  torch.cuda.synchronize()
+  ops.reset_launches()
+  t0 = time.monotonic()
+  frids = [fl.submit(p) for p in prompts]
+  # each remote submit waits for its host's admission ack (a sync round
+  # trip), so the driver's submits run in series
+  submit_s = time.monotonic() - t0
+  freqs = [fl.request(f) for f in frids]
+  outs = [fl.result(f, timeout=600).tolist() for f in frids]
+  wall = time.monotonic() - t0
+  hosts = _host_counts(outdir, window, hids)
+  driver = {k: v for k, v in ops.LAUNCHES.items() if v}
+  if driver:
+    raise AssertionError("[6q](a): the driver launched kernels %s" % driver)
+  launches = {}
+  for h in hosts.values():
+    for k, v in h["launches"].items():
+      launches[k] = launches.get(k, 0) + v
+  stand_in = [types.SimpleNamespace(stats={"prefills": h["prefills"],
+                                           "steps": h["steps"]})
+              for h in hosts.values()]
+  counts = _fleet_launch_check("[6q](a)", launches, stand_in, {}, cfg, chunks)
+  generated = sum(len(o) - len(p) for p, o in zip(prompts, outs))
+  p50, p99 = _ttft_ms(freqs)
+  return outs, {"wall_s": wall, "tokens_per_s": generated / wall,
+                "ttft_ms_p50": p50, "ttft_ms_p99": p99, "submit_s": submit_s,
+                "launches": launches, **counts,
+                "prefills_by_host": [hosts[h]["prefills"] for h in hids],
+                "steps_by_host": [hosts[h]["steps"] for h in hids],
+                # wall ms of a decode step in each host's loop thread, in a
+                # process of its own (against [6p]'s threads in one)
+                "decode_ms_per_step_by_host": [
+                    hosts[h]["decode_s"] / max(1, hosts[h]["steps"]) * 1e3
+                    for h in hids],
+                "host_peak_mem_gib": [hosts[h]["peak_mem_gib"] for h in hids],
+                "host_devices": [hosts[h]["devices"] for h in hids],
+                "host_launches": [hosts[h]["launches"] for h in hids]}
+
+
+def _fleet_outputs(fl, prompts):
+  frids = [fl.submit(p) for p in prompts]
+  freqs = [fl.request(f) for f in frids]
+  return [fl.result(f, timeout=600).tolist() for f in frids], freqs
+
+
+def deploy_phase(torch, ops, tfm, ServingEngine, slots, card, init_params,
+                 cfg, serve_ref=None):
+  """[6q]: the registry, the deploy controller and cross-host serving
+  across two ServingHost processes on the card (module docstring).
+  ``serve_ref`` is [4]'s result in the full run, whose outputs the bare
+  engine's must equal."""
+  import tempfile
+  from tensorflowonspark_tpu_torch.control import rendezvous
+  from tensorflowonspark_tpu_torch.obs import anomaly, metrics
+  from tensorflowonspark_tpu_torch.serving import (
+      DeploymentController, ModelRegistry, ServingFleet, cfg_wire, remote)
+  from tensorflowonspark_tpu_torch.serving import fleet as fleet_mod
+  from tensorflowonspark_tpu_torch.utils import chaos
+  from tensorflowonspark_tpu_torch.utils.checkpoint import params_fingerprint
+  import numpy as np
+  prompts = _prompts(MAIN_LENGTHS, cfg.vocab_size, SEED + 2)
+  chunks = sum(len(slots.chunk_plan(len(p), slots.DEFAULT_BUCKETS))
+               for p in prompts)
+  probes = [(p, MAIN_NEW) for p in prompts[:DEPLOY_SPOT_CHECKS]]
+  os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+  tmp = tempfile.mkdtemp(prefix="chip_smoke_deploy_",
+                         dir=os.path.join(HERE, "build"))
+  root, stage = os.path.join(tmp, "registry"), os.path.join(tmp, "stage")
+  out1, out2 = os.path.join(tmp, "hosts1"), os.path.join(tmp, "hosts2")
+  for d in (stage, out1, out2):
+    os.makedirs(d)
+  extra = {"model_cfg": cfg_wire(cfg), "serve_opts": DEPLOY_SERVE_OPTS}
+  res = {"card": card, "host_sync_s": float(os.environ.get(
+      "TOS_HOST_SYNC", "0.02"))}
+  t_phase = time.monotonic()
+  reg = ModelRegistry(root, keep=8)
+  t0 = time.monotonic()
+  v1 = reg.publish(init_params(cfg, seed=SEED), step=1, extra=extra)
+  res["publish_s"] = time.monotonic() - t0
+  res["version_bytes"] = os.path.getsize(
+      os.path.join(reg._dir(v1), "params.npz"))
+
+  log("  (a) the bare engine on v1 in the driver")
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  params1, _ = reg.get(v1)
+  bare, model = serve_main_path(torch, ops, tfm, ServingEngine, slots,
+                                params1, cfg)
+  del model, params1
+  want = bare.pop("outputs")
+  bare.pop("ttft_ms_exact")
+  if serve_ref is not None and want != serve_ref["outputs"]:
+    raise AssertionError("[6q](a): the bare engine's outputs differ from "
+                         "[4]'s")
+  res["bare"] = bare
+  torch.cuda.empty_cache()
+
+  staged = []
+
+  def make_factory(params, manifest):
+    # a remote replica builds its version from the registry; params that
+    # are not the version's (the chaos poison) are staged for the host
+    version = int(manifest["version"])
+    if params_fingerprint(params) != manifest["fingerprint"]:
+      path = os.path.join(stage, "v-%06d.npz" % version)
+      with open(path, "wb") as f:
+        np.savez(f, **params)
+      staged.append(path)
+    return remote.remote_engine_factory(plane, version=version)
+
+  refs = {}
+
+  def reference_decode(params, prompt, budget):
+    # the parity oracle: a bare [4] engine on the candidate's params in
+    # the driver, one request at a time
+    if id(params) not in refs:
+      refs[id(params)] = (params, ServingEngine(
+          params, cfg, num_slots=8, horizon=4,
+          max_new_tokens=MAIN_NEW).start())
+    return refs[id(params)][1].generate([prompt], max_new_tokens=budget,
+                                        timeout=600)[0]
+
+  det_clock = [time.monotonic()]
+  alerts = []
+
+  def detector_pass(det):
+    # the detector spaced one second a pass, as [6p] polls it
+    det_clock[0] += 1.0
+    alerts.extend(det.poll(det_clock[0]))
+    return {"objectives": []}
+
+  mreg = metrics.activate()
+  server = rendezvous.Server(1)
+  procs = []
+  fl = None
+  try:
+    addr = server.start()
+    plane = remote.attach_serving_plane(server)
+    t0 = time.monotonic()
+    procs = _start_deploy_hosts(addr, root, stage, out1)
+    plane.await_hosts(DEPLOY_HOSTS, timeout=300)
+    res["hosts_up_s"] = time.monotonic() - t0
+    log("  (a) ServingFleet(remote_engine_factory(plane), num_replicas=%d) "
+        "over %d ServingHost processes" % (DEPLOY_HOSTS, DEPLOY_HOSTS))
+    t0 = time.monotonic()
+    fl = ServingFleet(remote.remote_engine_factory(plane, version=v1),
+                      num_replicas=DEPLOY_HOSTS,
+                      health_probe=remote.wire_health_probe(addr)).start()
+    res["fleet_start_s"] = time.monotonic() - t0
+    for rid in fl.replica_states():
+      fl.set_replica_version(rid, v1)
+    _warm_replicas(fl, cfg)
+    outs, served = deploy_served(torch, ops, fl, prompts, cfg, chunks, out1,
+                                 1)
+    _same_outputs("[6q](a) across the wire", outs, want)
+    if not all(served["prefills_by_host"]) or \
+        served["prefills"] != len(prompts):
+      raise AssertionError("[6q](a): prefills by host %s"
+                           % served["prefills_by_host"])
+    if any(not d or any(not x.startswith("cuda") for x in d)
+           for d in served["host_devices"]):
+      raise AssertionError("[6q](a): a host served off the card: %s"
+                           % served["host_devices"])
+    served["metrics"] = fleet_gauges(metrics, anomaly, mreg, fl,
+                                     len(prompts), "[6q](a)")
+    res["served"] = served
+    log("  (a) %d requests over %d hosts (prefills %s): outputs equal the "
+        "bare engine's to the bit; %.1f tok/s (bare %.1f), TTFT p50 %.1f "
+        "ms p99 %.1f ms (bare %.1f / %.1f); decode ms/step by host %s "
+        "(bare %.3f); host peak %s GiB (bare %.2f); hosts' launches %s, the "
+        "driver's none; no alert; %s" % (
+            len(prompts), DEPLOY_HOSTS, served["prefills_by_host"],
+            served["tokens_per_s"], bare["tokens_per_s"],
+            served["ttft_ms_p50"], served["ttft_ms_p99"], bare["ttft_ms_p50"],
+            bare["ttft_ms_p99"],
+            ["%.3f" % x for x in served["decode_ms_per_step_by_host"]],
+            bare["decode_ms_per_step"],
+            ["%.2f" % x for x in served["host_peak_mem_gib"]],
+            bare["peak_mem_gib"], served["launches"], card))
+
+    log("  (b) publish v2, DeploymentController.deploy(v2)")
+    det = anomaly.AnomalyDetector(_OneExecutorSink(mreg), interval=0.05,
+                                  window=0.2,
+                                  registry=metrics.MetricsRegistry())
+    ctl = DeploymentController(
+        fl, reg, make_factory, reference_decode, probes,
+        baseline_version=v1, traffic_slice=0.5, bake_seconds=0.0,
+        spot_checks=DEPLOY_SPOT_CHECKS, swap_timeout=600.0,
+        slo_source=lambda: detector_pass(det))
+    det.poll(det_clock[0])
+    snap = fl.stats_snapshot()
+    t0 = time.monotonic()
+    v2 = reg.publish(init_params(cfg, seed=SEED + 1), step=2, extra=extra)
+    verdict = ctl.deploy(v2)
+    promote_s = time.monotonic() - t0
+    shed = snap.delta().get("shed", 0)
+    (ref_params, ref_eng), = refs.values()
+    want2 = [o.tolist() for o in ref_eng.generate(prompts, timeout=600)]
+    outs2, freqs2 = _fleet_outputs(fl, prompts)
+    what = "[6q](b) deploy of v2"
+    if not (verdict["ok"] and verdict.get("promoted")) or \
+        verdict["parity"] != {"checked": DEPLOY_SPOT_CHECKS,
+                              "mismatches": 0} or shed or \
+        ctl.stats["promotions"] != 1 or ctl.stats["rollbacks"] or \
+        fl.served_versions() != {0: v2, 1: v2}:
+      raise AssertionError("%s: verdict %s, stats %s, shed %d, served %s"
+                           % (what, verdict, ctl.stats, shed,
+                              fl.served_versions()))
+    _same_outputs(what + " after the promote", outs2, want2)
+    stamps = {f.timing()["model_version"] for f in freqs2}
+    rows = plane.status()
+    if stamps != {v2} or {r["version"] for r in rows.values()} != {v2}:
+      raise AssertionError("%s: stamps %s, hosts %s" % (what, stamps, rows))
+    if any(a["alert"] == "canary_degraded" for a in alerts):
+      raise AssertionError("%s: canary_degraded on a clean canary" % what)
+    res["deploy"] = {"publish_to_promoted_s": promote_s,
+                     "verdict": {k: verdict[k] for k in (
+                         "ok", "parity", "ttft_ratio", "canary_samples",
+                         "baseline_samples", "bake_s")},
+                     "stats": dict(ctl.stats), "shed": shed,
+                     "host_versions": {k: r["version"]
+                                       for k, r in rows.items()}}
+    log("  (b) CANARY -> VERIFY (parity %d/%d, %d canary samples, TTFT "
+        "ratio %s) -> PROMOTE: promotions %d, rollbacks %d, shed %d; [4]'s "
+        "16 requests equal the bare v2 engine's to the bit, both hosts on "
+        "v2; publish to promoted %.2f s; %s" % (
+            verdict["parity"]["checked"] - verdict["parity"]["mismatches"],
+            verdict["parity"]["checked"], verdict["canary_samples"],
+            verdict["ttft_ratio"], ctl.stats["promotions"],
+            ctl.stats["rollbacks"], shed, promote_s, card))
+    for _, eng in refs.values():
+      eng.stop()
+    refs.clear()
+    del ref_eng, ref_params
+    torch.cuda.empty_cache()
+
+    log("  (c) publish v3, deploy under TOS_CHAOS_DEPLOY=%s" % DEPLOY_POISON)
+    snap = fl.stats_snapshot()
+    v3 = reg.publish(init_params(cfg, seed=SEED + 2), step=3, extra=extra)
+    chaos.reset()
+    t0 = time.monotonic()
+    with env_var(chaos.ENV_DEPLOY, DEPLOY_POISON):
+      verdict3 = ctl.deploy(v3)
+    rollback_s = time.monotonic() - t0
+    chaos.reset()
+    outs3, _ = _fleet_outputs(fl, prompts)
+    shed3 = snap.delta().get("shed", 0)
+    what = "[6q](c) a poisoned v3"
+    if verdict3["ok"] or not verdict3["parity"]["mismatches"] or \
+        not verdict3.get("rollback_bit_identical") or \
+        not reg.is_quarantined(v3) or reg.latest() != v2 or shed3 or \
+        ctl.stats["rollbacks"] != 1 or not staged or \
+        set(fl.served_versions().values()) != {v2}:
+      raise AssertionError("%s: verdict %s, quarantined %s, latest %s, "
+                           "shed %d, stats %s, staged %s" % (
+                               what, verdict3, reg.is_quarantined(v3),
+                               reg.latest(), shed3, ctl.stats, staged))
+    _same_outputs(what + " after the rollback", outs3, want2)
+    degraded = [a for a in alerts if a["alert"] == "canary_degraded"]
+    if not degraded:
+      raise AssertionError("%s: the detector did not raise canary_degraded: "
+                           "%s" % (what, alerts))
+    res["poison"] = {"verdict": {k: verdict3[k] for k in (
+        "ok", "parity", "reason", "rollback_bit_identical")},
+                     "deploy_to_rolled_back_s": rollback_s,
+                     "quarantine": reg.quarantine_record(v3)["verdict"][
+                         "reason"],
+                     "latest": reg.latest(), "shed": shed3,
+                     "alerts": sorted({a["alert"] for a in alerts})}
+    for _, eng in refs.values():
+      eng.stop()
+    refs.clear()
+    log("  (c) VERIFY parity %d/%d diverged -> ROLLBACK, v3 quarantined "
+        "(%s), latest %d, [4]'s 16 requests equal v2's to the bit, shed %d, "
+        "canary_degraded raised; deploy to rolled back %.2f s; %s" % (
+            verdict3["parity"]["mismatches"], verdict3["parity"]["checked"],
+            res["poison"]["quarantine"], reg.latest(), shed3, rollback_s,
+            card))
+  finally:
+    if fl is not None:
+      fl.stop()
+    for _, eng in refs.values():
+      eng.stop()
+    _stop_deploy_hosts(plane, procs)
+    server.stop()
+    metrics.deactivate()
+  del fl
+  torch.cuda.empty_cache()
+
+  log("  (d) a fresh pair, host 1 under TOS_CHAOS_HOST=%s, request %d "
+      "streamed" % (DEPLOY_KILL, DEPLOY_STREAMED))
+  mreg = metrics.activate()
+  server = rendezvous.Server(1)
+  procs, fl = [], None
+  try:
+    addr = server.start()
+    plane = remote.attach_serving_plane(server)
+    procs = _start_deploy_hosts(addr, root, stage, out2,
+                                {1: {chaos.ENV_HOST: DEPLOY_KILL}})
+    plane.await_hosts(DEPLOY_HOSTS, timeout=300)
+    fl = ServingFleet(remote.remote_engine_factory(plane, version=v1),
+                      num_replicas=DEPLOY_HOSTS, poll_interval=0.02,
+                      health_probe=remote.wire_health_probe(addr)).start()
+    det = anomaly.AnomalyDetector(_OneExecutorSink(mreg), interval=0.05,
+                                  window=0.2,
+                                  registry=metrics.MetricsRegistry())
+    det.poll(time.monotonic())
+    res["kill"] = deploy_host_kill(fl, fleet_mod, plane, procs, prompts,
+                                   want, det)
+  finally:
+    if fl is not None:
+      fl.stop()
+    _stop_deploy_hosts(plane, procs)
+    server.stop()
+    metrics.deactivate()
+  k = res["kill"]
+  log("  (d) host 1 SIGKILLed (exit %d) mid-decode, its replica ejected "
+      "%.3f s after its last sync; %d failovers, shed %d, replay mismatches "
+      "%d; outputs equal (a)'s to the bit; the streamed request hopped %s "
+      "after %s tokens and gave %d positions once each; kill to the last "
+      "replayed completion %.3f s; alerts %s; %s" % (
+          k["exitcode"], k["kill_to_eject_s"], k["failovers"], k["shed"],
+          k["replay_mismatches"], k["streamed_hop"],
+          k["streamed_before_hop"], k["streamed_tokens"],
+          k["kill_to_last_replay_s"], k["alerts"], card))
+  shutil.rmtree(tmp, ignore_errors=True)
+  res["total_s"] = time.monotonic() - t_phase
+  torch.cuda.empty_cache()
+  return res
+
+
+def deploy_host_kill(fl, fleet_mod, plane, procs, prompts, want, det):
+  """(d): request 0 lands on host 0 and request 1 on host 1 (the idle one
+  scores first), then the other 14 follow while request 1 is read through
+  ``stream()``; host 1 SIGKILLs itself on its 3rd sync round with requests
+  in flight. Every output must equal (a)'s and the stream must give each
+  position exactly once across the hop."""
+  frids = [fl.submit(prompts[0]), fl.submit(prompts[DEPLOY_STREAMED])]
+  x = fl.request(frids[1])
+  frids[2:] = [fl.submit(p) for p in prompts[2:]]
+  streamed = list(fl.stream(frids[1], timeout=600))
+  freqs = [x if f == frids[1] else fl.request(f) for f in frids]
+  outs = [x.output.tolist() if f == frids[1] else
+          fl.result(f, timeout=600).tolist() for f in frids]
+  procs[1].join(timeout=60)
+  states = fl.replica_states()
+  stats = dict(fl.stats)
+  eject = next(e for e in fl.events if e["event"] == "eject")
+  last_sync = plane._hosts[1].last_sync
+  replayed = [f for f in freqs if f.failovers]
+  hop_emitted = [e.get("emitted") for e in fl.events
+                 if e["event"] == "failover" and e.get("frid") == x.frid]
+  alerts = det.poll(time.monotonic() + 2.0) + det.poll(time.monotonic()
+                                                         + 3.0)
+  what = "[6q](d) host 1 under TOS_CHAOS_HOST=%s" % DEPLOY_KILL
+  _same_outputs(what, outs, want)
+  x_want = want[DEPLOY_STREAMED][len(prompts[DEPLOY_STREAMED]):]
+  if streamed != x_want or len(streamed) != MAIN_NEW:
+    raise AssertionError("%s: stream() gave %d tokens, not each of the %d "
+                         "positions once" % (what, len(streamed), MAIN_NEW))
+  hop = [rid for rid, _ in x.attempts]
+  if procs[1].exitcode != -9 or states[1] != fleet_mod.EJECTED or \
+      states[0] != fleet_mod.ACTIVE or hop != [1, 0] or not replayed:
+    raise AssertionError("%s: exit code %s, replica states %s, the streamed "
+                         "request's replicas %s, eject %s" % (
+                             what, procs[1].exitcode, states, hop, eject))
+  if stats["failovers"] < 1 or stats["shed"] or stats["replay_mismatches"] \
+      or stats["completed"] != len(prompts):
+    raise AssertionError("%s: stats %s" % (what, stats))
+  if "host_lost" not in [a["alert"] for a in alerts]:
+    raise AssertionError("%s: the detector did not raise host_lost: %s"
+                         % (what, alerts))
+  return {"exitcode": procs[1].exitcode,
+          "kill_to_eject_s": eject["t"] - last_sync,
+          "kill_to_last_replay_s": max(f.finished_at for f in replayed)
+                                   - last_sync,
+          "failovers": stats["failovers"], "replays": stats["replays"],
+          "replayed_requests": len(replayed), "shed": stats["shed"],
+          "replay_mismatches": stats["replay_mismatches"],
+          "retries": stats["retries"],
+          "streamed_tokens": len(streamed), "streamed_hop": hop,
+          "streamed_before_hop": hop_emitted,
+          "states": {str(k): v for k, v in states.items()},
+          "alerts": sorted({a["alert"] for a in alerts})}
+
+
+def deploy_summary(res):
+  """[6q]'s numbers for one JSON line."""
+  keys = ("tokens_per_s", "ttft_ms_p50", "ttft_ms_p99")
+  return {"bare": {k: res["bare"][k] for k in keys + ("peak_mem_gib",
+                                                      "decode_ms_per_step")},
+          "served": {k: res["served"][k] for k in keys + (
+              "submit_s", "wall_s", "prefills_by_host", "steps_by_host",
+              "decode_ms_per_step_by_host", "host_peak_mem_gib")},
+          "deploy": {k: res["deploy"][k] for k in (
+              "publish_to_promoted_s", "shed", "verdict")},
+          "poison": {k: res["poison"][k] for k in (
+              "deploy_to_rolled_back_s", "latest", "shed", "alerts")},
+          "kill": {k: res["kill"][k] for k in (
+              "kill_to_eject_s", "kill_to_last_replay_s", "failovers",
+              "replayed_requests", "shed", "replay_mismatches",
+              "streamed_hop", "streamed_before_hop", "alerts")},
+          "setup_s": {k: res[k] for k in ("publish_s", "hosts_up_s",
+                                          "fleet_start_s")},
+          "total_s": res["total_s"],
+          "launches": res["served"]["launches"]}
 
 
 # -- phase 6l: data parallelism across processes -----------------------------
@@ -5326,6 +5936,26 @@ def fleet_only(torch, ops, tfm, ServingEngine, slots, init_params, _build,
   return 0
 
 
+def deploy_only(torch, ops, tfm, ServingEngine, slots, init_params, _build,
+                card):
+  """``--deploy-only``: phase 6q alone, at [4]'s sizes (the driver builds
+  every kernel first; the hosts load them)."""
+  log("  built %s" % _build.build_all())
+  cfg = tfm.TransformerConfig()
+  res = deploy_phase(torch, ops, tfm, ServingEngine, slots, card,
+                     init_params, cfg)
+  os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+  with open(os.path.join(HERE, "chiprun_out", "chip_smoke_deploy.json"),
+            "w") as f:
+    json.dump(res, f, indent=1)
+  log(card)
+  log(json.dumps({"deploy": deploy_summary(res), "card": card}))
+  log(json.dumps({"ok": True, "device": {
+      "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+      "count": torch.cuda.device_count()}}))
+  return 0
+
+
 def fleet_summary(res):
   """[6p]'s numbers for one JSON line."""
   keys = ("tokens_per_s", "ttft_ms_p50", "ttft_ms_p99", "peak_mem_gib")
@@ -5354,15 +5984,16 @@ def main(argv):
   only_options = argv == ["--train-options-only"]
   only_obs = argv == ["--obs-only"]
   only_fleet = argv == ["--fleet-only"]
+  only_deploy = argv == ["--deploy-only"]
   if argv[:1] == ["--serving-only"] and len(argv) == 2:
     repeats = int(argv[1])
   elif argv and not (ln_only or only_cluster or only_feed or only_ckpt
                      or only_dp or only_pipeline or only_options
-                     or only_obs or only_fleet):
+                     or only_obs or only_fleet or only_deploy):
     log("usage: python3 chip_smoke.py [--serving-only N | "
         "--layer-norm-only | --cluster-only | --feed-only | --ckpt-only | "
         "--dp-only | --pipeline-only | --train-options-only | --obs-only | "
-        "--fleet-only]")
+        "--fleet-only | --deploy-only]")
     return 2
   try:
     import torch
@@ -5416,6 +6047,9 @@ def main(argv):
   if only_obs:
     return obs_only(torch, ops, tfm, ServingEngine, slots, init_params,
                     _build, card)
+  if only_deploy:
+    return deploy_only(torch, ops, tfm, ServingEngine, slots, init_params,
+                       _build, card)
   if only_fleet:
     return fleet_only(torch, ops, tfm, ServingEngine, slots, init_params,
                       _build, card)
@@ -5569,6 +6203,13 @@ def main(argv):
   fleet_res = fleet_phase(torch, ops, tfm, ServingEngine, slots, card, params,
                           cfg, serve_ref=main_res)
   torch.cuda.empty_cache()
+  log("[6q] the registry, the deploy controller and cross-host serving: "
+      "[4]'s requests over %d ServingHost processes, v2 canaried and "
+      "promoted, a poisoned v3 rolled back, a host killed mid-decode"
+      % DEPLOY_HOSTS)
+  deploy_res = deploy_phase(torch, ops, tfm, ServingEngine, slots, card,
+                            init_params, cfg, serve_ref=main_res)
+  log("  [6q] %s" % json.dumps(deploy_summary(deploy_res)))
   dp_res = dp_phases(torch, ops, tfm, optim, sharding, Slab, train_gpt,
                      params, cfg)
   torch.cuda.empty_cache()
@@ -5667,6 +6308,8 @@ def main(argv):
              "obs_serve": obs_res["serve"]["launches"][
                  "flash_attention_fwd"],
              **fleet_launches(fleet_res, "flash_attention_fwd"),
+             "deploy_2_hosts": deploy_res["served"]["launches"][
+                 "flash_attention_fwd"],
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "flash_attention_fwd"),
              "serve_gpt_config_bf16": serve_gpt_res["bfloat16"]["launches"][
@@ -5691,6 +6334,7 @@ def main(argv):
              "obs_feed_train_12_steps": obs_launches("layer_norm"),
              "obs_serve": obs_res["serve"]["launches"]["layer_norm"],
              **fleet_launches(fleet_res, "layer_norm"),
+             "deploy_2_hosts": deploy_res["served"]["launches"]["layer_norm"],
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "layer_norm"),
              **dp_launches(dp_res, "layer_norm"),
@@ -5793,6 +6437,7 @@ def main(argv):
             "train_long_gqa": long_res, "cluster_long_gqa": cluster_res,
             "ckpt_resume": ckpt_res, "train_options": options_res,
             "feed": feed_res, "obs": obs_res, "fleet": fleet_res,
+            "deploy": deploy_res,
             "dp": dp_res,
             "pipeline": pipe_res,
             "train_split": split_res,

@@ -33,10 +33,14 @@ dropped), ``HEALTH`` replies carry the sink's per-executor summary and
 the detector's alert ring, and ``BEAT``/``OBS`` replies carry
 ``server_time`` (the TIME exchange behind ``obs.spans.ClockOffset``).
 
-The verbs of planes the port does not have yet are answered with an
-``ERROR`` reply that names their ROADMAP item: ``SYNC``/``SYNCQ``/
-``GROUP`` (elastic groups, item 10) and ``SHREG``/``SHSYNC``/``SHBYE``
-(cross-host serving, item 8).
+Cross-host serving rides it too: ``SHREG`` (a serving host announces
+itself), ``SHSYNC`` (its events out, commands in) and ``SHBYE`` (clean
+departure) are delegated to ``Server.serving_plane``
+(``serving.remote.ServingHostPlane``), and HEALTH replies then carry
+its per-host ``hosts`` rows; with no plane attached the verbs get an
+``ERROR`` reply. The verbs of the one plane the port does not have yet,
+``SYNC``/``SYNCQ``/``GROUP`` (elastic groups), are answered with an
+``ERROR`` reply that names ROADMAP item 10.
 
 Env overrides (parity with reservation.py:25-26,190-206):
 ``TOS_TPU_SERVER_HOST`` pins the server bind/advertise host;
@@ -412,9 +416,10 @@ class HeartbeatSender(object):
 _UNPORTED_VERBS = {
     verb: "%s is not ported yet (ROADMAP Queue 1 item %d)" % (what, item)
     for verbs, what, item in (
-        (("SYNC", "SYNCQ", "GROUP"), "elastic multi-group training", 10),
-        (("SHREG", "SHSYNC", "SHBYE"), "cross-host serving", 8))
+        (("SYNC", "SYNCQ", "GROUP"), "elastic multi-group training", 10),)
     for verb in verbs}
+#: the cross-host serving verbs, delegated to ``Server.serving_plane``
+_SERVING_VERBS = ("SHREG", "SHSYNC", "SHBYE")
 
 
 def _parse_port_spec(spec: str) -> List[int]:
@@ -455,6 +460,12 @@ class Server(MessageSocket):
     #: alert ring (and its ``slo_status``/``deploy_status`` when it has
     #: them). None = no ``alerts`` field.
     self.alert_source = None
+    #: driver-attached ``serving.remote.ServingHostPlane`` serving the
+    #: SHREG/SHSYNC/SHBYE verbs (executor-resident serving engines synced
+    #: with driver-side ``RemoteReplica`` proxies). None (the default)
+    #: answers those verbs with an ERROR reply: the control plane never
+    #: requires the serving plane to exist.
+    self.serving_plane = None
     #: HEALTH obs/alert enrichment failures (counted, never raised)
     self.health_obs_failures = 0
     self._listener: Optional[socket.socket] = None
@@ -588,6 +599,15 @@ class Server(MessageSocket):
         # counted so a chronically failing summary is diagnosable
         self.health_obs_failures += 1
         logger.warning("obs summary for HEALTH failed: %s", e)
+    shplane = self.serving_plane
+    if shplane is not None:
+      # per-host liveness and load: what wire_health_probe keys replica
+      # ejection on
+      try:
+        reply["hosts"] = shplane.status()
+      except Exception as e:  # noqa: BLE001 - reply stays hosts-free
+        self.health_obs_failures += 1
+        logger.warning("serving-plane status for HEALTH failed: %s", e)
     alerts = self.alert_source
     if alerts is None:
       return reply
@@ -640,6 +660,19 @@ class Server(MessageSocket):
                        "server_time": time.monotonic()})
     elif mtype == "HEALTH":
       self.send(sock, self._health_reply())
+    elif mtype in _SERVING_VERBS:
+      # delegated to the attached ServingHostPlane; a plane bug degrades
+      # to an ERROR reply the host surfaces, never a dead serve loop
+      shplane = self.serving_plane
+      if shplane is None:
+        self.send(sock, {"type": "ERROR",
+                         "error": "no serving plane attached for %s" % mtype})
+      else:
+        try:
+          self.send(sock, shplane.handle(msg))
+        except Exception as e:  # noqa: BLE001 - reported to the caller
+          logger.warning("serving plane failed on %s: %s", mtype, e)
+          self.send(sock, {"type": "ERROR", "error": str(e)})
     elif mtype in _UNPORTED_VERBS:
       self.send(sock, {"type": "ERROR", "error": "%s: %s" % (
           mtype, _UNPORTED_VERBS[mtype])})

@@ -46,13 +46,36 @@ never at random.
     with everything it accepted mid-decode (``"dispatch@1#3:kill"``);
     ``stall`` sleeps at the dispatch (a slow router hop).
 
-Three knobs of the reference arm fault sites the port does not have yet.
-Arming one raises ``NotImplementedError`` at the first consult, naming
+``TOS_CHAOS_DEPLOY`` = ``"point[@index][#nth]:kill"``,
+    ``"...:poison"`` or ``"...:stall:seconds"`` (comma-separated)
+    Deployment fault at a named :func:`deploy_fault` point
+    (``serving.deploy`` arms ``canary``, ``verify``, ``promote`` and
+    ``rollback``; promote passes the replica id being swapped as index,
+    the others the candidate version): ``kill`` tells the caller that
+    the controller dies at that boundary (``"promote#1:kill"`` dies
+    mid-promote after the first remaining replica swapped), ``poison``
+    that the candidate's params are corrupted at the canary build (a bad
+    publish VERIFY must catch), ``stall`` sleeps there.
+
+``TOS_CHAOS_HOST`` = ``"point[@host][#nth]:kill"``,
+    ``"...:stall:seconds"`` or ``"...:partition:seconds"`` (comma-sep)
+    Serving-host fault (``serving.host`` consults :func:`host_fault` at
+    each sync round with the host id as index; point ``sync`` ticks every
+    round, point ``decode`` only on rounds with requests in flight, so a
+    ``decode`` kill lands mid-decode however long the engine build took):
+    ``kill`` SIGKILLs the whole host process, ``stall`` sleeps the sync
+    loop inline, ``partition`` makes the host skip all wire I/O for
+    ``seconds`` while its engine keeps decoding; past
+    ``TOS_HOST_TIMEOUT`` that silence reads as death.
+    ``"decode@1#3:kill"`` kills host 1 on its 3rd sync round with live
+    requests.
+
+One knob of the reference arms a fault site the port does not have yet.
+Arming it raises ``NotImplementedError`` at the first consult, naming
 the ROADMAP Queue 1 item that ports its site, instead of injecting
 nothing: a chaos run that injects no fault passes for the wrong reason.
 ``TOS_CHAOS_GROUP`` (``parallel.groups``' ``group_fault``) comes with
-item 10, ``TOS_CHAOS_DEPLOY`` (``serving.deploy``) with item 8b and
-``TOS_CHAOS_HOST`` (``serving.host``) with item 8c.
+item 10.
 """
 
 import logging
@@ -80,9 +103,7 @@ _KNOWN_ENV = (ENV_KILL, ENV_STALL, ENV_RV_DROP, ENV_RV_DELAY, ENV_SERVE,
 _ENV_PREFIX = "TOS_CHAOS_"
 #: the knobs whose fault sites are not ported yet, with the ROADMAP Queue 1
 #: item that ports each
-_UNPORTED = ((ENV_GROUP, "the group fault of parallel/groups.py", "10"),
-             (ENV_DEPLOY, "the deploy fault of serving/deploy.py", "8b"),
-             (ENV_HOST, "the host fault of serving/host.py", "8c"))
+_UNPORTED = ((ENV_GROUP, "the group fault of parallel/groups.py", "10"),)
 
 
 class InjectedFault(RuntimeError):
@@ -170,6 +191,20 @@ def check_config() -> None:
                        "'point[@replica][#nth]:kill' or "
                        "'point[@replica][#nth]:stall:seconds')"
                        % (ENV_FLEET, spec))
+  for spec in _split_specs(os.environ.get(ENV_DEPLOY)):
+    try:
+      _parse_deploy_spec(spec)
+    except ValueError:
+      raise ValueError("%s: malformed deploy spec %r (want "
+                       "'point[@index][#nth]:kill', '...:poison' or "
+                       "'...:stall:seconds')" % (ENV_DEPLOY, spec))
+  for spec in _split_specs(os.environ.get(ENV_HOST)):
+    try:
+      _parse_host_spec(spec)
+    except ValueError:
+      raise ValueError("%s: malformed host spec %r (want "
+                       "'point[@host][#nth]:kill', '...:stall:seconds' or "
+                       "'...:partition:seconds')" % (ENV_HOST, spec))
   armed = ["%s (%s): ROADMAP Queue 1 item %s" % (env, site, item)
            for env, site, item in _UNPORTED if os.environ.get(env)]
   if armed:
@@ -276,9 +311,64 @@ def _parse_fleet_spec(spec: str):
   return _parse_action_spec(spec, "kill")
 
 
+def _parse_deploy_spec(spec: str):
+  """``"point[@index][#nth]:kill"``, ``"...:poison"`` or
+  ``"...:stall:seconds"`` → ((name, index, nth), action, secs_or_None):
+  the fleet grammar with two hard actions, ``kill`` (the controller dies
+  at the boundary) and ``poison`` (the candidate's params are corrupted
+  at the canary build)."""
+  parts = spec.split(":")
+  if len(parts) < 2 or not parts[0]:
+    raise ValueError(spec)
+  target = _parse_point_spec(parts[0])
+  action = parts[1]
+  if action in ("kill", "poison"):
+    if len(parts) != 2:
+      raise ValueError(spec)
+    return target, action, None
+  if action == "stall":
+    if len(parts) != 3:
+      raise ValueError(spec)
+    return target, action, float(parts[2])
+  raise ValueError(spec)
+
+
+def _parse_host_spec(spec: str):
+  """``"point[@host][#nth]:kill"``, ``"...:stall:seconds"`` or
+  ``"...:partition:seconds"`` → ((name, host, nth), action,
+  secs_or_None). ``partition`` carries a duration (how long the host's
+  wire goes dark) but is not an inline stall: the caller keeps
+  decoding."""
+  parts = spec.split(":")
+  if len(parts) < 2 or not parts[0]:
+    raise ValueError(spec)
+  target = _parse_point_spec(parts[0])
+  action = parts[1]
+  if action == "kill":
+    if len(parts) != 2:
+      raise ValueError(spec)
+    return target, action, None
+  if action in ("stall", "partition"):
+    if len(parts) != 3:
+      raise ValueError(spec)
+    return target, action, float(parts[2])
+  raise ValueError(spec)
+
+
 def _sentinel_path(name: str, index) -> str:
   safe = re.sub(r"[^A-Za-z0-9_.-]", "_", "%s_%s" % (name, index))
   return os.path.join(os.getcwd(), ".tos_chaos_fired_%s" % safe)
+
+
+def _counted(point: str, index) -> Tuple[int, int]:
+  """Bump and return (global, per-index) invocation counts of a point."""
+  with _lock:
+    gcount = _counts[(point, None)] = _counts.get((point, None), 0) + 1
+    icount = gcount
+    if index is not None:
+      icount = _counts[(point, index)] = \
+          _counts.get((point, index), 0) + 1
+  return gcount, icount
 
 
 def kill_point(name: str, index: Optional[int] = None) -> None:
@@ -357,13 +447,7 @@ def serve_fault(name: str, index: Optional[int] = None) -> None:
   if not spec_env:
     return
   check_config()
-  point = "serve." + name
-  with _lock:
-    gcount = _counts[(point, None)] = _counts.get((point, None), 0) + 1
-    icount = gcount
-    if index is not None:
-      icount = _counts[(point, index)] = \
-          _counts.get((point, index), 0) + 1
+  gcount, icount = _counted("serve." + name, index)
   for spec in _split_specs(spec_env):
     (sname, sindex, nth), action, secs = _parse_serve_spec(spec)
     if sname != name:
@@ -403,13 +487,7 @@ def fleet_fault(name: str, index: Optional[int] = None) -> Optional[str]:
   if not spec_env:
     return None
   check_config()
-  point = "fleet." + name
-  with _lock:
-    gcount = _counts[(point, None)] = _counts.get((point, None), 0) + 1
-    icount = gcount
-    if index is not None:
-      icount = _counts[(point, index)] = \
-          _counts.get((point, index), 0) + 1
+  gcount, icount = _counted("fleet." + name, index)
   for spec in _split_specs(spec_env):
     (sname, sindex, nth), action, secs = _parse_fleet_spec(spec)
     if sname != name:
@@ -427,6 +505,84 @@ def fleet_fault(name: str, index: Optional[int] = None) -> Optional[str]:
     logger.warning("chaos: kill verdict at fleet point %r replica %r "
                    "(occurrence %d)", name, index, nth)
     return "kill"
+  return None
+
+
+def deploy_fault(name: str, index: Optional[int] = None) -> Optional[str]:
+  """Deterministic deployment fault site (``serving.deploy`` arms
+  ``canary``/``verify``/``promote``/``rollback``): returns ``"kill"``
+  when a ``TOS_CHAOS_DEPLOY`` kill spec matches this invocation (the
+  caller then dies as the controller at that state-machine boundary) or
+  ``"poison"`` (the caller corrupts the candidate's params). Stall specs
+  sleep inline and return None, as does a disarmed or unmatched consult.
+
+  Counters mirror :func:`fleet_fault`: a global per-point count (specs
+  without ``@index``) and a per-index one (``promote`` passes the replica
+  id being swapped; ``canary``/``verify``/``rollback`` the candidate
+  version).
+  """
+  _first_consult()
+  spec_env = os.environ.get(ENV_DEPLOY)
+  if not spec_env:
+    return None
+  check_config()
+  gcount, icount = _counted("deploy." + name, index)
+  for spec in _split_specs(spec_env):
+    (sname, sindex, nth), action, secs = _parse_deploy_spec(spec)
+    if sname != name:
+      continue
+    if sindex is None:
+      if gcount != nth:
+        continue
+    elif sindex != index or icount != nth:
+      continue
+    if action == "stall":
+      logger.warning("chaos: stalling %.2fs at deploy point %r index %r "
+                     "(occurrence %d)", secs, name, index, nth)
+      time.sleep(secs)
+      continue
+    logger.warning("chaos: %s verdict at deploy point %r index %r "
+                   "(occurrence %d)", action, name, index, nth)
+    return action
+  return None
+
+
+def host_fault(name: str, index: Optional[int] = None):
+  """Deterministic serving-host fault site (``serving.host`` consults
+  ``sync`` at each sync round and ``decode`` on rounds with requests in
+  flight, with the host id as ``index``): returns ``("kill", None)`` when
+  a ``TOS_CHAOS_HOST`` kill spec matches this invocation (the caller then
+  SIGKILLs its own process) or ``("partition", seconds)`` (the caller
+  skips all wire I/O for that long while its engine keeps decoding).
+  Stall specs sleep inline and return None, as does a disarmed or
+  unmatched consult.
+
+  Counters mirror :func:`fleet_fault`: a global per-point count (specs
+  without ``@host``) and a per-host one ("this host's nth round").
+  """
+  _first_consult()
+  spec_env = os.environ.get(ENV_HOST)
+  if not spec_env:
+    return None
+  check_config()
+  gcount, icount = _counted("host." + name, index)
+  for spec in _split_specs(spec_env):
+    (sname, sindex, nth), action, secs = _parse_host_spec(spec)
+    if sname != name:
+      continue
+    if sindex is None:
+      if gcount != nth:
+        continue
+    elif sindex != index or icount != nth:
+      continue
+    if action == "stall":
+      logger.warning("chaos: stalling %.2fs at host point %r host %r "
+                     "(occurrence %d)", secs, name, index, nth)
+      time.sleep(secs)
+      continue
+    logger.warning("chaos: %s verdict at host point %r host %r "
+                   "(occurrence %d)", action, name, index, nth)
+    return action, secs
   return None
 
 

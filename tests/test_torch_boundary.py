@@ -59,7 +59,11 @@ def test_port_sources_import_no_jax():
                "obs/anomaly.py", "obs/device.py", "obs/profiler.py",
                "utils/profiler.py",
                # and the serving fleet
-               "serving/fleet.py", "serving/engine.py", "serving/slots.py"):
+               "serving/fleet.py", "serving/engine.py", "serving/slots.py",
+               # and the registry, the deploy controller and cross-host
+               # serving
+               "serving/registry.py", "serving/deploy.py",
+               "serving/remote.py", "serving/host.py"):
     assert os.path.join(*name.split("/")) in scanned, name
   bad = sorted((os.path.relpath(p, ROOT), root) for p in files
                for root in _imported_roots(p) if root in FORBIDDEN)

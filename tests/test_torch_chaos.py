@@ -3,12 +3,13 @@ JAX package.
 
 - ``check_config`` accepts and refuses the same specs as the reference's
   for every knob the port injects (kill, stall, rendezvous drop and delay,
-  serve, fleet), with the same messages; an unknown ``TOS_CHAOS_*`` name
-  raises ``ValueError``; ``GROUP``, ``DEPLOY`` and ``HOST`` raise
-  ``NotImplementedError`` naming ROADMAP items 10, 8b and 8c;
+  serve, fleet, deploy, host), with the same messages; an unknown
+  ``TOS_CHAOS_*`` name raises ``ValueError``; ``GROUP`` raises
+  ``NotImplementedError`` naming ROADMAP item 10;
 - the same call sequences through both modules' ``serve_fault``,
-  ``fleet_fault``, ``stall_point`` and ``message_fault`` give the same
-  verdicts (raises, kills, seconds slept, drops and delays);
+  ``fleet_fault``, ``deploy_fault``, ``host_fault``, ``stall_point`` and
+  ``message_fault`` give the same verdicts (raises, kills, poisons,
+  partitions, seconds slept, drops and delays);
 - ``kill_point`` in a subprocess dies by SIGKILL at the nth call, and not
   again once the sentinel exists;
 - the fault sites on the port's runtime: dropped beats read as a dead node
@@ -82,8 +83,7 @@ def test_unknown_knob_raises_as_the_reference(monkeypatch):
 
 
 #: the knobs whose sites the port does not have yet, and the item of each
-UNPORTED_ITEMS = {"TOS_CHAOS_GROUP": "10", "TOS_CHAOS_DEPLOY": "8b",
-                  "TOS_CHAOS_HOST": "8c"}
+UNPORTED_ITEMS = {"TOS_CHAOS_GROUP": "10"}
 
 
 def _inject(module, name):
@@ -94,6 +94,10 @@ def _inject(module, name):
     return [module.message_fault("BEAT") for _ in range(4)]
   if name == "TOS_CHAOS_FLEET":
     return [module.fleet_fault("dispatch", index=1) for _ in range(3)]
+  if name == "TOS_CHAOS_DEPLOY":
+    return [module.deploy_fault("promote", index=r) for r in (0, 1, 1)]
+  if name == "TOS_CHAOS_HOST":
+    return [module.host_fault("sync", index=1) for _ in range(31)]
   out = []
   for _ in range(3):
     try:
@@ -112,9 +116,9 @@ def _inject(module, name):
     ("TOS_CHAOS_HOST", "sync@1#30:kill")])
 def test_armed_fault_sites_not_ported_raise_naming_item_8(monkeypatch, name,
                                                           value):
-  """Each knob the reference injects: the port injects it the same way, or
-  (GROUP, DEPLOY, HOST) refuses it at every consult, naming the ROADMAP
-  item that ports its site."""
+  """Each knob the reference injects: the port injects it the same way
+  (DEPLOY and HOST since their sites were ported), or (GROUP) refuses it
+  at every consult, naming the ROADMAP item that ports its site."""
   monkeypatch.setenv(name, value)
   monkeypatch.setattr(time, "sleep", lambda s: None)
   ref_chaos.check_config()              # a fault the reference would inject
@@ -151,6 +155,19 @@ GRAMMAR = [
      [("fleet", "dispatch", r) for r in (0, 1, 1, 0, 1, 1)]),
     ("TOS_CHAOS_FLEET", "dispatch#2:kill,dispatch@0#2:stall:0.2",
      [("fleet", "dispatch", r) for r in (1, 0, 0, 0)]),
+    ("TOS_CHAOS_DEPLOY", "promote#1:kill",
+     [("deploy", "canary", 3), ("deploy", "verify", 3),
+      ("deploy", "promote", 1), ("deploy", "promote", 2)]),
+    ("TOS_CHAOS_DEPLOY", "canary:poison,promote@2#1:kill,verify#1:stall:0.3",
+     [("deploy", "canary", 4), ("deploy", "verify", 4),
+      ("deploy", "promote", 1), ("deploy", "promote", 2),
+      ("deploy", "canary", 5), ("deploy", "rollback", 5)]),
+    ("TOS_CHAOS_HOST", "decode@1#3:kill",
+     [("host", p, h) for p, h in (("sync", 1), ("decode", 0), ("decode", 1),
+                                  ("decode", 1), ("sync", 1), ("decode", 1),
+                                  ("decode", 1))]),
+    ("TOS_CHAOS_HOST", "sync@0#2:partition:1.5,sync#3:stall:0.2",
+     [("host", "sync", h) for h in (0, 1, 0, 1, 0)]),
     ("TOS_CHAOS_STALL", "feeder@1:3,feeder:0.5",
      [("stall", "feeder", r) for r in (0, 1, 1, 2, 0)]),
     ("TOS_CHAOS_STALL", "feeder@2:1.5", [("stall", "feeder", r)
@@ -176,6 +193,10 @@ def _run_calls(module, calls, slept):
         verdict = str(e)
     elif hook == "fleet":
       verdict = module.fleet_fault(point, index)
+    elif hook == "deploy":
+      verdict = module.deploy_fault(point, index)
+    elif hook == "host":
+      verdict = module.host_fault(point, index)
     elif hook == "stall":
       verdict = module.stall_point(point, index=index)
     else:
@@ -212,7 +233,15 @@ MALFORMED = [
     ("TOS_CHAOS_FLEET", "dispatch@1#2:raise"),
     ("TOS_CHAOS_FLEET", "dispatch:kill:3"),
     ("TOS_CHAOS_FLEET", "dispatch@x:kill"),
-    ("TOS_CHAOS_FLEET", "dispatch:stall:slow")]
+    ("TOS_CHAOS_FLEET", "dispatch:stall:slow"),
+    ("TOS_CHAOS_DEPLOY", "canary#1:raise"),
+    ("TOS_CHAOS_DEPLOY", "promote:poison:2"),
+    ("TOS_CHAOS_DEPLOY", "verify:stall"),
+    ("TOS_CHAOS_DEPLOY", ":kill"),
+    ("TOS_CHAOS_HOST", "sync@1:partition"),
+    ("TOS_CHAOS_HOST", "decode@1#3:poison"),
+    ("TOS_CHAOS_HOST", "sync:kill:1"),
+    ("TOS_CHAOS_HOST", "sync@x:stall:1")]
 
 
 @pytest.mark.parametrize("name,spec", MALFORMED,

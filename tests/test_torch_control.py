@@ -277,6 +277,11 @@ def test_unported_verbs_answer_with_their_item(verb, item):
       # the delta is acknowledged and dropped, as in the JAX package
       assert resp["type"] == "OK" and resp["accepted"] is False
       assert "server_time" in resp
+    elif verb == "SHREG":
+      # item 8 is ported: the verb goes to an attached serving plane, and
+      # without one the reply is the JAX package's "no serving plane"
+      assert resp == {"type": "ERROR",
+                      "error": "no serving plane attached for SHREG"}
     else:
       assert resp["type"] == "ERROR" and item in resp["error"]
     c.close()

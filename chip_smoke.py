@@ -268,7 +268,41 @@ failure:
    on 2 x 256 tokens, unfused and all-fused, and under the split plan MHA
    and grouped-KV, on the card with the kernels and on the CPU with the
    plain versions: the loss to 1e-4 relative, every gradient within 1e-3
-   of its largest magnitude.
+   of its largest magnitude;
+   (6r) the decode-speed stack at [4]'s full width, on [4]'s weights with
+   the out and down projections of layers 3-11 scaled by 0.005 (the
+   reference serve_bench's ``_soften_exit_layers``: a random network's
+   shallow self-draft would accept ~1/vocab): 32 requests, each one of 4
+   system prompts of 512 tokens (Zipf-drawn) plus a Zipf-drawn tail of
+   8-64 tokens, 32 new tokens each, horizon 4, through five warmed engines
+   timed over the whole workload: ``baseline`` (8 slots, contiguous),
+   ``paged`` (16 slots, 16-token pages, 1025 pages: the contiguous slab's
+   bytes), ``paged_prefix`` (and a 256-page prefix cache), ``full_stack``
+   (and ``spec_depth=4``, ``spec_layers=3``) and ``int8`` (8 slots,
+   ``kv_cache_dtype="int8"``). Gates: (a) in f32 (TF32 off) every leg's
+   outputs on the first 8 requests at 16 new tokens equal the
+   single-request ``greedy_generate_kv`` of its config, or differ first at
+   a near-tie (top-2 gap under 1e-4, measured along the reference's own
+   decode path); a later chunk of an int8 prefill attends the quantized
+   cache, so the timed int8 engine (default buckets) is held against
+   greedy decoding whose prefill runs in the engine's own chunks, and an
+   int8 engine that prefills each prompt in one chunk against
+   ``greedy_generate_kv`` itself; (b) the paged pool's KV bytes within a page of the
+   contiguous slab's, the int8 leaves int8 with f32 scales, the int8 slab
+   at most 0.55 of the bf16 slab's bytes; (c) in each leg 12 flash
+   forwards a prefill not resumed from a prefix hit, and 25 LayerNorm
+   forwards a full forward plus 7 a draft forward (forwards counted by a
+   pre-hook on the engine's model); (d) a paged engine at 8 slots gives
+   baseline's outputs to the bit on the first 8 requests, paged_prefix
+   records at least 28 prefix hits, full_stack accepts draft tokens, and
+   after the last completion the pool holds exactly the trie's pages; (e)
+   the full_stack engine under ``TOS_CHAOS_SERVE=decode#3:raise``, armed
+   after its warm-up: one restart, outputs equal to its fault-free run's
+   to the bit, no replay mismatch, the rebuilt pool balanced. Logged for
+   each leg beside the card's name and power limit: tokens/s, TTFT p50 and
+   p99, decode ms a dispatch, prefills, prefix hits and evictions, pages
+   in use at peak, the spec acceptance rate, peak memory, KV bytes and the
+   share of requests equal to baseline's tokens.
 
 Phase 3 also holds the flash forward at the long-context shape B1 x
 S16384 (Hk 4) against its plain version on three 512-row chunks (the
@@ -329,6 +363,16 @@ measurements as one JSON line.
 driver builds every kernel first; the host processes load them) at [4]'s
 sizes and prints its measurements as one JSON line.
 
+``python3 chip_smoke.py --decode-stack-only`` runs phases 1 and 6r alone (the
+script builds every kernel first) and prints its measurements as one JSON
+line.
+
+``python3 chip_smoke.py --serving-ab OTHER_CHECKOUT N`` runs phases 1 and 2,
+then phase 4 for the package of the checkout at OTHER_CHECKOUT (copied
+under ``build/`` under another name) and this one in the same process,
+alternated N times each way, and prints both sides' tokens/s as one JSON
+line.
+
 ``python3 chip_smoke.py --serving-only N`` runs phases 1, 2 and 4 alone:
 the serving main path N times in one process, then the host time of one
 flash-forward wrapper call at the prefill chunks' shapes and the wall time
@@ -338,6 +382,7 @@ package the same way, so two trees can alternate in one chip call.
 """
 
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -4427,6 +4472,509 @@ def deploy_summary(res):
           "launches": res["served"]["launches"]}
 
 
+# -- phase 6r: the decode-speed stack ------------------------------------------
+
+DECODE_PREFIXES = 4                 # system prompts
+DECODE_PREFIX_LEN = 512
+DECODE_REQUESTS = 32
+DECODE_TAILS = (8, 12, 16, 24, 32, 48, 64)
+DECODE_NEW = 32
+DECODE_HORIZON = 4
+DECODE_PAGE = 16
+DECODE_BASE_SLOTS = 8
+DECODE_PAGED_SLOTS = 16
+DECODE_PREFIX_PAGES = 256
+DECODE_SPEC_DEPTH = 4
+DECODE_SPEC_LAYERS = 3
+DECODE_SOFTEN = 0.005               # the out/down scale past the draft's exit
+DECODE_CRASH = "decode#3:raise"     # (e): the 3rd decode dispatch after arming
+DECODE_PARITY_REQUESTS = 8          # (a): the first 8 requests,
+DECODE_PARITY_NEW = 16              # 16 new tokens each
+DECODE_MIN_HITS = DECODE_REQUESTS - DECODE_PREFIXES
+DECODE_INT8_MAX_RATIO = 0.55
+DECODE_SEED = SEED + 41
+
+
+def soften_exit_layers(params, cfg, spec_layers, scale=DECODE_SOFTEN):
+  """The port's copy of the reference serve_bench's ``_soften_exit_layers``
+  on the flat weight names: the out and down projections of the layers
+  past the draft's exit scaled by ``scale``. Random weights give a
+  shallow self-draft ~1/vocab acceptance; scaled late layers emulate a
+  trained network's, whose late layers refine and rarely overturn. Every
+  leg and every parity reference uses the same softened weights."""
+  out = dict(params)
+  for i in range(spec_layers, cfg.num_layers):
+    for name in ("layers.%d.attn.out" % i, "layers.%d.mlp.down" % i):
+      out[name] = params[name] * scale
+  return out
+
+
+def _zipf_pick(rng, options, a=1.3):
+  """Zipf-ish draw over ``options`` sorted ascending (the reference
+  serve_bench's): small values common, large ones rare."""
+  import numpy as np
+  ranks = 1.0 / (1.0 + np.arange(len(options))) ** a
+  return options[rng.choice(len(options), p=ranks / ranks.sum())]
+
+
+def make_prefix_workload(vocab, seed):
+  """The reference serve_bench's ``make_prefix_workload`` at [6r]'s
+  shape: DECODE_PREFIXES system prompts of DECODE_PREFIX_LEN tokens, and
+  DECODE_REQUESTS requests, each a Zipf-drawn system prompt plus a
+  Zipf-drawn tail of DECODE_TAILS tokens (DECODE_NEW new tokens each)."""
+  import numpy as np
+  rng = np.random.RandomState(seed)
+  prefixes = [rng.randint(0, vocab, (DECODE_PREFIX_LEN,)).astype(np.int64)
+              for _ in range(DECODE_PREFIXES)]
+  reqs = []
+  for _ in range(DECODE_REQUESTS):
+    pi = _zipf_pick(rng, list(range(DECODE_PREFIXES)))
+    tail = rng.randint(0, vocab, (_zipf_pick(rng, sorted(DECODE_TAILS)),))
+    reqs.append(np.concatenate([prefixes[pi], tail.astype(np.int64)]))
+  return reqs
+
+
+def decode_legs(cfg):
+  """(leg, engine options, int8): every leg holds the contiguous slab's
+  KV bytes except int8 (the reference serve_bench's ``_equal_hbm_pages``:
+  DECODE_BASE_SLOTS x max_seq_len tokens of pages, plus the trash page)."""
+  paged = dict(num_slots=DECODE_PAGED_SLOTS, page_size=DECODE_PAGE,
+               num_pages=DECODE_BASE_SLOTS * cfg.max_seq_len // DECODE_PAGE
+               + 1)
+  prefix = dict(paged, prefix_pages=DECODE_PREFIX_PAGES)
+  return [("baseline", dict(num_slots=DECODE_BASE_SLOTS), False),
+          ("paged", paged, False),
+          ("paged_prefix", prefix, False),
+          ("full_stack", dict(prefix, spec_depth=DECODE_SPEC_DEPTH,
+                              spec_layers=DECODE_SPEC_LAYERS), False),
+          ("int8", dict(num_slots=DECODE_BASE_SLOTS), True)]
+
+
+def _leg_cfg(cfg, int8):
+  return dataclasses.replace(cfg, kv_cache_dtype="int8") if int8 else cfg
+
+
+def _kv_leaves(slabs):
+  return (slabs.k + slabs.v + (slabs.k_scale or [])
+          + (slabs.v_scale or []))
+
+
+def _count_forwards(model):
+  """Forward calls of ``model`` by kind (full, or a draft's shallow exit),
+  counted by a pre-hook: the host's side of gate (c)."""
+  counts = {"full": 0, "draft": 0}
+
+  def hook(_mod, _args, kwargs):
+    counts["draft" if kwargs.get("exit_layer") is not None
+           else "full"] += 1
+
+  return counts, model.register_forward_pre_hook(hook, with_kwargs=True)
+
+
+def decode_engine(ServingEngine, params, cfg, opts, int8, **kw):
+  """One leg's engine, started, with an exact peak of allocated pages
+  (taken at each allocation, the only place the count rises)."""
+  eng = ServingEngine(params, _leg_cfg(cfg, int8), horizon=DECODE_HORIZON,
+                      max_new_tokens=DECODE_NEW, **dict(opts, **kw))
+  eng.peak_pages = 0
+  real = eng._alloc_pages
+
+  def alloc(req):
+    got = real(req)
+    eng.peak_pages = max(eng.peak_pages, eng.kv_pages_in_use)
+    return got
+
+  eng._alloc_pages = alloc
+  return eng.start()
+
+
+def _decode_warm(eng, cfg):
+  # warm-up on prompts that share nothing with the workload's: cuBLAS
+  # handles, allocator pools, the first launches of every path
+  eng.generate(_prompts((40, 130), cfg.vocab_size, SEED + 7),
+               max_new_tokens=8, timeout=600)
+
+
+def decode_timed(torch, ops, eng, prompts):
+  """The workload through a warmed engine: outputs, launch and forward
+  counts, stats deltas and timings."""
+  counts, hook = _count_forwards(eng.model)
+  before = dict(eng.stats)
+  eng.peak_pages = eng.kv_pages_in_use
+  torch.cuda.synchronize()
+  ops.reset_launches()
+  t0 = time.monotonic()
+  try:
+    rids = [eng.submit(p) for p in prompts]
+    handles = [eng.request(r) for r in rids]
+    outs = [eng.result(r, timeout=600).tolist() for r in rids]
+    torch.cuda.synchronize()
+  finally:
+    hook.remove()
+  wall = time.monotonic() - t0
+  delta = {k: eng.stats[k] - before[k] for k in before}
+  return {"outs": outs, "handles": handles, "wall_s": wall,
+          "launches": dict(ops.LAUNCHES), "forwards": dict(counts),
+          "delta": delta}
+
+
+def _pct(values, q):
+  values = sorted(values)
+  return values[min(len(values) - 1, int(math.ceil(q * len(values))) - 1)]
+
+
+def decode_leg(torch, ops, ServingEngine, params, cfg, name, opts, int8,
+               prompts):
+  """One leg: warm, time the workload, hold gates (b) and (c) and read
+  the page state after the last completion."""
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  eng = decode_engine(ServingEngine, params, cfg, opts, int8)
+  try:
+    _decode_warm(eng, cfg)
+    run = decode_timed(torch, ops, eng, prompts)
+    leaves = _kv_leaves(eng._slabs)
+    kv_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    dtypes = sorted({str(t.dtype) for t in leaves})
+    # pages are released before a request's waiter wakes, so after the
+    # last result the pool holds exactly the trie's pages
+    in_use = eng.kv_pages_in_use
+    held = eng._prefix.pages_held if eng._prefix is not None else 0
+    peak_mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    drained = eng.drain(timeout=120)
+  finally:
+    eng.stop()
+  what = "[6r] %s" % name
+  if not drained:
+    raise AssertionError("%s: drain did not finish" % what)
+  outs, d = run["outs"], run["delta"]
+  for p, o in zip(prompts, outs):
+    if len(o) != len(p) + DECODE_NEW or o[:len(p)] != p.tolist() \
+        or min(o) < 0 or max(o) >= cfg.vocab_size:
+      raise AssertionError("%s: a request of %d tokens returned %d tokens "
+                           "or ids outside the vocabulary"
+                           % (what, len(p), len(o)))
+  if d["replay_mismatches"] or d["engine_restarts"]:
+    raise AssertionError("%s: stats %s" % (what, d))
+  # (c) launches: 12 flash forwards a prefill whose first chunk starts at
+  # cursor 0 (a prefix hit resumes past it), 25 LayerNorm forwards a full
+  # forward and 2 x spec_layers + 1 a draft forward
+  fw, ln = run["forwards"], run["launches"]
+  spec = eng.spec_depth
+  want_flash = cfg.num_layers * (d["prefills"] - d["prefix_hits"])
+  want_ln = (2 * cfg.num_layers + 1) * fw["full"] \
+      + (2 * eng.decoder.spec_layers + 1) * fw["draft"]
+  if ln["flash_attention_fwd"] != want_flash:
+    raise AssertionError("%s: flash attention launched %d times, the path "
+                         "needs %d (12 x (%d prefills - %d prefix hits))"
+                         % (what, ln["flash_attention_fwd"], want_flash,
+                            d["prefills"], d["prefix_hits"]))
+  if ln["layer_norm"] != want_ln:
+    raise AssertionError("%s: layer_norm launched %d times, the path needs "
+                         "%d (25 x %d full + %d x %d draft forwards)"
+                         % (what, ln["layer_norm"], want_ln, fw["full"],
+                            2 * eng.decoder.spec_layers + 1, fw["draft"]))
+  if fw["draft"] != (d["steps"] if spec else 0):
+    raise AssertionError("%s: %d draft forwards for %d spec slot-steps"
+                         % (what, fw["draft"], d["steps"]))
+  if in_use != held:
+    raise AssertionError("%s: %d pages in use after the last completion, "
+                         "the trie holds %d" % (what, in_use, held))
+  per_dispatch = DECODE_HORIZON if not spec else spec * eng._spec_rounds
+  dispatches = d["steps"] // per_dispatch
+  ttft = sorted(h.ttft * 1e3 for h in run["handles"])
+  generated = sum(len(o) - len(p) for p, o in zip(prompts, outs))
+  judged = d["spec_accepted"] + d["spec_rejected"]
+  res = {"options": dict(opts, kv_cache_dtype="int8" if int8 else "model"),
+         "requests": len(prompts), "generated_tokens": generated,
+         "wall_s": run["wall_s"], "tokens_per_s": generated / run["wall_s"],
+         "ttft_ms_p50": statistics.median(ttft),
+         "ttft_ms_p99": _pct(ttft, 0.99), "dispatches": dispatches,
+         "decode_ms_per_dispatch": d["decode_s"] / dispatches * 1e3,
+         "prefills": d["prefills"], "prefix_hits": d["prefix_hits"],
+         "prefix_evictions": d["prefix_evictions"],
+         "spec_accepted": d["spec_accepted"],
+         "spec_rejected": d["spec_rejected"],
+         "spec_accept_rate": d["spec_accepted"] / judged if judged else None,
+         "peak_pages_in_use": eng.peak_pages, "pages_after": in_use,
+         "trie_pages_after": held, "peak_mem_gib": peak_mem,
+         "kv_bytes": kv_bytes, "kv_dtypes": dtypes,
+         "launches": ln, "forwards": fw, "outputs": outs}
+  log("  %-12s %7.1f tok/s  TTFT p50 %7.1f p99 %7.1f ms  %6.2f ms/dispatch "
+      "(%d)  prefills %d  hits %d  evictions %d  peak pages %d  accept %s  "
+      "peak %.2f GiB  KV %d B  launches flash %d LN %d" % (
+          name, res["tokens_per_s"], res["ttft_ms_p50"], res["ttft_ms_p99"],
+          res["decode_ms_per_dispatch"], dispatches, res["prefills"],
+          res["prefix_hits"], res["prefix_evictions"], res["peak_pages_in_use"],
+          "%.3f" % res["spec_accept_rate"] if judged else "-", peak_mem,
+          kv_bytes, ln["flash_attention_fwd"], ln["layer_norm"]))
+  return res
+
+
+def _greedy_path(torch, model, tokens, plan):
+  """``(logits, cache)`` after ``tokens`` along a single-request greedy
+  decode's own path: the prompt's prefill in ``plan``'s chunks into a
+  fresh cache, then one token a step."""
+  with torch.inference_mode():
+    cache, off = model.init_cache(1), 0
+    for seg in plan:
+      logits = model(torch.as_tensor(tokens[None, off:off + seg]), cache)
+      off += seg
+    for t in tokens[off:]:
+      logits = model(torch.as_tensor([[int(t)]]), cache)
+  return logits[0, -1].float(), cache
+
+
+def _greedy_chunked(torch, model, prompt, num_new, plan):
+  """``greedy_generate_kv``'s greedy decode with the prefill cut into
+  ``plan``'s chunks, as an engine's ``chunk_plan`` cuts it: the plain
+  reference of an int8 engine's chunked prefill, whose later chunks
+  attend the quantized cache (one pass attends the raw projections)."""
+  import numpy as np
+  logits, cache = _greedy_path(torch, model, prompt, plan)
+  out = []
+  with torch.inference_mode():
+    for _ in range(num_new):
+      out.append(int(logits.argmax()))
+      logits = model(torch.as_tensor([out[-1:]]), cache)[0, -1].float()
+  return np.concatenate([prompt, np.asarray(out, prompt.dtype)])
+
+
+def _parity_against(torch, what, model, prompts, outs, refs, plans):
+  """Each output against its greedy reference: equal, or first different
+  at a near-tie (top-2 gap under 1e-4, along the reference's own path:
+  the prefill in ``plans``' chunks, then one token a step); raises
+  otherwise."""
+  import numpy as np
+  exact, ties, off = 0, [], []
+  for p, out, ref, plan in zip(prompts, outs, refs, plans):
+    out = np.asarray(out)
+    if len(out) == len(ref) and (out == ref).all():
+      exact += 1
+      continue
+    pos = int(np.argmax(out[:len(ref)] != ref[:len(out)]))
+    logits, _ = _greedy_path(torch, model, ref[:pos], plan)
+    top2 = torch.topk(logits, 2).values
+    gap = float(top2[0] - top2[1])
+    rec = {"prompt_len": len(p), "position": pos - len(p), "gap": gap}
+    (ties if gap < 1e-4 else off).append(rec)
+  if off:
+    raise AssertionError("%s: outputs differ from the greedy reference away "
+                         "from a near-tie: %s" % (what, off))
+  return {"requests": len(prompts), "identical": exact, "near_ties": ties,
+          "not_ties": off}
+
+
+def decode_parity_f32(torch, tfm, slots, ServingEngine, params, cfg32,
+                      prompts):
+  """(a): every leg in f32 (TF32 off) on the first requests against the
+  single-request greedy decode of the same config and weights.
+
+  The reference is ``greedy_generate_kv``, except for the timed int8
+  engine: a later chunk of an int8 prefill attends the quantized cache
+  where one pass attends the raw projections, so chunking changes an
+  int8 engine's values at the quantization's scale (the reference's own
+  design on its chip). That engine (default buckets) is held against a
+  greedy decode whose prefill runs in the engine's own ``chunk_plan``
+  chunks, and an int8 engine whose buckets are the prompts' lengths (one
+  chunk each) against ``greedy_generate_kv``."""
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  prompts = prompts[:DECODE_PARITY_REQUESTS]
+  models = {int8: tfm.Transformer(_leg_cfg(cfg32, int8), params)
+            for int8 in (False, True)}
+  greedy = {int8: [tfm.greedy_generate_kv(
+      model, p[None], DECODE_PARITY_NEW).cpu().numpy()[0] for p in prompts]
+            for int8, model in models.items()}
+  one_chunk = tuple(sorted({len(p) for p in prompts}, reverse=True))
+  runs = [(name, opts, int8, None) for name, opts, int8 in decode_legs(cfg32)]
+  runs.append(("int8_one_chunk", dict(num_slots=DECODE_BASE_SLOTS), True,
+               one_chunk))
+  res = {}
+  for name, opts, int8, buckets in runs:
+    extra = {} if buckets is None else {"buckets": buckets}
+    eng = decode_engine(ServingEngine, params, cfg32, opts, int8, **extra)
+    try:
+      outs = [o.tolist() for o in eng.generate(
+          prompts, max_new_tokens=DECODE_PARITY_NEW, timeout=600)]
+    finally:
+      eng.stop()
+    model = models[int8]
+    if int8 and buckets is None:
+      plans = [slots.chunk_plan(len(p)) for p in prompts]
+      refs = [_greedy_chunked(torch, model, p, DECODE_PARITY_NEW, plan)
+              for p, plan in zip(prompts, plans)]
+    else:
+      plans, refs = [[len(p)] for p in prompts], greedy[int8]
+    res[name] = _parity_against(torch, "[6r](a) %s" % name, model, prompts,
+                                outs, refs, plans)
+    log("  (a) %-14s f32: %d/%d token-identical, near-ties %d"
+        % (name, res[name]["identical"], len(prompts),
+           len(res[name]["near_ties"])))
+    torch.cuda.empty_cache()
+  return res
+
+
+def decode_crash(torch, ops, chaos, ServingEngine, params, cfg, opts,
+                 prompts, want):
+  """(e): the full_stack engine under ``TOS_CHAOS_SERVE=decode#3:raise``,
+  armed after the warm-up and counted from a ``chaos.reset()``: outputs
+  equal to its fault-free run's to the bit, one restart, replays without
+  a mismatch, the pool rebuilt with the slab."""
+  what = "[6r](e) full_stack under TOS_CHAOS_SERVE=%s" % DECODE_CRASH
+  eng = decode_engine(ServingEngine, params, cfg, opts, False,
+                      restart_backoff=0.01, poison_crashes=3)
+  try:
+    _decode_warm(eng, cfg)
+    with env_var(chaos.ENV_SERVE, DECODE_CRASH):
+      chaos.reset()
+      run = decode_timed(torch, ops, eng, prompts)
+    chaos.reset()
+    in_use, held = eng.kv_pages_in_use, eng._prefix.pages_held
+  finally:
+    eng.stop()
+  d = run["delta"]
+  replays = sum(h.replays for h in run["handles"])
+  bad = [i for i, (o, w) in enumerate(zip(run["outs"], want)) if o != w]
+  if bad:
+    raise AssertionError("%s: outputs of requests %s differ from the "
+                         "fault-free run" % (what, bad))
+  if d["engine_restarts"] != 1 or d["replay_mismatches"] or not replays \
+      or in_use != held:
+    raise AssertionError("%s: stats %s, %d replays, %d pages in use for "
+                         "%d in the trie" % (what, d, replays, in_use, held))
+  log("  (e) crash replay: 1 restart, %d requests replayed, outputs equal "
+      "to the fault-free run, %d pages in use = the rebuilt trie's"
+      % (replays, in_use))
+  return {"engine_restarts": d["engine_restarts"],
+          "replayed_requests": replays, "replays": d["replays"],
+          "replay_mismatches": d["replay_mismatches"],
+          "restart_s": eng.restart_log[0]["duration_s"],
+          "pages_in_use": in_use, "trie_pages": held,
+          "launches": run["launches"]}
+
+
+def decode_stack_phase(torch, ops, tfm, ServingEngine, card, params, cfg):
+  """[6r]: the decode-speed stack at full width (module docstring)."""
+  from tensorflowonspark_tpu_torch.serving import slots
+  from tensorflowonspark_tpu_torch.utils import chaos
+  t_phase = time.monotonic()
+  chaos.reset()
+  soft = soften_exit_layers(params, cfg, DECODE_SPEC_LAYERS)
+  prompts = make_prefix_workload(cfg.vocab_size, DECODE_SEED)
+  log("  workload: %d requests over %d system prompts of %d tokens, tails "
+      "%s, %d new tokens, horizon %d" % (
+          len(prompts), len({tuple(p[:DECODE_PREFIX_LEN]) for p in prompts}),
+          DECODE_PREFIX_LEN, sorted({len(p) - DECODE_PREFIX_LEN
+                                     for p in prompts}),
+          DECODE_NEW, DECODE_HORIZON))
+  legs, opts = {}, {}
+  for name, leg_opts, int8 in decode_legs(cfg):
+    opts[name] = leg_opts
+    legs[name] = decode_leg(torch, ops, ServingEngine, soft, cfg, name,
+                            leg_opts, int8, prompts)
+  base = legs["baseline"]
+  # (b) bytes
+  page_bytes = legs["paged"]["kv_bytes"] // opts["paged"]["num_pages"]
+  if abs(legs["paged"]["kv_bytes"] - base["kv_bytes"]) > page_bytes:
+    raise AssertionError("[6r](b): the paged pool holds %d KV bytes, the "
+                         "contiguous slab %d: more than a page apart"
+                         % (legs["paged"]["kv_bytes"], base["kv_bytes"]))
+  if legs["int8"]["kv_dtypes"] != ["torch.float32", "torch.int8"]:
+    raise AssertionError("[6r](b): the int8 cache's leaves are %s"
+                         % legs["int8"]["kv_dtypes"])
+  ratio = legs["int8"]["kv_bytes"] / float(base["kv_bytes"])
+  if ratio > DECODE_INT8_MAX_RATIO:
+    raise AssertionError("[6r](b): the int8 slab is %.3f of the bf16 "
+                         "slab's bytes" % ratio)
+  log("  (b) KV bytes: contiguous %d, paged pool %d (a page is %d), int8 %d "
+      "= %.4f of bf16" % (base["kv_bytes"], legs["paged"]["kv_bytes"],
+                          page_bytes, legs["int8"]["kv_bytes"], ratio))
+  # (d) counters, and the paged arithmetic against the contiguous slab's
+  eng = decode_engine(ServingEngine, soft, cfg,
+                      dict(opts["paged"], num_slots=DECODE_BASE_SLOTS), False)
+  try:
+    first = prompts[:DECODE_BASE_SLOTS]
+    paged8 = [o.tolist() for o in eng.generate(first, timeout=600)]
+  finally:
+    eng.stop()
+  bad = [i for i, (o, w) in enumerate(zip(paged8, base["outputs"])) if o != w]
+  if bad:
+    raise AssertionError("[6r](d): a paged engine with %d slots differs "
+                         "from baseline's outputs on requests %s"
+                         % (DECODE_BASE_SLOTS, bad))
+  if legs["paged_prefix"]["prefix_hits"] < DECODE_MIN_HITS:
+    raise AssertionError("[6r](d): paged_prefix recorded %d prefix hits, "
+                         "fewer than %d" % (legs["paged_prefix"]
+                                            ["prefix_hits"], DECODE_MIN_HITS))
+  if not legs["full_stack"]["spec_accepted"] > 0:
+    raise AssertionError("[6r](d): full_stack accepted no draft token")
+  for name, leg in legs.items():
+    leg["equal_to_baseline"] = sum(
+        o == w for o, w in zip(leg["outputs"], base["outputs"])) / float(
+            len(prompts))
+  log("  (d) paged at %d slots equals baseline's first %d to the bit; share "
+      "equal to baseline: %s; paged_prefix hits %d; full_stack accepted %d"
+      % (DECODE_BASE_SLOTS, len(first), {n: round(l["equal_to_baseline"], 3)
+                                         for n, l in legs.items()},
+         legs["paged_prefix"]["prefix_hits"],
+         legs["full_stack"]["spec_accepted"]))
+  crash = decode_crash(torch, ops, chaos, ServingEngine, soft, cfg,
+                       opts["full_stack"], prompts,
+                       legs["full_stack"]["outputs"])
+  torch.cuda.empty_cache()
+  parity = decode_parity_f32(torch, tfm, slots, ServingEngine, soft,
+                             dataclasses.replace(cfg, dtype=torch.float32),
+                             prompts)
+  torch.cuda.empty_cache()
+  for leg in legs.values():
+    leg.pop("outputs")
+  return {"card": card, "legs": legs, "crash": crash, "parity_f32": parity,
+          "int8_bytes_ratio": ratio,
+          "total_s": time.monotonic() - t_phase}
+
+
+def decode_summary(res):
+  """[6r]'s numbers for one JSON line."""
+  keys = ("tokens_per_s", "ttft_ms_p50", "ttft_ms_p99",
+          "decode_ms_per_dispatch", "prefills", "prefix_hits",
+          "prefix_evictions", "peak_pages_in_use", "spec_accept_rate",
+          "peak_mem_gib", "kv_bytes", "equal_to_baseline")
+  return {"legs": {n: {k: leg[k] for k in keys}
+                   for n, leg in res["legs"].items()},
+          "crash": {k: res["crash"][k] for k in (
+              "engine_restarts", "replayed_requests", "replay_mismatches")},
+          "parity_near_ties": {n: len(p["near_ties"])
+                               for n, p in res["parity_f32"].items()},
+          "total_s": res["total_s"]}
+
+
+def decode_launches(res, name):
+  """[6r]'s launches of kernel ``name`` by leg, for the kernels line."""
+  return {"decode_stack_" + leg: r["launches"][name]
+          for leg, r in res["legs"].items()}
+
+
+def decode_stack_only(torch, ops, tfm, ServingEngine, init_params, _build,
+                      card):
+  """``--decode-stack-only``: phase 6r alone, at full width (the script
+  builds every kernel first)."""
+  log("  built %s" % _build.build_all())
+  cfg = tfm.TransformerConfig()
+  res = decode_stack_phase(torch, ops, tfm, ServingEngine, card,
+                           init_params(cfg, seed=SEED), cfg)
+  os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+  with open(os.path.join(HERE, "chiprun_out", "chip_smoke_decode.json"),
+            "w") as f:
+    json.dump(res, f, indent=1)
+  log(card)
+  log(json.dumps({"decode_stack": decode_summary(res), "card": card}))
+  log(json.dumps({"ok": True, "device": {
+      "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+      "count": torch.cuda.device_count()}}))
+  return 0
+
+
 # -- phase 6l: data parallelism across processes -----------------------------
 
 DP_STEPS, DP_UNROLL = 4, 2          # [6l-b]: per-step steps, then one slab
@@ -5795,6 +6343,52 @@ def serving_only(torch, ops, tfm, ServingEngine, slots, init_params,
   return 0
 
 
+def serving_ab(torch, ops, tfm, ServingEngine, slots, init_params, other,
+               rounds):
+  """[4] in ONE process for two checkouts' packages, so the spread
+  between processes (10-20% of [4]'s tokens/s) stays out of the
+  comparison: ``other``'s package is copied under ``build/serving_ab``
+  as ``tensorflowonspark_tpu_torch_ab`` (its own imports renamed) and
+  its kernels built there; [4] then alternates other / this / this /
+  other ``rounds`` times. Prints every run's tokens/s and decode ms a
+  step and each side's median and quartiles as one JSON line."""
+  import importlib
+  import re
+  name = "tensorflowonspark_tpu_torch_ab"
+  root = os.path.join(HERE, "build", "serving_ab")
+  shutil.rmtree(root, ignore_errors=True)
+  shutil.copytree(os.path.join(other, "tensorflowonspark_tpu_torch"),
+                  os.path.join(root, name),
+                  ignore=shutil.ignore_patterns("__pycache__"))
+  for d, _, files in os.walk(os.path.join(root, name)):
+    for f in files:
+      if f.endswith(".py"):
+        with open(os.path.join(d, f)) as fh:
+          text = re.sub(r"\btensorflowonspark_tpu_torch\b", name, fh.read())
+        with open(os.path.join(d, f), "w") as fh:
+          fh.write(text)
+  sys.path.insert(0, root)
+  mod = lambda m: importlib.import_module(name + m)  # noqa: E731
+  log("  built %s's kernels %s" % (other, mod(".ops._build").build_all()))
+  sides = {"other": (mod(".ops"), mod(".models.transformer"),
+                     mod(".serving").ServingEngine, mod(".serving.slots")),
+           "this": (ops, tfm, ServingEngine, slots)}
+  params = init_params(tfm.TransformerConfig(), seed=SEED)
+  runs = {"other": [], "this": []}
+  for side in ("other", "this", "this", "other") * rounds:
+    o, t, e, s = sides[side]
+    res, _ = serve_main_path(torch, o, t, e, s, params, t.TransformerConfig())
+    runs[side].append((res["tokens_per_s"], res["decode_ms_per_step"]))
+  out = {"other_checkout": other}
+  for side, v in runs.items():
+    tps = [r[0] for r in v]
+    out[side] = {"tokens_per_s": tps, "median": statistics.median(tps),
+                 "quartiles": statistics.quantiles(tps, n=4),
+                 "decode_ms_per_step": [r[1] for r in v]}
+  log(json.dumps({"serving_ab": out}))
+  return 0
+
+
 def layer_norm_only(torch, ops, F):
   """Phase 3's LayerNorm forward and backward checks, then their device
   times; prints them as one JSON line."""
@@ -5985,15 +6579,19 @@ def main(argv):
   only_obs = argv == ["--obs-only"]
   only_fleet = argv == ["--fleet-only"]
   only_deploy = argv == ["--deploy-only"]
+  only_decode = argv == ["--decode-stack-only"]
+  ab = argv[1:] if argv[:1] == ["--serving-ab"] and len(argv) == 3 else None
   if argv[:1] == ["--serving-only"] and len(argv) == 2:
     repeats = int(argv[1])
-  elif argv and not (ln_only or only_cluster or only_feed or only_ckpt
+  elif argv and ab is None and not (ln_only or only_cluster or only_feed or only_ckpt
                      or only_dp or only_pipeline or only_options
-                     or only_obs or only_fleet or only_deploy):
+                     or only_obs or only_fleet or only_deploy
+                     or only_decode):
     log("usage: python3 chip_smoke.py [--serving-only N | "
+        "--serving-ab OTHER_CHECKOUT N | "
         "--layer-norm-only | --cluster-only | --feed-only | --ckpt-only | "
         "--dp-only | --pipeline-only | --train-options-only | --obs-only | "
-        "--fleet-only | --deploy-only]")
+        "--fleet-only | --deploy-only | --decode-stack-only]")
     return 2
   try:
     import torch
@@ -6050,6 +6648,9 @@ def main(argv):
   if only_deploy:
     return deploy_only(torch, ops, tfm, ServingEngine, slots, init_params,
                        _build, card)
+  if only_decode:
+    return decode_stack_only(torch, ops, tfm, ServingEngine, init_params,
+                             _build, card)
   if only_fleet:
     return fleet_only(torch, ops, tfm, ServingEngine, slots, init_params,
                       _build, card)
@@ -6065,6 +6666,11 @@ def main(argv):
       # register use, spills, and wgmma products ptxas had to serialize
       if "Used" in line or "spill" in line or "Performance Loss" in line:
         log("  ptxas %s: %s" % (name, line.strip()))
+  if ab is not None:
+    log("[4] serving main path, %s's package and this one alternated in one "
+        "process, %s rounds" % tuple(ab))
+    return serving_ab(torch, ops, tfm, ServingEngine, slots, init_params,
+                      ab[0], int(ab[1]))
   if repeats:
     log("[4] serving main path x%d, then the prefill's host time" % repeats)
     return serving_only(torch, ops, tfm, ServingEngine, slots, init_params,
@@ -6247,6 +6853,14 @@ def main(argv):
     split_parity = train_parity_f32(torch, tfm, init_params)
     split_gqa_parity = train_parity_f32(torch, tfm, init_params,
                                         num_kv_heads=4)
+  torch.cuda.empty_cache()
+
+  log("[6r] the decode-speed stack: the int8 cache, the paged slab with the "
+      "shared-prefix cache and self-speculative decode, %d requests over %d "
+      "system prompts" % (DECODE_REQUESTS, DECODE_PREFIXES))
+  decode_res = decode_stack_phase(torch, ops, tfm, ServingEngine, card,
+                                  params, cfg)
+  log("  [6r] %s" % json.dumps(decode_summary(decode_res)))
 
   def launches(res, steps, name):
     return int(res["launches_per_step"][name] * steps)
@@ -6310,6 +6924,7 @@ def main(argv):
              **fleet_launches(fleet_res, "flash_attention_fwd"),
              "deploy_2_hosts": deploy_res["served"]["launches"][
                  "flash_attention_fwd"],
+             **decode_launches(decode_res, "flash_attention_fwd"),
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "flash_attention_fwd"),
              "serve_gpt_config_bf16": serve_gpt_res["bfloat16"]["launches"][
@@ -6335,6 +6950,7 @@ def main(argv):
              "obs_serve": obs_res["serve"]["launches"]["layer_norm"],
              **fleet_launches(fleet_res, "layer_norm"),
              "deploy_2_hosts": deploy_res["served"]["launches"]["layer_norm"],
+             **decode_launches(decode_res, "layer_norm"),
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "layer_norm"),
              **dp_launches(dp_res, "layer_norm"),
@@ -6437,7 +7053,7 @@ def main(argv):
             "train_long_gqa": long_res, "cluster_long_gqa": cluster_res,
             "ckpt_resume": ckpt_res, "train_options": options_res,
             "feed": feed_res, "obs": obs_res, "fleet": fleet_res,
-            "deploy": deploy_res,
+            "deploy": deploy_res, "decode_stack": decode_res,
             "dp": dp_res,
             "pipeline": pipe_res,
             "train_split": split_res,

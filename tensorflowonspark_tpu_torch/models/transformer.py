@@ -9,7 +9,12 @@ a vector of per-row cursors (the serving slab), greedy and sampled
 decoding (:func:`greedy_generate_kv`, top-k temperature sampling from a
 ``torch.Generator``), the pipeline's serving predict fn
 (:func:`make_serving_predict_fn`), the losses (:func:`causal_lm_loss`,
-:func:`causal_lm_loss_blocked`) and :func:`create_state`.
+:func:`causal_lm_loss_blocked`) and :func:`create_state`. The decode-speed
+layouts are the reference's too: the int8 cache (``kv_cache_dtype="int8"``,
+per-token/head scales), the paged cache (a page pool addressed through a
+per-row page table), multi-token writes at per-row cursors, the
+shallow-exit forward (``exit_layer``) and greedy speculative decoding
+(:func:`speculative_generate_kv`).
 
 What differs from the flax model, by design of the port:
 
@@ -149,10 +154,6 @@ class TransformerConfig:
       raise ValueError("num_heads (%d) must divide d_model (%d)"
                        % (self.num_heads, self.d_model))
     unported = [
-        (self.kv_cache_dtype == "int8", "kv_cache_dtype='int8'",
-         "Queue 1 item 9, int8 KV serving"),
-        (self.kv_page_size > 0, "kv_page_size > 0",
-         "Queue 1 item 9, paged KV serving"),
         (self.moe_experts > 0, "moe_experts > 0",
          "Queue 1 item 10, multi-GPU parallelism"),
         (self.use_ring_attention, "use_ring_attention",
@@ -185,10 +186,113 @@ class KVCache:
   row is at the same position (prefill and single-request decode — no
   device sync to branch on it), or a ``[batch]`` int64 tensor of per-row
   cursors (the serving slab).
+
+  The int8 cache (``k_scale`` set) holds ``k[i]``/``v[i]`` as
+  ``torch.int8`` and their per-token/head f32 scales in ``k_scale[i]``/
+  ``v_scale[i]`` ``[batch, max_seq_len, kv_heads]``. The paged cache
+  (``page_table`` set) holds ``k[i]``/``v[i]`` as page pools ``[num_pages,
+  page_size, kv_heads, head_dim]``; row ``b``'s token at position ``p``
+  lives in page ``page_table[b, p // page_size]`` at offset ``p %
+  page_size``, and page 0 is the trash page. Its cursor is always a
+  vector. Every layer shares the one table and the one cursor (the
+  reference keeps a copy of each per layer, with equal values).
   """
   k: List[torch.Tensor]
   v: List[torch.Tensor]
   index: Union[int, torch.Tensor] = 0
+  k_scale: Optional[List[torch.Tensor]] = None
+  v_scale: Optional[List[torch.Tensor]] = None
+  page_table: Optional[torch.Tensor] = None
+
+
+def zero_cache(cfg: TransformerConfig, batch: int, device) -> KVCache:
+  """A zeroed decode cache for ``batch`` rows in the layout ``cfg`` names:
+  paged (``kv_page_size > 0``; vector cursors, an all-trash table), int8
+  (``kv_cache_dtype="int8"``) or the model dtype, with the scalar cursor 0
+  unless paged. (Zeros matter: unwritten entries are masked, but 0 *
+  garbage could be NaN in the probs @ v product.)"""
+  hk, d, n = cfg.kv_heads, cfg.head_dim, cfg.num_layers
+
+  def zeros(shape, dtype):
+    return [torch.zeros(shape, dtype=dtype, device=device) for _ in range(n)]
+
+  if cfg.kv_page_size > 0:
+    pool = (cfg.kv_num_pages, cfg.kv_page_size, hk, d)
+    return KVCache(zeros(pool, cfg.dtype), zeros(pool, cfg.dtype),
+                   torch.zeros((batch,), dtype=torch.long, device=device),
+                   page_table=torch.zeros((batch, cfg.kv_pages_per_slot),
+                                          dtype=torch.long, device=device))
+  shape = (batch, cfg.max_seq_len, hk, d)
+  if cfg.kv_cache_dtype == "int8":
+    return KVCache(zeros(shape, torch.int8), zeros(shape, torch.int8), 0,
+                   zeros(shape[:3], torch.float32),
+                   zeros(shape[:3], torch.float32))
+  return KVCache(zeros(shape, cfg.dtype), zeros(shape, cfg.dtype), 0)
+
+
+def _quantize(x: torch.Tensor):
+  """Per-token/head symmetric int8 over the head dim: ``(int8 values, f32
+  scales)`` with ``s = max(amax, 1e-8) / 127`` and ``round(x / s)``
+  clipped to +-127 (round half to even, as ``jnp.round``)."""
+  xf = x.float()
+  s = xf.abs().amax(dim=-1).clamp(min=1e-8) / 127.0
+  q = torch.round(xf / s[..., None]).clamp(-127, 127)
+  return q.to(torch.int8), s
+
+
+def _write_plan(cache: KVCache, seg: int):
+  """Where a forward's ``seg`` new tokens a row land in a vector-cursor
+  cache, computed once per forward and shared by every layer's buffers.
+
+  Paged: ``(pages, offsets)``, each ``[b * seg]``. A position inside the
+  span but past the row's allocation resolves through an unused table
+  entry to the trash page 0; a position PAST the span (a speculative
+  verify window overshooting a full slot) is forced to page 0, since
+  clipping its page slot would alias it into the row's last page over
+  live entries.
+
+  Contiguous: ``(rows, positions, keep, below)`` for :func:`_write_rows`.
+  One token a row keeps the reference's update-slice, whose start clamps
+  to the last position (``keep``, ``below`` None): only a speculative
+  draft step past a full slot's end reaches the clamp, and the verify
+  window then rewrites that position. A multi-token window DROPS
+  positions at or past ``max_seq_len`` (``keep`` false) and never clamps
+  them, which would overwrite live entries below the cursor: each such
+  position is sent to ``below``, the one just below its row's cursor.
+  Nothing syncs the host."""
+  idx = cache.index
+  dev = idx.device
+  if cache.page_table is not None:
+    table = cache.page_table
+    ps, pp = cache.k[0].shape[1], table.shape[1]
+    pos = idx[:, None] + torch.arange(seg, device=dev)[None, :]
+    pages = table.gather(1, (pos // ps).clamp(0, pp - 1))
+    pages = torch.where(pos < ps * pp, pages, torch.zeros_like(pages))
+    return pages.reshape(-1), (pos % ps).reshape(-1)
+  last = cache.k[0].shape[1] - 1
+  rows = torch.arange(idx.shape[0], device=dev)
+  if seg == 1:
+    return rows, idx.clamp(max=last), None, None
+  pos = idx[:, None] + torch.arange(seg, device=dev)[None, :]
+  below = (idx - 1).clamp(min=0)
+  return (rows, torch.where(pos <= last, pos, below[:, None]), pos <= last,
+          below)
+
+
+def _write_rows(buf: torch.Tensor, val: torch.Tensor, plan) -> None:
+  """Write ``val [b, seg, ...]`` into ``buf [b, max_seq_len, ...]`` at the
+  positions of the forward's :func:`_write_plan`. A dropped position
+  carries the value its stand-in below the cursor already holds: no
+  position of the window is below the cursor, so that write changes
+  nothing, and every value it writes there is the same one."""
+  rows, at, keep, below = plan
+  val = val.to(buf.dtype)
+  if keep is None:
+    buf[rows, at] = val[:, 0]
+    return
+  held = buf[rows, below][:, None].expand_as(val)
+  keep = keep.reshape(keep.shape + (1,) * (val.dim() - 2))
+  buf[rows[:, None].expand_as(at), at] = torch.where(keep, val, held)
 
 
 def _rope_tables(positions: torch.Tensor, head_dim: int):
@@ -357,9 +461,11 @@ class Attention(nn.Module):
       return o.to(dt).reshape(b, s, -1) @ w.reshape(-1, w.shape[-1])
 
   def forward(self, x, rope, cache: Optional[KVCache] = None,
-              layer: int = 0, ln_scale: Optional[torch.Tensor] = None):
+              layer: int = 0, ln_scale: Optional[torch.Tensor] = None,
+              writes=None):
     """``x`` arrives normalized; ``rope`` holds the (cos, sin) tables of
-    its positions. With ``cache`` this is the decode path. With
+    its positions. With ``cache`` this is the decode path (``writes``, a
+    vector-cursor cache's :func:`_write_plan`). With
     ``ln_scale`` (requires ``fuse_qkv``), ``x`` is the RAW residual
     stream and ln1 + the QKV projection run as one kernel
     (``ops.ln_matmul``)."""
@@ -367,7 +473,8 @@ class Attention(nn.Module):
     q = _apply_rotary(q, rope)
     k = _apply_rotary(k, rope)
     if cache is not None:
-      return self._out_proj(self._decode_attend(q, k, v, cache, layer))
+      return self._out_proj(self._decode_attend(q, k, v, cache, layer,
+                                                writes))
     # the kernel takes any length: the block rule only decides whether
     # "flash" refuses this one
     _flash_eligible(self.cfg, q.shape[1])
@@ -375,58 +482,88 @@ class Attention(nn.Module):
                               window=self.cfg.attention_window or None)
     return self._out_proj(out)
 
-  def _decode_attend(self, q, k, v, cache: KVCache, layer: int):
+  def _decode_attend(self, q, k, v, cache: KVCache, layer: int, writes):
     """Incremental attention against the KV cache (q, k already rotated
     to their cursor positions): write the new keys and values at the
-    cursor, attend everything cached so far. The cursor itself advances
-    once per forward, in :meth:`Transformer.forward`."""
+    cursor (through ``writes`` when it is a vector), attend everything
+    cached so far. The cursor itself advances once per forward, in
+    :meth:`Transformer.forward`."""
     cfg = self.cfg
+    if cache.page_table is not None:
+      return self._decode_attend_paged(q, k, v, cache, layer, writes)
     b, seg = q.shape[:2]
     idx = cache.index
     vec = torch.is_tensor(idx)
-    ck, cv = cache.k[layer], cache.v[layer]
-    if vec:
-      if seg != 1:
-        raise NotImplementedError(
-            "multi-token writes at per-row cursors come with speculative "
-            "decoding (ROADMAP Queue 1 item 9)")
-      # one token per row at its own cursor; a cursor is < max_seq_len by
-      # the engine's submit-time budget check, frozen lanes included
-      rows = torch.arange(b, device=q.device)
-      ck[rows, idx] = k[:, 0].to(ck.dtype)
-      cv[rows, idx] = v[:, 0].to(cv.dtype)
+    quant = cache.k_scale is not None
+    if quant:
+      k_store, ks = _quantize(k)
+      v_store, vs = _quantize(v)
+      pairs = ((cache.k[layer], k_store), (cache.v[layer], v_store),
+               (cache.k_scale[layer], ks), (cache.v_scale[layer], vs))
     else:
-      if idx + seg > cfg.max_seq_len:
-        raise ValueError("decode write of %d tokens at position %d overruns "
-                         "the max_seq_len=%d cache"
-                         % (seg, idx, cfg.max_seq_len))
-      ck[:, idx:idx + seg] = k.to(ck.dtype)
-      cv[:, idx:idx + seg] = v.to(cv.dtype)
+      pairs = ((cache.k[layer], k), (cache.v[layer], v))
+    if not vec and idx + seg > cfg.max_seq_len:
+      raise ValueError("decode write of %d tokens at position %d overruns "
+                       "the max_seq_len=%d cache"
+                       % (seg, idx, cfg.max_seq_len))
+    for buf, val in pairs:
+      if vec:
+        _write_rows(buf, val, writes)
+      else:
+        buf[:, idx:idx + seg] = val.to(buf.dtype)
 
     # PREFILL fast path: a fresh-cache multi-token segment attends only
     # within itself, so the flash op runs it over the grouped K/V directly
-    # instead of the seg x max_seq_len dense scores. The cursor is a host
-    # int here, so the branch costs no device sync.
+    # instead of the seg x max_seq_len dense scores (the raw projections:
+    # an int8 cache's quantization does not touch it). The cursor is a
+    # host int here, so the branch costs no device sync.
     if not vec and idx == 0 and seg > 1 and _flash_eligible(cfg, seg):
       out = ops.flash_attention(q, k, v, causal=True,
                                 window=cfg.attention_window or None)
       return out.to(q.dtype)
-    return self._dense_attend(q, ck, cv, idx, vec)
+    if quant:
+      return self._dense_attend(q, cache.k[layer], cache.v[layer], idx, vec,
+                                cache.k_scale[layer], cache.v_scale[layer])
+    return self._dense_attend(q, cache.k[layer], cache.v[layer], idx, vec)
 
-  def _dense_attend(self, q, ck, cv, idx, vec):
+  def _decode_attend_paged(self, q, k, v, cache: KVCache, layer: int,
+                           writes):
+    """Incremental attention against a PAGED cache (the serving slab):
+    the write goes through the page table (``writes``, the forward's
+    :func:`_write_plan`), each row's pages are gathered into a ``[b,
+    pages_per_slot * page_size, ...]`` view, and the view is attended as
+    the vector-cursor branch attends its rows. Frozen lanes (an all-zero
+    table) write into page 0: several writes may land on one trash entry,
+    with an arbitrary winner, and nothing live attends it."""
+    b, seg = q.shape[:2]
+    pk, pv = cache.k[layer], cache.v[layer]
+    pages, offs = writes
+    pk[pages, offs] = k.reshape((b * seg,) + k.shape[2:]).to(pk.dtype)
+    pv[pages, offs] = v.reshape((b * seg,) + v.shape[2:]).to(pv.dtype)
+    table = cache.page_table
+    view = (b, pk.shape[1] * table.shape[1]) + pk.shape[2:]
+    return self._dense_attend(q, pk[table].reshape(view),
+                              pv[table].reshape(view), cache.index, True)
+
+  def _dense_attend(self, q, ck, cv, idx, vec, k_scale=None, v_scale=None):
     """q regrouped [b, seg, kv_head, group, d] against the whole cache
-    with the causal + unwritten (+ window) mask, in f32."""
+    ``ck``/``cv [b, L, kv_heads, d]`` with the causal + unwritten (+
+    window) mask, in f32. An int8 cache's scales ``[b, L, kv_heads]``
+    apply to the K-indexed tensors, the scores and the probs, as the
+    reference applies them (no dequantized cache is formed)."""
     cfg = self.cfg
     b, seg, h, d = q.shape
     hk = cfg.kv_heads
     kf, vf = ck.float(), cv.float()
     qg = q.reshape(b, seg, hk, h // hk, d).float()
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * (1.0 / d ** 0.5)
+    if k_scale is not None:
+      scores = scores * k_scale.permute(0, 2, 1)[:, :, None, None, :]
     ar = torch.arange(seg, device=q.device)
-    k_pos = torch.arange(cfg.max_seq_len, device=q.device)
+    k_pos = torch.arange(ck.shape[1], device=q.device)
     if vec:
       q_pos = idx[:, None, None] + ar[None, :, None]     # [b, seg, 1]
-      keep = k_pos[None, None, :] <= q_pos                # [b, seg, max]
+      keep = k_pos[None, None, :] <= q_pos                # [b, seg, L]
       if cfg.attention_window:
         keep = keep & (k_pos[None, None, :] > q_pos - cfg.attention_window)
       mask = keep[:, None, None]
@@ -438,6 +575,8 @@ class Attention(nn.Module):
       mask = keep[None, None, None]
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+      probs = probs * v_scale.permute(0, 2, 1)[:, :, None, None, :]
     o = torch.einsum("bhgqk,bkhd->bqhgd", probs, vf)
     return o.reshape(b, seg, h, d).to(q.dtype)
 
@@ -485,13 +624,13 @@ class Block(nn.Module):
     self.ln2 = LayerNorm(cfg, device, trainable)
     self.mlp = MLPBlock(cfg, device, trainable)
 
-  def forward(self, x, rope, cache=None, layer=0):
+  def forward(self, x, rope, cache=None, layer=0, writes=None):
     cfg = self.cfg
     fuse_ln = cfg.ln_matmul_impl == "fused" and cache is None
     if fuse_ln and cfg.fuse_qkv:
       x = x + self.attn(x, rope, ln_scale=self.ln1.scale)
     else:
-      x = x + self.attn(self.ln1(x), rope, cache, layer)
+      x = x + self.attn(self.ln1(x), rope, cache, layer, writes=writes)
     act_fused = cfg.act_matmul_impl == "fused" and cache is None
     if fuse_ln:
       return x + self.mlp(x, ln_scale=self.ln2.scale, act_fused=act_fused)
@@ -529,15 +668,9 @@ class Transformer(nn.Module):
     copy_into(dict(self.named_parameters()), params)
 
   def init_cache(self, batch: int) -> KVCache:
-    """A fresh zeroed cache for ``batch`` rows with the scalar cursor 0.
-    (Zeros matter: unwritten entries are masked, but 0 * garbage could be
-    NaN in the probs @ v product.)"""
-    cfg = self.cfg
-    shape = (batch, cfg.max_seq_len, cfg.kv_heads, cfg.head_dim)
-    mk = lambda: torch.zeros(shape, dtype=cfg.dtype,  # noqa: E731
-                             device=self.device)
-    return KVCache([mk() for _ in range(cfg.num_layers)],
-                   [mk() for _ in range(cfg.num_layers)], 0)
+    """A fresh zeroed cache for ``batch`` rows in the config's layout
+    (:func:`zero_cache`)."""
+    return zero_cache(self.cfg, batch, self.device)
 
   def serving_params(self) -> dict:
     """The weights as a serving model stores them: a flat dict of CPU
@@ -567,31 +700,37 @@ class Transformer(nn.Module):
     :func:`causal_lm_loss_blocked`). A differentiated forward without a
     cache recomputes each block in the backward when ``cfg.remat``, all
     of it (``remat_policy="none"``) or all but its weight products
-    (``"dots"``)."""
+    (``"dots"``). ``exit_layer`` runs only the first N blocks before the
+    final norm and the tied projection: the shallow-exit draft of
+    self-speculative decoding, which shares the weights and the cache.
+    Its cursor advances as any forward's does; the caller that drafts
+    rolls it back."""
     cfg = self.cfg
-    if exit_layer is not None:
-      raise NotImplementedError(
-          "exit_layer (the shallow-exit draft of self-speculative decoding) "
-          "is not ported to PyTorch yet (ROADMAP Queue 1 item 9)")
+    if exit_layer is not None and not 1 <= exit_layer <= cfg.num_layers:
+      raise ValueError("exit_layer must be in [1, num_layers=%d], got %r"
+                       % (cfg.num_layers, exit_layer))
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
     remat_kw = {"context_fn": _dots_contexts} \
         if cfg.remat_policy == "dots" else {}
     tokens = tokens.to(self.device)
     b, s = tokens.shape
     ar = torch.arange(s, device=self.device)
+    writes = None
     if cache is None:
       positions = ar.expand(b, s)
     elif torch.is_tensor(cache.index):
       positions = cache.index[:, None] + ar[None, :]
+      writes = _write_plan(cache, s)
     else:
       positions = (cache.index + ar).expand(b, s)
     rope = _rope_tables(positions, self.cfg.head_dim)
     x = self.embed(tokens)
-    for i, block in enumerate(self.layers):
+    layers = self.layers if exit_layer is None else self.layers[:exit_layer]
+    for i, block in enumerate(layers):
       if remat:
         x = checkpoint(block, x, rope, use_reentrant=False, **remat_kw)
       else:
-        x = block(x, rope, cache, i)
+        x = block(x, rope, cache, i, writes)
     if cache is not None:
       cache.index = cache.index + s
     x = self.ln_f(x)
@@ -691,6 +830,72 @@ def greedy_generate_kv(model: Transformer, prompt, num_steps: int,
       out.append(new)
       tok = new
     return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+
+
+def speculative_generate_kv(draft: Transformer, model: Transformer, prompt,
+                            num_steps: int, draft_k: int = 4
+                            ) -> torch.Tensor:
+  """Greedy speculative decoding: the ``draft`` model proposes
+  ``draft_k`` tokens a round and ``model`` (the target) verifies them in
+  ONE multi-token decode pass. The output is exactly the target's own
+  greedy decode (greedy acceptance is lossless).
+
+  Rollback is a cursor assignment: rejected draft entries sit past the
+  rewound cursor, masked from attention and overwritten by the next
+  round. Batched rows accept the row-wise MINIMUM prefix each round
+  (lockstep cursors); rows that agreed further receive those same tokens
+  through the bonus token. The round's accepted count is read on the
+  host (one sync a round).
+
+  Both models must share a vocabulary, and ``prompt_len + num_steps +
+  draft_k`` must fit both ``max_seq_len`` (a round's draft writes may
+  overshoot the kept output); both live on one device. Returns
+  ``[batch, prompt_len + num_steps]`` int64 on it.
+  """
+  cfg, dcfg = model.cfg, draft.cfg
+  if dcfg.vocab_size != cfg.vocab_size:
+    raise ValueError("draft and target must share a vocabulary (%d vs %d)"
+                     % (dcfg.vocab_size, cfg.vocab_size))
+  if draft_k < 1:
+    raise ValueError("draft_k must be >= 1, got %d" % draft_k)
+  prompt = _as_prompt(prompt, model.device)
+  b, plen = prompt.shape
+  need = plen + num_steps + draft_k
+  for name, c in (("draft", dcfg), ("target", cfg)):
+    if need > c.max_seq_len:
+      raise ValueError(
+          "speculative decode needs %d cache slots (prompt %d + steps %d "
+          "+ draft_k %d) but the %s max_seq_len is %d"
+          % (need, plen, num_steps, draft_k, name, c.max_seq_len))
+  k = int(draft_k)
+  with torch.inference_mode():
+    cache_t, cache_d = model.init_cache(b), draft.init_cache(b)
+    # prefill both; the TARGET's argmax after the prompt is token 1
+    last = model(prompt, cache_t)[:, -1].argmax(dim=-1)
+    draft(prompt, cache_d)
+    out, n_gen = [last[:, None]], 1
+    while n_gen < num_steps:
+      # both cursors sit at plen + n_gen - 1 (the tokens consumed so far)
+      cursor, tok, proposals = plen + n_gen - 1, last, []
+      for _ in range(k):
+        tok = draft(tok[:, None], cache_d)[:, -1].argmax(dim=-1)
+        proposals.append(tok)
+      p = torch.stack(proposals, dim=1)                     # [b, k]
+      # logits[:, j] is the target's prediction AFTER input j
+      t = model(torch.cat([last[:, None], p[:, :k - 1]], dim=1),
+                cache_t).argmax(dim=-1)                     # [b, k]
+      m = int(torch.cumprod((p == t).long(), dim=1).sum(dim=1).min())
+      bonus = t[:, min(m, k - 1)]
+      if m < k:
+        out.append(torch.cat([p[:, :m], bonus[:, None]], dim=1))
+        adv, last = m + 1, bonus
+      else:
+        out.append(p)
+        adv, last = k, p[:, k - 1]
+      n_gen += adv
+      cache_t.index = cache_d.index = cursor + adv
+    gen = torch.cat(out, dim=1)[:, :num_steps]
+    return torch.cat([prompt, gen], dim=1)
 
 
 # -- serving through a pipeline bundle -----------------------------------------
@@ -1045,8 +1250,9 @@ def create_sharded_state(cfg: TransformerConfig,
   return state
 
 
-__all__ = ["TransformerConfig", "KVCache", "Transformer", "TiedEmbed",
-           "Attention", "MLPBlock", "Block", "LayerNorm", "greedy_generate_kv",
+__all__ = ["TransformerConfig", "KVCache", "zero_cache", "Transformer",
+           "TiedEmbed", "Attention", "MLPBlock", "Block", "LayerNorm",
+           "greedy_generate_kv", "speculative_generate_kv",
            "ServingPredictFn", "make_serving_predict_fn", "SERVING_STATS",
            "reset_serving_stats",
            "causal_lm_loss", "causal_lm_loss_blocked", "tied_embedding_table",

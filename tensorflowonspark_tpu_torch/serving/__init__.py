@@ -23,13 +23,22 @@
   :func:`~tensorflowonspark_tpu_torch.serving.slots.chunk_plan` — the
   slab operations and the bucketed-prefill policy.
 * :class:`~tensorflowonspark_tpu_torch.serving.scheduler.Request` /
-  :class:`~tensorflowonspark_tpu_torch.serving.scheduler.RequestQueue` —
-  the host-side bookkeeping.
+  :class:`~tensorflowonspark_tpu_torch.serving.scheduler.RequestQueue` /
+  :class:`~tensorflowonspark_tpu_torch.serving.scheduler.PagePool` /
+  :class:`~tensorflowonspark_tpu_torch.serving.scheduler.PrefixCache` —
+  the host-side bookkeeping, the KV page allocator and the prefix trie.
+
+The decode-speed stack: ``TOS_SERVE_PAGE_SIZE`` pages the KV slab,
+``TOS_SERVE_PREFIX_PAGES`` turns on prefix sharing over it, and
+``TOS_SERVE_SPEC_DEPTH`` enables self-speculative decoding; each keeps
+every request's tokens equal to its single-request greedy decode.
 """
 
 from tensorflowonspark_tpu_torch.serving.engine import (  # noqa: F401
     ENV_SERVE_HORIZON, ENV_SERVE_MAX_QUEUE, ENV_SERVE_MAX_QUEUED_TOKENS,
-    ENV_SERVE_POLL, ENV_SERVE_SLOTS, ENV_SERVE_TTL, ServingEngine)
+    ENV_SERVE_NUM_PAGES, ENV_SERVE_PAGE_SIZE, ENV_SERVE_POLL,
+    ENV_SERVE_PREFIX_PAGES, ENV_SERVE_SLOTS, ENV_SERVE_SPEC_DEPTH,
+    ENV_SERVE_SPEC_LAYERS, ENV_SERVE_TTL, ServingEngine)
 from tensorflowonspark_tpu_torch.serving.deploy import (  # noqa: F401
     ENV_DEPLOY_BAKE, ENV_DEPLOY_POLL, ENV_DEPLOY_SLICE,
     ENV_DEPLOY_SPOT_CHECKS, ENV_DEPLOY_SWAP_TIMEOUT,
@@ -48,8 +57,8 @@ from tensorflowonspark_tpu_torch.serving.fleet import (  # noqa: F401
 from tensorflowonspark_tpu_torch.serving.registry import (  # noqa: F401
     ENV_REGISTRY_KEEP, ENV_REGISTRY_POLL, ModelRegistry)
 from tensorflowonspark_tpu_torch.serving.scheduler import (  # noqa: F401
-    ENV_SERVE_BUCKETS, DeadlineExceeded, PoisonedRequest, Request,
-    RequestCancelled, RequestQueue, ServingOverloaded, buckets_from_env,
-    new_trace_id)
+    ENV_SERVE_BUCKETS, DeadlineExceeded, PagePool, PoisonedRequest,
+    PrefixCache, Request, RequestCancelled, RequestQueue, ServingOverloaded,
+    buckets_from_env, new_trace_id)
 from tensorflowonspark_tpu_torch.serving.slots import (  # noqa: F401
     DEFAULT_BUCKETS, SlotDecoder, chunk_plan)

@@ -1,8 +1,7 @@
 """ServingEngine: slot-based in-flight (continuous) batching on PyTorch.
 
-Counterpart of ``tensorflowonspark_tpu/serving/engine.py`` for the first
-slice of the port: the contiguous slab, model-dtype cache, greedy and
-non-speculative. One loop thread keeps a fixed-capacity slot slab
+Counterpart of ``tensorflowonspark_tpu/serving/engine.py``, greedy. One
+loop thread keeps a fixed-capacity slot slab
 (``serving.slots.SlotDecoder``) advancing; the moment a slot's request
 hits EOS or its token budget the slot is freed, the next queued request
 is prefilled straight into that cache region, and decoding goes on.
@@ -42,15 +41,37 @@ The ``TOS_CHAOS_SERVE`` fault sites sit in ``serving.slots`` (``prefill``
 and ``decode``): an injected raise is healed by crash replay like any
 other loop crash.
 
-Not in this slice, and refused with ``NotImplementedError`` when asked
-for: the paged slab (``page_size``/``num_pages``), the shared-prefix
-cache (``prefix_pages``) and self-speculative decode (``spec_depth``/
-``spec_layers``), ROADMAP Queue 1 item 9.
+The decode-speed stack is the reference's, each stage composable with the
+self-healing surface and keeping every request's tokens equal to its
+single-request decode:
+
+* paged KV slab — ``page_size > 0`` swaps the per-slot ``max_seq_len``
+  reservation for a page pool and per-slot page tables
+  (``serving.slots``): a request holds only the pages its prompt + budget
+  needs, and one that cannot get pages waits in the queue (completions
+  free pages) instead of failing;
+* shared-prefix cache — ``prefix_pages > 0`` (requires paging) keeps a
+  radix trie over prompt prefixes at page granularity
+  (``serving.scheduler.PrefixCache``): requests sharing a prefix prefill
+  it once and fork read-only page references; eviction is ref-counted
+  LRU;
+* self-speculative decode — ``spec_depth > 0`` drafts with a
+  ``spec_layers``-deep shallow-exit prefix of the same model and verifies
+  with one full-model step a round (``SlotDecoder.step_spec``).
+
+Knobs: ``TOS_SERVE_SLOTS``, ``TOS_SERVE_BUCKETS``, ``TOS_SERVE_POLL``,
+``TOS_SERVE_HORIZON``, ``TOS_SERVE_MAX_QUEUE``,
+``TOS_SERVE_MAX_QUEUED_TOKENS``, ``TOS_SERVE_TTL``,
+``TOS_SERVE_MAX_RESTARTS``, ``TOS_SERVE_RESTART_BACKOFF``,
+``TOS_SERVE_POISON_CRASHES``, ``TOS_SERVE_PAGE_SIZE``,
+``TOS_SERVE_NUM_PAGES``, ``TOS_SERVE_PREFIX_PAGES``,
+``TOS_SERVE_SPEC_DEPTH``, ``TOS_SERVE_SPEC_LAYERS``; an explicit argument
+beats its variable.
 
 Obs seams (``TOS_OBS=1``; handles cached at construction, so with the
 plane off each seam is one None check): the reference's ``serve.*``
-counters and gauges (``kv_pages_*``, ``prefix_*`` and ``spec_*`` stay at
-zero, as in an unpaged reference engine), the ``serve.decode_ms``
+counters and gauges (``kv_pages_*`` move only on a paged engine), the
+``serve.decode_ms``
 histogram, the ``serve.ttft_ms`` / ``tpot_ms`` / ``e2e_ms`` /
 ``queue_wait_ms`` sketches, the ``serve.queue`` / ``prefill`` /
 ``decode`` / ``decode.slot`` / ``stream`` spans and the
@@ -97,18 +118,24 @@ ENV_SERVE_MAX_RESTARTS = "TOS_SERVE_MAX_RESTARTS"
 ENV_SERVE_RESTART_BACKOFF = "TOS_SERVE_RESTART_BACKOFF"
 #: a request blamed for this many consecutive crashes is failed
 ENV_SERVE_POISON_CRASHES = "TOS_SERVE_POISON_CRASHES"
+#: paged KV slab: tokens per page (0 = contiguous per-slot reservation)
+ENV_SERVE_PAGE_SIZE = "TOS_SERVE_PAGE_SIZE"
+#: paged KV slab: pool size in pages, incl. the reserved trash page 0
+#: (0 = auto: num_slots x ceil(max_seq_len / page_size) + 1, the
+#: contiguous worst case; set lower to spend less device memory)
+ENV_SERVE_NUM_PAGES = "TOS_SERVE_NUM_PAGES"
+#: shared-prefix cache budget in pages (0 = off; requires paging)
+ENV_SERVE_PREFIX_PAGES = "TOS_SERVE_PREFIX_PAGES"
+#: self-speculative decode: draft-window depth per round (0 = off)
+ENV_SERVE_SPEC_DEPTH = "TOS_SERVE_SPEC_DEPTH"
+#: self-speculative decode: shallow-exit draft depth in layers
+#: (0 = auto: num_layers // 2)
+ENV_SERVE_SPEC_LAYERS = "TOS_SERVE_SPEC_LAYERS"
 #: request-trace detail spans (``serve.decode.slot`` per lane per
 #: dispatch + ``serve.prefill.chunk`` per bucket chunk): ``0`` keeps
 #: request tracing on (queue/prefill/stream spans, trace ids) but drops
 #: the high-volume detail records
 ENV_OBS_TRACE_DETAIL = "TOS_OBS_TRACE_DETAIL"
-#: the reference's knobs that this slice does not port: set non-zero,
-#: they raise instead of being ignored
-_UNPORTED_ENV = {"TOS_SERVE_PAGE_SIZE": "page_size",
-                 "TOS_SERVE_NUM_PAGES": "num_pages",
-                 "TOS_SERVE_PREFIX_PAGES": "prefix_pages",
-                 "TOS_SERVE_SPEC_DEPTH": "spec_depth",
-                 "TOS_SERVE_SPEC_LAYERS": "spec_layers"}
 
 _DEFAULT_SLOTS = 4
 _DEFAULT_POLL = 0.05
@@ -123,11 +150,9 @@ _COLD_RETRY_AFTER = 0.25
 _RESTART_LOG_CAP = 64
 #: stats keys whose ``serve.<key>`` counter moves with them
 _STATS_TWINS = ("submitted", "completed", "prefills", "rejected", "expired",
-                "cancelled", "replays", "engine_restarts", "poisoned")
-#: the reference's metrics of planes this engine does not have
-_ZERO_COUNTERS = ("serve.prefix_hits", "serve.prefix_evictions",
-                  "serve.spec_accepted", "serve.spec_rejected")
-_ZERO_GAUGES = ("serve.kv_pages_in_use", "serve.kv_pages_free")
+                "cancelled", "replays", "engine_restarts", "poisoned",
+                "prefix_hits", "prefix_evictions", "spec_accepted",
+                "spec_rejected")
 
 
 def _env_int(name: str, default: int) -> int:
@@ -136,18 +161,6 @@ def _env_int(name: str, default: int) -> int:
 
 def _env_float(name: str, default: float) -> float:
   return float(os.environ.get(name, str(default)))
-
-
-def _refuse_unported(**given) -> None:
-  for env, arg in _UNPORTED_ENV.items():
-    value = given.get(arg)
-    if value is None:
-      value = _env_int(env, 0)
-    if value:
-      raise NotImplementedError(
-          "%s=%r (or %s) is not ported to PyTorch yet: the paged slab, "
-          "prefix cache and speculative decode come with ROADMAP Queue 1 "
-          "item 9" % (arg, value, env))
 
 
 class ServingEngine(object):
@@ -176,9 +189,6 @@ class ServingEngine(object):
                spec_depth: Optional[int] = None,
                spec_layers: Optional[int] = None,
                device=None):
-    _refuse_unported(page_size=page_size, num_pages=num_pages,
-                     prefix_pages=prefix_pages, spec_depth=spec_depth,
-                     spec_layers=spec_layers)
     if eos_id is not None and int(eos_id) == int(pad_id):
       raise ValueError("eos_id and pad_id must differ (both %d)"
                        % int(pad_id))
@@ -216,8 +226,28 @@ class ServingEngine(object):
     self.poison_crashes = max(1, int(
         poison_crashes if poison_crashes is not None
         else _env_int(ENV_SERVE_POISON_CRASHES, _DEFAULT_POISON_CRASHES)))
-    self.decoder = slots_lib.SlotDecoder(self.model, num_slots,
-                                         pad_id=pad_id, eos_id=self.eos_id)
+    # explicit arguments beat the env knobs (the num_slots rule)
+    self.page_size = int(page_size if page_size is not None
+                         else _env_int(ENV_SERVE_PAGE_SIZE, 0))
+    self.num_pages = int(num_pages if num_pages is not None
+                         else _env_int(ENV_SERVE_NUM_PAGES, 0))
+    self.prefix_pages = int(prefix_pages if prefix_pages is not None
+                            else _env_int(ENV_SERVE_PREFIX_PAGES, 0))
+    self.spec_depth = int(spec_depth if spec_depth is not None
+                          else _env_int(ENV_SERVE_SPEC_DEPTH, 0))
+    spec_layers = int(spec_layers if spec_layers is not None
+                      else _env_int(ENV_SERVE_SPEC_LAYERS, 0))
+    if self.prefix_pages > 0 and self.page_size <= 0:
+      raise ValueError(
+          "the shared-prefix cache shares POOL PAGES — "
+          "TOS_SERVE_PREFIX_PAGES > 0 requires TOS_SERVE_PAGE_SIZE > 0")
+    self.decoder = slots_lib.SlotDecoder(
+        self.model, num_slots, pad_id=pad_id, eos_id=self.eos_id,
+        page_size=self.page_size, num_pages=self.num_pages,
+        spec_depth=self.spec_depth, spec_layers=spec_layers)
+    # spec rounds per dispatch: each round emits 1..spec_depth tokens,
+    # so this keeps the best-case tokens-per-dispatch near the horizon
+    self._spec_rounds = max(1, -(-horizon // max(1, self.spec_depth)))
     self._poll = float(poll_interval if poll_interval is not None
                        else os.environ.get(ENV_SERVE_POLL, _DEFAULT_POLL))
     self._queue = sched.RequestQueue()
@@ -226,6 +256,11 @@ class ServingEngine(object):
     self._requests = {}                    # rid -> Request (in flight or done)
     self._slots: List[Optional[sched.Request]] = [None] * num_slots
     self._slabs = None                     # built lazily on start()
+    # paged-KV host state, (re)built with the slab (_ensure_slabs): the
+    # allocator and the trie describe the slab's pages
+    self._pool: Optional[sched.PagePool] = None
+    self._prefix: Optional[sched.PrefixCache] = None
+    self._req_pages = {}                   # rid -> [page ids] (one ref each)
     self._last = np.full((num_slots,), self.pad_id, np.int64)
     self._stop_evt = threading.Event()
     self._thread: Optional[threading.Thread] = None
@@ -244,7 +279,9 @@ class ServingEngine(object):
                   "prefills": 0, "submitted": 0, "completed": 0,
                   "rejected": 0, "expired": 0, "cancelled": 0,
                   "replays": 0, "engine_restarts": 0, "poisoned": 0,
-                  "replay_mismatches": 0, "decode_s": 0.0}
+                  "replay_mismatches": 0, "prefix_hits": 0,
+                  "prefix_evictions": 0, "spec_accepted": 0,
+                  "spec_rejected": 0, "decode_s": 0.0}
     # obs seam: cached handles; disabled = one None check per seam
     self._rec = obs_spans.active()
     self._trace_detail = os.environ.get(ENV_OBS_TRACE_DETAIL,
@@ -258,15 +295,10 @@ class ServingEngine(object):
         "occupancy": reg.gauge("serve.occupancy"),
         "queue_depth": reg.gauge("serve.queue_depth"),
         "slots_active": reg.gauge("serve.slots_active"),
+        "kv_pages_in_use": reg.gauge("serve.kv_pages_in_use"),
+        "kv_pages_free": reg.gauge("serve.kv_pages_free"),
         "decode_ms": reg.histogram("serve.decode_ms"),
     }
-    if reg is not None:
-      # the reference's paged-slab, prefix-cache and speculative-decode
-      # metrics: registered, and zero, as in an unpaged reference engine
-      for name in _ZERO_COUNTERS:
-        reg.counter(name)
-      for name in _ZERO_GAUGES:
-        reg.gauge(name)
     # the SLO plane's latency objects (obs.quantiles): mergeable
     # streaming sketches — per-executor sketches ship whole over the OBS
     # verb and the driver MERGES them
@@ -355,10 +387,37 @@ class ServingEngine(object):
   def num_slots(self) -> int:
     return self.decoder.num_slots
 
+  @property
+  def kv_pages_in_use(self) -> int:
+    """Allocated pool pages (0 when paging is off / engine not started)."""
+    pool = self._pool
+    return 0 if pool is None else pool.in_use
+
+  @property
+  def kv_pages_free(self) -> int:
+    pool = self._pool
+    return 0 if pool is None else pool.free_pages
+
+  def _drop_slabs(self) -> None:
+    """Drop the slab and the host page state describing it: a new slab
+    means every old page id is meaningless (replayed requests allocate
+    again at re-admission)."""
+    self._slabs = None
+    self._pool = None
+    self._prefix = None
+    self._req_pages = {}
+
   def _ensure_slabs(self) -> None:
-    """(Re)build the device slab (crash recovery starts from a new one)."""
-    if self._slabs is None:
-      self._slabs = self.decoder.init_slabs()
+    """(Re)build the device slab, and with a paged one its allocator and
+    prefix trie (crash recovery starts from new ones)."""
+    if self._slabs is not None:
+      return
+    self._slabs = self.decoder.init_slabs()
+    if self.decoder.paged:
+      self._pool = sched.PagePool(self.decoder.num_pages)
+      self._prefix = sched.PrefixCache(self.page_size, self.prefix_pages) \
+          if self.prefix_pages > 0 else None
+      self._req_pages = {}
 
   def start(self) -> "ServingEngine":
     if self._thread is not None and self._thread.is_alive():
@@ -394,7 +453,7 @@ class ServingEngine(object):
       live.append(adm)
     for req in live:
       req.finish(err)                      # finish() is idempotent
-    self._slabs = None                     # next start() gets a fresh slab
+    self._drop_slabs()                     # next start() gets a fresh slab
 
   def drain(self, timeout: float) -> bool:
     """Graceful shutdown: stop admission, finish every accepted request
@@ -462,6 +521,17 @@ class ServingEngine(object):
       raise ValueError(
           "prompt of %d tokens + budget %d exceeds the max_seq_len=%d "
           "slot cache" % (len(req.prompt), budget, self.cfg.max_seq_len))
+    if self.decoder.paged:
+      needed = -(-(len(req.prompt) + budget) // self.page_size)
+      if needed > self.decoder.num_pages - 1:
+        # reject here, not in the loop: a request no amount of
+        # completions can ever page in would pin admission forever
+        raise ValueError(
+            "prompt of %d tokens + budget %d needs %d KV pages but the "
+            "pool holds %d allocatable (TOS_SERVE_NUM_PAGES=%d minus "
+            "the trash page)" % (len(req.prompt), budget, needed,
+                                 self.decoder.num_pages - 1,
+                                 self.decoder.num_pages))
     self._count("submitted")
     if req.expired(now):
       self._count("expired")
@@ -699,7 +769,9 @@ class ServingEngine(object):
     if adm is not None:
       victims.append(adm)
     self._last[:] = self.pad_id
-    self._slabs = None                     # fresh slab next iteration
+    # the crash took the slab's pages with it: allocator, prefix trie and
+    # per-request page lists rebuild with the slab
+    self._drop_slabs()
     # blame: a crash during admission implicates exactly the request
     # being prefilled; a crash mid-decode implicates every lane
     for req in victims:
@@ -787,6 +859,7 @@ class ServingEngine(object):
     a slot, in-flight ones by freeing their slot at this boundary."""
     now = time.monotonic()
     self._reap_queue(now)
+    freed = []
     for slot in range(self.num_slots):
       req = self._slots[slot]
       if req is None:
@@ -797,6 +870,21 @@ class ServingEngine(object):
       with self._lock:
         self._slots[slot] = None
       self._last[slot] = self.pad_id
+      if self.decoder.paged:
+        self._release_pages(req.rid)
+        freed.append(slot)
+    self._reset_freed(freed)
+
+  def _reset_freed(self, freed: List[int]) -> None:
+    """Point freed slots' page tables at the trash page BEFORE the next
+    decode dispatch: a freed lane keeps computing (frozen), and its stale
+    table would otherwise write into pages the allocator may already have
+    handed to a new request."""
+    if not freed:
+      return
+    mask = np.zeros((self.num_slots,), bool)
+    mask[freed] = True
+    self.decoder.reset_slots(self._slabs, mask)
 
   def _reap_queue(self, now: float) -> None:
     for req in self._queue.reap(
@@ -816,6 +904,59 @@ class ServingEngine(object):
 
   # -- admission -------------------------------------------------------------
 
+  def _alloc_pages(self, req: sched.Request):
+    """Page in one request: ``(all pages in token order, shared token
+    count)``, or None when the pool cannot host it right now (the caller
+    requeues; completions free pages).
+
+    Prefix-cache hits fork read-only references to the prefix's FULL
+    pages (pinned before any eviction can free them); the divergence page
+    and the tail and budget pages are fresh private allocations. A full
+    pool shrinks the prefix cache LRU-first before giving up.
+    """
+    plen = len(req.prompt)
+    shared = []
+    if self._prefix is not None:
+      hit = self._prefix.lookup(req.prompt)
+      # always leave >= 1 tail token: the last prompt token must run
+      # through the model to yield the first token, and the divergence
+      # page is never shared (the copy-on-write boundary)
+      shared = hit[:min(len(hit), (plen - 1) // self.page_size)]
+      for p in shared:               # pin BEFORE eviction can free them
+        self._pool.ref(p)
+    need = -(-(plen + req.max_new_tokens) // self.page_size) - len(shared)
+    fresh = self._pool.alloc(need)
+    while fresh is None and self._prefix is not None \
+        and self._prefix.pages_held > 0:
+      # evict the whole deficit in one trie walk; stop once a round frees
+      # nothing (every evicted page still held by live readers)
+      if self._evict_prefix(need - self._pool.free_pages) == 0:
+        break
+      fresh = self._pool.alloc(need)
+    if fresh is None:
+      for p in shared:
+        self._pool.unref(p)
+      return None
+    return shared + fresh, len(shared) * self.page_size
+
+  def _evict_prefix(self, n: int) -> int:
+    """Evict up to ``n`` LRU prefix pages; returns how many came FREE (a
+    page still held by live readers leaves the cache but stays allocated
+    until its last ref drops)."""
+    freed = 0
+    for p in self._prefix.evict(max(1, n)):
+      self._count("prefix_evictions")
+      freed += bool(self._pool.unref(p))
+    return freed
+
+  def _release_pages(self, rid: int) -> None:
+    """Drop the request's page refs EXACTLY once (pop, then unref: a
+    second call for the same rid does nothing; pages shared with the
+    prefix cache or other readers stay allocated until their last ref
+    drops)."""
+    for p in self._req_pages.pop(rid, None) or ():
+      self._pool.unref(p)
+
   def _admit(self) -> None:
     """Prefill queued requests into free slots (EOS-freed or virgin)."""
     for slot in range(self.num_slots):
@@ -832,6 +973,18 @@ class ServingEngine(object):
           self._fail_reaped(req, now)
           self._admitting = None
           req = None
+      pages, shared_tokens, table = None, 0, None
+      if self.decoder.paged:
+        alloc = self._alloc_pages(req)
+        if alloc is None:
+          # pool exhausted: requeue AHEAD of the backlog (it was already
+          # admitted; the bounds do not apply again) and stop admitting
+          # until a completion frees pages
+          self._queue.push_front(req)
+          self._admitting = None
+          return
+        pages, shared_tokens = alloc
+        table = pages + [0] * (self.decoder.pages_per_slot - len(pages))
       if req.started_at is None:
         req.started_at = time.monotonic()
         if self._rec is not None:
@@ -842,11 +995,18 @@ class ServingEngine(object):
                                 trace=req.trace_id, rid=req.rid)
       cm = self._rec.span("serve.prefill", trace=req.trace_id,
                           rid=req.rid, prompt_len=len(req.prompt),
-                          slot=slot, shared_tokens=0) \
+                          slot=slot, shared_tokens=shared_tokens) \
           if self._rec is not None else contextlib.nullcontext()
       with cm:
+        resume = None
+        if shared_tokens:
+          # prefix hit: rebuild the warm row cache from the shared pages
+          # and prefill only the tail
+          self._count("prefix_hits")
+          resume = (self.decoder.gather_pages(self._slabs, table,
+                                              shared_tokens), shared_tokens)
         row_cache, first = self.decoder.prefill(
-            req.prompt, self.buckets,
+            req.prompt, self.buckets, resume=resume,
             trace=req.trace_id if self._rec is not None
             and self._trace_detail else None)
       if req.prefill_done_at is None:   # replays keep the original stamp
@@ -856,10 +1016,26 @@ class ServingEngine(object):
         self._count("replay_mismatches")
       self._count("emitted_tokens")
       if self._finished(req, first):
+        for p in pages or ():    # never inserted: nothing else holds them
+          self._pool.unref(p)
         self._complete(req)
         self._admitting = None
         continue                 # slot stays free for the next request
-      self.decoder.insert(self._slabs, row_cache, slot)
+      if self.decoder.paged:
+        self.decoder.insert_pages(self._slabs, row_cache, slot, table,
+                                  start=shared_tokens)
+        if self._prefix is not None:
+          # the prompt's full pages become shareable: the cache takes its
+          # own ref on each newly cached page, outliving this request;
+          # then the LRU budget is enforced
+          for p in self._prefix.register(req.prompt, pages):
+            self._pool.ref(p)
+          over = self._prefix.over_budget
+          if over:
+            self._evict_prefix(over)
+        self._req_pages[req.rid] = pages
+      else:
+        self.decoder.insert(self._slabs, row_cache, slot)
       with self._lock:
         self._slots[slot] = req
       self._admitting = None
@@ -892,37 +1068,22 @@ class ServingEngine(object):
   # -- decode ----------------------------------------------------------------
 
   def _decode_once(self) -> None:
-    """One ``horizon``-step dispatch + host-side harvest (the
-    reference's ``_decode_plain``). The device carries each lane's
-    EOS/budget done-mask; the host replays the same stop rule over the
-    returned ``[horizon, num_slots]`` tokens, so the views agree."""
+    """One dispatch + host-side harvest: the ``horizon``-step
+    :meth:`_decode_plain`, or :meth:`_decode_spec` with ``spec_depth``.
+    The device carries each lane's EOS/budget done-mask; the host replays
+    the same stop rule over the returned tokens, so the views agree."""
     t0 = time.monotonic()
+    tokens_before = self.stats["emitted_tokens"]
     active = np.asarray([r is not None for r in self._slots], bool)
     remaining = np.asarray(
         [0 if r is None else r.max_new_tokens - r.generated
          for r in self._slots], np.int64)
-    toks, _, _ = self.decoder.step_many(self._slabs, self._last, active,
-                                        remaining, self.horizon)
-    toks = toks.cpu().numpy()                     # [horizon, num_slots]
-    self._count("steps", self.horizon)
-    want_lanes = self._rec is not None and self._trace_detail
-    lanes: List[tuple] = []
-    emitted = 0
-    for slot in range(self.num_slots):
-      req = self._slots[slot]
-      if req is None:
-        continue
-      lane = 0
-      for j in range(self.horizon):
-        lane += 1
-        if self._harvest(req, int(toks[j, slot]), slot):
-          break
-      else:
-        self._last[slot] = int(toks[self.horizon - 1, slot])
-      emitted += lane
-      if want_lanes:
-        lanes.append((slot, req.trace_id, lane))
+    if self.spec_depth > 0:
+      steps, lanes = self._decode_spec(active, remaining)
+    else:
+      steps, lanes = self._decode_plain(active, remaining)
     dt = time.monotonic() - t0
+    emitted = self.stats["emitted_tokens"] - tokens_before
     self._count("decode_s", dt)
     if dt > 0 and emitted:
       # live tokens/s EMA — the denominator of the retry-after hint
@@ -930,14 +1091,72 @@ class ServingEngine(object):
       self._tok_rate = rate if self._tok_rate <= 0 \
           else 0.5 * self._tok_rate + 0.5 * rate
     if self._rec is not None or self._obs_m is not None:
-      self._obs_decode(t0, dt, int(active.sum()), emitted, lanes)
+      self._obs_decode(t0, dt, int(active.sum()), steps, emitted, lanes)
 
-  def _obs_decode(self, t0: float, dt: float, active: int, emitted: int,
-                  lanes: List[tuple]) -> None:
+  def _harvest_lanes(self, toks: np.ndarray, counts: np.ndarray):
+    """Harvest one dispatch: ``toks[r, j, slot]`` for rounds ``r``, the
+    lane valid for its first ``counts[r, slot]`` positions of a round.
+    Frees finished slots (and resets their page tables). Returns the
+    per-lane ``(slot, trace_id, emitted)`` list for the decode spans
+    (built only while the recorder is live)."""
+    want_lanes = self._rec is not None and self._trace_detail
+    lanes: List[tuple] = []
+    freed: List[int] = []
+    for slot in range(self.num_slots):
+      req = self._slots[slot]
+      if req is None:
+        continue
+      done, emitted, last_tok = False, 0, None
+      for r in range(toks.shape[0]):
+        for j in range(int(counts[r, slot])):
+          last_tok = int(toks[r, j, slot])
+          emitted += 1
+          if self._harvest(req, last_tok, slot, freed):
+            done = True
+            break
+        if done:
+          break
+      if not done and last_tok is not None:
+        self._last[slot] = last_tok
+      if want_lanes:
+        lanes.append((slot, req.trace_id, emitted))
+    self._reset_freed(freed)
+    return lanes
+
+  def _decode_plain(self, active, remaining):
+    """The non-speculative horizon (``SlotDecoder.step_many``): one round
+    of ``horizon`` positions. Returns ``(steps, lanes)``."""
+    toks, _, _ = self.decoder.step_many(self._slabs, self._last, active,
+                                        remaining, self.horizon)
+    toks = toks.cpu().numpy()[None]           # [1, horizon, num_slots]
+    self._count("steps", self.horizon)
+    counts = np.full((1, self.num_slots), self.horizon)
+    return self.horizon, self._harvest_lanes(toks, counts)
+
+  def _decode_spec(self, active, remaining):
+    """The self-speculative dispatch (``SlotDecoder.step_spec``):
+    ``counts[r, lane]`` bounds each lane's valid tokens a round (the
+    device's accept/EOS/budget verdict); the draft verdicts feed the
+    ``spec_accepted`` / ``spec_rejected`` counters. Returns ``(steps,
+    lanes)``."""
+    k, rounds = self.spec_depth, self._spec_rounds
+    toks, counts, acc, rej, _, _ = self.decoder.step_spec(
+        self._slabs, self._last, active, remaining, rounds)
+    toks = toks.cpu().numpy()          # [rounds, spec_depth, num_slots]
+    counts = counts.cpu().numpy()      # [rounds, num_slots]
+    # a round's slot-step opportunity is its verify window (k wide):
+    # occupancy then reads as the useful-token share, rejections included
+    self._count("steps", rounds * k)
+    self._count("spec_accepted", int(acc.sum()))
+    self._count("spec_rejected", int(rej.sum()))
+    return rounds * k, self._harvest_lanes(toks, counts)
+
+  def _obs_decode(self, t0: float, dt: float, active: int, steps: int,
+                  emitted: int, lanes: List[tuple]) -> None:
     """One decode dispatch into the obs plane: the ``serve.decode`` span
     and its per-lane ``serve.decode.slot`` children, the token/step
-    counters, the dispatch histogram and the load gauges. ``active`` is
-    the host's count of lanes that entered the dispatch."""
+    counters, the dispatch histogram and the load and page gauges.
+    ``active`` is the host's count of lanes that entered the dispatch."""
     if self._rec is not None:
       self._rec.record_span("serve.decode", t0, dt, horizon=self.horizon,
                             active=active)
@@ -946,24 +1165,33 @@ class ServingEngine(object):
                               slot=slot, tokens=tokens)
     m = self._obs_m
     if m is not None:
-      m["steps"].inc(self.horizon)
+      m["steps"].inc(steps)
       m["tokens"].inc(emitted)
       m["decode_ms"].observe(dt * 1e3)
       m["occupancy"].set(self.occupancy)
       m["queue_depth"].set(len(self._queue))
       m["slots_active"].set(sum(1 for r in self._slots if r is not None))
+      if self._pool is not None:
+        m["kv_pages_in_use"].set(self._pool.in_use)
+        m["kv_pages_free"].set(self._pool.free_pages)
 
-  def _harvest(self, req: sched.Request, tok: int, slot: int) -> bool:
+  def _harvest(self, req: sched.Request, tok: int, slot: int,
+               freed: List[int]) -> bool:
     """Record one emitted token; on the request's stop, free its slot
-    exactly like EOS. Returns True when the slot freed."""
+    (and pages) exactly like EOS. Returns True when the slot freed."""
     if not req.emit(tok):
       self._count("replay_mismatches")
     self._count("emitted_tokens")
     self._count("live_slot_steps")
     if not self._finished(req, tok):
       return False
-    self._complete(req)
     with self._lock:
       self._slots[slot] = None
     self._last[slot] = self.pad_id
+    if self.decoder.paged:
+      # released before the waiter wakes: a caller whose last result has
+      # returned reads the pool settled
+      self._release_pages(req.rid)
+      freed.append(slot)
+    self._complete(req)
     return True

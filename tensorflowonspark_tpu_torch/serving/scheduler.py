@@ -6,8 +6,9 @@ The port's own copy of ``tensorflowonspark_tpu/serving/scheduler.py``
 thread pops :class:`Request` objects off the :class:`RequestQueue`
 whenever a slot frees and prefills them in (``serving.slots``); callers
 hold the request handle and wait on its event / stream queue. Every
-blocking wait is timeout-bounded. The paged-KV bookkeeping (``PagePool``,
-``PrefixCache``) arrives with the paged slice.
+blocking wait is timeout-bounded. The paged-KV bookkeeping is here too: the
+page allocator (:class:`PagePool`) and the shared-prefix trie
+(:class:`PrefixCache`).
 
 The robustness vocabulary:
 
@@ -23,6 +24,7 @@ The robustness vocabulary:
 """
 
 import collections
+import heapq
 import itertools
 import os
 import queue as std_queue
@@ -255,6 +257,180 @@ def buckets_from_env(default):
     raise ValueError("%s must name positive chunk sizes, got %r"
                      % (ENV_SERVE_BUCKETS, raw))
   return sizes
+
+
+class PagePool(object):
+  """Ref-counted free-list allocator over a paged KV slab's page pool.
+
+  Page 0 is the reserved TRASH page (frozen-lane writes and unused
+  page-table entries land there) and is never allocated. ``alloc`` is
+  all-or-nothing: a request either gets every page its prompt+budget
+  token mass needs or waits in the queue for completions to free pages.
+  Sharing (the prefix cache, every additional reader of a prefix page)
+  rides ``ref``/``unref``; a page rejoins the free list exactly when its
+  last ref drops. Engine-loop-thread-only: no locking.
+  """
+
+  def __init__(self, num_pages: int):
+    if num_pages < 2:
+      raise ValueError("PagePool needs num_pages >= 2 (page 0 is the "
+                       "reserved trash page), got %d" % num_pages)
+    self.num_pages = int(num_pages)
+    self._free = collections.deque(range(1, self.num_pages))
+    self._refs = [0] * self.num_pages
+
+  @property
+  def capacity(self) -> int:
+    """Allocatable pages (the pool minus the trash page)."""
+    return self.num_pages - 1
+
+  @property
+  def free_pages(self) -> int:
+    return len(self._free)
+
+  @property
+  def in_use(self) -> int:
+    return self.capacity - len(self._free)
+
+  def alloc(self, n: int) -> Optional[List[int]]:
+    """``n`` fresh pages (each at refcount 1), or None if the pool
+    cannot satisfy the whole request right now (all-or-nothing: partial
+    grants would deadlock two half-admitted requests against each
+    other)."""
+    if n < 0:
+      raise ValueError("alloc count must be >= 0, got %d" % n)
+    if n > len(self._free):
+      return None
+    pages = [self._free.popleft() for _ in range(n)]
+    for p in pages:
+      self._refs[p] = 1
+    return pages
+
+  def ref(self, page: int) -> None:
+    """One more holder of an allocated page (prefix sharing)."""
+    if self._refs[page] <= 0:
+      raise ValueError("ref on free page %d" % page)
+    self._refs[page] += 1
+
+  def unref(self, page: int) -> bool:
+    """Drop one ref; returns True when this freed the page. Raises on a
+    double free — page accounting bugs must be loud, not leaks."""
+    r = self._refs[page]
+    if page <= 0 or r <= 0:
+      raise ValueError("unref of free/trash page %d (double free?)"
+                       % page)
+    self._refs[page] = r - 1
+    if r == 1:
+      self._free.append(page)
+      return True
+    return False
+
+
+class PrefixCache(object):
+  """Host-side radix trie over prompt-token prefixes, page-granular.
+
+  Each trie node caches ONE full page of a prompt: the tuple of
+  ``page_size`` tokens it covers maps to the pool page holding their KV.
+  Lookup walks a prompt's full-page chunks and returns the longest
+  cached run; a hit means those tokens are never re-prefilled — the
+  engine gathers the pages into a warm row cache and prefills only the
+  tail. Only FULL pages are cached/shared: the divergence page (the
+  prompt's partial last page, where requests write their own tails) is
+  always private, which is copy-on-write at page granularity with the
+  copy replaced by a ≤ page_size-token recompute.
+
+  The cache holds one pool ref per cached page (taken by the engine via
+  ``PagePool.ref`` on ``register``), so cached prefixes survive their
+  originating request. Eviction is LRU over leaf nodes, bounded by
+  ``max_pages`` (``TOS_SERVE_PREFIX_PAGES``); evicted pages are returned
+  for the engine to unref. Engine-loop-thread-only: no locking.
+  """
+
+  def __init__(self, page_size: int, max_pages: int):
+    if page_size < 1:
+      raise ValueError("page_size must be >= 1, got %d" % page_size)
+    self.page_size = int(page_size)
+    self.max_pages = int(max_pages)
+    self._root: dict = {}       # chunk tuple -> node
+    self._clock = 0
+    self.pages_held = 0
+
+  def _chunks(self, prompt):
+    ps = self.page_size
+    full = len(prompt) // ps
+    return [tuple(int(t) for t in prompt[i * ps:(i + 1) * ps])
+            for i in range(full)]
+
+  def lookup(self, prompt) -> List[int]:
+    """Pool pages for the longest cached full-page prefix of ``prompt``
+    (possibly empty). Touches the matched path's LRU stamps; the caller
+    refs each returned page before using it."""
+    self._clock += 1
+    pages, children = [], self._root
+    for chunk in self._chunks(prompt):
+      node = children.get(chunk)
+      if node is None:
+        break
+      node["stamp"] = self._clock
+      pages.append(node["page"])
+      children = node["children"]
+    return pages
+
+  def register(self, prompt, page_ids) -> List[int]:
+    """Cache ``prompt``'s full pages (``page_ids[i]`` holds tokens
+    ``[i·page_size, (i+1)·page_size)``). Chunks already cached keep
+    their existing page; new chunks take the request's page. Returns the
+    NEWLY cached pages — the caller must take a pool ref on each (the
+    cache's own ref, outliving the registering request)."""
+    self._clock += 1
+    new, children = [], self._root
+    for i, chunk in enumerate(self._chunks(prompt)):
+      node = children.get(chunk)
+      if node is None:
+        node = children[chunk] = {"page": int(page_ids[i]),
+                                  "children": {}, "stamp": self._clock}
+        new.append(node["page"])
+        self.pages_held += 1
+      else:
+        node["stamp"] = self._clock
+      children = node["children"]
+    return new
+
+  def _leaves(self, children):
+    for chunk, node in children.items():
+      if node["children"]:
+        for leaf in self._leaves(node["children"]):
+          yield leaf
+      else:
+        yield node["stamp"], children, chunk, node
+
+  def evict(self, count: int = 1) -> List[int]:
+    """Drop up to ``count`` least-recently-used LEAF pages (a shared
+    interior page cannot go while a longer cached prefix still rides
+    through it). Returns the released pages for the caller to unref.
+
+    One trie walk evicts a whole batch of current leaves in LRU order;
+    only when the batch is spent (deleting leaves exposed parents as
+    NEW leaves) does it re-enumerate — so evicting E pages costs
+    O(depth) walks, not E of them (eviction runs on the admission path
+    whenever the pool is tight, the cache's steady state)."""
+    released = []
+    while len(released) < count:
+      batch = heapq.nsmallest(count - len(released),
+                              self._leaves(self._root),
+                              key=lambda x: x[0])
+      if not batch:
+        break
+      for _, children, chunk, node in batch:
+        del children[chunk]
+        self.pages_held -= 1
+        released.append(node["page"])
+    return released
+
+  @property
+  def over_budget(self) -> int:
+    """How many pages past ``max_pages`` the cache currently holds."""
+    return max(0, self.pages_held - self.max_pages)
 
 
 class RequestQueue(object):

@@ -221,6 +221,53 @@ def test_engine_seams_match_the_reference(pair):
   assert snap["serve.kv_pages_free"]["value"] == 0
 
 
+STACK_KEYS = ("serve.prefills", "serve.completed", "serve.tokens",
+              "serve.prefix_hits", "serve.prefix_evictions",
+              "serve.spec_accepted", "serve.spec_rejected",
+              "serve.kv_pages_in_use", "serve.kv_pages_free",
+              "xla.compiles.serve.insert_pages",
+              "xla.compiles.serve.gather_pages",
+              "xla.compiles.serve.reset_slots",
+              "xla.compiles.serve.step_spec")
+
+
+def test_decode_stack_seams_match_the_reference(pair):
+  """A paged engine with the prefix cache and speculation: the prefix,
+  spec and page metrics and the recompile sentinels of the paged slab
+  operations equal the JAX engine's for the same requests."""
+  jcfg, tcfg, jstate, params = pair
+  jparams = jax.tree.map(np.asarray, jstate.params)
+  rng = np.random.default_rng(12)
+  prefix = rng.integers(1, 64, size=16)
+  prompts = [np.concatenate([prefix, rng.integers(1, 64, size=n)])
+             for n in (3, 6, 2, 5)]
+  opts = dict(num_slots=2, horizon=4, pad_id=PAD, page_size=4,
+              prefix_pages=6, spec_depth=2)
+  snaps, outs = [], []
+  for mods, make in (
+      ((jax_metrics, jax_spans), lambda: JaxEngine(jparams, jcfg, **opts)),
+      ((port_metrics, port_spans),
+       lambda: ServingEngine(params, tcfg, device="cpu", **opts))):
+    reg, _ = _obs_on(mods)
+    eng = make().start()
+    try:
+      outs.append([np.asarray(o) for o in eng.generate(
+          prompts, max_new_tokens=BUDGET, timeout=300)])
+    finally:
+      eng.stop()
+    snap = reg.snapshot()
+    snaps.append({k: snap[k]["value"] for k in STACK_KEYS})
+    for mod in mods:
+      mod.deactivate()
+  for a, b in zip(*outs):
+    np.testing.assert_array_equal(a, b)
+  assert snaps[1] == snaps[0]
+  assert snaps[1]["serve.prefix_hits"] >= len(prompts) - 1
+  assert snaps[1]["serve.spec_accepted"] + \
+      snaps[1]["serve.spec_rejected"] > 0
+  assert snaps[1]["serve.kv_pages_in_use"] > 0
+
+
 def test_stream_span_and_trace_detail_off(pair, monkeypatch):
   _, tcfg, _, params = pair
   monkeypatch.setenv("TOS_OBS_TRACE_DETAIL", "0")

@@ -141,12 +141,26 @@ def test_drain_finishes_accepted_work_then_refuses(setup):
   assert ei.value.draining
 
 
-@pytest.mark.parametrize("kw", [dict(page_size=16), dict(prefix_pages=4),
+@pytest.mark.parametrize("kw", [dict(page_size=16),
+                                dict(prefix_pages=4, page_size=16),
                                 dict(spec_depth=2)],
                          ids=lambda kw: next(iter(kw)))
 def test_unported_engine_options_raise(setup, kw):
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    _engine(setup, **kw)
+  """The decode-speed options the port once refused: each engine builds
+  and serves a request equal to both packages' greedy decodes (a prefix
+  cache without paging is refused as the reference refuses it)."""
+  _, _, prompts, _, jax_refs, port_refs = setup
+  if "prefix_pages" in kw:
+    with pytest.raises(ValueError, match="TOS_SERVE_PAGE_SIZE"):
+      _engine(setup, prefix_pages=4)
+  eng = _engine(setup, **kw).start()
+  try:
+    out = eng.result(eng.submit(prompts[2], max_new_tokens=BUDGET),
+                     timeout=60)
+  finally:
+    eng.stop()
+  np.testing.assert_array_equal(out, port_refs[2])
+  np.testing.assert_array_equal(out, jax_refs[2])
 
 
 def test_stream_yields_each_generated_token_once(setup):

@@ -265,11 +265,21 @@ def test_slab_batches_keep_the_per_step_batch_order(monkeypatch):
 
 
 def test_unported_training_options_raise():
-  state = tfm.create_state(tfm.TransformerConfig(**STEP_CFG), 0,
-                           device="cpu")
-  tokens = torch.zeros((1, 8), dtype=torch.long)
-  with pytest.raises(NotImplementedError, match="exit_layer"):
-    state.model(tokens, exit_layer=1)
+  """Data and model parallelism still name item 10; ``exit_layer`` (the
+  shallow-exit forward) now runs on a training model: one block's
+  logits, held against the JAX model's on the same weights."""
+  cfg = tfm.TransformerConfig(dtype=torch.float32, **STEP_CFG)
+  state = tfm.create_state(cfg, 0, device="cpu")
+  tokens = np.random.default_rng(4).integers(1, 64, size=(2, 8))
+  got = state.model(torch.as_tensor(tokens), exit_layer=1)
+  jcfg = jax_tfm.TransformerConfig(dtype=jnp.float32, remat=False,
+                                   attention_impl="dense",
+                                   layer_norm_impl="flax", **STEP_CFG)
+  want = jax_tfm.Transformer(jcfg).apply(
+      {"params": params_to_flax(state.model.numpy_params(), cfg)},
+      jnp.asarray(tokens, jnp.int32), exit_layer=1)
+  np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                             atol=1e-4, rtol=1e-4)
   with pytest.raises(NotImplementedError, match="item 10"):
     sharding.make_train_step(_lm_loss, mesh=object())
   with pytest.raises(NotImplementedError, match="item 10"):

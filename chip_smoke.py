@@ -224,6 +224,28 @@ failure:
    equal weights, and the driver's one-process steps on each step's global
    batch (reassembled from the row ids the ranks wrote) give losses within
    2e-3;
+   (6s) the mesh axes fsdp, sequence and tensor: the flash kernels at the
+   ring's block cases (q ``[1, 8192, 12, 64]`` against an 8192-key block
+   wholly in the past, on the diagonal, wholly in the future; Hk 4 and
+   12; every backward with an lse cotangent on every row) and LN->matmul
+   and GELU->matmul at ``--tp 2``'s local widths, each against its plain
+   version, timed, with its bound and the SDPA / two-call yardstick; a
+   future block must give out 0, lse -1e30 and zero gradients in under a
+   fifth of the past block's time. Then ``train_gpt``'s pieces in spawned
+   ranks that share the card over gloo (NCCL refuses two ranks on one
+   card), each case against the same flags in one process on the same
+   batches and weights: (a) ``--sp 2`` on 6d's B1 x S16384 Hk 4 from its
+   TFRecords under the split backward, (b) ``--tp 2 --fused``, (c)
+   ``--fsdp 2`` at B16 x S1024, 12 layers, on 2 ranks; (d) ``--sp 2 --tp
+   2`` at 2 layers on 4 ranks. 3 bf16 steps (the last profiled): every
+   rank's losses equal, within 2e-3 relative of one process's, exact
+   launch counts per rank and step; the same at 2 layers in f32 under SGD:
+   losses within 1e-5, the first step's gradients within 1e-5 of each
+   tensor's largest and the final gathered weights within 1e-5; (c) a
+   rank's weights and optimizer state exactly half one process's but the
+   whole LayerNorm scales; each rank's ms a step, device-busy ms, peak
+   memory and collectives a step (``collectives.COUNTS``), labelled: gloo
+   over the host, ranks sharing one card;
    (6m) the pipeline layer on one ``LocalEngine(num_executors=2)`` whose
    executors share the card: (a) ``TFEstimator.fit`` (InputMode.SPARK)
    feeds 4 partitions of 24 seeded token rows; each node trains the
@@ -367,6 +389,10 @@ sizes and prints its measurements as one JSON line.
 script builds every kernel first) and prints its measurements as one JSON
 line.
 
+``python3 chip_smoke.py --spmd-only`` runs phases 1, 2 and 6s alone (6d's
+TFRecord files are written first; the ranks load the built kernels) and
+prints its measurements as one JSON line.
+
 ``python3 chip_smoke.py --serving-ab OTHER_CHECKOUT N`` runs phases 1 and 2,
 then phase 4 for the package of the checkout at OTHER_CHECKOUT (copied
 under ``build/`` under another name) and this one in the same process,
@@ -405,8 +431,43 @@ LN_BWD_FLOPS_PER_ELEM = 20         # statistics, xhat, dy, two sums, dx, dw
 SEED = 0
 
 
+#: (monotonic time, tag) of each top-level phase's first line ("[6s] ...")
+PHASE_STARTS = []
+
+
 def log(*args):
+  head = args[0] if args and isinstance(args[0], str) else ""
+  if head.startswith("[") and "]" in head:
+    tag = head[1:head.index("]")].split("-")[0]       # [6l-a] is [6l]'s
+    if not PHASE_STARTS or PHASE_STARTS[-1][1] != tag:
+      PHASE_STARTS.append((time.monotonic(), tag))
   print(*args, flush=True)
+
+
+def cache_bytecode():
+  """Keep the bytecode Python compiles under ``build/pycache`` for this
+  run and every process it starts. Where the environment sets
+  ``PYTHONDONTWRITEBYTECODE``, each fresh process (an executor, a rank,
+  a host) would compile PyTorch's modules from source again, seconds a
+  process, most of it at its first step or profiler session, where
+  ``torch.utils.checkpoint`` and ``torch.profiler`` import
+  ``torch._dynamo``."""
+  prefix = os.path.join(HERE, "build", "pycache")
+  os.makedirs(prefix, exist_ok=True)
+  sys.pycache_prefix = prefix
+  sys.dont_write_bytecode = False
+  os.environ["PYTHONPYCACHEPREFIX"] = prefix
+  os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+
+
+def phase_seconds() -> dict:
+  """Seconds from each top-level phase's first line to the next phase's,
+  summed by phase: where the script's time limit goes."""
+  out = {}
+  ends = [t for t, _ in PHASE_STARTS[1:]] + [time.monotonic()]
+  for (t0, tag), t1 in zip(PHASE_STARTS, ends):
+    out[tag] = round(out.get(tag, 0.0) + t1 - t0, 1)
+  return out
 
 
 def card_line():
@@ -5036,7 +5097,7 @@ def _dp_run(torch, ops, tfm, optim, sharding, Slab, params, cfg, mesh):
   from tensorflowonspark_tpu_torch.parallel import collectives
   tx = optim.make_optimizer(learning_rate=3e-4, clip_norm=1.0)
   state = tfm.create_state(cfg, params, tx=tx) if mesh is None else \
-      tfm.create_sharded_state(cfg, params, mesh, tx=tx)
+      tfm.create_sharded_state(cfg, params, mesh, tx=tx)[0]
   batch = _synthetic_batch(TRAIN_B, TRAIN_S, cfg.vocab_size)
   loss_fn = _lm_loss(tfm)
   step = sharding.make_train_step(loss_fn, mesh)
@@ -5276,7 +5337,7 @@ def dp_feed_main(args, ctx):
   ctx.initialize_distributed(backend="gloo")
   mesh = mesh_lib.build_mesh(mesh_lib.MeshSpec(data=-1))
   cfg = tfm.TransformerConfig(num_layers=args["layers"])
-  state = tfm.create_sharded_state(
+  state, _ = tfm.create_sharded_state(
       cfg, init_params(cfg, seed=SEED), mesh,
       tx=optim.make_optimizer(learning_rate=3e-4, clip_norm=1.0))
   step = sharding.make_train_step(_lm_loss(tfm), mesh)
@@ -5574,6 +5635,701 @@ def dp_only(torch, ops, tfm, optim, sharding, Slab, train_gpt, init_params,
           "flash_attention_fwd", "flash_attention_bwd", "layer_norm",
           "layer_norm_bwd")},
       "seconds": res["seconds"]}, "card": card}))
+  log(json.dumps({"ok": True, "device": {
+      "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+      "count": torch.cuda.device_count()}}))
+  return 0
+
+
+# -- phase 6s: the SPMD mesh axes (fsdp, sequence, tensor) -------------------
+
+SPMD_STEPS = 3
+SPMD_REL = 2e-3                     # bf16 losses, ranks against one process
+SPMD_F32_TOL = 1e-5                 # f32 losses and gathered weights
+# f32 first-step gradients, over each tensor's largest |g|: sums over up
+# to 16384 positions in another order
+SPMD_GRAD_REL = 1e-5
+# f32 updates after SPMD_STEPS steps (final minus initial weights), over
+# each tensor's largest |update|, plus 4 units in the last place of the
+# weight for the steps' f32 roundings
+SPMD_UPDATE_REL = 1e-4
+SPMD_F32_LAYERS = 2
+# the f32 runs take SGD, whose update is linear in the gradient (AdamW's
+# per-element normalization turns f32 rounding in gradients below its
+# epsilon into whole steps), at an lr large enough that 3 clipped steps
+# move the weights far past the 1e-5 weight gate and the ulps of f32
+SPMD_F32_FLAGS = ["--layers", str(SPMD_F32_LAYERS), "--optimizer", "sgd",
+                  "--lr", "0.1"]
+SPMD_LABEL = "gloo over host, ranks sharing one card"
+# per rank and step: (a) the ring runs 2 flash forwards a layer, twice
+# (remat), and the split backward's dQ and grouped dK/dV once a ring step
+WANT_SPMD_LONG = dict(WANT_LONG_PER_STEP, flash_attention_fwd=48,
+                      flash_attention_bwd_dq=24,
+                      flash_attention_bwd_dkv_gqa=24)
+# (d) 2 layers at sequence 2: 2 ring steps a layer, twice; the fused MHA
+# backward once a ring step; LayerNorm 2 a layer, twice, and ln_f
+WANT_SPMD_SMALL = dict(WANT_PER_STEP, flash_attention_fwd=8,
+                       flash_attention_bwd=4, layer_norm=9, layer_norm_bwd=5)
+WANT_ONE_SMALL = dict(WANT_PER_STEP, flash_attention_fwd=4,
+                      flash_attention_bwd=2, layer_norm=9, layer_norm_bwd=5)
+# (name, ranks, mesh flags, model flags (the one-process run's), the
+# TFOS_TPU_FLASH_BWD plan, launches a rank a step, launches of the
+# one-process run a step); (a) reads [6d]'s TFRecords
+SPMD_CASES = (
+    ("a_sp2_long", 2, ["--sp", "2"], LONG_ARGS, "split", WANT_SPMD_LONG,
+     WANT_LONG_PER_STEP),
+    ("b_tp2_fused", 2, ["--tp", "2"], DP_ARGS + ["--fused"], "fused",
+     WANT_FUSED_PER_STEP, WANT_FUSED_PER_STEP),
+    ("c_fsdp2", 2, ["--fsdp", "2"], DP_ARGS, "fused", WANT_PER_STEP,
+     WANT_PER_STEP),
+    ("d_sp2_tp2", 4, ["--sp", "2", "--tp", "2"], DP_ARGS + ["--layers", "2"],
+     "fused", WANT_SPMD_SMALL, WANT_ONE_SMALL))
+# the ring's block cases for the kernel rows: queries of rank 1 (q_base
+# 8192) against rank 0's keys (past) and its own (diagonal), and rank 0
+# against rank 1's (future: every row masked)
+RING_S, RING_H, RING_D = 8192, 12, 64
+RING_FUTURE_SHARE = 0.2             # a future block's time over the past's
+RING_BLOCKS = (("past", RING_S, 0), ("diagonal", RING_S, RING_S),
+               ("future", 0, RING_S))
+# rows 9-10 at --tp 2's local widths: QKV 1152 and up 1536 columns, the
+# down projection's 1536 rows
+TP_FUSED_CASES = (("ln_matmul", "qkv_tp2", 16384, 768, 1152, "bfloat16"),
+                  ("ln_matmul", "up_tp2", 16384, 768, 1536, "bfloat16"),
+                  ("gelu_matmul", "down_tp2", 16384, 1536, 768, "bfloat16"))
+
+
+def _first_grads(torch, state, loss_fn, batch, mesh):
+  """The whole gradients of the global batch's loss at ``state`` (the
+  step's own sync over the mesh, then each block gathered), as f32 numpy
+  arrays by parameter name."""
+  from tensorflowonspark_tpu_torch.parallel import sharding
+  params = state.params
+  device = next(state.model.parameters()).device
+  loss = loss_fn(state.model, torch.as_tensor(batch).to(device))
+  grads = torch.autograd.grad(loss, list(params.values()))
+  if mesh is not None:
+    grads = sharding.sync_state_gradients(grads, list(params),
+                                          state.sharding, mesh)
+    grads = [sharding.gather_array(g, state.sharding.spec(n), mesh)
+             for n, g in zip(params, grads)]
+  out = {n: g.float().cpu().numpy() for n, g in zip(params, grads)}
+  return state.model.unpermute_params(out)
+
+
+def spmd_train(torch, argv, f32=False, profile=False, weights=False):
+  """``train_gpt``'s pieces at ``argv`` over the process group's mesh (or
+  one process outside a group): SPMD_STEPS steps on the stream's first
+  batches, each rank's block of them, with launches, collectives and ms
+  a step; the last step profiled with ``profile``; the config made f32
+  with ``f32``. Returns (record, None or, with ``weights``, the first
+  step's whole gradients, the whole weights before the first step (one
+  process only, else None) and the gathered weights after the last)."""
+  import itertools
+  import numpy as np
+  from tensorflowonspark_tpu_torch import ops
+  from tensorflowonspark_tpu_torch.examples import train_gpt
+  from tensorflowonspark_tpu_torch.parallel import collectives, sharding
+  t_enter = time.monotonic()
+  args = train_gpt.parse_args(argv)
+  mesh = train_gpt.make_mesh(args)
+  cfg = train_gpt.make_config(args)
+  if f32:
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+  state = train_gpt.make_state(args, cfg, mesh)
+  extra = train_gpt.SEQUENCE_AXES if mesh is not None else ()
+  step = sharding.make_train_step(train_gpt.make_loss_fn(args), mesh,
+                                  state.sharding, batch_extra_axes=extra)
+  batches = [np.asarray(b, "int32") for b in
+             itertools.islice(train_gpt.batch_stream(args), args.steps)]
+  if mesh is not None:
+    batches = [sharding.shard_batch(b, mesh, extra) for b in batches]
+  grads = _first_grads(torch, state, train_gpt.make_loss_fn(args),
+                       batches[0], mesh) if weights else None
+  w0 = sharding.gather_state_params(state) if weights and mesh is None \
+      else None
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  rec = {"losses": [], "launches_per_step": [], "step_ms": [],
+         "collectives_per_step": [], "profile": None,
+         "setup_s": time.monotonic() - t_enter}
+  for i, batch in enumerate(batches):
+    before = dict(ops.LAUNCHES)
+    collectives.reset_counts()
+    t0 = time.monotonic()
+    if profile and i == len(batches) - 1:
+      state, loss, rec["profile"] = _profile_step(torch, step, state, batch)
+    else:
+      state, loss = step(state, batch)
+    rec["losses"].append(float(loss))
+    rec["step_ms"].append((time.monotonic() - t0) * 1e3)
+    rec["launches_per_step"].append({k: ops.LAUNCHES[k] - before[k]
+                                     for k in before})
+    rec["collectives_per_step"].append(dict(collectives.COUNTS))
+  rec.update(rank=mesh.rank if mesh is not None else 0,
+             mesh=dict(mesh.shape) if mesh is not None else None,
+             peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+             param_bytes=state_bytes(state.params),
+             opt_bytes=state_bytes(state.opt_state))
+  got = (grads, w0, sharding.gather_state_params(state)) if weights \
+      else None
+  del state
+  torch.cuda.empty_cache()
+  rec["run_s"] = time.monotonic() - t_enter
+  return rec, got
+
+
+def _spmd_argv(base, pattern):
+  argv = list(base) + ["--steps", str(SPMD_STEPS)]
+  return argv + ["--data", pattern] if base is LONG_ARGS else argv
+
+
+SPMD_GROUP_S = 900                  # a group's limit, from its start
+
+
+def spmd_rank_main(rank, world, go, jobs, out):
+  """One rank of a ``world``-rank gloo group on card 0: started ahead,
+  it imports and makes its CUDA context, then waits for the file ``go``
+  (the group's port) before it joins the group; then each job's bf16 run
+  (its last step profiled) and its f32 run at SPMD_F32_FLAGS; the records
+  to ``out % rank`` (JSON) and the f32 run's first gradients and final
+  gathered weights to ``<out % rank>.<job>.npz``."""
+  import datetime
+  import numpy as np
+  import torch
+  import torch.distributed as dist
+  torch.cuda.set_device(0)
+  _no_tf32(torch)
+  torch.zeros(1, device="cuda")
+  deadline = time.monotonic() + SPMD_GROUP_S
+  while not os.path.exists(go):
+    if time.monotonic() > deadline:
+      raise RuntimeError("[6s] rank %d of %d: no start after %d s"
+                         % (rank, world, SPMD_GROUP_S))
+    time.sleep(0.05)
+  with open(go) as f:
+    port = int(f.read())
+  dist.init_process_group("gloo", init_method="tcp://localhost:%d" % port,
+                          rank=rank, world_size=world,
+                          timeout=datetime.timedelta(seconds=600))
+  res = {}
+  try:
+    for job in jobs:
+      with flash_bwd_env(job["bwd"]):
+        res[job["name"]], _ = spmd_train(torch, job["argv"], profile=True)
+        res[job["name"] + "_f32"], got = spmd_train(
+            torch, job["argv"] + SPMD_F32_FLAGS, f32=True, weights=True)
+      if rank == 0:
+        np.savez((out % rank) + "." + job["name"] + ".npz",
+                 **{"grad/" + k: v for k, v in got[0].items()},
+                 **{"weight/" + k: v for k, v in got[2].items()})
+      res[job["name"]]["card"] = torch.cuda.get_device_name()
+  finally:
+    dist.destroy_process_group()
+  with open(out % rank, "w") as f:
+    json.dump(res, f)
+
+
+def _spmd_spawn(world, jobs):
+  """``world`` ranks for ``jobs`` started ahead (:func:`spmd_rank_main`):
+  they import and make their contexts while the card runs other work,
+  and wait for :func:`_spmd_go`. Returns the group's handle."""
+  import multiprocessing as mp
+  out = os.path.join(HERE, "build", "chip_smoke_spmd_w%d_rank%%d.json"
+                     % world)
+  for r in range(world):
+    _fresh(out % r)
+  go = _fresh(os.path.join(HERE, "build", "chip_smoke_spmd_w%d.go" % world))
+  ctx = mp.get_context("spawn")
+  procs = [ctx.Process(target=spmd_rank_main, args=(r, world, go, jobs, out))
+           for r in range(world)]
+  for p in procs:
+    p.start()
+  return {"world": world, "jobs": jobs, "procs": procs, "out": out,
+          "go": go, "t_spawn": time.monotonic()}
+
+
+def _spmd_stop(group):
+  for p in group["procs"]:
+    if p.is_alive():
+      p.kill()
+    p.join()
+
+
+def _spmd_go(group):
+  """Start ``group``'s ranks on a free port and wait for them (at most
+  SPMD_GROUP_S from their spawn): each rank's records and rank 0's f32
+  weights by job, and the seconds from the start to the end."""
+  import numpy as np
+  from tensorflowonspark_tpu_torch.utils.hostinfo import get_free_port
+  world, jobs, out, procs = (group[k] for k in ("world", "jobs", "out",
+                                                "procs"))
+  t0 = time.monotonic()
+  with open(group["go"] + ".tmp", "w") as f:
+    f.write(str(get_free_port()))
+  os.replace(group["go"] + ".tmp", group["go"])
+  for p in procs:
+    p.join(timeout=max(1.0, group["t_spawn"] + SPMD_GROUP_S
+                       - time.monotonic()))
+  seconds = time.monotonic() - t0
+  alive = [p.is_alive() for p in procs]
+  _spmd_stop(group)
+  codes = [None if a else p.exitcode for a, p in zip(alive, procs)]
+  if codes != [0] * world:
+    raise AssertionError("[6s] %d ranks exited %s (None: still running "
+                         "at the limit, killed)" % (world, codes))
+  ranks = []
+  for r in range(world):
+    with open(out % r) as f:
+      ranks.append(json.load(f))
+  weights = {}
+  for job in jobs:
+    saved = np.load((out % 0) + "." + job["name"] + ".npz")
+    weights[job["name"]] = tuple(
+        {k.split("/", 1)[1]: saved[k] for k in saved.files
+         if k.startswith(tag)} for tag in ("grad/", "weight/"))
+  return ranks, weights, seconds
+
+
+def _spmd_gates(name, ranks, want, one, one32, w_ranks, w_one, ln_bytes):
+  """[6s]'s gates for one case; its summary."""
+  import numpy as np
+  for rank in ranks:
+    for i, got in enumerate(rank[name]["launches_per_step"]):
+      _per_step_launches(got, 1, want, "[6s] %s rank %d step %d"
+                         % (name, rank[name]["rank"], i))
+  for key in (name, name + "_f32"):
+    losses = {tuple(r[key]["losses"]) for r in ranks}
+    if len(losses) != 1:
+      raise AssertionError("[6s] %s: the ranks disagree: %s" % (key, losses))
+  got = ranks[0][name]["losses"]
+  rel = dp_max_rel(got, one["losses"])
+  if not rel <= SPMD_REL or not all(math.isfinite(x) for x in got):
+    raise AssertionError("[6s] %s: ranks %s against one process %s: %.3g "
+                         "relative (limit %g)" % (name, got, one["losses"],
+                                                  rel, SPMD_REL))
+  rel32 = dp_max_rel(ranks[0][name + "_f32"]["losses"], one32["losses"])
+  if not rel32 <= SPMD_F32_TOL:
+    raise AssertionError("[6s] %s f32: ranks %s against one process %s: "
+                         "%.3g relative" % (name, ranks[0][name + "_f32"][
+                             "losses"], one32["losses"], rel32))
+  g_ranks, w_ranks = w_ranks
+  g_one, w0, w_one = w_one
+  worst, worst_g, worst_u, share, u_sizes = 0.0, 0.0, 0.0, 0.0, []
+  for k, want_g in g_one.items():
+    grel = float(np.abs(g_ranks[k] - want_g).max()) / max(
+        float(np.abs(want_g).max()), 1e-30)
+    worst_g = max(worst_g, grel)
+    if grel > SPMD_GRAD_REL:
+      raise AssertionError("[6s] %s f32: the first step's gradient of %s is "
+                           "off by %.3g of its largest |g| (limit %g)"
+                           % (name, k, grel, SPMD_GRAD_REL))
+  for k, want_w in w_one.items():
+    diff = np.abs(w_ranks[k] - want_w)
+    over = diff - SPMD_F32_TOL * (1 + np.abs(want_w))
+    worst = max(worst, float(diff.max()))
+    if (over > 0).any():
+      raise AssertionError("[6s] %s f32: gathered %s off by %.3g"
+                           % (name, k, float(diff.max())))
+    # the update itself: a rank that skipped a step or clipped by another
+    # norm moves its weights otherwise, however small the steps are
+    up_one, up_ranks = want_w - w0[k], w_ranks[k] - w0[k]
+    size = float(np.abs(up_one).max())
+    gap = np.abs(up_ranks - up_one)
+    limit = SPMD_UPDATE_REL * size + 4 * np.spacing(
+        np.abs(want_w).astype(np.float32))
+    u_sizes.append(size)
+    worst_u = max(worst_u, float(gap.max()) / max(size, 1e-30))
+    share = max(share, float((gap / limit).max()))
+    if (gap > limit).any():
+      raise AssertionError("[6s] %s f32: the update of %s differs by %.3g "
+                           "of its largest |update| %.3g (limit %g and 4 "
+                           "ulp of the weight)" % (name, k, float(gap.max())
+                                                   / max(size, 1e-30), size,
+                                                   SPMD_UPDATE_REL))
+  mine = ranks[0][name]["param_bytes"] + ranks[0][name]["opt_bytes"]
+  whole = one["param_bytes"] + one["opt_bytes"]
+  if name == "c_fsdp2" and 2 * mine - whole != 3 * ln_bytes:
+    raise AssertionError("[6s] %s: a rank holds %d bytes of weights and "
+                         "optimizer state, one process %d: not half, give or "
+                         "take the %d bytes of whole LayerNorm scales and "
+                         "their two moments" % (name, mine, whole, ln_bytes))
+  per = [r[name] for r in ranks]
+  return {"ranks": len(ranks), "losses": got, "one_process": one["losses"],
+          "max_rel": rel, "f32_max_rel": rel32, "f32_max_abs_weight": worst,
+          "f32_max_rel_grad": worst_g, "f32_max_rel_update": worst_u,
+          "f32_update_gap_over_limit": share,
+          "f32_update_max_abs": [min(u_sizes), max(u_sizes)],
+          "ms_per_step": [r["step_ms"][1] for r in per],
+          "profiled_wall_ms": [r["profile"]["wall_ms"] for r in per],
+          "device_busy_ms": [r["profile"]["device_busy_ms"] for r in per],
+          "one_ms_per_step": one["step_ms"][1],
+          "peak_mem_gib": [r["peak_mem_gib"] for r in per],
+          "one_peak_mem_gib": one["peak_mem_gib"],
+          "state_bytes": [r["param_bytes"] + r["opt_bytes"] for r in per],
+          "one_state_bytes": whole,
+          "collectives_per_step": per[0]["collectives_per_step"][1],
+          "launches_per_step": per[0]["launches_per_step"][1],
+          # (setup, whole run) seconds: rank 0's bf16 and f32 runs, and
+          # the one process's
+          "seconds": {"rank0": [[r["setup_s"], r["run_s"]] for r in (
+              per[0], ranks[0][name + "_f32"])],
+                      "one_process": [[r["setup_s"], r["run_s"]]
+                                      for r in (one, one32)]},
+          "label": SPMD_LABEL}
+
+
+def _ring_inputs(torch, hk, g):
+  mk = lambda *shape: torch.randn(*shape, device="cuda",  # noqa: E731
+                                  generator=g).to(torch.bfloat16)
+  q, k, v = (mk(1, RING_S, RING_H, RING_D), mk(1, RING_S, hk, RING_D),
+             mk(1, RING_S, hk, RING_D))
+  return q, k, v, mk(1, RING_S, RING_H, RING_D), torch.randn(
+      1, RING_H, RING_S, device="cuda", generator=g)
+
+
+def _block_through_wrapper(ops, torch, q, k, v, go, gl, qb, kb, plan):
+  """``ops.flash_attention_block`` at one ring block under backward plan
+  ``plan``, differentiated by autograd with cotangents ``go`` (out) and
+  ``gl`` (lse), as the ring's step runs it: out, lse and (dq, dk, dv).
+  Raises unless it launched the forward and the plan's backward kernels
+  once each."""
+  mha = q.shape[2] == k.shape[2]
+  want = {"flash_attention_fwd": 1}
+  if plan == "fused":
+    want["flash_attention_bwd" if mha else "flash_attention_bwd_gqa"] = 1
+  else:
+    want["flash_attention_bwd_dq"] = 1
+    want["flash_attention_bwd_dkv" if mha else
+         "flash_attention_bwd_dkv_gqa"] = 1
+  before = dict(ops.LAUNCHES)
+  leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+  out, lse = ops.flash_attention_block(*leaves, qb, kb, True, bwd=plan)
+  torch.autograd.backward((out, lse), (go, gl))
+  got = {n: c - before[n] for n, c in ops.LAUNCHES.items() if c != before[n]}
+  if got != want:
+    raise AssertionError("[6s] flash_attention_block at (%d, %d) under %s "
+                         "launched %s, not %s" % (qb, kb, plan, got, want))
+  return out.detach(), lse.detach(), tuple(t.grad for t in leaves)
+
+
+def check_ring_blocks(ops, torch, F):
+  """The flash kernels at the ring's block cases (rows 1, 3-7): q ``[1,
+  8192, 12, 64]`` against an 8192-key block with Hk 4 (forward, fused
+  grouped backward, split dQ and grouped dK/dV) and Hk 12 (fused MHA
+  backward and MHA dK/dV), every backward with a nonzero lse cotangent
+  on every row. Each is held against its plain version through the
+  ring's own call, ``ops.flash_attention_block`` differentiated by
+  autograd under the fused and the split plan, then timed alone, with
+  its bound from the visible pairs and SDPA where one call computes the
+  same function. The future block must give out 0, lse -1e30 and zero
+  gradients, and cost under RING_FUTURE_SHARE of the past block's time."""
+  fa = sys.modules["tensorflowonspark_tpu_torch.ops.flash_attention"]
+  g = torch.Generator(device="cuda").manual_seed(SEED + 51)
+  rows, worst = [], 0.0
+  isz = 2
+  for hk in (4, RING_H):
+    q, k, v, go, gl = _ring_inputs(torch, hk, g)
+    for case, qb, kb in RING_BLOCKS:
+      ro, rl = ops.flash_attention_reference(q, k, v, qb, kb, True, None)
+      grads = {}
+      for plan in ("fused", "split"):
+        out, lse, grads[plan] = _block_through_wrapper(
+            ops, torch, q, k, v, go, gl, qb, kb, plan)
+      want = ops.flash_attention_bwd_reference(q, k, v, out, lse, go, gl, qb,
+                                               kb, True, None)
+      delta = fa._bwd_delta(out, go, gl)
+      torch.cuda.synchronize()
+      err = (out.float() - ro.float()).abs().max().item()
+      lerr = (lse - rl).abs().max().item()
+      if not (torch.allclose(out.float(), ro.float(), atol=2e-2, rtol=2e-2)
+              and torch.allclose(lse, rl, atol=1e-4, rtol=1e-4)):
+        raise AssertionError("[6s] ring %s Hk %d forward: out err %.3g, lse "
+                             "err %.3g" % (case, hk, err, lerr))
+      for plan, got in grads.items():
+        for t, a, r in zip("qkv", got, want):
+          if not torch.isfinite(a).all():
+            raise AssertionError("[6s] ring %s Hk %d %s d%s is not finite"
+                                 % (case, hk, plan, t))
+          if case == "future":
+            if a.any():
+              raise AssertionError("[6s] ring future Hk %d %s d%s is not 0"
+                                   % (hk, plan, t))
+          else:
+            worst = max(worst, _rel_check("[6s] ring %s Hk %d %s d%s" % (
+                case, hk, plan, t), a, r, 1e-2))
+      if case == "future" and not ((out == 0).all() and (lse == -1e30).all()):
+        raise AssertionError("[6s] ring future Hk %d: out 0 and lse -1e30 "
+                             "expected" % hk)
+      worst = max(worst, err, lerr)
+      pairs = RING_H * _visible_pairs(RING_S, RING_S, qb, kb, None)
+      qn, kn = q.numel(), k.numel()
+      fwd_bytes = (2 * qn + 2 * kn) * isz + lse.numel() * 4
+      read = (2 * qn + 2 * kn) * isz + 2 * lse.numel() * 4
+      bwd_cost = {"fwd": (fwd_bytes, 4.0),
+                  "fused_bwd": (read + qn * isz + (qn + 2 * kn) * isz,
+                                10.0),
+                  "dq": (read + qn * isz, 6.0),
+                  "dkv": (read + 2 * kn * isz, 8.0)}
+      calls = {"fwd": lambda: fa._forward(q, k, v, qb, kb, True, None),
+               "fused_bwd": lambda: fa._fused_bwd(q, k, v, out, lse, go, gl,
+                                                  qb, kb, True, None),
+               "dq": lambda: ops.flash_attention_bwd_dq(
+                   q, k, v, go, lse, delta, qb, kb, True, None),
+               "dkv": lambda: ops.flash_attention_bwd_dkv(
+                   q, k, v, go, lse, delta, qb, kb, True, None)}
+      plains = {"fwd": lambda: ops.flash_attention_reference(
+                    q, k, v, qb, kb, True, None),
+                "fused_bwd": lambda: ops.flash_attention_bwd_reference(
+                    q, k, v, out, lse, go, gl, qb, kb, True, None),
+                "dq": lambda: ops.flash_attention_bwd_dq_reference(
+                    q, k, v, go, lse, delta, qb, kb, True, None),
+                "dkv": lambda: ops.flash_attention_bwd_dkv_reference(
+                    q, k, v, go, lse, delta, qb, kb, True, None)}
+      # SDPA computes the past block (no mask) and the diagonal (causal)
+      # with K/V expanded; no call computes a block of masked rows
+      lib = {}
+      if case != "future":
+        qt = q.transpose(1, 2).detach().requires_grad_()
+        kt, vt = (t.repeat_interleave(RING_H // hk, dim=2).transpose(1, 2)
+                  .detach().requires_grad_() for t in (k, v))
+        causal = case == "diagonal"
+        lib["fwd"] = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal), runs=7, inner=3)
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        gt = go.transpose(1, 2)
+        lib["bwd"] = time_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), gt, retain_graph=True), runs=5, inner=2)
+        del qt, kt, vt, ot, gt
+      kernels = ("fwd", "fused_bwd", "dq", "dkv") if hk == 4 else \
+          ("fused_bwd", "dkv")
+      for kern in kernels:
+        nbytes, per_pair = bwd_cost[kern]
+        bound_b = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_o = per_pair * pairs * RING_D / PEAK_FLOPS["bfloat16"] * 1e3
+        name = {"fwd": "flash_attention_fwd",
+                "fused_bwd": "flash_attention_bwd" if hk == RING_H else
+                "flash_attention_bwd_gqa",
+                "dq": "flash_attention_bwd_dq",
+                "dkv": "flash_attention_bwd_dkv" if hk == RING_H else
+                "flash_attention_bwd_dkv_gqa"}[kern]
+        row = {"kernel": name, "case": case, "Hk": hk, "B": 1, "Sq": RING_S,
+               "Sk": RING_S, "H": RING_H, "D": RING_D, "q_base": qb,
+               "kv_base": kb, "lse_cotangent": True, "pairs": pairs,
+               "ms": time_ms(calls[kern], runs=7, inner=3),
+               "plain_ms": time_ms(plains[kern], runs=2, inner=1),
+               "bound_ms": max(bound_b, bound_o),
+               "bound_by": "bytes" if bound_b >= bound_o else "operations",
+               "library_ms": lib.get("fwd" if kern == "fwd" else "bwd"),
+               "library": None if case == "future" else (
+                   "SDPA" + (" backward (dQ, dK, dV together)"
+                             if kern != "fwd" else ""))}
+        rows.append(row)
+        log("  ring %-8s Hk %-2d %-27s ms=%.4f plain=%.3f lib=%s "
+            "bound=%.5f (%s)" % (case, hk, name, row["ms"], row["plain_ms"],
+                                 "-" if row["library_ms"] is None else
+                                 "%.4f" % row["library_ms"], row["bound_ms"],
+                                 row["bound_by"]))
+      del out, lse, ro, rl, grads, want, delta
+      torch.cuda.empty_cache()
+  # a future block's window is the host's launch time (30-80 us a call)
+  # and its zero stores; a kernel that visited its tiles would take at
+  # least the past block's time
+  for name in {r["kernel"] for r in rows}:
+    past = pick(rows, kernel=name, case="past")["ms"]
+    future = pick(rows, kernel=name, case="future")["ms"]
+    if future > RING_FUTURE_SHARE * past:
+      raise AssertionError("[6s] ring future block %s: %.4f ms against the "
+                           "past block's %.4f: its loop bounds must skip "
+                           "every tile" % (name, future, past))
+  return rows, worst
+
+
+def check_tp_widths(ops, torch, F):
+  """Rows 9-10 at ``--tp 2``'s local widths, as phase 3 checks the whole
+  widths."""
+  rows, worst = [], 0.0
+  for op, case, n_rows, k, n, dt in TP_FUSED_CASES:
+    g = torch.Generator(device="cuda").manual_seed(SEED + 53)
+    x = (torch.randn(n_rows, k, device="cuda", generator=g) * 2.0
+         + 0.5).to(torch.bfloat16)
+    W = (torch.randn(k, n, device="cuda", generator=g) / k ** 0.5).to(
+        torch.bfloat16)
+    if op == "ln_matmul":
+      w = torch.rand(k, device="cuda", generator=g) + 0.5
+      fn = lambda: ops.ln_matmul(x, w, W)  # noqa: E731
+      plain = lambda: ops.ln_matmul_reference(x, w, W)  # noqa: E731
+      wl = w.to(torch.bfloat16)
+      lib = lambda: F.layer_norm(x, (k,), wl, None, 1e-6) @ W  # noqa: E731
+    else:
+      fn = lambda: ops.gelu_matmul(x, W)  # noqa: E731
+      plain = lambda: ops.gelu_matmul_reference(x, W)  # noqa: E731
+      lib = lambda: F.gelu(x, approximate="tanh") @ W  # noqa: E731
+    got, want = fn(), plain()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    if err > 2e-2 * scale or not torch.equal(got, fn()):
+      raise AssertionError("[6s] %s %s: err %.3g over 2e-2 x %.3g, or two "
+                           "runs differ" % (op, case, err, scale))
+    worst = max(worst, err)
+    nbytes = (n_rows * k + k * n + n_rows * n) * 2 + (
+        k * 4 if op == "ln_matmul" else 0)
+    bound_b = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_o = 2.0 * n_rows * k * n / PEAK_FLOPS["bfloat16"] * 1e3
+    row = {"op": op, "case": case, "rows": n_rows, "K": k, "N": n,
+           "dtype": dt, "body": _fused_module(op).kernel_body(
+               k, n, torch.bfloat16), "max_abs_err": err,
+           "ms": time_ms(fn), "plain_ms": time_ms(plain, runs=7),
+           "library_ms": time_ms(lib), "bound_ms": max(bound_b, bound_o),
+           "bound_by": "bytes" if bound_b >= bound_o else "operations",
+           "library": ("F.layer_norm + torch.matmul" if op == "ln_matmul"
+                       else "F.gelu + torch.matmul") + " (two calls)"}
+    rows.append(row)
+    log("  %-11s %-8s %-5s rows=%d K=%d N=%d err=%.3g ms=%.4f plain=%.4f "
+        "lib(2 calls)=%.4f bound=%.5f" % (op, case, row["body"], n_rows, k,
+                                          n, err, row["ms"], row["plain_ms"],
+                                          row["library_ms"], row["bound_ms"]))
+  return rows, worst
+
+
+def spmd_phase(torch, ops, F, pattern):
+  """[6s]: the kernels at the ring's block cases and at --tp 2's widths,
+  then train_gpt over the mesh axes in ranks sharing the card over gloo,
+  each case against one process on the same batches and weights: (a)
+  --sp 2 on [6d]'s long context (split backward), (b) --tp 2 --fused, (c)
+  --fsdp 2 at [6]'s shape, 12 layers, on 2 ranks; (d) --sp 2 --tp 2 at
+  2 layers on 4 ranks."""
+  t_start = time.monotonic()
+  log("[6s] the flash kernels at the ring's block cases (q [1, %d, %d, %d] "
+      "against %d keys; lse cotangent on every row)"
+      % (RING_S, RING_H, RING_D, RING_S))
+  ring_rows, ring_err = check_ring_blocks(ops, torch, F)
+  log("[6s] LN->matmul and GELU->matmul at --tp 2's local widths")
+  tp_rows, tp_err = check_tp_widths(ops, torch, F)
+  torch.cuda.empty_cache()
+  from tensorflowonspark_tpu_torch.examples import train_gpt
+  one, one32, w_one, ln_bytes = {}, {}, {}, {}
+  t0 = time.monotonic()
+  for name, _, flags, base, bwd, _, want_one in SPMD_CASES:
+    argv = _spmd_argv(base, pattern)
+    args = train_gpt.parse_args(argv)
+    ln_bytes[name] = (2 * args.layers + 1) * args.d_model * 4
+    with flash_bwd_env(bwd):
+      one[name], _ = spmd_train(torch, argv)
+      one32[name], w_one[name] = spmd_train(torch, argv + SPMD_F32_FLAGS,
+                                            f32=True, weights=True)
+    for i, got in enumerate(one[name]["launches_per_step"]):
+      _per_step_launches(got, 1, want_one, "[6s] %s one process step %d"
+                         % (name, i))
+  one_s = time.monotonic() - t0
+  torch.cuda.empty_cache()
+  res = {"ring_blocks": ring_rows, "tp_widths": tp_rows,
+         "max_abs_err": max(ring_err, tp_err), "one_process_s": one_s,
+         "cases": {}, "groups_s": {}}
+  # both groups start at once: the 4 ranks import and make their CUDA
+  # contexts while the 2 ranks start, then wait idle for their turn
+  groups = [_spmd_spawn(world, [
+      {"name": name, "argv": _spmd_argv(base, pattern) + flags, "bwd": bwd}
+      for name, ranks, flags, base, bwd, _, _ in SPMD_CASES
+      if ranks == world]) for world in (2, 4)]
+  try:
+    res.update(_spmd_cases(groups, one, one32, w_one, ln_bytes))
+  finally:
+    for group in groups:
+      _spmd_stop(group)
+  res["seconds"] = time.monotonic() - t_start
+  log("  [6s] %.1f s (one-process references %.1f s, ranks %s s)" % (
+      res["seconds"], one_s, " / ".join("%.1f" % s for s in
+                                        res["groups_s"].values())))
+  return res
+
+
+def _spmd_cases(groups, one, one32, w_one, ln_bytes):
+  """Each group of ranks in turn, its cases gated against the one
+  process's runs; the summaries and each group's seconds."""
+  res = {"cases": {}, "groups_s": {}}
+  for group in groups:
+    world = group["world"]
+    log("[6s] %s in %d ranks: %s" % (", ".join(
+        j["name"] for j in group["jobs"]), world, SPMD_LABEL))
+    ranks, weights, seconds = _spmd_go(group)
+    res["groups_s"][world] = seconds
+    for name, ranks_n, _, _, _, want, _ in SPMD_CASES:
+      if ranks_n != world:
+        continue
+      summary = _spmd_gates(name, ranks, want, one[name], one32[name],
+                            weights[name], w_one[name], ln_bytes[name])
+      summary["per_rank"] = [r[name] for r in ranks]
+      res["cases"][name] = summary
+      log("  %s: losses %s; one process %s; max rel %.3g (limit %g); f32 "
+          "%d layers, SGD: max rel %.3g, first gradients within %.3g of "
+          "their largest (limit %g), gathered weights within %.3g (limit "
+          "%g), updates (largest |update| a tensor %.3g to %.3g) within %.3g "
+          "of their largest, %.3g of their limit (%g of the largest plus 4 "
+          "ulp of the weight)"
+          % (name, " ".join("%.5f" % x for x in summary["losses"]),
+             " ".join("%.5f" % x for x in summary["one_process"]),
+             summary["max_rel"], SPMD_REL, SPMD_F32_LAYERS,
+             summary["f32_max_rel"], summary["f32_max_rel_grad"],
+             SPMD_GRAD_REL, summary["f32_max_abs_weight"], SPMD_F32_TOL,
+             summary["f32_update_max_abs"][0],
+             summary["f32_update_max_abs"][1],
+             summary["f32_max_rel_update"],
+             summary["f32_update_gap_over_limit"], SPMD_UPDATE_REL))
+      log("    ms a step by rank %s (one process %.1f); profiled step wall "
+          "%s, device busy %s ms; peak memory %s GiB (one process %.2f); "
+          "weights + optimizer bytes %s (one process %d)" % (
+              " ".join("%.1f" % x for x in summary["ms_per_step"]),
+              summary["one_ms_per_step"],
+              " ".join("%.1f" % x for x in summary["profiled_wall_ms"]),
+              " ".join("%.1f" % x for x in summary["device_busy_ms"]),
+              " ".join("%.2f" % x for x in summary["peak_mem_gib"]),
+              summary["one_peak_mem_gib"],
+              " ".join(str(x) for x in summary["state_bytes"]),
+              summary["one_state_bytes"]))
+      log("    rank 0 a step: launches %s; collectives %s" % (
+          {k: v for k, v in summary["launches_per_step"].items() if v},
+          {k: v for k, v in summary["collectives_per_step"].items() if v}))
+      log("    seconds (setup / whole run): rank 0 bf16 %.1f / %.1f, f32 "
+          "%.1f / %.1f; one process bf16 %.1f / %.1f, f32 %.1f / %.1f" % (
+              *summary["seconds"]["rank0"][0], *summary["seconds"]["rank0"][1],
+              *summary["seconds"]["one_process"][0],
+              *summary["seconds"]["one_process"][1]))
+  return res
+
+
+def spmd_launches(res, name):
+  """[6s]'s launches of kernel ``name`` on rank 0 of each case."""
+  return {"spmd_%s_rank0_%d_steps" % (case, SPMD_STEPS): int(sum(
+      step[name] for step in res["cases"][case]["per_rank"][0][
+          "launches_per_step"])) for case in res["cases"]}
+
+
+def spmd_kernel_rows(res, name):
+  """The ring block rows of kernel ``name``, for the kernels line."""
+  return [{k: r[k] for k in ("case", "Hk", "q_base", "kv_base", "ms",
+                             "plain_ms", "bound_ms", "bound_by",
+                             "library_ms")}
+          for r in res["ring_blocks"] if r["kernel"] == name]
+
+
+def spmd_only(torch, ops, F, _build, card):
+  """``--spmd-only``: phase 2's build, [6d]'s TFRecords, then [6s]."""
+  log("[2] build")
+  build_s = _build.build_all()
+  log("  built %s" % ", ".join("%s %.1fs" % kv for kv in build_s.items()))
+  pattern = write_token_files(os.path.join(HERE, "build", "chip_smoke_tokens"),
+                              32000, LONG_S)
+  res = spmd_phase(torch, ops, F, pattern)
+  os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+  with open(os.path.join(HERE, "chiprun_out", "chip_smoke_spmd.json"),
+            "w") as f:
+    json.dump({"spmd": res, "card": card}, f, indent=1)
+  log(card)
+  log(json.dumps({"spmd": {
+      case: {k: v for k, v in s.items() if k != "per_rank"}
+      for case, s in res["cases"].items()}, "seconds": res["seconds"],
+      "card": card}))
   log(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))
@@ -6580,19 +7336,21 @@ def main(argv):
   only_fleet = argv == ["--fleet-only"]
   only_deploy = argv == ["--deploy-only"]
   only_decode = argv == ["--decode-stack-only"]
+  only_spmd = argv == ["--spmd-only"]
   ab = argv[1:] if argv[:1] == ["--serving-ab"] and len(argv) == 3 else None
   if argv[:1] == ["--serving-only"] and len(argv) == 2:
     repeats = int(argv[1])
   elif argv and ab is None and not (ln_only or only_cluster or only_feed or only_ckpt
                      or only_dp or only_pipeline or only_options
                      or only_obs or only_fleet or only_deploy
-                     or only_decode):
+                     or only_decode or only_spmd):
     log("usage: python3 chip_smoke.py [--serving-only N | "
         "--serving-ab OTHER_CHECKOUT N | "
         "--layer-norm-only | --cluster-only | --feed-only | --ckpt-only | "
         "--dp-only | --pipeline-only | --train-options-only | --obs-only | "
-        "--fleet-only | --deploy-only | --decode-stack-only]")
+        "--fleet-only | --deploy-only | --decode-stack-only | --spmd-only]")
     return 2
+  cache_bytecode()
   try:
     import torch
     import torch.nn.functional as F
@@ -6654,6 +7412,8 @@ def main(argv):
   if only_fleet:
     return fleet_only(torch, ops, tfm, ServingEngine, slots, init_params,
                       _build, card)
+  if only_spmd:
+    return spmd_only(torch, ops, F, _build, card)
 
   log("[2] build")
   t0 = time.monotonic()
@@ -6819,6 +7579,8 @@ def main(argv):
   dp_res = dp_phases(torch, ops, tfm, optim, sharding, Slab, train_gpt,
                      params, cfg)
   torch.cuda.empty_cache()
+  spmd_res = spmd_phase(torch, ops, F, long_res["data"])
+  torch.cuda.empty_cache()
   log("[6m] the pipeline layer: TFEstimator.fit -> export_bundle -> "
       "TFModel.transform, the runner, the CLI and the examples")
   pipe_res = pipeline_phase(torch, torch.cuda.get_device_name(0))
@@ -6930,8 +7692,11 @@ def main(argv):
              "serve_gpt_config_bf16": serve_gpt_res["bfloat16"]["launches"][
                  "flash_attention_fwd"],
              **dp_launches(dp_res, "flash_attention_fwd"),
+             **spmd_launches(spmd_res, "flash_attention_fwd"),
              **pipe_launches(pipe_res, "flash_attention_fwd")},
-            max(fa_err, hd_err["fwd"]), pick(fa_rows, case="s512"),
+            max(fa_err, hd_err["fwd"], spmd_res["max_abs_err"]),
+            pick(fa_rows, case="s512"),
+            ring_blocks=spmd_kernel_rows(spmd_res, "flash_attention_fwd"),
             design="wgmma+tma", head_dims="8..128 (d % 8 == 0)",
             train={k: fa_train[k] for k in ("ms", "plain_ms", "library_ms",
                                             "bound_ms")},
@@ -6954,6 +7719,7 @@ def main(argv):
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "layer_norm"),
              **dp_launches(dp_res, "layer_norm"),
+             **spmd_launches(spmd_res, "layer_norm"),
              **pipe_launches(pipe_res, "layer_norm")},
             ln_err, pick(ln_rows, rows=512, dtype="bfloat16"),
             train={k: pick(ln_rows, rows=16384)[k]
@@ -6967,17 +7733,22 @@ def main(argv):
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "flash_attention_bwd"),
              **dp_launches(dp_res, "flash_attention_bwd"),
+             **spmd_launches(spmd_res, "flash_attention_bwd"),
              **pipe_launches(pipe_res, "flash_attention_bwd")},
             max(fab_err, hd_err["bwd"]), pick(fab_rows, case="train"),
-            design="wgmma+tma", head_dims="8..128 (d % 8 == 0)"),
+            design="wgmma+tma", head_dims="8..128 (d % 8 == 0)",
+            ring_blocks=spmd_kernel_rows(spmd_res, "flash_attention_bwd")),
       entry("flash_attention_bwd_gqa", "flash_attention_bwd.cu",
             "flash_attention.py:332",
             {"train_gqa_2_steps": launches(gqa_res, 2,
                                            "flash_attention_bwd_gqa"),
              "train_fused_gqa_2_steps": launches(fgqa_res, 2,
-                                                 "flash_attention_bwd_gqa")},
+                                                 "flash_attention_bwd_gqa"),
+             **spmd_launches(spmd_res, "flash_attention_bwd_gqa")},
             max(fab_err, hd_err["bwd"]), pick(fab_rows, case="gqa_hk4"),
-            design="wgmma+tma", head_dims="8..128 (d % 8 == 0)"),
+            design="wgmma+tma", head_dims="8..128 (d % 8 == 0)",
+            ring_blocks=spmd_kernel_rows(spmd_res,
+                                         "flash_attention_bwd_gqa")),
       entry("layer_norm_bwd", "layer_norm.cu", "layer_norm.py:40",
             {"train_4_steps": step_l["layer_norm_bwd"],
              "train_fused_4_steps": fused_l["layer_norm_bwd"],
@@ -6990,21 +7761,28 @@ def main(argv):
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "layer_norm_bwd"),
              **dp_launches(dp_res, "layer_norm_bwd"),
+             **spmd_launches(spmd_res, "layer_norm_bwd"),
              **pipe_launches(pipe_res, "layer_norm_bwd")},
             lnb_err, pick(lnb_rows, rows=16384, dtype="bfloat16"),
             design="row in registers, grid from the SM count"),
       entry("ln_matmul", "ln_matmul.cu", "ln_matmul.py:31",
             {"train_fused_4_steps": fused_l["ln_matmul"],
-             "train_fused_gqa_2_steps": launches(fgqa_res, 2, "ln_matmul")},
+             "train_fused_gqa_2_steps": launches(fgqa_res, 2, "ln_matmul"),
+             **spmd_launches(spmd_res, "ln_matmul")},
             fm_err, pick(fm_rows, op="ln_matmul", case="qkv"),
+            tp_widths=[r for r in spmd_res["tp_widths"]
+                       if r["op"] == "ln_matmul"],
             library="F.layer_norm + torch.matmul (two calls)",
             design="wgmma+tma (bf16, h and n multiples of 8; WMMA for "
                    "other widths) + prologue_gemm_wgmma.cuh, LayerNorm in "
                    "registers"),
       entry("gelu_matmul", "act_matmul.cu", "act_matmul.py:55",
             {"train_fused_4_steps": fused_l["gelu_matmul"],
-             "train_fused_gqa_2_steps": launches(fgqa_res, 2, "gelu_matmul")},
+             "train_fused_gqa_2_steps": launches(fgqa_res, 2, "gelu_matmul"),
+             **spmd_launches(spmd_res, "gelu_matmul")},
             fm_err, pick(fm_rows, op="gelu_matmul", case="down"),
+            tp_widths=[r for r in spmd_res["tp_widths"]
+                       if r["op"] == "gelu_matmul"],
             library="F.gelu + torch.matmul (two calls)",
             design="wgmma+tma (bf16, f and n multiples of 8; WMMA for "
                    "other widths) + prologue_gemm_wgmma.cuh"),
@@ -7019,16 +7797,19 @@ def main(argv):
             "flash_attention_bwd_dq"),
         "ckpt_resume_6_steps": ckpt_launches("flash_attention_bwd_dq"),
         **options_launches(options_res, "flash_attention_bwd_dq"),
+        **spmd_launches(spmd_res, "flash_attention_bwd_dq"),
         "train_split_4_steps": split_l["flash_attention_bwd_dq"]}, "long"),
       ("dkv", "flash_attention_bwd_dkv", "flash_attention.py:197",
-       {"train_split_4_steps": split_l["flash_attention_bwd_dkv"]}, "train"),
+       {"train_split_4_steps": split_l["flash_attention_bwd_dkv"],
+        **spmd_launches(spmd_res, "flash_attention_bwd_dkv")}, "train"),
       ("dkv", "flash_attention_bwd_dkv_gqa", "flash_attention.py:281",
        {"train_long_gqa_2_steps": launches(long_res, 2,
                                            "flash_attention_bwd_dkv_gqa"),
         "cluster_train_gpt_long_4_steps": cluster_launches(
             "flash_attention_bwd_dkv_gqa"),
         "ckpt_resume_6_steps": ckpt_launches("flash_attention_bwd_dkv_gqa"),
-        **options_launches(options_res, "flash_attention_bwd_dkv_gqa")},
+        **options_launches(options_res, "flash_attention_bwd_dkv_gqa"),
+        **spmd_launches(spmd_res, "flash_attention_bwd_dkv_gqa")},
        "long")):
     row = pick(split_rows, case=case, kernel=kern)
     kernels.append(entry(
@@ -7038,7 +7819,8 @@ def main(argv):
         library_whole_bwd_ms=row["library_whole_bwd_ms"],
         split_pair_ms=row["split_pair_ms"], fused_ms=row["fused_ms"],
         shape="B%d S%d H%d Hk%d D%d" % (row["B"], row["Sq"], row["H"],
-                                        row["Hk"], row["D"])))
+                                        row["Hk"], row["D"]),
+        ring_blocks=spmd_kernel_rows(spmd_res, name)))
   record = {"card": card, "torch": torch.__version__,
             "cuda": torch.version.cuda, "build_s": build_s,
             "sass_counts": sass, "tensor_core_spill_bytes": spills,
@@ -7054,18 +7836,21 @@ def main(argv):
             "ckpt_resume": ckpt_res, "train_options": options_res,
             "feed": feed_res, "obs": obs_res, "fleet": fleet_res,
             "deploy": deploy_res, "decode_stack": decode_res,
-            "dp": dp_res,
+            "dp": dp_res, "spmd": spmd_res,
             "pipeline": pipe_res,
             "train_split": split_res,
             "train_parity_f32": train_parity,
             "train_fused_parity_f32": fused_parity,
             "train_split_parity_f32": split_parity,
             "train_split_gqa_parity_f32": split_gqa_parity,
+            "phase_s": phase_seconds(),
             "total_s": time.monotonic() - t_start}
   out_dir = os.path.join(HERE, "chiprun_out")
   os.makedirs(out_dir, exist_ok=True)
   with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
     json.dump(record, f, indent=1)
+  log("  seconds by phase: %s" % " ".join(
+      "[%s] %.1f" % kv for kv in record["phase_s"].items()))
   log("  total %.1f s" % record["total_s"])
   log(card)
   log(json.dumps({"kernels": kernels}))

@@ -40,7 +40,7 @@ departure) are delegated to ``Server.serving_plane``
 its per-host ``hosts`` rows; with no plane attached the verbs get an
 ``ERROR`` reply. The verbs of the one plane the port does not have yet,
 ``SYNC``/``SYNCQ``/``GROUP`` (elastic groups), are answered with an
-``ERROR`` reply that names ROADMAP item 10.
+``ERROR`` reply that names ROADMAP item 10c.
 
 Env overrides (parity with reservation.py:25-26,190-206):
 ``TOS_TPU_SERVER_HOST`` pins the server bind/advertise host;
@@ -414,9 +414,9 @@ class HeartbeatSender(object):
 
 #: verbs of planes the port does not have yet -> what the ERROR reply says
 _UNPORTED_VERBS = {
-    verb: "%s is not ported yet (ROADMAP Queue 1 item %d)" % (what, item)
+    verb: "%s is not ported yet (ROADMAP Queue 1 item %s)" % (what, item)
     for verbs, what, item in (
-        (("SYNC", "SYNCQ", "GROUP"), "elastic multi-group training", 10),)
+        (("SYNC", "SYNCQ", "GROUP"), "elastic multi-group training", "10c"),)
     for verb in verbs}
 #: the cross-host serving verbs, delegated to ``Server.serving_plane``
 _SERVING_VERBS = ("SHREG", "SHSYNC", "SHBYE")

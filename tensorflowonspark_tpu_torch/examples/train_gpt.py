@@ -1,8 +1,8 @@
-"""Long-context Transformer training on one card, or data-parallel
-across the processes of a ``torch.distributed`` group.
+"""Long-context Transformer training on one card, or over a mesh of the
+processes of a ``torch.distributed`` group.
 
 The port of the JAX package's ``examples/transformer/train_gpt.py``
-(:186-243) on the mesh's data axis: the same flags and config, batches
+(:186-260), its SPMD path: the same flags and config, batches
 from TFRecord files through the FILES-mode pipeline (``shard_files`` ->
 ``shuffled`` -> ``batched``) with one batch always staged ahead on the
 card (``device_prefetch``), or one synthetic batch; the per-step train
@@ -11,15 +11,19 @@ backward plan comes from ``TFOS_TPU_FLASH_BWD`` (default ``fused``;
 grouped K/V at long sequence lengths takes the split plan, as in the
 reference).
 
-``--dp N`` trains data-parallel over a process group of N ranks, which
-the caller opens first (under ``cluster.run``, ``ctx.initialize_distributed``);
-``--dp -1`` (the default) takes every process of the group, or one card
-outside a group. ``--batch`` is the GLOBAL batch, as in the reference:
-every rank reads the same stream and keeps its rows of each batch
+``--dp``, ``--fsdp``, ``--sp`` and ``--tp`` lay the mesh over a process
+group, which the caller opens first (under ``cluster.run``,
+``ctx.initialize_distributed``): data parallelism, FSDP (weights cut over
+``fsdp``, gathered a block at a time), sequence parallelism (ring
+attention, ``use_ring_attention = sp > 1`` as in the reference) and
+tensor parallelism (heads, mlp and vocab cut); ``--dp -1`` (the default)
+takes what the other axes leave of the group, or one card outside a
+group. ``--batch`` is the GLOBAL batch, as in the reference: every rank
+reads the same stream and keeps its block of each batch, its rows over
+``data`` x ``fsdp`` and its positions over ``sequence``
 (``parallel.sharding.shard_batch``). Rank 0 prints the losses, every rank
-returns them. ``--fsdp``, ``--sp``, ``--tp`` and ``--pp`` above 1 raise:
-the other mesh axes, ring attention and the 1F1B pipeline are ROADMAP
-Queue 1 item 10.
+returns them. ``--pp`` above 1 raises: the 1F1B pipeline is ROADMAP Queue
+1 item 10c.
 
   python -m tensorflowonspark_tpu_torch.examples.train_gpt --layers 12 \\
       --d_model 768 --heads 12 --kv_heads 4 --seq_len 16384 --vocab 32000 \\
@@ -40,15 +44,22 @@ from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
+#: the batch axes beyond the data axes a mesh cuts a batch over (a no-op
+#: at ``--sp 1``), as the reference passes ``batch_extra_axes``
+SEQUENCE_AXES = ("sequence",)
+
 
 def make_parser() -> argparse.ArgumentParser:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--dp", type=int, default=-1,
                       help="data-parallel ranks: the process group's size "
                            "(-1: every process of the group)")
-  parser.add_argument("--fsdp", type=int, default=1)
-  parser.add_argument("--sp", type=int, default=1)
-  parser.add_argument("--tp", type=int, default=1)
+  parser.add_argument("--fsdp", type=int, default=1,
+                      help="FSDP ranks (weights cut over them)")
+  parser.add_argument("--sp", type=int, default=1,
+                      help="sequence-parallel ranks (ring attention)")
+  parser.add_argument("--tp", type=int, default=1,
+                      help="tensor-parallel ranks (heads, mlp, vocab)")
   parser.add_argument("--pp", type=int, default=1,
                       help="pipeline stages (> 1 is not ported yet)")
   parser.add_argument("--microbatches", type=int, default=4)
@@ -91,39 +102,47 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
-  """The flags, with the options the port does not run refused by name:
-  ``--fsdp``, ``--sp``, ``--tp`` and ``--pp`` above 1 (item 10; ``--dp``
-  is checked against the process group by :func:`make_mesh`)."""
+  """The flags, with the option the port does not run refused by name:
+  ``--pp`` above 1 (item 10c; the mesh degrees are checked against the
+  process group by :func:`make_mesh`)."""
   args = make_parser().parse_args(argv)
   if args.dp == 0 or args.dp < -1:
     raise ValueError("--dp must be -1 (every process) or a rank count >= 1, "
                      "got %d" % args.dp)
-  wide = ["--%s %d" % (flag, n) for flag, n, ok in (
-      ("fsdp", args.fsdp, args.fsdp == 1), ("sp", args.sp, args.sp == 1),
-      ("tp", args.tp, args.tp == 1), ("pp", args.pp, args.pp <= 1)) if not ok]
-  if wide:
+  for flag in ("fsdp", "sp", "tp"):
+    if getattr(args, flag) < 1:
+      raise ValueError("--%s must be >= 1, got %d"
+                       % (flag, getattr(args, flag)))
+  if args.pp > 1:
     raise NotImplementedError(
-        "%s: FSDP, ring attention, tensor parallelism and the 1F1B pipeline "
-        "are not ported to PyTorch yet (ROADMAP Queue 1 item 10); --dp "
-        "trains data-parallel across processes" % ", ".join(wide))
+        "--pp %d: the 1F1B pipeline is not ported to PyTorch yet (ROADMAP "
+        "Queue 1 item 10c); --dp, --fsdp, --sp and --tp train over the "
+        "mesh" % args.pp)
   return args
 
 
+def _model_ranks(args: argparse.Namespace) -> int:
+  return args.fsdp * args.sp * args.tp
+
+
 def make_mesh(args: argparse.Namespace):
-  """The data-parallel mesh over the ``torch.distributed`` group, or None
-  (one card) outside a group at ``--dp`` -1 or 1. ``--dp N`` must equal the
-  group's size; outside a group anything but 1 raises."""
+  """The mesh (``data`` x ``fsdp`` x ``sequence`` x ``tensor``) over the
+  ``torch.distributed`` group, or None (one card) outside a group when
+  every degree is 1 (``--dp`` -1 or 1). The degrees must multiply to the
+  group's size; outside a group anything above 1 raises."""
   import torch.distributed as dist
   from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
   if not (dist.is_available() and dist.is_initialized()):
-    if args.dp in (-1, 1):
+    if args.dp in (-1, 1) and _model_ranks(args) == 1:
       return None
+    ranks = max(args.dp, 1) * _model_ranks(args)
     raise ValueError(
-        "--dp %d needs a torch.distributed process group of %d ranks: run "
-        "train_gpt in each node of cluster.run after "
+        "--dp %d --fsdp %d --sp %d --tp %d needs a torch.distributed process "
+        "group of %d ranks: run train_gpt in each node of cluster.run after "
         "ctx.initialize_distributed() (or init_process_group yourself)"
-        % (args.dp, args.dp))
-  return mesh_lib.build_mesh(mesh_lib.MeshSpec(data=args.dp))
+        % (args.dp, args.fsdp, args.sp, args.tp, ranks))
+  return mesh_lib.build_mesh(mesh_lib.MeshSpec(
+      data=args.dp, fsdp=args.fsdp, sequence=args.sp, tensor=args.tp))
 
 
 def make_config(args: argparse.Namespace):
@@ -134,24 +153,28 @@ def make_config(args: argparse.Namespace):
   return tfm.TransformerConfig(
       vocab_size=args.vocab, num_layers=args.layers, num_heads=args.heads,
       d_model=args.d_model, d_ff=args.d_model * 4, max_seq_len=args.seq_len,
-      num_kv_heads=args.kv_heads, remat_policy=args.remat_policy, **fused)
+      num_kv_heads=args.kv_heads, remat_policy=args.remat_policy,
+      use_ring_attention=args.sp > 1, **fused)
 
 
 def make_state(args: argparse.Namespace, cfg, mesh=None):
   """The train state: weights from seed 0 and the reference's optimizer
-  recipe; over a ``mesh``, rank 0's state on every rank."""
+  recipe; over a ``mesh``, each rank's blocks of it
+  (``create_sharded_state``; ``state.sharding`` says how they lie)."""
   from tensorflowonspark_tpu_torch import optim
   from tensorflowonspark_tpu_torch.models import transformer as tfm
   tx = optim.make_optimizer(learning_rate=args.lr, clip_norm=1.0,
                             optimizer=args.optimizer,
                             grad_accum_steps=args.grad_accum)
   if mesh is not None:
-    return tfm.create_sharded_state(cfg, 0, mesh, tx=tx, device=args.device)
+    return tfm.create_sharded_state(cfg, 0, mesh, tx=tx,
+                                    device=args.device)[0]
   return tfm.create_state(cfg, 0, tx=tx, device=args.device)
 
 
 def make_loss_fn(args: argparse.Namespace):
-  """``loss_fn(model, tokens)``: the plain or blocked LM loss."""
+  """``loss_fn(model, tokens)``: the plain or blocked LM loss (over the
+  model's mesh, this rank's share of the global batch's)."""
   from tensorflowonspark_tpu_torch.models import transformer as tfm
 
   def loss_fn(model, tokens):
@@ -159,8 +182,10 @@ def make_loss_fn(args: argparse.Namespace):
       hidden = model(tokens, return_hidden=True)
       return tfm.causal_lm_loss_blocked(hidden,
                                         tfm.tied_embedding_table(model),
-                                        tokens, z_loss=args.z_loss)
-    return tfm.causal_lm_loss(model(tokens), tokens, z_loss=args.z_loss)
+                                        tokens, z_loss=args.z_loss,
+                                        mesh=model.mesh)
+    return tfm.causal_lm_loss(model(tokens), tokens, z_loss=args.z_loss,
+                              mesh=model.mesh)
   return loss_fn
 
 
@@ -217,9 +242,11 @@ def run(args: argparse.Namespace) -> List[float]:
   state = make_state(args, cfg, mesh)
   loss_fn = make_loss_fn(args)
   losses = []
+  extra = SEQUENCE_AXES if mesh is not None else ()
   unroll = sharding.resolve_unroll(args.unroll or None)
   if unroll > 1:
-    loop = sharding.make_train_loop(loss_fn, mesh, unroll=unroll)
+    loop = sharding.make_train_loop(loss_fn, mesh, state.sharding,
+                                    batch_extra_axes=extra, unroll=unroll)
     stream = batch_stream(args)
     while loop.steps < args.steps:
       group = [np.asarray(b, "int32") for b in
@@ -229,7 +256,7 @@ def run(args: argparse.Namespace) -> List[float]:
       t0 = time.time()
       slab = Slab(np.stack(group))
       if mesh is not None:
-        slab = sharding.shard_slab(slab, mesh)
+        slab = sharding.shard_slab(slab, mesh, extra)
       state, got = loop(state, slab)
       got = got.float().cpu().numpy()
       losses += got.tolist()
@@ -237,10 +264,11 @@ def run(args: argparse.Namespace) -> List[float]:
           % (loop.steps - len(group), loop.steps - 1, got.mean(),
              1000 * (time.time() - t0), len(group)))
   else:
-    step = sharding.make_train_step(loss_fn, mesh)
+    step = sharding.make_train_step(loss_fn, mesh, state.sharding,
+                                    batch_extra_axes=extra)
     stream = batch_stream(args)
     if mesh is not None:
-      stream = (sharding.shard_batch(b, mesh) for b in stream)
+      stream = (sharding.shard_batch(b, mesh, extra) for b in stream)
     # one batch always staged ahead on the device: its copy overlaps the
     # step before it and stays out of the printed step time
     batches = device_prefetch(stream, size=2, device=args.device)

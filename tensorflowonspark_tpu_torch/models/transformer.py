@@ -44,6 +44,21 @@ What differs from the flax model, by design of the port:
   the LN->matmul and GELU->matmul kernels; on the CPU their plain
   versions. There is no ``jit``; PyTorch runs eagerly.
 
+* over a mesh (``Transformer(..., mesh=...)``, ``create_sharded_state``)
+  each rank holds its blocks of the weights, laid out by the reference's
+  logical axes and ``parallel.sharding.LOGICAL_RULES``, and computes on
+  its block of the batch: ``fsdp`` cuts every ``embed`` dimension (a
+  block gathers its weights on entry, ``collectives.gather_from``, and
+  their gradients are reduce-scattered back); ``tensor`` cuts heads, mlp
+  and vocab Megatron-style (column-parallel QKV and up projections,
+  row-parallel out and down with one all-reduce each, a vocab-parallel
+  tied embedding and loss; a head count the axis cannot divide stays
+  whole, ``_heads_logical``'s rule); ``sequence`` cuts positions, with
+  ring attention (``parallel.ring_attention``) and rotary positions from
+  the rank's offset. Where the reference's GSPMD places collectives by
+  the shardings, the port calls them where the math needs them, each
+  with its conjugate in the backward. The decode path runs on one card.
+
 Options outside this slice raise ``NotImplementedError`` naming the
 ROADMAP item that brings them.
 """
@@ -63,6 +78,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from tensorflowonspark_tpu_torch import ops
 from tensorflowonspark_tpu_torch.obs import device as obs_device
 from tensorflowonspark_tpu_torch.obs import metrics as obs_metrics
+from tensorflowonspark_tpu_torch.parallel import collectives
+from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
+from tensorflowonspark_tpu_torch.parallel import ring_attention as ra
+from tensorflowonspark_tpu_torch.parallel import sharding as sharding_lib
 from tensorflowonspark_tpu_torch.utils.device import resolve_device
 from tensorflowonspark_tpu_torch.utils.params import copy_into
 
@@ -155,9 +174,7 @@ class TransformerConfig:
                        % (self.num_heads, self.d_model))
     unported = [
         (self.moe_experts > 0, "moe_experts > 0",
-         "Queue 1 item 10, multi-GPU parallelism"),
-        (self.use_ring_attention, "use_ring_attention",
-         "Queue 1 item 10, multi-GPU parallelism"),
+         "Queue 1 item 10c, expert parallelism"),
         (self.attention_impl == "dense", "attention_impl='dense'",
          "Queue 1 item 11, the kernels' opt-outs"),
         (self.layer_norm_impl == "flax", "layer_norm_impl='flax'",
@@ -336,6 +353,115 @@ def _flash_eligible(cfg: TransformerConfig, seq_len: int) -> bool:
   return divisible
 
 
+def _heads_logical(n_heads: int, mesh) -> Optional[str]:
+  """``"heads"`` (the tensor axis) when the tensor axis divides
+  ``n_heads``, else None (whole): the reference's one rule for the
+  projection kernels."""
+  t = mesh_lib.axis_size(mesh, mesh_lib.AXIS_TENSOR) if mesh else 1
+  return "heads" if n_heads % max(1, t) == 0 else None
+
+
+def param_logical(cfg: TransformerConfig, mesh=None) -> dict:
+  """The logical axes of each kind of weight (the reference's
+  ``nn.with_logical_partitioning``); a kind is a parameter name without
+  its ``layers.i.`` prefix, every LayerNorm scale ``ln.scale``. The fused
+  QKV projection's heads are cut only where the tensor axis divides both
+  the query and the KV heads: each rank keeps its query heads with their
+  own KV group (``[q_r | k_r | v_r]``, see :meth:`Transformer.
+  load_params`)."""
+  heads = _heads_logical(cfg.num_heads, mesh)
+  kv = _heads_logical(cfg.kv_heads, mesh) if heads else None
+  return {"embed.embedding": ("vocab", "embed"), "ln.scale": (None,),
+          "attn.q": ("embed", heads, "kv"), "attn.k": ("embed", kv, "kv"),
+          "attn.v": ("embed", kv, "kv"), "attn.qkv": ("embed", kv, "kv"),
+          "attn.out": (heads, "kv", "embed"), "mlp.up": ("embed", "mlp"),
+          "mlp.down": ("mlp", "embed")}
+
+
+def param_kind(name: str) -> str:
+  """``layers.3.attn.q`` -> ``attn.q``; every LayerNorm scale ->
+  ``ln.scale``."""
+  if name.endswith(".scale"):
+    return "ln.scale"
+  parts = name.split(".")
+  return ".".join(parts[2:]) if parts[0] == "layers" else name
+
+
+class _Plan(object):
+  """How one rank's model lies on the mesh: each kind of weight's mesh
+  spec (``sharding.logical_to_mesh`` of :func:`param_logical`), and the
+  collectives the forward needs. Without a mesh (or at degree 1) every
+  spec is whole and every collective the identity."""
+
+  def __init__(self, cfg: TransformerConfig, mesh=None):
+    from tensorflowonspark_tpu_torch.utils.params import param_specs
+    self.cfg, self.mesh = cfg, mesh
+    shapes = {param_kind(n): shape
+              for n, (shape, _, _) in param_specs(cfg).items()}
+    if cfg.fuse_qkv:
+      shapes["attn.q"] = (cfg.d_model, cfg.num_heads, cfg.head_dim)
+      shapes["attn.k"] = shapes["attn.v"] = (cfg.d_model, cfg.kv_heads,
+                                             cfg.head_dim)
+    else:
+      shapes["attn.qkv"] = (cfg.d_model, cfg.num_heads + 2 * cfg.kv_heads,
+                            cfg.head_dim)
+    self.shapes = shapes
+    logical = param_logical(cfg, mesh)
+    self.specs = {k: sharding_lib.logical_to_mesh(logical[k], shapes[k], mesh)
+                  for k in shapes}
+    self.t = mesh_lib.axis_size(mesh, mesh_lib.AXIS_TENSOR) if mesh else 1
+    if cfg.vocab_size % self.t:
+      raise ValueError("the tensor axis (%d) must divide the vocabulary (%d): "
+                       "the logits and the loss are vocab-parallel"
+                       % (self.t, cfg.vocab_size))
+    # what the tensor axis cuts: query heads (and out), KV heads, the MLP's
+    # hidden units, the vocabulary
+    self.heads = self.specs["attn.out"][0] is not None
+    self.kv = self.specs["attn.qkv" if cfg.fuse_qkv else "attn.k"][1] \
+        is not None
+    self.mlp = self.specs["mlp.up"][1] is not None
+    self.vocab = self.specs["embed.embedding"][0] is not None
+    self.seq = mesh_lib.axis_size(mesh, mesh_lib.AXIS_SEQUENCE) if mesh \
+        else 1
+    self.wide = bool(mesh is not None and mesh.wide(
+        (mesh_lib.AXIS_FSDP, mesh_lib.AXIS_SEQUENCE, mesh_lib.AXIS_TENSOR)))
+
+  def local(self, kind: str) -> tuple:
+    return sharding_lib.local_shape(self.shapes[kind], self.specs[kind],
+                                    self.mesh)
+
+  def full(self, w: torch.Tensor, kind: str, dtype) -> torch.Tensor:
+    """The weight ``w`` in ``dtype`` with its fsdp-cut dimension gathered
+    (its tensor-cut one stays this rank's); the gradient goes back through
+    the gather's reduce-scatter."""
+    w = w.to(dtype)
+    for dim, axis in enumerate(self.specs[kind]):
+      if axis == mesh_lib.AXIS_FSDP:
+        w = collectives.gather_from(w, self.mesh, axis, axis=dim)
+    return w
+
+  def copy_t(self, x: torch.Tensor) -> torch.Tensor:
+    return collectives.copy_to(x, self.mesh, mesh_lib.AXIS_TENSOR)
+
+  def reduce_t(self, x: torch.Tensor) -> torch.Tensor:
+    return collectives.reduce_from(x, self.mesh, mesh_lib.AXIS_TENSOR)
+
+  def t_index(self) -> int:
+    return mesh_lib.axis_index(self.mesh, mesh_lib.AXIS_TENSOR)
+
+  def qkv_order(self) -> np.ndarray:
+    """The heads order of a cut fused QKV weight: rank by rank, each
+    rank's query heads, then its K heads, then its V heads."""
+    cfg, t = self.cfg, self.t
+    h, hk = cfg.num_heads, cfg.kv_heads
+    order = []
+    for r in range(t):
+      order += list(range(r * h // t, (r + 1) * h // t))
+      order += list(range(h + r * hk // t, h + (r + 1) * hk // t))
+      order += list(range(h + hk + r * hk // t, h + hk + (r + 1) * hk // t))
+    return np.asarray(order)
+
+
 def _param(shape, cfg: TransformerConfig, device, trainable: bool,
            dtype: Optional[torch.dtype] = None) -> nn.Parameter:
   """A weight in ``dtype`` if given, else f32 master (``trainable``) or
@@ -393,7 +519,9 @@ def _dense(x: torch.Tensor, w: torch.Tensor,
 
 class LayerNorm(nn.Module):
   """Bias-free LayerNorm, eps 1e-6, f32 scale; output in the input dtype
-  (``ops.layer_norm``: the kernel on the card)."""
+  (``ops.layer_norm``: the kernel on the card). Over a mesh the scale is
+  whole on every rank and the norm runs on the rank's rows: it reduces
+  over ``d_model``, which no axis cuts, so it needs no collective."""
 
   def __init__(self, cfg: TransformerConfig, device, trainable: bool):
     super().__init__()
@@ -406,59 +534,111 @@ class LayerNorm(nn.Module):
 
 class TiedEmbed(nn.Module):
   """Tied input/output embedding (``embed.embedding`` [V, D]), used in
-  ``cfg.dtype``."""
+  ``cfg.dtype``. Over a mesh the table's rows are cut over ``tensor``
+  (a lookup masked to the rank's rows, then one all-reduce; the output
+  projection gives the rank's vocabulary columns of the logits) and its
+  columns over ``fsdp`` (gathered at use)."""
 
-  def __init__(self, cfg: TransformerConfig, device, trainable: bool):
+  def __init__(self, cfg: TransformerConfig, device, trainable: bool,
+               plan: _Plan):
     super().__init__()
     self.dtype = cfg.dtype
-    self.embedding = _param((cfg.vocab_size, cfg.d_model), cfg, device,
+    self.plan = plan
+    self.embedding = _param(plan.local("embed.embedding"), cfg, device,
                             trainable)
 
+  def table(self) -> torch.Tensor:
+    """The rank's rows of the table in ``cfg.dtype``, whole columns."""
+    return self.plan.full(self.embedding, "embed.embedding", self.dtype)
+
   def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, self.embedding.to(self.dtype))
+    table = self.table()
+    if not self.plan.vocab:
+      return F.embedding(tokens, table)
+    per = table.shape[0]
+    local = tokens - self.plan.t_index() * per
+    inside = (local >= 0) & (local < per)
+    rows = F.embedding(local.clamp(0, per - 1), table) * \
+        inside[..., None].to(table.dtype)
+    return self.plan.reduce_t(rows)
 
   def attend(self, x: torch.Tensor) -> torch.Tensor:
-    return x.to(self.dtype) @ self.embedding.to(self.dtype).t()
+    table = self.table()
+    if self.plan.vocab:
+      x = self.plan.copy_t(x)
+    return x.to(self.dtype) @ table.t()
 
 
 class Attention(nn.Module):
 
-  def __init__(self, cfg: TransformerConfig, device, trainable: bool):
+  def __init__(self, cfg: TransformerConfig, device, trainable: bool,
+               plan: _Plan):
     super().__init__()
     self.cfg = cfg
-    h, hk, d, dm = cfg.num_heads, cfg.kv_heads, cfg.head_dim, cfg.d_model
+    self.plan = plan
     if cfg.fuse_qkv:
-      self.qkv = _param((dm, h + 2 * hk, d), cfg, device, trainable)
+      self.qkv = _param(plan.local("attn.qkv"), cfg, device, trainable)
     else:
-      self.q = _param((dm, h, d), cfg, device, trainable)
-      self.k = _param((dm, hk, d), cfg, device, trainable)
-      self.v = _param((dm, hk, d), cfg, device, trainable)
-    self.out = _param((h, d, dm), cfg, device, trainable)
+      self.q = _param(plan.local("attn.q"), cfg, device, trainable)
+      self.k = _param(plan.local("attn.k"), cfg, device, trainable)
+      self.v = _param(plan.local("attn.v"), cfg, device, trainable)
+    self.out = _param(plan.local("attn.out"), cfg, device, trainable)
+
+  def _local_q(self, q: torch.Tensor) -> torch.Tensor:
+    """This rank's query heads of a whole ``q`` every rank computed."""
+    per = self.cfg.num_heads // self.plan.t
+    r = self.plan.t_index()
+    return self.plan.copy_t(q)[:, :, r * per:(r + 1) * per]
 
   def _project(self, x, ln_scale=None):
-    cfg = self.cfg
+    """``(q, k, v, kv_whole)``: q holds this rank's query heads; k/v its
+    KV heads, or every KV head (``kv_whole``) where the tensor axis cuts
+    the query heads but cannot cut the KV heads."""
+    cfg, plan = self.cfg, self.plan
+    dt = cfg.dtype
     if cfg.fuse_qkv:
+      w = plan.full(self.qkv, "attn.qkv", dt)
+      if plan.kv:
+        # columns [q_r | k_r | v_r]: this rank's query heads and their group
+        h, hk = cfg.num_heads // plan.t, cfg.kv_heads // plan.t
+        if ln_scale is not None:
+          qkv = ops.ln_matmul_sharded(
+              x, ln_scale, w.reshape(cfg.d_model, -1), plan.mesh).reshape(
+                  x.shape[:-1] + w.shape[1:])
+        else:
+          with _weight_product():
+            qkv = _dense(plan.copy_t(x), w, dt)
+        return (qkv[..., :h, :], qkv[..., h:h + hk, :],
+                qkv[..., h + hk:, :], False)
       h, hk = cfg.num_heads, cfg.kv_heads
       if ln_scale is not None:
-        w = self.qkv.to(cfg.dtype).reshape(cfg.d_model, -1)
-        qkv = ops.ln_matmul(x, ln_scale, w).reshape(
+        qkv = ops.ln_matmul(x, ln_scale, w.reshape(cfg.d_model, -1)).reshape(
             x.shape[:-1] + (h + 2 * hk, cfg.head_dim))
       else:
         with _weight_product():
-          qkv = _dense(x, self.qkv, cfg.dtype)
-      return qkv[..., :h, :], qkv[..., h:h + hk, :], qkv[..., h + hk:, :]
+          qkv = _dense(x, w, dt)
+      q, k, v = qkv[..., :h, :], qkv[..., h:h + hk, :], qkv[..., h + hk:, :]
+      if plan.heads:
+        return self._local_q(q), k, v, True
+      return q, k, v, False
     if ln_scale is not None:
       raise ValueError("ln-fused attention requires fuse_qkv")
+    wq = plan.full(self.q, "attn.q", dt)
+    wk = plan.full(self.k, "attn.k", dt)
+    wv = plan.full(self.v, "attn.v", dt)
+    xq = plan.copy_t(x) if plan.heads else x
+    xk = xq if plan.kv else x
     with _weight_product():
-      return (_dense(x, self.q, cfg.dtype), _dense(x, self.k, cfg.dtype),
-              _dense(x, self.v, cfg.dtype))
+      return (_dense(xq, wq, dt), _dense(xk, wk, dt), _dense(xk, wv, dt),
+              plan.heads and not plan.kv)
 
   def _out_proj(self, o: torch.Tensor) -> torch.Tensor:
     b, s = o.shape[:2]
     dt = self.cfg.dtype
-    w = self.out.to(dt)
+    w = self.plan.full(self.out, "attn.out", dt)
     with _weight_product():
-      return o.to(dt).reshape(b, s, -1) @ w.reshape(-1, w.shape[-1])
+      y = o.to(dt).reshape(b, s, -1) @ w.reshape(-1, w.shape[-1])
+    return self.plan.reduce_t(y) if self.plan.heads else y
 
   def forward(self, x, rope, cache: Optional[KVCache] = None,
               layer: int = 0, ln_scale: Optional[torch.Tensor] = None,
@@ -468,8 +648,10 @@ class Attention(nn.Module):
     vector-cursor cache's :func:`_write_plan`). With
     ``ln_scale`` (requires ``fuse_qkv``), ``x`` is the RAW residual
     stream and ln1 + the QKV projection run as one kernel
-    (``ops.ln_matmul``)."""
-    q, k, v = self._project(x, ln_scale)
+    (``ops.ln_matmul``). Over a mesh cut on ``sequence`` the attention is
+    the ring (``cfg.use_ring_attention``)."""
+    cfg, plan = self.cfg, self.plan
+    q, k, v, kv_whole = self._project(x, ln_scale)
     q = _apply_rotary(q, rope)
     k = _apply_rotary(k, rope)
     if cache is not None:
@@ -477,9 +659,21 @@ class Attention(nn.Module):
                                                 writes))
     # the kernel takes any length: the block rule only decides whether
     # "flash" refuses this one
-    _flash_eligible(self.cfg, q.shape[1])
-    out = ops.flash_attention(q, k, v, causal=True,
-                              window=self.cfg.attention_window or None)
+    _flash_eligible(cfg, q.shape[1])
+    window = cfg.attention_window or None
+    if plan.seq > 1:
+      if not cfg.use_ring_attention:
+        raise ValueError("a sequence axis of %d needs use_ring_attention="
+                         "True: each rank holds one block of the sequence"
+                         % plan.seq)
+      out = ra.ring_attention(q, k, v, plan.mesh, causal=True,
+                              use_flash=True, window=window,
+                              kv_whole=kv_whole)
+    else:
+      if kv_whole:
+        k = ra.local_heads(k, cfg.num_heads, plan.mesh)
+        v = ra.local_heads(v, cfg.num_heads, plan.mesh)
+      out = ops.flash_attention(q, k, v, causal=True, window=window)
     return self._out_proj(out)
 
   def _decode_attend(self, q, k, v, cache: KVCache, layer: int, writes):
@@ -583,11 +777,13 @@ class Attention(nn.Module):
 
 class MLPBlock(nn.Module):
 
-  def __init__(self, cfg: TransformerConfig, device, trainable: bool):
+  def __init__(self, cfg: TransformerConfig, device, trainable: bool,
+               plan: _Plan):
     super().__init__()
     self.dtype = cfg.dtype
-    self.up = _param((cfg.d_model, cfg.d_ff), cfg, device, trainable)
-    self.down = _param((cfg.d_ff, cfg.d_model), cfg, device, trainable)
+    self.plan = plan
+    self.up = _param(plan.local("mlp.up"), cfg, device, trainable)
+    self.down = _param(plan.local("mlp.down"), cfg, device, trainable)
 
   def forward(self, x, ln_scale: Optional[torch.Tensor] = None,
               act_fused: bool = False):
@@ -595,15 +791,23 @@ class MLPBlock(nn.Module):
     RAW residual stream and the norm + up-projection run as one kernel
     (``ops.ln_matmul``); without it ``x`` arrives normalized. With
     ``act_fused``, GELU + the down-projection run as one kernel over the
-    pre-activation (``ops.gelu_matmul``)."""
+    pre-activation (``ops.gelu_matmul``). Over a mesh cutting ``mlp``,
+    up is column-parallel and down row-parallel (one all-reduce)."""
+    plan, dt = self.plan, self.dtype
+    up = plan.full(self.up, "mlp.up", dt)
+    down = plan.full(self.down, "mlp.down", dt)
     if ln_scale is not None:
-      h = ops.ln_matmul(x, ln_scale, self.up.to(self.dtype))
+      h = ops.ln_matmul_sharded(x, ln_scale, up, plan.mesh) if plan.mlp \
+          else ops.ln_matmul(x, ln_scale, up)
     else:
       with _weight_product():
-        h = _dense(x, self.up, self.dtype)
+        h = _dense(plan.copy_t(x) if plan.mlp else x, up, dt)
     if act_fused:
-      return ops.gelu_matmul(h, self.down.to(self.dtype))
-    return _dense(F.gelu(h, approximate="tanh"), self.down, self.dtype)
+      if plan.mlp:
+        return ops.gelu_matmul_sharded(h, down, plan.mesh)
+      return ops.gelu_matmul(h, down)
+    out = _dense(F.gelu(h, approximate="tanh"), down, dt)
+    return plan.reduce_t(out) if plan.mlp else out
 
 
 class Block(nn.Module):
@@ -616,13 +820,14 @@ class Block(nn.Module):
   either way (the parameter names do not change); only their forward is
   skipped. The decode path never fuses, as in the reference."""
 
-  def __init__(self, cfg: TransformerConfig, device, trainable: bool):
+  def __init__(self, cfg: TransformerConfig, device, trainable: bool,
+               plan: _Plan):
     super().__init__()
     self.cfg = cfg
     self.ln1 = LayerNorm(cfg, device, trainable)
-    self.attn = Attention(cfg, device, trainable)
+    self.attn = Attention(cfg, device, trainable, plan)
     self.ln2 = LayerNorm(cfg, device, trainable)
-    self.mlp = MLPBlock(cfg, device, trainable)
+    self.mlp = MLPBlock(cfg, device, trainable, plan)
 
   def forward(self, x, rope, cache=None, layer=0, writes=None):
     cfg = self.cfg
@@ -646,26 +851,72 @@ class Transformer(nn.Module):
   ``device``: ``None`` is the card (raises when there is none); the tests
   pass ``"cpu"``. ``trainable``: keep f32 master weights that require
   gradients (training) instead of ``cfg.dtype`` weights (serving); see
-  the module docstring.
+  the module docstring. ``mesh``: this rank's place on a mesh
+  (``parallel.mesh.build_mesh``); each parameter then holds the rank's
+  block (:func:`param_logical`), the forward takes the rank's block of
+  the batch and returns the rank's vocabulary columns of its logits
+  (whole when the tensor axis is 1). ``blocks``: ``params`` already
+  holds the rank's blocks (``parallel.sharding.init_sharded_state``)
+  instead of the whole weights.
   """
 
   def __init__(self, cfg: TransformerConfig,
                params: Mapping[str, np.ndarray], device=None,
-               trainable: bool = False):
+               trainable: bool = False, mesh=None, blocks: bool = False):
     super().__init__()
     self.cfg = cfg
     self.device = resolve_device(device)
     self.trainable = trainable
-    self.embed = TiedEmbed(cfg, self.device, trainable)
+    self.mesh = mesh
+    self.plan = _Plan(cfg, mesh)
+    self.embed = TiedEmbed(cfg, self.device, trainable, self.plan)
     self.layers = nn.ModuleList(
-        [Block(cfg, self.device, trainable) for _ in range(cfg.num_layers)])
+        [Block(cfg, self.device, trainable, self.plan)
+         for _ in range(cfg.num_layers)])
     self.ln_f = LayerNorm(cfg, self.device, trainable)
-    self.load_params(params)
+    self.load_params(params, blocks=blocks)
 
-  def load_params(self, params: Mapping[str, Any]) -> None:
+  def _qkv_cut(self) -> bool:
+    return self.cfg.fuse_qkv and self.plan.kv
+
+  def permute_params(self, params: Mapping[str, Any]) -> dict:
+    """Whole weights in the layout the blocks are cut from: a cut fused
+    QKV weight's heads reordered rank by rank (``[q_r | k_r | v_r]``,
+    :meth:`_Plan.qkv_order`); every other weight as it is."""
+    if not self._qkv_cut():
+      return dict(params)
+    order = self.plan.qkv_order()
+    return {n: (np.asarray(p)[:, order] if not torch.is_tensor(p)
+                else p[:, torch.as_tensor(order)])
+            if param_kind(n) == "attn.qkv" else p
+            for n, p in params.items()}
+
+  def unpermute_params(self, params: Mapping[str, Any]) -> dict:
+    """The inverse of :meth:`permute_params`."""
+    if not self._qkv_cut():
+      return dict(params)
+    back = np.argsort(self.plan.qkv_order())
+    return {n: (np.asarray(p)[:, back] if not torch.is_tensor(p)
+                else p[:, torch.as_tensor(back)])
+            if param_kind(n) == "attn.qkv" else p
+            for n, p in params.items()}
+
+  def param_specs(self) -> dict:
+    """Each parameter's mesh spec (an axis or None per dimension)."""
+    return {n: self.plan.specs[param_kind(n)]
+            for n, _ in self.named_parameters()}
+
+  def load_params(self, params: Mapping[str, Any],
+                  blocks: bool = False) -> None:
     """Copy a flat weight dict in (numpy arrays or tensors, each cast to
-    its parameter's dtype)."""
+    its parameter's dtype): the whole weights, of which each rank keeps
+    its blocks, or with ``blocks`` the rank's blocks themselves."""
+    if self.mesh is not None and not blocks:
+      specs = self.param_specs()
+      params = {n: sharding_lib.shard_array(p, specs[n], self.mesh)
+                for n, p in self.permute_params(params).items()}
     copy_into(dict(self.named_parameters()), params)
+
 
   def init_cache(self, batch: int) -> KVCache:
     """A fresh zeroed cache for ``batch`` rows in the config's layout
@@ -677,7 +928,15 @@ class Transformer(nn.Module):
     tensors, each LayerNorm scale in f32 and every other weight in
     ``cfg.dtype`` (what ``pipeline.export_bundle`` writes for
     :func:`make_serving_predict_fn`: a bf16 model's bundle is half the
-    bytes of its f32 master weights)."""
+    bytes of its f32 master weights). A model cut over fsdp or tensor
+    raises: its parameters are this rank's blocks, and serving over a
+    mesh is item 10c."""
+    cut = sorted(n for n, spec in self.param_specs().items() if any(spec))
+    if cut:
+      raise NotImplementedError(
+          "serving_params of a model cut over the mesh %s (%s, ...): serving "
+          "over a mesh is not ported to PyTorch yet (ROADMAP Queue 1 item "
+          "10c)" % (dict(self.mesh.shape), cut[0]))
     return {name: p.detach().to(torch.float32 if name.endswith(".scale")
                                 else self.cfg.dtype).cpu()
             for name, p in self.named_parameters()}
@@ -685,7 +944,8 @@ class Transformer(nn.Module):
   def numpy_params(self) -> dict:
     """The weights as the flat f32 numpy dict ``load_params`` takes (see
     :func:`~tensorflowonspark_tpu_torch.utils.params.params_to_flax` for
-    the flax tree)."""
+    the flax tree); over a mesh, this rank's blocks
+    (``parallel.sharding.gather_state_params`` gives the whole weights)."""
     return {name: p.detach().float().cpu().numpy()
             for name, p in self.named_parameters()}
 
@@ -709,6 +969,11 @@ class Transformer(nn.Module):
     if exit_layer is not None and not 1 <= exit_layer <= cfg.num_layers:
       raise ValueError("exit_layer must be in [1, num_layers=%d], got %r"
                        % (cfg.num_layers, exit_layer))
+    if cache is not None and self.plan.wide:
+      raise NotImplementedError(
+          "decoding over a mesh cut on fsdp, sequence or tensor (serving "
+          "wider than one card) is not ported to PyTorch yet (ROADMAP Queue "
+          "1 item 10c)")
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
     remat_kw = {"context_fn": _dots_contexts} \
         if cfg.remat_policy == "dots" else {}
@@ -717,7 +982,9 @@ class Transformer(nn.Module):
     ar = torch.arange(s, device=self.device)
     writes = None
     if cache is None:
-      positions = ar.expand(b, s)
+      # a block of a sequence cut over the mesh starts at its offset
+      offset = mesh_lib.axis_index(self.mesh, mesh_lib.AXIS_SEQUENCE) * s
+      positions = (ar + offset if offset else ar).expand(b, s)
     elif torch.is_tensor(cache.index):
       positions = cache.index[:, None] + ar[None, :]
       writes = _write_plan(cache, s)
@@ -953,7 +1220,7 @@ def _params_print(params) -> str:
 def _check_serving_mesh(mesh, mesh_spec) -> None:
   """One card per executor: a mesh or spec whose every degree is 1 (or
   -1, which one process absorbs as 1) is accepted; any degree above 1
-  raises, as ``parallel.mesh.build_mesh`` does."""
+  raises (serving over a mesh is item 10c)."""
   if mesh is not None and mesh_spec is not None:
     raise ValueError("pass mesh OR mesh_spec, not both")
   degrees = dict(mesh.shape) if mesh is not None else \
@@ -962,7 +1229,7 @@ def _check_serving_mesh(mesh, mesh_spec) -> None:
   if wide:
     raise NotImplementedError(
         "mesh axes %s: serving over more than one card (tensor-parallel "
-        "decode) is not ported to PyTorch yet (ROADMAP Queue 1 item 10)"
+        "decode) is not ported to PyTorch yet (ROADMAP Queue 1 item 10c)"
         % ", ".join(wide))
 
 
@@ -1130,7 +1397,7 @@ def make_serving_predict_fn(cfg: TransformerConfig, num_steps: int,
   module-level :class:`ServingPredictFn`, not a closure, since the port
   pickles with the standard ``pickle``; ``device=None`` is the card
   (raises without one; the tests pass ``"cpu"``); and a ``mesh`` or
-  ``mesh_spec`` with a degree above 1 raises (ROADMAP Queue 1 item 10),
+  ``mesh_spec`` with a degree above 1 raises (ROADMAP Queue 1 item 10c),
   since the port serves on one card per executor.
   """
   _check_serving_mesh(mesh, mesh_spec)
@@ -1139,26 +1406,100 @@ def make_serving_predict_fn(cfg: TransformerConfig, num_steps: int,
                           pad_id=pad_id, num_slots=num_slots, device=device)
 
 
+def _mesh_loss(mesh) -> bool:
+  """Whether a loss over ``mesh`` needs the mesh: its positions cut over
+  ``sequence`` or its logits' vocabulary over ``tensor``. A mesh cut only
+  over the data axes takes the one-card loss, a mean over equal local
+  batches."""
+  return mesh is not None and bool(mesh.wide(
+      (mesh_lib.AXIS_SEQUENCE, mesh_lib.AXIS_TENSOR)))
+
+
+def _lm_targets(tokens: torch.Tensor, mesh):
+  """``(targets, n, scale)`` of this rank's block of a batch: the next
+  token of each of its first ``n`` positions (a block cut over
+  ``sequence`` takes its last one's from the next block through one
+  ``ring_permute``; the last block has no label for its last position),
+  and the factor that makes the block's sum of per-token losses its share
+  of the global batch's mean: the batch-axes degree over the global
+  count of labelled positions."""
+  b, s = tokens.shape
+  seq = mesh_lib.axis_size(mesh, mesh_lib.AXIS_SEQUENCE)
+  targets = tokens[:, 1:]
+  n = s - 1
+  if seq > 1:
+    first = collectives.ring_permute(tokens[:, :1].contiguous(), mesh,
+                                     mesh_lib.AXIS_SEQUENCE, -1)
+    targets = torch.cat([targets, first], dim=1)
+    if mesh.coord(mesh_lib.AXIS_SEQUENCE) < seq - 1:
+      n = s
+  rows = b * mesh_lib.axis_size(mesh, *mesh_lib.data_axes(mesh))
+  count = rows * (s * seq - 1)
+  n_b = mesh_lib.axis_size(mesh, *sharding_lib.BATCH_AXES)
+  return targets[:, :n].long(), n, n_b / count
+
+
+def _lm_terms(logits: torch.Tensor, targets: torch.Tensor, mesh):
+  """``(lse, label logit)`` per position of f32 ``logits`` whose last
+  dimension is this rank's vocabulary columns when the tensor axis is
+  above 1: the maximum and the sum of exponentials all-reduced over the
+  axis (the label's logit from the rank that holds it), Megatron's
+  vocab-parallel cross-entropy; whole logits otherwise."""
+  t = mesh_lib.axis_size(mesh, mesh_lib.AXIS_TENSOR)
+  if t == 1:
+    return (torch.logsumexp(logits, dim=-1),
+            logits.gather(-1, targets[..., None])[..., 0])
+  per = logits.shape[-1]
+  m = collectives.reduce_from(logits.detach().amax(dim=-1), mesh,
+                              mesh_lib.AXIS_TENSOR, op="max")
+  total = collectives.reduce_from(torch.exp(logits - m[..., None]).sum(-1),
+                                  mesh, mesh_lib.AXIS_TENSOR)
+  local = targets - mesh.coord(mesh_lib.AXIS_TENSOR) * per
+  inside = (local >= 0) & (local < per)
+  ll = logits.gather(-1, local.clamp(0, per - 1)[..., None])[..., 0]
+  ll = collectives.reduce_from(ll * inside.to(ll.dtype), mesh,
+                               mesh_lib.AXIS_TENSOR)
+  return m + torch.log(total), ll
+
+
 def causal_lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
-                   z_loss: float = 0.0) -> torch.Tensor:
+                   z_loss: float = 0.0, mesh=None) -> torch.Tensor:
   """Next-token cross-entropy (shifted); ignores the final position.
 
   ``z_loss`` > 0 adds ``z_loss * mean(logsumexp^2)`` (the PaLM/T5X
-  stabiliser), as the JAX package's ``causal_lm_loss`` does.
+  stabiliser), as the JAX package's ``causal_lm_loss`` does. Over a
+  ``mesh`` cut on ``sequence`` or ``tensor``, ``logits`` and ``tokens``
+  are this rank's blocks (its positions; its vocabulary columns) and the
+  result is its share of the global batch's loss, which the train step
+  averages over the batch axes (:func:`_lm_targets`, :func:`_lm_terms`).
   """
-  targets = tokens[:, 1:].long()
-  logits = logits[:, :-1].float()
-  ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                       targets.reshape(-1))
+  if not _mesh_loss(mesh):
+    targets = tokens[:, 1:].long()
+    logits = logits[:, :-1].float()
+    ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                         targets.reshape(-1))
+    if z_loss:
+      lse = torch.logsumexp(logits, dim=-1)
+      ce = ce + z_loss * (lse ** 2).mean()
+    return ce
+  targets, n, scale = _lm_targets(tokens, mesh)
+  lse, ll = _lm_terms(logits[:, :n].float(), targets, mesh)
+  loss = (lse - ll).sum() * scale
   if z_loss:
-    lse = torch.logsumexp(logits, dim=-1)
-    ce = ce + z_loss * (lse ** 2).mean()
-  return ce
+    loss = loss + z_loss * (lse ** 2).sum() * scale
+  return loss
 
 
 def tied_embedding_table(model: Transformer) -> torch.Tensor:
-  """The tied input/output embedding [vocab, d_model] of ``model``."""
-  return model.embed.embedding
+  """The tied input/output embedding [vocab, d_model] of ``model``; over
+  a mesh, the rank's vocabulary rows with whole columns (gathered over
+  ``fsdp``)."""
+  embed = model.embed
+  if any(a == mesh_lib.AXIS_FSDP
+         for a in model.plan.specs["embed.embedding"]):
+    return model.plan.full(embed.embedding, "embed.embedding",
+                           embed.embedding.dtype)
+  return embed.embedding
 
 
 def _chunk_terms(x: torch.Tensor, table: torch.Tensor, targets: torch.Tensor):
@@ -1171,9 +1512,14 @@ def _chunk_terms(x: torch.Tensor, table: torch.Tensor, targets: torch.Tensor):
   return (lse - ll).sum(), (lse ** 2).sum()
 
 
+def _chunk_terms_mesh(x, table, targets, mesh):
+  lse, ll = _lm_terms(x.float() @ table.float().t(), targets, mesh)
+  return (lse - ll).sum(), (lse ** 2).sum()
+
+
 def causal_lm_loss_blocked(hidden: torch.Tensor, table: torch.Tensor,
                            tokens: torch.Tensor, chunk: int = 256,
-                           z_loss: float = 0.0) -> torch.Tensor:
+                           z_loss: float = 0.0, mesh=None) -> torch.Tensor:
   """Next-token cross-entropy fused with the tied output projection.
 
   The ``[batch, seq, vocab]`` logits are never held: sequence chunks of
@@ -1183,8 +1529,27 @@ def causal_lm_loss_blocked(hidden: torch.Tensor, table: torch.Tensor,
   its logits as ``jax.checkpoint`` makes the reference do. ``hidden``:
   ``model(tokens, return_hidden=True)``; ``table``:
   :func:`tied_embedding_table`. Matches :func:`causal_lm_loss` on the
-  same inputs, ``z_loss`` included, to float tolerance.
+  same inputs, ``z_loss`` included, to float tolerance; over a ``mesh``
+  cut on ``sequence`` or ``tensor``, as :func:`causal_lm_loss` does over
+  one (``table`` is the rank's vocabulary rows).
   """
+  if _mesh_loss(mesh):
+    targets, n, scale = _lm_targets(tokens, mesh)
+    x = hidden[:, :n]
+    if mesh_lib.axis_size(mesh, mesh_lib.AXIS_TENSOR) > 1:
+      x = collectives.copy_to(x, mesh, mesh_lib.AXIS_TENSOR)
+    tbl = table.to(x.dtype)
+    total = z_total = None
+    for start in range(0, n, chunk):
+      t, z = checkpoint(_chunk_terms_mesh, x[:, start:start + chunk], tbl,
+                        targets[:, start:start + chunk], mesh,
+                        use_reentrant=False)
+      total = t if total is None else total + t
+      z_total = z if z_total is None else z_total + z
+    loss = total * scale
+    if z_loss:
+      loss = loss + z_loss * z_total * scale
+    return loss
   targets = tokens[:, 1:].long()
   x = hidden[:, :-1]
   b, s, _ = x.shape
@@ -1229,25 +1594,43 @@ def create_sharded_state(cfg: TransformerConfig,
                          params: Union[int, Mapping[str, Any]], mesh,
                          tx=None, device=None,
                          learning_rate: float = 3e-4):
-  """:func:`create_state` replicated over a data-parallel ``mesh``
-  (:func:`~tensorflowonspark_tpu_torch.parallel.mesh.build_mesh`): every
-  rank builds its state, then takes rank 0's weights and optimizer state
-  (a broadcast over the data axis), so all ranks start bitwise equal
-  whatever seed or weights each was given. The counterpart of the
-  reference's ``create_sharded_state`` for a data-only mesh, where the
-  state is replicated; it returns the state alone, since a replicated
-  state needs no sharding. Any other axis above 1 raises (item 10).
+  """:func:`create_state` laid out over ``mesh``
+  (:func:`~tensorflowonspark_tpu_torch.parallel.mesh.build_mesh`):
+  ``(state, sharding)``, as the reference's ``create_sharded_state``
+  returns them. Each rank's model holds its blocks of the weights
+  (:func:`param_logical` through ``LOGICAL_RULES``), its optimizer state
+  mirrors them, and ``state.sharding`` is the
+  :class:`~tensorflowonspark_tpu_torch.parallel.sharding.StateSharding`.
+  Every block and every optimizer-state tensor is taken from the rank at
+  coordinate 0 of the axes it is whole on (a broadcast), so ranks given
+  other seeds or weights agree wherever they must; on a mesh cut only
+  over ``data`` that is rank 0's whole state on every rank.
+  ``parallel.sharding.gather_state_params`` gives the whole weights back.
   """
-  from tensorflowonspark_tpu_torch.parallel import collectives
-  from tensorflowonspark_tpu_torch.parallel import sharding
-  sharding._refuse_mesh(mesh, None, ())
-  state = create_state(cfg, params, tx=tx, device=device,
-                       learning_rate=learning_rate)
-  with torch.no_grad():
-    for t in (list(state.model.parameters())
-              + collectives.tensors_of(state.opt_state)):
-      t.copy_(collectives.broadcast_from(t, mesh))
-  return state
+  from tensorflowonspark_tpu_torch import optim
+  from tensorflowonspark_tpu_torch.train_state import TrainState
+  from tensorflowonspark_tpu_torch.utils.params import init_params
+  if isinstance(params, (int, np.integer)):
+    params = init_params(cfg, seed=int(params))
+  template = _Plan(cfg, mesh)
+  logical = param_logical(cfg, mesh)
+
+  def params_init():
+    whole = dict(params)
+    if cfg.fuse_qkv and template.kv:
+      order = template.qkv_order()
+      whole = {n: np.asarray(p)[:, order] if param_kind(n) == "attn.qkv"
+               else p for n, p in whole.items()}
+    return whole, {n: logical[param_kind(n)] for n in whole}
+
+  def make_state(blocks, sharding):
+    del sharding
+    model = Transformer(cfg, blocks, device=device, trainable=True,
+                        mesh=mesh, blocks=True)
+    return TrainState.create(model, tx if tx is not None else optim.adamw(
+        learning_rate, weight_decay=0.01))
+
+  return sharding_lib.init_sharded_state(params_init, make_state, mesh)
 
 
 __all__ = ["TransformerConfig", "KVCache", "zero_cache", "Transformer",
@@ -1256,4 +1639,5 @@ __all__ = ["TransformerConfig", "KVCache", "zero_cache", "Transformer",
            "ServingPredictFn", "make_serving_predict_fn", "SERVING_STATS",
            "reset_serving_stats",
            "causal_lm_loss", "causal_lm_loss_blocked", "tied_embedding_table",
-           "create_state", "create_sharded_state"]
+           "create_state", "create_sharded_state", "param_logical",
+           "param_kind"]

@@ -68,25 +68,28 @@ def reset_launches() -> None:
 
 
 from tensorflowonspark_tpu_torch.ops.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_bwd, flash_attention_bwd_dkv,
-    flash_attention_bwd_dkv_reference, flash_attention_bwd_dq,
-    flash_attention_bwd_dq_reference, flash_attention_bwd_reference,
-    flash_attention_fwd, flash_attention_reference)
+    flash_attention, flash_attention_block, flash_attention_bwd,
+    flash_attention_bwd_dkv, flash_attention_bwd_dkv_reference,
+    flash_attention_bwd_dq, flash_attention_bwd_dq_reference,
+    flash_attention_bwd_reference, flash_attention_fwd,
+    flash_attention_reference, merge_partials)
 from tensorflowonspark_tpu_torch.ops.layer_norm import (  # noqa: E402
     layer_norm, layer_norm_bwd, layer_norm_bwd_reference,
     layer_norm_reference)
 from tensorflowonspark_tpu_torch.ops.ln_matmul import (  # noqa: E402
-    ln_matmul, ln_matmul_bwd, ln_matmul_reference)
+    ln_matmul, ln_matmul_bwd, ln_matmul_reference, ln_matmul_sharded)
 from tensorflowonspark_tpu_torch.ops.act_matmul import (  # noqa: E402
-    gelu_matmul, gelu_matmul_bwd, gelu_matmul_reference)
+    gelu_matmul, gelu_matmul_bwd, gelu_matmul_reference, gelu_matmul_sharded)
 
 __all__ = ["LAUNCHES", "on_card", "count_launch", "reset_launches",
            "flash_attention", "flash_attention_fwd", "flash_attention_bwd",
+           "flash_attention_block", "merge_partials",
            "flash_attention_reference", "flash_attention_bwd_reference",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dq_reference",
            "flash_attention_bwd_dkv_reference",
            "layer_norm", "layer_norm_bwd", "layer_norm_reference",
-           "layer_norm_bwd_reference", "ln_matmul", "ln_matmul_bwd",
-           "ln_matmul_reference", "gelu_matmul", "gelu_matmul_bwd",
-           "gelu_matmul_reference"]
+           "layer_norm_bwd_reference", "ln_matmul",
+           "ln_matmul_bwd", "ln_matmul_reference", "ln_matmul_sharded",
+           "gelu_matmul", "gelu_matmul_bwd", "gelu_matmul_reference",
+           "gelu_matmul_sharded"]

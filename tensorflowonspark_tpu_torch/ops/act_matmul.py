@@ -144,3 +144,18 @@ def gelu_matmul(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
   if torch.is_grad_enabled() and (x.requires_grad or W.requires_grad):
     return _GeluMatmulFn.apply(x, W)
   return _forward(x, W)
+
+
+def gelu_matmul_sharded(x: torch.Tensor, W: torch.Tensor,
+                        mesh) -> torch.Tensor:
+  """The per-shard GELU->matmul of the JAX package's
+  ``gelu_matmul_sharded``: the kernel on this rank's rows of the
+  pre-activation ``x [.., F / tensor]`` and its row block of ``W [F /
+  tensor, N]``. The contracted ``F`` is cut over ``tensor``, so the local
+  products are partial sums, added over the axis by one all-reduce
+  (``collectives.reduce_from``: the gradient passes through as it is; the
+  identity at tensor degree 1), the collective the unfused
+  down-projection needs too."""
+  from tensorflowonspark_tpu_torch.parallel import collectives
+  from tensorflowonspark_tpu_torch.parallel.mesh import AXIS_TENSOR
+  return collectives.reduce_from(gelu_matmul(x, W), mesh, AXIS_TENSOR)

@@ -575,3 +575,43 @@ def flash_attention(q, k, v, causal: bool = True,
                     bwd: Optional[str] = None) -> torch.Tensor:
   """Full self-attention (both bases 0); returns ``out`` only."""
   return flash_attention_fwd(q, k, v, 0, 0, causal, window, bwd)[0]
+
+
+def flash_attention_block(q, k, v, q_base, kv_base, causal: bool = True,
+                          bwd: Optional[str] = None,
+                          window: Optional[int] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Partial attention of local queries against ONE KV block, the ring
+  step (the JAX package's ``flash_attention_block``): :func:`
+  flash_attention_fwd` under the reference's signature. Returns the
+  normalized partial ``out`` and its ``lse``; merge partials across blocks
+  with :func:`merge_partials`. Differentiable in q, k, v through both
+  outputs: the lse cotangent folds into the backward's Delta
+  (:func:`_bwd_delta`, or the fused kernel's own pre-pass). A block that
+  lies wholly in the future of every query (``kv_base`` past the last
+  query) gives out 0 and lse -1e30, and its kernels' loop bounds, taken
+  from the bases, visit no tile. The Hopper kernels choose their own
+  tiles, so the reference's Pallas tiling and interpret arguments have
+  no counterpart here."""
+  return flash_attention_fwd(q, k, v, int(q_base), int(kv_base), causal,
+                             window, bwd)
+
+
+def merge_partials(o_a, lse_a, o_b, lse_b):
+  """Combine two normalized attention partials over disjoint KV sets
+  (the ring's merge step, the JAX package's ``merge_partials``): the
+  partial over their union and its lse. A partial with lse -1e30 (no
+  visible key) contributes nothing. ``o`` is ``[B, S, H, D]``, ``lse``
+  ``[B, H, S]``; the output takes ``o_a``'s dtype. Plain PyTorch
+  elementwise math, as the reference's is XLA: no kernel."""
+  lse_new = torch.logaddexp(lse_a, lse_b)
+  lse_safe = torch.where(lse_new <= NEG_INF, torch.zeros_like(lse_new),
+                         lse_new)
+  w_a = torch.where(lse_a <= NEG_INF, torch.zeros_like(lse_a),
+                    torch.exp(lse_a - lse_safe))
+  w_b = torch.where(lse_b <= NEG_INF, torch.zeros_like(lse_b),
+                    torch.exp(lse_b - lse_safe))
+  # weights [B, H, S] -> [B, S, H, 1] against outputs [B, S, H, D]
+  o = (o_a.float() * w_a.transpose(1, 2)[..., None]
+       + o_b.float() * w_b.transpose(1, 2)[..., None])
+  return o.to(o_a.dtype), lse_new

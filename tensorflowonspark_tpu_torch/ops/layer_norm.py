@@ -184,3 +184,5 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor,
   if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
     return _LayerNormFn.apply(x, weight, eps)
   return _forward(x, weight, eps)
+
+

@@ -190,3 +190,20 @@ def ln_matmul(x: torch.Tensor, w_ln: torch.Tensor, W: torch.Tensor,
                                   or W.requires_grad):
     return _LnMatmulFn.apply(x, w_ln, W, eps)
   return _forward(x, w_ln, W, eps)
+
+
+def ln_matmul_sharded(x: torch.Tensor, w_ln: torch.Tensor, W: torch.Tensor,
+                      mesh, eps: float = 1e-6) -> torch.Tensor:
+  """The per-shard LN->matmul of the JAX package's ``ln_matmul_sharded``:
+  the kernel on this rank's rows of ``x`` and its column block of ``W``
+  (``[H, N / tensor]``: the QKV heads or the MLP up columns). ``H`` is
+  whole, so the forward needs no collective. ``x`` and ``w_ln``, which
+  every rank of the tensor axis holds alike, enter through
+  ``collectives.copy_to``: their gradients, each rank's share from its
+  columns, are summed over the axis in the backward (the identity at
+  tensor degree 1)."""
+  from tensorflowonspark_tpu_torch.parallel import collectives
+  from tensorflowonspark_tpu_torch.parallel.mesh import AXIS_TENSOR
+  x = collectives.copy_to(x, mesh, AXIS_TENSOR)
+  w_ln = collectives.copy_to(w_ln, mesh, AXIS_TENSOR)
+  return ln_matmul(x, w_ln, W, eps)

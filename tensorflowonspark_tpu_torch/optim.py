@@ -13,9 +13,23 @@ consumes (its tensors may come back as the updates). A caller that still
 needs its gradients passes copies. Learning-rate schedules are evaluated
 on the host from the step count, which starts at 0 on the first update as
 in optax.
+
+Over a mesh whose weights are cut into blocks (``parallel.sharding``),
+each rank's transformation sees its blocks, and the reductions over a
+whole parameter must span the mesh: the global-norm clip's norm,
+Adafactor's factored row and column means (and the rule that picks the
+factored dims, which reads the global shape) and the block rms of its
+clip and scale. The train state runs ``update`` (and ``init``) inside
+:func:`param_layout`, which names each parameter's global shape and mesh
+spec; the reductions then sum their partial sums over the axes that cut
+the dimensions they reduce, as the reference's GSPMD computes them on
+global arrays. Outside it (one card, or a data-parallel state whose every
+parameter is whole) nothing changes.
 """
 
+import contextlib
 import math
+import threading
 from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
                     Sequence, Tuple)
 
@@ -112,6 +126,43 @@ def make_schedule(learning_rate: float, schedule: str = "constant",
 # -- building blocks ---------------------------------------------------------
 
 
+_LAYOUT = threading.local()
+
+
+@contextlib.contextmanager
+def param_layout(layout):
+  """Run the optimizer's ``init`` / ``update`` over blocks of weights
+  laid out by ``layout`` (a ``parallel.sharding.StateSharding``: its
+  ``mesh``, ``spec(name)`` and ``global_shape(name)``); None: the
+  parameters are whole."""
+  before = getattr(_LAYOUT, "current", None)
+  _LAYOUT.current = layout
+  try:
+    yield
+  finally:
+    _LAYOUT.current = before
+
+
+def _layout():
+  return getattr(_LAYOUT, "current", None)
+
+
+def _summed(x: torch.Tensor, axes, layout) -> torch.Tensor:
+  """``x`` summed over the mesh axes of ``axes`` that are not None."""
+  from tensorflowonspark_tpu_torch.parallel import collectives
+  axes = tuple(a for a in axes if a is not None)
+  return collectives.all_reduce(x, layout.mesh, axes) if axes else x
+
+
+def _mean_over(x: torch.Tensor, dim: int, axis, size: int, layout,
+               keepdim: bool = False) -> torch.Tensor:
+  """The mean over dimension ``dim`` of a block whose ``dim`` is cut over
+  ``axis`` (None: whole) from a global dimension of ``size``."""
+  if layout is None or axis is None:
+    return x.mean(dim=dim, keepdim=keepdim)
+  return _summed(x.sum(dim=dim, keepdim=keepdim), (axis,), layout) / size
+
+
 class _Count(object):
   """A step counter as optax keeps one (``ScaleByScheduleState`` etc.)."""
 
@@ -161,12 +212,32 @@ def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     grads = _lists(updates)
     if grads:
       norms = torch._foreach_norm(grads)
-      g_norm = torch.linalg.vector_norm(torch.stack(norms))
+      layout = _layout()
+      if layout is None:
+        g_norm = torch.linalg.vector_norm(torch.stack(norms))
+      else:
+        g_norm = _sharded_norm(updates, norms, layout)
       factor = torch.where(g_norm < max_norm, torch.ones_like(g_norm),
                            max_norm / g_norm)
       torch._foreach_mul_(grads, factor)
     return updates, state
   return GradientTransformation(lambda params: None, update)
+
+
+def _sharded_norm(updates, norms, layout) -> torch.Tensor:
+  """The global L2 norm of blocks: each block's square counted once, on
+  the rank at coordinate 0 of every axis its parameter is whole on (the
+  others hold the same values), then summed over the whole mesh."""
+  from tensorflowonspark_tpu_torch.parallel import collectives
+  mesh = layout.mesh
+  sq = []
+  for name, n in zip(updates, norms):
+    spec = layout.spec(name)
+    owner = all(mesh.coord(a) == 0 for a in mesh.wide() if a not in spec)
+    sq.append(n * n if owner else torch.zeros_like(n))
+  total = collectives.all_reduce(torch.stack(sq).sum(), mesh,
+                                 mesh.axis_names)
+  return torch.sqrt(total)
 
 
 class AdamState(NamedTuple):
@@ -283,9 +354,20 @@ def scale(step_size: float) -> GradientTransformation:
   return GradientTransformation(lambda params: None, update)
 
 
-def _block_rms(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
-  """``sqrt(mean(x ** 2))`` of each tensor, on its device."""
-  return [torch.sqrt(torch.mean(t * t)) for t in tensors]
+def _block_rms(tensors: List[torch.Tensor],
+               names: Sequence[str] = ()) -> List[torch.Tensor]:
+  """``sqrt(mean(x ** 2))`` of each tensor, on its device; of the whole
+  parameter ``names[i]`` when :func:`param_layout` cuts it into blocks."""
+  layout = _layout()
+  out = []
+  for i, t in enumerate(tensors):
+    spec = layout.spec(names[i]) if layout is not None else ()
+    if not any(spec):
+      out.append(torch.sqrt(torch.mean(t * t)))
+      continue
+    total = _summed(torch.sum(t * t), spec, layout)
+    out.append(torch.sqrt(total / math.prod(layout.global_shape(names[i]))))
+  return out
 
 
 def clip_by_block_rms(threshold: float) -> GradientTransformation:
@@ -294,7 +376,8 @@ def clip_by_block_rms(threshold: float) -> GradientTransformation:
   def update(updates, state, params=None):
     u = _lists(updates)
     if u:
-      denom = [torch.clamp(r / threshold, min=1.0) for r in _block_rms(u)]
+      denom = [torch.clamp(r / threshold, min=1.0)
+               for r in _block_rms(u, list(updates))]
       torch._foreach_div_(u, denom)
     return updates, state
   return GradientTransformation(lambda params: None, update)
@@ -310,7 +393,7 @@ def scale_by_param_block_rms(min_scale: float = 1e-3
     names = list(updates)
     if names:
       factors = [torch.where(r <= min_scale, torch.full_like(r, min_scale), r)
-                 for r in _block_rms(_lists(params, names))]
+                 for r in _block_rms(_lists(params, names), names)]
       torch._foreach_mul_(_lists(updates, names), factors)
     return updates, state
   return GradientTransformation(lambda params: None, update)
@@ -348,10 +431,14 @@ def scale_by_factored_rms(decay_rate: float = 0.8,
   1) ** -decay_rate`` from ``g ** 2 + epsilon``. A factored parameter keeps
   the means over its largest dim (``v_row``) and over its second largest
   (``v_col``) and scales by their outer product over ``v_row``'s mean."""
+  def shape_of(name, t):
+    layout = _layout()
+    return layout.global_shape(name) if layout is not None else t.shape
+
   def init(params):
     v_row, v_col, v = [], [], []
-    for p in params.values():
-      dims = _factored_dims(p.shape, min_dim_size_to_factor)
+    for name, p in params.items():
+      dims = _factored_dims(shape_of(name, p), min_dim_size_to_factor)
       if dims is None:
         v_row.append(p.new_zeros(1))
         v_col.append(p.new_zeros(1))
@@ -372,21 +459,26 @@ def scale_by_factored_rms(decay_rate: float = 0.8,
     beta = np.float32(1.0) - t ** np.float32(-decay_rate)
     keep, take = float(beta), float(np.float32(1.0) - beta)
     out = {}
+    layout = _layout()
     for i, (name, g) in enumerate(updates.items()):
       g2 = (g * g).add_(epsilon)
-      dims = _factored_dims(g.shape, min_dim_size_to_factor)
+      gshape = shape_of(name, g)
+      dims = _factored_dims(gshape, min_dim_size_to_factor)
       if dims is None:
         v = state.v[i]
         v.mul_(keep).add_(g2, alpha=take)
         out[name] = g * torch.rsqrt(v)
         continue
       d1, d0 = dims
+      spec = layout.spec(name) if layout is not None else (None,) * g.dim()
       v_row, v_col = state.v_row[i], state.v_col[i]
-      v_row.mul_(keep).add_(g2.mean(dim=d0), alpha=take)
-      v_col.mul_(keep).add_(g2.mean(dim=d1), alpha=take)
+      v_row.mul_(keep).add_(_mean_over(g2, d0, spec[d0], gshape[d0], layout),
+                            alpha=take)
+      v_col.mul_(keep).add_(_mean_over(g2, d1, spec[d1], gshape[d1], layout),
+                            alpha=take)
       reduced_d1 = d1 - 1 if d1 > d0 else d1
-      row_factor = torch.rsqrt(
-          v_row / v_row.mean(dim=reduced_d1, keepdim=True))
+      row_factor = torch.rsqrt(v_row / _mean_over(
+          v_row, reduced_d1, spec[d1], gshape[d1], layout, keepdim=True))
       col_factor = torch.rsqrt(v_col)
       out[name] = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
     state.count.count += 1

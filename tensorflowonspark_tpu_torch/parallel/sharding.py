@@ -1,34 +1,53 @@
-"""The train step and the fused K-step train loop: one card, or data
-parallelism across processes.
+"""Sharding rules, the train step and the fused K-step train loop: one
+card, or a mesh of processes.
 
 Counterpart of ``tensorflowonspark_tpu/parallel/sharding.py``:
+:data:`LOGICAL_RULES`, :func:`batch_sharding` / :func:`slab_sharding`,
+:func:`state_shardings`, :func:`init_sharded_state`,
 :func:`resolve_unroll`, :func:`make_train_step`, :class:`TrainLoop` /
 :func:`make_train_loop` and :func:`shard_batch`. ``mesh=None`` trains on
-one card. A mesh from
-:func:`~tensorflowonspark_tpu_torch.parallel.mesh.build_mesh` whose only
-axis above 1 is ``data`` trains data-parallel over its process group:
-every rank holds the whole state (replicated, as
-``models.transformer.create_sharded_state`` makes it) and its own rows of
-the global batch, and the step averages the local gradients over the
-group (:func:`~tensorflowonspark_tpu_torch.parallel.collectives.
-sync_gradients`, a bucketed all-reduce) before the optimizer sees them,
-so the clip, the weight decay and ``MultiSteps`` accumulation see the
-averaged gradient, as in the reference, where XLA inserts the all-reduce.
-The returned loss is averaged over the group too: every rank returns the
-global batch's loss, as the reference's replicated loss. FSDP, tensor or
-sequence sharding, a state sharding and extra batch axes raise
-``NotImplementedError``: ROADMAP Queue 1 item 10.
+one card. Over a mesh from
+:func:`~tensorflowonspark_tpu_torch.parallel.mesh.build_mesh` each rank
+holds its block of the state and of every batch, where the reference's
+GSPMD holds global arrays laid out over devices:
 
-A batch handed to a step is this rank's local shard (the counterpart of
+* parameters follow their logical axes through :data:`LOGICAL_RULES`
+  (``embed`` over ``fsdp``; ``heads``, ``mlp`` and ``vocab`` over
+  ``tensor``; a dimension its axis cannot divide stays whole), and each
+  rank stores its block; optimizer state mirrors its parameter
+  (:class:`StateSharding`). The model gathers what it computes with
+  (``models.transformer``); a state whose every parameter is whole is
+  the data-parallel case: every rank holds all of it;
+* a batch is cut over ``data`` x ``fsdp`` on dim 0 and, with
+  ``extra_axes=("sequence",)``, over ``sequence`` on dim 1
+  (:func:`shard_batch`); the step takes this rank's block;
+* the step's gradient of each parameter is this rank's share of the
+  global batch's; the shares are summed over the batch axes the
+  parameter is whole on (``data``, ``fsdp``, ``sequence``: one bucketed
+  all-reduce, :func:`~tensorflowonspark_tpu_torch.parallel.collectives.
+  sync_gradients`, per set of axes) and divided by the batch-axes degree,
+  so every rank applies the global batch's gradient to its block before
+  the optimizer sees it (the clip, the weight decay and ``MultiSteps``
+  see it, as in the reference, where XLA inserts the collectives). An
+  FSDP-cut parameter's shares arrive already summed over ``fsdp`` by the
+  reduce-scatter of its gather. The optimizer's own global reductions
+  (the clip's norm, Adafactor's factored statistics) run over the
+  parameter's axes (``optim.param_layout``).
+* the returned loss is averaged over the batch axes: every rank returns
+  the global batch's loss, as the reference's replicated loss.
+
+A batch handed to a step is this rank's block (the counterpart of
 ``jax.make_array_from_process_local_data``); :func:`shard_batch` and
-:func:`shard_slab` cut a rank's rows out of a global host batch (what
-the reference's ``device_put`` of the global batch gives each device).
-The mean of the local gradients equals the global batch's gradient when
-the loss is a mean over equal local batches, as ``causal_lm_loss`` is.
+:func:`shard_slab` cut it out of a global host batch (what the
+reference's ``device_put`` of the global batch gives each device).
+``pipeline`` and ``expert`` above 1 raise ``NotImplementedError``:
+ROADMAP Queue 1 item 10c.
 
 ``loss_fn(model, batch)`` returns a scalar loss tensor; it stands for the
 reference's pure ``loss_fn(params, batch)``, the model carrying the
-weights (``state.apply_fn``). A step computes the gradients with
+weights (``state.apply_fn``). Over a mesh it is this rank's share: a
+loss over the global token count (``causal_lm_loss(..., mesh=...)``), or
+a mean over equal local batches. A step computes the gradients with
 ``torch.autograd.grad`` and applies them with
 ``TrainState.apply_gradients``, which updates weights and optimizer state
 IN PLACE: the port's stand-in for JAX's donated state. With
@@ -87,27 +106,130 @@ def resolve_unroll(unroll: Optional[int] = None) -> int:
   return int(unroll)
 
 
-def _refuse_mesh(mesh, state_sharding, batch_extra_axes) -> None:
-  """Refuse what only item 10 would run: a state sharding, extra batch
-  axes, or a mesh with an axis other than ``data`` above 1."""
-  if state_sharding is not None or batch_extra_axes:
-    raise NotImplementedError(
-        "a state sharding or extra batch axes %r (FSDP, tensor or sequence "
-        "sharding) are not ported to PyTorch yet (ROADMAP Queue 1 item 10); "
-        "data parallelism needs neither" % (tuple(batch_extra_axes),))
+# logical axis name -> mesh axis (None = replicated), the reference's
+LOGICAL_RULES = (
+    ("batch", (mesh_lib.AXIS_DATA, mesh_lib.AXIS_FSDP)),
+    ("sequence", mesh_lib.AXIS_SEQUENCE),
+    ("vocab", mesh_lib.AXIS_TENSOR),
+    ("embed", mesh_lib.AXIS_FSDP),
+    ("heads", mesh_lib.AXIS_TENSOR),
+    ("kv", None),
+    ("mlp", mesh_lib.AXIS_TENSOR),
+    ("stage", mesh_lib.AXIS_PIPELINE),
+    ("expert", mesh_lib.AXIS_EXPERT),
+    ("conv_in", None),
+    ("conv_out", mesh_lib.AXIS_TENSOR),
+)
+
+#: the axes a batch is cut over, each rank's loss a share of the global
+#: batch's: gradients and losses are averaged over them
+BATCH_AXES = (mesh_lib.AXIS_DATA, mesh_lib.AXIS_FSDP, mesh_lib.AXIS_SEQUENCE)
+
+
+def logical_to_mesh(logical, shape, mesh) -> tuple:
+  """The mesh spec of one parameter: for each dimension the mesh axis its
+  logical name maps to under :data:`LOGICAL_RULES`, or None where there
+  is none, where the axis has degree 1 (or there is no mesh), or where
+  the degree does not divide the dimension (it stays whole, as
+  ``_heads_logical`` keeps an indivisible head count replicated)."""
+  rules = dict(LOGICAL_RULES)
+  out = []
+  for name, size in zip(logical, shape):
+    axis = rules.get(name) if name is not None else None
+    if axis is not None and not isinstance(axis, str):
+      axis = None                      # batch axes: never a weight's
+    if mesh is None or axis is None or axis not in mesh.shape \
+        or mesh.shape[axis] == 1 or size % mesh.shape[axis]:
+      axis = None
+    out.append(axis)
+  return tuple(out)
+
+
+def local_shape(shape, spec, mesh) -> tuple:
+  """The shape of this rank's block of a ``shape`` array under ``spec``."""
+  return tuple(n // (mesh.shape[a] if a else 1) for n, a in zip(shape, spec))
+
+
+def shard_array(x, spec, mesh):
+  """This rank's block of a whole array (numpy or tensor) under
+  ``spec``: each cut dimension narrowed to the rank's coordinate."""
+  for dim, axis in enumerate(spec):
+    if axis is None:
+      continue
+    per = x.shape[dim] // mesh.shape[axis]
+    index = [slice(None)] * x.ndim
+    index[dim] = slice(mesh.coord(axis) * per, (mesh.coord(axis) + 1) * per)
+    x = x[tuple(index)]
+  return x
+
+
+def gather_array(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+  """The whole array from this rank's block ``x`` under ``spec``: an
+  all-gather over each cut dimension's axis (every rank gets it)."""
+  for dim, axis in enumerate(spec):
+    if axis is not None:
+      x = collectives.all_gather(x, mesh, axis, axis=dim)
+  return x
+
+
+class StateSharding(object):
+  """How a train state lies on a mesh: each parameter's global shape and
+  mesh spec (an axis or None per dimension). ``sharded`` is True when
+  some parameter is cut, False for a data-parallel state. The port's
+  ``state_sharding`` (the reference's is a tree of ``NamedSharding``)."""
+
+  def __init__(self, mesh, specs, shapes):
+    self.mesh = mesh
+    self.specs = dict(specs)
+    self.shapes = {k: tuple(v) for k, v in shapes.items()}
+    self.sharded = any(a is not None for sp in self.specs.values()
+                       for a in sp)
+
+  def spec(self, name: str) -> tuple:
+    return self.specs[name]
+
+  def global_shape(self, name: str) -> tuple:
+    return self.shapes[name]
+
+  def __eq__(self, other):
+    return isinstance(other, StateSharding) and self.mesh is other.mesh \
+        and self.specs == other.specs and self.shapes == other.shapes
+
+  def __repr__(self):
+    return "StateSharding(%s, %d params, sharded=%s)" % (
+        dict(self.mesh.shape), len(self.specs), self.sharded)
+
+
+def _check_mesh(mesh, state_sharding=None, batch_extra_axes=()) -> None:
+  """Refuse what the port does not run: a mesh of another type, extra
+  batch axes other than ``sequence`` (or without a mesh), a state
+  sharding of another type, and ``pipeline`` / ``expert`` above 1
+  (item 10c)."""
+  if state_sharding is not None and \
+      not isinstance(state_sharding, StateSharding):
+    raise TypeError("state_sharding must be a StateSharding "
+                    "(create_sharded_state / init_sharded_state), got %s"
+                    % type(state_sharding).__name__)
+  extra = tuple(batch_extra_axes or ())
+  if any(a != mesh_lib.AXIS_SEQUENCE for a in extra):
+    raise ValueError("batch_extra_axes may name only %r, got %r"
+                     % (mesh_lib.AXIS_SEQUENCE, extra))
   if mesh is None:
+    if extra:
+      raise ValueError("batch_extra_axes %r cut a batch over a mesh; "
+                       "without one there is nothing to cut" % (extra,))
     return
   if not isinstance(mesh, mesh_lib.Mesh):
     raise NotImplementedError(
         "a mesh of type %s: the port trains over parallel.mesh.build_mesh's "
-        "Mesh (its data axis); device meshes are ROADMAP Queue 1 item 10"
+        "Mesh; device meshes of other kinds are ROADMAP Queue 1 item 10c"
         % type(mesh).__name__)
   wide = ["%s=%d" % (a, d) for a, d in mesh.shape.items()
-          if a != mesh_lib.AXIS_DATA and d > 1]
+          if a in (mesh_lib.AXIS_PIPELINE, mesh_lib.AXIS_EXPERT) and d > 1]
   if wide:
     raise NotImplementedError(
         "mesh axes %s are not ported to PyTorch yet (ROADMAP Queue 1 item "
-        "10); only the data axis trains across processes" % ", ".join(wide))
+        "10c: the 1F1B pipeline, expert parallelism)" % ", ".join(wide))
 
 
 def _state_device(state) -> torch.device:
@@ -148,22 +270,57 @@ def _slab_len(slab) -> int:
   return int(slab.shape[0])
 
 
+def sync_state_gradients(grads, names, sharding, mesh) -> list:
+  """The global batch's gradient of each parameter's block from this
+  rank's shares ``grads`` (in ``names`` order): each is summed over the
+  batch axes (:data:`BATCH_AXES`) its parameter is whole on, one bucketed
+  ``sync_gradients`` per set of such axes, and divided by the batch axes'
+  degree. ``sharding`` None: every parameter whole (data parallelism, one
+  all-reduce set)."""
+  n_b = mesh_lib.axis_size(mesh, *BATCH_AXES)
+  sets = {}
+  for i, name in enumerate(names):
+    spec = sharding.spec(name) if sharding is not None else ()
+    axes = tuple(a for a in BATCH_AXES if a in mesh.shape and a not in spec)
+    sets.setdefault(axes, []).append(i)
+  out = list(grads)
+  for axes, idx in sets.items():
+    synced = collectives.sync_gradients([grads[i] for i in idx], mesh,
+                                        axis_name=axes)
+    rest = n_b // mesh_lib.axis_size(mesh, *axes)
+    for i, g in zip(idx, synced):
+      # an FSDP-cut block's shares were summed over fsdp by its gather's
+      # reduce-scatter: the mean over the other axes still owes 1 / fsdp
+      out[i] = g if rest == 1 else g.div_(rest)
+  return out
+
+
+def _check_layout(state, state_sharding) -> None:
+  """Refuse a state whose blocks lie otherwise than ``state_sharding``
+  says (the step was built for another layout)."""
+  if state_sharding is not None and state_sharding != state.sharding:
+    raise ValueError("the train step was built for %r, but the state lies "
+                     "as %r" % (state_sharding, state.sharding))
+
+
 def _step_body(loss_fn: Callable, state, batch, mesh=None) -> torch.Tensor:
   """One optimizer step on the local batch; the local loss. Over a mesh
-  the gradients are averaged over its data axis before the update."""
+  the gradients are the global batch's (:func:`sync_state_gradients`,
+  over the state's own ``sharding``) before the update."""
   params = state.params
   loss = loss_fn(state.model, batch)
   grads = torch.autograd.grad(loss, list(params.values()))
   if mesh is not None:
-    grads = collectives.sync_gradients(grads, mesh)
+    grads = sync_state_gradients(grads, list(params), state.sharding, mesh)
   state.apply_gradients(dict(zip(params, grads)))
   return loss.detach()
 
 
 def _global_loss(losses: torch.Tensor, mesh) -> torch.Tensor:
-  """The local losses averaged over the mesh's data axis: the global
+  """The local losses averaged over the mesh's batch axes: the global
   batch's loss on every rank (one collective however many steps)."""
-  return losses if mesh is None else collectives.psum_mean(losses, mesh)
+  return losses if mesh is None else \
+      collectives.psum_mean(losses, mesh, BATCH_AXES)
 
 
 def _tree_bytes(tree) -> int:
@@ -228,21 +385,27 @@ def make_train_step(loss_fn: Callable, mesh=None, state_sharding=None,
   """``step(state, batch) -> (state, loss)``: one optimizer step on the
   card (or wherever the state's model lives). The batch is moved to the
   model's device; ``loss`` stays there (read it with ``float``). Over a
-  ``mesh`` the batch is this rank's shard and ``loss`` the global
-  batch's (see the module docstring)."""
-  _refuse_mesh(mesh, state_sharding, batch_extra_axes)
+  ``mesh`` the batch is this rank's block (``batch_extra_axes=
+  ("sequence",)``: cut on dim 1 too) and ``loss`` the global batch's.
+  The state's blocks lie as its own ``sharding`` says, which
+  ``create_sharded_state`` sets; a ``state_sharding`` given here must be
+  that one, and a state laid out otherwise raises (see the module
+  docstring)."""
+  _check_mesh(mesh, state_sharding, batch_extra_axes)
   # obs seam, cached at build: off = one None check per step
   obs_on = obs_metrics.active() is not None
   seen: set = set()              # this step's "jit cache" of batch shapes
 
   def step(state, batch):
+    _check_layout(state, state_sharding)
     if obs_on:
       obs_device.note_trace("train.step", batch, cache=seen)
       obs_device.capture_cost("train.step", step_cost, state, batch)
     if not donate_state:
       state = copy.deepcopy(state)
     batch = _to_device(batch, _state_device(state))
-    return state, _global_loss(_step_body(loss_fn, state, batch, mesh), mesh)
+    return state, _global_loss(_step_body(loss_fn, state, batch, mesh),
+                              mesh)
 
   return step
 
@@ -260,10 +423,14 @@ class TrainLoop(object):
   """
 
   def __init__(self, loss_fn: Callable, unroll: int, donate_state: bool,
-               mesh=None, obs_handles=None):
+               mesh=None, obs_handles=None, state_sharding=None,
+               batch_extra_axes=()):
     self._loss_fn = loss_fn
     self._mesh = mesh
-    self._step = make_train_step(loss_fn, mesh, donate_state=donate_state)
+    self._layout = state_sharding
+    self._step = make_train_step(loss_fn, mesh, state_sharding,
+                                 donate_state=donate_state,
+                                 batch_extra_axes=batch_extra_axes)
     self._donate = donate_state
     self.unroll = unroll
     #: optimizer steps dispatched through this loop (host-side count)
@@ -295,6 +462,7 @@ class TrainLoop(object):
                               _take(slab, 0), self.unroll)
     if not self._donate:
       state = copy.deepcopy(state)
+    _check_layout(state, self._layout)
     slab = _to_device(slab, _state_device(state))      # one copy per slab
     losses = [_step_body(self._loss_fn, state, _take(slab, i), self._mesh)
               for i in range(self.unroll)]
@@ -322,7 +490,7 @@ def make_train_loop(loss_fn: Callable, mesh=None, state_sharding=None,
   :func:`~tensorflowonspark_tpu_torch.data.readers.slab_batches`. Over a
   ``mesh`` a slab holds this rank's rows (:func:`shard_slab`) and the
   ``[unroll]`` losses are the global batches'."""
-  _refuse_mesh(mesh, state_sharding, batch_extra_axes)
+  _check_mesh(mesh, state_sharding, batch_extra_axes)
   unroll = resolve_unroll(unroll)
   obs_handles = None
   reg = obs_metrics.active()
@@ -333,39 +501,184 @@ def make_train_loop(loss_fn: Callable, mesh=None, state_sharding=None,
     # ALSO wrap loop calls in a StepTimer, or steps double-count.
     reg.gauge("train.unroll").set(unroll)
     obs_handles = (reg.counter("train.steps"), obs_spans.active())
-  return TrainLoop(loss_fn, unroll, donate_state, mesh, obs_handles)
+  return TrainLoop(loss_fn, unroll, donate_state, mesh, obs_handles,
+                   state_sharding, batch_extra_axes)
 
 
-def _rows(x, dim: int, mesh):
-  """This rank's rows ``[rank * B / N, (rank + 1) * B / N)`` of ``x``
-  along ``dim``."""
-  n = mesh_lib.axis_size(mesh, *mesh_lib.data_axes(mesh))
-  b = int(x.shape[dim])
-  if b % n:
-    raise ValueError("a global batch of %d rows does not divide over the "
-                     "%d ranks of the data axis" % (b, n))
-  per = b // n
-  index = [slice(None)] * (dim + 1)
-  index[dim] = slice(mesh.rank * per, (mesh.rank + 1) * per)
-  return x[tuple(index)]
+def batch_sharding(mesh, extra_axes: Tuple[str, ...] = ()):
+  """The spec of a batch: dim 0 over the data axes and, with
+  ``extra_axes``, dim 1 over those (``sequence``)."""
+  return collectives.P(mesh_lib.data_axes(mesh) or None, *extra_axes)
+
+
+def slab_sharding(mesh, extra_axes: Tuple[str, ...] = ()):
+  """The spec of a ``[K, B, ...]`` slab: :func:`batch_sharding` one
+  dimension in."""
+  return collectives.P(None, mesh_lib.data_axes(mesh) or None, *extra_axes)
+
+
+def _cut(x, dim: int, mesh, axes, what: str):
+  """This rank's block of ``x`` along ``dim`` over ``axes``."""
+  index, count = collectives.block_index(mesh, axes)
+  size = int(x.shape[dim])
+  if size % count:
+    raise ValueError("a global batch of %d %s does not divide over the %d "
+                     "ranks of the %s ax%s" % (
+                         size, what, count, "/".join(axes),
+                         "is" if len(axes) == 1 else "es"))
+  per = size // count
+  at = [slice(None)] * (dim + 1)
+  at[dim] = slice(index * per, (index + 1) * per)
+  return x[tuple(at)]
+
+
+def _block_of(x, lead: int, mesh, extra_axes):
+  """The rows (dim ``lead``) over the data axes and, with
+  ``extra_axes``, the positions (dim ``lead + 1``) over them."""
+  x = _cut(x, lead, mesh, mesh_lib.data_axes(mesh), "rows")
+  if extra_axes:
+    x = _cut(x, lead + 1, mesh, tuple(extra_axes), "positions")
+  return x
 
 
 def shard_batch(batch, mesh, extra_axes: Tuple[str, ...] = ()):
-  """This rank's rows (dim 0) of a GLOBAL host batch (an array, a tensor,
-  or a dict / tuple / list of them) that every rank holds alike; what
-  the reference's ``device_put`` over the data axes gives each device. A
-  batch that does not divide by the data axis raises; ``extra_axes``
-  (sequence sharding) is item 10."""
-  _refuse_mesh(mesh, None, extra_axes)
-  return _map_batch(lambda x: _rows(x, 0, mesh), batch)
+  """This rank's block of a GLOBAL host batch (an array, a tensor, or a
+  dict / tuple / list of them) that every rank holds alike: its rows
+  over the data axes (``data`` x ``fsdp``) and, with
+  ``extra_axes=("sequence",)``, its positions over ``sequence`` (rank
+  ``i`` of the axis keeps ``[i * S / n, (i + 1) * S / n)``; the label of
+  its last position, the next block's first token, reaches the loss
+  through ``causal_lm_loss(..., mesh=...)``); what the reference's
+  ``device_put`` over ``batch_sharding`` gives each device. A batch that
+  does not divide raises."""
+  _check_mesh(mesh, None, extra_axes)
+  return _map_batch(lambda x: _block_of(x, 0, mesh, extra_axes), batch)
 
 
 def shard_slab(slab, mesh, extra_axes: Tuple[str, ...] = ()):
   """:func:`shard_batch` for a ``[K, B, ...]`` slab (or a
-  :class:`~tensorflowonspark_tpu_torch.data.readers.Slab`): this rank's
-  rows of dim 1, the reference's ``slab_sharding``."""
+  :class:`~tensorflowonspark_tpu_torch.data.readers.Slab`): dims 1 (and
+  2), the reference's ``slab_sharding``."""
   from tensorflowonspark_tpu_torch.data.readers import Slab
-  _refuse_mesh(mesh, None, extra_axes)
+  _check_mesh(mesh, None, extra_axes)
   if isinstance(slab, Slab):
-    return Slab(shard_slab(slab.data, mesh))
-  return _map_batch(lambda x: _rows(x, 1, mesh), slab)
+    return Slab(shard_slab(slab.data, mesh, extra_axes))
+  return _map_batch(lambda x: _block_of(x, 1, mesh, extra_axes), slab)
+
+
+def _owners(state, param_sharding: StateSharding) -> list:
+  """``(path, tensor, parameter name or None)`` of every tensor of a train
+  state: a parameter is its own; an optimizer-state tensor belongs to a
+  parameter when it sits under that name in a dict, or at index ``i`` of
+  a list with one entry per parameter, with the parameter's block shape
+  (a moment mirrors THEIR parameter, so two parameters of one shape keep
+  their own layouts); anything else belongs to none."""
+  names = list(param_sharding.specs)
+  shapes = [tuple(p.shape) for p in state.params.values()]
+  entries = _state_tensors(state)
+  siblings = {}
+  for path, t in entries:
+    siblings.setdefault(path[:-1], []).append((path[-1], tuple(t.shape)))
+  out = []
+  for path, t in entries:
+    key, parent = path[-1], path[:-1]
+    if path[0] == "params":
+      name = key
+    elif isinstance(key, str) and key in param_sharding.specs and \
+        tuple(t.shape) == tuple(state.params[key].shape):
+      name = key                                   # {name: moment}
+    elif isinstance(key, int) and siblings[parent] == list(
+        zip(range(len(names)), shapes)):
+      name = names[key]                            # [moment per parameter]
+    else:
+      name = None
+    out.append((path, t, name))
+  return out
+
+
+def state_shardings(state, param_sharding: StateSharding) -> dict:
+  """The spec of every tensor of a train state, by path (the reference's
+  ``state_shardings``): a parameter's its own, a moment its parameter's
+  (:func:`_owners`), anything else ``P()``: counts, scalars, and
+  statistics derived from a block, such as Adafactor's factored ones,
+  which each rank computes from its blocks."""
+  return {path: collectives.P(*param_sharding.spec(name)) if name
+          else collectives.P()
+          for path, _, name in _owners(state, param_sharding)}
+
+
+def init_sharded_state(params_init_fn: Callable, make_state_fn: Callable,
+                       mesh):
+  """A train state laid out over ``mesh``, and its
+  :class:`StateSharding`: the reference's ``init_sharded_state``.
+
+  ``params_init_fn()`` returns ``(params, logical)``: the whole weights
+  (``{name: array}``) and each one's logical axis names (the port's
+  ``nn.with_logical_partitioning``); ``make_state_fn(blocks,
+  sharding)`` wraps this rank's blocks in a train state, running the
+  optimizer's init under :func:`optim.param_layout`. Each rank keeps only
+  its blocks of the whole weights it was given; a block, and a moment of
+  one, that every rank of some axes holds alike is then broadcast from
+  coordinate 0 of those axes, so ranks handed different weights still
+  agree where they must.
+  """
+  from tensorflowonspark_tpu_torch import optim
+  params, logical = params_init_fn()
+  shapes = {n: tuple(np.shape(p)) for n, p in params.items()}
+  specs = {n: logical_to_mesh(logical[n], shapes[n], mesh) for n in params}
+  sharding = StateSharding(mesh, specs, shapes)
+  blocks = {n: shard_array(p, specs[n], mesh) for n, p in params.items()}
+  with optim.param_layout(sharding if sharding.sharded else None):
+    state = make_state_fn(blocks, sharding)
+  with torch.no_grad():
+    for _, t, name in _owners(state, sharding):
+      if name is None:
+        continue
+      axes = tuple(a for a in mesh.wide() if a not in specs[name])
+      if axes or (not mesh.wide()
+                  and mesh.group(mesh_lib.AXIS_DATA) is not None):
+        t.copy_(collectives.broadcast_from(t, mesh, axes or
+                                           mesh_lib.AXIS_DATA))
+  state.sharding = sharding
+  return state, sharding
+
+
+def _state_tensors(state):
+  """``(path, tensor)`` of every parameter and optimizer-state tensor: a
+  NamedTuple's fields by name, a list's entries by index."""
+  out = [(("params", n), p) for n, p in state.params.items()]
+
+  def walk(tree, path):
+    if isinstance(tree, torch.Tensor):
+      out.append((path, tree))
+    elif isinstance(tree, dict):
+      for k, v in tree.items():
+        walk(v, path + (k,))
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+      for k, v in zip(tree._fields, tree):
+        walk(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+      for i, v in enumerate(tree):
+        walk(v, path + (i,))
+    elif hasattr(tree, "__dict__"):
+      for k, v in vars(tree).items():
+        walk(v, path + (k,))
+
+  walk(state.opt_state, ("opt_state",))
+  return out
+
+
+def gather_state_params(state) -> dict:
+  """The whole weights of a train state laid out over a mesh, as f32
+  numpy arrays on every rank (each block all-gathered over its axes);
+  a state without a sharding gives its own weights."""
+  sharding = getattr(state, "sharding", None)
+  out = {}
+  for name, p in state.params.items():
+    full = p.detach() if sharding is None else \
+        gather_array(p.detach(), sharding.spec(name), sharding.mesh)
+    out[name] = full.float().cpu().numpy()
+  model = state.model
+  if hasattr(model, "unpermute_params"):
+    out = model.unpermute_params(out)
+  return out

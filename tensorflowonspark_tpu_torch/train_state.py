@@ -9,7 +9,10 @@ any ``nn.Module``); the optimizer is an
 :mod:`~tensorflowonspark_tpu_torch.optim` transformation over the
 ``{name: parameter}`` dict. :meth:`TrainState.apply_gradients` updates
 weights and optimizer state IN PLACE and returns the same object: the
-port's stand-in for JAX's donated state buffers.
+port's stand-in for JAX's donated state buffers. Over a mesh each rank's
+model holds its blocks of the weights (``sharding``), and the optimizer's
+reductions over a whole parameter run over the mesh
+(``optim.param_layout``).
 """
 
 from dataclasses import dataclass
@@ -28,6 +31,9 @@ class TrainState:
   opt_state: Any
   #: optimizer steps taken (``apply_gradients`` calls)
   step: int = 0
+  #: how the weights lie on a mesh (``parallel.sharding.StateSharding``),
+  #: None on one card; set by ``create_sharded_state``
+  sharding: Any = None
 
   @classmethod
   def create(cls, model: nn.Module, tx) -> "TrainState":
@@ -50,7 +56,9 @@ class TrainState:
     autograd would record (SGD's decoupled decay adds the weights into
     it)."""
     params = self.params
-    updates, self.opt_state = self.tx.update(grads, self.opt_state, params)
+    sharded = self.sharding is not None and self.sharding.sharded
+    with optim.param_layout(self.sharding if sharded else None):
+      updates, self.opt_state = self.tx.update(grads, self.opt_state, params)
     optim.apply_updates(params, updates)
     self.step += 1
     return self

@@ -107,6 +107,21 @@ def _is_train_state(x) -> bool:
   return isinstance(x, TrainState)
 
 
+def refuse_cut_state(state: Any, what: str) -> None:
+  """Raise for a train state whose weights are cut over a mesh (fsdp or
+  tensor, ``state.sharding.sharded``): each rank holds its blocks only,
+  and a checkpoint or an export holds rank 0's, so one would restore
+  other ranks' blocks wrong. A state that every rank holds whole (one
+  card, the data axis) passes."""
+  sharding = getattr(state, "sharding", None) if _is_train_state(state) \
+      else None
+  if sharding is not None and sharding.sharded:
+    raise NotImplementedError(
+        "%s of a train state cut over the mesh %s: gathered checkpoints of "
+        "FSDP and tensor-parallel states are not ported to PyTorch yet "
+        "(ROADMAP Queue 1 item 10c)" % (what, dict(sharding.mesh.shape)))
+
+
 def _host(t: torch.Tensor) -> torch.Tensor:
   """``t`` on the host, owning exactly its own bytes (torch.save writes a
   view's whole storage)."""
@@ -494,6 +509,7 @@ class CheckpointManager(object):
     and the save fires at the first call whose step reached or passed a
     boundary since the last saved step.
     """
+    refuse_cut_state(state, "a checkpoint")
     group = _process_group()
     if group is None and not is_chief:
       return False
@@ -665,6 +681,7 @@ class CheckpointManager(object):
 
     ``with_data=True`` returns ``(state, data_state_or_None)``.
     """
+    refuse_cut_state(state_template, "a restore")
     step = step if step is not None else self.latest_step()
     if step is None:
       raise FileNotFoundError("no checkpoints in %s" % self.directory)
@@ -693,6 +710,7 @@ class CheckpointManager(object):
     every step fails, the last error is raised: retraining from step 0
     would discard real progress.
     """
+    refuse_cut_state(state, "a restore")
     step = self.latest_step()
     last_error = None
     markers = self._has_markers()

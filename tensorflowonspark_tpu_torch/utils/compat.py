@@ -33,8 +33,10 @@ def export_model(state, export_dir: str, is_chief: bool) -> str:
   place, replacing an earlier export. A remote ``export_dir`` (fsspec)
   has no rename: an earlier export is removed and the new one written in
   place, its tree last (a cut-short export does not load). Returns the
-  directory written to.
+  directory written to. A train state cut over a mesh raises
+  (``checkpoint.refuse_cut_state``).
   """
+  checkpoint.refuse_cut_state(state, "an export")
   target = checkpoint.storage_dir(export_dir) if is_chief else \
       tempfile.mkdtemp(prefix="nonchief_export_")
   if fs.is_remote(target):

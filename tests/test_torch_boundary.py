@@ -63,7 +63,10 @@ def test_port_sources_import_no_jax():
                # and the registry, the deploy controller and cross-host
                # serving
                "serving/registry.py", "serving/deploy.py",
-               "serving/remote.py", "serving/host.py"):
+               "serving/remote.py", "serving/host.py",
+               # and the mesh axes: ring attention, the ring step's ops
+               "parallel/ring_attention.py", "ops/flash_attention.py",
+               "optim.py", "train_state.py"):
     assert os.path.join(*name.split("/")) in scanned, name
   bad = sorted((os.path.relpath(p, ROOT), root) for p in files
                for root in _imported_roots(p) if root in FORBIDDEN)
@@ -123,11 +126,19 @@ def test_running_the_port_loads_no_jax_module():
                               init_method="tcp://127.0.0.1:%d"
                               % get_free_port())
       m = mesh.build_mesh(mesh.MeshSpec(data=-1))
-      state = tfm.create_sharded_state(cfg, 0, m, device="cpu")
+      state, _ = tfm.create_sharded_state(cfg, 0, m, device="cpu")
       state, loss = make_train_step(
           lambda m, t: tfm.causal_lm_loss(m(t), t), m)(
               state, np.arange(16).reshape(2, 8) % 32)
       assert collectives.COUNTS["buckets"] >= 1, collectives.COUNTS
+      # the mesh axes' modules: ring attention over the sequence axis and
+      # shard_map_fn, on the 1-rank group
+      from tensorflowonspark_tpu_torch.parallel import ring_attention
+      x = torch.randn(1, 8, 2, 8)
+      assert ring_attention.ring_attention(x, x, x, m, use_flash=True).shape \
+          == x.shape
+      assert collectives.shard_map_fn(lambda v: v * 2, m, collectives.P(
+          "data"), collectives.P("data"))(x).shape == x.shape
       dist.destroy_process_group()
       loaded = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")

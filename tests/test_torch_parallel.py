@@ -3,14 +3,17 @@
 - ``build_mesh``: the same degrees and the same error messages as the
   reference's over 1, 2, 4 and 8 devices (the reference on
   ``jax.devices()[:n]``, the port over a stand-in group of n processes);
-  any axis but ``data`` above 1 raises, naming item 10.
+  ``pipeline`` or ``expert`` above 1 raises, naming item 10c.
 - The collectives: in 2 gloo processes, ``psum_mean``, ``all_reduce``,
   ``all_gather``, ``reduce_scatter``, ``broadcast_from`` and
   ``global_norm`` equal the reference's inside ``shard_map`` over 2 CPU
   devices on the same per-shard inputs (f32; 1e-6 relative: a sum of two
   terms, in either order). ``sync_gradients``' buckets (a bucket size that
   splits a tensor's neighbours, mixed dtypes) and its counter.
-- The train step's and ``shard_batch``'s refusals.
+- The train step's refusals, and ``shard_batch``'s blocks over the data
+  axes and ``sequence``. The mesh axes' collectives, ring attention and
+  the sharded train step against the JAX package are in
+  ``tests/test_torch_spmd.py`` and ``tests/test_torch_ring.py``.
 """
 
 import json
@@ -75,8 +78,8 @@ def test_build_mesh_matches_the_reference(spec, n):
     assert str(got.value) == str(e)
     return
   shape = dict(ref.shape)
-  if any(d > 1 for a, d in shape.items() if a != "data"):
-    with pytest.raises(NotImplementedError, match="item 10"):
+  if any(d > 1 for a, d in shape.items() if a in ("pipeline", "expert")):
+    with pytest.raises(NotImplementedError, match="item 10c"):
       mesh_lib.build_mesh(spec, group=_Group(n))
     return
   mesh = mesh_lib.build_mesh(spec, group=_Group(n, rank=n - 1))
@@ -103,13 +106,6 @@ def test_mesh_outside_a_group_is_one_process():
   assert collectives.all_processes_agree(False) is False
   with pytest.raises(KeyError, match="no axis"):
     mesh.group("model")
-
-
-@pytest.mark.parametrize("name", ["ring_permute", "all_to_all",
-                                  "hierarchical_all_reduce", "shard_map_fn"])
-def test_collectives_of_other_axes_raise_by_name(name):
-  with pytest.raises(NotImplementedError, match="item 10"):
-    getattr(collectives, name)(torch.zeros(2), None, "tensor")
 
 
 # -- the collectives in 2 gloo processes ---------------------------------------------
@@ -288,23 +284,13 @@ def _mesh(**degrees):
   return mesh_lib.Mesh(mesh_lib.CANONICAL_ORDER, shape, 0, _Group(2))
 
 
-@pytest.mark.parametrize("axis", ["fsdp", "pipeline", "expert", "sequence",
-                                  "tensor"])
+@pytest.mark.parametrize("axis", ["pipeline", "expert"])
 def test_train_step_refuses_axes_other_than_data(axis):
   mesh = _mesh(**{axis: 2})
-  with pytest.raises(NotImplementedError, match="item 10"):
+  with pytest.raises(NotImplementedError, match="item 10c"):
     sharding.make_train_step(lambda m, b: b, mesh)
-  with pytest.raises(NotImplementedError, match="item 10"):
+  with pytest.raises(NotImplementedError, match="item 10c"):
     sharding.make_train_loop(lambda m, b: b, mesh, unroll=2)
-
-
-@pytest.mark.parametrize("kw", [dict(state_sharding=object()),
-                                dict(batch_extra_axes=("sequence",))])
-def test_train_step_refuses_state_sharding_and_batch_axes(kw):
-  with pytest.raises(NotImplementedError, match="item 10"):
-    sharding.make_train_step(lambda m, b: b, _mesh(data=2), **kw)
-  with pytest.raises(NotImplementedError, match="item 10"):
-    sharding.make_train_step(lambda m, b: b, None, **kw)
 
 
 def test_shard_batch_takes_this_ranks_rows():
@@ -325,5 +311,18 @@ def test_shard_batch_takes_this_ranks_rows():
     sharding.shard_batch(np.zeros((7, 3)), _mesh(data=2))
   with pytest.raises(ValueError, match="3 rows does not divide"):
     sharding.shard_slab(np.zeros((2, 3, 4)), _mesh(data=2))
-  with pytest.raises(NotImplementedError, match="item 10"):
-    sharding.shard_batch(batch, _mesh(data=2), extra_axes=("sequence",))
+  # sequence: rank r of (data 2 x sequence 2) keeps rows r // 2 and
+  # positions r % 2
+  seq = np.arange(4 * 6).reshape(4, 6)
+  for rank in range(4):
+    mesh = mesh_lib.Mesh(mesh_lib.CANONICAL_ORDER, dict(
+        {a: 1 for a in mesh_lib.CANONICAL_ORDER}, data=2, sequence=2), rank,
+        _Group(4, rank))
+    r, c = rank // 2, rank % 2
+    got = sharding.shard_batch(seq, mesh, extra_axes=("sequence",))
+    assert np.array_equal(got, seq[2 * r:2 * r + 2, 3 * c:3 * c + 3])
+    got = sharding.shard_slab(np.stack([seq, -seq]), mesh, ("sequence",))
+    assert np.array_equal(got[1], -seq[2 * r:2 * r + 2, 3 * c:3 * c + 3])
+  with pytest.raises(ValueError, match="5 positions does not divide"):
+    sharding.shard_batch(np.zeros((2, 5)), _mesh(sequence=2),
+                         extra_axes=("sequence",))

@@ -265,7 +265,8 @@ def test_slab_batches_keep_the_per_step_batch_order(monkeypatch):
 
 
 def test_unported_training_options_raise():
-  """Data and model parallelism still name item 10; ``exit_layer`` (the
+  """A mesh of another type and the pipeline axis name item 10c; extra
+  batch axes without a mesh are refused; ``exit_layer`` (the
   shallow-exit forward) now runs on a training model: one block's
   logits, held against the JAX model's on the same weights."""
   cfg = tfm.TransformerConfig(dtype=torch.float32, **STEP_CFG)
@@ -280,9 +281,14 @@ def test_unported_training_options_raise():
       jnp.asarray(tokens, jnp.int32), exit_layer=1)
   np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                              atol=1e-4, rtol=1e-4)
-  with pytest.raises(NotImplementedError, match="item 10"):
+  from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
+  with pytest.raises(NotImplementedError, match="item 10c"):
     sharding.make_train_step(_lm_loss, mesh=object())
-  with pytest.raises(NotImplementedError, match="item 10"):
+  pipe = mesh_lib.Mesh(mesh_lib.CANONICAL_ORDER, dict(
+      {a: 1 for a in mesh_lib.CANONICAL_ORDER}, pipeline=2), 0)
+  with pytest.raises(NotImplementedError, match="item 10c"):
+    sharding.make_train_loop(_lm_loss, pipe, unroll=2)
+  with pytest.raises(ValueError, match="without one"):
     sharding.make_train_loop(_lm_loss, batch_extra_axes=("sequence",))
 
 

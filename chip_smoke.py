@@ -85,7 +85,7 @@ failure:
    ``nvidia-smi`` counts must fail before the fn runs, naming the count;
    the engine-start, reservation and shutdown seconds and the ms/step
    beside 6d's are logged; (6k) 6d's configuration checkpointed and
-   resumed: the driver trains it 6 steps from 6d's files through
+   resumed: the driver trains it 5 steps from 6d's files through
    ``checkpointable_input`` and ``device_prefetch``, then
    ``cluster.run(LocalEngine(1, env={"TOS_CHAOS_KILL": "train-step@0#3"}),
    ..., InputMode.FILES, max_restarts=1)`` runs the same steps in an
@@ -93,7 +93,7 @@ failure:
    the input position of the batch the step consumed), is SIGKILLed by
    the kill point after step 2 is durable, is relaunched by the
    supervisor, resumes at step 3 and exports its weights with
-   ``ctx.export_model``: exactly one restart, the 6 losses equal to the
+   ``ctx.export_model``: exactly one restart, the 5 losses equal to the
    driver's to the bit, the export's ``params_fingerprint`` equal to the
    driver's final weights', 6d's launch counts in every step; the bytes
    of one checkpoint, the save, restore and kill-to-resume seconds and
@@ -245,7 +245,27 @@ failure:
    rank's weights and optimizer state exactly half one process's but the
    whole LayerNorm scales; each rank's ms a step, device-busy ms, peak
    memory and collectives a step (``collectives.COUNTS``), labelled: gloo
-   over the host, ranks sharing one card;
+   over the host, ranks sharing one card. The ranks are spawned before the
+   one-process runs and pay their imports and the device tracer's start
+   while they wait; a rank's profiled step records the device alone;
+   (6t) the pipeline and expert axes, as more jobs of 6s's rank groups,
+   each against one process on the same batches and weights (full width,
+   bf16): (a) ``train_gpt --pp 2 --microbatches 4`` (12 layers, B16) and
+   (b) MoE layers (8 experts, top-2, every 2nd layer; B8, 12 layers) on
+   ``MeshSpec(expert=2)`` through ``create_sharded_state`` +
+   ``make_train_step`` on 2 ranks; (c) ``--pp 2 --dp 2 --microbatches 4
+   --fused --kv_heads 4 --layers 4`` and (d) MoE on ``MeshSpec(expert=4)``
+   with the all-to-all dispatch at capacity factor 4.0 (E/k: nothing may
+   drop), 2 layers, B8, on 4 ranks; 6s's gates, with launch counts per
+   pipeline stage, the embedding on stage 0 alone and the loss on the last
+   stage alone, the permutes and all-to-alls a step, and (b)/(d) a rank's
+   expert weights and moments a half / a quarter of one process's; the
+   MoE cases hold their first f32 step's update at 6s's 1e-4 and the
+   3-step update within 1e-5 (past the first step, a top-2 choice at a
+   near-tie may fall the other way in one process than on the ranks). (e)
+   one process: (b)'s model in f32 decodes 4 prompts x 16 tokens with
+   ``greedy_generate_kv``, exact launches, each token the argmax of the
+   non-cached forward (near-ties aside);
    (6m) the pipeline layer on one ``LocalEngine(num_executors=2)`` whose
    executors share the card: (a) ``TFEstimator.fit`` (InputMode.SPARK)
    feeds 4 partitions of 24 seeded token rows; each node trains the
@@ -391,7 +411,8 @@ line.
 
 ``python3 chip_smoke.py --spmd-only`` runs phases 1, 2 and 6s alone (6d's
 TFRecord files are written first; the ranks load the built kernels) and
-prints its measurements as one JSON line.
+prints its measurements as one JSON line; ``--pp-ep-only`` runs phases 1,
+2 and 6t alone the same way.
 
 ``python3 chip_smoke.py --serving-ab OTHER_CHECKOUT N`` runs phases 1 and 2,
 then phase 4 for the package of the checkout at OTHER_CHECKOUT (copied
@@ -557,12 +578,20 @@ def sass_counts(_build):
   """HGMMA / HMMA / FFMA instructions in each tensor-core kernel's SASS
   (``cuobjdump -sass`` of the built library), one line per
   instantiation. Fails if one has no HGMMA: their products must run on
-  wgmma."""
-  out = {}
-  for lib in sorted({k[0] for k in TENSOR_CORE_KERNELS}):
-    text = subprocess.run(
+  wgmma. The libraries are disassembled side by side (one ``cuobjdump``
+  process each)."""
+  from concurrent.futures import ThreadPoolExecutor
+  libs = sorted({k[0] for k in TENSOR_CORE_KERNELS})
+
+  def disassemble(lib):
+    return subprocess.run(
         [_cuobjdump(), "-sass", str(_build.library_path(lib))],
         capture_output=True, text=True, timeout=300, check=True).stdout
+
+  with ThreadPoolExecutor(len(libs)) as pool:
+    texts = list(pool.map(disassemble, libs))
+  out = {}
+  for lib, text in zip(libs, texts):
     func = None
     for line in text.splitlines():
       if "Function :" in line:
@@ -1733,19 +1762,24 @@ def _per_step_launches(launches, steps, want, what):
   return per
 
 
-def _profile_step(torch, step, state, batch):
+def _profile_step(torch, step, state, batch, cuda_only=False):
   """One optimizer step under torch.profiler, unlogged: (state, loss, its
   wall and device-busy ms, the top kernels, every port kernel's device
-  ms)."""
+  ms). ``cuda_only`` records the device's activity alone: the kernels'
+  times are the same, and the trace holds no host op to process (seconds
+  a step of a rank's host time otherwise)."""
   from torch.profiler import ProfilerActivity, profile
   torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
+  activities = [ProfilerActivity.CUDA] if cuda_only else [
+      ProfilerActivity.CPU, ProfilerActivity.CUDA]
+  with profile(activities=activities) as prof:
     t0 = time.monotonic()
     state, loss = step(state, batch)
     torch.cuda.synchronize()
     wall_ms = (time.monotonic() - t0) * 1e3
   rows = _kernel_rows(torch, prof)
+  if not rows:
+    raise AssertionError("the profiled step shows no device kernel")
   busy = sum(r[1] for r in rows)
   nccl = [r for r in rows if "nccl" in r[0].lower()]
   res = {"wall_ms": wall_ms, "device_busy_ms": busy,
@@ -2150,7 +2184,7 @@ def cluster_long_gqa(torch, pattern, long_res=None):
 
 # -- phase 6k: [6d] checkpointed, killed and resumed under cluster.run -------
 
-CKPT_STEPS = 6
+CKPT_STEPS = 5
 CKPT_KILL = "train-step@0#3"          # executor 0, after step 2 is durable
 CKPT_SCHEMA = "struct<tokens:array<long>>"
 
@@ -5677,13 +5711,66 @@ WANT_ONE_SMALL = dict(WANT_PER_STEP, flash_attention_fwd=4,
 # one-process run a step); (a) reads [6d]'s TFRecords
 SPMD_CASES = (
     ("a_sp2_long", 2, ["--sp", "2"], LONG_ARGS, "split", WANT_SPMD_LONG,
-     WANT_LONG_PER_STEP),
+     WANT_LONG_PER_STEP, None),
     ("b_tp2_fused", 2, ["--tp", "2"], DP_ARGS + ["--fused"], "fused",
-     WANT_FUSED_PER_STEP, WANT_FUSED_PER_STEP),
+     WANT_FUSED_PER_STEP, WANT_FUSED_PER_STEP, None),
     ("c_fsdp2", 2, ["--fsdp", "2"], DP_ARGS, "fused", WANT_PER_STEP,
-     WANT_PER_STEP),
+     WANT_PER_STEP, None),
     ("d_sp2_tp2", 4, ["--sp", "2", "--tp", "2"], DP_ARGS + ["--layers", "2"],
-     "fused", WANT_SPMD_SMALL, WANT_ONE_SMALL))
+     "fused", WANT_SPMD_SMALL, WANT_ONE_SMALL, None))
+# -- [6t]: the pipeline and expert axes, as more jobs of the same groups
+PPEP_MICRO = 4
+PPEP_MOE = {"moe_experts": 8, "moe_top_k": 2, "moe_every": 2}
+# (d): capacity factor E / k, so an expert's capacity is the whole slice
+PPEP_A2A = dict(PPEP_MOE, moe_capacity_factor=4.0)
+MOE_ARGS = ["--layers", "12", "--d_model", "768", "--heads", "12", "--vocab",
+            "32000", "--seq_len", str(TRAIN_S), "--batch", "8"]
+PP_FUSED_ARGS = DP_ARGS + ["--fused", "--kv_heads", "4", "--layers", "4"]
+
+
+def _pp_stage_want(base, layers, stages, micro, last_ln):
+  """Launches a pipeline stage makes a step: per microbatch its forward
+  slot (no grad), its backward slot's forward under remat and the
+  recompute (so a block's forward kernels 3 times) and the backward's
+  kernels once, for its ``layers / stages`` blocks; the last stage adds
+  ``ln_f``'s forward and backward (``last_ln``) per microbatch. ``base``:
+  one block's forward and backward kernels."""
+  k = layers // stages
+  per = {n: micro * k * (3 * v if n in _FWD_KERNELS else v)
+         for n, v in base.items()}
+  last = dict(per, layer_norm=per["layer_norm"] + micro * last_ln,
+              layer_norm_bwd=per["layer_norm_bwd"] + micro * last_ln)
+  return tuple([per] * (stages - 1) + [last])
+
+
+_FWD_KERNELS = ("flash_attention_fwd", "layer_norm", "ln_matmul",
+                "gelu_matmul")
+# one block, forward kernels once and backward kernels once
+_BLOCK = dict({n: 0 for n in WANT_PER_STEP}, flash_attention_fwd=1,
+              flash_attention_bwd=1, layer_norm=2, layer_norm_bwd=2)
+_BLOCK_FUSED_GQA = dict({n: 0 for n in WANT_PER_STEP}, flash_attention_fwd=1,
+                        flash_attention_bwd_gqa=1, ln_matmul=2,
+                        gelu_matmul=1)
+WANT_PP_A = _pp_stage_want(_BLOCK, 12, 2, PPEP_MICRO, 1)
+WANT_PP_C = _pp_stage_want(_BLOCK_FUSED_GQA, 4, 2, PPEP_MICRO, 1)
+WANT_ONE_C = dict(WANT_FUSED_PER_STEP, flash_attention_fwd=8,
+                  flash_attention_bwd=0, flash_attention_bwd_gqa=4,
+                  ln_matmul=16, gelu_matmul=8)
+# (name, ranks, mesh flags, model flags (the one-process run's), the
+# flash backward plan, launches a rank a step (a tuple: by pipeline
+# stage), launches of the one-process run a step, MoE (config fields,
+# expert degree) or None)
+PPEP_CASES = (
+    ("t_a_pp2", 2, ["--pp", "2", "--microbatches", str(PPEP_MICRO)],
+     DP_ARGS, "fused", WANT_PP_A, WANT_PER_STEP, None),
+    ("t_b_moe_e2", 2, [], MOE_ARGS, "fused", WANT_PER_STEP, WANT_PER_STEP,
+     (PPEP_MOE, 2)),
+    ("t_c_pp2_dp2_fused", 4, ["--pp", "2", "--dp", "2", "--microbatches",
+                              str(PPEP_MICRO)], PP_FUSED_ARGS, "fused",
+     WANT_PP_C, WANT_ONE_C, None),
+    ("t_d_moe_e4_a2a", 4, [], MOE_ARGS + ["--layers", "2"], "fused",
+     WANT_ONE_SMALL, WANT_ONE_SMALL, (PPEP_A2A, 4)))
+PPEP_DECODE_PROMPTS, PPEP_DECODE_LEN, PPEP_DECODE_NEW = 4, 128, 16
 # the ring's block cases for the kernel rows: queries of rank 1 (q_base
 # 8192) against rank 0's keys (past) and its own (diagonal), and rank 0
 # against rank 1's (future: every row masked)
@@ -5698,12 +5785,16 @@ TP_FUSED_CASES = (("ln_matmul", "qkv_tp2", 16384, 768, 1152, "bfloat16"),
                   ("gelu_matmul", "down_tp2", 16384, 1536, 768, "bfloat16"))
 
 
-def _first_grads(torch, state, loss_fn, batch, mesh):
+def _first_grads(torch, state, loss_fn, batch, mesh, pipe=None):
   """The whole gradients of the global batch's loss at ``state`` (the
-  step's own sync over the mesh, then each block gathered), as f32 numpy
-  arrays by parameter name."""
+  step's own sync over the mesh, then each block gathered; with ``pipe``,
+  a 1F1B step's gradients of every stage), as f32 numpy arrays by
+  parameter name."""
   from tensorflowonspark_tpu_torch.parallel import sharding
   params = state.params
+  if pipe is not None:
+    _, grads = pipe(params, batch)
+    return {n: g.float().cpu().numpy() for n, g in grads.items()}
   device = next(state.model.parameters()).device
   loss = loss_fn(state.model, torch.as_tensor(batch).to(device))
   grads = torch.autograd.grad(loss, list(params.values()))
@@ -5716,62 +5807,130 @@ def _first_grads(torch, state, loss_fn, batch, mesh):
   return state.model.unpermute_params(out)
 
 
-def spmd_train(torch, argv, f32=False, profile=False, weights=False):
+def _mesh_and_config(torch, train_gpt, args, moe):
+  """``train_gpt``'s mesh and config at ``args``; with ``moe`` (MoE
+  config fields, expert degree), its config with MoE layers on a mesh of
+  ``expert`` over the process group (``train_gpt`` has no MoE flag, as
+  the reference's has none)."""
+  import torch.distributed as dist
+  from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
+  cfg = train_gpt.make_config(args)
+  if moe is None:
+    return train_gpt.make_mesh(args), cfg
+  mesh = mesh_lib.build_mesh(mesh_lib.MeshSpec(data=1, expert=moe[1])) \
+      if dist.is_initialized() else None
+  return mesh, dataclasses.replace(cfg, **moe[0])
+
+
+class _EdgeCalls(object):
+  """Calls of the embedding lookup (``TiedEmbed.forward`` on a real
+  tensor; the pipeline's shape probe runs on the meta device) and of the
+  LM loss in this process while it is entered: where a pipeline's edge
+  work runs."""
+
+  def __init__(self, tfm):
+    self.tfm, self.counts = tfm, {"embed": 0, "loss": 0}
+
+  def __enter__(self):
+    tfm, counts = self.tfm, self.counts
+    self._embed, self._loss = tfm.TiedEmbed.forward, tfm.causal_lm_loss
+    embed, loss = self._embed, self._loss
+
+    def counted_embed(module, tokens):
+      if tokens.device.type != "meta":
+        counts["embed"] += 1
+      return embed(module, tokens)
+
+    def counted_loss(*a, **kw):
+      counts["loss"] += 1
+      return loss(*a, **kw)
+
+    tfm.TiedEmbed.forward, tfm.causal_lm_loss = counted_embed, counted_loss
+    return self
+
+  def __exit__(self, *exc):
+    self.tfm.TiedEmbed.forward = self._embed
+    self.tfm.causal_lm_loss = self._loss
+
+
+def spmd_train(torch, argv, f32=False, profile=False, weights=False,
+               moe=None, in_rank=False):
   """``train_gpt``'s pieces at ``argv`` over the process group's mesh (or
   one process outside a group): SPMD_STEPS steps on the stream's first
-  batches, each rank's block of them, with launches, collectives and ms
-  a step; the last step profiled with ``profile``; the config made f32
-  with ``f32``. Returns (record, None or, with ``weights``, the first
-  step's whole gradients, the whole weights before the first step (one
-  process only, else None) and the gathered weights after the last)."""
+  batches, each rank's block of them (with ``--pp``, the global batches
+  through ``train_gpt.make_pp_step``), with launches, collectives, the
+  embedding and loss calls and ms a step; the last step profiled with
+  ``profile`` (the device's activity alone ``in_rank``); the config made
+  f32 with ``f32``; MoE layers over the expert axis with ``moe``
+  (:func:`_mesh_and_config`). Returns (record, None or, with
+  ``weights``, the first step's whole gradients, the whole weights before
+  the first step (one process only, else None), the gathered weights
+  after the last and, with ``moe``, after the first)."""
   import itertools
   import numpy as np
   from tensorflowonspark_tpu_torch import ops
   from tensorflowonspark_tpu_torch.examples import train_gpt
+  from tensorflowonspark_tpu_torch.models import transformer as tfm
   from tensorflowonspark_tpu_torch.parallel import collectives, sharding
   t_enter = time.monotonic()
   args = train_gpt.parse_args(argv)
-  mesh = train_gpt.make_mesh(args)
-  cfg = train_gpt.make_config(args)
+  mesh, cfg = _mesh_and_config(torch, train_gpt, args, moe)
   if f32:
     cfg = dataclasses.replace(cfg, dtype=torch.float32)
   state = train_gpt.make_state(args, cfg, mesh)
-  extra = train_gpt.SEQUENCE_AXES if mesh is not None else ()
-  step = sharding.make_train_step(train_gpt.make_loss_fn(args), mesh,
-                                  state.sharding, batch_extra_axes=extra)
+  pp = args.pp > 1
+  extra = train_gpt.SEQUENCE_AXES if mesh is not None and not pp else ()
+  if pp:
+    step = train_gpt.make_pp_step(args, cfg, mesh)
+  else:
+    step = sharding.make_train_step(train_gpt.make_loss_fn(args), mesh,
+                                    state.sharding, batch_extra_axes=extra)
   batches = [np.asarray(b, "int32") for b in
              itertools.islice(train_gpt.batch_stream(args), args.steps)]
-  if mesh is not None:
+  if mesh is not None and not pp:
     batches = [sharding.shard_batch(b, mesh, extra) for b in batches]
+  device = next(state.model.parameters()).device
+  batches = [torch.as_tensor(b).to(device) for b in batches]
+  pipe = tfm.make_pipeline_train_step(cfg, mesh, args.microbatches) \
+      if pp else None
   grads = _first_grads(torch, state, train_gpt.make_loss_fn(args),
-                       batches[0], mesh) if weights else None
+                       batches[0], mesh, pipe) if weights else None
   w0 = sharding.gather_state_params(state) if weights and mesh is None \
       else None
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   rec = {"losses": [], "launches_per_step": [], "step_ms": [],
-         "collectives_per_step": [], "profile": None,
-         "setup_s": time.monotonic() - t_enter}
+         "collectives_per_step": [], "edge_calls_per_step": [],
+         "profile": None, "setup_s": time.monotonic() - t_enter}
   for i, batch in enumerate(batches):
     before = dict(ops.LAUNCHES)
     collectives.reset_counts()
     t0 = time.monotonic()
-    if profile and i == len(batches) - 1:
-      state, loss, rec["profile"] = _profile_step(torch, step, state, batch)
-    else:
-      state, loss = step(state, batch)
+    with _EdgeCalls(tfm) as edges:
+      if profile and i == len(batches) - 1:
+        state, loss, rec["profile"] = _profile_step(torch, step, state,
+                                                    batch, in_rank)
+      else:
+        state, loss = step(state, batch)
     rec["losses"].append(float(loss))
     rec["step_ms"].append((time.monotonic() - t0) * 1e3)
     rec["launches_per_step"].append({k: ops.LAUNCHES[k] - before[k]
                                      for k in before})
     rec["collectives_per_step"].append(dict(collectives.COUNTS))
+    rec["edge_calls_per_step"].append(dict(edges.counts))
+    if weights and moe is not None and i == 0:
+      first = sharding.gather_state_params(state)
+  if moe is not None:
+    rec["moe_dropped"] = [int(b.moe.dropped) for b in state.model.layers
+                          if b.use_moe and b.moe.dropped is not None]
   rec.update(rank=mesh.rank if mesh is not None else 0,
+             stage=mesh.coord("pipeline") if mesh is not None else 0,
              mesh=dict(mesh.shape) if mesh is not None else None,
              peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
              param_bytes=state_bytes(state.params),
              opt_bytes=state_bytes(state.opt_state))
-  got = (grads, w0, sharding.gather_state_params(state)) if weights \
-      else None
+  got = (grads, w0, sharding.gather_state_params(state),
+         first if moe is not None else {}) if weights else None
   del state
   torch.cuda.empty_cache()
   rec["run_s"] = time.monotonic() - t_enter
@@ -5786,12 +5945,77 @@ def _spmd_argv(base, pattern):
 SPMD_GROUP_S = 900                  # a group's limit, from its start
 
 
+@contextlib.contextmanager
+def _weight_memo(drawn=()):
+  """``utils.params.init_params`` drawn once per seed and widths in this
+  process while inside: the seeded draw fills the parameters in order
+  (the embedding, then layer by layer), so a model of fewer layers takes
+  the first layers of a deeper draw of the same widths, to the bit (the
+  f32 runs' 2 layers from the bf16 runs' 12). Models take their weights
+  from it through ``create_state`` / ``create_sharded_state``. ``drawn``:
+  ``(cfg, seed, weights)`` already drawn in this process."""
+  from tensorflowonspark_tpu_torch.utils import params as params_mod
+  draw, store = params_mod.init_params, {}
+
+  def key_of(cfg, seed):
+    return (cfg.vocab_size, cfg.d_model, cfg.num_heads, cfg.kv_heads,
+            cfg.d_ff, cfg.fuse_qkv, cfg.moe_experts,
+            cfg.moe_every if cfg.moe_experts else 0, int(seed))
+
+  for cfg, seed, weights in drawn:
+    store[key_of(cfg, seed)] = (cfg.num_layers, weights)
+
+  def init_params(cfg, seed):
+    key = key_of(cfg, seed)
+    have = store.get(key)
+    if have is None or have[0] < cfg.num_layers:
+      have = store[key] = (cfg.num_layers, draw(cfg, seed))
+    return {n: v for n, v in have[1].items()
+            if not n.startswith("layers.")
+            or int(n.split(".")[1]) < cfg.num_layers}
+
+  params_mod.init_params = init_params
+  try:
+    yield
+  finally:
+    params_mod.init_params = draw
+
+
+def _job_weights(job):
+  """Draw a job's seeded weights (through the weight memo, which keeps
+  them for the job's runs)."""
+  from tensorflowonspark_tpu_torch.examples import train_gpt
+  from tensorflowonspark_tpu_torch.utils import params as params_mod
+  cfg = train_gpt.make_config(train_gpt.parse_args(job["argv"]))
+  if job.get("moe") is not None:
+    cfg = dataclasses.replace(cfg, **job["moe"][0])
+  params_mod.init_params(cfg, 0)
+
+
+def _rank_warm_up(torch):
+  """What a fresh process's first step and first profiler session pay
+  for once, paid while the rank waits for its group: the ``torch._dynamo``
+  imports of ``torch.utils.checkpoint`` and ``torch.profiler``, and the
+  device tracer's start."""
+  from torch.profiler import ProfilerActivity, profile
+  from torch.utils.checkpoint import checkpoint
+  import warnings
+  x = torch.ones(8, device="cuda", requires_grad=True)
+  with warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      checkpoint(torch.sin, x, use_reentrant=False).sum().backward()
+      torch.cuda.synchronize()
+    prof.key_averages()
+
+
 def spmd_rank_main(rank, world, go, jobs, out):
   """One rank of a ``world``-rank gloo group on card 0: started ahead,
-  it imports and makes its CUDA context, then waits for the file ``go``
-  (the group's port) before it joins the group; then each job's bf16 run
-  (its last step profiled) and its f32 run at SPMD_F32_FLAGS; the records
-  to ``out % rank`` (JSON) and the f32 run's first gradients and final
+  it imports, makes its CUDA context, warms up (:func:`_rank_warm_up`)
+  and draws its jobs' seeded weights, then waits for the file ``go`` (the
+  group's port) before it joins the group; then each job's bf16 run (its
+  last step profiled) and its f32 run at SPMD_F32_FLAGS; the records to
+  ``out % rank`` (JSON) and the f32 run's first gradients and final
   gathered weights to ``<out % rank>.<job>.npz``."""
   import datetime
   import numpy as np
@@ -5799,32 +6023,40 @@ def spmd_rank_main(rank, world, go, jobs, out):
   import torch.distributed as dist
   torch.cuda.set_device(0)
   _no_tf32(torch)
-  torch.zeros(1, device="cuda")
-  deadline = time.monotonic() + SPMD_GROUP_S
-  while not os.path.exists(go):
-    if time.monotonic() > deadline:
-      raise RuntimeError("[6s] rank %d of %d: no start after %d s"
-                         % (rank, world, SPMD_GROUP_S))
-    time.sleep(0.05)
-  with open(go) as f:
-    port = int(f.read())
-  dist.init_process_group("gloo", init_method="tcp://localhost:%d" % port,
-                          rank=rank, world_size=world,
-                          timeout=datetime.timedelta(seconds=600))
-  res = {}
-  try:
+  with _weight_memo():
+    t0 = time.monotonic()
+    _rank_warm_up(torch)
     for job in jobs:
-      with flash_bwd_env(job["bwd"]):
-        res[job["name"]], _ = spmd_train(torch, job["argv"], profile=True)
-        res[job["name"] + "_f32"], got = spmd_train(
-            torch, job["argv"] + SPMD_F32_FLAGS, f32=True, weights=True)
-      if rank == 0:
-        np.savez((out % rank) + "." + job["name"] + ".npz",
-                 **{"grad/" + k: v for k, v in got[0].items()},
-                 **{"weight/" + k: v for k, v in got[2].items()})
-      res[job["name"]]["card"] = torch.cuda.get_device_name()
-  finally:
-    dist.destroy_process_group()
+      _job_weights(job)
+    res = {"warm_s": time.monotonic() - t0}
+    deadline = time.monotonic() + SPMD_GROUP_S
+    while not os.path.exists(go):
+      if time.monotonic() > deadline:
+        raise RuntimeError("[6s] rank %d of %d: no start after %d s"
+                           % (rank, world, SPMD_GROUP_S))
+      time.sleep(0.05)
+    with open(go) as f:
+      port = int(f.read())
+    dist.init_process_group("gloo", init_method="tcp://localhost:%d" % port,
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+      for job in jobs:
+        moe = job.get("moe")
+        with flash_bwd_env(job["bwd"]):
+          res[job["name"]], _ = spmd_train(torch, job["argv"], profile=True,
+                                           moe=moe, in_rank=True)
+          res[job["name"] + "_f32"], got = spmd_train(
+              torch, job["argv"] + SPMD_F32_FLAGS, f32=True, weights=True,
+              moe=moe, in_rank=True)
+        if rank == 0:
+          np.savez((out % rank) + "." + job["name"] + ".npz",
+                   **{"grad/" + k: v for k, v in got[0].items()},
+                   **{"weight/" + k: v for k, v in got[2].items()},
+                   **{"first/" + k: v for k, v in got[3].items()})
+        res[job["name"]]["card"] = torch.cuda.get_device_name()
+    finally:
+      dist.destroy_process_group()
   with open(out % rank, "w") as f:
     json.dump(res, f)
 
@@ -5886,17 +6118,84 @@ def _spmd_go(group):
     saved = np.load((out % 0) + "." + job["name"] + ".npz")
     weights[job["name"]] = tuple(
         {k.split("/", 1)[1]: saved[k] for k in saved.files
-         if k.startswith(tag)} for tag in ("grad/", "weight/"))
+         if k.startswith(tag)} for tag in ("grad/", "weight/", "first/"))
   return ranks, weights, seconds
 
 
-def _spmd_gates(name, ranks, want, one, one32, w_ranks, w_one, ln_bytes):
-  """[6s]'s gates for one case; its summary."""
+def _case_gates(case, ranks):
+  """[6t]'s gates of a case beyond [6s]'s, on each rank's bf16 run: where
+  the embedding and the loss run (a pipeline's stage 0 embeds each
+  microbatch twice, its last stage takes the loss once a microbatch, no
+  other stage either), the permutes a pipeline step makes (two a global
+  step, ``n_micro + 2S - 1`` global steps) and the all-to-alls and
+  dropped assignments of the MoE all-to-all dispatch."""
+  name, _, flags = case[:3]
+  moe = case[7]
+  if "--pp" in flags:
+    stages = int(flags[flags.index("--pp") + 1])
+    micro = int(flags[flags.index("--microbatches") + 1])
+    for r in ranks:
+      rec = r[name]
+      want = {"embed": 2 * micro if rec["stage"] == 0 else 0,
+              "loss": micro if rec["stage"] == stages - 1 else 0}
+      for i, got in enumerate(rec["edge_calls_per_step"]):
+        if got != want:
+          raise AssertionError("[6t] %s rank %d (stage %d) step %d: "
+                               "embedding and loss calls %s, want %s"
+                               % (name, rec["rank"], rec["stage"], i, got,
+                                  want))
+      for i, got in enumerate(rec["collectives_per_step"]):
+        if got["ring_permute"] != 2 * (micro + 2 * stages - 1):
+          raise AssertionError("[6t] %s rank %d step %d: %d permutes, want "
+                               "%d" % (name, rec["rank"], i,
+                                       got["ring_permute"],
+                                       2 * (micro + 2 * stages - 1)))
+  if moe is not None and moe[0].get("moe_capacity_factor"):
+    for r in ranks:
+      rec = r[name]
+      if any(rec["moe_dropped"]):
+        raise AssertionError("[6t] %s rank %d: %s assignments dropped at "
+                             "capacity factor E/k" % (name, rec["rank"],
+                                                      rec["moe_dropped"]))
+      for i, got in enumerate(rec["collectives_per_step"]):
+        # each MoE layer: 2 all-to-alls forward, again in the remat
+        # recompute, and their 2 conjugates in the backward
+        layers = sum(1 for b in range(int(_flag(case[3], "--layers")))
+                     if b % moe[0]["moe_every"] == moe[0]["moe_every"] - 1)
+        if got["all_to_all"] != 6 * layers:
+          raise AssertionError("[6t] %s rank %d step %d: %d all-to-alls, "
+                               "want %d" % (name, rec["rank"], i,
+                                            got["all_to_all"], 6 * layers))
+
+
+def _flag(argv, flag):
+  """The last value ``flag`` takes in ``argv`` (argparse's rule)."""
+  return [argv[i + 1] for i, a in enumerate(argv) if a == flag][-1]
+
+
+def _expert_bytes(case):
+  """Bytes of a MoE case's expert weights (f32) in one process."""
+  moe, argv = case[7][0], case[3]
+  layers = int(_flag(argv, "--layers"))
+  d = int(_flag(argv, "--d_model"))
+  n = sum(1 for b in range(layers)
+          if b % moe["moe_every"] == moe["moe_every"] - 1)
+  return n * 2 * moe["moe_experts"] * d * 4 * d * 4
+
+
+def _spmd_gates(case, ranks, one, one32, w_ranks, w_one):
+  """[6s]'s gates for one case ([6t]'s too, :func:`_case_gates`); its
+  summary."""
   import numpy as np
+  name, _, flags, base, _, want, _, moe = case
+  tag = "[6t]" if name.startswith("t_") else "[6s]"
   for rank in ranks:
+    stage_want = want[rank[name]["stage"]] if isinstance(want, tuple) \
+        else want
     for i, got in enumerate(rank[name]["launches_per_step"]):
-      _per_step_launches(got, 1, want, "[6s] %s rank %d step %d"
-                         % (name, rank[name]["rank"], i))
+      _per_step_launches(got, 1, stage_want, "%s %s rank %d step %d"
+                         % (tag, name, rank[name]["rank"], i))
+  _case_gates(case, ranks)
   for key in (name, name + "_f32"):
     losses = {tuple(r[key]["losses"]) for r in ranks}
     if len(losses) != 1:
@@ -5912,13 +6211,15 @@ def _spmd_gates(name, ranks, want, one, one32, w_ranks, w_one, ln_bytes):
     raise AssertionError("[6s] %s f32: ranks %s against one process %s: "
                          "%.3g relative" % (name, ranks[0][name + "_f32"][
                              "losses"], one32["losses"], rel32))
-  g_ranks, w_ranks = w_ranks
-  g_one, w0, w_one = w_one
+  g_ranks, w_ranks, w1_ranks = w_ranks
+  g_one, w0, w_one, w1_one = w_one
   worst, worst_g, worst_u, share, u_sizes = 0.0, 0.0, 0.0, 0.0, []
+  over_u, grad_rels, moe_gap3 = [], {}, 0.0
   for k, want_g in g_one.items():
     grel = float(np.abs(g_ranks[k] - want_g).max()) / max(
         float(np.abs(want_g).max()), 1e-30)
     worst_g = max(worst_g, grel)
+    grad_rels[k] = grel
     if grel > SPMD_GRAD_REL:
       raise AssertionError("[6s] %s f32: the first step's gradient of %s is "
                            "off by %.3g of its largest |g| (limit %g)"
@@ -5931,8 +6232,21 @@ def _spmd_gates(name, ranks, want, one, one32, w_ranks, w_one, ln_bytes):
       raise AssertionError("[6s] %s f32: gathered %s off by %.3g"
                            % (name, k, float(diff.max())))
     # the update itself: a rank that skipped a step or clipped by another
-    # norm moves its weights otherwise, however small the steps are
+    # norm moves its weights otherwise, however small the steps are. With
+    # MoE layers, the steps after the first route at weights that differ
+    # in their last bits, where a top-2 choice at a near-tie may fall the
+    # other way in one process than on the ranks: the first step's update
+    # (both route at equal weights) is held so, and the 3-step update
+    # within SPMD_F32_TOL of the one process's
     up_one, up_ranks = want_w - w0[k], w_ranks[k] - w0[k]
+    if moe is not None:
+      gap3 = float(np.abs(up_ranks - up_one).max())
+      moe_gap3 = max(moe_gap3, gap3)
+      if gap3 > SPMD_F32_TOL:
+        over_u.append("%s's 3-step update by %.3g (limit %g)"
+                      % (k, gap3, SPMD_F32_TOL))
+      want_w, up_one, up_ranks = w1_one[k], w1_one[k] - w0[k], \
+          w1_ranks[k] - w0[k]
     size = float(np.abs(up_one).max())
     gap = np.abs(up_ranks - up_one)
     limit = SPMD_UPDATE_REL * size + 4 * np.spacing(
@@ -5941,22 +6255,45 @@ def _spmd_gates(name, ranks, want, one, one32, w_ranks, w_one, ln_bytes):
     worst_u = max(worst_u, float(gap.max()) / max(size, 1e-30))
     share = max(share, float((gap / limit).max()))
     if (gap > limit).any():
-      raise AssertionError("[6s] %s f32: the update of %s differs by %.3g "
-                           "of its largest |update| %.3g (limit %g and 4 "
-                           "ulp of the weight)" % (name, k, float(gap.max())
-                                                   / max(size, 1e-30), size,
-                                                   SPMD_UPDATE_REL))
+      at = np.unravel_index(int(np.argmax(gap / limit)), gap.shape)
+      over_u.append("%s by %.3g of its largest |update| %.3g at %s (%d "
+                    "entries over; weight %.6g, update %.3g against %.3g)"
+                    % (k, float(gap.max()) / max(size, 1e-30), size,
+                       tuple(int(i) for i in at), int((gap > limit).sum()),
+                       float(want_w[at]), float(up_ranks[at]),
+                       float(up_one[at])))
+  if over_u:
+    raise AssertionError("%s %s f32: the updates differ (limit %g of the "
+                         "largest and 4 ulp of the weight): %s"
+                         % (tag, name, SPMD_UPDATE_REL, "; ".join(over_u)))
   mine = ranks[0][name]["param_bytes"] + ranks[0][name]["opt_bytes"]
   whole = one["param_bytes"] + one["opt_bytes"]
+  ln_bytes = (2 * int(_flag(base, "--layers")) + 1) * int(
+      _flag(base, "--d_model")) * 4
   if name == "c_fsdp2" and 2 * mine - whole != 3 * ln_bytes:
     raise AssertionError("[6s] %s: a rank holds %d bytes of weights and "
                          "optimizer state, one process %d: not half, give or "
                          "take the %d bytes of whole LayerNorm scales and "
                          "their two moments" % (name, mine, whole, ln_bytes))
+  if "--pp" in flags and mine != whole:
+    raise AssertionError("[6t] %s: a stage holds %d bytes of weights and "
+                         "optimizer state, one process %d: not the whole "
+                         "state" % (name, mine, whole))
+  if moe is not None:
+    # the experts and their two moments are cut over the expert axis
+    cut = 3 * _expert_bytes(case) * (moe[1] - 1) // moe[1]
+    if whole - mine != cut:
+      raise AssertionError("[6t] %s: a rank holds %d bytes of weights and "
+                           "optimizer state, one process %d: want %d fewer "
+                           "(the experts and their moments but a 1/%d)"
+                           % (name, mine, whole, cut, moe[1]))
   per = [r[name] for r in ranks]
   return {"ranks": len(ranks), "losses": got, "one_process": one["losses"],
           "max_rel": rel, "f32_max_rel": rel32, "f32_max_abs_weight": worst,
           "f32_max_rel_grad": worst_g, "f32_max_rel_update": worst_u,
+          "f32_rel_grad_by_tensor": grad_rels,
+          "f32_update_gate": "first step" if moe is not None else "3 steps",
+          "f32_moe_3_step_update_max_abs_gap": moe_gap3,
           "f32_update_gap_over_limit": share,
           "f32_update_max_abs": [min(u_sizes), max(u_sizes)],
           "ms_per_step": [r["step_ms"][1] for r in per],
@@ -5967,8 +6304,10 @@ def _spmd_gates(name, ranks, want, one, one32, w_ranks, w_one, ln_bytes):
           "one_peak_mem_gib": one["peak_mem_gib"],
           "state_bytes": [r["param_bytes"] + r["opt_bytes"] for r in per],
           "one_state_bytes": whole,
-          "collectives_per_step": per[0]["collectives_per_step"][1],
-          "launches_per_step": per[0]["launches_per_step"][1],
+          "collectives_per_step": [r["collectives_per_step"][1]
+                                   for r in per],
+          "launches_per_step": [r["launches_per_step"][1] for r in per],
+          "edge_calls_per_step": [r["edge_calls_per_step"][1] for r in per],
           # (setup, whole run) seconds: rank 0's bf16 and f32 runs, and
           # the one process's
           "seconds": {"rank0": [[r["setup_s"], r["run_s"]] for r in (
@@ -6192,73 +6531,180 @@ def check_tp_widths(ops, torch, F):
   return rows, worst
 
 
-def spmd_phase(torch, ops, F, pattern):
-  """[6s]: the kernels at the ring's block cases and at --tp 2's widths,
-  then train_gpt over the mesh axes in ranks sharing the card over gloo,
-  each case against one process on the same batches and weights: (a)
-  --sp 2 on [6d]'s long context (split backward), (b) --tp 2 --fused, (c)
-  --fsdp 2 at [6]'s shape, 12 layers, on 2 ranks; (d) --sp 2 --tp 2 at
-  2 layers on 4 ranks."""
-  t_start = time.monotonic()
-  log("[6s] the flash kernels at the ring's block cases (q [1, %d, %d, %d] "
-      "against %d keys; lse cotangent on every row)"
-      % (RING_S, RING_H, RING_D, RING_S))
-  ring_rows, ring_err = check_ring_blocks(ops, torch, F)
-  log("[6s] LN->matmul and GELU->matmul at --tp 2's local widths")
-  tp_rows, tp_err = check_tp_widths(ops, torch, F)
-  torch.cuda.empty_cache()
-  from tensorflowonspark_tpu_torch.examples import train_gpt
-  one, one32, w_one, ln_bytes = {}, {}, {}, {}
-  t0 = time.monotonic()
-  for name, _, flags, base, bwd, _, want_one in SPMD_CASES:
+def _one_process_runs(torch, cases, pattern, memo):
+  """Each case's one-process runs (bf16, and f32 at SPMD_F32_FLAGS with
+  its weights), in this process, on the batches and weights its ranks
+  take; runs of equal flags are made once (``memo``)."""
+  out = {}
+  for name, _, _, base, bwd, _, want_one, moe in cases:
     argv = _spmd_argv(base, pattern)
-    args = train_gpt.parse_args(argv)
-    ln_bytes[name] = (2 * args.layers + 1) * args.d_model * 4
-    with flash_bwd_env(bwd):
-      one[name], _ = spmd_train(torch, argv)
-      one32[name], w_one[name] = spmd_train(torch, argv + SPMD_F32_FLAGS,
-                                            f32=True, weights=True)
-    for i, got in enumerate(one[name]["launches_per_step"]):
-      _per_step_launches(got, 1, want_one, "[6s] %s one process step %d"
+    key = (tuple(argv), bwd, json.dumps(moe, sort_keys=True))
+    if key not in memo:
+      with flash_bwd_env(bwd):
+        one, _ = spmd_train(torch, argv, moe=moe)
+        one32, w_one = spmd_train(torch, argv + SPMD_F32_FLAGS, f32=True,
+                                  weights=True, moe=moe)
+      memo[key] = (one, one32, w_one)
+    out[name] = memo[key]
+    for i, got in enumerate(out[name][0]["launches_per_step"]):
+      _per_step_launches(got, 1, want_one, "%s one process step %d"
                          % (name, i))
-  one_s = time.monotonic() - t0
-  torch.cuda.empty_cache()
-  res = {"ring_blocks": ring_rows, "tp_widths": tp_rows,
-         "max_abs_err": max(ring_err, tp_err), "one_process_s": one_s,
-         "cases": {}, "groups_s": {}}
-  # both groups start at once: the 4 ranks import and make their CUDA
-  # contexts while the 2 ranks start, then wait idle for their turn
+  return out
+
+
+def moe_decode(torch, ops, tfm):
+  """[6t] (e): t_b_moe_e2's model in f32 on one card decodes
+  PPEP_DECODE_PROMPTS prompts of PPEP_DECODE_LEN tokens by
+  ``greedy_generate_kv`` with exact launches (one flash prefill, LayerNorm
+  25 a forward); each new token is the argmax of the non-cached forward
+  of the decoded sequence at its position, but where the top two logits
+  lie within 1e-4 (a near-tie)."""
+  import numpy as np
+  from tensorflowonspark_tpu_torch.utils import params as params_mod
+  t0 = time.monotonic()
+  cfg = tfm.TransformerConfig(dtype=torch.float32, **PPEP_MOE)
+  model = tfm.Transformer(cfg, params_mod.init_params(cfg, SEED))
+  setup_s = time.monotonic() - t0
+  prompts = np.random.default_rng(SEED + 47).integers(
+      1, cfg.vocab_size, (PPEP_DECODE_PROMPTS, PPEP_DECODE_LEN))
+  tfm.greedy_generate_kv(model, prompts[:, :8], 2)          # warm-up
+  torch.cuda.synchronize()
+  before = dict(ops.LAUNCHES)
+  t0 = time.monotonic()
+  out = tfm.greedy_generate_kv(model, prompts, PPEP_DECODE_NEW)
+  torch.cuda.synchronize()
+  wall = time.monotonic() - t0
+  launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
+  want = dict({k: 0 for k in launches}, flash_attention_fwd=cfg.num_layers,
+              layer_norm=(2 * cfg.num_layers + 1) * PPEP_DECODE_NEW)
+  if launches != want:
+    raise AssertionError("[6t] (e) MoE decode launches %s, want %s"
+                         % (launches, want))
+  before = dict(ops.LAUNCHES)
+  with torch.inference_mode():
+    logits = model(out[:, :-1])[:, PPEP_DECODE_LEN - 1:]
+  forward = {k: ops.LAUNCHES[k] - before[k] for k in before}
+  if forward != dict(want, layer_norm=2 * cfg.num_layers + 1):
+    raise AssertionError("[6t] (e) the non-cached forward launched %s"
+                         % forward)
+  got = out[:, PPEP_DECODE_LEN:]
+  ties = []
+  for b, t in zip(*torch.nonzero(logits.argmax(-1) != got,
+                                 as_tuple=True)):
+    top2 = torch.topk(logits[b, t], 2).values
+    gap = float(top2[0] - top2[1])
+    if gap >= 1e-4:
+      raise AssertionError("[6t] (e) row %d token %d: decoded %d, the "
+                           "forward's argmax %d (top-2 gap %.3g: not a "
+                           "near-tie)" % (b, t, int(got[b, t]), int(
+                               logits[b, t].argmax()), gap))
+    ties.append({"row": int(b), "token": int(t), "gap": gap})
+  res = {"prompts": PPEP_DECODE_PROMPTS, "prompt_len": PPEP_DECODE_LEN,
+         "new_tokens": PPEP_DECODE_NEW, "launches": launches,
+         "forward_launches": forward, "near_ties": ties,
+         "decode_wall_s": wall, "setup_s": setup_s,
+         "tokens_per_s": PPEP_DECODE_PROMPTS * PPEP_DECODE_NEW / wall,
+         "card": torch.cuda.get_device_name()}
+  log("  (e) MoE greedy_generate_kv, f32, 12 layers (6 MoE, 8 experts, "
+      "top-2): %d prompts x %d new tokens in %.3f s (%.1f tokens/s); "
+      "launches %s; every token the non-cached forward's argmax, %d "
+      "near-ties" % (PPEP_DECODE_PROMPTS, PPEP_DECODE_NEW, wall,
+                     res["tokens_per_s"], {k: v for k, v in launches.items()
+                                           if v}, len(ties)))
+  return res
+
+
+def spmd_phase(torch, ops, F, pattern, spmd=True, ppep=True, drawn=()):
+  """[6s] and [6t]: with ``spmd``, the kernels at the ring's block cases
+  and at --tp 2's widths; then train_gpt over the mesh axes in ranks
+  sharing the card over gloo, each case against one process on the same
+  batches and weights: [6s] (a) --sp 2 on [6d]'s long context (split
+  backward), (b) --tp 2 --fused, (c) --fsdp 2 at [6]'s shape, 12 layers,
+  on 2 ranks; (d) --sp 2 --tp 2 at 2 layers on 4 ranks; with ``ppep``,
+  [6t]'s PPEP_CASES in the same groups and the MoE decode (e). The
+  groups are spawned once the kernel timings are done: their ranks'
+  imports, warm-up and seeded weights overlap the one-process runs.
+  ``drawn``: seeded weights this process drew already
+  (:func:`_weight_memo`)."""
+  from tensorflowonspark_tpu_torch.models import transformer as tfm
+  t_start = time.monotonic()
+  res = {"cases": {}, "groups_s": {}, "max_abs_err": 0.0,
+         "ring_blocks": [], "tp_widths": []}
+  if spmd:
+    log("[6s] the flash kernels at the ring's block cases (q [1, %d, %d, "
+        "%d] against %d keys; lse cotangent on every row)"
+        % (RING_S, RING_H, RING_D, RING_S))
+    res["ring_blocks"], ring_err = check_ring_blocks(ops, torch, F)
+    log("[6s] LN->matmul and GELU->matmul at --tp 2's local widths")
+    res["tp_widths"], tp_err = check_tp_widths(ops, torch, F)
+    res["max_abs_err"] = max(ring_err, tp_err)
+    torch.cuda.empty_cache()
+  cases = (SPMD_CASES if spmd else ()) + (PPEP_CASES if ppep else ())
   groups = [_spmd_spawn(world, [
-      {"name": name, "argv": _spmd_argv(base, pattern) + flags, "bwd": bwd}
-      for name, ranks, flags, base, bwd, _, _ in SPMD_CASES
+      {"name": name, "argv": _spmd_argv(base, pattern) + flags, "bwd": bwd,
+       "moe": moe}
+      for name, ranks, flags, base, bwd, _, _, moe in cases
       if ranks == world]) for world in (2, 4)]
   try:
-    res.update(_spmd_cases(groups, one, one32, w_one, ln_bytes))
+    memo, one = {}, {}
+    t0 = time.monotonic()
+    with _weight_memo(drawn):
+      if spmd:
+        log("[6s] the one-process runs of the mesh-axes cases")
+        one.update(_one_process_runs(torch, SPMD_CASES, pattern, memo))
+      res["one_process_s"] = time.monotonic() - t0
+      if ppep:
+        t1 = time.monotonic()
+        log("[6t] the one-process runs of the pipeline and expert cases, "
+            "and the MoE decode")
+        one.update(_one_process_runs(torch, PPEP_CASES, pattern, memo))
+        res["ppep_one_process_s"] = time.monotonic() - t1
+        res["moe_decode"] = moe_decode(torch, ops, tfm)
+    torch.cuda.empty_cache()
+    res.update(_spmd_cases(groups, cases, one))
   finally:
     for group in groups:
       _spmd_stop(group)
   res["seconds"] = time.monotonic() - t_start
-  log("  [6s] %.1f s (one-process references %.1f s, ranks %s s)" % (
-      res["seconds"], one_s, " / ".join("%.1f" % s for s in
-                                        res["groups_s"].values())))
+  log("  [6s/6t] %.1f s (before the ranks %.1f s, ranks %s s; rank 0's "
+      "seconds by job %s; ranks' warm-up and weights while they waited %s "
+      "s)" % (res["seconds"], res["seconds"] - sum(
+          res["groups_s"].values()), " / ".join(
+              "%.1f" % s for s in res["groups_s"].values()), " ".join(
+                  "%s %.1f" % kv for kv in res["jobs_s"].items()), " / ".join(
+                      "%.1f" % max(w) for w in res["warm_s"].values())))
   return res
 
 
-def _spmd_cases(groups, one, one32, w_one, ln_bytes):
+def _spmd_cases(groups, cases, one):
   """Each group of ranks in turn, its cases gated against the one
-  process's runs; the summaries and each group's seconds."""
-  res = {"cases": {}, "groups_s": {}}
+  process's runs; the summaries, each group's seconds and its ranks'
+  warm-up seconds."""
+  res = {"cases": {}, "groups_s": {}, "warm_s": {}, "jobs_s": {}}
+  failed = []
   for group in groups:
     world = group["world"]
-    log("[6s] %s in %d ranks: %s" % (", ".join(
+    log("[6st] %s in %d ranks: %s" % (", ".join(
         j["name"] for j in group["jobs"]), world, SPMD_LABEL))
     ranks, weights, seconds = _spmd_go(group)
     res["groups_s"][world] = seconds
-    for name, ranks_n, _, _, _, want, _ in SPMD_CASES:
-      if ranks_n != world:
+    res["warm_s"][world] = [r["warm_s"] for r in ranks]
+    for case in cases:
+      name = case[0]
+      if case[1] != world:
         continue
-      summary = _spmd_gates(name, ranks, want, one[name], one32[name],
-                            weights[name], w_one[name], ln_bytes[name])
+      # rank 0's seconds in the job: its bf16 and f32 runs
+      res["jobs_s"][name] = ranks[0][name]["run_s"] + \
+          ranks[0][name + "_f32"]["run_s"]
+      one_p, one32, w_one = one[name]
+      try:
+        summary = _spmd_gates(case, ranks, one_p, one32, weights[name],
+                              w_one)
+      except AssertionError as e:
+        # every group and case still runs: the phase fails at its end
+        log("  %s FAILED: %s" % (name, e))
+        failed.append(str(e))
+        continue
       summary["per_rank"] = [r[name] for r in ranks]
       res["cases"][name] = summary
       log("  %s: losses %s; one process %s; max rel %.3g (limit %g); f32 "
@@ -6276,6 +6722,10 @@ def _spmd_cases(groups, one, one32, w_one, ln_bytes):
              summary["f32_update_max_abs"][1],
              summary["f32_max_rel_update"],
              summary["f32_update_gap_over_limit"], SPMD_UPDATE_REL))
+      if summary["f32_update_gate"] == "first step":
+        log("    MoE: the update gate holds the first step's; the 3-step "
+            "update within %.3g of one process's (limit %g)"
+            % (summary["f32_moe_3_step_update_max_abs_gap"], SPMD_F32_TOL))
       log("    ms a step by rank %s (one process %.1f); profiled step wall "
           "%s, device busy %s ms; peak memory %s GiB (one process %.2f); "
           "weights + optimizer bytes %s (one process %d)" % (
@@ -6287,22 +6737,36 @@ def _spmd_cases(groups, one, one32, w_one, ln_bytes):
               summary["one_peak_mem_gib"],
               " ".join(str(x) for x in summary["state_bytes"]),
               summary["one_state_bytes"]))
-      log("    rank 0 a step: launches %s; collectives %s" % (
-          {k: v for k, v in summary["launches_per_step"].items() if v},
-          {k: v for k, v in summary["collectives_per_step"].items() if v}))
+      for r, (lc, cc, ec) in enumerate(zip(
+          summary["launches_per_step"], summary["collectives_per_step"],
+          summary["edge_calls_per_step"])):
+        log("    rank %d a step: launches %s; collectives %s; embedding / "
+            "loss calls %d / %d" % (
+                r, {k: v for k, v in lc.items() if v},
+                {k: v for k, v in cc.items() if v}, ec["embed"],
+                ec["loss"]))
       log("    seconds (setup / whole run): rank 0 bf16 %.1f / %.1f, f32 "
           "%.1f / %.1f; one process bf16 %.1f / %.1f, f32 %.1f / %.1f" % (
               *summary["seconds"]["rank0"][0], *summary["seconds"]["rank0"][1],
               *summary["seconds"]["one_process"][0],
               *summary["seconds"]["one_process"][1]))
+  if failed:
+    raise AssertionError("[6s/6t] %d case(s) failed: %s"
+                         % (len(failed), " | ".join(failed)))
   return res
 
 
 def spmd_launches(res, name):
-  """[6s]'s launches of kernel ``name`` on rank 0 of each case."""
-  return {"spmd_%s_rank0_%d_steps" % (case, SPMD_STEPS): int(sum(
+  """[6s]'s and [6t]'s launches of kernel ``name`` on rank 0 of each
+  case (a pipeline's stage 0), and in [6t]'s MoE decode."""
+  out = {"%s_%s_rank0_%d_steps" % ("ppep" if case.startswith("t_")
+                                   else "spmd", case, SPMD_STEPS): int(sum(
       step[name] for step in res["cases"][case]["per_rank"][0][
           "launches_per_step"])) for case in res["cases"]}
+  if "moe_decode" in res:
+    out["ppep_moe_decode_%dx%d" % (PPEP_DECODE_PROMPTS, PPEP_DECODE_NEW)] = \
+        res["moe_decode"]["launches"][name]
+  return out
 
 
 def spmd_kernel_rows(res, name):
@@ -6313,17 +6777,18 @@ def spmd_kernel_rows(res, name):
           for r in res["ring_blocks"] if r["kernel"] == name]
 
 
-def spmd_only(torch, ops, F, _build, card):
-  """``--spmd-only``: phase 2's build, [6d]'s TFRecords, then [6s]."""
+def spmd_only(torch, ops, F, _build, card, spmd=True):
+  """``--spmd-only``: phase 2's build, [6d]'s TFRecords, then [6s];
+  ``--pp-ep-only`` (``spmd`` False): the build, then [6t]."""
   log("[2] build")
   build_s = _build.build_all()
   log("  built %s" % ", ".join("%s %.1fs" % kv for kv in build_s.items()))
-  pattern = write_token_files(os.path.join(HERE, "build", "chip_smoke_tokens"),
-                              32000, LONG_S)
-  res = spmd_phase(torch, ops, F, pattern)
+  pattern = write_token_files(os.path.join(
+      HERE, "build", "chip_smoke_tokens"), 32000, LONG_S) if spmd else None
+  res = spmd_phase(torch, ops, F, pattern, spmd=spmd, ppep=not spmd)
   os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-  with open(os.path.join(HERE, "chiprun_out", "chip_smoke_spmd.json"),
-            "w") as f:
+  with open(os.path.join(HERE, "chiprun_out", "chip_smoke_%s.json" % (
+      "spmd" if spmd else "pp_ep")), "w") as f:
     json.dump({"spmd": res, "card": card}, f, indent=1)
   log(card)
   log(json.dumps({"spmd": {
@@ -6775,16 +7240,21 @@ PIPE_EXAMPLES = (
                                   "20"]))
 
 
-def pipe_examples():
+def start_examples():
   """[6m-g]: the port's serving and MNIST examples, as subprocesses
-  started together on the card; each must exit 0."""
-  procs = []
-  t0 = time.monotonic()
-  for name, argv in PIPE_EXAMPLES:
-    procs.append((name, subprocess.Popen(
-        [sys.executable, "-m", "tensorflowonspark_tpu_torch.examples." + name]
-        + argv, cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+  started together on the card (and beside [6m]'s other parts, which
+  share neither a process nor a port with them): (start time, [(name,
+  process)]), for :func:`pipe_examples`."""
+  return time.monotonic(), [(name, subprocess.Popen(
+      [sys.executable, "-m", "tensorflowonspark_tpu_torch.examples." + name]
+      + argv, cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+      for name, argv in PIPE_EXAMPLES]
+
+
+def pipe_examples(started):
+  """[6m-g]: the examples of :func:`start_examples`; each must exit 0."""
+  t0, procs = started
   res = {}
   try:
     for name, proc in procs:
@@ -6818,6 +7288,9 @@ def pipeline_phase(torch, card_name):
   t_start = time.monotonic()
   cfg = tfm.TransformerConfig()
   export_dir = os.path.join(HERE, "build", "chip_smoke_pipe_bundle")
+  log("[6m-g] examples/serve_gpt.py, mnist_pipeline.py and "
+      "mnist_parallel_inference.py started, beside [6m-a..f]")
+  started = start_examples()
   t0 = time.monotonic()
   engine = LocalEngine(num_executors=2)
   engine_s = time.monotonic() - t0
@@ -6841,11 +7314,15 @@ def pipeline_phase(torch, card_name):
     log("[6m-f] TFRecords and the inference CLI")
     cli = pipe_cli(dfutil, parse_schema, pipeline, engine, export_dir,
                    prompts, want)
+  except BaseException:
+    for _, proc in started[1]:
+      proc.kill()
+      proc.wait()
+    raise
   finally:
     engine.stop()
-  log("[6m-g] examples/serve_gpt.py, mnist_pipeline.py and "
-      "mnist_parallel_inference.py")
-  examples = pipe_examples()
+  log("[6m-g] the examples")
+  examples = pipe_examples(started)
   res = {"fit": fit, "transform": tr, "sampled": sampled, "runner": run,
          "cli": cli, "examples": examples,
          "seconds": time.monotonic() - t_start}
@@ -7337,18 +7814,20 @@ def main(argv):
   only_deploy = argv == ["--deploy-only"]
   only_decode = argv == ["--decode-stack-only"]
   only_spmd = argv == ["--spmd-only"]
+  only_ppep = argv == ["--pp-ep-only"]
   ab = argv[1:] if argv[:1] == ["--serving-ab"] and len(argv) == 3 else None
   if argv[:1] == ["--serving-only"] and len(argv) == 2:
     repeats = int(argv[1])
   elif argv and ab is None and not (ln_only or only_cluster or only_feed or only_ckpt
                      or only_dp or only_pipeline or only_options
                      or only_obs or only_fleet or only_deploy
-                     or only_decode or only_spmd):
+                     or only_decode or only_spmd or only_ppep):
     log("usage: python3 chip_smoke.py [--serving-only N | "
         "--serving-ab OTHER_CHECKOUT N | "
         "--layer-norm-only | --cluster-only | --feed-only | --ckpt-only | "
         "--dp-only | --pipeline-only | --train-options-only | --obs-only | "
-        "--fleet-only | --deploy-only | --decode-stack-only | --spmd-only]")
+        "--fleet-only | --deploy-only | --decode-stack-only | --spmd-only | "
+        "--pp-ep-only]")
     return 2
   cache_bytecode()
   try:
@@ -7412,8 +7891,8 @@ def main(argv):
   if only_fleet:
     return fleet_only(torch, ops, tfm, ServingEngine, slots, init_params,
                       _build, card)
-  if only_spmd:
-    return spmd_only(torch, ops, F, _build, card)
+  if only_spmd or only_ppep:
+    return spmd_only(torch, ops, F, _build, card, spmd=only_spmd)
 
   log("[2] build")
   t0 = time.monotonic()
@@ -7579,7 +8058,8 @@ def main(argv):
   dp_res = dp_phases(torch, ops, tfm, optim, sharding, Slab, train_gpt,
                      params, cfg)
   torch.cuda.empty_cache()
-  spmd_res = spmd_phase(torch, ops, F, long_res["data"])
+  spmd_res = spmd_phase(torch, ops, F, long_res["data"],
+                        drawn=[(cfg, SEED, params)])
   torch.cuda.empty_cache()
   log("[6m] the pipeline layer: TFEstimator.fit -> export_bundle -> "
       "TFModel.transform, the runner, the CLI and the examples")
@@ -7675,7 +8155,7 @@ def main(argv):
                                                 "flash_attention_fwd"),
              "cluster_train_gpt_long_4_steps": cluster_launches(
                  "flash_attention_fwd"),
-             "ckpt_resume_6_steps": ckpt_launches("flash_attention_fwd"),
+             "ckpt_resume_%d_steps" % CKPT_STEPS: ckpt_launches("flash_attention_fwd"),
              **options_launches(options_res, "flash_attention_fwd"),
              "feed_train_12_steps": feed_launches("flash_attention_fwd"),
              "feed_inference_4_forwards": infer_launches(
@@ -7707,7 +8187,7 @@ def main(argv):
              "train_4_steps": step_l["layer_norm"],
              "train_fused_4_steps": fused_l["layer_norm"],
              "cluster_train_gpt_long_4_steps": cluster_launches("layer_norm"),
-             "ckpt_resume_6_steps": ckpt_launches("layer_norm"),
+             "ckpt_resume_%d_steps" % CKPT_STEPS: ckpt_launches("layer_norm"),
              **options_launches(options_res, "layer_norm"),
              "feed_train_12_steps": feed_launches("layer_norm"),
              "feed_inference_4_forwards": infer_launches("layer_norm"),
@@ -7754,7 +8234,7 @@ def main(argv):
              "train_fused_4_steps": fused_l["layer_norm_bwd"],
              "cluster_train_gpt_long_4_steps": cluster_launches(
                  "layer_norm_bwd"),
-             "ckpt_resume_6_steps": ckpt_launches("layer_norm_bwd"),
+             "ckpt_resume_%d_steps" % CKPT_STEPS: ckpt_launches("layer_norm_bwd"),
              **options_launches(options_res, "layer_norm_bwd"),
              "feed_train_12_steps": feed_launches("layer_norm_bwd"),
              "obs_feed_train_12_steps": obs_launches("layer_norm_bwd"),
@@ -7795,7 +8275,7 @@ def main(argv):
                                            "flash_attention_bwd_dq"),
         "cluster_train_gpt_long_4_steps": cluster_launches(
             "flash_attention_bwd_dq"),
-        "ckpt_resume_6_steps": ckpt_launches("flash_attention_bwd_dq"),
+        "ckpt_resume_%d_steps" % CKPT_STEPS: ckpt_launches("flash_attention_bwd_dq"),
         **options_launches(options_res, "flash_attention_bwd_dq"),
         **spmd_launches(spmd_res, "flash_attention_bwd_dq"),
         "train_split_4_steps": split_l["flash_attention_bwd_dq"]}, "long"),
@@ -7807,7 +8287,7 @@ def main(argv):
                                            "flash_attention_bwd_dkv_gqa"),
         "cluster_train_gpt_long_4_steps": cluster_launches(
             "flash_attention_bwd_dkv_gqa"),
-        "ckpt_resume_6_steps": ckpt_launches("flash_attention_bwd_dkv_gqa"),
+        "ckpt_resume_%d_steps" % CKPT_STEPS: ckpt_launches("flash_attention_bwd_dkv_gqa"),
         **options_launches(options_res, "flash_attention_bwd_dkv_gqa"),
         **spmd_launches(spmd_res, "flash_attention_bwd_dkv_gqa")},
        "long")):

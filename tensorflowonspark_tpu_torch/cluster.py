@@ -35,7 +35,7 @@ and ``TOS_OBS_DIR`` collects per-process JSONL logs that
 ``obs.export.merge_jsonl`` + ``chrome_trace`` turn into one trace.
 
 Not ported yet, each refused by name before any executor is touched:
-elastic groups (``group_map``, ``elastic``: item 10c) and feeder pushdown
+elastic groups (``group_map``, ``elastic``: item 10c, part 2) and feeder pushdown
 segments (``feed_segment``: item 11).
 """
 
@@ -788,7 +788,7 @@ def _refuse_unported(group_map, elastic, feed_segment) -> None:
   if group_map or elastic:
     raise NotImplementedError(
         "group_map / elastic: elastic multi-group training is not ported "
-        "to PyTorch yet (ROADMAP Queue 1 item 10c)")
+        "to PyTorch yet (ROADMAP Queue 1 item 10c, part 2)")
   if feed_segment is not None:
     raise NotImplementedError(
         "feed_segment: feeder pushdown segments (data.datapipe) are not "

@@ -40,7 +40,7 @@ departure) are delegated to ``Server.serving_plane``
 its per-host ``hosts`` rows; with no plane attached the verbs get an
 ``ERROR`` reply. The verbs of the one plane the port does not have yet,
 ``SYNC``/``SYNCQ``/``GROUP`` (elastic groups), are answered with an
-``ERROR`` reply that names ROADMAP item 10c.
+``ERROR`` reply that names ROADMAP item 10c, part 2.
 
 Env overrides (parity with reservation.py:25-26,190-206):
 ``TOS_TPU_SERVER_HOST`` pins the server bind/advertise host;
@@ -416,7 +416,8 @@ class HeartbeatSender(object):
 _UNPORTED_VERBS = {
     verb: "%s is not ported yet (ROADMAP Queue 1 item %s)" % (what, item)
     for verbs, what, item in (
-        (("SYNC", "SYNCQ", "GROUP"), "elastic multi-group training", "10c"),)
+        (("SYNC", "SYNCQ", "GROUP"), "elastic multi-group training",
+         "10c, part 2"),)
     for verb in verbs}
 #: the cross-host serving verbs, delegated to ``Server.serving_plane``
 _SERVING_VERBS = ("SHREG", "SHSYNC", "SHBYE")

@@ -11,8 +11,8 @@ driver never holds the full output.
       --prompts 32
 
 ``--tensor`` above 1 raises: tensor-parallel serving is ROADMAP Queue 1
-item 10c. ``--device cpu`` serves with the kernels' plain versions on the
-CPU (tests); without it every executor serves on the card.
+item 10c, part 3. ``--device cpu`` serves with the kernels' plain versions
+on the CPU (tests); without it every executor serves on the card.
 """
 
 import argparse

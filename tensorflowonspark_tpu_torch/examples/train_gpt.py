@@ -22,8 +22,18 @@ group. ``--batch`` is the GLOBAL batch, as in the reference: every rank
 reads the same stream and keeps its block of each batch, its rows over
 ``data`` x ``fsdp`` and its positions over ``sequence``
 (``parallel.sharding.shard_batch``). Rank 0 prints the losses, every rank
-returns them. ``--pp`` above 1 raises: the 1F1B pipeline is ROADMAP Queue
-1 item 10c.
+returns them.
+
+``--pp`` above 1 trains through the 1F1B pipeline instead (the
+reference's ``:151-184``): a ``data`` x ``pipeline`` mesh (``--pp``
+composes with ``--dp`` only; ``--dp -1`` takes the group's size over
+``--pp``), the layers split into ``--pp`` contiguous stages, each batch
+cut into ``--microbatches`` microbatches of rows that divide over
+``--dp``. Every rank holds the whole state, as the reference's ``--pp``
+does; a step's gradients are every stage's, gathered over ``pipeline``
+(``models.transformer.make_pipeline_train_step``), and the step applies
+them to the whole state. ``--unroll`` does not apply to it, as in the
+reference.
 
   python -m tensorflowonspark_tpu_torch.examples.train_gpt --layers 12 \\
       --d_model 768 --heads 12 --kv_heads 4 --seq_len 16384 --vocab 32000 \\
@@ -61,7 +71,8 @@ def make_parser() -> argparse.ArgumentParser:
   parser.add_argument("--tp", type=int, default=1,
                       help="tensor-parallel ranks (heads, mlp, vocab)")
   parser.add_argument("--pp", type=int, default=1,
-                      help="pipeline stages (> 1 is not ported yet)")
+                      help="pipeline stages: >1 trains through the 1F1B "
+                           "schedule (layers split into contiguous stages)")
   parser.add_argument("--microbatches", type=int, default=4)
   parser.add_argument("--layers", type=int, default=4)
   parser.add_argument("--d_model", type=int, default=256)
@@ -101,11 +112,20 @@ def make_parser() -> argparse.ArgumentParser:
   return parser
 
 
+def _world() -> int:
+  import torch.distributed as dist
+  return dist.get_world_size() if dist.is_available() and \
+      dist.is_initialized() else 1
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
-  """The flags, with the option the port does not run refused by name:
-  ``--pp`` above 1 (item 10c; the mesh degrees are checked against the
-  process group by :func:`make_mesh`)."""
-  args = make_parser().parse_args(argv)
+  """The flags. With ``--pp`` above 1, the reference's checks and
+  ``parser.error`` texts: ``--pp`` composes with ``--dp`` only, ``--dp
+  -1`` takes the process group's size over ``--pp``, and the batch must
+  split into microbatches that divide over ``--dp`` (the mesh degrees
+  are checked against the process group by :func:`make_mesh`)."""
+  parser = make_parser()
+  args = parser.parse_args(argv)
   if args.dp == 0 or args.dp < -1:
     raise ValueError("--dp must be -1 (every process) or a rank count >= 1, "
                      "got %d" % args.dp)
@@ -113,23 +133,34 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     if getattr(args, flag) < 1:
       raise ValueError("--%s must be >= 1, got %d"
                        % (flag, getattr(args, flag)))
+  if args.pp < 1:
+    raise ValueError("--pp must be >= 1, got %d" % args.pp)
   if args.pp > 1:
-    raise NotImplementedError(
-        "--pp %d: the 1F1B pipeline is not ported to PyTorch yet (ROADMAP "
-        "Queue 1 item 10c); --dp, --fsdp, --sp and --tp train over the "
-        "mesh" % args.pp)
+    if args.fsdp > 1 or args.sp > 1 or args.tp > 1 or args.blocked_loss \
+        or args.z_loss:
+      parser.error("--pp composes with --dp only (--fsdp/--sp/--tp/"
+                   "--blocked_loss/--z_loss are the SPMD path)")
+    if args.dp == -1:
+      args.dp = max(1, _world() // args.pp)
+    micro_b = args.batch // args.microbatches
+    if args.batch % args.microbatches or micro_b % args.dp:
+      parser.error(
+          "batch %d must split into %d microbatches divisible by dp=%d "
+          "(e.g. --batch %d)" % (args.batch, args.microbatches, args.dp,
+                                 args.microbatches * args.dp))
   return args
 
 
 def _model_ranks(args: argparse.Namespace) -> int:
-  return args.fsdp * args.sp * args.tp
+  return args.fsdp * args.sp * args.tp * args.pp
 
 
 def make_mesh(args: argparse.Namespace):
-  """The mesh (``data`` x ``fsdp`` x ``sequence`` x ``tensor``) over the
-  ``torch.distributed`` group, or None (one card) outside a group when
-  every degree is 1 (``--dp`` -1 or 1). The degrees must multiply to the
-  group's size; outside a group anything above 1 raises."""
+  """The mesh (``data`` x ``fsdp`` x ``sequence`` x ``tensor``, or
+  ``data`` x ``pipeline`` with ``--pp``) over the ``torch.distributed``
+  group, or None (one card) outside a group when every degree is 1
+  (``--dp`` -1 or 1). The degrees must multiply to the group's size;
+  outside a group anything above 1 raises."""
   import torch.distributed as dist
   from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
   if not (dist.is_available() and dist.is_initialized()):
@@ -137,12 +168,14 @@ def make_mesh(args: argparse.Namespace):
       return None
     ranks = max(args.dp, 1) * _model_ranks(args)
     raise ValueError(
-        "--dp %d --fsdp %d --sp %d --tp %d needs a torch.distributed process "
-        "group of %d ranks: run train_gpt in each node of cluster.run after "
-        "ctx.initialize_distributed() (or init_process_group yourself)"
-        % (args.dp, args.fsdp, args.sp, args.tp, ranks))
+        "--dp %d --fsdp %d --sp %d --tp %d --pp %d needs a torch.distributed "
+        "process group of %d ranks: run train_gpt in each node of "
+        "cluster.run after ctx.initialize_distributed() (or "
+        "init_process_group yourself)"
+        % (args.dp, args.fsdp, args.sp, args.tp, args.pp, ranks))
   return mesh_lib.build_mesh(mesh_lib.MeshSpec(
-      data=args.dp, fsdp=args.fsdp, sequence=args.sp, tensor=args.tp))
+      data=args.dp, fsdp=args.fsdp, sequence=args.sp, tensor=args.tp,
+      pipeline=args.pp))
 
 
 def make_config(args: argparse.Namespace):
@@ -160,13 +193,15 @@ def make_config(args: argparse.Namespace):
 def make_state(args: argparse.Namespace, cfg, mesh=None):
   """The train state: weights from seed 0 and the reference's optimizer
   recipe; over a ``mesh``, each rank's blocks of it
-  (``create_sharded_state``; ``state.sharding`` says how they lie)."""
+  (``create_sharded_state``; ``state.sharding`` says how they lie), or
+  with ``--pp`` the whole state on every rank, as the reference keeps
+  it."""
   from tensorflowonspark_tpu_torch import optim
   from tensorflowonspark_tpu_torch.models import transformer as tfm
   tx = optim.make_optimizer(learning_rate=args.lr, clip_norm=1.0,
                             optimizer=args.optimizer,
                             grad_accum_steps=args.grad_accum)
-  if mesh is not None:
+  if mesh is not None and args.pp == 1:
     return tfm.create_sharded_state(cfg, 0, mesh, tx=tx,
                                     device=args.device)[0]
   return tfm.create_state(cfg, 0, tx=tx, device=args.device)
@@ -187,6 +222,20 @@ def make_loss_fn(args: argparse.Namespace):
     return tfm.causal_lm_loss(model(tokens), tokens, z_loss=args.z_loss,
                               mesh=model.mesh)
   return loss_fn
+
+
+def make_pp_step(args: argparse.Namespace, cfg, mesh):
+  """``pp_step(state, tokens) -> (state, loss)``: one 1F1B step over the
+  mesh's ``pipeline`` axis on the GLOBAL batch, its gradients (every
+  stage's) applied to the whole state, as the reference's ``pp_step``."""
+  from tensorflowonspark_tpu_torch.models import transformer as tfm
+  pipe = tfm.make_pipeline_train_step(cfg, mesh, args.microbatches)
+
+  def pp_step(state, tokens):
+    loss, grads = pipe(state.params, tokens)
+    state.apply_gradients(grads)
+    return state, loss
+  return pp_step
 
 
 def batch_stream(args: argparse.Namespace) -> Iterator[np.ndarray]:
@@ -244,7 +293,18 @@ def run(args: argparse.Namespace) -> List[float]:
   losses = []
   extra = SEQUENCE_AXES if mesh is not None else ()
   unroll = sharding.resolve_unroll(args.unroll or None)
-  if unroll > 1:
+  if args.pp > 1:
+    step = make_pp_step(args, cfg, mesh)
+    # every rank reads the whole batch: stage 0 embeds its rows of each
+    # microbatch, the last stage takes them as labels
+    batches = device_prefetch(batch_stream(args), size=2, device=args.device)
+    for i, batch in zip(range(args.steps), batches):
+      t0 = time.time()
+      state, loss = step(state, batch)
+      losses.append(float(loss))
+      say("step %d loss %.4f (%.0f ms)"
+          % (i, losses[-1], 1000 * (time.time() - t0)))
+  elif unroll > 1:
     loop = sharding.make_train_loop(loss_fn, mesh, state.sharding,
                                     batch_extra_axes=extra, unroll=unroll)
     stream = batch_stream(args)

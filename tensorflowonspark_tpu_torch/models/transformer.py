@@ -27,7 +27,8 @@ What differs from the flax model, by design of the port:
   ``cfg.dtype`` at every use exactly as flax does (the embedding table at
   lookup and at the tied projection, each dense kernel as
   ``DenseGeneral(dtype=cfg.dtype)`` does). LayerNorm scales are f32 in
-  both, because the kernel takes them so.
+  both, because the kernel takes them so, and so are the MoE layers'
+  router and expert weights, which the reference computes with in f32.
 * ``cfg.remat`` wraps each block of a differentiated forward in
   ``torch.utils.checkpoint`` (non-reentrant), as ``nn.remat(Block)`` does.
   ``remat_policy="dots"`` keeps what the reference's
@@ -83,7 +84,7 @@ from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
 from tensorflowonspark_tpu_torch.parallel import ring_attention as ra
 from tensorflowonspark_tpu_torch.parallel import sharding as sharding_lib
 from tensorflowonspark_tpu_torch.utils.device import resolve_device
-from tensorflowonspark_tpu_torch.utils.params import copy_into
+from tensorflowonspark_tpu_torch.utils.params import copy_into, is_moe_layer
 
 NEG_INF = -1e30
 
@@ -173,8 +174,6 @@ class TransformerConfig:
       raise ValueError("num_heads (%d) must divide d_model (%d)"
                        % (self.num_heads, self.d_model))
     unported = [
-        (self.moe_experts > 0, "moe_experts > 0",
-         "Queue 1 item 10c, expert parallelism"),
         (self.attention_impl == "dense", "attention_impl='dense'",
          "Queue 1 item 11, the kernels' opt-outs"),
         (self.layer_norm_impl == "flax", "layer_norm_impl='flax'",
@@ -375,7 +374,9 @@ def param_logical(cfg: TransformerConfig, mesh=None) -> dict:
           "attn.q": ("embed", heads, "kv"), "attn.k": ("embed", kv, "kv"),
           "attn.v": ("embed", kv, "kv"), "attn.qkv": ("embed", kv, "kv"),
           "attn.out": (heads, "kv", "embed"), "mlp.up": ("embed", "mlp"),
-          "mlp.down": ("mlp", "embed")}
+          "mlp.down": ("mlp", "embed"), "moe.w_gate": (None, None),
+          "moe.w_up": ("expert", "embed", "mlp"),
+          "moe.w_down": ("expert", "mlp", "embed")}
 
 
 def param_kind(name: str) -> str:
@@ -398,6 +399,8 @@ class _Plan(object):
     self.cfg, self.mesh = cfg, mesh
     shapes = {param_kind(n): shape
               for n, (shape, _, _) in param_specs(cfg).items()}
+    shapes.setdefault("mlp.up", (cfg.d_model, cfg.d_ff))
+    shapes.setdefault("mlp.down", (cfg.d_ff, cfg.d_model))
     if cfg.fuse_qkv:
       shapes["attn.q"] = (cfg.d_model, cfg.num_heads, cfg.head_dim)
       shapes["attn.k"] = shapes["attn.v"] = (cfg.d_model, cfg.kv_heads,
@@ -425,6 +428,16 @@ class _Plan(object):
         else 1
     self.wide = bool(mesh is not None and mesh.wide(
         (mesh_lib.AXIS_FSDP, mesh_lib.AXIS_SEQUENCE, mesh_lib.AXIS_TENSOR)))
+    self.expert = mesh_lib.axis_size(mesh, mesh_lib.AXIS_EXPERT) if mesh \
+        else 1
+    if cfg.moe_experts > 0 and self.wide:
+      raise NotImplementedError(
+          "MoE layers over a mesh cut on fsdp, sequence or tensor %s are not "
+          "ported to PyTorch yet (ROADMAP Queue 1 item 10c, part 3); the "
+          "data and expert axes are" % (dict(mesh.shape),))
+    if self.expert > 1 and cfg.moe_experts % self.expert:
+      raise ValueError("the expert axis (%d) must divide moe_experts (%d)"
+                       % (self.expert, cfg.moe_experts))
 
   def local(self, kind: str) -> tuple:
     return sharding_lib.local_shape(self.shapes[kind], self.specs[kind],
@@ -810,24 +823,78 @@ class MLPBlock(nn.Module):
     return plan.reduce_t(out) if plan.mlp else out
 
 
-class Block(nn.Module):
-  """Pre-LN block: x + attn(ln1(x)), then + mlp(ln2(x)).
-
-  Off the decode path (no cache), ``ln_matmul_impl="fused"`` runs ln2 +
-  the up-projection as one kernel, and ln1 + the QKV projection too when
-  ``fuse_qkv``; ``act_matmul_impl="fused"`` runs GELU + the
-  down-projection as one. The LayerNorm modules keep their ``scale``
-  either way (the parameter names do not change); only their forward is
-  skipped. The decode path never fuses, as in the reference."""
+class MoEBlock(nn.Module):
+  """Expert-routed FFN (``parallel.expert_parallel``), the reference's
+  ``MoEBlock``: f32 weights ``w_gate`` [D, E], ``w_up`` [E, D, F] and
+  ``w_down`` [E, F, D] (over a mesh with an expert axis, the rank's block
+  of the experts), top-k routing, and the load-balancing loss of each
+  forward kept in :attr:`aux` (the reference sows it under
+  ``intermediates/moe_aux``; the loss does not add it). Without an
+  expert axis the layer runs ``moe_ffn_reference``; with one,
+  ``moe_ffn`` (dense masked dispatch), or ``moe_ffn_a2a`` when
+  ``moe_capacity_factor`` > 0, whose dropped assignments the forward
+  keeps in :attr:`dropped` (a tensor; None on the other paths). Tokens
+  are taken one by one, so the decode cache is untouched."""
 
   def __init__(self, cfg: TransformerConfig, device, trainable: bool,
                plan: _Plan):
     super().__init__()
     self.cfg = cfg
+    self.plan = plan
+    for name in ("w_gate", "w_up", "w_down"):
+      setattr(self, name, _param(plan.local("moe." + name), cfg, device,
+                                 trainable, torch.float32))
+    self.aux: Optional[torch.Tensor] = None
+    self.dropped: Optional[torch.Tensor] = None
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    from tensorflowonspark_tpu_torch.parallel import expert_parallel as ep
+    cfg, mesh = self.cfg, self.plan.mesh
+    params = {"w_gate": self.w_gate, "w_up": self.w_up,
+              "w_down": self.w_down}
+    flat = x.reshape(-1, x.shape[-1])
+    # one router forward feeds the dispatch and the aux loss
+    dispatch, combine, probs = ep.route(params, flat, cfg.moe_top_k)
+    if self.plan.expert > 1 and cfg.moe_capacity_factor > 0:
+      drops: list = []
+      y = ep.moe_ffn_a2a(params, flat, mesh, cfg.moe_capacity_factor,
+                         cfg.moe_top_k, drops=drops)
+      self.dropped = drops[0]
+    elif self.plan.expert > 1:
+      y = ep.moe_ffn(params, flat, mesh, cfg.moe_top_k,
+                     routing=(dispatch, combine))
+    else:
+      y = ep.moe_ffn_reference(params, flat, cfg.moe_top_k,
+                               routing=(dispatch, combine))
+    self.aux = ep.aux_loss_from(probs, dispatch, cfg.moe_top_k)
+    return y.reshape(x.shape).to(x.dtype)
+
+
+class Block(nn.Module):
+  """Pre-LN block: x + attn(ln1(x)), then + mlp(ln2(x)), or + moe(ln2(x))
+  on a MoE layer (``use_moe``).
+
+  Off the decode path (no cache), ``ln_matmul_impl="fused"`` runs ln2 +
+  the up-projection as one kernel, and ln1 + the QKV projection too when
+  ``fuse_qkv``; ``act_matmul_impl="fused"`` runs GELU + the
+  down-projection as one. A MoE layer's ln2 is the plain LayerNorm kernel
+  on every path, as in the reference. The LayerNorm modules keep their
+  ``scale`` either way (the parameter names do not change); only their
+  forward is skipped. The decode path never fuses, as in the
+  reference."""
+
+  def __init__(self, cfg: TransformerConfig, device, trainable: bool,
+               plan: _Plan, use_moe: bool = False):
+    super().__init__()
+    self.cfg = cfg
     self.ln1 = LayerNorm(cfg, device, trainable)
     self.attn = Attention(cfg, device, trainable, plan)
     self.ln2 = LayerNorm(cfg, device, trainable)
-    self.mlp = MLPBlock(cfg, device, trainable, plan)
+    if use_moe:
+      self.moe = MoEBlock(cfg, device, trainable, plan)
+    else:
+      self.mlp = MLPBlock(cfg, device, trainable, plan)
+    self.use_moe = use_moe
 
   def forward(self, x, rope, cache=None, layer=0, writes=None):
     cfg = self.cfg
@@ -836,6 +903,8 @@ class Block(nn.Module):
       x = x + self.attn(x, rope, ln_scale=self.ln1.scale)
     else:
       x = x + self.attn(self.ln1(x), rope, cache, layer, writes=writes)
+    if self.use_moe:
+      return x + self.moe(self.ln2(x))
     act_fused = cfg.act_matmul_impl == "fused" and cache is None
     if fuse_ln:
       return x + self.mlp(x, ln_scale=self.ln2.scale, act_fused=act_fused)
@@ -871,8 +940,8 @@ class Transformer(nn.Module):
     self.plan = _Plan(cfg, mesh)
     self.embed = TiedEmbed(cfg, self.device, trainable, self.plan)
     self.layers = nn.ModuleList(
-        [Block(cfg, self.device, trainable, self.plan)
-         for _ in range(cfg.num_layers)])
+        [Block(cfg, self.device, trainable, self.plan,
+               is_moe_layer(cfg, i)) for i in range(cfg.num_layers)])
     self.ln_f = LayerNorm(cfg, self.device, trainable)
     self.load_params(params, blocks=blocks)
 
@@ -925,21 +994,28 @@ class Transformer(nn.Module):
 
   def serving_params(self) -> dict:
     """The weights as a serving model stores them: a flat dict of CPU
-    tensors, each LayerNorm scale in f32 and every other weight in
+    tensors, each LayerNorm scale and MoE weight in f32 and every other
+    weight in
     ``cfg.dtype`` (what ``pipeline.export_bundle`` writes for
     :func:`make_serving_predict_fn`: a bf16 model's bundle is half the
     bytes of its f32 master weights). A model cut over fsdp or tensor
     raises: its parameters are this rank's blocks, and serving over a
-    mesh is item 10c."""
+    mesh is item 10c, part 3."""
     cut = sorted(n for n, spec in self.param_specs().items() if any(spec))
     if cut:
       raise NotImplementedError(
           "serving_params of a model cut over the mesh %s (%s, ...): serving "
           "over a mesh is not ported to PyTorch yet (ROADMAP Queue 1 item "
-          "10c)" % (dict(self.mesh.shape), cut[0]))
-    return {name: p.detach().to(torch.float32 if name.endswith(".scale")
-                                else self.cfg.dtype).cpu()
-            for name, p in self.named_parameters()}
+          "10c, part 3)" % (dict(self.mesh.shape), cut[0]))
+    return {name: p.detach().to(
+        torch.float32 if param_kind(name).startswith(("ln.", "moe."))
+        else self.cfg.dtype).cpu() for name, p in self.named_parameters()}
+
+  def moe_aux(self) -> List[torch.Tensor]:
+    """The load-balancing loss of each MoE layer's last forward, in layer
+    order (the reference's ``intermediates/moe_aux``); empty without
+    MoE layers."""
+    return [b.moe.aux for b in self.layers if b.use_moe]
 
   def numpy_params(self) -> dict:
     """The weights as the flat f32 numpy dict ``load_params`` takes (see
@@ -969,11 +1045,11 @@ class Transformer(nn.Module):
     if exit_layer is not None and not 1 <= exit_layer <= cfg.num_layers:
       raise ValueError("exit_layer must be in [1, num_layers=%d], got %r"
                        % (cfg.num_layers, exit_layer))
-    if cache is not None and self.plan.wide:
+    if cache is not None and (self.plan.wide or self.plan.expert > 1):
       raise NotImplementedError(
-          "decoding over a mesh cut on fsdp, sequence or tensor (serving "
-          "wider than one card) is not ported to PyTorch yet (ROADMAP Queue "
-          "1 item 10c)")
+          "decoding over a mesh cut on fsdp, sequence, tensor or expert "
+          "(serving wider than one card) is not ported to PyTorch yet "
+          "(ROADMAP Queue 1 item 10c, part 3)")
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
     remat_kw = {"context_fn": _dots_contexts} \
         if cfg.remat_policy == "dots" else {}
@@ -1220,7 +1296,7 @@ def _params_print(params) -> str:
 def _check_serving_mesh(mesh, mesh_spec) -> None:
   """One card per executor: a mesh or spec whose every degree is 1 (or
   -1, which one process absorbs as 1) is accepted; any degree above 1
-  raises (serving over a mesh is item 10c)."""
+  raises (serving over a mesh is item 10c, part 3)."""
   if mesh is not None and mesh_spec is not None:
     raise ValueError("pass mesh OR mesh_spec, not both")
   degrees = dict(mesh.shape) if mesh is not None else \
@@ -1229,7 +1305,8 @@ def _check_serving_mesh(mesh, mesh_spec) -> None:
   if wide:
     raise NotImplementedError(
         "mesh axes %s: serving over more than one card (tensor-parallel "
-        "decode) is not ported to PyTorch yet (ROADMAP Queue 1 item 10c)"
+        "decode) is not ported to PyTorch yet (ROADMAP Queue 1 item 10c, "
+        "part 3)"
         % ", ".join(wide))
 
 
@@ -1397,7 +1474,8 @@ def make_serving_predict_fn(cfg: TransformerConfig, num_steps: int,
   module-level :class:`ServingPredictFn`, not a closure, since the port
   pickles with the standard ``pickle``; ``device=None`` is the card
   (raises without one; the tests pass ``"cpu"``); and a ``mesh`` or
-  ``mesh_spec`` with a degree above 1 raises (ROADMAP Queue 1 item 10c),
+  ``mesh_spec`` with a degree above 1 raises (ROADMAP Queue 1 item 10c,
+  part 3),
   since the port serves on one card per executor.
   """
   _check_serving_mesh(mesh, mesh_spec)
@@ -1601,10 +1679,11 @@ def create_sharded_state(cfg: TransformerConfig,
   (:func:`param_logical` through ``LOGICAL_RULES``), its optimizer state
   mirrors them, and ``state.sharding`` is the
   :class:`~tensorflowonspark_tpu_torch.parallel.sharding.StateSharding`.
-  Every block and every optimizer-state tensor is taken from the rank at
-  coordinate 0 of the axes it is whole on (a broadcast), so ranks given
-  other seeds or weights agree wherever they must; on a mesh cut only
-  over ``data`` that is rank 0's whole state on every rank.
+  Every block is taken from the rank at coordinate 0 of the axes it is
+  whole on (a broadcast) and the optimizer state is made from the blocks,
+  so ranks given other seeds or weights agree wherever they must; on a
+  mesh cut only over ``data`` that is rank 0's whole state on every
+  rank. The MoE layers' experts are cut over ``expert``.
   ``parallel.sharding.gather_state_params`` gives the whole weights back.
   """
   from tensorflowonspark_tpu_torch import optim
@@ -1633,6 +1712,170 @@ def create_sharded_state(cfg: TransformerConfig,
   return sharding_lib.init_sharded_state(params_init, make_state, mesh)
 
 
+# -- pipeline-parallel training (1F1B over the block stack) ------------------
+
+
+def _layer_count(params: Mapping[str, Any]) -> int:
+  return len({n.split(".")[1] for n in params if n.startswith("layers.")})
+
+
+def pipeline_partition_params(params: Mapping[str, Any], n_stages: int):
+  """Split a flat weight dict (tensors or numpy arrays, the port's names)
+  for the 1F1B pipeline: ``(outer, stage)``. ``outer`` holds every weight
+  outside the blocks (the embedding table, the final norm: first- and
+  last-stage work); ``stage`` maps each block weight's name within its
+  layer (``attn.q``, ``ln1.scale``, ...) to the layers stacked as ``[n_stages,
+  layers_per_stage, ...]``, stage ``s`` owning layers ``[s*k, (s+1)*k)``."""
+  num_layers = _layer_count(params)
+  assert num_layers % n_stages == 0, \
+      "%d layers do not split into %d stages" % (num_layers, n_stages)
+  k = num_layers // n_stages
+  subs = [n[len("layers.0."):] for n in params if n.startswith("layers.0.")]
+  stage = {}
+  for sub in subs:
+    layers = [params["layers.%d.%s" % (i, sub)] for i in range(num_layers)]
+    stacked = torch.stack(layers) if torch.is_tensor(layers[0]) \
+        else np.stack(layers)
+    stage[sub] = stacked.reshape((n_stages, k) + tuple(layers[0].shape))
+  outer = {n: v for n, v in params.items() if not n.startswith("layers.")}
+  return outer, stage
+
+
+def pipeline_unpartition_grads(g_outer: Mapping[str, Any],
+                               g_stage: Mapping[str, Any],
+                               num_layers: int) -> dict:
+  """The flat weight layout (the port's names) from pipeline gradients:
+  the inverse of :func:`pipeline_partition_params`."""
+  tree = dict(g_outer)
+  for sub, g in g_stage.items():
+    flat = g.reshape((num_layers,) + tuple(g.shape[2:]))
+    for i in range(num_layers):
+      tree["layers.%d.%s" % (i, sub)] = flat[i]
+  return tree
+
+
+class _Head(nn.Module):
+  """The last stage's work: the final norm and the tied projection, the
+  model's own modules (``ln_f``, ``TiedEmbed.attend``)."""
+
+  def __init__(self, cfg: TransformerConfig, device, plan: _Plan):
+    super().__init__()
+    self.embed = TiedEmbed(cfg, device, True, plan)
+    self.ln_f = LayerNorm(cfg, device, True)
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    return self.embed.attend(self.ln_f(x)).float()
+
+
+def _gather_stages(g_stage: Mapping[str, torch.Tensor], mesh) -> dict:
+  """Every stage's gradients, ``[n_stages, k, ...]`` each, from this
+  rank's ``[1, k, ...]``: one all-gather over ``pipeline`` of them all
+  flattened together."""
+  names = list(g_stage)
+  flat = torch.cat([g_stage[n].reshape(-1) for n in names])
+  whole = collectives.all_gather(flat, mesh, mesh_lib.AXIS_PIPELINE,
+                                 tiled=False)
+  out, at = {}, 0
+  for n in names:
+    size = g_stage[n].numel()
+    out[n] = whole[:, at:at + size].reshape((whole.shape[0],)
+                                            + tuple(g_stage[n].shape[1:]))
+    at += size
+  return out
+
+
+def make_pipeline_train_step(cfg: TransformerConfig, mesh,
+                             num_microbatches: int):
+  """``step(params, tokens) -> (loss, grads)``: the Transformer's loss
+  and every gradient by the 1F1B schedule over the mesh's ``pipeline``
+  axis (``parallel.pipeline_parallel``), the reference's
+  ``make_pipeline_train_step``.
+
+  ``params``: the flat weights (``state.params``: f32 master weights,
+  whole on every rank); ``tokens``: the global ``[batch, seq]``, every
+  rank the same. Stage ``s`` runs layers ``[s*k, (s+1)*k)`` with the
+  model's own modules (``Block``, ``TiedEmbed``, ``LayerNorm``) and no
+  mesh inside them; stage 0 embeds, the last stage runs ``ln_f``, the
+  tied projection and ``causal_lm_loss``. ``cfg.remat`` recomputes each
+  block in its backward, as the one-card forward does. The returned
+  grads are keyed as ``params``: the stage grads gathered over
+  ``pipeline``, the tied table's two contributions summed, all averaged
+  over the data axes. ``step.partitioned(outer, stage, tokens) -> (loss,
+  g_outer, g_stage)`` takes :func:`pipeline_partition_params`' layout
+  and returns this rank's stage block of the gradients."""
+  from torch.func import functional_call
+  from tensorflowonspark_tpu_torch.parallel import pipeline_parallel as pp
+  assert cfg.moe_experts == 0, "pipeline stages must be homogeneous"
+  n_stages = mesh.shape[mesh_lib.AXIS_PIPELINE]
+  plan = _Plan(cfg, None)
+  meta = torch.device("meta")
+  block = Block(cfg, meta, True, plan)
+  head = _Head(cfg, meta, plan)
+  remat_kw = {"context_fn": _dots_contexts} \
+      if cfg.remat_policy == "dots" else {}
+
+  def run_block(p, x, rope):
+    return functional_call(block, p, (x, rope))
+
+  def embed_fn(outer, tokens):
+    return functional_call(head.embed, {"embedding": outer["embed.embedding"]},
+                           (tokens,)).to(cfg.dtype)
+
+  def stage_fn(stage_p, x):
+    b, s = x.shape[:2]
+    rope = _rope_tables(torch.arange(s, device=x.device).expand(b, s),
+                        cfg.head_dim)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for j in range(next(iter(stage_p.values())).shape[0]):
+      p = {n: v[j] for n, v in stage_p.items()}
+      if remat:
+        x = checkpoint(run_block, p, x, rope, use_reentrant=False,
+                       **remat_kw)
+      else:
+        x = run_block(p, x, rope)
+    return x
+
+  def head_loss_fn(outer, x, tokens):
+    logits = functional_call(head, {"embed.embedding": outer[
+        "embed.embedding"], "ln_f.scale": outer["ln_f.scale"]}, (x,))
+    return causal_lm_loss(logits, tokens)
+
+  def _tokens(tokens, like):
+    return torch.as_tensor(np.asarray(tokens) if not torch.is_tensor(tokens)
+                           else tokens).to(like.device)
+
+  def partitioned_step(outer, stage, tokens):
+    """(outer_params, stage_params, tokens) -> (loss, g_outer, g_stage),
+    g_stage this rank's block of the stacked layout."""
+    tokens = _tokens(tokens, outer["embed.embedding"])
+    return pp.pipeline_lm_train_step(embed_fn, stage_fn, head_loss_fn, outer,
+                                     stage, tokens, tokens, mesh,
+                                     num_microbatches)
+
+  def step(params, tokens):
+    # only this rank's layers are stacked: the others' stay untouched
+    num_layers = _layer_count(params)
+    assert num_layers % n_stages == 0, \
+        "%d layers do not split into %d stages" % (num_layers, n_stages)
+    k = num_layers // n_stages
+    first = mesh.coord(mesh_lib.AXIS_PIPELINE) * k
+    subs = [n[len("layers.0."):] for n in params if n.startswith("layers.0.")]
+    with torch.no_grad():
+      own = {sub: torch.stack([params["layers.%d.%s" % (first + j, sub)]
+                               for j in range(k)]) for sub in subs}
+    outer = {n: v for n, v in params.items() if not n.startswith("layers.")}
+    tokens = _tokens(tokens, outer["embed.embedding"])
+    loss, g_outer, g_stage = pp.lm_stage_step(
+        embed_fn, stage_fn, head_loss_fn, outer, own, tokens, tokens, mesh,
+        num_microbatches)
+    grads = pipeline_unpartition_grads(
+        g_outer, _gather_stages(g_stage, mesh), num_layers)
+    return loss, {n: grads[n] for n in params}
+
+  step.partitioned = partitioned_step
+  return step
+
+
 __all__ = ["TransformerConfig", "KVCache", "zero_cache", "Transformer",
            "TiedEmbed", "Attention", "MLPBlock", "Block", "LayerNorm",
            "greedy_generate_kv", "speculative_generate_kv",
@@ -1640,4 +1883,5 @@ __all__ = ["TransformerConfig", "KVCache", "zero_cache", "Transformer",
            "reset_serving_stats",
            "causal_lm_loss", "causal_lm_loss_blocked", "tied_embedding_table",
            "create_state", "create_sharded_state", "param_logical",
-           "param_kind"]
+           "param_kind", "MoEBlock", "pipeline_partition_params",
+           "pipeline_unpartition_grads", "make_pipeline_train_step"]

@@ -1,1 +1,25 @@
-"""Training on the card: the train step and the fused K-step loop."""
+"""Parallelism over the processes of a ``torch.distributed`` group.
+
+The counterpart of ``tensorflowonspark_tpu/parallel/``, whose meshes lay
+devices out for XLA/GSPMD; here each process is one rank of the mesh and
+calls the collectives its part of the work needs.
+
+- ``mesh``        — the six axes (data/fsdp/pipeline/expert/sequence/
+                    tensor), a rank's coordinates and a group per set of
+                    axes
+- ``sharding``    — the logical rules, the train step and the fused K-step
+                    loop, on one card or over a mesh
+- ``collectives`` — all-reduce, all-gather, reduce-scatter, ring permute
+                    and all-to-all over an axis's group, their autograd
+                    conjugates, and ``shard_map_fn``
+- ``ring_attention`` — sequence parallelism on the flash kernels
+- ``expert_parallel`` — MoE layers with their experts cut over ``expert``
+- ``pipeline_parallel`` — GPipe and 1F1B stage parallelism over
+                    ``pipeline``
+- ``runner``      — the independent-parallel barrier runner
+"""
+
+from tensorflowonspark_tpu_torch.parallel.mesh import (  # noqa: F401
+    MeshSpec, build_mesh, AXIS_DATA, AXIS_FSDP, AXIS_TENSOR, AXIS_SEQUENCE,
+    AXIS_PIPELINE, AXIS_EXPERT,
+)

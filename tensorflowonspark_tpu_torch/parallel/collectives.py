@@ -24,12 +24,17 @@ does, and hand back a CUDA tensor (gloo has no CUDA send/recv or
 all-to-all). NCCL never gives way to gloo or to the host, and a failed
 collective raises.
 
-Autograd: ``ring_permute`` is differentiable (its backward is the inverse
-permute). :func:`copy_to` (identity forward, all-reduce backward),
+Autograd: ``ring_permute`` and ``all_to_all`` are differentiable (the
+backward is the inverse permute, the all-to-all with its axes swapped).
+:func:`copy_to` (identity forward, all-reduce backward),
 :func:`reduce_from` (all-reduce forward, identity backward) and
 :func:`gather_from` (all-gather forward, reduce-scatter backward) are the
-conjugate pairs tensor parallelism and FSDP build on; the other helpers
-are not differentiable.
+conjugate pairs tensor parallelism and FSDP build on; :func:`split_to`
+(this rank's piece forward, all-gather backward) and :func:`gather_to`
+(all-gather forward, this rank's piece backward) those of a value every
+rank of the axis holds alike, cut for work each rank does on its piece
+(the expert axis's token slices). The other helpers are not
+differentiable.
 """
 
 import math
@@ -218,13 +223,8 @@ def ring_permute(x: torch.Tensor, mesh, axis_name: str, shift: int = 1):
   return _permute(x, mesh, axis_name, int(shift))
 
 
-def all_to_all(x: torch.Tensor, mesh, axis_name: str, split_axis: int,
-               concat_axis: int):
-  """The tiled all-to-all (Ulysses-style head/sequence exchange, the
-  reference's ``lax.all_to_all(..., tiled=True)``): ``x`` is cut into
-  equal pieces along ``split_axis``, piece ``j`` goes to coordinate
-  ``j``, and the pieces received are concatenated along ``concat_axis``
-  in coordinate order."""
+def _all_to_all(x: torch.Tensor, mesh, axis_name: str, split_axis: int,
+                concat_axis: int):
   group, n = _axis(mesh, axis_name)
   if group is None:
     return x.clone()
@@ -237,6 +237,33 @@ def all_to_all(x: torch.Tensor, mesh, axis_name: str, split_axis: int,
   _count("all_to_all", src)
   dist.all_to_all_single(out, src, group=group)
   return torch.cat(out.to(x.device).unbind(0), dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+
+  @staticmethod
+  def forward(ctx, x, mesh, axis_name, split_axis, concat_axis):
+    ctx.args = (mesh, axis_name, split_axis, concat_axis)
+    return _all_to_all(x, mesh, axis_name, split_axis, concat_axis)
+
+  @staticmethod
+  def backward(ctx, g):
+    mesh, axis_name, split_axis, concat_axis = ctx.args
+    return (_all_to_all(g, mesh, axis_name, concat_axis, split_axis), None,
+            None, None, None)
+
+
+def all_to_all(x: torch.Tensor, mesh, axis_name: str, split_axis: int,
+               concat_axis: int):
+  """The tiled all-to-all (Ulysses-style head/sequence exchange, the
+  reference's ``lax.all_to_all(..., tiled=True)``): ``x`` is cut into
+  equal pieces along ``split_axis``, piece ``j`` goes to coordinate
+  ``j``, and the pieces received are concatenated along ``concat_axis``
+  in coordinate order. Differentiable: the backward is the all-to-all
+  with the two axes swapped."""
+  if torch.is_grad_enabled() and x.requires_grad:
+    return _AllToAll.apply(x, mesh, axis_name, split_axis, concat_axis)
+  return _all_to_all(x, mesh, axis_name, split_axis, concat_axis)
 
 
 def hierarchical_all_reduce(x: torch.Tensor, mesh, ici_axis: str,
@@ -292,6 +319,65 @@ class _GatherFrom(torch.autograd.Function):
   def backward(ctx, g):
     mesh, axis_name, axis = ctx.args
     return reduce_scatter(g, mesh, axis_name, axis=axis), None, None, None
+
+
+def _piece(x: torch.Tensor, mesh, axis_name, axis: int) -> torch.Tensor:
+  """This rank's piece of ``x`` along ``axis``: coordinate ``i`` of the
+  axis (or axes, the first outermost) keeps the ``i``-th of equal
+  pieces."""
+  index, count = block_index(mesh, _axes(axis_name))
+  if x.shape[axis] % count:
+    raise ValueError("dimension %d of size %d does not divide into %d "
+                     "pieces" % (axis, x.shape[axis], count))
+  size = x.shape[axis] // count
+  return x.narrow(axis, index * size, size)
+
+
+class _SplitTo(torch.autograd.Function):
+
+  @staticmethod
+  def forward(ctx, x, mesh, axis_name, axis):
+    ctx.args = (mesh, axis_name, axis)
+    return _piece(x, mesh, axis_name, axis).clone()
+
+  @staticmethod
+  def backward(ctx, g):
+    mesh, axis_name, axis = ctx.args
+    return all_gather(g.contiguous(), mesh, axis_name, axis=axis), None, \
+        None, None
+
+
+class _GatherTo(torch.autograd.Function):
+
+  @staticmethod
+  def forward(ctx, x, mesh, axis_name, axis):
+    ctx.args = (mesh, axis_name, axis)
+    return all_gather(x, mesh, axis_name, axis=axis)
+
+  @staticmethod
+  def backward(ctx, g):
+    mesh, axis_name, axis = ctx.args
+    return _piece(g, mesh, axis_name, axis).contiguous(), None, None, None
+
+
+def split_to(x: torch.Tensor, mesh, axis_name, axis: int = 0):
+  """This rank's piece of ``x`` along ``axis`` (coordinate ``i`` keeps
+  the ``i``-th of equal pieces), where every rank of the axis holds ``x``
+  alike; the gradient is the ranks' pieces all-gathered, so ``x``'s is
+  whole on every rank (Megatron's scatter)."""
+  if mesh is None or mesh.group(_axes(axis_name)) is None:
+    return x
+  return _SplitTo.apply(x, mesh, axis_name, axis)
+
+
+def gather_to(x: torch.Tensor, mesh, axis_name, axis: int = 0):
+  """The ranks' pieces of a value concatenated along ``axis`` in
+  coordinate order, where what follows runs alike on every rank of the
+  axis: the gradient, the same on every rank, gives each rank its own
+  piece back (Megatron's gather; :func:`split_to`'s conjugate)."""
+  if mesh is None or mesh.group(_axes(axis_name)) is None:
+    return x
+  return _GatherTo.apply(x, mesh, axis_name, axis)
 
 
 def copy_to(x: torch.Tensor, mesh, axis_name):

@@ -12,10 +12,11 @@ Ranks lie on the mesh in ``axis_names`` order, row-major (the last axis,
 reference's devices fill its mesh in enumeration order. Each process has
 a coordinate on every axis (:meth:`Mesh.coord`, the counterpart of
 ``lax.axis_index``), and :meth:`Mesh.group` is the process group of the
-ranks that differ only on the axes asked for. The ``data``, ``fsdp``,
-``sequence`` and ``tensor`` axes may be above 1 (see
-``parallel.sharding`` for what each shards); ``pipeline`` and ``expert``
-above 1 raise ``NotImplementedError``: ROADMAP Queue 1 item 10c.
+ranks that differ only on the axes asked for. Every axis may be above 1:
+``parallel.sharding`` says what ``data``, ``fsdp``, ``expert``,
+``sequence`` and ``tensor`` cut; ``pipeline`` is the 1F1B pipeline's
+stage axis (``parallel.pipeline_parallel``), which the train step of
+``parallel.sharding`` cuts nothing over.
 
 The reference's ``_topology_mesh_devices`` (TPU ICI coordinates, the
 multi-slice DCN axis) has no counterpart: a process group has no
@@ -217,8 +218,7 @@ def build_mesh(spec: Optional[MeshSpec] = None, group=None,
   ``size()`` and ``rank()``. Exactly one axis may be -1; it absorbs the
   process count left after the explicit axes divide in. Axes of degree 1
   stay in the mesh so every canonical axis can be named. The degrees and
-  the error messages are the reference's. ``pipeline`` or ``expert``
-  above 1 raises ``NotImplementedError`` (ROADMAP Queue 1 item 10c). With
+  the error messages are the reference's. With
   two or more axes above 1 every process of the world group must call
   this together: it makes the subgroups of :meth:`Mesh.group`.
   """
@@ -242,14 +242,6 @@ def build_mesh(spec: Optional[MeshSpec] = None, group=None,
   elif explicit != n:
     raise ValueError("mesh %r needs %d devices, have %d"
                      % (degrees, explicit, n))
-  wide = ["%s=%d" % (a, d) for a, d in degrees.items()
-          if a in (AXIS_PIPELINE, AXIS_EXPERT) and d > 1]
-  if wide:
-    raise NotImplementedError(
-        "mesh axes %s: pipeline and expert parallelism (the 1F1B pipeline, "
-        "MoE expert sharding) are not ported to PyTorch yet (ROADMAP Queue "
-        "1 item 10c); data, fsdp, sequence and tensor are" % ", ".join(wide))
-
   names = tuple(axis_names or CANONICAL_ORDER)
   mesh = Mesh(names, degrees, rank, group,
               _subgroups(names, degrees, group))

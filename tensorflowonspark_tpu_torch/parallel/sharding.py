@@ -13,7 +13,8 @@ GSPMD holds global arrays laid out over devices:
 
 * parameters follow their logical axes through :data:`LOGICAL_RULES`
   (``embed`` over ``fsdp``; ``heads``, ``mlp`` and ``vocab`` over
-  ``tensor``; a dimension its axis cannot divide stays whole), and each
+  ``tensor``; ``expert``, the MoE layers' stacked experts, over
+  ``expert``; a dimension its axis cannot divide stays whole), and each
   rank stores its block; optimizer state mirrors its parameter
   (:class:`StateSharding`). The model gathers what it computes with
   (``models.transformer``); a state whose every parameter is whole is
@@ -30,9 +31,14 @@ GSPMD holds global arrays laid out over devices:
   the optimizer sees it (the clip, the weight decay and ``MultiSteps``
   see it, as in the reference, where XLA inserts the collectives). An
   FSDP-cut parameter's shares arrive already summed over ``fsdp`` by the
-  reduce-scatter of its gather. The optimizer's own global reductions
-  (the clip's norm, Adafactor's factored statistics) run over the
-  parameter's axes (``optim.param_layout``).
+  reduce-scatter of its gather. A batch is whole over ``expert`` and
+  ``pipeline``, so no gradient is summed over them here: an expert
+  block's gradient is the rank's own, and a weight every expert rank
+  holds alike (the dense weights, the MoE router) gets the same gradient
+  on each, since the MoE layers sum their partial gradients over the
+  axis themselves (``parallel.expert_parallel``). The optimizer's own
+  global reductions (the clip's norm, Adafactor's factored statistics)
+  run over the parameter's axes (``optim.param_layout``).
 * the returned loss is averaged over the batch axes: every rank returns
   the global batch's loss, as the reference's replicated loss.
 
@@ -40,8 +46,10 @@ A batch handed to a step is this rank's block (the counterpart of
 ``jax.make_array_from_process_local_data``); :func:`shard_batch` and
 :func:`shard_slab` cut it out of a global host batch (what the
 reference's ``device_put`` of the global batch gives each device).
-``pipeline`` and ``expert`` above 1 raise ``NotImplementedError``:
-ROADMAP Queue 1 item 10c.
+Nothing is cut over ``pipeline`` here, as in the reference's GSPMD: every
+stage rank runs the whole step alike. The 1F1B pipeline trains through
+``parallel.pipeline_parallel`` (``models.transformer.
+make_pipeline_train_step``) instead.
 
 ``loss_fn(model, batch)`` returns a scalar loss tensor; it stands for the
 reference's pure ``loss_fn(params, batch)``, the model carrying the
@@ -202,9 +210,8 @@ class StateSharding(object):
 
 def _check_mesh(mesh, state_sharding=None, batch_extra_axes=()) -> None:
   """Refuse what the port does not run: a mesh of another type, extra
-  batch axes other than ``sequence`` (or without a mesh), a state
-  sharding of another type, and ``pipeline`` / ``expert`` above 1
-  (item 10c)."""
+  batch axes other than ``sequence`` (or without a mesh), and a state
+  sharding of another type."""
   if state_sharding is not None and \
       not isinstance(state_sharding, StateSharding):
     raise TypeError("state_sharding must be a StateSharding "
@@ -222,14 +229,8 @@ def _check_mesh(mesh, state_sharding=None, batch_extra_axes=()) -> None:
   if not isinstance(mesh, mesh_lib.Mesh):
     raise NotImplementedError(
         "a mesh of type %s: the port trains over parallel.mesh.build_mesh's "
-        "Mesh; device meshes of other kinds are ROADMAP Queue 1 item 10c"
-        % type(mesh).__name__)
-  wide = ["%s=%d" % (a, d) for a, d in mesh.shape.items()
-          if a in (mesh_lib.AXIS_PIPELINE, mesh_lib.AXIS_EXPERT) and d > 1]
-  if wide:
-    raise NotImplementedError(
-        "mesh axes %s are not ported to PyTorch yet (ROADMAP Queue 1 item "
-        "10c: the 1F1B pipeline, expert parallelism)" % ", ".join(wide))
+        "Mesh; device meshes of other kinds are ROADMAP Queue 1 item 10c, "
+        "part 3" % type(mesh).__name__)
 
 
 def _state_device(state) -> torch.device:
@@ -617,10 +618,12 @@ def init_sharded_state(params_init_fn: Callable, make_state_fn: Callable,
   ``nn.with_logical_partitioning``); ``make_state_fn(blocks,
   sharding)`` wraps this rank's blocks in a train state, running the
   optimizer's init under :func:`optim.param_layout`. Each rank keeps only
-  its blocks of the whole weights it was given; a block, and a moment of
-  one, that every rank of some axes holds alike is then broadcast from
-  coordinate 0 of those axes, so ranks handed different weights still
-  agree where they must.
+  its blocks of the whole weights it was given; a block that every rank
+  of some axes holds alike is then broadcast from coordinate 0 of those
+  axes, and the optimizer state is made again from the agreed blocks (an
+  optimizer's init is a function of its parameters), so ranks handed
+  different weights still agree where they must, and no moment crosses
+  the group.
   """
   from tensorflowonspark_tpu_torch import optim
   params, logical = params_init_fn()
@@ -628,17 +631,18 @@ def init_sharded_state(params_init_fn: Callable, make_state_fn: Callable,
   specs = {n: logical_to_mesh(logical[n], shapes[n], mesh) for n in params}
   sharding = StateSharding(mesh, specs, shapes)
   blocks = {n: shard_array(p, specs[n], mesh) for n, p in params.items()}
-  with optim.param_layout(sharding if sharding.sharded else None):
+  layout = sharding if sharding.sharded else None
+  with optim.param_layout(layout):
     state = make_state_fn(blocks, sharding)
   with torch.no_grad():
-    for _, t, name in _owners(state, sharding):
-      if name is None:
-        continue
+    for name, t in state.params.items():
       axes = tuple(a for a in mesh.wide() if a not in specs[name])
       if axes or (not mesh.wide()
                   and mesh.group(mesh_lib.AXIS_DATA) is not None):
         t.copy_(collectives.broadcast_from(t, mesh, axes or
                                            mesh_lib.AXIS_DATA))
+  with optim.param_layout(layout):
+    state.opt_state = state.tx.init(state.params)
   state.sharding = sharding
   return state, sharding
 

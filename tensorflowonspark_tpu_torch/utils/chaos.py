@@ -75,7 +75,7 @@ Arming it raises ``NotImplementedError`` at the first consult, naming
 the ROADMAP Queue 1 item that ports its site, instead of injecting
 nothing: a chaos run that injects no fault passes for the wrong reason.
 ``TOS_CHAOS_GROUP`` (``parallel.groups``' ``group_fault``) comes with
-item 10c.
+item 10c, part 2.
 """
 
 import logging
@@ -103,7 +103,8 @@ _KNOWN_ENV = (ENV_KILL, ENV_STALL, ENV_RV_DROP, ENV_RV_DELAY, ENV_SERVE,
 _ENV_PREFIX = "TOS_CHAOS_"
 #: the knobs whose fault sites are not ported yet, with the ROADMAP Queue 1
 #: item that ports each
-_UNPORTED = ((ENV_GROUP, "the group fault of parallel/groups.py", "10c"),)
+_UNPORTED = ((ENV_GROUP, "the group fault of parallel/groups.py",
+              "10c, part 2"),)
 
 
 class InjectedFault(RuntimeError):

@@ -108,8 +108,9 @@ def _is_train_state(x) -> bool:
 
 
 def refuse_cut_state(state: Any, what: str) -> None:
-  """Raise for a train state whose weights are cut over a mesh (fsdp or
-  tensor, ``state.sharding.sharded``): each rank holds its blocks only,
+  """Raise for a train state whose weights are cut over a mesh (fsdp,
+  tensor or expert, ``state.sharding.sharded``): each rank holds its
+  blocks only,
   and a checkpoint or an export holds rank 0's, so one would restore
   other ranks' blocks wrong. A state that every rank holds whole (one
   card, the data axis) passes."""
@@ -118,8 +119,9 @@ def refuse_cut_state(state: Any, what: str) -> None:
   if sharding is not None and sharding.sharded:
     raise NotImplementedError(
         "%s of a train state cut over the mesh %s: gathered checkpoints of "
-        "FSDP and tensor-parallel states are not ported to PyTorch yet "
-        "(ROADMAP Queue 1 item 10c)" % (what, dict(sharding.mesh.shape)))
+        "FSDP, tensor- and expert-parallel states are not ported to PyTorch "
+        "yet (ROADMAP Queue 1 item 10c, part 3)"
+        % (what, dict(sharding.mesh.shape)))
 
 
 def _host(t: torch.Tensor) -> torch.Tensor:

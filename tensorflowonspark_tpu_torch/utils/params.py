@@ -17,10 +17,15 @@ port name                      flax path               shape
 ``layers.i.ln2.scale``         layer_i/ln2/scale       [D]
 ``layers.i.mlp.up``            layer_i/mlp/up/kernel   [D, F]
 ``layers.i.mlp.down``          layer_i/mlp/down/kernel [F, D]
+``layers.i.moe.w_gate``        layer_i/moe/w_gate      [D, E]
+``layers.i.moe.w_up``          layer_i/moe/w_up        [E, D, F]
+``layers.i.moe.w_down``        layer_i/moe/w_down      [E, F, D]
 ``ln_f.scale``                 ln_f/scale              [D]
 =============================  ======================  ==================
 
-(``qkv`` replaces ``q``/``k``/``v`` when ``cfg.fuse_qkv``.) The flax tree
+(``qkv`` replaces ``q``/``k``/``v`` when ``cfg.fuse_qkv``; with
+``cfg.moe_experts`` > 0 the MoE layers, those with ``i % moe_every ==
+moe_every - 1``, hold ``moe`` instead of ``mlp``.) The flax tree
 arrives as nested dicts of numpy arrays — a caller holding JAX params
 passes ``jax.tree.map(np.asarray, params)`` — and leaves as one, so this
 module never sees a JAX type.
@@ -35,10 +40,19 @@ import torch
 _TRUNC_STD = 0.87962566103423978
 
 
+def is_moe_layer(cfg, i: int) -> bool:
+  """Whether layer ``i`` routes through experts: every ``moe_every``-th
+  layer when ``moe_experts`` > 0, as the reference picks them."""
+  return cfg.moe_experts > 0 and i % cfg.moe_every == cfg.moe_every - 1
+
+
 def param_specs(cfg) -> Dict[str, Tuple[Tuple[int, ...], str, int]]:
   """``{name: (shape, init law, fan_in)}`` for every parameter of a
   Transformer built from ``cfg``. Laws: ``lecun`` (truncated normal,
-  std 1/sqrt(fan_in)), ``embed`` (normal 0.02), ``ones``."""
+  std 1/sqrt(fan_in)), ``embed`` (normal 0.02), ``ones``. flax's
+  ``lecun_normal`` counts a stacked expert leaf's leading dimension as
+  its receptive field, so ``w_up`` [E, D, F] draws at fan-in E * D and
+  ``w_down`` [E, F, D] at E * F."""
   d_model, h, hk, d = cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.head_dim
   specs = {"embed.embedding": ((cfg.vocab_size, d_model), "embed", 0)}
   for i in range(cfg.num_layers):
@@ -52,8 +66,14 @@ def param_specs(cfg) -> Dict[str, Tuple[Tuple[int, ...], str, int]]:
       specs[p + "attn.v"] = ((d_model, hk, d), "lecun", d_model)
     specs[p + "attn.out"] = ((h, d, d_model), "lecun", h * d)
     specs[p + "ln2.scale"] = ((d_model,), "ones", 0)
-    specs[p + "mlp.up"] = ((d_model, cfg.d_ff), "lecun", d_model)
-    specs[p + "mlp.down"] = ((cfg.d_ff, d_model), "lecun", cfg.d_ff)
+    if is_moe_layer(cfg, i):
+      e, f = cfg.moe_experts, cfg.d_ff
+      specs[p + "moe.w_gate"] = ((d_model, e), "lecun", d_model)
+      specs[p + "moe.w_up"] = ((e, d_model, f), "lecun", e * d_model)
+      specs[p + "moe.w_down"] = ((e, f, d_model), "lecun", e * f)
+    else:
+      specs[p + "mlp.up"] = ((d_model, cfg.d_ff), "lecun", d_model)
+      specs[p + "mlp.down"] = ((cfg.d_ff, d_model), "lecun", cfg.d_ff)
   specs["ln_f.scale"] = ((d_model,), "ones", 0)
   return specs
 
@@ -119,7 +139,7 @@ def _flax_path(name: str) -> Tuple[str, ...]:
   parts = name.split(".")
   if parts[0] == "layers":
     parts = ["layer_" + parts[1]] + parts[2:]
-  if parts[-1] not in ("scale", "embedding"):
+  if parts[-1] not in ("scale", "embedding", "w_gate", "w_up", "w_down"):
     parts.append("kernel")
   return tuple(parts)
 

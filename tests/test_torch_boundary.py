@@ -66,7 +66,10 @@ def test_port_sources_import_no_jax():
                "serving/remote.py", "serving/host.py",
                # and the mesh axes: ring attention, the ring step's ops
                "parallel/ring_attention.py", "ops/flash_attention.py",
-               "optim.py", "train_state.py"):
+               "optim.py", "train_state.py",
+               # and the pipeline and expert axes
+               "parallel/expert_parallel.py",
+               "parallel/pipeline_parallel.py"):
     assert os.path.join(*name.split("/")) in scanned, name
   bad = sorted((os.path.relpath(p, ROOT), root) for p in files
                for root in _imported_roots(p) if root in FORBIDDEN)
@@ -74,6 +77,9 @@ def test_port_sources_import_no_jax():
   bad_smoke = [r for r in _imported_roots(os.path.join(ROOT, "chip_smoke.py"))
                if r in FORBIDDEN]
   assert bad_smoke == []
+  # the gloo ranks of the pipeline and expert tests start without JAX
+  ranks = os.path.join(ROOT, "tests", "torch_pp_ep_ranks.py")
+  assert [r for r in _imported_roots(ranks) if r in FORBIDDEN] == []
 
 
 def test_running_the_port_loads_no_jax_module():

@@ -5,7 +5,7 @@ JAX package.
   for every knob the port injects (kill, stall, rendezvous drop and delay,
   serve, fleet, deploy, host), with the same messages; an unknown
   ``TOS_CHAOS_*`` name raises ``ValueError``; ``GROUP`` raises
-  ``NotImplementedError`` naming ROADMAP item 10c;
+  ``NotImplementedError`` naming ROADMAP item 10c, part 2;
 - the same call sequences through both modules' ``serve_fault``,
   ``fleet_fault``, ``deploy_fault``, ``host_fault``, ``stall_point`` and
   ``message_fault`` give the same verdicts (raises, kills, poisons,
@@ -83,7 +83,7 @@ def test_unknown_knob_raises_as_the_reference(monkeypatch):
 
 
 #: the knobs whose sites the port does not have yet, and the item of each
-UNPORTED_ITEMS = {"TOS_CHAOS_GROUP": "10c"}
+UNPORTED_ITEMS = {"TOS_CHAOS_GROUP": "10c, part 2"}
 
 
 def _inject(module, name):

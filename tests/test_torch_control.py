@@ -263,8 +263,9 @@ def test_port_pin_and_range(rdv):
     s2.stop()
 
 
-@pytest.mark.parametrize("verb,item", [("OBS", "item 7"), ("SYNC", "item 10"),
-                                       ("GROUP", "item 10"),
+@pytest.mark.parametrize("verb,item", [("OBS", "item 7"),
+                                       ("SYNC", "item 10c, part 2"),
+                                       ("GROUP", "item 10c, part 2"),
                                        ("SHREG", "item 8")])
 def test_unported_verbs_answer_with_their_item(verb, item):
   s = port_rdv.Server(1)

@@ -220,10 +220,16 @@ def test_train_gpt_checks_the_vocabulary(token_files):
     next(train_gpt.batch_stream(args))
 
 
-@pytest.mark.parametrize("flags,item", [(["--pp", "2"], "item 10c")])
-def test_train_gpt_refuses_what_is_not_ported(flags, item):
-  with pytest.raises(NotImplementedError, match=item):
-    train_gpt.parse_args(["--device", "cpu"] + flags)
+def test_train_gpt_pp_trains_over_a_group_of_its_ranks(token_files):
+  """``--pp 2`` is the 1F1B pipeline: its flags parse (one process takes
+  ``--dp 1``), and outside a process group of its ranks it asks for one
+  (``tests/test_torch_pipeline_parallel.py`` trains it in gloo ranks)."""
+  pattern, _ = token_files
+  args = train_gpt.parse_args(TINY + ["--pp", "2", "--microbatches", "3",
+                                      "--data", pattern])
+  assert (args.pp, args.dp, args.microbatches) == (2, 1, 3)
+  with pytest.raises(ValueError, match="--pp 2 needs a torch.distributed"):
+    train_gpt.make_mesh(args)
 
 
 @pytest.mark.parametrize("unroll", [0, 2])

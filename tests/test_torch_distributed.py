@@ -16,9 +16,10 @@ wrote:
   ``test_torch_train.py`` holds data=1); the two ranks' weights bitwise
   equal;
 - 2 ranks against 1 process on the same global batches, per step and
-  through an unroll-2 slab, and ``train_gpt --dp 2`` from a TFRecord file
-  against ``train_gpt`` in one process (its config made f32 in both):
-  f32, 1e-5 relative;
+  through an unroll-2 slab, ``train_gpt --dp 2`` and ``train_gpt --pp 2``
+  (the 1F1B pipeline over the two ranks) from a TFRecord file against
+  ``train_gpt`` in one process (its config made f32 in both): f32, 1e-5
+  relative;
 - a checkpointed run: a fresh 2-rank cluster restores what the first
   saved through ``ctx.checkpoint_manager`` and continues; its losses and
   weights equal an uninterrupted 2-rank run's to the bit.
@@ -171,6 +172,9 @@ def _dp_main(args, ctx):
       argv + ["--unroll", "2"]))
   rec["gpt_adafactor_dots"] = train_gpt.run(train_gpt.parse_args(
       argv + GPT_OPTIONS))
+  rec["gpt_pp"] = train_gpt.run(train_gpt.parse_args(
+      GPT_ARGV + ["--data", args["data"], "--pp", "2", "--microbatches",
+                  "2"]))
   # checkpointed: 4 steps uninterrupted, and the first 2 of them apart
   _, rec["full_losses"], state = _ckpt_run(ctx, mesh, args, args["full"], 4)
   rec["full_print"] = params_fingerprint(state)
@@ -393,11 +397,12 @@ def test_dp_resumes_from_a_checkpoint_to_the_bit(files_run, tmp_path):
       assert np.array_equal(weights[k], a0["full/" + k]), k
 
 
-@pytest.mark.parametrize("argv,match", [(["--pp", "2"], "item 10c")])
-def test_train_gpt_refuses_the_other_mesh_axes(argv, match):
-  from tensorflowonspark_tpu_torch.examples import train_gpt
-  with pytest.raises(NotImplementedError, match=match):
-    train_gpt.parse_args(GPT_ARGV + argv)
+def test_train_gpt_pp2_matches_one_process(files_run, monkeypatch):
+  """``train_gpt --pp 2 --microbatches 2 --data ...`` under
+  ``cluster.run``: the two ranks are the pipeline's two stages (``--dp
+  -1`` takes one data rank), and their losses equal one process's
+  without a pipeline."""
+  _dp2_against_one_process(files_run, "gpt_pp", [], monkeypatch)
 
 
 def test_train_gpt_dp_outside_a_group_raises():

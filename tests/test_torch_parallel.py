@@ -2,8 +2,9 @@
 
 - ``build_mesh``: the same degrees and the same error messages as the
   reference's over 1, 2, 4 and 8 devices (the reference on
-  ``jax.devices()[:n]``, the port over a stand-in group of n processes);
-  ``pipeline`` or ``expert`` above 1 raises, naming item 10c.
+  ``jax.devices()[:n]``, the port over a stand-in group of n processes),
+  pipeline and expert axes included, with each axis's ranks where the
+  reference lays its devices.
 - The collectives: in 2 gloo processes, ``psum_mean``, ``all_reduce``,
   ``all_gather``, ``reduce_scatter``, ``broadcast_from`` and
   ``global_norm`` equal the reference's inside ``shard_map`` over 2 CPU
@@ -59,7 +60,10 @@ SPECS = [mesh_lib.MeshSpec(), mesh_lib.MeshSpec(data=1),
          mesh_lib.MeshSpec(data=-1, tensor=-1),
          mesh_lib.MeshSpec(data=-1, sequence=3),
          mesh_lib.MeshSpec(data=2, tensor=2),
-         mesh_lib.MeshSpec(data=-1, pipeline=1, expert=1)]
+         mesh_lib.MeshSpec(data=-1, pipeline=1, expert=1),
+         mesh_lib.MeshSpec(data=-1, pipeline=2),
+         mesh_lib.MeshSpec(data=2, expert=-1),
+         mesh_lib.MeshSpec(data=1, pipeline=2, expert=2)]
 
 
 def _ref_spec(spec):
@@ -78,17 +82,24 @@ def test_build_mesh_matches_the_reference(spec, n):
     assert str(got.value) == str(e)
     return
   shape = dict(ref.shape)
-  if any(d > 1 for a, d in shape.items() if a in ("pipeline", "expert")):
-    with pytest.raises(NotImplementedError, match="item 10c"):
-      mesh_lib.build_mesh(spec, group=_Group(n))
-    return
   mesh = mesh_lib.build_mesh(spec, group=_Group(n, rank=n - 1))
   assert dict(mesh.shape) == shape
   assert mesh.axis_names == tuple(ref.axis_names)
   assert mesh.rank == n - 1 and mesh.size == n
   assert mesh_lib.data_axes(mesh) == jax_mesh.data_axes(ref)
-  for axes in (("data",), ("data", "fsdp"), ("tensor", "sequence")):
+  for axes in (("data",), ("data", "fsdp"), ("tensor", "sequence"),
+               ("pipeline",), ("expert",)):
     assert mesh_lib.axis_size(mesh, *axes) == jax_mesh.axis_size(ref, *axes)
+  # the ranks of each axis's group are the devices the reference lays
+  # along that axis through this rank's device (the CPU devices' ids
+  # follow their order)
+  ids = np.vectorize(lambda d: d.id)(ref.devices)
+  at = [int(i) for i in np.argwhere(ids == n - 1)[0]]
+  for k, axis in enumerate(ref.axis_names):
+    line = list(at)
+    line[k] = slice(None)
+    want = [int(i) for i in ids[tuple(line)]]
+    assert mesh.ranks(axis) == want, axis
 
 
 def test_mesh_outside_a_group_is_one_process():
@@ -285,12 +296,20 @@ def _mesh(**degrees):
 
 
 @pytest.mark.parametrize("axis", ["pipeline", "expert"])
-def test_train_step_refuses_axes_other_than_data(axis):
+def test_train_step_takes_the_pipeline_and_expert_axes(axis):
+  """The step runs over a mesh with a pipeline or expert axis: nothing is
+  cut over pipeline, and expert cuts the stacked experts' first
+  dimension (the logical rule ``expert``), where it divides."""
   mesh = _mesh(**{axis: 2})
-  with pytest.raises(NotImplementedError, match="item 10c"):
-    sharding.make_train_step(lambda m, b: b, mesh)
-  with pytest.raises(NotImplementedError, match="item 10c"):
-    sharding.make_train_loop(lambda m, b: b, mesh, unroll=2)
+  assert sharding.make_train_step(lambda m, b: b, mesh) is not None
+  assert sharding.make_train_loop(lambda m, b: b, mesh, unroll=2).unroll == 2
+  want = ("expert" if axis == "expert" else None, None, None)
+  assert sharding.logical_to_mesh(("expert", "embed", "mlp"), (4, 8, 16),
+                                  mesh) == want
+  assert sharding.logical_to_mesh(("expert", "embed", "mlp"), (3, 8, 16),
+                                  mesh) == (None, None, None)
+  assert sharding.shard_batch(np.arange(8).reshape(4, 2), mesh).shape == \
+      (4, 2)
 
 
 def test_shard_batch_takes_this_ranks_rows():

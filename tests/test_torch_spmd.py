@@ -677,7 +677,7 @@ def test_param_shardings_follow_rules():
   assert fsdp.param_specs()["layers.0.mlp.down"] == (None, "fsdp")
   assert fsdp.param_specs()["layers.0.ln1.scale"] == (None,)
   # a cut model's blocks are no serving bundle
-  with pytest.raises(NotImplementedError, match="item 10c"):
+  with pytest.raises(NotImplementedError, match="item 10c, part 3"):
     fsdp.serving_params()
 
 
@@ -767,7 +767,7 @@ def test_checkpoints_of_a_cut_state_are_refused_by_name(tmp_path):
                lambda: mgr.restore_or(state),
                lambda: compat.export_model(state, str(tmp_path / "ex"),
                                            True)):
-    with pytest.raises(NotImplementedError, match="item 10c"):
+    with pytest.raises(NotImplementedError, match="item 10c, part 3"):
       call()
   state.sharding = sharding.StateSharding(mesh, {"w": (None, None)},
                                           {"w": (4, 8)})

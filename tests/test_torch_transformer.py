@@ -127,14 +127,14 @@ def test_config_validation_matches_jax(case):
     pytest.param(kw, item, id=next(iter(kw))) for kw, item in (
         (dict(kv_cache_dtype="int8"), None),
         (dict(kv_page_size=4, kv_num_pages=8, kv_pages_per_slot=2), None),
-        (dict(moe_experts=2), "item 10c"),
+        (dict(moe_experts=2), None),
         (dict(use_ring_attention=True), None),
         (dict(attention_impl="dense"), "item 11"),
         (dict(layer_norm_impl="flax"), "item 11"))])
 def test_unported_options_raise(kw, item):
   """The options the port still refuses name their ROADMAP item; the
-  decode-speed layouts (int8 and paged KV) and ring attention build in
-  both packages."""
+  decode-speed layouts (int8 and paged KV), ring attention and MoE
+  layers build in both packages."""
   jax_tfm.TransformerConfig(**kw)            # valid for the reference
   if item is None:
     cfg = tfm.TransformerConfig(**kw)

@@ -111,7 +111,7 @@ failure:
    the 12 losses equal to both direct runs' to the bit, every chunk columnar, the input carried by the ring, no restart;
    ms/step of both, one profiled step of each, the feed's fetch / decode
    / assemble ms per batch and the cluster seconds are logged; then the
-   feed's own ceiling, 4096 rows (16 MiB) drained onto the card with no
+   feed's own ceiling, 2048 rows (8 MiB) drained onto the card with no
    step, on the shm ring and on the hub queue; then a consumer that fails
    after its first batch must bring its traceback to ``train`` or
    ``shutdown()``; (6j) ``Cluster.inference`` of 64 rows in 4 partitions
@@ -261,11 +261,39 @@ failure:
    stage alone, the permutes and all-to-alls a step, and (b)/(d) a rank's
    expert weights and moments a half / a quarter of one process's; the
    MoE cases hold their first f32 step's update at 6s's 1e-4 and the
-   3-step update within 1e-5 (past the first step, a top-2 choice at a
-   near-tie may fall the other way in one process than on the ranks). (e)
+   3-step update within 1e-5 (past the first step, an expert unit's
+   pre-ReLU activation within ~1e-6 of zero may take the other sign in
+   one process than on the ranks: the routing log below shows it), and
+   their f32 runs log every routing decision of steps 1-3 on each rank
+   and in one process (each token's top-2 experts and its 2nd-to-3rd
+   router gap): where the two first differ, and each differing token's
+   id, target, experts and gaps. (e)
    one process: (b)'s model in f32 decodes 4 prompts x 16 tokens with
    ``greedy_generate_kv``, exact launches, each token the argmax of the
    non-cached forward (near-ties aside);
+   (6u) elastic multi-group training (``parallel.groups``), after 6l on
+   its LocalEngine(2): groups are threads of the driver sharing the card's
+   stream. (a) 2 groups of the flagship at B16 x S1024 with sync off, 4
+   steps each: each group's losses equal its batches run alone through one
+   ``TrainLoop`` to the bit, launches exactly twice one group's, ms a step
+   beside one alone; (b) the widest Transformer whose packed f32 weights
+   fit one rendezvous frame (vocab 2048, d_model 128, 2 heads of 64, d_ff
+   512, 2 layers; B8 x S256), 2 groups synced every 4 of 16 steps: after
+   each round both groups hold the same bits, the f64 weighted mean of the
+   two pre-sync weights recomputed here; 4 rounds, exact launches, the
+   loss falls; the sync's ms and its overhead in paired synced / unsynced
+   runs; (c) ``TOS_CHAOS_GROUP=kill@1#2`` (sync_timeout 1 s, miss_limit
+   2, 24 steps): group 0 completes with denominator 1, group 1 lost,
+   HEALTH carries ``groups``, the detector fires ``group_lost`` under
+   ``TOS_OBS=1``, then ``readmit(1)`` catches up past step 20 and
+   completes; (d) ``stall@1#1:2.0`` (0.5 s, miss_limit 1): the straggler
+   is evicted and re-admits itself; (e) saved at 2 groups, restored at 3
+   and at 1: next step 9, the saved bits in every group, the chief's
+   losses equal across the two; (f) ``cluster.run(..., group_map={0: 0,
+   1: 1}, elastic=True, max_restarts=0)``, each executor training (b)'s
+   model on the card through a ``GroupSyncClient``, executor 1 SIGKILLed
+   mid round 2: ``resize-shrink`` for group 1, executor 0 finishing with
+   denominator 1, ``shutdown()`` not raising;
    (6m) the pipeline layer on one ``LocalEngine(num_executors=2)`` whose
    executors share the card: (a) ``TFEstimator.fit`` (InputMode.SPARK)
    feeds 4 partitions of 24 seeded token rows; each node trains the
@@ -413,6 +441,10 @@ line.
 TFRecord files are written first; the ranks load the built kernels) and
 prints its measurements as one JSON line; ``--pp-ep-only`` runs phases 1,
 2 and 6t alone the same way.
+
+``python3 chip_smoke.py --groups-only`` runs phases 1, 2 and 6u alone (6u's
+cluster leg on a LocalEngine(2) of its own) and prints its measurements as
+one JSON line.
 
 ``python3 chip_smoke.py --serving-ab OTHER_CHECKOUT N`` runs phases 1 and 2,
 then phase 4 for the package of the checkout at OTHER_CHECKOUT (copied
@@ -2638,7 +2670,7 @@ def options_summary(res):
 # 6 partitions of 32 rows: 4 steps of B16, then 2 slabs of 4 steps
 FEED_PER_STEP, FEED_UNROLL, FEED_SLABS = 4, 4, 2
 FEED_PARTS, FEED_PART_ROWS = 6, 2 * TRAIN_B
-FEED_CEILING_PARTS, FEED_CEILING_PART_ROWS = 16, 256    # 4096 rows, 16 MiB
+FEED_CEILING_PARTS, FEED_CEILING_PART_ROWS = 8, 256     # 2048 rows, 8 MiB
 INFER_PARTS, INFER_PART_ROWS = 4, TRAIN_B
 WANT_INFER_PER_FORWARD = {"flash_attention_fwd": 12, "layer_norm": 25}
 FEED_MARK = "chip-smoke-deliberate-failure-6i"
@@ -5419,9 +5451,9 @@ def _nccl_two_ranks(rank, port, out):
     f.write(msg)
 
 
-def nccl_refusal():
+def nccl_refusal_start():
   """NCCL's answer to two ranks on one card: two spawned processes try
-  one all-reduce; whatever each reports (killed after 120 s)."""
+  one all-reduce. Returns their handle for :func:`nccl_refusal`."""
   import multiprocessing as mp
   from tensorflowonspark_tpu_torch.utils.hostinfo import get_free_port
   out = os.path.join(HERE, "build", "chip_smoke_nccl_rank%d.txt")
@@ -5433,8 +5465,15 @@ def nccl_refusal():
            for r in range(2)]
   for p in procs:
     p.start()
+  return procs, out, time.monotonic()
+
+
+def nccl_refusal(started):
+  """Whatever each of :func:`nccl_refusal_start`'s processes reported
+  (killed 120 s after their start)."""
+  procs, out, t0 = started
   for p in procs:
-    p.join(timeout=120)
+    p.join(timeout=max(1.0, t0 + 120 - time.monotonic()))
   msgs = []
   for r, p in enumerate(procs):
     if p.is_alive():
@@ -5468,6 +5507,9 @@ def dp_two_ranks_files(torch, ops, train_gpt, sharding, cluster, engine):
   out = os.path.join(HERE, "build", "chip_smoke_dp_rank%d.json")
   for r in range(2):
     _fresh(out % r)
+  log("[6l-b] NCCL's answer to two ranks on one card (one attempt, "
+      "untimed), beside the cluster run")
+  refusal_procs = nccl_refusal_start()
   t0 = time.monotonic()
   c = cluster.run(engine, dp_files_main, {"argv": argv + ["--dp", "2"],
                                           "out": out},
@@ -5497,9 +5539,7 @@ def dp_two_ranks_files(torch, ops, train_gpt, sharding, cluster, engine):
     raise AssertionError("[6l-b] 2 ranks %s against 1 process %s: %.3g "
                          "relative" % (ranks[0]["losses"], one["losses"],
                                        rel))
-  log("[6l-b] NCCL's answer to two ranks on one card (one attempt, "
-      "untimed)")
-  refusal = nccl_refusal()
+  refusal = nccl_refusal(refusal_procs)
   res = {"one_process": one, "ranks": ranks, "max_rel_loss_diff": rel,
          "cluster_s": cluster_s, "nccl_two_ranks_one_card": refusal,
          "label": DP_LABEL}
@@ -5603,9 +5643,11 @@ def dp_two_ranks_feed(torch, ops, tfm, optim, sharding, cluster, engine,
 
 
 def dp_phases(torch, ops, tfm, optim, sharding, Slab, train_gpt, params,
-              cfg):
+              cfg, then=None):
   """[6l]: the data axis over NCCL at degree 1 in the driver, then two
-  executors sharing the card over gloo in InputMode.FILES and SPARK."""
+  executors sharing the card over gloo in InputMode.FILES and SPARK;
+  ``then(engine)``, if given, runs on the same LocalEngine(2) after [6l]
+  (its warm executors), its result under ``"then"``."""
   from tensorflowonspark_tpu_torch import cluster
   from tensorflowonspark_tpu_torch.engine import LocalEngine
   t0 = time.monotonic()
@@ -5623,11 +5665,13 @@ def dp_phases(torch, ops, tfm, optim, sharding, Slab, train_gpt, params,
         "next_batch_synced (InputMode.SPARK): %s" % DP_LABEL)
     feed = dp_two_ranks_feed(torch, ops, tfm, optim, sharding, cluster,
                              engine)
+    res = {"nccl_degree1": nccl, "files": files, "feed": feed,
+           "seconds": time.monotonic() - t0}
+    log("  [6l] %.1f s" % res["seconds"])
+    if then is not None:
+      res["then"] = then(engine)
   finally:
     engine.stop()
-  res = {"nccl_degree1": nccl, "files": files, "feed": feed,
-         "seconds": time.monotonic() - t0}
-  log("  [6l] %.1f s" % res["seconds"])
   return res
 
 
@@ -5853,6 +5897,193 @@ class _EdgeCalls(object):
     self.tfm.causal_lm_loss = self._loss
 
 
+class _RouteLog(object):
+  """Each top-k routing decision of the MoE layers in this process while
+  entered (``expert_parallel._topk_dispatch``: the router's forward, its
+  remat recompute and the all-to-all path's own slice): per call, the
+  step it ran in (``step``, set by the caller; None records nothing), its
+  tokens' top-k experts and the gap between their k-th and (k+1)-th
+  router probabilities. And the sign of each expert unit's pre-ReLU
+  activation in the dense dispatch's first call of each step
+  (``expert_parallel._experts``: the forward, not the recompute), with
+  the values of those within RELU_NEAR of zero. [6t]'s routing check
+  compares the ranks' calls with one process's."""
+
+  def __init__(self):
+    self.step = None
+    self.calls = []            # (step, top-k [T, k] int16, gap [T] f32)
+    self.relu = []             # (step, packed signs, shape, near idx, vals)
+
+  def __enter__(self):
+    import numpy as np
+    from tensorflowonspark_tpu_torch.parallel import expert_parallel as ep
+    self._ep, orig = ep, ep._topk_dispatch
+    self._orig, self._orig_experts = orig, ep._experts
+    orig_experts = ep._experts
+
+    def logged_experts(x, dispatch, combine, w_up, w_down):
+      if self.step is not None and self.step not in [r[0] for r in self.relu]:
+        # the product _experts makes, made again: the same op on the same
+        # inputs, so the same bits
+        with torch.no_grad():      # nothing saved for a remat recompute
+          pre = torch.bmm(dispatch.t()[:, :, None] * x.detach().float()[None],
+                          w_up.detach().float())
+        near = (pre.abs() < RELU_NEAR) & (pre != 0)
+        self.relu.append((self.step,
+                          np.packbits((pre > 0).cpu().numpy()),
+                          np.asarray(pre.shape),
+                          near.nonzero().to(torch.int32).cpu().numpy(),
+                          pre[near].cpu().numpy()))
+      return orig_experts(x, dispatch, combine, w_up, w_down)
+
+    def logged(probs, top_k):
+      if self.step is not None:
+        srt = probs.detach().sort(dim=-1, descending=True, stable=True)
+        self.calls.append((
+            self.step,
+            srt.indices[:, :top_k].to(dtype=self._int16).cpu().numpy(),
+            (srt.values[:, top_k - 1] - srt.values[:, top_k]).float()
+            .cpu().numpy()))
+      return orig(probs, top_k)
+
+    import torch
+    self._int16 = torch.int16
+    ep._topk_dispatch = logged
+    ep._experts = logged_experts
+    return self
+
+  def __exit__(self, *exc):
+    self._ep._topk_dispatch = self._orig
+    self._ep._experts = self._orig_experts
+
+  def arrays(self):
+    """The calls as flat numpy arrays by name (for an ``.npz``)."""
+    out = {}
+    for i, (step, idx, gap) in enumerate(self.calls):
+      out["%03d_%s_idx" % (i, step)] = idx
+      out["%03d_%s_gap" % (i, step)] = gap
+    for step, signs, shape, near, vals in self.relu:
+      for key, v in (("signs", signs), ("shape", shape), ("near", near),
+                     ("vals", vals)):
+        out["relu_%s_%s" % (step, key)] = v
+    return out
+
+
+RELU_NEAR = 1e-5                    # |pre-ReLU| recorded with its value
+
+
+def _route_calls(arrays):
+  """:meth:`_RouteLog.arrays` back into [(step, idx, gap)] in call order."""
+  keys = sorted(k for k in arrays
+                if k.endswith("_idx") and not k.startswith("relu_"))
+  return [(k.split("_")[1], arrays[k], arrays[k[:-4] + "_gap"])
+          for k in keys]
+
+
+def _relu_calls(arrays):
+  """The ReLU records of :meth:`_RouteLog.arrays` by step: (signs [E, T,
+  F] bool, {(e, t, f): value} of those near zero)."""
+  import numpy as np
+  out = {}
+  for k in arrays:
+    if k.startswith("relu_") and k.endswith("_signs"):
+      step = k.split("_")[1]
+      shape = tuple(int(x) for x in arrays["relu_%s_shape" % step])
+      signs = np.unpackbits(arrays[k])[:int(np.prod(shape))].reshape(
+          shape).astype(bool)
+      near = {tuple(int(i) for i in ix): float(v) for ix, v in zip(
+          arrays["relu_%s_near" % step], arrays["relu_%s_vals" % step])}
+      out[step] = (signs, near)
+  return out
+
+
+def relu_diff(ranks, one, tokens, experts_per_rank, watch=(7, 2913)):
+  """Where the signs of the experts' pre-ReLU activations in the ranks'
+  first forward of each step (each rank its block of experts) differ
+  from one process's: per step the count of flipped (expert, token,
+  unit) entries, the first few and those of unit ``watch[1]`` of expert
+  ``watch[0]``, each with its token's id and both sides' values where
+  recorded (within RELU_NEAR of zero). None for a step no rank recorded
+  (the all-to-all path does not run ``_experts``)."""
+  import numpy as np
+  out = {}
+  for step, (signs1, near1) in sorted(one.items()):
+    count, picked = 0, []
+    recorded = False
+    for r, calls in enumerate(ranks):
+      if step not in calls:
+        continue
+      recorded = True
+      signs_r, near_r = calls[step]
+      lo = r * experts_per_rank
+      idx = np.argwhere(signs_r != signs1[lo:lo + signs_r.shape[0]])
+      count += len(idx)
+      hit = idx[(idx[:, 0] + lo == watch[0]) & (idx[:, 2] == watch[1])]
+      for tag, rows in (("first", idx[:12]), ("watched", hit[:8])):
+        for e, t, f in rows:
+          row, col = divmod(int(t), tokens[int(step)].shape[1])
+          picked.append((tag, {
+              "expert": lo + int(e), "token": int(t), "unit": int(f),
+              "id": int(tokens[int(step)][row, col]),
+              "pre_ranks": near_r.get((int(e), int(t), int(f))),
+              "pre_one": near1.get((lo + int(e), int(t), int(f)))}))
+    out[step] = None if not recorded else {
+        "flips": count, "near_zero_one": len(near1),
+        "first": [d for tag, d in picked if tag == "first"][:12],
+        "watched": [d for tag, d in picked if tag == "watched"]}
+  return out
+
+
+def route_diff(ranks, one, tokens, world):
+  """Where the ranks' top-k choices first differ from one process's, at
+  steps 0-2 of an f32 MoE run. ``ranks``: each rank's calls, ``one``: the
+  one process's (:func:`_route_calls`), ``tokens``: the steps' batches.
+  A step's calls over all its tokens are compared in order; a call over
+  a ``1 / world`` slice (the all-to-all path's own routing) against the
+  one process's rows of that rank's slice. Returns per step the tokens
+  whose expert sets differ, each with its id, its target, both expert
+  sets and both gaps, and the smallest gap of any token."""
+  import numpy as np
+  out = {"steps": {}, "first": None}
+  for step in ("0", "1", "2"):
+    mine = [(i, g) for s, i, g in one if s == step]
+    if not mine:
+      continue
+    full = mine[0][0].shape[0]
+    diffs, compared = [], 0
+    for r, calls in enumerate(ranks):
+      at = [(i, g) for s, i, g in calls if s == step]
+      fulls = [c for c in at if c[0].shape[0] == full]
+      slices = [c for c in at if c[0].shape[0] == full // world]
+      pairs = [(c, m, 0) for c, m in zip(fulls, mine)]
+      lo = r * (full // world)
+      pairs += [(c, (m[0][lo:lo + c[0].shape[0]], m[1][lo:lo + c[0].shape[0]]),
+                 lo) for c, m in zip(slices, mine)]
+      for (idx_r, gap_r), (idx_1, gap_1), lo in pairs:
+        compared += 1
+        a, b = np.sort(idx_r, axis=1), np.sort(idx_1, axis=1)
+        for t in np.nonzero((a != b).any(axis=1))[0]:
+          tok = lo + int(t)
+          row, col = divmod(tok, tokens[int(step)].shape[1])
+          diffs.append({
+              "rank": r, "token": tok, "id": int(tokens[int(step)][row, col]),
+              "target": (int(tokens[int(step)][row, col + 1])
+                         if col + 1 < tokens[int(step)].shape[1] else None),
+              "experts_ranks": a[t].tolist(), "experts_one": b[t].tolist(),
+              "gap_ranks": float(gap_r[t]), "gap_one": float(gap_1[t])})
+    uniq = {(d["token"], tuple(d["experts_ranks"]), tuple(d["experts_one"]))
+            for d in diffs}
+    out["steps"][step] = {
+        "calls_compared": compared, "tokens_differ": len(uniq),
+        "differ": diffs[:16],
+        "smallest_gap_one": float(np.min(mine[0][1])),
+        "max_gap_of_differing": max([max(d["gap_ranks"], d["gap_one"])
+                                     for d in diffs] or [0.0])}
+    if diffs and out["first"] is None:
+      out["first"] = dict(diffs[0], step=int(step))
+  return out
+
+
 def spmd_train(torch, argv, f32=False, profile=False, weights=False,
                moe=None, in_rank=False):
   """``train_gpt``'s pieces at ``argv`` over the process group's mesh (or
@@ -5893,6 +6124,9 @@ def spmd_train(torch, argv, f32=False, profile=False, weights=False,
   batches = [torch.as_tensor(b).to(device) for b in batches]
   pipe = tfm.make_pipeline_train_step(cfg, mesh, args.microbatches) \
       if pp else None
+  routes = _RouteLog() if weights and moe is not None else None
+  if routes is not None:
+    routes.__enter__()
   grads = _first_grads(torch, state, train_gpt.make_loss_fn(args),
                        batches[0], mesh, pipe) if weights else None
   w0 = sharding.gather_state_params(state) if weights and mesh is None \
@@ -5903,6 +6137,8 @@ def spmd_train(torch, argv, f32=False, profile=False, weights=False,
          "collectives_per_step": [], "edge_calls_per_step": [],
          "profile": None, "setup_s": time.monotonic() - t_enter}
   for i, batch in enumerate(batches):
+    if routes is not None:
+      routes.step = str(i)
     before = dict(ops.LAUNCHES)
     collectives.reset_counts()
     t0 = time.monotonic()
@@ -5920,6 +6156,10 @@ def spmd_train(torch, argv, f32=False, profile=False, weights=False,
     rec["edge_calls_per_step"].append(dict(edges.counts))
     if weights and moe is not None and i == 0:
       first = sharding.gather_state_params(state)
+  if routes is not None:
+    routes.__exit__(None, None, None)
+    rec["routes"] = routes.arrays()
+    rec["route_tokens"] = [b.cpu().numpy() for b in batches]
   if moe is not None:
     rec["moe_dropped"] = [int(b.moe.dropped) for b in state.model.layers
                           if b.use_moe and b.moe.dropped is not None]
@@ -6049,6 +6289,10 @@ def spmd_rank_main(rank, world, go, jobs, out):
           res[job["name"] + "_f32"], got = spmd_train(
               torch, job["argv"] + SPMD_F32_FLAGS, f32=True, weights=True,
               moe=moe, in_rank=True)
+        routes = res[job["name"] + "_f32"].pop("routes", None)
+        res[job["name"] + "_f32"].pop("route_tokens", None)
+        if routes:
+          np.savez((out % rank) + "." + job["name"] + ".route.npz", **routes)
         if rank == 0:
           np.savez((out % rank) + "." + job["name"] + ".npz",
                    **{"grad/" + k: v for k, v in got[0].items()},
@@ -6113,6 +6357,13 @@ def _spmd_go(group):
   for r in range(world):
     with open(out % r) as f:
       ranks.append(json.load(f))
+    ranks[-1]["_routes"], ranks[-1]["_relu"] = {}, {}
+    for job in jobs:
+      path = (out % r) + "." + job["name"] + ".route.npz"
+      if os.path.exists(path):
+        arrays = dict(np.load(path))
+        ranks[-1]["_routes"][job["name"]] = _route_calls(arrays)
+        ranks[-1]["_relu"][job["name"]] = _relu_calls(arrays)
   weights = {}
   for job in jobs:
     saved = np.load((out % 0) + "." + job["name"] + ".npz")
@@ -6233,11 +6484,12 @@ def _spmd_gates(case, ranks, one, one32, w_ranks, w_one):
                            % (name, k, float(diff.max())))
     # the update itself: a rank that skipped a step or clipped by another
     # norm moves its weights otherwise, however small the steps are. With
-    # MoE layers, the steps after the first route at weights that differ
-    # in their last bits, where a top-2 choice at a near-tie may fall the
-    # other way in one process than on the ranks: the first step's update
-    # (both route at equal weights) is held so, and the 3-step update
-    # within SPMD_F32_TOL of the one process's
+    # MoE layers, the steps after the first run at weights that differ
+    # in their last bits, where an expert unit's pre-ReLU activation
+    # within ~1e-6 of zero takes the other sign in one process than on
+    # the ranks (the routing log shows such flips, and no routing one):
+    # the first step's update (both at equal weights) is held so, and
+    # the 3-step update within SPMD_F32_TOL of the one process's
     up_one, up_ranks = want_w - w0[k], w_ranks[k] - w0[k]
     if moe is not None:
       gap3 = float(np.abs(up_ranks - up_one).max())
@@ -6544,7 +6796,10 @@ def _one_process_runs(torch, cases, pattern, memo):
         one, _ = spmd_train(torch, argv, moe=moe)
         one32, w_one = spmd_train(torch, argv + SPMD_F32_FLAGS, f32=True,
                                   weights=True, moe=moe)
-      memo[key] = (one, one32, w_one)
+      arrays = one32.pop("routes", {})
+      routes = (_route_calls(arrays), one32.pop("route_tokens", None),
+                _relu_calls(arrays))
+      memo[key] = (one, one32, w_one, routes)
     out[name] = memo[key]
     for i, got in enumerate(out[name][0]["launches_per_step"]):
       _per_step_launches(got, 1, want_one, "%s one process step %d"
@@ -6696,7 +6951,7 @@ def _spmd_cases(groups, cases, one):
       # rank 0's seconds in the job: its bf16 and f32 runs
       res["jobs_s"][name] = ranks[0][name]["run_s"] + \
           ranks[0][name + "_f32"]["run_s"]
-      one_p, one32, w_one = one[name]
+      one_p, one32, w_one, one_routes = one[name]
       try:
         summary = _spmd_gates(case, ranks, one_p, one32, weights[name],
                               w_one)
@@ -6706,6 +6961,14 @@ def _spmd_cases(groups, cases, one):
         failed.append(str(e))
         continue
       summary["per_rank"] = [r[name] for r in ranks]
+      if case[7] is not None:
+        summary["routing"] = route_diff(
+            [r["_routes"].get(name, []) for r in ranks], one_routes[0],
+            one_routes[1], case[7][1])
+        summary["relu"] = relu_diff(
+            [r["_relu"].get(name, {}) for r in ranks], one_routes[2],
+            one_routes[1], case[7][0]["moe_experts"] // case[7][1])
+        _log_routing(name, summary["routing"], summary["relu"])
       res["cases"][name] = summary
       log("  %s: losses %s; one process %s; max rel %.3g (limit %g); f32 "
           "%d layers, SGD: max rel %.3g, first gradients within %.3g of "
@@ -6756,6 +7019,42 @@ def _spmd_cases(groups, cases, one):
   return res
 
 
+def _log_routing(name, rd, relu):
+  """[6t]'s routing check of an f32 MoE case, logged step by step."""
+  for step, st in sorted(rd["steps"].items()):
+    log("    routing, ranks against one process, step %d: %d of the "
+        "tokens' top-2 sets differ (%d calls compared); smallest top-2 "
+        "to 3rd gap of any token %.3g; largest gap of a differing token "
+        "%.3g" % (int(step) + 1, st["tokens_differ"], st["calls_compared"],
+                  st["smallest_gap_one"], st["max_gap_of_differing"]))
+    for d in st["differ"][:4]:
+      log("      rank %d token %d (id %d, target %s): experts %s on the "
+          "ranks, %s in one process; gaps %.3g / %.3g"
+          % (d["rank"], d["token"], d["id"], d["target"],
+             d["experts_ranks"], d["experts_one"], d["gap_ranks"],
+             d["gap_one"]))
+  for step, st in sorted(relu.items()):
+    if st is None:
+      continue
+    log("    expert pre-ReLU signs, ranks against one process, step %d: %d "
+        "flipped (%d entries of one process within %g of zero); expert 7 "
+        "unit 2913: %s" % (int(step) + 1, st["flips"], st["near_zero_one"],
+                           RELU_NEAR, st["watched"] or "none"))
+    for d in st["first"][:6]:
+      log("      expert %d token %d (id %d) unit %d: pre-ReLU %s on the "
+          "ranks, %s in one process" % (d["expert"], d["token"], d["id"],
+                                        d["unit"], d["pre_ranks"],
+                                        d["pre_one"]))
+  first = rd["first"]
+  log("    routing first differs: %s" % (
+      "nowhere in steps 1-3" if first is None else
+      "step %d, token %d (id %d, target %s), experts %s against %s, gap "
+      "%.3g / %.3g" % (first["step"] + 1, first["token"], first["id"],
+                       first["target"], first["experts_ranks"],
+                       first["experts_one"], first["gap_ranks"],
+                       first["gap_one"])))
+
+
 def spmd_launches(res, name):
   """[6s]'s and [6t]'s launches of kernel ``name`` on rank 0 of each
   case (a pipeline's stage 0), and in [6t]'s MoE decode."""
@@ -6795,6 +7094,593 @@ def spmd_only(torch, ops, F, _build, card, spmd=True):
       case: {k: v for k, v in s.items() if k != "per_rank"}
       for case, s in res["cases"].items()}, "seconds": res["seconds"],
       "card": card}))
+  log(json.dumps({"ok": True, "device": {
+      "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+      "count": torch.cuda.device_count()}}))
+  return 0
+
+
+# -- phase 6u: elastic multi-group training --------------------------------------
+
+GROUPS_FULL_STEPS = 4
+# (b)-(f): the widest Transformer whose packed f32 weights fit one
+# rendezvous frame (4 MiB): 656,000 weights, 2,624,000 bytes
+GROUPS_SMALL = dict(vocab_size=2048, d_model=128, num_heads=2, d_ff=512,
+                    num_layers=2, max_seq_len=256)
+GROUPS_B, GROUPS_S = 8, 256
+GROUPS_SYNC_EVERY = 4
+GROUPS_SYNC_STEPS = 16
+GROUPS_OVERHEAD_REPS = 2            # (b): paired sync-on / sync-off runs
+GROUPS_KILL, GROUPS_STALL = "kill@1#2", "stall@1#1:2.0"
+GROUPS_KILL_STEPS, GROUPS_STALL_STEPS = 24, 8
+GROUPS_EXEC_STEPS = 12              # (f): each executor's steps
+GROUPS_EXEC_KILL = "group-step@1#6"  # executor 1, mid round 2
+GROUPS_EXEC_SYNC_TIMEOUT = "10"
+GROUPS_LR = 3e-3
+
+
+GROUPS_BATCHES = 4                  # distinct batches a group cycles through
+
+
+def _groups_batch_fn(vocab, batch, seq):
+  """``batch_fn(group_id, step)``: seeded tokens keyed by both, each
+  group cycling through GROUPS_BATCHES batches (which it learns: the
+  loss falls)."""
+  import numpy as np
+
+  def batch_fn(gid, step):
+    return np.random.RandomState(
+        SEED + 1000 * gid + step % GROUPS_BATCHES).randint(
+            0, vocab, (batch, seq)).astype("int32")
+
+  return batch_fn
+
+
+def _groups_build_fn(tfm, optim, cfg, params):
+  """``build_fn(device)``: ``cfg``'s state from ``params`` (a seed or a
+  weight dict) with clipped AdamW, and the LM loss."""
+
+  def build_fn(device):
+    state = tfm.create_state(cfg, params, device=device,
+                             tx=optim.make_optimizer(learning_rate=GROUPS_LR,
+                                                     clip_norm=1.0))
+    return state, _lm_loss(tfm)
+
+  return build_fn
+
+
+def _groups_small_cfg(tfm, torch):
+  return tfm.TransformerConfig(dtype=torch.bfloat16, **GROUPS_SMALL)
+
+
+def _sync_log(G, gs):
+  """Each group's ``sync`` calls recorded: (group, round, weight, the
+  packed weights before and after the merge, the members)."""
+  calls = []
+  for g in gs.groups.values():
+    orig = g.sync.sync
+
+    def logged(rnd, tree, weight=1.0, step=0, timeout=60.0, _o=orig,
+               _g=g.group_id, **kw):
+      pre = G.pack_tree(tree)
+      out = _o(rnd, tree, weight=weight, step=step, timeout=timeout, **kw)
+      calls.append((_g, rnd, weight, pre, G.pack_tree(tree), out[1]))
+      return out
+
+    g.sync.sync = logged
+  return calls
+
+
+def _check_rounds(calls, rounds, what):
+  """(b)'s gate: after each round both groups hold the same bits, and
+  those are the f64 weighted mean of the two pre-sync weights, cast to
+  each leaf's dtype, recomputed here."""
+  import numpy as np
+  by_round = {}
+  for gid, rnd, weight, pre, post, members in calls:
+    by_round.setdefault(rnd, {})[gid] = (weight, pre, post, members)
+  if sorted(by_round) != list(range(1, rounds + 1)):
+    raise AssertionError("%s: rounds %s, want 1..%d" % (what, sorted(by_round),
+                                                       rounds))
+  for rnd, got in sorted(by_round.items()):
+    if sorted(got) != [0, 1] or any(m[3] != [0, 1] for m in got.values()):
+      raise AssertionError("%s round %d: members %s" % (
+          what, rnd, {g: m[3] for g, m in got.items()}))
+    (w0, pre0, post0, _), (w1, pre1, post1, _) = got[0], got[1]
+    if any(a["data"] != b["data"] for a, b in zip(post0, post1)):
+      raise AssertionError("%s round %d: the groups' weights differ after "
+                           "the merge" % (what, rnd))
+    for a, b, out in zip(pre0, pre1, post0):
+      xa = np.frombuffer(a["data"], a["dtype"]).astype(np.float64)
+      xb = np.frombuffer(b["data"], b["dtype"]).astype(np.float64)
+      want = ((w0 * xa + w1 * xb) / (w0 + w1)).astype(a["dtype"]).tobytes()
+      if out["data"] != want:
+        raise AssertionError("%s round %d: a merged leaf of shape %s is not "
+                             "the f64 weighted mean" % (what, rnd,
+                                                        out["shape"]))
+
+
+def _groups_run(gs, steps, what, timeout=300.0):
+  t0 = time.monotonic()
+  gs.run(steps)
+  if not gs.wait(timeout=timeout):
+    raise AssertionError("%s: a group still runs after %d s" % (what, timeout))
+  return time.monotonic() - t0
+
+
+def _groups_exits(gs, want, what):
+  got = {gid: (g.exit_reason, g.steps) for gid, g in gs.groups.items()}
+  if got != want:
+    raise AssertionError("%s: groups ended %s, want %s" % (what, got, want))
+
+
+def _denominators(gs, gid):
+  return [e["denominator"] for e in gs.events
+          if e["event"] == "sync" and e["group"] == gid]
+
+
+def groups_full_width(torch, ops, tfm, optim, G, params, cfg):
+  """(a): 2 groups of the flagship at [6]'s shape, sync off, against the
+  same batches run alone through one TrainLoop each."""
+  from tensorflowonspark_tpu_torch.parallel import sharding
+  build = _groups_build_fn(tfm, optim, cfg, params)
+  batch_fn = _groups_batch_fn(cfg.vocab_size, TRAIN_B, TRAIN_S)
+  gs = G.GroupSet(build, batch_fn, num_groups=2, sync_every=0)
+  try:
+    # each group's batches alone through a TrainLoop of its own, from the
+    # group's initial state: the loop copies the state (donate_state
+    # off), so the group starts from the same bits afterwards
+    alone, t_alone = {}, 0.0
+    for gid, g in gs.groups.items():
+      loop = sharding.make_train_loop(_lm_loss(tfm), donate_state=False)
+      if gid == 0:
+        # untimed: the process's first steps pay for cuBLAS and the
+        # allocator
+        loop(g.state, batch_fn(gid, 0))
+      ops.reset_launches()
+      torch.cuda.synchronize()
+      t0 = time.monotonic()
+      state, losses = g.state, []
+      for step in range(GROUPS_FULL_STEPS):
+        state, loss = loop(state, batch_fn(gid, step))
+        losses.extend(loss.float().cpu().tolist())
+      torch.cuda.synchronize()
+      t_alone += time.monotonic() - t0
+      _per_step_launches(dict(ops.LAUNCHES), GROUPS_FULL_STEPS,
+                         WANT_PER_STEP, "[6u](a) group %d alone" % gid)
+      alone[gid] = losses
+      del state, loop
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    wall = _groups_run(gs, GROUPS_FULL_STEPS, "[6u](a)")
+    launches = dict(ops.LAUNCHES)
+    _groups_exits(gs, {0: ("completed", GROUPS_FULL_STEPS),
+                       1: ("completed", GROUPS_FULL_STEPS)}, "[6u](a)")
+    _per_step_launches(launches, 2 * GROUPS_FULL_STEPS, WANT_PER_STEP,
+                       "[6u](a) two groups")
+    for gid, g in gs.groups.items():
+      if g.losses != alone[gid]:
+        raise AssertionError("[6u](a) group %d: losses %s, alone %s"
+                             % (gid, g.losses, alone[gid]))
+      if not all(math.isfinite(x) for x in g.losses):
+        raise AssertionError("[6u](a): non-finite losses %s" % g.losses)
+    res = {"losses": {gid: g.losses for gid, g in gs.groups.items()},
+           "ms_per_step_each": wall / GROUPS_FULL_STEPS * 1e3,
+           "ms_per_step_alone": t_alone / (2 * GROUPS_FULL_STEPS) * 1e3,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launches}
+  finally:
+    gs.close()
+  del gs
+  torch.cuda.empty_cache()
+  log("  (a) 2 groups of the flagship, B%d x S%d, sync off, %d steps each: "
+      "losses equal to each group's batches run alone to the bit (%s); "
+      "launches exactly twice one group's (%s); %.1f ms a step for each of "
+      "two groups sharing the card's stream, %.1f alone; peak memory %.2f "
+      "GiB" % (TRAIN_B, TRAIN_S, GROUPS_FULL_STEPS, " | ".join(
+          " ".join("%.4f" % x for x in res["losses"][g]) for g in (0, 1)),
+               {k: v for k, v in res["launches"].items() if v},
+               res["ms_per_step_each"], res["ms_per_step_alone"],
+               res["peak_mem_gib"]))
+  return res
+
+
+def groups_synced(torch, ops, tfm, optim, G, rendezvous):
+  """(b): 2 groups of the small model synced every GROUPS_SYNC_EVERY
+  steps, each round gated; then the sync's overhead in paired runs."""
+  from tensorflowonspark_tpu_torch.control import _msgpack
+  cfg = _groups_small_cfg(tfm, torch)
+  build = _groups_build_fn(tfm, optim, cfg, SEED)
+  batch_fn = _groups_batch_fn(cfg.vocab_size, GROUPS_B, GROUPS_S)
+  gs = G.GroupSet(build, batch_fn, num_groups=2,
+                  sync_every=GROUPS_SYNC_EVERY, sync_timeout=30.0)
+  try:
+    packed = G.pack_tree(gs.groups[0].state.params)
+    frame = len(_msgpack.packb({"type": "SYNC", "group_id": 0, "round": 1,
+                                "payload": packed, "weight": 4.0,
+                                "step": 4}))
+    weights = sum(p.numel() for p in gs.groups[0].state.params.values())
+    calls = _sync_log(G, gs)
+    ops.reset_launches()
+    wall = _groups_run(gs, GROUPS_SYNC_STEPS, "[6u](b)")
+    launches = dict(ops.LAUNCHES)
+    _groups_exits(gs, {0: ("completed", GROUPS_SYNC_STEPS),
+                       1: ("completed", GROUPS_SYNC_STEPS)}, "[6u](b)")
+    _per_step_launches(launches, 2 * GROUPS_SYNC_STEPS, WANT_ONE_SMALL,
+                       "[6u](b) two groups")
+    rounds = GROUPS_SYNC_STEPS // GROUPS_SYNC_EVERY
+    if gs.plane.status()["rounds_completed"] != rounds:
+      raise AssertionError("[6u](b): %s" % gs.plane.status())
+    _check_rounds(calls, rounds, "[6u](b)")
+    for g in gs.groups.values():
+      if not (all(math.isfinite(x) for x in g.losses)
+              and g.losses[-1] < g.losses[0]):
+        raise AssertionError("[6u](b) group %d: losses %s" % (g.group_id,
+                                                             g.losses))
+    sync_ms = [e["sync_ms"] for e in gs.events if e["event"] == "sync"]
+    res = {"weights": weights, "payload_bytes": sum(len(r["data"])
+                                                    for r in packed),
+           "frame_bytes": frame,
+           "max_message_bytes": rendezvous.MAX_MESSAGE_BYTES,
+           "losses": {gid: g.losses for gid, g in gs.groups.items()},
+           "rounds": rounds, "sync_ms": sync_ms, "wall_s": wall,
+           "launches": launches}
+  finally:
+    gs.close()
+  # the sync's overhead: the same 2 groups synced and not, alternated
+  walls = {"on": [], "off": []}
+  for _ in range(GROUPS_OVERHEAD_REPS):
+    for mode, every in (("on", GROUPS_SYNC_EVERY), ("off", 0)):
+      gs = G.GroupSet(build, batch_fn, num_groups=2, sync_every=every,
+                      sync_timeout=30.0)
+      try:
+        walls[mode].append(_groups_run(gs, GROUPS_SYNC_STEPS,
+                                       "[6u](b) %s" % mode))
+      finally:
+        gs.close()
+  res["overhead_walls_s"] = walls
+  res["overhead"] = statistics.median(walls["on"]) / statistics.median(
+      walls["off"]) - 1.0
+  log("  (b) 2 groups, %d layers d_model %d (%d weights, %d bytes packed, a "
+      "SYNC frame of %d bytes against MAX_MESSAGE_BYTES %d), sync every %d "
+      "of %d steps: %d rounds, each merging both groups, bit-identical "
+      "after it and equal to the f64 weighted mean; launches exactly %d "
+      "steps' (%s); losses %s -> %s; sync ms %s; wall synced %s s, unsynced "
+      "%s s (paired): overhead %+.1f%%" % (
+          GROUPS_SMALL["num_layers"], GROUPS_SMALL["d_model"], res["weights"],
+          res["payload_bytes"], frame, rendezvous.MAX_MESSAGE_BYTES,
+          GROUPS_SYNC_EVERY, GROUPS_SYNC_STEPS, rounds,
+          2 * GROUPS_SYNC_STEPS, {k: v for k, v in launches.items() if v},
+          "%.4f" % res["losses"][0][0], "%.4f" % res["losses"][0][-1],
+          " ".join("%.1f" % x for x in sync_ms),
+          " ".join("%.3f" % x for x in walls["on"]),
+          " ".join("%.3f" % x for x in walls["off"]),
+          100.0 * res["overhead"]))
+  return res
+
+
+def groups_kill(torch, tfm, optim, G, rendezvous, chaos):
+  """(c): group 1 killed at its 2nd boundary; group 0 finishes alone,
+  the plane marks group 1 lost, HEALTH carries the topology and the
+  detector fires ``group_lost``; then ``readmit(1)``."""
+  from tensorflowonspark_tpu_torch.obs import anomaly, metrics
+  cfg = _groups_small_cfg(tfm, torch)
+  build = _groups_build_fn(tfm, optim, cfg, SEED)
+  batch_fn = _groups_batch_fn(cfg.vocab_size, GROUPS_B, GROUPS_S)
+  with env_var("TOS_OBS", "1"), env_var(chaos.ENV_GROUP, GROUPS_KILL):
+    chaos.reset()
+    reg = metrics.activate()
+    gs = G.GroupSet(build, batch_fn, num_groups=2,
+                    sync_every=GROUPS_SYNC_EVERY, sync_timeout=1.0,
+                    miss_limit=2)
+    try:
+      wall = _groups_run(gs, GROUPS_KILL_STEPS, "[6u](c)")
+      _groups_exits(gs, {0: ("completed", GROUPS_KILL_STEPS),
+                         1: ("chaos-kill", GROUPS_SYNC_EVERY)}, "[6u](c)")
+      denoms = _denominators(gs, 0)
+      if denoms[0] != 2 or denoms[-1] != 1 or 1 not in gs.plane.lost:
+        raise AssertionError("[6u](c): group 0's denominators %s, lost %s"
+                             % (denoms, gs.plane.lost))
+      client = rendezvous.Client(gs.server.addr, timeout=10.0)
+      try:
+        health = client._request({"type": "HEALTH"})
+      finally:
+        client.close()
+      if health.get("groups", {}).get("lost") != [1]:
+        raise AssertionError("[6u](c): HEALTH carries %s"
+                             % health.get("groups"))
+      det = anomaly.AnomalyDetector(_OneExecutorSink(reg), interval=0.05,
+                                    window=0.2,
+                                    registry=metrics.MetricsRegistry())
+      t = time.monotonic()
+      alerts = det.poll(t) + det.poll(t + 1.0)
+      if "group_lost" not in [a["alert"] for a in alerts]:
+        raise AssertionError("[6u](c): the detector raised %s"
+                             % [a["alert"] for a in alerts])
+      os.environ.pop(chaos.ENV_GROUP)
+      chaos.reset()
+      t0 = time.monotonic()
+      g = gs.readmit(1)
+      caught_up = g.steps
+      if not gs.wait(timeout=120) or caught_up < GROUPS_KILL_STEPS - 4:
+        raise AssertionError("[6u](c): re-admitted at step %d" % caught_up)
+      readmit_s = time.monotonic() - t0
+      _groups_exits(gs, {0: ("completed", GROUPS_KILL_STEPS),
+                         1: ("completed", GROUPS_KILL_STEPS)},
+                    "[6u](c) re-admitted")
+      res = {"wall_s": wall, "denominators": denoms,
+             "lost": dict(gs.plane.lost), "health_groups": health["groups"],
+             "alerts": sorted({a["alert"] for a in alerts}),
+             "readmitted_at_step": caught_up, "readmit_s": readmit_s,
+             "status": gs.plane.status()}
+    finally:
+      gs.close()
+      metrics.deactivate()
+      chaos.reset()
+  log("  (c) TOS_CHAOS_GROUP=%s, sync_timeout 1.0 s, miss_limit 2, %d "
+      "steps: group 1 killed at step %d, group 0 completed with "
+      "denominators %s in %.2f s, group 1 lost; HEALTH groups %s; detector "
+      "%s; readmit(1) caught up at step %d and completed in %.2f s" % (
+          GROUPS_KILL, GROUPS_KILL_STEPS, GROUPS_SYNC_EVERY, denoms, wall,
+          {k: health["groups"][k] for k in ("active", "lost",
+                                           "groups_active", "groups_total")},
+          res["alerts"], caught_up, readmit_s))
+  return res
+
+
+def groups_stall(torch, tfm, optim, G, chaos):
+  """(d): group 1 stalls 2 s at its first boundary, past a 0.5 s round
+  deadline with miss_limit 1: evicted, it re-admits itself."""
+  cfg = _groups_small_cfg(tfm, torch)
+  build = _groups_build_fn(tfm, optim, cfg, SEED)
+  batch_fn = _groups_batch_fn(cfg.vocab_size, GROUPS_B, GROUPS_S)
+  with env_var(chaos.ENV_GROUP, GROUPS_STALL):
+    chaos.reset()
+    gs = G.GroupSet(build, batch_fn, num_groups=2,
+                    sync_every=GROUPS_SYNC_EVERY, sync_timeout=0.5,
+                    miss_limit=1)
+    try:
+      wall = _groups_run(gs, GROUPS_STALL_STEPS, "[6u](d)")
+      _groups_exits(gs, {0: ("completed", GROUPS_STALL_STEPS),
+                         1: ("completed", GROUPS_STALL_STEPS)}, "[6u](d)")
+      kinds = [e["event"] for e in gs.events]
+      if "plane-lost" not in kinds or "group-readmitted" not in kinds:
+        raise AssertionError("[6u](d): events %s" % kinds)
+      res = {"wall_s": wall, "denominators": _denominators(gs, 0),
+             "events": [k for k in kinds if k != "sync"]}
+    finally:
+      gs.close()
+      chaos.reset()
+  log("  (d) TOS_CHAOS_GROUP=%s, sync_timeout 0.5 s, miss_limit 1: group 1 "
+      "evicted (plane-lost), re-admitted itself, both completed %d steps in "
+      "%.2f s; group 0's denominators %s" % (
+          GROUPS_STALL, GROUPS_STALL_STEPS, wall, res["denominators"]))
+  return res
+
+
+def groups_reshard(torch, tfm, optim, G):
+  """(e): saved at 2 groups after 8 steps, restored at 3 and at 1."""
+  from tensorflowonspark_tpu_torch.utils.checkpoint import CheckpointManager
+  cfg = _groups_small_cfg(tfm, torch)
+  build = _groups_build_fn(tfm, optim, cfg, SEED)
+  batch_fn = _groups_batch_fn(cfg.vocab_size, GROUPS_B, GROUPS_S)
+  ckdir = os.path.join(HERE, "build", "chip_smoke_groups_ckpt")
+  shutil.rmtree(ckdir, ignore_errors=True)
+  gs = G.GroupSet(build, batch_fn, num_groups=2,
+                  sync_every=GROUPS_SYNC_EVERY, sync_timeout=30.0)
+  try:
+    _groups_run(gs, 2 * GROUPS_SYNC_EVERY, "[6u](e)")
+    mgr = CheckpointManager(ckdir, save_interval_steps=1)
+    t0 = time.monotonic()
+    if not gs.save(mgr, force=True):
+      raise AssertionError("[6u](e): the save did not happen")
+    save_s = time.monotonic() - t0
+    manifest = mgr.manifest()
+    if manifest != {"schema": 1, "kind": "groupset", "num_groups": 2,
+                    "groups": [0, 1], "step": 8, "sync_every": 4,
+                    "sync_round": 2}:
+      raise AssertionError("[6u](e): manifest %s" % manifest)
+    saved = G.pack_tree(gs.groups[0].state.params)
+  finally:
+    gs.close()
+  trajectories = {}
+  for n in (3, 1):
+    gs = G.GroupSet(build, batch_fn, num_groups=n,
+                    sync_every=GROUPS_SYNC_EVERY, sync_timeout=30.0)
+    try:
+      nxt = gs.restore_or(CheckpointManager(ckdir, save_interval_steps=1))
+      if nxt != 9:
+        raise AssertionError("[6u](e) %d groups: next step %d" % (n, nxt))
+      for g in gs.groups.values():
+        if g.steps != 8 or any(a["data"] != b["data"] for a, b in zip(
+            saved, G.pack_tree(g.state.params))):
+          raise AssertionError("[6u](e) %d groups: group %d restored at "
+                               "step %d, weights not the saved bits"
+                               % (n, g.group_id, g.steps))
+      _groups_run(gs, 3 * GROUPS_SYNC_EVERY, "[6u](e) %d groups" % n)
+      _groups_exits(gs, {gid: ("completed", 12) for gid in range(n)},
+                    "[6u](e) %d groups" % n)
+      trajectories[n] = list(gs.groups[0].losses)
+    finally:
+      gs.close()
+  if trajectories[3] != trajectories[1]:
+    raise AssertionError("[6u](e): the chief's losses differ across "
+                         "topologies: %s" % trajectories)
+  shutil.rmtree(ckdir, ignore_errors=True)
+  log("  (e) saved at 2 groups after 8 steps (manifest %s, %.2f s), "
+      "restored at 3 and at 1: next step 9, every group's weights the "
+      "saved bits; the chief's losses of steps 9-12 bit-identical across "
+      "the two (%s)" % (manifest, save_s,
+                        " ".join("%.4f" % x for x in trajectories[1])))
+  return {"manifest": manifest, "save_s": save_s,
+          "chief_losses": trajectories[1]}
+
+
+def groups_exec_main(args, ctx):
+  """[6u](f)'s main fn, one executor of an elastic group set: (b)'s
+  model on the card as group ``args["group_map"][executor_id]``, synced
+  through the driver's plane every GROUPS_SYNC_EVERY steps, with a
+  ``kill_point("group-step")`` before each step (``args["kill"]`` armed
+  here: the engine's executors outlive the phase's env). Writes its
+  losses, launches a step and denominators to ``args["out"] %
+  executor_id``."""
+  import torch
+  from tensorflowonspark_tpu_torch import ops, optim
+  from tensorflowonspark_tpu_torch.models import transformer as tfm
+  from tensorflowonspark_tpu_torch.parallel import groups as G
+  from tensorflowonspark_tpu_torch.parallel import sharding
+  from tensorflowonspark_tpu_torch.utils import chaos
+  os.environ[chaos.ENV_KILL] = args["kill"]
+  chaos.reset()
+  gid = int(args["group_map"][ctx.executor_id])
+  cfg = _groups_small_cfg(tfm, torch)
+  state, loss_fn = _groups_build_fn(tfm, optim, cfg, SEED)(
+      torch.device("cuda"))
+  loop = sharding.make_train_loop(loss_fn, donate_state=False)
+  batch_fn = _groups_batch_fn(cfg.vocab_size, GROUPS_B, GROUPS_S)
+  client = G.GroupSyncClient(ctx.server_addr, gid, request_timeout=30.0)
+  rec = {"group": gid, "losses": [], "launches_per_step": [],
+         "denominators": [], "card": torch.cuda.get_device_name()}
+  try:
+    client.join()
+    # a round's members are frozen when it opens: wait for the set
+    deadline = time.monotonic() + 120.0
+    while client.state()["groups_active"] < len(args["group_map"]):
+      if time.monotonic() > deadline:
+        raise TimeoutError("the group set did not assemble")
+      time.sleep(0.02)
+    for step in range(args["steps"]):
+      chaos.kill_point("group-step", ctx.executor_id)
+      before = dict(ops.LAUNCHES)
+      state, losses = loop(state, batch_fn(gid, step))
+      rec["losses"].extend(losses.float().cpu().tolist())
+      rec["launches_per_step"].append({k: ops.LAUNCHES[k] - before[k]
+                                       for k in before})
+      if (step + 1) % GROUPS_SYNC_EVERY == 0:
+        _, members = client.sync((step + 1) // GROUPS_SYNC_EVERY,
+                                 state.params, weight=GROUPS_SYNC_EVERY,
+                                 step=step + 1, timeout=60.0)
+        rec["denominators"].append(len(members))
+  finally:
+    client.close()
+  with open(args["out"] % ctx.executor_id, "w") as f:
+    json.dump(rec, f)
+
+
+def groups_cluster(cluster, engine):
+  """(f): ``cluster.run(engine, ..., group_map={0: 0, 1: 1},
+  elastic=True, max_restarts=0)`` on a LocalEngine(2) whose executors
+  share the card; executor 1 SIGKILLed mid round 2."""
+  out = os.path.join(HERE, "build", "chip_smoke_groups_exec%d.json")
+  for r in range(2):
+    _fresh(out % r)
+  t0 = time.monotonic()
+  with env_var("TOS_GROUP_SYNC_TIMEOUT", GROUPS_EXEC_SYNC_TIMEOUT):
+    c = cluster.run(engine, groups_exec_main,
+                    {"group_map": {0: 0, 1: 1}, "steps": GROUPS_EXEC_STEPS,
+                     "kill": GROUPS_EXEC_KILL, "out": out},
+                    input_mode=cluster.InputMode.TENSORFLOW,
+                    chips_per_node=0, group_map={0: 0, 1: 1}, elastic=True,
+                    max_restarts=0, heartbeat_interval=1.0,
+                    reservation_timeout=300)
+  plane = c.server.sync_plane
+  c.shutdown(timeout=300)            # raises on a failure but the shrink
+  cluster_s = time.monotonic() - t0
+  shrink = [e for e in c.supervisor.events if e["kind"] == "resize-shrink"]
+  if len(shrink) != 1 or shrink[0]["group"] != 1 \
+      or shrink[0]["executor_id"] != 1:
+    raise AssertionError("[6u](f): supervisor events %s"
+                         % c.supervisor.events)
+  with open(out % 0) as f:
+    rec = json.load(f)
+  rounds = GROUPS_EXEC_STEPS // GROUPS_SYNC_EVERY
+  if rec["denominators"] != [2] + [1] * (rounds - 1) \
+      or 1 not in plane.lost or os.path.exists(out % 1):
+    raise AssertionError("[6u](f): executor 0's denominators %s, lost %s"
+                         % (rec["denominators"], plane.lost))
+  for i, got in enumerate(rec["launches_per_step"]):
+    _per_step_launches(got, 1, WANT_ONE_SMALL, "[6u](f) executor 0 step %d"
+                       % i)
+  if not rec["losses"][-1] < rec["losses"][0]:
+    raise AssertionError("[6u](f): losses %s" % rec["losses"])
+  res = {"denominators": rec["denominators"], "losses": rec["losses"],
+         "shrink": {k: v for k, v in shrink[0].items() if k != "t"},
+         "events": [e["kind"] for e in c.supervisor.events],
+         "cluster_s": cluster_s, "card": rec["card"],
+         "launches_per_step": rec["launches_per_step"]}
+  log("  (f) cluster.run(LocalEngine(2), ..., group_map={0: 0, 1: 1}, "
+      "elastic=True, max_restarts=0): executor 1 SIGKILLed at %s; the "
+      "supervisor's events %s (%s); executor 0 trained %d steps on the card "
+      "with denominators %s, launches %s a step; shutdown() did not raise; "
+      "%.1f s" % (GROUPS_EXEC_KILL, res["events"], res["shrink"],
+                  GROUPS_EXEC_STEPS, rec["denominators"],
+                  {k: v for k, v in rec["launches_per_step"][0].items() if v},
+                  cluster_s))
+  return res
+
+
+def groups_phase(torch, ops, tfm, optim, card, params, cfg, engine=None):
+  """[6u]: elastic multi-group training (module docstring); (f) runs on
+  ``engine`` (a LocalEngine(2) of an earlier phase) or one of its own."""
+  from tensorflowonspark_tpu_torch import cluster
+  from tensorflowonspark_tpu_torch.control import rendezvous
+  from tensorflowonspark_tpu_torch.parallel import groups as G
+  from tensorflowonspark_tpu_torch.utils import chaos
+  t0 = time.monotonic()
+  log("[6u] elastic multi-group training: groups as threads sharing the "
+      "card, synced over the rendezvous plane")
+  res = {"card": card}
+  res["full_width"] = groups_full_width(torch, ops, tfm, optim, G, params,
+                                        cfg)
+  res["synced"] = groups_synced(torch, ops, tfm, optim, G, rendezvous)
+  res["kill"] = groups_kill(torch, tfm, optim, G, rendezvous, chaos)
+  res["stall"] = groups_stall(torch, tfm, optim, G, chaos)
+  res["reshard"] = groups_reshard(torch, tfm, optim, G)
+  torch.cuda.empty_cache()
+  own = engine is None
+  if own:
+    from tensorflowonspark_tpu_torch.engine import LocalEngine
+    engine = LocalEngine(num_executors=2)
+  try:
+    res["cluster"] = groups_cluster(cluster, engine)
+  finally:
+    if own:
+      engine.stop()
+  res["seconds"] = time.monotonic() - t0
+  log("  [6u] %.1f s; %s" % (res["seconds"], card))
+  return res
+
+
+def groups_launches(res, name):
+  """[6u]'s launches of kernel ``name``: (a)'s two groups and (b)'s."""
+  return {"groups_full_width_2x%d_steps" % GROUPS_FULL_STEPS:
+          res["full_width"]["launches"][name],
+          "groups_synced_2x%d_steps" % GROUPS_SYNC_STEPS:
+          res["synced"]["launches"][name]}
+
+
+def groups_only(torch, ops, tfm, optim, _build, card, init_params):
+  """``--groups-only``: phase 2's build, then [6u] alone."""
+  log("[2] build")
+  build_s = _build.build_all()
+  log("  built %s" % ", ".join("%s %.1fs" % kv for kv in build_s.items()))
+  cfg = tfm.TransformerConfig()
+  res = groups_phase(torch, ops, tfm, optim, card,
+                     init_params(cfg, seed=SEED), cfg)
+  os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+  with open(os.path.join(HERE, "chiprun_out", "chip_smoke_groups.json"),
+            "w") as f:
+    json.dump({"groups": res, "card": card}, f, indent=1)
+  log(card)
+  log(json.dumps({"groups": {
+      "ms_per_step_each_of_2": res["full_width"]["ms_per_step_each"],
+      "ms_per_step_alone": res["full_width"]["ms_per_step_alone"],
+      "sync_ms": res["synced"]["sync_ms"],
+      "sync_overhead": res["synced"]["overhead"],
+      "kill_denominators": res["kill"]["denominators"],
+      "cluster_denominators": res["cluster"]["denominators"]},
+                  "seconds": res["seconds"], "card": card}))
   log(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))
@@ -7815,19 +8701,21 @@ def main(argv):
   only_decode = argv == ["--decode-stack-only"]
   only_spmd = argv == ["--spmd-only"]
   only_ppep = argv == ["--pp-ep-only"]
+  only_groups = argv == ["--groups-only"]
   ab = argv[1:] if argv[:1] == ["--serving-ab"] and len(argv) == 3 else None
   if argv[:1] == ["--serving-only"] and len(argv) == 2:
     repeats = int(argv[1])
   elif argv and ab is None and not (ln_only or only_cluster or only_feed or only_ckpt
                      or only_dp or only_pipeline or only_options
                      or only_obs or only_fleet or only_deploy
-                     or only_decode or only_spmd or only_ppep):
+                     or only_decode or only_spmd or only_ppep
+                     or only_groups):
     log("usage: python3 chip_smoke.py [--serving-only N | "
         "--serving-ab OTHER_CHECKOUT N | "
         "--layer-norm-only | --cluster-only | --feed-only | --ckpt-only | "
         "--dp-only | --pipeline-only | --train-options-only | --obs-only | "
         "--fleet-only | --deploy-only | --decode-stack-only | --spmd-only | "
-        "--pp-ep-only]")
+        "--pp-ep-only | --groups-only]")
     return 2
   cache_bytecode()
   try:
@@ -7893,6 +8781,8 @@ def main(argv):
                       _build, card)
   if only_spmd or only_ppep:
     return spmd_only(torch, ops, F, _build, card, spmd=only_spmd)
+  if only_groups:
+    return groups_only(torch, ops, tfm, optim, _build, card, init_params)
 
   log("[2] build")
   t0 = time.monotonic()
@@ -8055,8 +8945,11 @@ def main(argv):
   deploy_res = deploy_phase(torch, ops, tfm, ServingEngine, slots, card,
                             init_params, cfg, serve_ref=main_res)
   log("  [6q] %s" % json.dumps(deploy_summary(deploy_res)))
-  dp_res = dp_phases(torch, ops, tfm, optim, sharding, Slab, train_gpt,
-                     params, cfg)
+  dp_res = dp_phases(
+      torch, ops, tfm, optim, sharding, Slab, train_gpt, params, cfg,
+      then=lambda engine: groups_phase(torch, ops, tfm, optim, card, params,
+                                       cfg, engine=engine))
+  groups_res = dp_res.pop("then")
   torch.cuda.empty_cache()
   spmd_res = spmd_phase(torch, ops, F, long_res["data"],
                         drawn=[(cfg, SEED, params)])
@@ -8172,6 +9065,7 @@ def main(argv):
              "serve_gpt_config_bf16": serve_gpt_res["bfloat16"]["launches"][
                  "flash_attention_fwd"],
              **dp_launches(dp_res, "flash_attention_fwd"),
+             **groups_launches(groups_res, "flash_attention_fwd"),
              **spmd_launches(spmd_res, "flash_attention_fwd"),
              **pipe_launches(pipe_res, "flash_attention_fwd")},
             max(fa_err, hd_err["fwd"], spmd_res["max_abs_err"]),
@@ -8199,6 +9093,7 @@ def main(argv):
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "layer_norm"),
              **dp_launches(dp_res, "layer_norm"),
+             **groups_launches(groups_res, "layer_norm"),
              **spmd_launches(spmd_res, "layer_norm"),
              **pipe_launches(pipe_res, "layer_norm")},
             ln_err, pick(ln_rows, rows=512, dtype="bfloat16"),
@@ -8213,6 +9108,7 @@ def main(argv):
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "flash_attention_bwd"),
              **dp_launches(dp_res, "flash_attention_bwd"),
+             **groups_launches(groups_res, "flash_attention_bwd"),
              **spmd_launches(spmd_res, "flash_attention_bwd"),
              **pipe_launches(pipe_res, "flash_attention_bwd")},
             max(fab_err, hd_err["bwd"]), pick(fab_rows, case="train"),
@@ -8241,6 +9137,7 @@ def main(argv):
              "train_gpt_defaults_%d_steps" % GPT_DEFAULT_STEPS: launches(
                  gpt_res, GPT_DEFAULT_STEPS, "layer_norm_bwd"),
              **dp_launches(dp_res, "layer_norm_bwd"),
+             **groups_launches(groups_res, "layer_norm_bwd"),
              **spmd_launches(spmd_res, "layer_norm_bwd"),
              **pipe_launches(pipe_res, "layer_norm_bwd")},
             lnb_err, pick(lnb_rows, rows=16384, dtype="bfloat16"),
@@ -8316,7 +9213,7 @@ def main(argv):
             "ckpt_resume": ckpt_res, "train_options": options_res,
             "feed": feed_res, "obs": obs_res, "fleet": fleet_res,
             "deploy": deploy_res, "decode_stack": decode_res,
-            "dp": dp_res, "spmd": spmd_res,
+            "dp": dp_res, "groups": groups_res, "spmd": spmd_res,
             "pipeline": pipe_res,
             "train_split": split_res,
             "train_parity_f32": train_parity,

@@ -34,9 +34,14 @@ into the driver's ``Cluster.obs_sink``, the ``AnomalyDetector`` (and its
 and ``TOS_OBS_DIR`` collects per-process JSONL logs that
 ``obs.export.merge_jsonl`` + ``chrome_trace`` turn into one trace.
 
-Not ported yet, each refused by name before any executor is touched:
-elastic groups (``group_map``, ``elastic``: item 10c, part 2) and feeder pushdown
-segments (``feed_segment``: item 11).
+``group_map={executor_id: group_id}`` declares elastic multi-group
+training (``parallel.groups``): the rendezvous server carries a
+``SyncPlane`` and the supervisor's events the group; with
+``elastic=True`` a grouped executor past its restart budget commits a
+shrink instead of failing the job.
+
+Not ported yet, refused by name before any executor is touched: feeder
+pushdown segments (``feed_segment``: item 11).
 """
 
 import collections.abc
@@ -109,6 +114,9 @@ class ClusterSupervisor(object):
     self._given_up: set = set()
     #: executor_id -> completed restart count (observability)
     self.restarts: Dict[int, int] = {}
+    #: executors whose group's shrink was committed (elastic resize):
+    #: their lost node task is the resize, not a failure of the job
+    self.shrunk: set = set()
     #: recovery event log: dicts with executor_id / kind / t (monotonic)
     self.events: List[dict] = []
     self._stop = threading.Event()
@@ -130,6 +138,14 @@ class ClusterSupervisor(object):
       self._obs_rec.event("cluster." + kind,
                           **{k: v for k, v in fields.items()
                              if isinstance(v, (int, float, str, bool))})
+
+  def _group_of(self, eid: int):
+    """The training group this executor hosts (cluster_meta
+    ``group_map``), or None for an ungrouped cluster. Keys may be str or
+    int (the map may have round-tripped through JSON)."""
+    gm = self.cluster_meta.get("group_map") or {}
+    g = gm.get(eid, gm.get(str(eid)))
+    return int(g) if g is not None else None
 
   # -- lifecycle -------------------------------------------------------------
 
@@ -195,7 +211,9 @@ class ClusterSupervisor(object):
 
   def _recover(self, eid: int) -> None:
     attempt = self._attempts.get(eid, 0)
-    self._event("detected-dead", executor_id=eid, attempt=attempt)
+    group = self._group_of(eid)
+    self._event("detected-dead", executor_id=eid, attempt=attempt,
+                group=group)
     try:
       job_name, _ = node_mod._role_of(eid,
                                       self.cluster_meta["cluster_template"])
@@ -210,17 +228,23 @@ class ClusterSupervisor(object):
              "relaunched; failure will surface at shutdown)"
              % (job_name, eid))
       logger.error(msg)
-      self._event("skipped-background", executor_id=eid)
+      self._event("skipped-background", executor_id=eid, group=group)
       if self.tf_status.get("error") is None:
         self.tf_status["error"] = msg
       return
     if attempt >= self.max_restarts:
       self._given_up.add(eid)
+      if group is not None and self.cluster_meta.get("elastic"):
+        # elastic: a grouped executor past its restart budget is a
+        # resize, not a job failure; the surviving groups stop waiting
+        # for it (parallel.groups)
+        self._commit_shrink(eid, group, attempt)
+        return
       msg = ("executor %d declared dead after %d restart attempt(s); "
              "restart budget (max_restarts=%d) exhausted"
              % (eid, attempt, self.max_restarts))
       logger.error(msg)
-      self._event("gave-up", executor_id=eid, attempts=attempt)
+      self._event("gave-up", executor_id=eid, attempts=attempt, group=group)
       if self.tf_status.get("error") is None:
         self.tf_status["error"] = msg
       return
@@ -256,11 +280,12 @@ class ClusterSupervisor(object):
     # of the old incarnation cannot re-declare death mid-bring-up
     self.server.liveness.rearm(eid)
     self._event("relaunched", executor_id=eid, attempt=attempt + 1,
-                backoff_s=round(delay, 3))
+                backoff_s=round(delay, 3), group=group)
 
     if self._await_reregistration(eid, attempt + 1):
       self.restarts[eid] = attempt + 1
-      self._event("recovered", executor_id=eid, attempt=attempt + 1)
+      self._event("recovered", executor_id=eid, attempt=attempt + 1,
+                  group=group)
     else:
       # liveness/ExecutorLost will re-fire and consume another attempt,
       # or the task error (a non-restartable bring-up failure) propagates
@@ -269,6 +294,56 @@ class ClusterSupervisor(object):
       # refeed regardless of the relaunch outcome: the rescued rows go to
       # whichever LIVE worker picks up the feed task
       self._refeed(pending)
+
+  def _commit_shrink(self, eid: int, group: int, attempts: int) -> None:
+    """Elastic resize, shrink: evict the dead executor's group from the
+    sync plane, so rounds never wait for it and its stale contributions
+    are rejected; the survivors train on with the denominator reduced.
+    Only an empty group set is fatal."""
+    plane = getattr(self.server, "sync_plane", None)
+    active = None
+    self.shrunk.add(eid)
+    self._stop_dead_hub(next((n for n in self.cluster_info
+                              if n["executor_id"] == eid), None))
+    if plane is not None:
+      plane.mark_lost(group, "executor %d dead past restart budget "
+                      "(%d attempt(s))" % (eid, attempts))
+      active = plane.status()["groups_active"]
+    logger.error("executor %d (group %d) declared dead after %d restart "
+                 "attempt(s); committing the shrink: %s group(s) remain",
+                 eid, group, attempts, active)
+    self._event("resize-shrink", executor_id=eid, group=group,
+                attempts=attempts, groups_active=active)
+    if active == 0 and self.tf_status.get("error") is None:
+      self.tf_status["error"] = (
+          "all training groups lost (last: group %d on executor %d)"
+          % (group, eid))
+
+  def _stop_dead_hub(self, old_meta: Optional[dict]) -> None:
+    """Hard-stop the hub manager a SIGKILLed node left behind: no
+    relaunch will reclaim it after a shrink, and an orphan keeps this
+    driver's multiprocessing resource tracker from exiting. Best-effort:
+    an unreachable hub died with its node."""
+    if old_meta is None:
+      return
+    try:
+      feedhub.connect(tuple(old_meta["hub_addr"]),
+                      self.cluster_meta["authkey"]).force_exit()
+    except Exception:  # noqa: BLE001 - hub died with the node
+      pass
+
+  def readmit(self, eid: int) -> None:
+    """Elastic resize, grow: the executor's capacity came back after the
+    supervisor gave up on it. Its restart budget resets and liveness
+    re-arms the startup grace, so the rebooting node is not declared
+    dead again mid-bring-up; its group re-joins the sync plane itself
+    (``GroupSyncClient.join`` pulls the catch-up weights)."""
+    self._given_up.discard(eid)
+    self._attempts.pop(eid, None)
+    self.shrunk.discard(eid)
+    self.server.liveness.rearm(eid)
+    self._event("resize-readmit", executor_id=eid,
+                group=self._group_of(eid))
 
   def _quarantine_dead_hub(self, old_meta: Optional[dict]) -> Dict[str, List]:
     """Mark the dead node's hub unusable and rescue undelivered feed rows.
@@ -769,10 +844,22 @@ class Cluster(object):
       self.detector.stop()
       self.detector.poll()
     self.server.stop()
-    err = self.node_job.first_error() or self.tf_status.get("error")
+    err = self._node_error() or self.tf_status.get("error")
     if err:
       raise RuntimeError("cluster shutdown with node error:\n%s" % err)
     logger.info("cluster shutdown complete")
+
+  def _node_error(self) -> Optional[str]:
+    """The first node task's error, past the lost task of an executor
+    whose group's shrink the supervisor committed: that loss is an
+    elastic resize, not a failure of the job."""
+    skip = set()
+    if self.supervisor is not None:
+      skip = {self.supervisor._eid_task[e] for e in self.supervisor.shrunk}
+    for task_id, e in enumerate(self.node_job.errors):
+      if e is not None and not (task_id in skip and is_executor_lost(e)):
+        return e
+    return None
 
   def tensorboard_url(self) -> Optional[str]:
     """URL of the TensorBoard server, if one was launched (parity:
@@ -783,12 +870,8 @@ class Cluster(object):
     return None
 
 
-def _refuse_unported(group_map, elastic, feed_segment) -> None:
+def _refuse_unported(feed_segment) -> None:
   """Raise, naming the ROADMAP item, for what the port cannot run yet."""
-  if group_map or elastic:
-    raise NotImplementedError(
-        "group_map / elastic: elastic multi-group training is not ported "
-        "to PyTorch yet (ROADMAP Queue 1 item 10c, part 2)")
   if feed_segment is not None:
     raise NotImplementedError(
         "feed_segment: feeder pushdown segments (data.datapipe) are not "
@@ -850,8 +933,18 @@ def run(engine: Engine, main_fn, tf_args=None,
   ``max_restarts`` times per executor; ``max_restarts=0`` fails the
   cluster on the first death. ``train_unroll=K`` exports
   ``TOS_TRAIN_UNROLL=K`` into every node (``parallel.sharding``).
+
+  ``group_map={executor_id: group_id}`` declares elastic multi-group
+  training (``parallel.groups``): the rendezvous server carries a
+  :class:`~parallel.groups.SyncPlane` (the SYNC/SYNCQ/GROUP verbs, and
+  ``groups`` in HEALTH replies) and the supervisor's events carry the
+  group. With ``elastic=True`` a grouped executor that exhausts its
+  restart budget commits a shrink (the surviving groups keep stepping
+  with the sync denominator reduced) instead of failing the job; only
+  losing every group is fatal. ``ClusterSupervisor.readmit`` re-opens
+  the budget when the capacity returns.
   """
-  _refuse_unported(group_map, elastic, feed_segment)
+  _refuse_unported(feed_segment)
   num_executors = num_executors or engine.num_executors
   if train_unroll is not None and int(train_unroll) < 1:
     raise ValueError("train_unroll must be >= 1, got %r" % (train_unroll,))
@@ -935,6 +1028,12 @@ def run(engine: Engine, main_fn, tf_args=None,
       # feed_chunk_size row count)
       "feed_target_bytes": (int(feed_target_bytes)
                             if feed_target_bytes else None),
+      # elastic multi-group training (parallel.groups): executor -> group
+      # id, and whether a group past its restart budget shrinks the group
+      # set instead of failing the job
+      "group_map": ({int(k): int(v) for k, v in group_map.items()}
+                    if group_map else None),
+      "elastic": bool(elastic),
   }
   # the main fn must pickle by name: refuse a lambda or closure before the
   # server starts or any executor is touched
@@ -952,6 +1051,11 @@ def run(engine: Engine, main_fn, tf_args=None,
     # through the rendezvous OBS verb into this bounded sink
     from tensorflowonspark_tpu_torch.obs import collector as obs_collector
     server.obs_sink = obs_collector.ObsSink()
+  if group_map or elastic:
+    # the driver end of the elastic-training plane: groups exchange
+    # weights through the SYNC verbs, HEALTH replies carry the topology
+    from tensorflowonspark_tpu_torch.parallel import groups as groups_mod
+    groups_mod.attach_sync_plane(server)
   server_addr = server.start()
   cluster_meta["server_addr"] = list(server_addr)
 

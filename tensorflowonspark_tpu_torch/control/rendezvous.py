@@ -38,9 +38,11 @@ itself), ``SHSYNC`` (its events out, commands in) and ``SHBYE`` (clean
 departure) are delegated to ``Server.serving_plane``
 (``serving.remote.ServingHostPlane``), and HEALTH replies then carry
 its per-host ``hosts`` rows; with no plane attached the verbs get an
-``ERROR`` reply. The verbs of the one plane the port does not have yet,
-``SYNC``/``SYNCQ``/``GROUP`` (elastic groups), are answered with an
-``ERROR`` reply that names ROADMAP item 10c, part 2.
+``ERROR`` reply. Elastic multi-group training rides it the same way:
+``SYNC`` (contribute weights to a round), ``SYNCQ`` (poll for the merged
+result) and ``GROUP`` (join / leave / lost / state) are delegated to
+``Server.sync_plane`` (``parallel.groups.SyncPlane``), and HEALTH replies
+then carry its ``groups`` topology.
 
 Env overrides (parity with reservation.py:25-26,190-206):
 ``TOS_TPU_SERVER_HOST`` pins the server bind/advertise host;
@@ -412,13 +414,8 @@ class HeartbeatSender(object):
         self._client = None
 
 
-#: verbs of planes the port does not have yet -> what the ERROR reply says
-_UNPORTED_VERBS = {
-    verb: "%s is not ported yet (ROADMAP Queue 1 item %s)" % (what, item)
-    for verbs, what, item in (
-        (("SYNC", "SYNCQ", "GROUP"), "elastic multi-group training",
-         "10c, part 2"),)
-    for verb in verbs}
+#: the elastic-training verbs, delegated to ``Server.sync_plane``
+_SYNC_VERBS = ("SYNC", "SYNCQ", "GROUP")
 #: the cross-host serving verbs, delegated to ``Server.serving_plane``
 _SERVING_VERBS = ("SHREG", "SHSYNC", "SHBYE")
 
@@ -467,6 +464,10 @@ class Server(MessageSocket):
     #: answers those verbs with an ERROR reply: the control plane never
     #: requires the serving plane to exist.
     self.serving_plane = None
+    #: driver-attached ``parallel.groups.SyncPlane`` serving the
+    #: SYNC/SYNCQ/GROUP verbs of elastic multi-group training; None (the
+    #: default) answers them with an ERROR reply
+    self.sync_plane = None
     #: HEALTH obs/alert enrichment failures (counted, never raised)
     self.health_obs_failures = 0
     self._listener: Optional[socket.socket] = None
@@ -600,6 +601,14 @@ class Server(MessageSocket):
         # counted so a chronically failing summary is diagnosable
         self.health_obs_failures += 1
         logger.warning("obs summary for HEALTH failed: %s", e)
+    plane = self.sync_plane
+    if plane is not None:
+      # elastic-training topology (groups active / lost, sync latency)
+      try:
+        reply["groups"] = plane.status()
+      except Exception as e:  # noqa: BLE001 - reply stays groups-free
+        self.health_obs_failures += 1
+        logger.warning("sync-plane status for HEALTH failed: %s", e)
     shplane = self.serving_plane
     if shplane is not None:
       # per-host liveness and load: what wire_health_probe keys replica
@@ -674,9 +683,19 @@ class Server(MessageSocket):
         except Exception as e:  # noqa: BLE001 - reported to the caller
           logger.warning("serving plane failed on %s: %s", mtype, e)
           self.send(sock, {"type": "ERROR", "error": str(e)})
-    elif mtype in _UNPORTED_VERBS:
-      self.send(sock, {"type": "ERROR", "error": "%s: %s" % (
-          mtype, _UNPORTED_VERBS[mtype])})
+    elif mtype in _SYNC_VERBS:
+      # delegated to the attached SyncPlane; a plane bug degrades to an
+      # ERROR reply the group client surfaces, never a dead serve loop
+      plane = self.sync_plane
+      if plane is None:
+        self.send(sock, {"type": "ERROR",
+                         "error": "no sync plane attached for %s" % mtype})
+      else:
+        try:
+          self.send(sock, plane.handle(msg))
+        except Exception as e:  # noqa: BLE001 - reported to the caller
+          logger.warning("sync plane failed on %s: %s", mtype, e)
+          self.send(sock, {"type": "ERROR", "error": str(e)})
     elif mtype == "QINFO":
       self.send(sock, {"type": "COUNT",
                        "registered": self.reservations.required -

@@ -128,7 +128,7 @@ class NodeContext(object):
                cluster_spec=None, default_fs="file://", working_dir=".",
                hub=None, tmp_socket=None, coordinator_address=None,
                process_id=0, num_processes=1, cluster_info=None,
-               restart_count=0, heartbeat=None):
+               restart_count=0, heartbeat=None, server_addr=None):
     self.executor_id = executor_id
     self.worker_num = executor_id          # backwards-compat alias
     self.job_name = job_name
@@ -149,6 +149,9 @@ class NodeContext(object):
     #: how many times the supervisor relaunched this node (0 = first
     #: launch)
     self.restart_count = restart_count
+    #: the driver's rendezvous server, (host, port): where a node's
+    #: ``parallel.groups.GroupSyncClient`` reaches the sync plane
+    self.server_addr = tuple(server_addr) if server_addr else None
     self._heartbeat = heartbeat
 
   # -- convenience mirrors (parity: TFSparkNode.py:92-108) -------------------
@@ -655,7 +658,8 @@ class NodeTask(object):
         cluster_spec=cluster_spec, default_fs=meta.get("default_fs", "file://"),
         working_dir=working_dir, coordinator_address=coordinator,
         process_id=process_id, num_processes=len(table),
-        cluster_info=cluster_info, restart_count=restart_count)
+        cluster_info=cluster_info, restart_count=restart_count,
+        server_addr=meta.get("server_addr"))
     hb_interval = meta.get("heartbeat_interval")
 
     # 8. run the user main fn per role (parity :417-463)

@@ -17,9 +17,17 @@ calls the collectives its part of the work needs.
 - ``pipeline_parallel`` — GPipe and 1F1B stage parallelism over
                     ``pipeline``
 - ``runner``      — the independent-parallel barrier runner
+- ``groups``      — elastic multi-group training: groups that sync their
+                    weights every few steps over the rendezvous plane,
+                    survive a group's loss, resize, and reshard their
+                    checkpoints across group counts
 """
 
 from tensorflowonspark_tpu_torch.parallel.mesh import (  # noqa: F401
     MeshSpec, build_mesh, AXIS_DATA, AXIS_FSDP, AXIS_TENSOR, AXIS_SEQUENCE,
     AXIS_PIPELINE, AXIS_EXPERT,
+)
+from tensorflowonspark_tpu_torch.parallel.groups import (  # noqa: F401
+    GroupEvicted, GroupSet, GroupSyncClient, SyncPlane, TrainGroup,
+    attach_sync_plane, merge_payloads, pack_tree, unpack_tree,
 )

@@ -70,12 +70,16 @@ never at random.
     ``"decode@1#3:kill"`` kills host 1 on its 3rd sync round with live
     requests.
 
-One knob of the reference arms a fault site the port does not have yet.
-Arming it raises ``NotImplementedError`` at the first consult, naming
-the ROADMAP Queue 1 item that ports its site, instead of injecting
-nothing: a chaos run that injects no fault passes for the wrong reason.
-``TOS_CHAOS_GROUP`` (``parallel.groups``' ``group_fault``) comes with
-item 10c, part 2.
+``TOS_CHAOS_GROUP`` = ``"kill[@group][#nth]"`` or
+    ``"stall[@group][#nth]:seconds"`` (comma-separated)
+    Group fault for elastic multi-group training (``parallel.groups``
+    consults :func:`group_fault` at each sync-round boundary with the
+    group id as index): ``kill`` stops that whole group mid-training
+    without a contribution, so the surviving groups complete the round
+    with the denominator shrunk and the plane marks it lost; ``stall``
+    sleeps the group at the boundary (a slow or partitioned group, past
+    the round's deadline). Without ``@group`` the nth count is global
+    across all boundary consults.
 """
 
 import logging
@@ -101,10 +105,6 @@ ENV_HOST = "TOS_CHAOS_HOST"
 _KNOWN_ENV = (ENV_KILL, ENV_STALL, ENV_RV_DROP, ENV_RV_DELAY, ENV_SERVE,
               ENV_FLEET, ENV_GROUP, ENV_DEPLOY, ENV_HOST)
 _ENV_PREFIX = "TOS_CHAOS_"
-#: the knobs whose fault sites are not ported yet, with the ROADMAP Queue 1
-#: item that ports each
-_UNPORTED = ((ENV_GROUP, "the group fault of parallel/groups.py",
-              "10c, part 2"),)
 
 
 class InjectedFault(RuntimeError):
@@ -137,9 +137,7 @@ def check_config() -> None:
   """Validate every armed fault schedule.
 
   Raises ``ValueError`` for an unknown ``TOS_CHAOS_*`` name or a malformed
-  spec, with the reference's messages, and ``NotImplementedError`` for an
-  armed knob whose fault site the port does not have yet, naming the
-  ROADMAP item that ports it.
+  spec, with the reference's messages.
   """
   global _validated
   sig = tuple(os.environ.get(k) for k in _KNOWN_ENV) + tuple(
@@ -192,6 +190,14 @@ def check_config() -> None:
                        "'point[@replica][#nth]:kill' or "
                        "'point[@replica][#nth]:stall:seconds')"
                        % (ENV_FLEET, spec))
+  for spec in _split_specs(os.environ.get(ENV_GROUP)):
+    try:
+      _parse_group_spec(spec)
+    except ValueError:
+      raise ValueError("%s: malformed group spec %r (want "
+                       "'kill[@group][#nth]' or "
+                       "'stall[@group][#nth]:seconds')"
+                       % (ENV_GROUP, spec))
   for spec in _split_specs(os.environ.get(ENV_DEPLOY)):
     try:
       _parse_deploy_spec(spec)
@@ -206,11 +212,6 @@ def check_config() -> None:
       raise ValueError("%s: malformed host spec %r (want "
                        "'point[@host][#nth]:kill', '...:stall:seconds' or "
                        "'...:partition:seconds')" % (ENV_HOST, spec))
-  armed = ["%s (%s): ROADMAP Queue 1 item %s" % (env, site, item)
-           for env, site, item in _UNPORTED if os.environ.get(env)]
-  if armed:
-    raise NotImplementedError(
-        "chaos fault sites not ported to PyTorch yet: %s" % "; ".join(armed))
   _validated = sig
 
 
@@ -353,6 +354,25 @@ def _parse_host_spec(spec: str):
     if len(parts) != 3:
       raise ValueError(spec)
     return target, action, float(parts[2])
+  raise ValueError(spec)
+
+
+def _parse_group_spec(spec: str):
+  """``"kill[@group][#nth]"`` / ``"stall[@group][#nth]:seconds"`` ->
+  ((action, group_or_None, nth), seconds_or_None). The action leads: the
+  one injection point is the sync-round boundary, so there is no point
+  name to parse."""
+  parts = spec.split(":")
+  target = _parse_point_spec(parts[0])
+  action = target[0]
+  if action == "kill":
+    if len(parts) != 1:
+      raise ValueError(spec)
+    return target, None
+  if action == "stall":
+    if len(parts) != 2:
+      raise ValueError(spec)
+    return target, float(parts[1])
   raise ValueError(spec)
 
 
@@ -584,6 +604,44 @@ def host_fault(name: str, index: Optional[int] = None):
     logger.warning("chaos: %s verdict at host point %r host %r "
                    "(occurrence %d)", action, name, index, nth)
     return action, secs
+  return None
+
+
+def group_fault(index: Optional[int] = None) -> Optional[str]:
+  """Deterministic training-group fault site (``parallel.groups``
+  consults it at each sync-round boundary with the group id as
+  ``index``): returns ``"kill"`` when a ``TOS_CHAOS_GROUP`` kill spec
+  matches this invocation; the CALLER then stops that whole group
+  without contributing to the round (the fault target is a group, not
+  the calling thread, so this hook signals instead of raising). Stall
+  specs sleep inline at the boundary and return None, as does a disarmed
+  or unmatched consult.
+
+  Counters mirror :func:`fleet_fault`: a global count over all boundary
+  consults (specs without ``@group``) and a per-group one (specs with it:
+  "this group's nth boundary").
+  """
+  _first_consult()
+  spec_env = os.environ.get(ENV_GROUP)
+  if not spec_env:
+    return None
+  check_config()
+  gcount, icount = _counted("group.sync", index)
+  for spec in _split_specs(spec_env):
+    (action, sindex, nth), secs = _parse_group_spec(spec)
+    if sindex is None:
+      if gcount != nth:
+        continue
+    elif sindex != index or icount != nth:
+      continue
+    if action == "stall":
+      logger.warning("chaos: stalling %.2fs at sync boundary, group %r "
+                     "(occurrence %d)", secs, index, nth)
+      time.sleep(secs)
+      continue
+    logger.warning("chaos: kill verdict for training group %r "
+                   "(occurrence %d)", index, nth)
+    return "kill"
   return None
 
 

@@ -83,7 +83,8 @@ def test_unknown_knob_raises_as_the_reference(monkeypatch):
 
 
 #: the knobs whose sites the port does not have yet, and the item of each
-UNPORTED_ITEMS = {"TOS_CHAOS_GROUP": "10c, part 2"}
+#: (none since the group fault site landed with item 10c, part 2)
+UNPORTED_ITEMS = {}
 
 
 def _inject(module, name):
@@ -98,6 +99,8 @@ def _inject(module, name):
     return [module.deploy_fault("promote", index=r) for r in (0, 1, 1)]
   if name == "TOS_CHAOS_HOST":
     return [module.host_fault("sync", index=1) for _ in range(31)]
+  if name == "TOS_CHAOS_GROUP":
+    return [module.group_fault(g) for g in (1, 0, 0, 1)]
   out = []
   for _ in range(3):
     try:
@@ -117,8 +120,9 @@ def _inject(module, name):
 def test_armed_fault_sites_not_ported_raise_naming_item_8(monkeypatch, name,
                                                           value):
   """Each knob the reference injects: the port injects it the same way
-  (DEPLOY and HOST since their sites were ported), or (GROUP) refuses it
-  at every consult, naming the ROADMAP item that ports its site."""
+  (DEPLOY and HOST since their sites were ported, GROUP since item 10c,
+  part 2), or refuses it at every consult, naming the ROADMAP item that
+  ports its site."""
   monkeypatch.setenv(name, value)
   monkeypatch.setattr(time, "sleep", lambda s: None)
   ref_chaos.check_config()              # a fault the reference would inject

@@ -403,9 +403,11 @@ def _local_closure():
     # the observability plane is ported: TOS_OBS=1 is no longer refused,
     # and the run goes on to launch its nodes on the engine
     (dict(), {"TOS_OBS": "1"}, AssertionError, "executor was touched"),
-    (dict(group_map={0: 0, 1: 1}), {}, NotImplementedError,
-     "item 10c, part 2"),
-    (dict(elastic=True), {}, NotImplementedError, "item 10c, part 2"),
+    # elastic groups are ported (item 10c, part 2): group_map and elastic
+    # are no longer refused, and the run goes on to its nodes
+    (dict(group_map={0: 0, 1: 1}), {}, AssertionError,
+     "executor was touched"),
+    (dict(elastic=True), {}, AssertionError, "executor was touched"),
     (dict(feed_segment=object()), {}, NotImplementedError, "item 11"),
     (dict(main_fn=lambda args, ctx: None), {}, TypeError, "lambda"),
     (dict(main_fn=_local_closure()), {}, TypeError, "closure"),

@@ -278,6 +278,11 @@ def test_unported_verbs_answer_with_their_item(verb, item):
       # the delta is acknowledged and dropped, as in the JAX package
       assert resp["type"] == "OK" and resp["accepted"] is False
       assert "server_time" in resp
+    elif verb in ("SYNC", "GROUP"):
+      # item 10c, part 2 is ported: the verb goes to an attached sync
+      # plane, and without one the reply is the JAX package's
+      assert resp == {"type": "ERROR",
+                      "error": "no sync plane attached for %s" % verb}
     elif verb == "SHREG":
       # item 8 is ported: the verb goes to an attached serving plane, and
       # without one the reply is the JAX package's "no serving plane"

@@ -111,7 +111,7 @@ failure:
    the 12 losses equal to both direct runs' to the bit, every chunk columnar, the input carried by the ring, no restart;
    ms/step of both, one profiled step of each, the feed's fetch / decode
    / assemble ms per batch and the cluster seconds are logged; then the
-   feed's own ceiling, 2048 rows (8 MiB) drained onto the card with no
+   feed's own ceiling, 1024 rows (4 MiB) drained onto the card with no
    step, on the shm ring and on the hub queue; then a consumer that fails
    after its first batch must bring its traceback to ``train`` or
    ``shutdown()``; (6j) ``Cluster.inference`` of 64 rows in 4 partitions
@@ -179,14 +179,14 @@ failure:
    host process counts its own, zeroed and read through files in the
    phase's temp dir), none in the driver, the ``fleet.*`` counters exact
    and no alert; (b) v2 (seed 1) published and driven through
-   ``DeploymentController``: CANARY on host 0, VERIFY with 4 parity spot
+   ``DeploymentController``: CANARY on host 0, VERIFY with 2 parity spot
    checks against a bare engine on v2 in the driver (one request at a
-   time), PROMOTE: shed 0, one promotion, no rollback, then [4]'s 16
+   time), PROMOTE: shed 0, one promotion, no rollback, then [4]'s first 8
    equal to the bare v2 engine's to the bit with both hosts on v2; (c)
    v3 (seed 2) under ``TOS_CHAOS_DEPLOY=canary:poison``: the poisoned
    params (staged for the host, which builds versions from the registry)
    fail VERIFY's parity, the controller rolls back, v3 is quarantined,
-   ``latest()`` stays 2, [4]'s 16 equal v2's to the bit with shed 0, and
+   ``latest()`` stays 2, [4]'s first 8 equal v2's to the bit with shed 0, and
    the detector, read as the controller's SLO source, raises
    ``canary_degraded``; (d) a fresh pair with
    ``TOS_CHAOS_HOST=decode@1#3:kill`` in host 1's env: request 1 lands
@@ -218,9 +218,9 @@ failure:
    each rank then holds ``psum_mean``, ``all_reduce``, ``all_gather``,
    ``reduce_scatter`` and ``broadcast_from`` on CUDA tensors over gloo to
    their exact values; then NCCL's answer to a 2-rank group on one card, untimed; (6l-c)
-   ``Cluster.train`` feeds 184 seeded rows in partitions of 96 and 88 to
+   ``Cluster.train`` feeds 88 seeded rows in partitions of 48 and 40 to
    two ranks training B8 each from ``next_batch_synced(8)``: both stop
-   after 11 steps, having trained exactly the vote-passed batches, with
+   after 5 steps, having trained exactly the vote-passed batches, with
    equal weights, and the driver's one-process steps on each step's global
    batch (reassembled from the row ids the ranks wrote) give losses within
    2e-3;
@@ -271,6 +271,22 @@ failure:
    one process: (b)'s model in f32 decodes 4 prompts x 16 tokens with
    ``greedy_generate_kv``, exact launches, each token the argmax of the
    non-cached forward (near-ties aside);
+   (6v) checkpoints of cut states, as more work of 6s's and 6t's jobs:
+   after its bf16 steps every rank of (b) ``--tp 2 --fused``, (c)
+   ``--fsdp 2`` and 6t's (d) MoE on ``expert=4`` calls
+   ``CheckpointManager.save`` (the ranks gather, rank 0 writes the whole
+   state); (a) each of (b) and (c)'s ranks restores its own checkpoint
+   into a state of zeros and takes the next step, and one card restores
+   it (the weights on disk bitwise the ranks' ``gather_state_params``)
+   and takes the same step: within 2e-3 of the ranks'; (b) (b)'s ranks
+   restore its checkpoint onto ``--fsdp 2`` and take the step, within
+   2e-3; (c) one card restores the MoE checkpoint and every expert
+   weight and moment equals each rank's block bitwise; (d)
+   ``compat.export_model`` of (b)'s state on both ranks, imported into a
+   one-card serving Transformer whose ``greedy_generate_kv`` of 4 x 16
+   tokens (exact launches of rows 1 and 2) equals the gathered weights'
+   model token for token; bytes, gather / host / write / commit and
+   restore seconds and [6v]'s seconds are logged;
    (6u) elastic multi-group training (``parallel.groups``), after 6l on
    its LocalEngine(2): groups are threads of the driver sharing the card's
    stream. (a) 2 groups of the flagship at B16 x S1024 with sync off, 4
@@ -445,6 +461,10 @@ prints its measurements as one JSON line; ``--pp-ep-only`` runs phases 1,
 ``python3 chip_smoke.py --groups-only`` runs phases 1, 2 and 6u alone (6u's
 cluster leg on a LocalEngine(2) of its own) and prints its measurements as
 one JSON line.
+
+``python3 chip_smoke.py --cut-ckpt-only`` runs phases 1, 2, the three cases
+of 6s and 6t that 6v saves (with their one-process runs) and 6v, and
+prints their measurements as one JSON line.
 
 ``python3 chip_smoke.py --serving-ab OTHER_CHECKOUT N`` runs phases 1 and 2,
 then phase 4 for the package of the checkout at OTHER_CHECKOUT (copied
@@ -2419,8 +2439,8 @@ def ckpt_resume(torch, pattern, long_res=None):
          "launches_per_step": [r["launches"] for r in first["steps"]
                                + second["steps"]]}
   log("  killed after step 2, resumed at step 3 (restarts %s, events %s); "
-      "6 losses equal the direct run's to the bit; export %s" % (
-          restarts, kinds, got_fp))
+      "%d losses equal the direct run's to the bit; export %s" % (
+          restarts, kinds, len(losses), got_fp))
   log("  one checkpoint %d bytes; save + wait %s s (copy to the host %s, "
       "write %s, commit %s); restore %.2f s" % (
           res["checkpoint_bytes"], " ".join("%.2f" % s for s in saves),
@@ -2670,7 +2690,7 @@ def options_summary(res):
 # 6 partitions of 32 rows: 4 steps of B16, then 2 slabs of 4 steps
 FEED_PER_STEP, FEED_UNROLL, FEED_SLABS = 4, 4, 2
 FEED_PARTS, FEED_PART_ROWS = 6, 2 * TRAIN_B
-FEED_CEILING_PARTS, FEED_CEILING_PART_ROWS = 8, 256     # 2048 rows, 8 MiB
+FEED_CEILING_PARTS, FEED_CEILING_PART_ROWS = 4, 256     # 1024 rows, 4 MiB
 INFER_PARTS, INFER_PART_ROWS = 4, TRAIN_B
 WANT_INFER_PER_FORWARD = {"flash_attention_fwd": 12, "layer_norm": 25}
 FEED_MARK = "chip-smoke-deliberate-failure-6i"
@@ -4031,7 +4051,10 @@ def fleet_launches(res, name):
 DEPLOY_HOSTS = 2
 #: [4]'s engine options, as every published manifest carries them
 DEPLOY_SERVE_OPTS = {"num_slots": 8, "horizon": 4, "max_new_tokens": MAIN_NEW}
-DEPLOY_SPOT_CHECKS = 4
+DEPLOY_SPOT_CHECKS = 2
+#: (b), (c): the first of [4]'s requests served again after the promote and
+#: the rollback, against the bare v2 engine
+DEPLOY_RESERVED = 8
 DEPLOY_POISON = "canary:poison"      # (c): the candidate poisoned at canary
 DEPLOY_KILL = "decode@1#3:kill"      # (d): host 1's 3rd round mid-decode
 DEPLOY_STREAMED = 1                  # (d): the request read through stream()
@@ -4388,8 +4411,9 @@ def deploy_phase(torch, ops, tfm, ServingEngine, slots, card, init_params,
     promote_s = time.monotonic() - t0
     shed = snap.delta().get("shed", 0)
     (ref_params, ref_eng), = refs.values()
-    want2 = [o.tolist() for o in ref_eng.generate(prompts, timeout=600)]
-    outs2, freqs2 = _fleet_outputs(fl, prompts)
+    again = prompts[:DEPLOY_RESERVED]
+    want2 = [o.tolist() for o in ref_eng.generate(again, timeout=600)]
+    outs2, freqs2 = _fleet_outputs(fl, again)
     what = "[6q](b) deploy of v2"
     if not (verdict["ok"] and verdict.get("promoted")) or \
         verdict["parity"] != {"checked": DEPLOY_SPOT_CHECKS,
@@ -4415,12 +4439,12 @@ def deploy_phase(torch, ops, tfm, ServingEngine, slots, card, init_params,
                                        for k, r in rows.items()}}
     log("  (b) CANARY -> VERIFY (parity %d/%d, %d canary samples, TTFT "
         "ratio %s) -> PROMOTE: promotions %d, rollbacks %d, shed %d; [4]'s "
-        "16 requests equal the bare v2 engine's to the bit, both hosts on "
-        "v2; publish to promoted %.2f s; %s" % (
+        "first %d requests equal the bare v2 engine's to the bit, both hosts "
+        "on v2; publish to promoted %.2f s; %s" % (
             verdict["parity"]["checked"] - verdict["parity"]["mismatches"],
             verdict["parity"]["checked"], verdict["canary_samples"],
             verdict["ttft_ratio"], ctl.stats["promotions"],
-            ctl.stats["rollbacks"], shed, promote_s, card))
+            ctl.stats["rollbacks"], shed, len(again), promote_s, card))
     for _, eng in refs.values():
       eng.stop()
     refs.clear()
@@ -4436,7 +4460,7 @@ def deploy_phase(torch, ops, tfm, ServingEngine, slots, card, init_params,
       verdict3 = ctl.deploy(v3)
     rollback_s = time.monotonic() - t0
     chaos.reset()
-    outs3, _ = _fleet_outputs(fl, prompts)
+    outs3, _ = _fleet_outputs(fl, again)
     shed3 = snap.delta().get("shed", 0)
     what = "[6q](c) a poisoned v3"
     if verdict3["ok"] or not verdict3["parity"]["mismatches"] or \
@@ -4464,11 +4488,11 @@ def deploy_phase(torch, ops, tfm, ServingEngine, slots, card, init_params,
       eng.stop()
     refs.clear()
     log("  (c) VERIFY parity %d/%d diverged -> ROLLBACK, v3 quarantined "
-        "(%s), latest %d, [4]'s 16 requests equal v2's to the bit, shed %d, "
-        "canary_degraded raised; deploy to rolled back %.2f s; %s" % (
+        "(%s), latest %d, [4]'s first %d requests equal v2's to the bit, "
+        "shed %d, canary_degraded raised; deploy to rolled back %.2f s; %s" % (
             verdict3["parity"]["mismatches"], verdict3["parity"]["checked"],
-            res["poison"]["quarantine"], reg.latest(), shed3, rollback_s,
-            card))
+            res["poison"]["quarantine"], reg.latest(), len(again), shed3,
+            rollback_s, card))
   finally:
     if fl is not None:
       fl.stop()
@@ -5108,14 +5132,14 @@ DP_STEPS, DP_UNROLL = 4, 2          # [6l-b]: per-step steps, then one slab
 DP_REL = 2e-3                       # 2 ranks against 1 process, bf16
 DP_ARGS = ["--layers", "12", "--d_model", "768", "--heads", "12", "--vocab",
            "32000", "--seq_len", str(TRAIN_S), "--batch", str(TRAIN_B)]
-# [6l-c]: 184 seeded rows in partitions of 96 and 88, 8 rows a rank a
-# step (B16 global): the short rank runs dry after 11 batches, and the
+# [6l-c]: 88 seeded rows in partitions of 48 and 40, 8 rows a rank a
+# step (B16 global): the short rank runs dry after 5 batches, and the
 # vote stops both there. A partition may run at most one batch past the
 # shortest: the long rank must have taken all its rows when it waits in
 # the failing vote, or its feeder waits for rows no one takes while the
 # short rank waits for the end of feed that shutdown() sends after
 # train() returns
-DP_FEED_ROWS, DP_FEED_SPLIT, DP_FEED_B = 184, 96, TRAIN_B // 2
+DP_FEED_ROWS, DP_FEED_SPLIT, DP_FEED_B = 88, 48, TRAIN_B // 2
 DP_FEED_SEED = SEED + 13
 DP_LABEL = "gloo over host, two ranks sharing one card"
 
@@ -6085,7 +6109,7 @@ def route_diff(ranks, one, tokens, world):
 
 
 def spmd_train(torch, argv, f32=False, profile=False, weights=False,
-               moe=None, in_rank=False):
+               moe=None, in_rank=False, then=None):
   """``train_gpt``'s pieces at ``argv`` over the process group's mesh (or
   one process outside a group): SPMD_STEPS steps on the stream's first
   batches, each rank's block of them (with ``--pp``, the global batches
@@ -6093,10 +6117,12 @@ def spmd_train(torch, argv, f32=False, profile=False, weights=False,
   embedding and loss calls and ms a step; the last step profiled with
   ``profile`` (the device's activity alone ``in_rank``); the config made
   f32 with ``f32``; MoE layers over the expert axis with ``moe``
-  (:func:`_mesh_and_config`). Returns (record, None or, with
-  ``weights``, the first step's whole gradients, the whole weights before
-  the first step (one process only, else None), the gathered weights
-  after the last and, with ``moe``, after the first)."""
+  (:func:`_mesh_and_config`); ``then(argv, state, args, cfg, mesh,
+  extra)`` after the last step, its record under ``cut_ckpt`` ([6v]).
+  Returns (record, None or, with ``weights``, the first step's whole
+  gradients, the whole weights before the first step (one process only,
+  else None), the gathered weights after the last and, with ``moe``,
+  after the first)."""
   import itertools
   import numpy as np
   from tensorflowonspark_tpu_torch import ops
@@ -6169,6 +6195,8 @@ def spmd_train(torch, argv, f32=False, profile=False, weights=False,
              peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
              param_bytes=state_bytes(state.params),
              opt_bytes=state_bytes(state.opt_state))
+  if then is not None:
+    rec["cut_ckpt"] = then(argv, state, args, cfg, mesh, extra)
   got = (grads, w0, sharding.gather_state_params(state),
          first if moe is not None else {}) if weights else None
   del state
@@ -6256,7 +6284,9 @@ def spmd_rank_main(rank, world, go, jobs, out):
   group's port) before it joins the group; then each job's bf16 run (its
   last step profiled) and its f32 run at SPMD_F32_FLAGS; the records to
   ``out % rank`` (JSON) and the f32 run's first gradients and final
-  gathered weights to ``<out % rank>.<job>.npz``."""
+  gathered weights to ``<out % rank>.<job>.npz``. A job of
+  CUT_CKPT_CASES saves its bf16 state after its steps
+  (:func:`cut_ckpt_rank`, [6v])."""
   import datetime
   import numpy as np
   import torch
@@ -6283,9 +6313,11 @@ def spmd_rank_main(rank, world, go, jobs, out):
     try:
       for job in jobs:
         moe = job.get("moe")
+        then = functools.partial(cut_ckpt_rank, torch, job["name"]) \
+            if job["name"] in CUT_CKPT_CASES else None
         with flash_bwd_env(job["bwd"]):
           res[job["name"]], _ = spmd_train(torch, job["argv"], profile=True,
-                                           moe=moe, in_rank=True)
+                                           moe=moe, in_rank=True, then=then)
           res[job["name"] + "_f32"], got = spmd_train(
               torch, job["argv"] + SPMD_F32_FLAGS, f32=True, weights=True,
               moe=moe, in_rank=True)
@@ -6869,7 +6901,317 @@ def moe_decode(torch, ops, tfm):
   return res
 
 
-def spmd_phase(torch, ops, F, pattern, spmd=True, ppep=True, drawn=()):
+# -- [6v]: checkpoints of cut states, as more jobs of [6s]/[6t]'s groups
+
+#: the cases whose ranks save their state after their bf16 steps
+CUT_CKPT_CASES = ("b_tp2_fused", "c_fsdp2", "t_d_moe_e4_a2a")
+#: (b): b_tp2_fused's checkpoint restored onto --fsdp 2 by its own ranks
+CUT_CKPT_OTHER = {"b_tp2_fused": ["--tp", "1", "--fsdp", "2"]}
+CUT_CKPT_EXPORT = "b_tp2_fused"     # (d): exported, decoded on one card
+CUT_CKPT_DIR = os.path.join(HERE, "build", "chip_smoke_cut_ckpt")
+CUT_DECODE_PROMPTS, CUT_DECODE_LEN, CUT_DECODE_NEW = 4, 128, 16
+
+
+def _crc(x):
+  """crc32 of a tensor's or an array's bytes: bitwise equality across
+  processes without moving the tensor."""
+  import zlib
+  import numpy as np
+  import torch
+  if torch.is_tensor(x):
+    x = x.detach().contiguous().cpu().view(-1).view(torch.uint8).numpy()
+  return zlib.crc32(np.ascontiguousarray(x).reshape(-1).view(np.uint8))
+
+
+def _zero_weights(cfg):
+  """Zero weights of ``cfg``'s shapes: a template for a restore, which
+  overwrites every one (a restore that did not would train from zeros
+  and miss the loss gate)."""
+  import numpy as np
+  from tensorflowonspark_tpu_torch.utils.params import param_specs
+  return {n: np.zeros(shape, "float32")
+          for n, (shape, _, _) in param_specs(cfg).items()}
+
+
+def _cut_restore(torch, args, cfg, mesh, path):
+  """A state of zero weights on ``mesh`` (None: one card) with
+  ``train_gpt``'s optimizer at ``args``, restored from the checkpoint
+  at ``path``; its record (restore seconds, next step)."""
+  from tensorflowonspark_tpu_torch import optim
+  from tensorflowonspark_tpu_torch.models import transformer as tfm
+  from tensorflowonspark_tpu_torch.utils import checkpoint
+  tx = optim.make_optimizer(learning_rate=args.lr, clip_norm=1.0,
+                            optimizer=args.optimizer,
+                            grad_accum_steps=args.grad_accum)
+  zeros = _zero_weights(cfg)
+  state = tfm.create_sharded_state(cfg, zeros, mesh, tx=tx)[0] \
+      if mesh is not None else tfm.create_state(cfg, zeros, tx=tx)
+  torch.cuda.synchronize()
+  t0 = time.monotonic()
+  state, nxt = checkpoint.CheckpointManager(
+      path, save_interval_steps=1).restore_or(state)
+  torch.cuda.synchronize()
+  return state, {"restore_s": time.monotonic() - t0, "next": nxt,
+                 "cut": bool(state.sharding is not None
+                             and state.sharding.sharded)}
+
+
+def _cut_step(torch, args, mesh, state, batch, extra):
+  """One step of ``state`` on the global ``batch`` (this rank's block of
+  it over a mesh): the global batch's loss."""
+  import numpy as np
+  from tensorflowonspark_tpu_torch.examples import train_gpt
+  from tensorflowonspark_tpu_torch.parallel import sharding
+  step = sharding.make_train_step(train_gpt.make_loss_fn(args), mesh,
+                                  state.sharding, batch_extra_axes=extra)
+  if mesh is not None:
+    batch = sharding.shard_batch(batch, mesh, extra)
+  state, loss = step(state, np.asarray(batch, "int32"))
+  return float(loss)
+
+
+def _next_batch(args):
+  import itertools
+  from tensorflowonspark_tpu_torch.examples import train_gpt
+  return next(itertools.islice(train_gpt.batch_stream(args), SPMD_STEPS,
+                               None))
+
+
+def cut_ckpt_rank(torch, name, argv, state, args, cfg, mesh, extra):
+  """[6v] on a rank of case ``name``, after its bf16 steps: every rank
+  calls ``CheckpointManager.save`` (the ranks gather, rank 0 writes the
+  whole state). Then (c) for the expert case this rank's blocks of every
+  expert-cut tensor by crc32; else the gathered whole weights by crc32,
+  (a) a state of zeros on this mesh restores the checkpoint and takes the
+  next step, (b) for ``CUT_CKPT_OTHER`` the same on another mesh, and
+  (d) for ``CUT_CKPT_EXPORT`` ``compat.export_model`` on every rank (the
+  other rank's throwaway copy removed)."""
+  from tensorflowonspark_tpu_torch.examples import train_gpt
+  from tensorflowonspark_tpu_torch.parallel import sharding
+  from tensorflowonspark_tpu_torch.utils import checkpoint, compat
+  t_enter = time.monotonic()
+  path = os.path.join(CUT_CKPT_DIR, name)
+  mgr = checkpoint.CheckpointManager(path, save_interval_steps=1)
+  torch.cuda.synchronize()
+  t0 = time.monotonic()
+  if not mgr.save(SPMD_STEPS - 1, state):
+    raise AssertionError("[6v] %s rank %d: the save did not fire"
+                         % (name, mesh.rank))
+  rec = {"save_s": time.monotonic() - t0, "last_save": mgr.last_save,
+         "rank": mesh.rank}
+  if name.startswith("t_"):
+    layout = sharding.state_layout(state)
+    rec["coord"] = mesh.coord("expert")
+    rec["experts"] = mesh.shape["expert"]
+    rec["expert_blocks"] = {
+        "/".join(str(k) for k in p): _crc(t)
+        for p, t in sharding._state_tensors(state)
+        if "expert" in layout[p].spec}
+  else:
+    rec["gathered_crc"] = {n: _crc(v) for n, v in
+                           sharding.gather_state_params(state).items()}
+    batch = _next_batch(args)
+    own, rec["own"] = _cut_restore(torch, args, cfg, mesh, path)
+    rec["own"]["loss"] = _cut_step(torch, args, mesh, own, batch, extra)
+    del own
+    if name in CUT_CKPT_OTHER:
+      oargs = train_gpt.parse_args(list(argv) + CUT_CKPT_OTHER[name])
+      omesh = train_gpt.make_mesh(oargs)
+      other, rec["other"] = _cut_restore(torch, oargs, cfg, omesh, path)
+      rec["other"]["mesh"] = {a: n for a, n in omesh.shape.items() if n > 1}
+      rec["other"]["loss"] = _cut_step(torch, oargs, omesh, other, batch,
+                                       train_gpt.SEQUENCE_AXES)
+      del other
+    if name == CUT_CKPT_EXPORT:
+      t0 = time.monotonic()
+      out = compat.export_model(state, os.path.join(path, "export"),
+                                mesh.rank == 0)
+      rec["export_s"] = time.monotonic() - t0
+      if mesh.rank != 0:
+        shutil.rmtree(out, ignore_errors=True)
+  torch.cuda.empty_cache()
+  rec["seconds"] = time.monotonic() - t_enter
+  return rec
+
+
+def _cut_case(name):
+  return [c for c in SPMD_CASES + PPEP_CASES if c[0] == name][0]
+
+
+def _cut_decode(torch, ops, tfm, model, prompts, want_layers):
+  """``greedy_generate_kv`` of ``prompts`` x CUT_DECODE_NEW tokens with
+  exact launches (one flash prefill a layer, 2L + 1 LayerNorm forwards a
+  token); the tokens, the launches and the wall seconds."""
+  tfm.greedy_generate_kv(model, prompts[:, :8], 2)          # warm-up
+  torch.cuda.synchronize()
+  before = dict(ops.LAUNCHES)
+  t0 = time.monotonic()
+  out = tfm.greedy_generate_kv(model, prompts, CUT_DECODE_NEW)
+  torch.cuda.synchronize()
+  wall = time.monotonic() - t0
+  launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
+  want = dict({k: 0 for k in launches}, flash_attention_fwd=want_layers,
+              layer_norm=(2 * want_layers + 1) * CUT_DECODE_NEW)
+  if launches != want:
+    raise AssertionError("[6v] (d) decode launches %s, want %s"
+                         % (launches, want))
+  return out, launches, wall
+
+
+def cut_ckpt_phase(torch, ops, cases, pattern):
+  """[6v] in the driver, after the ranks of [6s]/[6t] saved: (a) one
+  card restores b_tp2_fused's and c_fsdp2's checkpoints (their weights
+  bitwise the ranks' gathered ones) and takes the next step, within
+  SPMD_REL of the ranks' own restored step, as (b)'s restore onto
+  --fsdp 2 is; (c) one card restores t_d_moe_e4_a2a's and every expert
+  weight and moment equals each rank's block bitwise; (d) the export of
+  b_tp2_fused's state loads into a one-card serving Transformer, whose
+  greedy decode (flash forward and LayerNorm forward, rows 1 and 2)
+  equals the one-process model's at the gathered weights, token for
+  token. The checkpoints are removed at the end."""
+  import numpy as np
+  from tensorflowonspark_tpu_torch.examples import train_gpt
+  from tensorflowonspark_tpu_torch.models import transformer as tfm
+  from tensorflowonspark_tpu_torch.utils import compat
+  t_start = time.monotonic()
+  res = {"cases": {}}
+  log("[6v] checkpoints of cut states: the ranks' saves restored on one "
+      "card and onto another mesh, an expert-cut save, an export decoded "
+      "on one card")
+  for name in CUT_CKPT_CASES:
+    if name not in cases:
+      continue
+    case = _cut_case(name)
+    ranks = [r["cut_ckpt"] for r in cases[name]["per_rank"]]
+    args = train_gpt.parse_args(_spmd_argv(case[3], pattern))
+    cfg = train_gpt.make_config(args)
+    if case[7] is not None:
+      cfg = dataclasses.replace(cfg, **case[7][0])
+    path = os.path.join(CUT_CKPT_DIR, name)
+    one, rec = _cut_restore(torch, args, cfg, None, path)
+    rec["ranks"] = ranks
+    save = ranks[0]["last_save"]
+    if rec["next"] != SPMD_STEPS:
+      raise AssertionError("[6v] %s: one card restored next step %d, want "
+                           "%d" % (name, rec["next"], SPMD_STEPS))
+    if name.startswith("t_"):
+      # (c) each rank's blocks of the expert weights and their moments
+      from tensorflowonspark_tpu_torch.parallel import sharding
+      mine = {"/".join(str(k) for k in p): t
+              for p, t in sharding._state_tensors(one)}
+      differ = []
+      for r in ranks:
+        for p, crc in r["expert_blocks"].items():
+          per = mine[p].shape[0] // r["experts"]
+          if _crc(mine[p].narrow(0, r["coord"] * per, per)) != crc:
+            differ.append((r["rank"], p))
+      rec["expert_tensors"] = len(ranks[0]["expert_blocks"])
+      if differ or not rec["expert_tensors"]:
+        raise AssertionError("[6v] (c) %s: blocks differ from the ranks' "
+                             "%s (%d tensors)" % (name, differ[:4],
+                                                  rec["expert_tensors"]))
+      log("  (c) %s: %d expert tensors (weights and moments), each rank's "
+          "block equal bitwise in one card's restore; %d bytes, rank 0's "
+          "save %.2f s (gather %.2f, host %.2f, write %.2f, commit %.2f); "
+          "one card's restore %.2f s" % (
+              name, rec["expert_tensors"], save["bytes"], ranks[0]["save_s"],
+              save["gather_s"], save["host_s"], save["write_s"],
+              save["commit_s"], rec["restore_s"]))
+      res["cases"][name] = rec
+      del one
+      torch.cuda.empty_cache()
+      continue
+    got = {n: _crc(p) for n, p in one.params.items()}
+    if got != ranks[0]["gathered_crc"]:
+      raise AssertionError("[6v] (a) %s: the whole weights on disk differ "
+                           "from gather_state_params at %s" % (name, sorted(
+                               n for n in got
+                               if got[n] != ranks[0]["gathered_crc"][n])[:4]))
+    ref = tfm.Transformer(cfg, {n: p.detach() for n, p in
+                                one.params.items()}) \
+        if name == CUT_CKPT_EXPORT else None
+    rec["loss"] = _cut_step(torch, args, None, one, _next_batch(args), ())
+    del one
+    own = [r["own"]["loss"] for r in ranks]
+    if len(set(own)) != 1:
+      raise AssertionError("[6v] (a) %s: the ranks' restored steps disagree"
+                           ": %s" % (name, own))
+    rel = abs(rec["loss"] - own[0]) / abs(own[0])
+    rec["rel"] = rel
+    if rel > SPMD_REL:
+      raise AssertionError("[6v] (a) %s: one card's restored step %.6f "
+                           "against the ranks' %.6f: %.3g over %g"
+                           % (name, rec["loss"], own[0], rel, SPMD_REL))
+    log("  (a) %s: %d bytes (%.1f MB); rank 0's save %.2f s (gather %.2f, "
+        "host %.2f, write %.2f, commit %.2f); restored next step %d: the "
+        "ranks' %.6f (restore %s s), one card's %.6f (restore %.2f s), rel "
+        "%.3g (limit %g); weights on disk bitwise the gathered ones" % (
+            name, save["bytes"], save["bytes"] / 1e6, ranks[0]["save_s"],
+            save["gather_s"], save["host_s"], save["write_s"],
+            save["commit_s"], rec["next"], own[0], " / ".join(
+                "%.2f" % r["own"]["restore_s"] for r in ranks), rec["loss"],
+            rec["restore_s"], rel, SPMD_REL))
+    if "other" in ranks[0]:
+      other = [r["other"]["loss"] for r in ranks]
+      orel = abs(other[0] - own[0]) / abs(own[0])
+      rec["other_rel"] = orel
+      if len(set(other)) != 1 or orel > SPMD_REL or \
+          not ranks[0]["other"]["cut"]:
+        raise AssertionError("[6v] (b) %s onto %s: %s against %.6f"
+                             % (name, ranks[0]["other"]["mesh"], other,
+                                own[0]))
+      log("  (b) %s restored onto %s by its ranks: %.6f, rel %.3g (limit "
+          "%g), restore %s s" % (name, ranks[0]["other"]["mesh"], other[0],
+                                 orel, SPMD_REL, " / ".join(
+                                     "%.2f" % r["other"]["restore_s"]
+                                     for r in ranks)))
+    if ref is not None:
+      # (d) the export, decoded on one card
+      t0 = time.monotonic()
+      tree = compat.import_model(os.path.join(path, "export"))
+      rec["import_s"] = time.monotonic() - t0
+      crc = {n: _crc(t) for n, t in tree["params"].items()}
+      if crc != ranks[0]["gathered_crc"]:
+        raise AssertionError("[6v] (d) %s: the export's weights differ from "
+                             "the gathered ones" % name)
+      served = tfm.Transformer(cfg, tree["params"])
+      del tree
+      prompts = np.random.default_rng(SEED + 53).integers(
+          1, cfg.vocab_size, (CUT_DECODE_PROMPTS, CUT_DECODE_LEN))
+      got, launches, wall = _cut_decode(torch, ops, tfm, served, prompts,
+                                        cfg.num_layers)
+      want, _, _ = _cut_decode(torch, ops, tfm, ref, prompts,
+                               cfg.num_layers)
+      del served, ref
+      if not torch.equal(got, want):
+        raise AssertionError("[6v] (d) %s: the export's decode differs from "
+                             "the gathered weights' at %d tokens"
+                             % (name, int((got != want).sum())))
+      res["decode"] = {"launches": launches, "wall_s": wall,
+                       "tokens_per_s": CUT_DECODE_PROMPTS * CUT_DECODE_NEW
+                                       / wall}
+      log("  (d) %s: export on both ranks %s s, import %.2f s; %d prompts "
+          "x %d new tokens on one card equal to the gathered weights' "
+          "model, %.1f tokens/s, launches %s" % (
+              name, " / ".join("%.2f" % r["export_s"] for r in ranks),
+              rec["import_s"], CUT_DECODE_PROMPTS, CUT_DECODE_NEW,
+              res["decode"]["tokens_per_s"],
+              {k: v for k, v in launches.items() if v}))
+    res["cases"][name] = rec
+    torch.cuda.empty_cache()
+  shutil.rmtree(CUT_CKPT_DIR, ignore_errors=True)
+  res["driver_s"] = time.monotonic() - t_start
+  res["ranks_s"] = {n: max(r["seconds"] for r in c["ranks"])
+                    for n, c in res["cases"].items()}
+  res["seconds"] = res["driver_s"] + sum(res["ranks_s"].values())
+  log("  [6v] %.1f s: the driver %.1f s, the ranks' jobs %s s" % (
+      res["seconds"], res["driver_s"], " / ".join(
+          "%s %.1f" % kv for kv in res["ranks_s"].items())))
+  return res
+
+
+def spmd_phase(torch, ops, F, pattern, spmd=True, ppep=True, drawn=(),
+               only=None):
   """[6s] and [6t]: with ``spmd``, the kernels at the ring's block cases
   and at --tp 2's widths; then train_gpt over the mesh axes in ranks
   sharing the card over gloo, each case against one process on the same
@@ -6879,13 +7221,16 @@ def spmd_phase(torch, ops, F, pattern, spmd=True, ppep=True, drawn=()):
   [6t]'s PPEP_CASES in the same groups and the MoE decode (e). The
   groups are spawned once the kernel timings are done: their ranks'
   imports, warm-up and seeded weights overlap the one-process runs.
-  ``drawn``: seeded weights this process drew already
-  (:func:`_weight_memo`)."""
+  Then [6v] (:func:`cut_ckpt_phase`) on the checkpoints of
+  CUT_CKPT_CASES. ``drawn``: seeded weights this process drew already
+  (:func:`_weight_memo`). ``only``: the names of the cases to run, without
+  the kernel cases or the MoE decode."""
   from tensorflowonspark_tpu_torch.models import transformer as tfm
   t_start = time.monotonic()
   res = {"cases": {}, "groups_s": {}, "max_abs_err": 0.0,
          "ring_blocks": [], "tp_widths": []}
-  if spmd:
+  shutil.rmtree(CUT_CKPT_DIR, ignore_errors=True)
+  if spmd and only is None:
     log("[6s] the flash kernels at the ring's block cases (q [1, %d, %d, "
         "%d] against %d keys; lse cotangent on every row)"
         % (RING_S, RING_H, RING_D, RING_S))
@@ -6894,7 +7239,8 @@ def spmd_phase(torch, ops, F, pattern, spmd=True, ppep=True, drawn=()):
     res["tp_widths"], tp_err = check_tp_widths(ops, torch, F)
     res["max_abs_err"] = max(ring_err, tp_err)
     torch.cuda.empty_cache()
-  cases = (SPMD_CASES if spmd else ()) + (PPEP_CASES if ppep else ())
+  cases = tuple(c for c in (SPMD_CASES if spmd else ()) +
+                (PPEP_CASES if ppep else ()) if only is None or c[0] in only)
   groups = [_spmd_spawn(world, [
       {"name": name, "argv": _spmd_argv(base, pattern) + flags, "bwd": bwd,
        "moe": moe}
@@ -6906,17 +7252,22 @@ def spmd_phase(torch, ops, F, pattern, spmd=True, ppep=True, drawn=()):
     with _weight_memo(drawn):
       if spmd:
         log("[6s] the one-process runs of the mesh-axes cases")
-        one.update(_one_process_runs(torch, SPMD_CASES, pattern, memo))
+        one.update(_one_process_runs(torch, [c for c in SPMD_CASES
+                                             if c in cases], pattern, memo))
       res["one_process_s"] = time.monotonic() - t0
       if ppep:
         t1 = time.monotonic()
         log("[6t] the one-process runs of the pipeline and expert cases, "
             "and the MoE decode")
-        one.update(_one_process_runs(torch, PPEP_CASES, pattern, memo))
+        one.update(_one_process_runs(torch, [c for c in PPEP_CASES
+                                             if c in cases], pattern, memo))
         res["ppep_one_process_s"] = time.monotonic() - t1
-        res["moe_decode"] = moe_decode(torch, ops, tfm)
+        if only is None:
+          res["moe_decode"] = moe_decode(torch, ops, tfm)
     torch.cuda.empty_cache()
     res.update(_spmd_cases(groups, cases, one))
+    if any(c[0] in CUT_CKPT_CASES for c in cases):
+      res["cut_ckpt"] = cut_ckpt_phase(torch, ops, res["cases"], pattern)
   finally:
     for group in groups:
       _spmd_stop(group)
@@ -7057,7 +7408,8 @@ def _log_routing(name, rd, relu):
 
 def spmd_launches(res, name):
   """[6s]'s and [6t]'s launches of kernel ``name`` on rank 0 of each
-  case (a pipeline's stage 0), and in [6t]'s MoE decode."""
+  case (a pipeline's stage 0), in [6t]'s MoE decode and in [6v]'s decode
+  of an export."""
   out = {"%s_%s_rank0_%d_steps" % ("ppep" if case.startswith("t_")
                                    else "spmd", case, SPMD_STEPS): int(sum(
       step[name] for step in res["cases"][case]["per_rank"][0][
@@ -7065,6 +7417,10 @@ def spmd_launches(res, name):
   if "moe_decode" in res:
     out["ppep_moe_decode_%dx%d" % (PPEP_DECODE_PROMPTS, PPEP_DECODE_NEW)] = \
         res["moe_decode"]["launches"][name]
+  if "decode" in res.get("cut_ckpt", {}):
+    out["cut_ckpt_export_decode_%dx%d" % (CUT_DECODE_PROMPTS,
+                                          CUT_DECODE_NEW)] = \
+        res["cut_ckpt"]["decode"]["launches"][name]
   return out
 
 
@@ -7076,18 +7432,23 @@ def spmd_kernel_rows(res, name):
           for r in res["ring_blocks"] if r["kernel"] == name]
 
 
-def spmd_only(torch, ops, F, _build, card, spmd=True):
+def spmd_only(torch, ops, F, _build, card, spmd=True, only=None):
   """``--spmd-only``: phase 2's build, [6d]'s TFRecords, then [6s];
-  ``--pp-ep-only`` (``spmd`` False): the build, then [6t]."""
+  ``--pp-ep-only`` (``spmd`` False): the build, then [6t];
+  ``--cut-ckpt-only`` (``only``: CUT_CKPT_CASES): the build, those
+  cases of [6s]/[6t] and [6v]. [6v] follows whichever of its cases
+  ran."""
   log("[2] build")
   build_s = _build.build_all()
   log("  built %s" % ", ".join("%s %.1fs" % kv for kv in build_s.items()))
   pattern = write_token_files(os.path.join(
-      HERE, "build", "chip_smoke_tokens"), 32000, LONG_S) if spmd else None
-  res = spmd_phase(torch, ops, F, pattern, spmd=spmd, ppep=not spmd)
+      HERE, "build", "chip_smoke_tokens"), 32000, LONG_S) \
+      if spmd and only is None else None
+  res = spmd_phase(torch, ops, F, pattern, spmd=spmd,
+                   ppep=not spmd or only is not None, only=only)
   os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
   with open(os.path.join(HERE, "chiprun_out", "chip_smoke_%s.json" % (
-      "spmd" if spmd else "pp_ep")), "w") as f:
+      "cut_ckpt" if only else "spmd" if spmd else "pp_ep")), "w") as f:
     json.dump({"spmd": res, "card": card}, f, indent=1)
   log(card)
   log(json.dumps({"spmd": {
@@ -8702,6 +9063,7 @@ def main(argv):
   only_spmd = argv == ["--spmd-only"]
   only_ppep = argv == ["--pp-ep-only"]
   only_groups = argv == ["--groups-only"]
+  only_cut = argv == ["--cut-ckpt-only"]
   ab = argv[1:] if argv[:1] == ["--serving-ab"] and len(argv) == 3 else None
   if argv[:1] == ["--serving-only"] and len(argv) == 2:
     repeats = int(argv[1])
@@ -8709,13 +9071,13 @@ def main(argv):
                      or only_dp or only_pipeline or only_options
                      or only_obs or only_fleet or only_deploy
                      or only_decode or only_spmd or only_ppep
-                     or only_groups):
+                     or only_groups or only_cut):
     log("usage: python3 chip_smoke.py [--serving-only N | "
         "--serving-ab OTHER_CHECKOUT N | "
         "--layer-norm-only | --cluster-only | --feed-only | --ckpt-only | "
         "--dp-only | --pipeline-only | --train-options-only | --obs-only | "
         "--fleet-only | --deploy-only | --decode-stack-only | --spmd-only | "
-        "--pp-ep-only | --groups-only]")
+        "--pp-ep-only | --groups-only | --cut-ckpt-only]")
     return 2
   cache_bytecode()
   try:
@@ -8781,6 +9143,8 @@ def main(argv):
                       _build, card)
   if only_spmd or only_ppep:
     return spmd_only(torch, ops, F, _build, card, spmd=only_spmd)
+  if only_cut:
+    return spmd_only(torch, ops, F, _build, card, only=CUT_CKPT_CASES)
   if only_groups:
     return groups_only(torch, ops, tfm, optim, _build, card, init_params)
 

@@ -948,27 +948,36 @@ class Transformer(nn.Module):
   def _qkv_cut(self) -> bool:
     return self.cfg.fuse_qkv and self.plan.kv
 
+  def param_permutation(self, name: str) -> Optional[tuple]:
+    """``(dim, order)`` where parameter ``name``'s whole weight has its
+    dimension ``dim`` reordered by ``order`` before it is cut into
+    blocks, else None: a cut fused QKV weight's heads, rank by rank
+    (``[q_r | k_r | v_r]``, :meth:`_Plan.qkv_order`). A checkpoint holds
+    the weight and every optimizer tensor that keeps that dimension in
+    the order of one process (``parallel.sharding.gather_state``)."""
+    if not self._qkv_cut() or param_kind(name) != "attn.qkv":
+      return None
+    return 1, self.plan.qkv_order()
+
+  def _reorder(self, params: Mapping[str, Any], back: bool) -> dict:
+    out = dict(params)
+    for n, p in params.items():
+      perm = self.param_permutation(n)
+      if perm is None:
+        continue
+      order = np.argsort(perm[1]) if back else perm[1]
+      out[n] = p[:, torch.as_tensor(order)] if torch.is_tensor(p) \
+          else np.asarray(p)[:, order]
+    return out
+
   def permute_params(self, params: Mapping[str, Any]) -> dict:
-    """Whole weights in the layout the blocks are cut from: a cut fused
-    QKV weight's heads reordered rank by rank (``[q_r | k_r | v_r]``,
-    :meth:`_Plan.qkv_order`); every other weight as it is."""
-    if not self._qkv_cut():
-      return dict(params)
-    order = self.plan.qkv_order()
-    return {n: (np.asarray(p)[:, order] if not torch.is_tensor(p)
-                else p[:, torch.as_tensor(order)])
-            if param_kind(n) == "attn.qkv" else p
-            for n, p in params.items()}
+    """Whole weights in the layout the blocks are cut from
+    (:meth:`param_permutation`); every other weight as it is."""
+    return self._reorder(params, back=False)
 
   def unpermute_params(self, params: Mapping[str, Any]) -> dict:
     """The inverse of :meth:`permute_params`."""
-    if not self._qkv_cut():
-      return dict(params)
-    back = np.argsort(self.plan.qkv_order())
-    return {n: (np.asarray(p)[:, back] if not torch.is_tensor(p)
-                else p[:, torch.as_tensor(back)])
-            if param_kind(n) == "attn.qkv" else p
-            for n, p in params.items()}
+    return self._reorder(params, back=True)
 
   def param_specs(self) -> dict:
     """Each parameter's mesh spec (an axis or None per dimension)."""

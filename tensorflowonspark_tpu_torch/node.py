@@ -179,7 +179,8 @@ class NodeContext(object):
   def export_model(self, state, export_dir: str) -> str:
     """Chief-only export of ``state`` to ``<export_dir>/model`` (parity:
     TFNode.export_saved_model); other nodes write a throwaway dir.
-    Returns the directory written."""
+    Returns the directory written. A train state cut over a mesh is
+    gathered whole first, so every node of the mesh calls this."""
     from tensorflowonspark_tpu_torch.utils import compat
     return compat.export_model(state, export_dir, self.is_chief)
 
@@ -197,7 +198,9 @@ class NodeContext(object):
     CheckpointManager` for this node: the preemption-safe resume hook,
     ``state, start_step = mgr.restore_or(state)`` continues a relaunched
     node from its latest checkpoint (``start_step`` is 0 on a fresh
-    launch)."""
+    launch). In a process group every node makes the manager and calls
+    ``save``; a state cut over a mesh is saved whole and restores into a
+    state cut over any mesh."""
     from tensorflowonspark_tpu_torch.utils.checkpoint import CheckpointManager
     return CheckpointManager(directory, **kwargs)
 

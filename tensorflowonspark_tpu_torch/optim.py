@@ -24,7 +24,10 @@ clip and scale. The train state runs ``update`` (and ``init``) inside
 spec; the reductions then sum their partial sums over the axes that cut
 the dimensions they reduce, as the reference's GSPMD computes them on
 global arrays. Outside it (one card, or a data-parallel state whose every
-parameter is whole) nothing changes.
+parameter is whole) nothing changes. A factored statistic is a cut
+block too, the parameter's block less the dimension it reduced
+(:func:`factored_slots`), and a checkpoint holds it whole
+(``parallel.sharding.gather_state``).
 """
 
 import contextlib
@@ -421,6 +424,34 @@ class FactoredState(NamedTuple):
   v_row: List[torch.Tensor]
   v_col: List[torch.Tensor]
   v: List[torch.Tensor]
+
+
+def factored_slots(global_shape: Sequence[int], block_shape: Sequence[int],
+                   v_row_shape: Sequence[int], v_col_shape: Sequence[int],
+                   v_shape: Sequence[int]) -> Optional[Tuple[int, int]]:
+  """Which slots of a :class:`FactoredState` one parameter uses, from the
+  shapes they hold: ``(d1, d0)`` of :func:`_factored_dims` on the
+  parameter's GLOBAL shape when ``v_row`` is its block less ``d0`` and
+  ``v_col`` its block less ``d1`` (factored: over a mesh each is cut as
+  the dimensions it keeps are), None when ``v`` is its block (not
+  factored). Whether a parameter factors hangs on
+  ``min_dim_size_to_factor``, which the state does not keep, so the
+  shapes decide; where neither reading fits, ``ValueError``."""
+  block = tuple(block_shape)
+  if len(global_shape) >= 2:
+    d1, d0 = _factored_dims(global_shape, 0)
+    if tuple(v_row_shape) == block[:d0] + block[d0 + 1:] and \
+        tuple(v_col_shape) == block[:d1] + block[d1 + 1:] and \
+        tuple(v_shape) == (1,):
+      return d1, d0
+  if tuple(v_shape) == block and tuple(v_row_shape) == (1,) and \
+      tuple(v_col_shape) == (1,):
+    return None
+  raise ValueError(
+      "factored statistics of shapes v_row %s, v_col %s, v %s fit neither "
+      "reading of a parameter block %s (global %s)"
+      % (tuple(v_row_shape), tuple(v_col_shape), tuple(v_shape), block,
+         tuple(global_shape)))
 
 
 def scale_by_factored_rms(decay_rate: float = 0.8,

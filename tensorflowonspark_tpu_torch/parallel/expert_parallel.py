@@ -31,6 +31,12 @@ gradient is summed over the axis. The router and the experts compute in
 f32 from f32 weights and the output is cast back to the input's dtype.
 The expert products are batched matrix products, which the JAX package
 computes outside any Pallas kernel too.
+
+In a train state the expert stacks are cut by the logical rule
+``"expert"`` on their leading dimension (:func:`shard_moe_params` cuts
+the same blocks from whole weights), so a checkpoint gathers them, and
+their moments, along that dimension and a restore cuts them again for
+any expert degree (``parallel.sharding.gather_state`` / ``cut_state``).
 """
 
 from typing import Dict, Optional

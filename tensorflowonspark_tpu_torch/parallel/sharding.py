@@ -42,6 +42,15 @@ GSPMD holds global arrays laid out over devices:
 * the returned loss is averaged over the batch axes: every rank returns
   the global batch's loss, as the reference's replicated loss.
 
+A cut state is checkpointed and exported whole, as orbax writes a
+sharded leaf as its global array: :func:`gather_state` gives every
+tensor of it (parameters and optimizer state) whole, in the layout of one
+process, and :func:`cut_state` copies a rank's blocks of a whole state
+into a template laid out on any mesh; :func:`state_layout` says how each
+tensor lies (an optimizer tensor as its parameter, a factored statistic
+as its parameter less the dimension it reduced) and raises by name where
+it cannot tell.
+
 A batch handed to a step is this rank's block (the counterpart of
 ``jax.make_array_from_process_local_data``); :func:`shard_batch` and
 :func:`shard_slab` cut it out of a global host batch (what the
@@ -82,7 +91,7 @@ accounting the detectors read: ``train.steps`` (by K per fused slab),
 import copy
 import os
 import time
-from typing import Callable, List, Optional, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -567,45 +576,159 @@ def shard_slab(slab, mesh, extra_axes: Tuple[str, ...] = ()):
   return _map_batch(lambda x: _block_of(x, 1, mesh, extra_axes), slab)
 
 
-def _owners(state, param_sharding: StateSharding) -> list:
-  """``(path, tensor, parameter name or None)`` of every tensor of a train
-  state: a parameter is its own; an optimizer-state tensor belongs to a
-  parameter when it sits under that name in a dict, or at index ``i`` of
-  a list with one entry per parameter, with the parameter's block shape
-  (a moment mirrors THEIR parameter, so two parameters of one shape keep
-  their own layouts); anything else belongs to none."""
-  names = list(param_sharding.specs)
-  shapes = [tuple(p.shape) for p in state.params.values()]
-  entries = _state_tensors(state)
-  siblings = {}
-  for path, t in entries:
-    siblings.setdefault(path[:-1], []).append((path[-1], tuple(t.shape)))
-  out = []
-  for path, t in entries:
-    key, parent = path[-1], path[:-1]
-    if path[0] == "params":
-      name = key
-    elif isinstance(key, str) and key in param_sharding.specs and \
-        tuple(t.shape) == tuple(state.params[key].shape):
-      name = key                                   # {name: moment}
-    elif isinstance(key, int) and siblings[parent] == list(
-        zip(range(len(names)), shapes)):
-      name = names[key]                            # [moment per parameter]
+class Slot(NamedTuple):
+  """How one tensor of a train state lies on the mesh: ``spec`` (a mesh
+  axis or None per dimension), the WHOLE tensor's ``shape``, and
+  ``perm``: ``(dim, order)`` where the whole tensor's dimension ``dim``
+  is reordered by ``order`` before it is cut (a cut fused QKV weight's
+  heads and the optimizer tensors that keep them), else None."""
+  spec: tuple
+  shape: tuple
+  perm: Optional[tuple] = None
+
+
+def _underivable(path, what: str) -> ValueError:
+  return ValueError(
+      "cannot derive how the optimizer tensor at %s lies on the mesh: %s. "
+      "A checkpoint, an export or a restore of a cut state needs every "
+      "optimizer tensor to be a parameter's mirror (its block's shape, one "
+      "per parameter in a list, a NamedTuple field or a dict by name) or an "
+      "optim.FactoredState statistic" % ("/".join(str(k) for k in path),
+                                         what))
+
+
+def _less(t: tuple, dim: int) -> tuple:
+  return t[:dim] + t[dim + 1:]
+
+
+def _perm_less(perm, dim: int):
+  """A parameter's ``perm`` in a statistic that reduced ``dim``."""
+  if perm is None or perm[0] == dim:
+    return None
+  return (perm[0] - (dim < perm[0]), perm[1])
+
+
+class _Params(object):
+  """Each parameter's name, block shape and :class:`Slot`, in the
+  state's parameter order (the order of a per-parameter list)."""
+
+  def __init__(self, state, param_sharding):
+    self.names = list(state.params)
+    self.block = {n: tuple(p.shape) for n, p in state.params.items()}
+    model = getattr(state, "model", None)
+    permutation = getattr(model, "param_permutation", None)
+    self.slots = {}
+    for n in self.names:
+      if param_sharding is None:
+        spec, shape = (None,) * len(self.block[n]), self.block[n]
+      else:
+        spec, shape = param_sharding.spec(n), param_sharding.global_shape(n)
+      perm = permutation(n) if permutation is not None else None
+      self.slots[n] = Slot(tuple(spec), tuple(shape), perm)
+
+  def mirror(self, name, t, path) -> Slot:
+    if tuple(t.shape) != self.block[name]:
+      raise _underivable(path, "shape %s where parameter %s's block is %s"
+                         % (tuple(t.shape), name, self.block[name]))
+    return self.slots[name]
+
+
+def _factored(tree, path, params: _Params, out: dict) -> None:
+  """The slots of an ``optim.FactoredState``: a factored parameter's row
+  statistic is its spec less ``d0`` (whole over the axis that cuts
+  ``d0``: each rank holds the mean over the whole dimension), its column
+  statistic less ``d1``; the slots a parameter does not use hold one
+  zero on every rank."""
+  from tensorflowonspark_tpu_torch import optim
+  n = len(params.names)
+  for field in ("v_row", "v_col", "v"):
+    if len(getattr(tree, field)) != n:
+      raise _underivable(path + (field,), "%d entries for %d parameters"
+                         % (len(getattr(tree, field)), n))
+  one = Slot((None,), (1,))
+  for i, name in enumerate(params.names):
+    slot = params.slots[name]
+    shapes = [tuple(getattr(tree, f)[i].shape) for f in ("v_row", "v_col",
+                                                         "v")]
+    try:
+      dims = optim.factored_slots(slot.shape, params.block[name], *shapes)
+    except ValueError as e:
+      raise _underivable(path + ("v", i),
+                         "%s (parameter %s)" % (e, name)) from e
+    if dims is None:
+      got = {"v_row": one, "v_col": one, "v": slot}
     else:
-      name = None
-    out.append((path, t, name))
+      got = {"v": one}
+      for field, dim in (("v_row", dims[1]), ("v_col", dims[0])):
+        got[field] = Slot(_less(slot.spec, dim), _less(slot.shape, dim),
+                          _perm_less(slot.perm, dim))
+    for field, s in got.items():
+      out[path + (field, i)] = s
+
+
+def _opt_slots(tree, path, params: _Params, out: dict) -> None:
+  """The slot of every tensor in an optimizer state (see
+  :func:`state_layout`); raises where one cannot be derived."""
+  from tensorflowonspark_tpu_torch import optim
+  names = params.names
+  if torch.is_tensor(tree):
+    raise _underivable(path, "a tensor of shape %s outside any per-parameter "
+                       "slot" % (tuple(tree.shape),))
+  if isinstance(tree, optim.FactoredState):
+    _factored(tree, path, params, out)
+    _opt_slots(tree.count, path + ("count",), params, out)
+    return
+  if isinstance(tree, dict):
+    if tree and sorted(tree) == sorted(names) and \
+        all(torch.is_tensor(v) for v in tree.values()):
+      for k, v in tree.items():
+        out[path + (k,)] = params.mirror(k, v, path + (k,))
+      return
+    items = tree.items()
+  elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+    items = zip(tree._fields, tree)
+  elif isinstance(tree, (list, tuple)):
+    if tree and len(tree) == len(names) and \
+        all(torch.is_tensor(v) for v in tree):
+      for i, v in enumerate(tree):
+        out[path + (i,)] = params.mirror(names[i], v, path + (i,))
+      return
+    items = enumerate(tree)
+  elif hasattr(tree, "__dict__"):
+    items = vars(tree).items()
+  else:
+    return
+  for k, v in items:
+    _opt_slots(v, path + (k,), params, out)
+
+
+def state_layout(state, param_sharding=None) -> dict:
+  """The :class:`Slot` of every tensor of a train state, by path (the
+  paths of :func:`_state_tensors`): a parameter's from its
+  ``StateSharding`` (``param_sharding``, default ``state.sharding``; None
+  or a state held whole: every tensor whole) and the model's
+  ``param_permutation``; an optimizer tensor's from its parameter: a
+  moment (AdamW's ``mu``/``nu``, Lion's, SGD's trace, ``MultiSteps``'
+  running mean, Adafactor's unfactored ``v``) mirrors it, and Adafactor's
+  factored row and column statistics are its spec less the dimension
+  each reduced (``optim.factored_slots``). An optimizer tensor that is
+  none of these raises ``ValueError`` naming its path: a layout is never
+  guessed. Counts and scalars are Python numbers, not tensors."""
+  if param_sharding is None:
+    param_sharding = getattr(state, "sharding", None)
+  params = _Params(state, param_sharding)
+  out = {("params", n): params.slots[n] for n in params.names}
+  _opt_slots(state.opt_state, ("opt_state",), params, out)
   return out
 
 
 def state_shardings(state, param_sharding: StateSharding) -> dict:
   """The spec of every tensor of a train state, by path (the reference's
-  ``state_shardings``): a parameter's its own, a moment its parameter's
-  (:func:`_owners`), anything else ``P()``: counts, scalars, and
-  statistics derived from a block, such as Adafactor's factored ones,
-  which each rank computes from its blocks."""
-  return {path: collectives.P(*param_sharding.spec(name)) if name
-          else collectives.P()
-          for path, _, name in _owners(state, param_sharding)}
+  ``state_shardings``): :func:`state_layout`'s, whose every optimizer
+  tensor's spec follows its parameter (a factored statistic's less the
+  dimension it reduced)."""
+  return {path: collectives.P(*slot.spec)
+          for path, slot in state_layout(state, param_sharding).items()}
 
 
 def init_sharded_state(params_init_fn: Callable, make_state_fn: Callable,
@@ -672,17 +795,203 @@ def _state_tensors(state):
   return out
 
 
+def _map_state(tree, path, fn):
+  """``tree`` rebuilt with ``fn(path, tensor)`` in place of each tensor
+  (the walk and the paths of :func:`_state_tensors`); objects are
+  shallow copies, so the counts they hold are the caller's values."""
+  if torch.is_tensor(tree):
+    return fn(path, tree)
+  if isinstance(tree, dict):
+    return {k: _map_state(v, path + (k,), fn) for k, v in tree.items()}
+  if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+    return type(tree)(*[_map_state(v, path + (k,), fn)
+                        for k, v in zip(tree._fields, tree)])
+  if isinstance(tree, (list, tuple)):
+    return type(tree)(_map_state(v, path + (i,), fn)
+                      for i, v in enumerate(tree))
+  if hasattr(tree, "__dict__"):
+    out = copy.copy(tree)
+    for k, v in vars(tree).items():
+      setattr(out, k, _map_state(v, path + (k,), fn))
+    return out
+  return tree
+
+
+class WholeState(object):
+  """A train state's every tensor as its whole global array, in the
+  layout of one process (:func:`gather_state`): ``params`` by name,
+  ``opt_state`` with the optimizer's own containers, and ``step``. What a
+  checkpoint and an export of a cut state write, and what a checkpoint's
+  ``publish_hook`` is handed; ``utils.checkpoint`` writes it as it writes
+  a ``TrainState``, so a checkpoint written by ranks has the tree and the
+  tensor shapes of one written by one process."""
+
+  def __init__(self, params: dict, opt_state: Any, step: int):
+    self.params = params
+    self.opt_state = opt_state
+    self.step = int(step)
+    self.sharding = None
+
+
+def _order(perm, back: bool) -> torch.Tensor:
+  return torch.as_tensor(np.argsort(perm[1]) if back else perm[1])
+
+
+def _gather(t: torch.Tensor, slot: Slot, mesh) -> torch.Tensor:
+  """The whole tensor of block ``t``, in the order of one process."""
+  whole = gather_array(t.detach(), slot.spec, mesh) if mesh is not None \
+      else t.detach()
+  if slot.perm is not None:
+    whole = whole.index_select(
+        slot.perm[0], _order(slot.perm, back=True).to(whole.device))
+  return whole
+
+
+def cut_state_mesh(state):
+  """The mesh a train state is cut over, or None where every rank holds
+  it whole (one card, or only the data axis above 1)."""
+  sh = getattr(state, "sharding", None)
+  return sh.mesh if sh is not None and sh.sharded else None
+
+
+def gather_state(state) -> WholeState:
+  """Every tensor of a train state, its parameters and its optimizer
+  state, as its whole global array in the layout of one process (a
+  :class:`WholeState`, on the tensors' device): each block all-gathered
+  over the axes that cut it (:func:`state_layout`), a cut fused QKV
+  weight and the optimizer tensors that keep its heads put back in the
+  order of one process. Over a cut mesh EVERY rank calls it (the
+  gathers are collectives), and every rank gets the whole state; a layout
+  that cannot be derived raises on every rank before the first gather. A
+  tensor that every rank holds whole is the state's own, uncopied (read
+  it before the next step)."""
+  mesh = cut_state_mesh(state)
+  layout = state_layout(state)
+
+  def whole(path, t):
+    return _gather(t, layout[path], mesh)
+
+  params = {n: whole(("params", n), p) for n, p in state.params.items()}
+  return WholeState(params, _map_state(state.opt_state, ("opt_state",),
+                                       whole), state.step)
+
+
+def whole_like(state) -> WholeState:
+  """A :class:`WholeState` of ``state``'s containers whose tensors are
+  empty ``meta`` tensors of the whole shapes and dtypes: what a restore
+  checks a checkpoint's tree against before it cuts it."""
+  layout = state_layout(state)
+
+  def meta(path, t):
+    return torch.empty(layout[path].shape, dtype=t.dtype, device="meta")
+
+  params = {n: meta(("params", n), p) for n, p in state.params.items()}
+  return WholeState(params, _map_state(state.opt_state, ("opt_state",),
+                                       meta), state.step)
+
+
+def _at(tree, key):
+  """``tree``'s child ``key``: a dict's item, a list's or tuple's entry,
+  or an attribute (a NamedTuple's field, an object's, a state's)."""
+  if isinstance(tree, dict):
+    return tree[key]
+  if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+    return tree[key]
+  return getattr(tree, key)
+
+
+def _scalars(tmpl, whole, path) -> list:
+  """``(object or container, key, value)`` for every Python number the
+  optimizer state ``tmpl`` holds (a step count, ``MultiSteps``' mini
+  step), ``value`` read from ``whole`` at the same path."""
+  out = []
+  if torch.is_tensor(tmpl):
+    return out
+  if isinstance(tmpl, dict):
+    items, mutable = tmpl.items(), True
+  elif isinstance(tmpl, (list, tuple)):
+    items = zip(tmpl._fields, tmpl) if hasattr(tmpl, "_fields") \
+        else enumerate(tmpl)
+    mutable = isinstance(tmpl, list)
+  elif hasattr(tmpl, "__dict__"):
+    items, mutable = vars(tmpl).items(), True
+  else:
+    return out
+  for k, v in list(items):
+    child = _at(whole, k)
+    if isinstance(v, (bool, int, float)):
+      if not mutable:
+        raise TypeError("a number in a tuple at %s cannot be restored in "
+                        "place" % "/".join(str(p) for p in path + (k,)))
+      out.append((tmpl, k, child))
+    else:
+      out += _scalars(v, child, path + (k,))
+  return out
+
+
+@torch.no_grad()
+def cut_state(whole, template):
+  """Copy this rank's blocks of the whole state ``whole`` into the train
+  state ``template``, in place (the model's parameters stay the objects
+  a train step holds), and its step and optimizer counts; returns the
+  template. ``whole``: a :class:`WholeState` (:func:`gather_state` on any
+  mesh, or a one-process state), or the plain tree
+  ``utils.checkpoint.load_tree`` reads without a template. Each tensor
+  is cut as ``template.sharding`` lays it out (:func:`state_layout`),
+  which may be another mesh than the one it was gathered from: a cut
+  fused QKV weight and the optimizer tensors that keep its heads are
+  reordered first. Every block is taken before the first copy, so a
+  whole state that does not fit (a shape, a missing entry) raises
+  ``ValueError`` and changes nothing. No collective: each rank cuts its
+  own blocks."""
+  mesh = cut_state_mesh(template)
+  layout = state_layout(template)
+  blocks = []
+  for path, t in _state_tensors(template):
+    at = "/".join(str(k) for k in path)
+    try:
+      src = whole
+      for key in path:
+        src = _at(src, key)
+    except (KeyError, IndexError, AttributeError, TypeError) as e:
+      raise ValueError("the whole state has no tensor at %s" % at) from e
+    src = torch.as_tensor(src)
+    slot = layout[path]
+    if tuple(src.shape) != slot.shape:
+      raise ValueError("the whole state's tensor at %s has shape %s where "
+                       "the template's whole shape is %s"
+                       % (at, tuple(src.shape), slot.shape))
+    if slot.perm is not None:
+      src = src.index_select(slot.perm[0], _order(slot.perm, back=False).to(
+          src.device))
+    if mesh is not None:
+      src = shard_array(src, slot.spec, mesh)
+    blocks.append((t, src))
+  numbers = _scalars(template.opt_state, _at(whole, "opt_state"),
+                     ("opt_state",))
+  step = int(_at(whole, "step"))
+  for t, src in blocks:
+    t.copy_(src)
+  for obj, key, value in numbers:
+    if isinstance(obj, (dict, list)):
+      obj[key] = value
+    else:
+      setattr(obj, key, value)
+  template.step = step
+  return template
+
+
 def gather_state_params(state) -> dict:
   """The whole weights of a train state laid out over a mesh, as f32
-  numpy arrays on every rank (each block all-gathered over its axes);
-  a state without a sharding gives its own weights."""
-  sharding = getattr(state, "sharding", None)
+  numpy arrays on every rank (each block all-gathered over its axes, in
+  the order of one process); a state without a sharding gives its own
+  weights. The weights-only view of :func:`gather_state`."""
+  mesh = cut_state_mesh(state)
+  slots = _Params(state, getattr(state, "sharding", None)).slots
   out = {}
   for name, p in state.params.items():
-    full = p.detach() if sharding is None else \
-        gather_array(p.detach(), sharding.spec(name), sharding.mesh)
-    out[name] = full.float().cpu().numpy()
-  model = state.model
-  if hasattr(model, "unpermute_params"):
-    out = model.unpermute_params(out)
+    whole = _gather(p, slots[name], mesh).float().cpu()
+    # a copy, never a view of the live weight the next step updates
+    out[name] = (whole.clone() if whole.data_ptr() == p.data_ptr()
+                 else whole).numpy()
   return out

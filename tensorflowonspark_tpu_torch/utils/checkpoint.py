@@ -28,6 +28,22 @@ tensor is ``copy_``'d into the template's tensor, on its device and in its
 dtype, so the model's parameters that a train step holds stay the same
 objects.
 
+A train state cut over a mesh (fsdp, tensor, expert, with or without
+data: ``state.sharding.sharded``) is saved WHOLE, as orbax writes every
+sharded leaf as its global array: every rank of the mesh calls ``save``
+(and ``compat.export_model``), the ranks gather every tensor
+(``parallel.sharding.gather_state``: the parameters, their optimizer
+state, Adafactor's factored statistics, a cut fused QKV weight and its
+moments in the order of one process), and rank 0 writes. So a checkpoint
+written by ranks has the tree and the tensor shapes of one written by one
+process at the same config, and either restores into the other. A
+restore into a cut template reads the whole tree on every rank, checks it
+against the template's whole shapes, and keeps the blocks that the
+TEMPLATE's own ``state.sharding`` gives the rank
+(``parallel.sharding.cut_state``): the mesh may differ from the one that
+saved. The saving mesh is not recorded; the commit marker keeps the
+reference's format.
+
 A remote directory (any ``scheme://`` but ``file://``, through fsspec,
 :mod:`~tensorflowonspark_tpu_torch.data.fs`) has no atomic rename and, as
 in the reference, no commit markers: those live in local directories
@@ -103,25 +119,27 @@ def _is_namedtuple(x) -> bool:
 
 
 def _is_train_state(x) -> bool:
+  from tensorflowonspark_tpu_torch.parallel.sharding import WholeState
   from tensorflowonspark_tpu_torch.train_state import TrainState
-  return isinstance(x, TrainState)
+  return isinstance(x, (TrainState, WholeState))
 
 
-def refuse_cut_state(state: Any, what: str) -> None:
-  """Raise for a train state whose weights are cut over a mesh (fsdp,
-  tensor or expert, ``state.sharding.sharded``): each rank holds its
-  blocks only,
-  and a checkpoint or an export holds rank 0's, so one would restore
-  other ranks' blocks wrong. A state that every rank holds whole (one
-  card, the data axis) passes."""
-  sharding = getattr(state, "sharding", None) if _is_train_state(state) \
-      else None
-  if sharding is not None and sharding.sharded:
-    raise NotImplementedError(
-        "%s of a train state cut over the mesh %s: gathered checkpoints of "
-        "FSDP, tensor- and expert-parallel states are not ported to PyTorch "
-        "yet (ROADMAP Queue 1 item 10c, part 3)"
-        % (what, dict(sharding.mesh.shape)))
+def _cut(state: Any) -> bool:
+  """True for a train state cut over a mesh (some rank holds only blocks
+  of some tensor)."""
+  from tensorflowonspark_tpu_torch.parallel import sharding
+  return _is_train_state(state) and \
+      sharding.cut_state_mesh(state) is not None
+
+
+def whole_state(state: Any) -> Any:
+  """What a save or an export writes of ``state``: a cut train state
+  gathered whole (``parallel.sharding.gather_state``; every rank of its
+  mesh must call), anything else as it is."""
+  if not _cut(state):
+    return state
+  from tensorflowonspark_tpu_torch.parallel import sharding
+  return sharding.gather_state(state)
 
 
 def _host(t: torch.Tensor) -> torch.Tensor:
@@ -351,8 +369,8 @@ def save_tree(directory: str, tree: Any) -> Dict[str, float]:
 
 def load_tree(directory: str, template: Any = None) -> Any:
   """The tree :func:`save_tree` wrote: restored in place into
-  ``template``, or (no template) as plain containers of CPU tensors and
-  numpy arrays."""
+  ``template`` (a cut train state keeps its blocks of it), or (no
+  template) as plain containers of CPU tensors and numpy arrays."""
   with fs.open_file(fs.join(directory, _TREE), "rb") as f:
     meta = json.load(f)
   if meta.get("format") != _FORMAT:
@@ -362,6 +380,13 @@ def load_tree(directory: str, template: Any = None) -> Any:
     tensors = torch.load(f, map_location="cpu", weights_only=True)
   if template is None:
     return _decode(meta["tree"], tensors)
+  if _cut(template):
+    # the whole tree against the template's whole shapes, then this
+    # rank's blocks of it
+    from tensorflowonspark_tpu_torch.parallel import sharding
+    _restore(meta["tree"], sharding.whole_like(template), tensors,
+             apply=False)
+    return sharding.cut_state(_decode(meta["tree"], tensors), template)
   _restore(meta["tree"], template, tensors, apply=False)
   return _restore(meta["tree"], template, tensors, apply=True)
 
@@ -465,7 +490,7 @@ class CheckpointManager(object):
       self._latest_at_start = None if latest < 0 else latest
     #: the newest step this process wrote: its bytes, and the seconds of
     #: the copy to the host, the write and the commit (rename, marker,
-    #: retention)
+    #: retention); of a cut state, the seconds of its gather too
     self.last_save: Dict[str, float] = {}
 
   # -- steps on disk -----------------------------------------------------------
@@ -504,27 +529,33 @@ class CheckpointManager(object):
     every rank calls ``save``, rank 0 writes, and all ranks then agree on
     its outcome before any returns: a failed write raises on every rank
     (``is_chief`` is ignored there, as the reference ignores it in a JAX
-    process group). Without a process group only the chief writes.
+    process group). Without a process group only the chief writes. A
+    state cut over a mesh is gathered whole on every rank first
+    (:func:`whole_state`), and ``publish_hook`` is handed the whole
+    state.
 
     The decision is interval-CROSSING, not modulo: a fused train loop
     calls this once per slab with ``step`` jumping ``unroll`` at a time,
     and the save fires at the first call whose step reached or passed a
     boundary since the last saved step.
     """
-    refuse_cut_state(state, "a checkpoint")
     group = _process_group()
     if group is None and not is_chief:
       return False
     if not force and not self._due(step):
       return False
+    # every rank gathers a cut state, before rank 0 alone goes on to write
+    t0 = time.monotonic()
+    tree = whole_state(state)
+    gather_s = time.monotonic() - t0 if tree is not state else None
     if group is None:
-      self._write(step, state, data_state, manifest)
+      self._write(step, tree, data_state, manifest, gather_s)
       self._last_saved = int(step)
       return True
     error = None
     if group.get_rank() == 0:
       try:
-        self._write(step, state, data_state, manifest)
+        self._write(step, tree, data_state, manifest, gather_s)
       except Exception as e:  # noqa: BLE001 - raised below, on every rank
         error = e
     if not _collective(group, int(error is None), least=True):
@@ -536,7 +567,8 @@ class CheckpointManager(object):
     return True
 
   def _write(self, step: int, state: Any, data_state: Optional[dict],
-             manifest: Optional[dict]) -> None:
+             manifest: Optional[dict],
+             gather_s: Optional[float] = None) -> None:
     final = self._step_dir(step)
     if self._local:
       # a save of this step that died mid-write left its temporary dir
@@ -569,6 +601,8 @@ class CheckpointManager(object):
     else:
       self._retain()
     rec["commit_s"] = time.monotonic() - t0
+    if gather_s is not None:
+      rec["gather_s"] = gather_s
     self.last_save = rec
     logger.info("checkpoint saved at step %d (%d bytes)", step, rec["bytes"])
     if self.publish_hook is not None:
@@ -681,9 +715,10 @@ class CheckpointManager(object):
               with_data: bool = False) -> Any:
     """Restore the given (or latest) step into the template, in place.
 
-    ``with_data=True`` returns ``(state, data_state_or_None)``.
+    ``with_data=True`` returns ``(state, data_state_or_None)``. A cut
+    template keeps its blocks of the whole tree (see the module notes):
+    every rank reads the step, no collective runs.
     """
-    refuse_cut_state(state_template, "a restore")
     step = step if step is not None else self.latest_step()
     if step is None:
       raise FileNotFoundError("no checkpoints in %s" % self.directory)
@@ -712,7 +747,6 @@ class CheckpointManager(object):
     every step fails, the last error is raised: retraining from step 0
     would discard real progress.
     """
-    refuse_cut_state(state, "a restore")
     step = self.latest_step()
     last_error = None
     markers = self._has_markers()

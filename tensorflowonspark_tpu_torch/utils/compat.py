@@ -33,10 +33,14 @@ def export_model(state, export_dir: str, is_chief: bool) -> str:
   place, replacing an earlier export. A remote ``export_dir`` (fsspec)
   has no rename: an earlier export is removed and the new one written in
   place, its tree last (a cut-short export does not load). Returns the
-  directory written to. A train state cut over a mesh raises
-  (``checkpoint.refuse_cut_state``).
+  directory written to. A train state cut over a mesh is gathered whole
+  first (``checkpoint.whole_state``), so EVERY rank of its mesh calls
+  this, chief or not, and the export holds the whole weights and
+  optimizer state, as one process's would. Pass the train state (or
+  ``parallel.sharding.gather_state(state).params``): a bare
+  ``state.params`` dict of a cut state is this rank's blocks.
   """
-  checkpoint.refuse_cut_state(state, "an export")
+  state = checkpoint.whole_state(state)
   target = checkpoint.storage_dir(export_dir) if is_chief else \
       tempfile.mkdtemp(prefix="nonchief_export_")
   if fs.is_remote(target):
@@ -57,7 +61,9 @@ def export_model(state, export_dir: str, is_chief: bool) -> str:
 
 def import_model(export_dir: str, template=None):
   """Load a state written by :func:`export_model`: into ``template`` in
-  place, or (no template) as plain containers of CPU tensors."""
+  place (a train state cut over a mesh keeps this rank's blocks, on any
+  mesh: ``parallel.sharding.cut_state``), or (no template) as plain
+  containers of CPU tensors."""
   path = fs.join(checkpoint.storage_dir(export_dir), "model")
   return checkpoint.load_tree(path, template)
 

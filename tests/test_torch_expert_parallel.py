@@ -44,7 +44,6 @@ from tensorflowonspark_tpu.parallel import sharding as jax_sharding
 from tensorflowonspark_tpu_torch.models import transformer as tfm
 from tensorflowonspark_tpu_torch.parallel import expert_parallel as ep
 from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
-from tensorflowonspark_tpu_torch.parallel import sharding
 from tensorflowonspark_tpu_torch.utils.hostinfo import get_free_port
 from tensorflowonspark_tpu_torch.utils.params import (init_params,
                                                       params_from_flax,
@@ -410,27 +409,37 @@ def test_expert_axis_must_divide_the_experts():
                     mesh=_stand_in(expert=2))
 
 
-def test_expert_cut_state_checkpoints_are_refused_by_name(tmp_path):
-  """An expert-cut state holds this rank's experts only: checkpoints and
-  exports refuse it, naming part 3 of item 10c; its decode is refused
-  too."""
+def test_expert_cut_state_checkpoints_are_refused_by_name(ranks):
+  """An expert-cut state holds this rank's experts only. Its checkpoints
+  and exports, once refused by name, now hold the whole expert stacks and
+  their momentum: each of the 4 ranks (data 2 x expert 2) saves, and the
+  checkpoint's experts 2c and 2c + 1 are the blocks of the ranks at
+  expert coordinate c; a fresh state restores every rank's blocks to the
+  bit. Its decode stays refused (serving over a mesh, item 10c part
+  3b)."""
+  import os
   from tensorflowonspark_tpu_torch.utils import checkpoint, compat
+  got, _ = ranks
+  root = got[0][1]["ckpt"]["root"]
+  saved = checkpoint.load_tree(os.path.join(root, "moe_ck", "0"))
+  exported = compat.import_model(os.path.join(root, "moe_ex"))
+  for rank, (arrays, rec) in enumerate(got):
+    rec = rec["ckpt"]
+    assert rec["saved"] and rec["next"] == 1, rec
+    assert all(rec["restored_equal"]), rec
+    e = slice(2 * (rank % 2), 2 * (rank % 2) + 2)
+    for tree in (saved, exported):
+      assert tuple(tree["params"]["layers.1.moe.w_up"].shape) == (4, 64, 128)
+      np.testing.assert_array_equal(
+          tree["params"]["layers.1.moe.w_up"].numpy()[e],
+          arrays["ckpt/w_up"])
+      trace = tree["opt_state"][1][0][rec["w_up_index"]]
+      np.testing.assert_array_equal(trace.numpy()[e],
+                                    arrays["ckpt/w_up_trace"])
   cfg = tfm.TransformerConfig(vocab_size=64, num_layers=2, num_heads=4,
                               d_model=32, d_ff=64, moe_experts=4,
                               dtype=torch.float32)
   mesh = _stand_in(expert=2)
-  state = tfm.create_state(cfg, 0, device="cpu")
-  state.sharding = sharding.StateSharding(mesh, dict(
-      state.model.param_specs(),
-      **{"layers.1.moe.w_up": ("expert", None, None)}),
-      {n: tuple(p.shape) for n, p in state.params.items()})
-  assert state.sharding.sharded
-  mgr = checkpoint.CheckpointManager(str(tmp_path / "ck"))
-  for call in (lambda: mgr.save(0, state, force=True),
-               lambda: compat.export_model(state, str(tmp_path / "ex"),
-                                           True)):
-    with pytest.raises(NotImplementedError, match="expert-parallel"):
-      call()
   cut = tfm.Transformer(cfg, init_params(cfg, 0), device="cpu",
                         mesh=mesh)
   assert cut.param_specs()["layers.1.moe.w_up"] == ("expert", None, None)

@@ -275,6 +275,41 @@ def _model_cases(rank):
   return rec, arrays
 
 
+def _cut_module_checkpoint(rank, root):
+  """A one-weight state cut over fsdp 2 (rank r holds rows [4r, 4r + 4)
+  of an [8, 8] weight), one AdamW step taken: each rank calls save,
+  restore_or into a fresh state of zeros, and export."""
+  import os
+  from torch import nn
+  from tensorflowonspark_tpu_torch import optim
+  from tensorflowonspark_tpu_torch.train_state import TrainState
+  from tensorflowonspark_tpu_torch.utils import checkpoint, compat
+
+  def state_of(value):
+    model = nn.Module()
+    model.w = nn.Parameter(torch.full((4, 8), value))
+    state = TrainState.create(model, optim.adamw(1e-3))
+    state.sharding = sharding.StateSharding(
+        mesh_lib.build_mesh(mesh_lib.MeshSpec(data=1, fsdp=2)),
+        {"w": ("fsdp", None)}, {"w": (8, 8)})
+    return state
+
+  state = state_of(float(rank + 1))
+  state.apply_gradients({"w": torch.full((4, 8), float(rank + 1))})
+  ck, ex = os.path.join(root, "cut_ck"), os.path.join(root, "cut_ex")
+  rec = {"saved": checkpoint.CheckpointManager(ck).save(0, state,
+                                                        force=True)}
+  fresh, rec["next"] = checkpoint.CheckpointManager(ck).restore_or(
+      state_of(0.0))
+  before, after = (sharding._state_tensors(s) for s in (state, fresh))
+  rec["restored_equal"] = [torch.equal(a, b) for (_, a), (_, b)
+                           in zip(before, after)]
+  # the chief writes the export, the other rank a throwaway copy
+  rec["exported_to"] = compat.export_model(state, ex, rank == 0) == ex
+  rec["root"] = root
+  return rec
+
+
 def _rank_main(rank, n, port, out):
   import torch.distributed as dist
   torch.set_num_threads(1)
@@ -292,6 +327,8 @@ def _rank_main(rank, n, port, out):
       # the fused loop over a sequence-cut slab: train_gpt --unroll 3
       rec["sp2_unroll"] = train_gpt.run(train_gpt.parse_args(_argv(
           TRAIN[2]["sp2"] + ["--unroll", "3"])))
+      import os
+      rec["cut_ckpt"] = _cut_module_checkpoint(rank, os.path.dirname(out))
     if n == 4:
       rec["model"], more = _model_cases(rank)
       arrays.update({"model/" + k: v for k, v in more.items()})
@@ -748,28 +785,45 @@ def test_logical_rules_are_the_references():
       (None, None)
 
 
-def test_checkpoints_of_a_cut_state_are_refused_by_name(tmp_path):
-  """A state cut over fsdp or tensor holds this rank's blocks only, and
-  a checkpoint or an export holds rank 0's: save, restore and export
-  refuse it, naming item 10c; a state every rank holds whole passes."""
+def test_checkpoints_of_a_cut_state_are_refused_by_name(groups, tmp_path):
+  """A state cut over fsdp holds this rank's blocks only. Save, restore
+  and export of it, once refused by name, now work: each rank of the
+  2-rank group calls them, the checkpoint and the export hold the whole
+  weight and its AdamW moments (rank 0's rows, then rank 1's), and a
+  fresh cut state restores each rank's own blocks to the bit. A state
+  every rank holds whole (a stand-in mesh, no process group) saves and
+  restores as before."""
+  import os
   from torch import nn
   from tensorflowonspark_tpu_torch import optim
   from tensorflowonspark_tpu_torch.train_state import TrainState
   from tensorflowonspark_tpu_torch.utils import checkpoint, compat
+  recs = [rec["cut_ckpt"] for _, rec in groups[2]]
+  for rec in recs:
+    assert rec["saved"] and rec["next"] == 1, rec
+    assert rec["restored_equal"] == [True] * 3, rec
+  assert [rec["exported_to"] for rec in recs] == [True, False]
+  root = recs[0]["root"]
+  # the whole weight, and AdamW's first moments (0.1 g) and second
+  # moments (0.001 g ** 2) of the step each rank took on its rows
+  rows = np.repeat([1.0, 2.0], 4)[:, None] * np.ones((1, 8))
+  saved = checkpoint.load_tree(os.path.join(root, "cut_ck", "0"))
+  exported = compat.import_model(os.path.join(root, "cut_ex"))
+  for tree in (saved, exported):
+    assert tree["step"] == 1
+    w = tree["params"]["w"].numpy()
+    assert w.shape == (8, 8)
+    np.testing.assert_allclose(w, rows - 1e-3, rtol=1e-6)
+    adam = tree["opt_state"][0]
+    np.testing.assert_allclose(adam["mu"][0].numpy(), 0.1 * rows, rtol=1e-6)
+    np.testing.assert_allclose(adam["nu"][0].numpy(), 1e-3 * rows ** 2,
+                               rtol=1e-6)
   model = nn.Module()
   model.w = nn.Parameter(torch.zeros(4, 8))
   state = TrainState.create(model, optim.adamw(1e-3))
   mesh = _stand_in(fsdp=2)
-  state.sharding = sharding.StateSharding(mesh, {"w": ("fsdp", None)},
-                                          {"w": (8, 8)})
-  mgr = checkpoint.CheckpointManager(str(tmp_path / "ck"))
-  for call in (lambda: mgr.save(0, state, force=True),
-               lambda: mgr.restore_or(state),
-               lambda: compat.export_model(state, str(tmp_path / "ex"),
-                                           True)):
-    with pytest.raises(NotImplementedError, match="item 10c, part 3"):
-      call()
   state.sharding = sharding.StateSharding(mesh, {"w": (None, None)},
                                           {"w": (4, 8)})
+  mgr = checkpoint.CheckpointManager(str(tmp_path / "ck"))
   assert mgr.save(0, state, force=True)
   assert mgr.restore_or(state)[1] == 1

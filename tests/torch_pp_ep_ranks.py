@@ -126,14 +126,14 @@ def _ffn_case(mesh, fn, top_k, cap, tokens):
   return got, dropped
 
 
-def _moe_state(mesh, **kw):
+def _moe_state(mesh, seed=0, **kw):
   from tensorflowonspark_tpu_torch import optim
   from tensorflowonspark_tpu_torch.models import transformer as tfm
   from tensorflowonspark_tpu_torch.utils.params import init_params
   cfg = tfm.TransformerConfig(dtype=torch.float32, **dict(MOE_CFG, **kw))
   tx = optim.make_optimizer(learning_rate=MOE_LR, clip_norm=1.0,
                             optimizer="sgd")
-  return cfg, tfm.create_sharded_state(cfg, init_params(cfg, 0), mesh,
+  return cfg, tfm.create_sharded_state(cfg, init_params(cfg, seed), mesh,
                                        tx=tx, device="cpu")[0]
 
 
@@ -194,6 +194,37 @@ def _moe_model(mesh):
   return arrays, rec
 
 
+def _moe_checkpoint(mesh, root, rank):
+  """The MoE state cut over data 2 x expert 2 after one SGD step: every
+  rank saves, restores into a fresh state from other weights and
+  exports; this rank's blocks of the expert stack ``layers.1.moe.w_up``
+  and of its momentum."""
+  import os
+  from tensorflowonspark_tpu_torch.parallel import sharding
+  from tensorflowonspark_tpu_torch.utils import checkpoint, compat
+  _, state = _moe_state(mesh)
+  step = sharding.make_train_step(_lm_loss, mesh, state.sharding)
+  state, _ = step(state, torch.as_tensor(sharding.shard_batch(cyclic(8, 16),
+                                                              mesh)))
+  ck, ex = os.path.join(root, "moe_ck"), os.path.join(root, "moe_ex")
+  rec = {"saved": checkpoint.CheckpointManager(ck).save(0, state,
+                                                        force=True),
+         "root": root}
+  fresh, rec["next"] = checkpoint.CheckpointManager(ck).restore_or(
+      _moe_state(mesh, seed=1)[1])
+  rec["restored_equal"] = [
+      torch.equal(a, b) for (_, a), (_, b) in zip(
+          sharding._state_tensors(state), sharding._state_tensors(fresh))]
+  compat.export_model(state, ex, rank == 0)
+  names = list(state.params)
+  i = names.index("layers.1.moe.w_up")
+  trace = [t for path, t in sharding._state_tensors(state)
+           if path[-1] == i and path[0] == "opt_state"]
+  rec["w_up_index"] = i
+  return rec, {"w_up": _np(state.params["layers.1.moe.w_up"]),
+               "w_up_trace": _np(trace[0])}
+
+
 def ep_rank_main(rank, port, out):
   from tensorflowonspark_tpu_torch.parallel import mesh as M
   import torch.distributed as dist
@@ -212,6 +243,9 @@ def ep_rank_main(rank, port, out):
       arrays.update({"%s/%s" % (name, k): v for k, v in got.items()})
     more, rec["model"] = _moe_model(mesh)
     arrays.update({"model/" + k: v for k, v in more.items()})
+    import os
+    rec["ckpt"], more = _moe_checkpoint(mesh, os.path.dirname(out), rank)
+    arrays.update({"ckpt/" + k: v for k, v in more.items()})
     _save(out, rank, arrays, rec)
   finally:
     dist.destroy_process_group()

@@ -287,6 +287,18 @@ failure:
    tokens (exact launches of rows 1 and 2) equals the gathered weights'
    model token for token; bytes, gather / host / write / commit and
    restore seconds and [6v]'s seconds are logged;
+   (6w) serving over a mesh, on [6v]'s ranks (sharing the card over
+   gloo) right after their saves: (a) (b)'s export cut onto a
+   ``tensor=2`` serving mesh decodes [6v](d)'s 4 prompts of 128 tokens x
+   16 in bf16: first-step logits within 3e-2 of max |logit| of one
+   card's, tokens one card's up to a first near-tie under that bound,
+   exactly 12 flash forwards and 400 LayerNorm forwards a rank; (b) the
+   same weights in f32 (TF32 off), tokens one card's up to a near-tie
+   under 1e-4; (c) (d)'s whole MoE checkpoint on ``data=2 x expert=2``
+   in f32, tokens one card's up to such a near-tie; every rank's tokens
+   alike; (d) ``serve_gpt --tensor 2`` (2 executors, each serving over a
+   2-rank serving group) serves the rows of ``--tensor 1``, and every
+   follower seen is gone 30 s after the engine stops;
    (6u) elastic multi-group training (``parallel.groups``), after 6l on
    its LocalEngine(2): groups are threads of the driver sharing the card's
    stream. (a) 2 groups of the flagship at B16 x S1024 with sync off, 4
@@ -463,8 +475,9 @@ cluster leg on a LocalEngine(2) of its own) and prints its measurements as
 one JSON line.
 
 ``python3 chip_smoke.py --cut-ckpt-only`` runs phases 1, 2, the three cases
-of 6s and 6t that 6v saves (with their one-process runs) and 6v, and
-prints their measurements as one JSON line.
+of 6s and 6t that 6v saves (with their one-process runs), 6v and 6w, and
+prints their measurements as one JSON line; ``--serving-mesh-only`` runs
+the two of them 6w serves from, 6v and 6w the same way.
 
 ``python3 chip_smoke.py --serving-ab OTHER_CHECKOUT N`` runs phases 1 and 2,
 then phase 4 for the package of the checkout at OTHER_CHECKOUT (copied
@@ -1839,6 +1852,7 @@ def _profile_step(torch, step, state, batch, cuda_only=False):
          "nccl_ms": sum(r[1] for r in nccl),
          "nccl_kernels": sum(r[2] for r in nccl),
          "gemm_kernels": gemm_kernels(rows),
+         "gemm_by_kernel": gemm_by_kernel(rows),
          "top": [{"kernel": k[:90], "ms": ms, "count": n}
                  for k, ms, n in rows[:12]],
          "port_kernels": port_kernel_ms(rows)}
@@ -2482,11 +2496,17 @@ DOTS_LOSS_REL = 1e-3
 _GEMM_PARTS = ("gemm", "nvjet", "xmma", "cutlass")
 
 
+def gemm_by_kernel(rows):
+  """Launches of each library matrix-product kernel among the profiler's
+  rows (the port's own kernels excluded), by kernel name."""
+  return {key: count for key, _, count in rows if _port_kernel(key) is None
+          and any(p in key.lower() for p in _GEMM_PARTS)}
+
+
 def gemm_kernels(rows):
   """Launches of library matrix-product kernels among the profiler's
   rows (the port's own kernels excluded)."""
-  return sum(count for key, _, count in rows if _port_kernel(key) is None
-             and any(p in key.lower() for p in _GEMM_PARTS))
+  return sum(gemm_by_kernel(rows).values())
 
 
 def state_bytes(tree):
@@ -2658,6 +2678,11 @@ def train_options(torch, ops, sharding, readers, train_gpt):
          gemms["none"] - gemms["dots"], DOTS_SAVED_GEMMS))
   if gemms["none"] - gemms["dots"] != DOTS_SAVED_GEMMS \
       or gemms["dots"] != gemms["off"]:
+    for k in OPTIONS_REMAT:
+      prof = runs[k]["profile"]
+      log("  remat %s: %d kernel launches in the profiled step; library "
+          "GEMMs by kernel %s" % (k, prof["kernel_launches"], sorted(
+              (n, name[:120]) for name, n in prof["gemm_by_kernel"].items())))
     raise AssertionError("[6n] the profiled steps' GEMMs %s: dots must "
                          "launch %d fewer than none and as many as off"
                          % (gemms, DOTS_SAVED_GEMMS))
@@ -5139,7 +5164,7 @@ DP_ARGS = ["--layers", "12", "--d_model", "768", "--heads", "12", "--vocab",
 # the failing vote, or its feeder waits for rows no one takes while the
 # short rank waits for the end of feed that shutdown() sends after
 # train() returns
-DP_FEED_ROWS, DP_FEED_SPLIT, DP_FEED_B = 88, 48, TRAIN_B // 2
+DP_FEED_ROWS, DP_FEED_SPLIT, DP_FEED_B = 56, 32, TRAIN_B // 2
 DP_FEED_SEED = SEED + 13
 DP_LABEL = "gloo over host, two ranks sharing one card"
 
@@ -6985,7 +7010,10 @@ def cut_ckpt_rank(torch, name, argv, state, args, cfg, mesh, extra):
   (a) a state of zeros on this mesh restores the checkpoint and takes the
   next step, (b) for ``CUT_CKPT_OTHER`` the same on another mesh, and
   (d) for ``CUT_CKPT_EXPORT`` ``compat.export_model`` on every rank (the
-  other rank's throwaway copy removed)."""
+  other rank's throwaway copy removed). Then [6w] on the same ranks
+  (:func:`serve_mesh_rank`): the export served on a ``tensor=2`` serving
+  mesh in bf16 and f32, the expert case's whole checkpoint on
+  SERVE_MESH_MOE in f32."""
   from tensorflowonspark_tpu_torch.examples import train_gpt
   from tensorflowonspark_tpu_torch.parallel import sharding
   from tensorflowonspark_tpu_torch.utils import checkpoint, compat
@@ -7007,6 +7035,10 @@ def cut_ckpt_rank(torch, name, argv, state, args, cfg, mesh, extra):
         "/".join(str(k) for k in p): _crc(t)
         for p, t in sharding._state_tensors(state)
         if "expert" in layout[p].spec}
+    whole = checkpoint.load_tree(mgr._step_dir(SPMD_STEPS - 1))["params"]
+    rec["serve_mesh"] = serve_mesh_rank(torch, name, cfg, whole,
+                                        SERVE_MESH_MOE, (torch.float32,))
+    del whole
   else:
     rec["gathered_crc"] = {n: _crc(v) for n, v in
                            sharding.gather_state_params(state).items()}
@@ -7029,6 +7061,12 @@ def cut_ckpt_rank(torch, name, argv, state, args, cfg, mesh, extra):
       rec["export_s"] = time.monotonic() - t0
       if mesh.rank != 0:
         shutil.rmtree(out, ignore_errors=True)
+      torch.distributed.barrier()       # rank 0's export is whole
+      whole = compat.import_model(os.path.join(path, "export"))["params"]
+      rec["serve_mesh"] = serve_mesh_rank(
+          torch, name, cfg, whole, {"data": -1, "tensor": 2},
+          (torch.bfloat16, torch.float32))
+      del whole
   torch.cuda.empty_cache()
   rec["seconds"] = time.monotonic() - t_enter
   return rec
@@ -7068,7 +7106,8 @@ def cut_ckpt_phase(torch, ops, cases, pattern):
   b_tp2_fused's state loads into a one-card serving Transformer, whose
   greedy decode (flash forward and LayerNorm forward, rows 1 and 2)
   equals the one-process model's at the gathered weights, token for
-  token. The checkpoints are removed at the end."""
+  token. The checkpoints stay for [6w] (:func:`serve_mesh_phase`), which
+  removes them."""
   import numpy as np
   from tensorflowonspark_tpu_torch.examples import train_gpt
   from tensorflowonspark_tpu_torch.models import transformer as tfm
@@ -7190,6 +7229,7 @@ def cut_ckpt_phase(torch, ops, cases, pattern):
       res["decode"] = {"launches": launches, "wall_s": wall,
                        "tokens_per_s": CUT_DECODE_PROMPTS * CUT_DECODE_NEW
                                        / wall}
+
       log("  (d) %s: export on both ranks %s s, import %.2f s; %d prompts "
           "x %d new tokens on one card equal to the gathered weights' "
           "model, %.1f tokens/s, launches %s" % (
@@ -7199,7 +7239,6 @@ def cut_ckpt_phase(torch, ops, cases, pattern):
               {k: v for k, v in launches.items() if v}))
     res["cases"][name] = rec
     torch.cuda.empty_cache()
-  shutil.rmtree(CUT_CKPT_DIR, ignore_errors=True)
   res["driver_s"] = time.monotonic() - t_start
   res["ranks_s"] = {n: max(r["seconds"] for r in c["ranks"])
                     for n, c in res["cases"].items()}
@@ -7208,6 +7247,359 @@ def cut_ckpt_phase(torch, ops, cases, pattern):
       res["seconds"], res["driver_s"], " / ".join(
           "%s %.1f" % kv for kv in res["ranks_s"].items())))
   return res
+
+
+# -- [6w]: serving over a mesh, as more work of [6v]'s ranks -----------------
+
+#: (a): the ranks' first-step logits against one card's, of max |logit|;
+#: tokens equal up to a first position whose one-card top-2 gap is under
+#: this bound times that row's max |logit|
+SERVE_MESH_REL = 3e-2
+NEAR_TIE_F32 = 1e-4                # (b), (c): [5]'s f32 rule
+#: (c): the MoE checkpoint's serving mesh
+SERVE_MESH_MOE = {"data": 2, "expert": 2}
+SERVE_MESH_LABEL = "gloo over host, ranks sharing one card"
+#: (d): serve_gpt's flags, --tensor 1 and 2 on the card
+SERVE_GPT_FLAGS = ["--prompts", "32", "--steps", "8"]
+
+
+def _cut_prompts(vocab):
+  """[6v](d)'s prompts: 4 x 128 tokens."""
+  import numpy as np
+  return np.random.default_rng(SEED + 53).integers(
+      1, vocab, (CUT_DECODE_PROMPTS, CUT_DECODE_LEN))
+
+
+def _first_logits(torch, tfm, model, prompts):
+  """The whole batch's logits after the prompt (a fresh-cache prefill),
+  whole over the vocabulary, f32 on the host; over a mesh every rank's
+  rows gathered."""
+  with torch.inference_mode():
+    mine = tfm._my_rows(torch.as_tensor(prompts).long().to(model.device),
+                        model.mesh)
+    logits = model.whole_logits(model(mine, model.init_cache(
+        mine.shape[0]))[:, -1])
+    return tfm._all_rows(logits, model.mesh, len(prompts)).float().cpu()
+
+
+def serve_mesh_rank(torch, tag, cfg, params, degrees, dtypes):
+  """[6w] on a rank of [6v]'s case: ``params`` (whole weights) cut onto
+  a serving mesh of ``degrees`` (every rank of the group builds it),
+  then for each dtype in ``dtypes`` ``greedy_generate_kv`` of [6v](d)'s
+  prompts x CUT_DECODE_NEW tokens after a short warm-up: the tokens (and
+  a crc of them, to hold the ranks to each other), this rank's launches
+  zeroed just before and read just after, the wall seconds, and on rank
+  0 the first-step logits to ``<CUT_CKPT_DIR>/<tag>_<dtype>.pt``."""
+  from tensorflowonspark_tpu_torch import ops
+  from tensorflowonspark_tpu_torch.models import transformer as tfm
+  from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
+  t0 = time.monotonic()
+  mesh = mesh_lib.build_mesh(mesh_lib.MeshSpec(**degrees))
+  prompts = _cut_prompts(cfg.vocab_size)
+  rec = {"mesh": {a: n for a, n in mesh.shape.items() if n > 1},
+         "rank": mesh.rank, "by_dtype": {}}
+  for dtype in dtypes:
+    name = str(dtype).replace("torch.", "")
+    model = tfm.Transformer(dataclasses.replace(cfg, dtype=dtype), params,
+                            mesh=mesh)
+    tfm.greedy_generate_kv(model, prompts[:, :8], 2)         # warm-up
+    torch.cuda.synchronize()
+    before = dict(ops.LAUNCHES)
+    t1 = time.monotonic()
+    out = tfm.greedy_generate_kv(model, prompts, CUT_DECODE_NEW)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t1
+    launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    first = _first_logits(torch, tfm, model, prompts)
+    if mesh.rank == 0:
+      torch.save(first, os.path.join(CUT_CKPT_DIR, "%s_%s.pt" % (tag, name)))
+    rec["by_dtype"][name] = {
+        "tokens": out.cpu().tolist(), "crc": _crc(out), "wall_s": wall,
+        "launches": launches, "kv_heads": model.plan.local_kv_heads(),
+        "tokens_per_s": CUT_DECODE_PROMPTS * CUT_DECODE_NEW / wall}
+    del model
+  torch.cuda.empty_cache()
+  rec["seconds"] = time.monotonic() - t0
+  return rec
+
+
+def _decode_gaps(torch, tfm, model, prompts):
+  """One card's greedy decode of ``prompts`` x CUT_DECODE_NEW tokens,
+  the ops of ``greedy_generate_kv`` step by step, keeping each position's
+  top-2 logit gap and its row's max |logit|: (tokens [B, plen + new],
+  gaps [B, new], scale [B, new], first-step logits)."""
+  with torch.inference_mode():
+    tok = torch.as_tensor(prompts).long().cuda()
+    cache = model.init_cache(tok.shape[0])
+    logits = model(tok, cache)[:, -1].float()
+    first = logits.cpu()
+    out, gaps, scale = [], [], []
+    for i in range(CUT_DECODE_NEW):
+      top = torch.topk(logits, 2, dim=-1).values
+      gaps.append((top[:, 0] - top[:, 1]).cpu())
+      scale.append(logits.abs().amax(dim=-1).cpu())
+      nxt = logits.argmax(dim=-1)
+      out.append(nxt)
+      if i + 1 < CUT_DECODE_NEW:
+        logits = model(nxt[:, None], cache)[:, -1].float()
+    gen = torch.stack(out, dim=1)
+    return (torch.cat([tok, gen], dim=1).cpu(), torch.stack(gaps, dim=1),
+            torch.stack(scale, dim=1), first)
+
+
+def _tie_gate(what, got, want, gaps, bound):
+  """Tokens ``got`` equal ``want`` in each row up to its first position
+  where one card's top-2 gap is under ``bound`` (a [B, new] tensor or a
+  number); after it they may part. Returns (positions under the bound,
+  rows that parted after one)."""
+  import torch
+  plen = want.shape[1] - gaps.shape[1]
+  near = gaps < bound
+  parted = 0
+  for r in range(want.shape[0]):
+    diff = (got[r, plen:] != want[r, plen:]).nonzero()
+    if not len(diff):
+      continue
+    first = int(diff[0])
+    ties = near[r].nonzero()
+    if not len(ties) or int(ties[0]) > first:
+      raise AssertionError(
+          "%s row %d: token %d differs from one card's (%d against %d) with "
+          "no near-tie at or before it (gap %.3g, bound %.3g)" % (
+              what, r, first, int(got[r, plen + first]),
+              int(want[r, plen + first]), float(gaps[r, first]),
+              float(bound if not torch.is_tensor(bound)
+                    else bound[r, first])))
+    parted += 1
+  return int(near.sum()), parted
+
+
+def _check_launches(what, ranks, want):
+  for r in ranks:
+    got = {k: v for k, v in r["launches"].items() if v}
+    if got != want:
+      raise AssertionError("[6w] %s rank %d launches %s, want %s"
+                           % (what, r["rank"], got, want))
+
+
+def serve_mesh_gates(torch, ops, tfm, name, cfg, ranks, one_params):
+  """[6w] in the driver, after [6v]'s ranks served their case over a
+  mesh (``ranks``: each rank's :func:`serve_mesh_rank` record): every
+  rank's tokens the same, each rank's launches exactly one card's (one
+  flash prefill a layer, 2L + 1 LayerNorm forwards a token), and against
+  one card's decode of the same weights (``one_params``): (a) bf16 first
+  logits within SERVE_MESH_REL of max |logit| and tokens equal up to a
+  near-tie under that bound, (b)/(c) f32 tokens equal up to a near-tie
+  under NEAR_TIE_F32. Returns the phase's record."""
+  layers = cfg.num_layers
+  want_l = {"flash_attention_fwd": layers,
+            "layer_norm": (2 * layers + 1) * CUT_DECODE_NEW}
+  prompts = _cut_prompts(cfg.vocab_size)
+  res = {"mesh": ranks[0]["mesh"], "ranks_s": [r["seconds"] for r in ranks],
+         "by_dtype": {}}
+  for dname in ranks[0]["by_dtype"]:
+    per = [dict(r["by_dtype"][dname], rank=r["rank"]) for r in ranks]
+    if len({p["crc"] for p in per}) != 1:
+      raise AssertionError("[6w] %s %s: the ranks' tokens differ"
+                           % (name, dname))
+    _check_launches("%s %s" % (name, dname), per, want_l)
+    dtype = getattr(torch, dname)
+    one = tfm.Transformer(dataclasses.replace(cfg, dtype=dtype), one_params)
+    want, gaps, scale, first = _decode_gaps(torch, tfm, one, prompts)
+    check = tfm.greedy_generate_kv(one, prompts, CUT_DECODE_NEW).cpu()
+    del one
+    if not torch.equal(check, want):
+      raise AssertionError("[6w] %s %s: the step-by-step decode is not "
+                           "greedy_generate_kv's" % (name, dname))
+    got = torch.as_tensor(per[0]["tokens"])
+    rec = {"tokens_per_s": [p["tokens_per_s"] for p in per],
+           "wall_s": [p["wall_s"] for p in per],
+           "launches": per[0]["launches"],
+           "kv_heads": per[0]["kv_heads"],
+           "tokens_equal": bool(torch.equal(got, want))}
+    if dtype == torch.bfloat16:
+      ranks_first = torch.load(os.path.join(
+          CUT_CKPT_DIR, "%s_%s.pt" % (name, dname)))
+      err = float((ranks_first - first).abs().max())
+      rel = err / float(first.abs().max())
+      rec.update(first_logits_max_abs=err, first_logits_rel=rel)
+      if rel > SERVE_MESH_REL:
+        raise AssertionError("[6w] (a) %s: first-step logits off by %.3g of "
+                             "max |logit| (limit %g)"
+                             % (name, rel, SERVE_MESH_REL))
+      bound = SERVE_MESH_REL * scale
+    else:
+      bound = NEAR_TIE_F32
+    rec["near_ties"], rec["rows_parted"] = _tie_gate(
+        "[6w] %s %s" % (name, dname), got, want, gaps, bound)
+    rec["min_gap"] = float(gaps.min())
+    res["by_dtype"][dname] = rec
+    torch.cuda.empty_cache()
+  return res
+
+
+def _descendants(pid):
+  """{pid: (ppid, cmdline)} of every process whose parent chain reaches
+  ``pid``."""
+  procs = {}
+  for d in os.listdir("/proc"):
+    if not d.isdigit():
+      continue
+    try:
+      with open("/proc/%s/stat" % d) as f:
+        ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+      with open("/proc/%s/cmdline" % d, "rb") as f:
+        cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+    except (OSError, ValueError, IndexError):
+      continue
+    procs[int(d)] = (ppid, cmd)
+  out, frontier = {}, {pid}
+  while frontier:
+    kids = {p for p, (pp, _) in procs.items() if pp in frontier}
+    kids -= set(out)
+    for k in kids:
+      out[k] = procs[k]
+    frontier = kids
+  return out
+
+
+def _alive(pid):
+  try:
+    with open("/proc/%d/stat" % pid) as f:
+      return f.read().rsplit(")", 1)[1].split()[0] not in ("Z", "X")
+  except OSError:
+    return False
+
+
+def serve_gpt_mesh(torch):
+  """[6w](d): ``serve_gpt --tensor 1`` then ``--tensor 2`` on the card
+  (2 executors; with --tensor 2 each serves over its own serving group
+  of 2 ranks sharing the card over gloo): the served rows equal, every
+  rank 1 seen while the bundle served (processes this process's
+  executors spawned) gone once the engine stopped."""
+  import threading
+  from tensorflowonspark_tpu_torch.examples import serve_gpt
+  res = {}
+  outdir = os.path.join(HERE, "build", "chip_smoke_serve_gpt_mesh")
+  shutil.rmtree(outdir, ignore_errors=True)
+  rows = {}
+  for n in (1, 2):
+    seen, stop = set(), threading.Event()
+
+    def watch():
+      while not stop.is_set():
+        for pid, (ppid, cmd) in _descendants(os.getpid()).items():
+          if ppid != os.getpid() and "spawn_main" in cmd:
+            seen.add(pid)
+        stop.wait(0.2)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    t0 = time.monotonic()
+    try:
+      rows[n] = serve_gpt.run(serve_gpt.parse_args(
+          SERVE_GPT_FLAGS + ["--tensor", str(n), "--export_dir",
+                             os.path.join(outdir, "t%d" % n)]))
+    finally:
+      stop.set()
+      watcher.join()
+    res["tensor_%d_s" % n] = time.monotonic() - t0
+    deadline = time.monotonic() + 30
+    while any(_alive(p) for p in seen) and time.monotonic() < deadline:
+      time.sleep(0.2)
+    res["tensor_%d_followers_seen" % n] = len(seen)
+    left = [p for p in seen if _alive(p)]
+    if left:
+      raise AssertionError("[6w] (d) --tensor %d: followers %s still alive "
+                           "30 s after the engine stopped" % (n, left))
+  if res["tensor_2_followers_seen"] < 2 or res["tensor_1_followers_seen"]:
+    raise AssertionError("[6w] (d) followers seen: %d with --tensor 1, %d "
+                         "with --tensor 2 (want 0 and one an executor)"
+                         % (res["tensor_1_followers_seen"],
+                            res["tensor_2_followers_seen"]))
+  if sorted(rows[1]) != sorted(rows[2]):
+    differ = sum(a != b for a, b in zip(sorted(rows[1]), sorted(rows[2])))
+    raise AssertionError("[6w] (d) serve_gpt --tensor 2 served %d rows "
+                         "other than --tensor 1's" % differ)
+  res["rows"] = len(rows[2])
+  shutil.rmtree(outdir, ignore_errors=True)
+  return res
+
+
+def serve_mesh_phase(torch, ops, cases, pattern):
+  """[6w] in the driver, after [6v]: the gates of the ranks' serving over
+  a mesh (:func:`serve_mesh_gates`) against one card's decode of the
+  same weights (b_tp2_fused's export; t_d_moe_e4_a2a's whole checkpoint),
+  then (d) serve_gpt over each executor's serving group
+  (:func:`serve_gpt_mesh`). Removes [6v]'s checkpoints."""
+  from tensorflowonspark_tpu_torch.examples import train_gpt
+  from tensorflowonspark_tpu_torch.models import transformer as tfm
+  from tensorflowonspark_tpu_torch.utils import checkpoint, compat
+  t_start = time.monotonic()
+  log("[6w] serving over a mesh: [6v]'s export on tensor=2 (bf16, f32) "
+      "and its MoE checkpoint on data=2 x expert=2 (f32) by the ranks, "
+      "against one card; serve_gpt --tensor 2 (%s)" % SERVE_MESH_LABEL)
+  res = {}
+  try:
+    for name in (CUT_CKPT_EXPORT, "t_d_moe_e4_a2a"):
+      if name not in cases:
+        continue
+      case = _cut_case(name)
+      args = train_gpt.parse_args(_spmd_argv(case[3], pattern))
+      cfg = train_gpt.make_config(args)
+      if case[7] is not None:
+        cfg = dataclasses.replace(cfg, **case[7][0])
+      path = os.path.join(CUT_CKPT_DIR, name)
+      if name == CUT_CKPT_EXPORT:
+        params = compat.import_model(os.path.join(path, "export"))["params"]
+      else:
+        params = checkpoint.load_tree(os.path.join(
+            path, str(SPMD_STEPS - 1)))["params"]
+      t0 = time.monotonic()
+      res[name] = serve_mesh_gates(
+          torch, ops, tfm, name, cfg,
+          [r["cut_ckpt"]["serve_mesh"] for r in cases[name]["per_rank"]],
+          params)
+      res[name]["driver_s"] = time.monotonic() - t0
+      del params
+      torch.cuda.empty_cache()
+  finally:
+    shutil.rmtree(CUT_CKPT_DIR, ignore_errors=True)
+  res["serve_gpt"] = serve_gpt_mesh(torch)
+  serve_mesh_summary(res)
+  res["driver_s"] = time.monotonic() - t_start
+  res["ranks_s"] = {n: max(res[n]["ranks_s"]) for n in
+                    (CUT_CKPT_EXPORT, "t_d_moe_e4_a2a") if n in res}
+  log("  [6w] %.1f s in the driver, the ranks' serving %s s" % (
+      res["driver_s"], " / ".join("%s %.1f" % kv
+                                  for kv in res["ranks_s"].items())))
+  return res
+
+
+def serve_mesh_summary(res):
+  """[6w]'s record, logged."""
+  for case in ("b_tp2_fused", "t_d_moe_e4_a2a"):
+    if case not in res:
+      continue
+    c = res[case]
+    for dname, r in c["by_dtype"].items():
+      log("  %s %s on %s (%s): tokens equal to one card's: %s (near-ties "
+          "under the bound %d, rows parted after one %d, smallest top-2 "
+          "gap %.3g)%s; launches a rank %s; %s tokens/s (ranks; not a "
+          "multi-card speed); the ranks' serving s %s" % (
+              case, dname, c["mesh"], SERVE_MESH_LABEL, r["tokens_equal"],
+              r["near_ties"], r["rows_parted"], r["min_gap"],
+              "; first logits within %.3g of max |logit| (limit %g)" % (
+                  r["first_logits_rel"], SERVE_MESH_REL)
+              if "first_logits_rel" in r else "",
+              {k: v for k, v in r["launches"].items() if v},
+              " / ".join("%.1f" % x for x in r["tokens_per_s"]),
+              " / ".join("%.1f" % x for x in c["ranks_s"])))
+  d = res["serve_gpt"]
+  log("  (d) serve_gpt --tensor 2: %d rows equal to --tensor 1's; %d "
+      "followers seen, all gone after the engine stopped; %.1f s against "
+      "%.1f s" % (d["rows"], d["tensor_2_followers_seen"], d["tensor_2_s"],
+                  d["tensor_1_s"]))
 
 
 def spmd_phase(torch, ops, F, pattern, spmd=True, ppep=True, drawn=(),
@@ -7222,7 +7614,9 @@ def spmd_phase(torch, ops, F, pattern, spmd=True, ppep=True, drawn=(),
   groups are spawned once the kernel timings are done: their ranks'
   imports, warm-up and seeded weights overlap the one-process runs.
   Then [6v] (:func:`cut_ckpt_phase`) on the checkpoints of
-  CUT_CKPT_CASES. ``drawn``: seeded weights this process drew already
+  CUT_CKPT_CASES, and [6w] (:func:`serve_mesh_phase`) on what their ranks
+  served over a mesh, with its serve_gpt leg.
+  ``drawn``: seeded weights this process drew already
   (:func:`_weight_memo`). ``only``: the names of the cases to run, without
   the kernel cases or the MoE decode."""
   from tensorflowonspark_tpu_torch.models import transformer as tfm
@@ -7268,6 +7662,7 @@ def spmd_phase(torch, ops, F, pattern, spmd=True, ppep=True, drawn=(),
     res.update(_spmd_cases(groups, cases, one))
     if any(c[0] in CUT_CKPT_CASES for c in cases):
       res["cut_ckpt"] = cut_ckpt_phase(torch, ops, res["cases"], pattern)
+      res["serve_mesh"] = serve_mesh_phase(torch, ops, res["cases"], pattern)
   finally:
     for group in groups:
       _spmd_stop(group)
@@ -7408,8 +7803,8 @@ def _log_routing(name, rd, relu):
 
 def spmd_launches(res, name):
   """[6s]'s and [6t]'s launches of kernel ``name`` on rank 0 of each
-  case (a pipeline's stage 0), in [6t]'s MoE decode and in [6v]'s decode
-  of an export."""
+  case (a pipeline's stage 0), in [6t]'s MoE decode, in [6v]'s decode
+  of an export and in [6w]'s decodes over a mesh (each rank's)."""
   out = {"%s_%s_rank0_%d_steps" % ("ppep" if case.startswith("t_")
                                    else "spmd", case, SPMD_STEPS): int(sum(
       step[name] for step in res["cases"][case]["per_rank"][0][
@@ -7421,6 +7816,12 @@ def spmd_launches(res, name):
     out["cut_ckpt_export_decode_%dx%d" % (CUT_DECODE_PROMPTS,
                                           CUT_DECODE_NEW)] = \
         res["cut_ckpt"]["decode"]["launches"][name]
+  for case in (CUT_CKPT_EXPORT, "t_d_moe_e4_a2a"):
+    for dname, r in res.get("serve_mesh", {}).get(case, {}).get(
+        "by_dtype", {}).items():
+      out["serve_mesh_%s_%s_%dx%d_a_rank" % (
+          case, dname, CUT_DECODE_PROMPTS, CUT_DECODE_NEW)] = \
+          r["launches"][name]
   return out
 
 
@@ -7432,12 +7833,14 @@ def spmd_kernel_rows(res, name):
           for r in res["ring_blocks"] if r["kernel"] == name]
 
 
-def spmd_only(torch, ops, F, _build, card, spmd=True, only=None):
+def spmd_only(torch, ops, F, _build, card, spmd=True, only=None,
+              tag=None):
   """``--spmd-only``: phase 2's build, [6d]'s TFRecords, then [6s];
   ``--pp-ep-only`` (``spmd`` False): the build, then [6t];
   ``--cut-ckpt-only`` (``only``: CUT_CKPT_CASES): the build, those
-  cases of [6s]/[6t] and [6v]. [6v] follows whichever of its cases
-  ran."""
+  cases of [6s]/[6t], [6v] and [6w]; ``--serving-mesh-only`` (``only``:
+  the two cases [6w] serves from): the same for those. [6v] and [6w]
+  follow whichever of their cases ran."""
   log("[2] build")
   build_s = _build.build_all()
   log("  built %s" % ", ".join("%s %.1fs" % kv for kv in build_s.items()))
@@ -7448,7 +7851,8 @@ def spmd_only(torch, ops, F, _build, card, spmd=True, only=None):
                    ppep=not spmd or only is not None, only=only)
   os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
   with open(os.path.join(HERE, "chiprun_out", "chip_smoke_%s.json" % (
-      "cut_ckpt" if only else "spmd" if spmd else "pp_ep")), "w") as f:
+      tag or ("cut_ckpt" if only else "spmd" if spmd else "pp_ep"))),
+            "w") as f:
     json.dump({"spmd": res, "card": card}, f, indent=1)
   log(card)
   log(json.dumps({"spmd": {
@@ -9064,6 +9468,7 @@ def main(argv):
   only_ppep = argv == ["--pp-ep-only"]
   only_groups = argv == ["--groups-only"]
   only_cut = argv == ["--cut-ckpt-only"]
+  only_serving_mesh = argv == ["--serving-mesh-only"]
   ab = argv[1:] if argv[:1] == ["--serving-ab"] and len(argv) == 3 else None
   if argv[:1] == ["--serving-only"] and len(argv) == 2:
     repeats = int(argv[1])
@@ -9071,13 +9476,14 @@ def main(argv):
                      or only_dp or only_pipeline or only_options
                      or only_obs or only_fleet or only_deploy
                      or only_decode or only_spmd or only_ppep
-                     or only_groups or only_cut):
+                     or only_groups or only_cut or only_serving_mesh):
     log("usage: python3 chip_smoke.py [--serving-only N | "
         "--serving-ab OTHER_CHECKOUT N | "
         "--layer-norm-only | --cluster-only | --feed-only | --ckpt-only | "
         "--dp-only | --pipeline-only | --train-options-only | --obs-only | "
         "--fleet-only | --deploy-only | --decode-stack-only | --spmd-only | "
-        "--pp-ep-only | --groups-only | --cut-ckpt-only]")
+        "--pp-ep-only | --groups-only | --cut-ckpt-only | "
+        "--serving-mesh-only]")
     return 2
   cache_bytecode()
   try:
@@ -9145,6 +9551,10 @@ def main(argv):
     return spmd_only(torch, ops, F, _build, card, spmd=only_spmd)
   if only_cut:
     return spmd_only(torch, ops, F, _build, card, only=CUT_CKPT_CASES)
+  if only_serving_mesh:
+    return spmd_only(torch, ops, F, _build, card,
+                     only=(CUT_CKPT_EXPORT, "t_d_moe_e4_a2a"),
+                     tag="serving_mesh")
   if only_groups:
     return groups_only(torch, ops, tfm, optim, _build, card, init_params)
 

@@ -10,9 +10,13 @@ driver never holds the full output.
   python -m tensorflowonspark_tpu_torch.examples.serve_gpt --steps 8 \\
       --prompts 32
 
-``--tensor`` above 1 raises: tensor-parallel serving is ROADMAP Queue 1
-item 10c, part 3. ``--device cpu`` serves with the kernels' plain versions
-on the CPU (tests); without it every executor serves on the card.
+``--tensor N`` above 1 exports the bundle with ``MeshSpec(data=-1,
+tensor=N)``: each executor serves over its own serving group of N ranks
+or more (``parallel.serving_group``; the ``-1`` absorbs its visible cards
+divided by N), started on its first serve and stopped when the executor
+exits; on one card the ranks share it over gloo. ``--device cpu`` serves
+with the kernels' plain versions on the CPU (tests); without it every
+executor serves on the card.
 """
 
 import argparse
@@ -34,8 +38,8 @@ def parse_args(argv=None) -> argparse.Namespace:
       tempfile.gettempdir(), "tos_torch_serve_gpt"))
   parser.add_argument("--executors", type=int, default=2)
   parser.add_argument("--tensor", type=int, default=1,
-                      help="tensor-parallel degree per executor (above 1 "
-                           "is not ported yet)")
+                      help="tensor-parallel degree per executor: the "
+                           "bundle's MeshSpec(data=-1, tensor=N)")
   parser.add_argument("--device", default=None,
                       help="'cpu' for the plain versions (default: the "
                            "card)")

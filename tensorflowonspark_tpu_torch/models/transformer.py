@@ -58,13 +58,21 @@ What differs from the flax model, by design of the port:
   ring attention (``parallel.ring_attention``) and rotary positions from
   the rank's offset. Where the reference's GSPMD places collectives by
   the shardings, the port calls them where the math needs them, each
-  with its conjugate in the backward. The decode path runs on one card.
+  with its conjugate in the backward. The decode path runs over the
+  mesh too (:func:`greedy_generate_kv`, :func:`speculative_generate_kv`):
+  each rank decodes its rows (cut over ``data`` x ``fsdp``) at its heads
+  (the KV cache cut over ``tensor`` where the axis divides the KV heads,
+  whole where it does not), MoE layers over ``expert``; the
+  vocab-parallel logits are gathered whole before a token is picked, so
+  every rank picks the same one, and a ``sequence`` axis decodes the
+  same rows on each of its ranks, as the reference's decode does.
 
 Options outside this slice raise ``NotImplementedError`` naming the
 ROADMAP item that brings them.
 """
 
 import contextlib
+import math
 import threading
 from dataclasses import dataclass
 from typing import Any, List, Mapping, Optional, Union
@@ -221,13 +229,16 @@ class KVCache:
   page_table: Optional[torch.Tensor] = None
 
 
-def zero_cache(cfg: TransformerConfig, batch: int, device) -> KVCache:
+def zero_cache(cfg: TransformerConfig, batch: int, device,
+               kv_heads: Optional[int] = None) -> KVCache:
   """A zeroed decode cache for ``batch`` rows in the layout ``cfg`` names:
   paged (``kv_page_size > 0``; vector cursors, an all-trash table), int8
   (``kv_cache_dtype="int8"``) or the model dtype, with the scalar cursor 0
-  unless paged. (Zeros matter: unwritten entries are masked, but 0 *
-  garbage could be NaN in the probs @ v product.)"""
-  hk, d, n = cfg.kv_heads, cfg.head_dim, cfg.num_layers
+  unless paged. ``kv_heads``: the KV heads one rank holds over a mesh
+  (default: every one, ``cfg.kv_heads``). (Zeros matter: unwritten
+  entries are masked, but 0 * garbage could be NaN in the probs @ v
+  product.)"""
+  hk, d, n = kv_heads or cfg.kv_heads, cfg.head_dim, cfg.num_layers
 
   def zeros(shape, dtype):
     return [torch.zeros(shape, dtype=dtype, device=device) for _ in range(n)]
@@ -433,7 +444,7 @@ class _Plan(object):
     if cfg.moe_experts > 0 and self.wide:
       raise NotImplementedError(
           "MoE layers over a mesh cut on fsdp, sequence or tensor %s are not "
-          "ported to PyTorch yet (ROADMAP Queue 1 item 10c, part 3); the "
+          "ported to PyTorch yet (ROADMAP Queue 1 item 10c, part 3c); the "
           "data and expert axes are" % (dict(mesh.shape),))
     if self.expert > 1 and cfg.moe_experts % self.expert:
       raise ValueError("the expert axis (%d) must divide moe_experts (%d)"
@@ -461,6 +472,23 @@ class _Plan(object):
 
   def t_index(self) -> int:
     return mesh_lib.axis_index(self.mesh, mesh_lib.AXIS_TENSOR)
+
+  def local_kv_heads(self) -> int:
+    """The KV heads one rank holds: cut over ``tensor`` where the axis
+    divides them, else every one."""
+    return self.cfg.kv_heads // self.t if self.kv else self.cfg.kv_heads
+
+  def kv_index(self) -> Optional[torch.Tensor]:
+    """Where the tensor axis cuts the query heads but not the KV heads:
+    the KV head of each of this rank's query heads (KV head ``j`` serves
+    query heads ``[j * g, (j + 1) * g)``), to take from K/V that hold
+    every KV head; else None."""
+    if not self.heads or self.kv:
+      return None
+    cfg = self.cfg
+    per, g = cfg.num_heads // self.t, cfg.num_heads // cfg.kv_heads
+    first = self.t_index() * per
+    return torch.arange(first, first + per) // g
 
   def qkv_order(self) -> np.ndarray:
     """The heads order of a cut fused QKV weight: rank by rank, each
@@ -528,6 +556,16 @@ def _dense(x: torch.Tensor, w: torch.Tensor,
   w [D, *feats], both cast to ``dtype``."""
   out = x.to(dtype) @ w.to(dtype).reshape(w.shape[0], -1)
   return out.reshape(x.shape[:-1] + w.shape[1:])
+
+
+def _row_parallel(x: torch.Tensor, w: torch.Tensor, plan: "_Plan",
+                  dtype: torch.dtype) -> torch.Tensor:
+  """A row-parallel product in decode: this rank's ``x [..., K/t] @ w
+  [K/t, N]`` in f32 (the operands are ``dtype`` values, exact in f32),
+  the partial sums all-reduced over ``tensor`` in f32 and the sum rounded
+  to ``dtype`` once. Summing rounded ``dtype`` partials instead would
+  round twice, and a bf16 model's tokens would part from one card's."""
+  return plan.reduce_t(x.to(dtype).float() @ w.to(dtype).float()).to(dtype)
 
 
 class LayerNorm(nn.Module):
@@ -645,12 +683,19 @@ class Attention(nn.Module):
       return (_dense(xq, wq, dt), _dense(xk, wk, dt), _dense(xk, wv, dt),
               plan.heads and not plan.kv)
 
-  def _out_proj(self, o: torch.Tensor) -> torch.Tensor:
+  def _out_proj(self, o: torch.Tensor, decode: bool = False) -> torch.Tensor:
+    """The output projection; row-parallel (one all-reduce) over a tensor
+    axis that cuts the heads. In ``decode`` each rank's partial product is
+    kept in f32 and the sum rounded to ``cfg.dtype`` once, as one card's
+    product rounds its f32 accumulation once (:func:`_row_parallel`)."""
     b, s = o.shape[:2]
     dt = self.cfg.dtype
     w = self.plan.full(self.out, "attn.out", dt)
+    o = o.to(dt).reshape(b, s, -1)
+    if decode and self.plan.heads:
+      return _row_parallel(o, w.reshape(-1, w.shape[-1]), self.plan, dt)
     with _weight_product():
-      y = o.to(dt).reshape(b, s, -1) @ w.reshape(-1, w.shape[-1])
+      y = o @ w.reshape(-1, w.shape[-1])
     return self.plan.reduce_t(y) if self.plan.heads else y
 
   def forward(self, x, rope, cache: Optional[KVCache] = None,
@@ -669,7 +714,7 @@ class Attention(nn.Module):
     k = _apply_rotary(k, rope)
     if cache is not None:
       return self._out_proj(self._decode_attend(q, k, v, cache, layer,
-                                                writes))
+                                                writes), decode=True)
     # the kernel takes any length: the block rule only decides whether
     # "flash" refuses this one
     _flash_eligible(cfg, q.shape[1])
@@ -723,8 +768,15 @@ class Attention(nn.Module):
     # within itself, so the flash op runs it over the grouped K/V directly
     # instead of the seg x max_seq_len dense scores (the raw projections:
     # an int8 cache's quantization does not touch it). The cursor is a
-    # host int here, so the branch costs no device sync.
+    # host int here, so the branch costs no device sync. Over a tensor
+    # axis the kernel runs at the rank's heads: its query heads over their
+    # own KV group, or over the KV head of each where every KV head is
+    # whole on the rank.
     if not vec and idx == 0 and seg > 1 and _flash_eligible(cfg, seg):
+      sel = self.plan.kv_index()
+      if sel is not None:
+        sel = sel.to(k.device)
+        k, v = k.index_select(2, sel), v.index_select(2, sel)
       out = ops.flash_attention(q, k, v, causal=True,
                                 window=cfg.attention_window or None)
       return out.to(q.dtype)
@@ -757,10 +809,20 @@ class Attention(nn.Module):
     ``ck``/``cv [b, L, kv_heads, d]`` with the causal + unwritten (+
     window) mask, in f32. An int8 cache's scales ``[b, L, kv_heads]``
     apply to the K-indexed tensors, the scores and the probs, as the
-    reference applies them (no dequantized cache is formed)."""
+    reference applies them (no dequantized cache is formed). Over a
+    tensor axis ``q`` holds the rank's query heads and the cache its KV
+    heads; where the cache holds every KV head and the query heads are
+    cut, each query head attends its own KV head's entries."""
     cfg = self.cfg
     b, seg, h, d = q.shape
-    hk = cfg.kv_heads
+    sel = self.plan.kv_index()
+    if sel is not None:
+      sel = sel.to(ck.device)
+      ck, cv = ck.index_select(2, sel), cv.index_select(2, sel)
+      if k_scale is not None:
+        k_scale = k_scale.index_select(2, sel)
+        v_scale = v_scale.index_select(2, sel)
+    hk = ck.shape[2]
     kf, vf = ck.float(), cv.float()
     qg = q.reshape(b, seg, hk, h // hk, d).float()
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * (1.0 / d ** 0.5)
@@ -799,13 +861,14 @@ class MLPBlock(nn.Module):
     self.down = _param(plan.local("mlp.down"), cfg, device, trainable)
 
   def forward(self, x, ln_scale: Optional[torch.Tensor] = None,
-              act_fused: bool = False):
+              act_fused: bool = False, decode: bool = False):
     """With ``ln_scale`` (the preceding LayerNorm's weight), ``x`` is the
     RAW residual stream and the norm + up-projection run as one kernel
     (``ops.ln_matmul``); without it ``x`` arrives normalized. With
     ``act_fused``, GELU + the down-projection run as one kernel over the
     pre-activation (``ops.gelu_matmul``). Over a mesh cutting ``mlp``,
-    up is column-parallel and down row-parallel (one all-reduce)."""
+    up is column-parallel and down row-parallel (one all-reduce; in
+    ``decode`` summed in f32, :func:`_row_parallel`)."""
     plan, dt = self.plan, self.dtype
     up = plan.full(self.up, "mlp.up", dt)
     down = plan.full(self.down, "mlp.down", dt)
@@ -819,6 +882,10 @@ class MLPBlock(nn.Module):
       if plan.mlp:
         return ops.gelu_matmul_sharded(h, down, plan.mesh)
       return ops.gelu_matmul(h, down)
+    if decode and plan.mlp:
+      a = F.gelu(h, approximate="tanh")
+      return _row_parallel(a.reshape(-1, a.shape[-1]), down, plan,
+                           dt).reshape(a.shape[:-1] + (down.shape[-1],))
     out = _dense(F.gelu(h, approximate="tanh"), down, dt)
     return plan.reduce_t(out) if plan.mlp else out
 
@@ -908,7 +975,8 @@ class Block(nn.Module):
     act_fused = cfg.act_matmul_impl == "fused" and cache is None
     if fuse_ln:
       return x + self.mlp(x, ln_scale=self.ln2.scale, act_fused=act_fused)
-    return x + self.mlp(self.ln2(x), act_fused=act_fused)
+    return x + self.mlp(self.ln2(x), act_fused=act_fused,
+                        decode=cache is not None)
 
 
 class Transformer(nn.Module):
@@ -998,8 +1066,9 @@ class Transformer(nn.Module):
 
   def init_cache(self, batch: int) -> KVCache:
     """A fresh zeroed cache for ``batch`` rows in the config's layout
-    (:func:`zero_cache`)."""
-    return zero_cache(self.cfg, batch, self.device)
+    (:func:`zero_cache`), at the KV heads this rank holds."""
+    return zero_cache(self.cfg, batch, self.device,
+                      self.plan.local_kv_heads())
 
   def serving_params(self) -> dict:
     """The weights as a serving model stores them: a flat dict of CPU
@@ -1007,18 +1076,30 @@ class Transformer(nn.Module):
     weight in
     ``cfg.dtype`` (what ``pipeline.export_bundle`` writes for
     :func:`make_serving_predict_fn`: a bf16 model's bundle is half the
-    bytes of its f32 master weights). A model cut over fsdp or tensor
-    raises: its parameters are this rank's blocks, and serving over a
-    mesh is item 10c, part 3."""
-    cut = sorted(n for n, spec in self.param_specs().items() if any(spec))
-    if cut:
-      raise NotImplementedError(
-          "serving_params of a model cut over the mesh %s (%s, ...): serving "
-          "over a mesh is not ported to PyTorch yet (ROADMAP Queue 1 item "
-          "10c, part 3)" % (dict(self.mesh.shape), cut[0]))
-    return {name: p.detach().to(
-        torch.float32 if param_kind(name).startswith(("ln.", "moe."))
-        else self.cfg.dtype).cpu() for name, p in self.named_parameters()}
+    bytes of its f32 master weights). Of a model cut over fsdp, tensor or
+    expert, the WHOLE weights: each block all-gathered over the axes that
+    cut it (:meth:`param_specs`) and a cut fused QKV weight put back in
+    the order of one process, bitwise the uncut model's. That is a
+    collective: over a cut mesh every rank calls it together, and every
+    rank gets the whole weights."""
+    specs = self.param_specs()
+    out = {}
+    for name, p in self.named_parameters():
+      w = p.detach().to(torch.float32 if param_kind(name).startswith(
+          ("ln.", "moe.")) else self.cfg.dtype)
+      if self.mesh is not None and any(specs[name]):
+        w = sharding_lib.gather_array(w, specs[name], self.mesh)
+      out[name] = w
+    return {n: w.cpu() for n, w in self.unpermute_params(out).items()}
+
+  def whole_logits(self, logits: torch.Tensor) -> torch.Tensor:
+    """Logits of the whole vocabulary from this rank's forward: its
+    vocabulary columns all-gathered over ``tensor`` where the table is cut
+    there (every rank gets the same row), else ``logits`` as they are."""
+    if not self.plan.vocab:
+      return logits
+    return collectives.all_gather(logits.contiguous(), self.mesh,
+                                  mesh_lib.AXIS_TENSOR, axis=-1)
 
   def moe_aux(self) -> List[torch.Tensor]:
     """The load-balancing loss of each MoE layer's last forward, in layer
@@ -1049,16 +1130,14 @@ class Transformer(nn.Module):
     final norm and the tied projection: the shallow-exit draft of
     self-speculative decoding, which shares the weights and the cache.
     Its cursor advances as any forward's does; the caller that drafts
-    rolls it back."""
+    rolls it back. Over a mesh the decode path takes this rank's rows
+    and returns its vocabulary columns, as the forward without a cache
+    does (:meth:`whole_logits` gathers them); its cache holds the rank's
+    KV heads (:meth:`init_cache`)."""
     cfg = self.cfg
     if exit_layer is not None and not 1 <= exit_layer <= cfg.num_layers:
       raise ValueError("exit_layer must be in [1, num_layers=%d], got %r"
                        % (cfg.num_layers, exit_layer))
-    if cache is not None and (self.plan.wide or self.plan.expert > 1):
-      raise NotImplementedError(
-          "decoding over a mesh cut on fsdp, sequence, tensor or expert "
-          "(serving wider than one card) is not ported to PyTorch yet "
-          "(ROADMAP Queue 1 item 10c, part 3)")
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
     remat_kw = {"context_fn": _dots_contexts} \
         if cfg.remat_policy == "dots" else {}
@@ -1099,6 +1178,33 @@ def _as_prompt(prompt, device) -> torch.Tensor:
   return t.to(device=device, dtype=torch.long)
 
 
+def _row_axes(mesh) -> tuple:
+  """The axes a decode's rows are cut over: ``data`` and ``fsdp``, those
+  of them above 1."""
+  return mesh.wide(mesh_lib.data_axes(mesh)) if mesh is not None else ()
+
+
+def _my_rows(prompt: torch.Tensor, mesh) -> torch.Tensor:
+  """This rank's block of the global ``prompt``'s rows over the data
+  axes, the batch first padded with zero rows to a multiple of their
+  extent (the reference pads a ragged last serving batch so, and slices
+  it back: decode rows are independent)."""
+  if not _row_axes(mesh):
+    return prompt
+  pad = (-prompt.shape[0]) % mesh_lib.axis_size(mesh, *_row_axes(mesh))
+  if pad:
+    prompt = torch.cat([prompt, prompt.new_zeros((pad, prompt.shape[1]))])
+  return sharding_lib.shard_batch(prompt, mesh)
+
+
+def _all_rows(out: torch.Tensor, mesh, b: int) -> torch.Tensor:
+  """Every rank's decoded rows (:func:`_my_rows`' blocks all-gathered over
+  the data axes), the padding sliced off: the whole ``[b, ...]``."""
+  if not _row_axes(mesh):
+    return out
+  return collectives.all_gather(out, mesh, _row_axes(mesh), axis=0)[:b]
+
+
 def _select_token(logits: torch.Tensor, generator: Optional[torch.Generator],
                   temperature: float, top_k: int) -> torch.Tensor:
   """Greedy (``temperature == 0``) or top-k temperature sampling, as the
@@ -1136,6 +1242,18 @@ def greedy_generate_kv(model: Transformer, prompt, num_steps: int,
   it keeps the EOS and every later position is ``pad_id``. The whole
   prompt is one fresh-cache prefill (flash where its length divides into
   kernel blocks), then one token per step.
+
+  Over a mesh (``model.mesh``) the decode is SPMD: every rank calls it
+  with the same prompt (and, sampling, a generator seeded alike). The
+  rows are cut over ``data`` x ``fsdp``, padded to a multiple of their
+  extent; each rank decodes its rows at its heads, every token picked
+  from the logits gathered whole over ``tensor`` (so the ranks of a row
+  pick the same one: the lowest id on a tie, as ``argmax`` does).
+  Sampling gathers the logits over the data axes as well and every rank
+  draws for the whole batch, so the mesh samples one process's tokens.
+  The tokens are all-gathered over the data axes and every rank returns
+  the whole ``[batch, prompt_len + num_steps]``, as the reference's
+  decode on a mesh returns it replicated.
   """
   cfg = model.cfg
   if temperature < 0:
@@ -1165,11 +1283,22 @@ def greedy_generate_kv(model: Transformer, prompt, num_steps: int,
     obs_device.note_trace("transformer.kv_generate", b, plen, num_steps,
                           temperature, top_k, eos_id, pad_id)
 
-  def select(logits):
-    return _select_token(logits[:, -1], generator, temperature, top_k)
+  mesh, whole = model.mesh, prompt
+  rows = _row_axes(mesh)
 
+  def select(logits):
+    logits = model.whole_logits(logits[:, -1])
+    if temperature == 0.0 or not rows:
+      return _select_token(logits, generator, temperature, top_k)
+    # sampling: every rank draws for the whole batch from its generator
+    # (seeded alike), as one process does, and keeps its rows
+    every = collectives.all_gather(logits, mesh, rows, axis=0)[:b]
+    drawn = _select_token(every, generator, temperature, top_k)
+    return _my_rows(drawn[:, None], mesh)[:, 0]
+
+  prompt = _my_rows(prompt, mesh)
   with torch.inference_mode():
-    cache = model.init_cache(b)
+    cache = model.init_cache(prompt.shape[0])
     nxt = select(model(prompt, cache))
     done = nxt == eos_id if eos_id is not None \
         else torch.zeros_like(nxt, dtype=torch.bool)
@@ -1181,7 +1310,8 @@ def greedy_generate_kv(model: Transformer, prompt, num_steps: int,
         done = done | (new == eos_id)
       out.append(new)
       tok = new
-    return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+    return torch.cat([whole, _all_rows(torch.stack(out, dim=1), mesh, b)],
+                     dim=1)
 
 
 def speculative_generate_kv(draft: Transformer, model: Transformer, prompt,
@@ -1203,11 +1333,23 @@ def speculative_generate_kv(draft: Transformer, model: Transformer, prompt,
   draft_k`` must fit both ``max_seq_len`` (a round's draft writes may
   overshoot the kept output); both live on one device. Returns
   ``[batch, prompt_len + num_steps]`` int64 on it.
+
+  Over a mesh both models lie on the same one and the decode is SPMD, as
+  :func:`greedy_generate_kv`'s: each rank runs its rows, each round's
+  accepted count is the minimum over every rank's rows (so the ranks
+  that share weights over ``fsdp`` run the same forwards), and every
+  rank returns the whole batch.
   """
   cfg, dcfg = model.cfg, draft.cfg
   if dcfg.vocab_size != cfg.vocab_size:
     raise ValueError("draft and target must share a vocabulary (%d vs %d)"
                      % (dcfg.vocab_size, cfg.vocab_size))
+  mesh = model.mesh
+  if (mesh is None) != (draft.mesh is None) or (
+      mesh is not None and (dict(mesh.shape) != dict(draft.mesh.shape)
+                            or mesh.rank != draft.mesh.rank)):
+    raise ValueError("draft and target must lie on one mesh (%r vs %r)"
+                     % (draft.mesh, mesh))
   if draft_k < 1:
     raise ValueError("draft_k must be >= 1, got %d" % draft_k)
   prompt = _as_prompt(prompt, model.device)
@@ -1220,23 +1362,31 @@ def speculative_generate_kv(draft: Transformer, model: Transformer, prompt,
           "+ draft_k %d) but the %s max_seq_len is %d"
           % (need, plen, num_steps, draft_k, name, c.max_seq_len))
   k = int(draft_k)
+  whole = prompt
+  prompt = _my_rows(prompt, mesh)
   with torch.inference_mode():
-    cache_t, cache_d = model.init_cache(b), draft.init_cache(b)
+    rows = prompt.shape[0]
+    cache_t, cache_d = model.init_cache(rows), draft.init_cache(rows)
     # prefill both; the TARGET's argmax after the prompt is token 1
-    last = model(prompt, cache_t)[:, -1].argmax(dim=-1)
+    last = model.whole_logits(model(prompt, cache_t)[:, -1]).argmax(dim=-1)
     draft(prompt, cache_d)
     out, n_gen = [last[:, None]], 1
     while n_gen < num_steps:
       # both cursors sit at plen + n_gen - 1 (the tokens consumed so far)
       cursor, tok, proposals = plen + n_gen - 1, last, []
       for _ in range(k):
-        tok = draft(tok[:, None], cache_d)[:, -1].argmax(dim=-1)
+        tok = draft.whole_logits(draft(tok[:, None], cache_d)[:, -1]).argmax(
+            dim=-1)
         proposals.append(tok)
       p = torch.stack(proposals, dim=1)                     # [b, k]
       # logits[:, j] is the target's prediction AFTER input j
-      t = model(torch.cat([last[:, None], p[:, :k - 1]], dim=1),
-                cache_t).argmax(dim=-1)                     # [b, k]
-      m = int(torch.cumprod((p == t).long(), dim=1).sum(dim=1).min())
+      t = model.whole_logits(model(torch.cat([last[:, None], p[:, :k - 1]],
+                                             dim=1), cache_t)).argmax(dim=-1)
+      m = torch.cumprod((p == t).long(), dim=1).sum(dim=1).min()
+      if _row_axes(mesh):
+        m = -collectives.all_reduce(-m.reshape(1), mesh, _row_axes(mesh),
+                                    op="max")[0]
+      m = int(m)
       bonus = t[:, min(m, k - 1)]
       if m < k:
         out.append(torch.cat([p[:, :m], bonus[:, None]], dim=1))
@@ -1246,8 +1396,8 @@ def speculative_generate_kv(draft: Transformer, model: Transformer, prompt,
         adv, last = k, p[:, k - 1]
       n_gen += adv
       cache_t.index = cache_d.index = cursor + adv
-    gen = torch.cat(out, dim=1)[:, :num_steps]
-    return torch.cat([prompt, gen], dim=1)
+    gen = _all_rows(torch.cat(out, dim=1)[:, :num_steps], mesh, b)
+    return torch.cat([whole, gen], dim=1)
 
 
 # -- serving through a pipeline bundle -----------------------------------------
@@ -1302,23 +1452,6 @@ def _params_print(params) -> str:
   return _SERVING_PRINT[1]
 
 
-def _check_serving_mesh(mesh, mesh_spec) -> None:
-  """One card per executor: a mesh or spec whose every degree is 1 (or
-  -1, which one process absorbs as 1) is accepted; any degree above 1
-  raises (serving over a mesh is item 10c, part 3)."""
-  if mesh is not None and mesh_spec is not None:
-    raise ValueError("pass mesh OR mesh_spec, not both")
-  degrees = dict(mesh.shape) if mesh is not None else \
-      (mesh_spec.degrees() if mesh_spec is not None else {})
-  wide = ["%s=%d" % (a, d) for a, d in degrees.items() if d > 1]
-  if wide:
-    raise NotImplementedError(
-        "mesh axes %s: serving over more than one card (tensor-parallel "
-        "decode) is not ported to PyTorch yet (ROADMAP Queue 1 item 10c, "
-        "part 3)"
-        % ", ".join(wide))
-
-
 class ServingPredictFn(object):
   """The ``predict_fn(params, batch)`` of :func:`make_serving_predict_fn`.
 
@@ -1328,14 +1461,21 @@ class ServingPredictFn(object):
   caches, reached at call time, so pickling it after a serve still works.
   ``params``: the flat weight dict (``Transformer.serving_params``,
   ``init_params``, ``params_from_flax`` or a bundle's, loaded by
-  ``compat.import_model``).
+  ``compat.import_model``). ``mesh``: a live mesh every rank of whose
+  group calls the predict fn with the same batch (not picklable, as the
+  reference's live mesh is not); ``mesh_spec``: a ``MeshSpec`` the
+  process serves over through its serving group
+  (``parallel.serving_group``), started on the first serve.
   """
 
   def __init__(self, cfg: "TransformerConfig", num_steps: int,
                temperature: float = 0.0, top_k: int = 0, seed: int = 0,
                eos_id: Optional[int] = None, pad_id: int = 0,
-               num_slots: Optional[int] = None, device=None):
+               num_slots: Optional[int] = None, device=None, mesh=None,
+               mesh_spec=None):
     self.cfg = cfg
+    self.mesh = mesh
+    self.mesh_spec = mesh_spec
     self.num_steps = int(num_steps)
     self.temperature = float(temperature)
     self.top_k = int(top_k)
@@ -1347,10 +1487,11 @@ class ServingPredictFn(object):
     self._calls = 0
 
   def _model(self, params, dev: torch.device) -> Transformer:
-    """The serving model of ``params`` on ``dev``: built once per
-    (config, device), reloaded in place when the weights' content
-    changes, reused as it is for the same tree object or content."""
-    key = (self.cfg, str(dev))
+    """The serving model of ``params`` on ``dev`` (over ``self.mesh``):
+    built once per (config, device, mesh), reloaded in place when the
+    weights' content changes, reused as it is for the same tree object or
+    content."""
+    key = (self.cfg, str(dev), None if self.mesh is None else id(self.mesh))
     hit = _SERVING_MODEL_CACHE.get(key)
     if hit is not None and (hit[0] is params
                             or hit[1] == _params_print(params)):
@@ -1360,7 +1501,7 @@ class ServingPredictFn(object):
       hit[2].load_params(params)
       model = hit[2]
     else:
-      model = Transformer(self.cfg, params, device=dev)
+      model = Transformer(self.cfg, params, device=dev, mesh=self.mesh)
     _SERVING_MODEL_CACHE[key] = [params, _params_print(params), model]
     return model
 
@@ -1412,10 +1553,33 @@ class ServingPredictFn(object):
     gen.manual_seed(int(state))
     return gen
 
+  def _group(self):
+    """This process's serving group for ``mesh_spec`` (None: one
+    process serves)."""
+    if self.mesh_spec is None:
+      return None
+    from tensorflowonspark_tpu_torch.parallel import serving_group
+    return serving_group.group_for(self.mesh_spec, self.device)
+
+  def _wide(self) -> bool:
+    if self.mesh is not None:
+      return self.mesh.size > 1
+    if self.mesh_spec is None:
+      return False
+    from tensorflowonspark_tpu_torch.parallel import serving_group
+    return math.prod(serving_group.resolve_degrees(
+        self.mesh_spec, self.device).values()) > 1
+
   def __call__(self, params, batch):
     dev = resolve_device(self.device)
     raw = next(iter(batch.values()))
     rows, ragged = _prompt_rows(raw)
+    if ragged and self._wide():
+      raise NotImplementedError(
+          "a ragged serving batch over a mesh decodes through the "
+          "continuous-batching engine over the mesh, which is not ported to "
+          "PyTorch yet (ROADMAP Queue 1 item 10c, part 3b-ii); serve "
+          "equal-length prompts")
     if ragged:
       # mixed-length generation: the continuous-batching engine decodes
       # each row to ITS own length/stop instead of a padded lockstep loop
@@ -1442,6 +1606,13 @@ class ServingPredictFn(object):
     gen = None
     if self.temperature > 0:
       gen = self._generator(prompts, dev)
+    group = self._group()
+    if group is not None:
+      out = group.generate(params, self.cfg, prompts, self.num_steps,
+                           eos_id=self.eos_id, pad_id=self.pad_id,
+                           temperature=self.temperature, top_k=self.top_k,
+                           seed=None if gen is None else gen.initial_seed())
+      return {"tokens": out.astype(np.int32)}
     out = greedy_generate_kv(self._model(params, dev), prompts,
                              self.num_steps, eos_id=self.eos_id,
                              pad_id=self.pad_id,
@@ -1479,18 +1650,31 @@ def make_serving_predict_fn(cfg: TransformerConfig, num_steps: int,
   outputs are right-padded with ``pad_id``. The engine is greedy-only, so
   a ragged batch with ``temperature > 0`` raises.
 
+  ``mesh`` makes each serve decode over its axes (:func:`greedy_generate_kv`
+  over a mesh: every rank of the mesh's group calls the predict fn with
+  the same batch). A live mesh holds process groups and cannot ride a
+  pickled bundle: for ``pipeline.export_bundle`` / ``TFModel.transform``
+  pass ``mesh_spec`` (a picklable ``parallel.mesh.MeshSpec``) instead.
+  Each executor then serves over its own serving group
+  (``parallel.serving_group``): on its first serve it spawns the other
+  ranks of ``mesh_spec`` (a ``-1`` absorbs its visible cards), sends
+  them the whole weights once per fingerprint, and every rectangular
+  batch decodes on all of them; the group stops when the executor exits.
+  A spec that resolves to one process serves as without one.
+
   What differs from the reference: the predict fn is an instance of the
   module-level :class:`ServingPredictFn`, not a closure, since the port
   pickles with the standard ``pickle``; ``device=None`` is the card
-  (raises without one; the tests pass ``"cpu"``); and a ``mesh`` or
-  ``mesh_spec`` with a degree above 1 raises (ROADMAP Queue 1 item 10c,
-  part 3),
-  since the port serves on one card per executor.
+  (raises without one; the tests pass ``"cpu"``); a ragged batch over a
+  mesh raises (the engine over a mesh is ROADMAP Queue 1 item 10c, part
+  3b-ii).
   """
-  _check_serving_mesh(mesh, mesh_spec)
+  if mesh is not None and mesh_spec is not None:
+    raise ValueError("pass mesh OR mesh_spec, not both")
   return ServingPredictFn(cfg, num_steps, temperature=temperature,
                           top_k=top_k, seed=seed, eos_id=eos_id,
-                          pad_id=pad_id, num_slots=num_slots, device=device)
+                          pad_id=pad_id, num_slots=num_slots, device=device,
+                          mesh=mesh, mesh_spec=mesh_spec)
 
 
 def _mesh_loss(mesh) -> bool:

@@ -21,6 +21,8 @@ calls the collectives its part of the work needs.
                     weights every few steps over the rendezvous plane,
                     survive a group's loss, resize, and reshard their
                     checkpoints across group counts
+- ``serving_group`` — the ranks an executor starts to decode a serving
+                    bundle over its ``MeshSpec``
 """
 
 from tensorflowonspark_tpu_torch.parallel.mesh import (  # noqa: F401

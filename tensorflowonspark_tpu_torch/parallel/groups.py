@@ -543,7 +543,7 @@ class GroupSet(object):
 
   Groups are threads of this process; group ``g`` runs on card ``g %
   device_count`` (``device="cuda"``, the default) or on the CPU
-  (``device="cpu"``). A group over several cards is item 10c, part 3:
+  (``device="cpu"``). A group over several cards is item 10c, part 3d:
   ``devices_per_group > 1`` raises when more than one card is visible,
   and clamps to 1 on one card, as the reference clamps to the devices
   it has.
@@ -564,7 +564,7 @@ class GroupSet(object):
     if min(max(1, int(devices_per_group)), cards) > 1:
       raise NotImplementedError(
           "devices_per_group=%d: a group over several cards is not ported "
-          "to PyTorch yet (ROADMAP Queue 1 item 10c, part 3)"
+          "to PyTorch yet (ROADMAP Queue 1 item 10c, part 3d)"
           % devices_per_group)
     self.build_fn = build_fn
     self.batch_fn = batch_fn

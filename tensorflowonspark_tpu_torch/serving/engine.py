@@ -169,12 +169,15 @@ class ServingEngine(object):
   ``params``: the flat weight dict (``utils.params.init_params`` or
   ``params_from_flax``); ``cfg``: the port's ``TransformerConfig``;
   ``device``: ``None`` is the card (raises when there is none), the tests
-  pass ``"cpu"``. The model the engine built is :attr:`model`.
+  pass ``"cpu"``. The model the engine built is :attr:`model`. ``mesh``:
+  the reference's argument; a mesh of one process serves as without one,
+  and a wider one raises (the engine over a mesh, with rank 0's loop
+  mirrored to the other ranks, is ROADMAP Queue 1 item 10c, part 3b-ii).
   """
 
   def __init__(self, params, cfg, num_slots: Optional[int] = None,
                eos_id: Optional[int] = None, pad_id: int = 0,
-               max_new_tokens: int = 64, buckets=None,
+               max_new_tokens: int = 64, buckets=None, mesh=None,
                poll_interval: Optional[float] = None,
                horizon: Optional[int] = None,
                max_queue: Optional[int] = None,
@@ -189,6 +192,12 @@ class ServingEngine(object):
                spec_depth: Optional[int] = None,
                spec_layers: Optional[int] = None,
                device=None):
+    if mesh is not None and mesh.size > 1:
+      raise NotImplementedError(
+          "ServingEngine over a mesh %s is not ported to PyTorch yet "
+          "(ROADMAP Queue 1 item 10c, part 3b-ii): decode a rectangular "
+          "batch over the mesh with greedy_generate_kv"
+          % (dict(mesh.shape),))
     if eos_id is not None and int(eos_id) == int(pad_id):
       raise ValueError("eos_id and pad_id must differ (both %d)"
                        % int(pad_id))

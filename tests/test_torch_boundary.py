@@ -69,7 +69,9 @@ def test_port_sources_import_no_jax():
                "optim.py", "train_state.py",
                # and the pipeline and expert axes
                "parallel/expert_parallel.py",
-               "parallel/pipeline_parallel.py"):
+               "parallel/pipeline_parallel.py",
+               # and serving over a mesh
+               "parallel/serving_group.py"):
     assert os.path.join(*name.split("/")) in scanned, name
   bad = sorted((os.path.relpath(p, ROOT), root) for p in files
                for root in _imported_roots(p) if root in FORBIDDEN)
@@ -77,9 +79,12 @@ def test_port_sources_import_no_jax():
   bad_smoke = [r for r in _imported_roots(os.path.join(ROOT, "chip_smoke.py"))
                if r in FORBIDDEN]
   assert bad_smoke == []
-  # the gloo ranks of the pipeline and expert tests start without JAX
-  ranks = os.path.join(ROOT, "tests", "torch_pp_ep_ranks.py")
-  assert [r for r in _imported_roots(ranks) if r in FORBIDDEN] == []
+  # the gloo ranks of the pipeline and expert tests, and of the serving
+  # mesh's, start without JAX
+  for helper in ("torch_pp_ep_ranks.py", "torch_serving_mesh_ranks.py"):
+    ranks = os.path.join(ROOT, "tests", helper)
+    assert [r for r in _imported_roots(ranks) if r in FORBIDDEN] == [], \
+        helper
 
 
 def test_running_the_port_loads_no_jax_module():
@@ -263,6 +268,7 @@ _TRANSFORM_DRIVE = textwrap.dedent("""
     from tensorflowonspark_tpu_torch.data.schema import parse_schema
     from tensorflowonspark_tpu_torch.engine import LocalEngine
     from tensorflowonspark_tpu_torch.models import transformer as tfm
+    from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
     from tensorflowonspark_tpu_torch.utils.params import init_params
 
     BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack", "cloudpickle")
@@ -274,9 +280,21 @@ _TRANSFORM_DRIVE = textwrap.dedent("""
                     or m.startswith("tensorflowonspark_tpu."))
 
 
+    def mapped(pid):
+      # the shared objects a process mapped: a follower that imported jax
+      # (and so the JAX package) or msgpack maps their native libraries
+      with open("/proc/%d/maps" % pid) as f:
+        libs = {line.split()[-1] for line in f if ".so" in line}
+      return {"torch": any("libtorch" in p for p in libs),
+              "banned": sorted(p for p in libs if any(
+                  "/%s/" % b in p for b in BANNED))}
+
+
     class Report(object):
       def __call__(self, it):
-        return loaded()
+        from tensorflowonspark_tpu_torch.parallel import serving_group
+        return [loaded(), [mapped(pid)
+                           for pid in serving_group.follower_pids()]]
 
 
     if __name__ == "__main__":
@@ -292,17 +310,29 @@ _TRANSFORM_DRIVE = textwrap.dedent("""
       dfutil.save_as_tfrecords([rows], parse_schema(
           "struct<p:array<long>>"), out + "/data")
       parts, _ = dfutil.load_tfrecords(out + "/data", lazy=True)
+      # and a bundle served over a mesh: the executor's serving group
+      pipeline.export_bundle(init_params(cfg, 0), tfm.make_serving_predict_fn(
+          cfg, 3, device="cpu", mesh_spec=mesh_lib.MeshSpec(data=-1,
+                                                            tensor=2)),
+          out + "/mesh_bundle")
       engine = LocalEngine(num_executors=1)
       try:
         model = pipeline.TFModel({"export_dir": out + "/bundle",
                                   "batch_size": 2})
         got = model.transform(engine, [[r for r in parts[0]()]])
         assert [len(r) for r in got] == [6, 6, 5], got
-        executor = engine.run_on_executors(Report()).wait(timeout=60)[0]
+        model = pipeline.TFModel({"export_dir": out + "/mesh_bundle",
+                                  "batch_size": 2})
+        got = model.transform(engine, [rows[:2]])
+        assert [len(r) for r in got] == [6, 6], got
+        executor, followers = engine.run_on_executors(Report()).wait(
+            timeout=60)[0]
       finally:
         engine.stop()
+      assert len(followers) == 1 and followers[0]["torch"], followers
       print("DRIVER", json.dumps(loaded()))
       print("EXECUTOR", json.dumps(executor))
+      print("FOLLOWER", json.dumps(followers[0]["banned"]))
 """)
 
 
@@ -310,7 +340,9 @@ def test_transform_loads_no_jax_msgpack_or_cloudpickle(tmp_path):
   """A serving bundle exported, TFRecords written and read by the port's
   ``dfutil``, and ``TFModel.transform`` on a LocalEngine executor: neither
   the driver nor the executor loads jax, flax, the JAX package, msgpack
-  or cloudpickle."""
+  or cloudpickle; nor does the follower a bundle served over a mesh
+  spawns (its serving group's rank 1: no native library of theirs is
+  mapped in it)."""
   script = tmp_path / "transform.py"
   script.write_text(_TRANSFORM_DRIVE)
   env = dict(os.environ, PYTHONPATH=ROOT)
@@ -320,6 +352,7 @@ def test_transform_loads_no_jax_msgpack_or_cloudpickle(tmp_path):
   assert proc.returncode == 0, proc.stdout + proc.stderr
   assert "DRIVER []" in proc.stdout and "EXECUTOR []" in proc.stdout, \
       proc.stdout
+  assert "FOLLOWER []" in proc.stdout, proc.stdout
 
 
 _RING_DRIVE = textwrap.dedent("""

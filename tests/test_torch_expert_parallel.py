@@ -415,8 +415,9 @@ def test_expert_cut_state_checkpoints_are_refused_by_name(ranks):
   their momentum: each of the 4 ranks (data 2 x expert 2) saves, and the
   checkpoint's experts 2c and 2c + 1 are the blocks of the ranks at
   expert coordinate c; a fresh state restores every rank's blocks to the
-  bit. Its decode stays refused (serving over a mesh, item 10c part
-  3b)."""
+  bit. Its decode, once refused by name, runs over the mesh: the 4 ranks
+  decode an expert-cut model on ``data 2 x expert 2`` and on ``expert
+  4``, each with one process's tokens."""
   import os
   from tensorflowonspark_tpu_torch.utils import checkpoint, compat
   got, _ = ranks
@@ -444,5 +445,11 @@ def test_expert_cut_state_checkpoints_are_refused_by_name(ranks):
                         mesh=mesh)
   assert cut.param_specs()["layers.1.moe.w_up"] == ("expert", None, None)
   assert cut.param_specs()["layers.1.moe.w_gate"] == (None, None)
-  with pytest.raises(NotImplementedError, match="item 10c, part 3"):
-    tfm.greedy_generate_kv(cut, np.ones((1, 4), "int64"), 2)
+  assert cfg == tfm.TransformerConfig(dtype=torch.float32,
+                                      **R.MOE_DECODE_CFG)
+  want = tfm.greedy_generate_kv(
+      tfm.Transformer(cfg, init_params(cfg, 0), device="cpu"),
+      R.MOE_DECODE_PROMPT, R.MOE_DECODE_STEPS).numpy()
+  for arrays, _ in got:
+    for tag in ("dp2_ep2", "ep4"):
+      np.testing.assert_array_equal(arrays["decode_" + tag], want)

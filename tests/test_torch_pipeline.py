@@ -169,12 +169,29 @@ class TestServingPredictFn:
     np.testing.assert_array_equal(fn(params, {"input": prompts})["tokens"], a)
 
   def test_tensor_parallel_mesh_spec_raises_by_name(self, lm):
-    _, _, tcfg, _ = lm
-    with pytest.raises(NotImplementedError, match="item 10"):
-      tfm.make_serving_predict_fn(
-          tcfg, 2, mesh_spec=mesh_lib.MeshSpec(data=-1, tensor=2))
-    # every degree 1 (the -1 absorbs one process) is one card: accepted
-    tfm.make_serving_predict_fn(tcfg, 2, mesh_spec=mesh_lib.MeshSpec())
+    """A ``MeshSpec(data=-1, tensor=2)`` predict fn, once refused by
+    name, serves: this process starts a 2-rank serving group on its
+    first serve and the tokens are one process's. Every degree 1 (the -1
+    absorbs one process on the CPU) serves in this process alone."""
+    from tensorflowonspark_tpu_torch.parallel import serving_group
+    _, _, tcfg, params = lm
+    prompts = np.random.RandomState(3).randint(0, 64, (3, 5)).astype("int32")
+    want = tfm.greedy_generate_kv(tfm.Transformer(tcfg, params, device="cpu"),
+                                  prompts, 2).numpy()
+    fn = tfm.make_serving_predict_fn(
+        tcfg, 2, mesh_spec=mesh_lib.MeshSpec(data=-1, tensor=2),
+        device="cpu")
+    try:
+      got = fn(params, {"input": prompts})["tokens"]
+      assert len(serving_group.follower_pids()) == 1
+    finally:
+      serving_group.shutdown_all()
+    np.testing.assert_array_equal(got, want)
+    one = tfm.make_serving_predict_fn(tcfg, 2, mesh_spec=mesh_lib.MeshSpec(),
+                                      device="cpu")
+    np.testing.assert_array_equal(one(params, {"input": prompts})["tokens"],
+                                  want)
+    assert serving_group.follower_pids() == []
     with pytest.raises(ValueError, match="not both"):
       tfm.make_serving_predict_fn(tcfg, 2, mesh=mesh_lib.build_mesh(),
                                   mesh_spec=mesh_lib.MeshSpec())
@@ -684,12 +701,13 @@ class TestTransformChipAllocation:
 def test_serve_gpt_example_on_the_cpu(tmp_path):
   """The port's ``examples/serve_gpt.py`` at small counts: every prompt
   served through ``transform(collect=False)`` as its own decode; and
-  ``--tensor 2`` refused by name."""
+  ``--tensor 2``, once refused by name, serves the same rows over each
+  executor's 2-rank serving group."""
   from tensorflowonspark_tpu_torch.examples import serve_gpt
-  args = serve_gpt.parse_args(["--device", "cpu", "--prompts", "6",
-                               "--steps", "3", "--export_dir",
-                               str(tmp_path / "b")])
-  served = serve_gpt.run(args)
+  common = ["--device", "cpu", "--prompts", "6", "--steps", "3"]
+  served = serve_gpt.run(serve_gpt.parse_args(
+      common + ["--export_dir", str(tmp_path / "b")]))
   assert len(served) == 6 and {len(r) for r in served} == {8 + 3}
-  with pytest.raises(NotImplementedError, match="item 10"):
-    serve_gpt.run(serve_gpt.parse_args(["--tensor", "2", "--device", "cpu"]))
+  tensor = serve_gpt.run(serve_gpt.parse_args(
+      common + ["--tensor", "2", "--export_dir", str(tmp_path / "t2")]))
+  assert sorted(tensor) == sorted(served)

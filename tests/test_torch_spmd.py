@@ -310,6 +310,20 @@ def _cut_module_checkpoint(rank, root):
   return rec
 
 
+def _cut_serving_params():
+  """``serving_params`` of the model of ``test_param_shardings_follow_rules``
+  cut over ``fsdp=2``: for each weight, whether it equals the uncut
+  model's to the bit."""
+  cfg = tfm.TransformerConfig(vocab_size=64, num_layers=1, num_heads=4,
+                              d_model=64, d_ff=128, dtype=torch.float32)
+  cut = tfm.Transformer(cfg, init_params(cfg, 0), device="cpu",
+                        mesh=mesh_lib.build_mesh(mesh_lib.MeshSpec(
+                            data=1, fsdp=2))).serving_params()
+  whole = tfm.Transformer(cfg, init_params(cfg, 0),
+                          device="cpu").serving_params()
+  return {n: bool(torch.equal(cut[n], whole[n])) for n in whole}
+
+
 def _rank_main(rank, n, port, out):
   import torch.distributed as dist
   torch.set_num_threads(1)
@@ -329,6 +343,7 @@ def _rank_main(rank, n, port, out):
           TRAIN[2]["sp2"] + ["--unroll", "3"])))
       import os
       rec["cut_ckpt"] = _cut_module_checkpoint(rank, os.path.dirname(out))
+      rec["serving_params"] = _cut_serving_params()
     if n == 4:
       rec["model"], more = _model_cases(rank)
       arrays.update({"model/" + k: v for k, v in more.items()})
@@ -693,9 +708,12 @@ def _stand_in(rank=0, **degrees):
                                  degrees.values()))), rank))
 
 
-def test_param_shardings_follow_rules():
+def test_param_shardings_follow_rules(groups):
   """The port's specs follow LOGICAL_RULES as the reference's do: mlp
-  over tensor, embed over fsdp, heads over tensor where divisible."""
+  over tensor, embed over fsdp, heads over tensor where divisible. A cut
+  model's ``serving_params``, once refused by name, are the whole
+  weights: on each rank of the 2-rank group, the model cut over
+  ``fsdp=2`` gives the uncut model's to the bit."""
   cfg = tfm.TransformerConfig(vocab_size=64, num_layers=1, num_heads=4,
                               d_model=64, d_ff=128, dtype=torch.float32)
   model = tfm.Transformer(cfg, init_params(cfg, 0), device="cpu",
@@ -713,9 +731,10 @@ def test_param_shardings_follow_rules():
                          mesh=_stand_in(fsdp=2))
   assert fsdp.param_specs()["layers.0.mlp.down"] == (None, "fsdp")
   assert fsdp.param_specs()["layers.0.ln1.scale"] == (None,)
-  # a cut model's blocks are no serving bundle
-  with pytest.raises(NotImplementedError, match="item 10c, part 3"):
-    fsdp.serving_params()
+  # a cut model's serving bundle is the whole weights
+  for _, rec in groups[2]:
+    assert rec["serving_params"] and all(rec["serving_params"].values()), \
+        rec["serving_params"]
 
 
 def test_state_shardings_distinguish_same_shape_params():

@@ -28,6 +28,11 @@ MOE_CFG = dict(vocab_size=64, num_layers=2, num_heads=4, d_model=64,
                moe_top_k=2, moe_every=2)
 MOE_STEPS = 3
 MOE_LR = 0.1
+#: the expert-cut model decoded over a mesh
+MOE_DECODE_CFG = dict(vocab_size=64, num_layers=2, num_heads=4, d_model=32,
+                      d_ff=64, moe_experts=4)
+MOE_DECODE_PROMPT = np.ones((1, 4), "int64")
+MOE_DECODE_STEPS = 2
 PP_CFG = dict(vocab_size=128, num_layers=4, num_heads=4, d_model=64,
               d_ff=128, max_seq_len=16, remat=False)
 PP_FUSED_CFG = dict(vocab_size=64, num_layers=2, num_heads=4, num_kv_heads=2,
@@ -225,6 +230,19 @@ def _moe_checkpoint(mesh, root, rank):
                "w_up_trace": _np(trace[0])}
 
 
+def _moe_decode(meshes) -> dict:
+  """Greedy tokens of the expert-cut model (MOE_DECODE_CFG, f32, the
+  weights of seed 0) over each mesh: a 1-row batch, padded over
+  ``data``."""
+  from tensorflowonspark_tpu_torch.models import transformer as tfm
+  from tensorflowonspark_tpu_torch.utils.params import init_params
+  cfg = tfm.TransformerConfig(dtype=torch.float32, **MOE_DECODE_CFG)
+  return {"decode_" + tag: tfm.greedy_generate_kv(
+      tfm.Transformer(cfg, init_params(cfg, 0), device="cpu", mesh=mesh),
+      MOE_DECODE_PROMPT, MOE_DECODE_STEPS).numpy()
+          for tag, mesh in meshes.items()}
+
+
 def ep_rank_main(rank, port, out):
   from tensorflowonspark_tpu_torch.parallel import mesh as M
   import torch.distributed as dist
@@ -246,6 +264,7 @@ def ep_rank_main(rank, port, out):
     import os
     rec["ckpt"], more = _moe_checkpoint(mesh, os.path.dirname(out), rank)
     arrays.update({"ckpt/" + k: v for k, v in more.items()})
+    arrays.update(_moe_decode({"dp2_ep2": mesh, "ep4": four}))
     _save(out, rank, arrays, rec)
   finally:
     dist.destroy_process_group()
